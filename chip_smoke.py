@@ -4,14 +4,30 @@
     python3 chip_smoke.py
 
 Builds the hand-written Hopper kernels from ``src/repro_torch/csrc`` with
-nvcc, holds each against its plain PyTorch version at the serving path's
-shapes and times both, then serves the paper's head-of-line burst (6 long
-requests, then 10 short) through predictor -> SJF queue -> ``RealEngine``
-at the full width of smollm-360m (bf16, seeded random weights), under FCFS
-and then SJF.  It fails (nonzero exit, no result line) without a CUDA
-device, without the repository beside it, when a kernel does not build,
-launch or agree with its plain version, when a response is not ``ok``, or
-when a kernel of the path was never launched while the burst was served.
+nvcc, holds each against its plain PyTorch version at the serving paths'
+shapes and times both.  Then, at the full width of smollm-360m (bf16,
+seeded random weights), it drives each serving path through the entry
+points a user calls, with the launch counters set to 0 just before each
+path and read just after:
+
+* ``[slice]`` the paper's head-of-line burst (6 long requests, then 10
+  short) through predictor -> SJF queue -> the serial ``RealEngine``,
+  under FCFS and then SJF;
+* ``[lanes]`` the paging benchmark's backlog (benchmarks/paging_bench.py:
+  4 lanes, page 16, max_len 128, pattern LLSSSSLSSLSS, a budget of two
+  worst-case longs) through ``BatchedRealEngine``, through
+  ``PagedBatchedEngine`` (growth and preemption), and with a shared
+  48-token prefix cold then warm (prefix hits take K3's extend mode);
+  a float32 copy with TF32 off holds ring lanes, paged lanes, the serial
+  engine and the warm pass to the same tokens;
+* ``[paged-burst]`` the burst again through ``ClairvoyantServer`` with
+  one ``PagedBatchedEngine``, under FCFS and SJF.
+
+It fails (nonzero exit, no result line) without a CUDA device, without
+the repository beside it, when a kernel does not build, launch or agree
+with its plain version, when a response is not ``ok``, when tokens that
+must agree do not, or when a kernel of a path was never launched on it
+(and when the paged path launches the ring kernel K1).
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -35,6 +51,10 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 MAX_LEN, SEGMENT, MAX_NEW = 512, 16, 64
 N_LONG, N_SHORT = 6, 10
 TOL = {"bf16": 2e-2, "f32": 1e-4}
+# the paging benchmark's settings (benchmarks/paging_bench.py:37-45, 60)
+L_MAX_LEN, L_SEGMENT, L_LANES, L_PAGE = 128, 8, 4, 16
+L_PROMPT, L_LONG, L_SHORT, L_PREFIX = 16, 96, 12, 48
+PATTERN = "LLSSSSLSSLSS"
 
 
 def _ms(fn, iters: int = 100, warmup: int = 10) -> float:
@@ -404,10 +424,9 @@ def phase_slice(cfg, predictor, smi) -> dict:
             "order": [r.request_id for r in resp],
             "launches": {k: ops.LAUNCHES[k] - before[k] for k in before}}
     launches = dict(ops.LAUNCHES)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was never launched while "
-                                 f"the burst was served")
+    _check_path("[slice]", launches,
+                ("decode_attention", "flash_attention", "gbdt_margins"),
+                ("paged_decode_attention",))
     sjf, fcfs = per_policy["sjf"], per_policy["fcfs"]
     for p, v in per_policy.items():
         print(f"[slice] {p}: short P50 {v['short_p50_ms']:.1f} ms, long P50 "
@@ -475,6 +494,463 @@ def phase_profile(eng, smi) -> None:
         print(f"[profile]   {us / 1e3:8.3f} ms  {name[:90]}")
 
 
+def phase_decode_lanes_kernel(gen) -> float:
+    """K1 with per-lane fill levels, as the ring lanes launch it: B 4 over
+    a 128-slot ring, two lanes wrapped.  Each lane must equal the
+    scalar-t launch for that lane bit for bit.  Returns the largest
+    |kernel - plain|."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain)
+    B, H, KV, hd, S = L_LANES, 15, 5, 64, L_MAX_LEN
+    t_host = [5, 60, S + 3, 3 * S + 100]
+    worst = 0.0
+    for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        q = torch.randn(B, 1, H, hd, generator=gen, device="cuda").to(dt)
+        ck = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
+        cv = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
+        t = torch.tensor(t_host, dtype=torch.int32, device="cuda")
+        got = decode_attention_cuda(q, ck, cv, t)
+        err = _max_err(got, decode_attention_plain(q, ck, cv, t))
+        _check(f"decode_attention (B,) t {label}", err, TOL[label])
+        for b in range(B):
+            solo = decode_attention_cuda(q[b:b + 1], ck[b:b + 1],
+                                         cv[b:b + 1], t[b:b + 1])
+            if not torch.equal(solo[0], got[b]):
+                raise AssertionError("K1 lane differs from its scalar-t "
+                                     f"launch (lane {b}, {label})")
+        worst = max(worst, err)
+        if label == "bf16":
+            ms = _device_ms(lambda: decode_attention_cuda(q, ck, cv, t))
+            plain = _device_ms(lambda: decode_attention_plain(q, ck, cv, t))
+            n = sum(min(S, x + 1) for x in t_host)
+            bound, by = _bound(2 * n * KV * hd * 2 + 2 * B * H * hd * 2
+                               + 4 * B, 4 * H * n * hd, torch.bfloat16)
+            print(f"[K1 decode_attention] lanes bf16 B{B} S{S} t={t_host}: "
+                  f"device ms kernel {ms:.4f}, plain {plain:.4f}; bound "
+                  f"{bound * 1e3:.3f} us ({by}); max|err| {err:.2e}")
+    print(f"[K1 decode_attention] (B,) t: each lane == its scalar-t launch "
+          f"(bitwise), max|err| vs plain {worst:.2e}")
+    return worst
+
+
+def phase_paged_kernel(gen) -> dict:
+    """K2 at the serving shapes: B 4, H 15 over KV 5, hd 64, page 16, 32
+    pages a lane (max_len 512), mixed fill levels including one past the
+    window; page sizes 8 / 16 / 32; bf16 and f32.  On the same logical
+    contents K2 must equal K1 bit for bit."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_plain)
+    B, H, KV, hd, window = 4, 15, 5, 64, MAX_LEN
+    t_host = [3, 130, 400, window + 70]            # last: past the window
+    errs = {}
+    timed = None
+    for page in (8, 16, 32):
+        P = window // page
+        n_pages = B * P + 1
+        for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            pk = torch.randn(n_pages, page, KV, hd, generator=gen,
+                             device="cuda").to(dt)
+            pv = torch.randn(n_pages, page, KV, hd, generator=gen,
+                             device="cuda").to(dt)
+            pk[0], pv[0] = 1e4, -1e4               # poisoned trash page
+            bt = (torch.randperm(n_pages - 1, generator=gen,
+                                 device="cuda")[:B * P] + 1) \
+                .view(B, P).to(torch.int32)
+            t = torch.tensor(t_host, dtype=torch.int32, device="cuda")
+            for b in range(B - 1):                 # unallocated -> trash
+                bt[b, t_host[b] // page + 1:] = 0
+            q = torch.randn(B, 1, H, hd, generator=gen, device="cuda").to(dt)
+            got = paged_decode_attention_cuda(q, pk, pv, bt, t)
+            want = paged_decode_attention_plain(q, pk, pv, bt, t)
+            torch.cuda.synchronize()
+            err = _max_err(got, want)
+            _check(f"paged_decode_attention {label} page={page}", err,
+                   TOL[label])
+            errs[(label, page)] = err
+            ring_k = pk[bt.long()].reshape(B, P * page, KV, hd)
+            ring_v = pv[bt.long()].reshape(B, P * page, KV, hd)
+            if not torch.equal(got, decode_attention_cuda(q, ring_k, ring_v,
+                                                          t)):
+                raise AssertionError(f"K2 != K1 on the same logical window "
+                                     f"({label}, page {page})")
+            if label == "bf16" and page == L_PAGE:
+                kern = lambda: paged_decode_attention_cuda(  # noqa: E731
+                    q, pk, pv, bt, t)
+                ms = _device_ms(kern)
+                plain = _device_ms(lambda: paged_decode_attention_plain(
+                    q, pk, pv, bt, t))
+                n = sum(min(window, x + 1) for x in t_host)
+                bound, by = _bound(
+                    2 * n * KV * hd * 2 + 2 * B * H * hd * 2
+                    + bt.numel() * 4 + 4 * B, 4 * H * n * hd, torch.bfloat16)
+                timed = (ms, plain, bound, by)
+                print(f"[K2 paged_decode_attention] bf16 B{B} H15 KV5 hd64 "
+                      f"page {page} P{P} t={t_host}: device ms kernel "
+                      f"{ms:.4f}, plain {plain:.4f}; bound "
+                      f"{bound * 1e3:.3f} us ({by}); host-paced kernel "
+                      f"{_ms(kern):.4f} ms/call")
+    print("[K2 paged_decode_attention] max|err| " + " ".join(
+        f"{l}@page={p}:{e:.2e}" for (l, p), e in errs.items())
+          + "; K2 == K1 bitwise on every case")
+    ms, plain, bound, by = timed
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:155",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def phase_flash_extend(gen) -> float:
+    """K3 in extend mode: suffix buckets 16..64 over a 48..128-token prefix
+    (q_offset) in a longer key buffer.  The suffix rows must equal those
+    rows of the cold prefill bit for bit.  Returns the largest
+    |kernel - plain|."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    B, H, KV, hd = 1, 15, 5, 64
+    errs = {}
+    for prefix, suffix in ((48, 16), (64, 16), (64, 32), (64, 64),
+                           (128, 16), (128, 64)):
+        extent = prefix + suffix + 16                  # pad keys beyond
+        for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            qf = torch.randn(B, prefix + suffix, H, hd, generator=gen,
+                             device="cuda").to(dt)
+            k = torch.randn(B, extent, KV, hd, generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn(B, extent, KV, hd, generator=gen,
+                            device="cuda").to(dt)
+            q = qf[:, prefix:]
+            got = flash_attention_cuda(q, k, v, q_offset=prefix)
+            err = _max_err(got, flash_attention_plain(q, k, v,
+                                                      q_offset=prefix))
+            _check(f"flash_attention extend {label} {prefix}+{suffix}", err,
+                   TOL[label])
+            n = prefix + suffix
+            cold = flash_attention_cuda(qf, k[:, :n].contiguous(),
+                                        v[:, :n].contiguous())
+            if not torch.equal(cold[:, prefix:], got):
+                raise AssertionError("K3 extend rows differ from the cold "
+                                     f"prefill ({label} {prefix}+{suffix})")
+            errs[(label, prefix, suffix)] = err
+            if label == "bf16" and (prefix, suffix) in ((48, 16), (64, 64)):
+                kern = lambda: flash_attention_cuda(  # noqa: E731
+                    q, k, v, q_offset=prefix)
+                ms = _device_ms(kern)
+                plain = _device_ms(lambda: flash_attention_plain(
+                    q, k, v, q_offset=prefix))
+                pairs = sum(prefix + i + 1 for i in range(suffix))
+                bound, by = _bound((2 * suffix * H * hd
+                                    + 2 * extent * KV * hd) * 2,
+                                   4 * H * hd * pairs, torch.bfloat16)
+                print(f"[K3 flash_attention] extend bf16 q_offset {prefix} "
+                      f"Sq {suffix} Skv {extent}: device ms kernel "
+                      f"{ms:.4f}, plain {plain:.4f}; bound "
+                      f"{bound * 1e3:.3f} us ({by})")
+    print("[K3 flash_attention] extend max|err| " + " ".join(
+        f"{l}@{p}+{s}:{e:.2e}" for (l, p, s), e in errs.items())
+          + "; suffix rows == cold-prefill rows bitwise")
+    return max(errs.values())
+
+
+def _pattern(vocab, rng, prefix=None, long_new=L_LONG, short_new=L_SHORT):
+    """The paging benchmark's backlog: 16-token prompts (after an optional
+    shared prefix), long / short budgets in PATTERN order."""
+    import numpy as np
+    maxes = [long_new if c == "L" else short_new for c in PATTERN]
+    prompts = []
+    for _ in PATTERN:
+        p = rng.integers(1, vocab, size=L_PROMPT).astype(np.int64)
+        prompts.append(p if prefix is None else np.concatenate([prefix, p]))
+    return prompts, maxes
+
+
+def _drain_pattern(eng, prompts, maxes) -> dict:
+    """One ``generate_batch`` over the backlog: wall, tokens, tok/s and the
+    short requests' P50 sojourn from the drain's start."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.monotonic()
+    res = eng.generate_batch(prompts, maxes)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    toks = sum(len(r["tokens"]) for r in res)
+    start = min(r["admit_t"] for r in res)
+    short = [r["finish_t"] - start for r, c in zip(res, PATTERN) if c == "S"]
+    return {"res": res, "tokens": [r["tokens"] for r in res], "wall": wall,
+            "n_tok": toks, "tok_s": toks / wall,
+            "short_p50_ms": float(np.median(short)) * 1e3,
+            "launches": launches,
+            "preempted": [i for i, r in enumerate(res) if r["evictions"]]}
+
+
+def _lane_engines(cfg, dtype_cfg=None):
+    """Ring and paged lane engines on one set of seeded weights, budget =
+    two worst-case longs (the paging benchmark's)."""
+    from repro_torch.serving.batching import kv_bytes_per_token
+    from repro_torch.serving.engine import (BatchedRealEngine,
+                                            PagedBatchedEngine)
+    c = dtype_cfg or cfg
+    budget = 2 * (L_PROMPT + L_LONG) * kv_bytes_per_token(c)
+    kw = dict(max_len=L_MAX_LEN, segment_len=L_SEGMENT, n_lanes=L_LANES,
+              budget_bytes=budget)
+    ring = BatchedRealEngine(c, seed=0, **kw)
+    paged = PagedBatchedEngine(c, state_dict=ring.lm.state_dict(),
+                               page_size=L_PAGE, **kw)
+    return ring, paged
+
+
+def _check_path(name, launches, run, skip=()):
+    for k in run:
+        if launches[k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} was never launched")
+    for k in skip:
+        if launches[k] != 0:
+            raise AssertionError(f"{name}: kernel {k} launched "
+                                 f"{launches[k]} times, expected none")
+
+
+def phase_lanes(cfg, smi, totals) -> None:
+    """The lane and paged engines at full width (bf16): the paging
+    benchmark's backlog through ring lanes, then paged lanes (growth and
+    preemption under the two-long budget), then with a shared 48-token
+    prefix, cold then warm.  Paged lanes must give the ring lanes' tokens
+    for every request that was not preempted (a preempted request resumes
+    by re-prefilling its generated tokens, which rounds differently in
+    bf16; its agreement is reported)."""
+    import numpy as np
+    import torch
+    t0 = time.monotonic()
+    ring, paged = _lane_engines(cfg)
+    torch.cuda.synchronize()
+    print(f"[lanes] {cfg.name} {cfg.dtype} {cfg.num_layers}L, {L_LANES} "
+          f"lanes, max_len {L_MAX_LEN}, segment {L_SEGMENT}, page {L_PAGE}, "
+          f"budget {ring.budget_bytes} B = {paged.n_pages} pages, pattern "
+          f"{PATTERN} (long {L_LONG} / short {L_SHORT} new tokens); engines "
+          f"{time.monotonic() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    warm_p, _ = _pattern(cfg.vocab_size, rng)
+    for eng in (ring, paged):                       # first-call set-up
+        eng.generate_batch(warm_p[:L_LANES], 4)
+    paged.allocator.drop_cache()
+    prompts, maxes = _pattern(cfg.vocab_size, np.random.default_rng(100))
+    out = {}
+    for name, eng in (("ring", ring), ("paged", paged)):
+        out[name] = r = _drain_pattern(eng, prompts, maxes)
+        for k, v in r["launches"].items():
+            totals[k] += v
+        # decode steps = decode-kernel launches / layers (one per layer
+        # per step; prefills launch K3, not K1/K2)
+        steps = (r["launches"]["decode_attention"]
+                 + r["launches"]["paged_decode_attention"]) // cfg.num_layers
+        steps = max(1, steps)
+        print(f"[lanes] {name}: {r['n_tok']} tokens in {r['wall']:.2f} s = "
+              f"{r['tok_s']:.1f} tok/s, {steps} lane steps "
+              f"({r['wall'] / steps * 1e3:.1f} ms per step incl. prefills), "
+              f"short P50 {r['short_p50_ms']:.1f} ms, preemptions "
+              f"{eng.lane_manager.stats.get('preemptions', 0)}, dead steps "
+              f"{eng.dead_steps}, launches {r['launches']}  [{smi}]")
+    _check_path("[lanes] ring", out["ring"]["launches"],
+                ("decode_attention", "flash_attention"),
+                ("paged_decode_attention",))
+    _check_path("[lanes] paged", out["paged"]["launches"],
+                ("paged_decode_attention", "flash_attention"),
+                ("decode_attention",))
+    same = [a == b for a, b in zip(out["ring"]["tokens"],
+                                   out["paged"]["tokens"])]
+    pre = out["paged"]["preempted"]
+    bad = [i for i, ok in enumerate(same) if not ok and i not in pre]
+    if bad:
+        raise AssertionError(f"[lanes] paged != ring tokens for requests "
+                             f"{bad} that were never preempted")
+    print(f"[lanes] paged == ring tokens ({cfg.dtype}): "
+          f"{sum(same)}/{len(same)} requests; preempted and resumed "
+          f"{pre}, of which equal "
+          f"{[i for i in pre if same[i]]}")
+    cut = 1 - out["paged"]["short_p50_ms"] / out["ring"]["short_p50_ms"]
+    print(f"[lanes] paged vs ring: short P50 {100 * cut:.1f}% lower, tok/s "
+          f"x{out['paged']['tok_s'] / out['ring']['tok_s']:.2f}  [{smi}]")
+
+    prefix = np.random.default_rng(7).integers(
+        1, cfg.vocab_size, size=L_PREFIX).astype(np.int64)
+    pp, pm = _pattern(cfg.vocab_size, np.random.default_rng(101), prefix)
+    paged.generate_batch(pp[:L_LANES], 4)           # first-call set-up
+    paged.allocator.reset_transient()
+    paged.allocator.drop_cache()                    # the next pass is cold
+    passes = {}
+    for name in ("cold", "warm"):
+        h0 = paged.allocator.stats["prefix_hit_pages"]
+        passes[name] = r = _drain_pattern(paged, pp, pm)
+        for k, v in r["launches"].items():
+            totals[k] += v
+        r["hit_pages"] = paged.allocator.stats["prefix_hit_pages"] - h0
+        print(f"[lanes] prefix {L_PREFIX} {name}: {r['n_tok']} tokens in "
+              f"{r['wall']:.2f} s = {r['tok_s']:.1f} tok/s, short P50 "
+              f"{r['short_p50_ms']:.1f} ms, prefix-hit pages "
+              f"{r['hit_pages']}, preemptions "
+              f"{paged.lane_manager.stats['preemptions']}, launches "
+              f"{r['launches']}  [{smi}]")
+        _check_path(f"[lanes] prefix {name}", r["launches"],
+                    ("paged_decode_attention", "flash_attention"),
+                    ("decode_attention",))
+    if passes["warm"]["hit_pages"] <= 0:
+        raise AssertionError("[lanes] the warm pass had no prefix hit")
+    agree = sum(a == b for a, b in zip(passes["cold"]["tokens"],
+                                       passes["warm"]["tokens"]))
+    print(f"[lanes] prefix warm == cold tokens ({cfg.dtype}): "
+          f"{agree}/{len(pp)}")
+    del ring, paged
+    torch.cuda.empty_cache()
+
+
+def phase_lanes_f32(cfg, smi, totals) -> None:
+    """Float32 full-width copy, TF32 off: ring lanes, paged lanes, the
+    serial engine and the warm prefix-hit pass give the same tokens on
+    the pattern with budgets capped at 16 tokens."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import RealEngine
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    ring, paged = _lane_engines(cfg, cfg32)
+    serial = RealEngine(cfg32, state_dict=ring.lm.state_dict(),
+                        max_len=L_MAX_LEN, segment_len=L_SEGMENT)
+    cap = 16
+    prompts, maxes = _pattern(cfg.vocab_size, np.random.default_rng(200),
+                              long_new=cap)
+    prefix = np.random.default_rng(8).integers(
+        1, cfg.vocab_size, size=L_PREFIX).astype(np.int64)
+    pp, pm = _pattern(cfg.vocab_size, np.random.default_rng(201), prefix,
+                      long_new=cap)
+    runs = {"ring": _drain_pattern(ring, prompts, maxes),
+            "paged": _drain_pattern(paged, prompts, maxes)}
+    paged.allocator.reset_transient()
+    paged.allocator.drop_cache()
+    runs["cold"] = _drain_pattern(paged, pp, pm)
+    runs["warm"] = _drain_pattern(paged, pp, pm)
+    for name, r in runs.items():
+        for k, v in r["launches"].items():
+            totals[k] += v
+    ops_serial = [serial.generate(p, max_new_tokens=m)["tokens"]
+                  for p, m in zip(prompts, maxes)]
+    ops_prefix = [serial.generate(p, max_new_tokens=m)["tokens"]
+                  for p, m in zip(pp, pm)]
+    for name, want in (("ring", ops_serial), ("paged", ops_serial),
+                       ("cold", ops_prefix), ("warm", ops_prefix)):
+        got = runs[name]["tokens"]
+        if got != want:
+            diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise AssertionError(f"[lanes-f32] {name} tokens differ from "
+                                 f"the serial engine for requests {diff}")
+    hits = paged.allocator.stats["prefix_hit_pages"]
+    print(f"[lanes-f32] float32, TF32 off, budgets capped at {cap}: ring "
+          f"lanes == paged lanes == serial engine on {len(prompts)} "
+          f"requests; prefix cold == warm == serial on {len(pp)} "
+          f"({hits} prefix-hit pages, preemptions "
+          f"{paged.lane_manager.stats['preemptions']})  [{smi}]")
+    del ring, paged, serial
+    torch.cuda.empty_cache()
+
+
+def phase_paged_burst(cfg, predictor, smi, totals) -> None:
+    """The serve-bench burst through ClairvoyantServer with one
+    PagedBatchedEngine (4 lanes, page 16, max_len 512) under FCFS and
+    SJF: every response ok, short and long P50 per policy."""
+    import torch
+    from repro_torch.data.corpus import sample_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import PagedBatchedEngine
+    from repro_torch.serving.openai_api import CompletionRequest
+    from repro_torch.serving.server import ClairvoyantServer
+
+    pool = sample_dataset("sharegpt", n=4000, seed=1)
+    shorts = [i for i in range(len(pool)) if pool.lengths[i] < 120][:N_SHORT]
+    longs = [i for i in range(len(pool)) if pool.lengths[i] >= 1000][:N_LONG]
+    order = longs + shorts
+    eng = PagedBatchedEngine(cfg, max_len=MAX_LEN, segment_len=SEGMENT,
+                             n_lanes=L_LANES, page_size=L_PAGE, seed=0)
+    eng.generate_batch([list(range(1, 20))] * L_LANES, 2)   # set-up
+    per = {}
+    for policy in ("fcfs", "sjf"):
+        eng.busy_until = 0.0
+        server = ClairvoyantServer(policy=policy, tau=None,
+                                   predictor=predictor, engines=[eng])
+        ops.reset_launches()
+        server.submit_many(
+            [CompletionRequest(prompt=pool.prompts[i]) for i in order],
+            arrivals=[j * 1e-4 for j in range(len(order))],
+            true_output_tokens=[64 if i in longs else 8 for i in order],
+            klasses=["long" if i in longs else "short" for i in order])
+        w0 = time.monotonic()
+        resp = server.drain(max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - w0
+        launches = dict(ops.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] += v
+        if len(resp) != len(order) or not all(r.ok for r in resp):
+            raise AssertionError(f"[paged-burst] {policy}: not every "
+                                 "response is ok")
+        _check_path(f"[paged-burst] {policy}", launches,
+                    ("paged_decode_attention", "flash_attention",
+                     "gbdt_margins") if policy == "sjf" else
+                    ("paged_decode_attention", "flash_attention"),
+                    ("decode_attention",))
+        per[policy] = (server.percentile(50, "short") * 1e3,
+                       server.percentile(50, "long") * 1e3)
+        print(f"[paged-burst] {policy}: short P50 {per[policy][0]:.1f} ms, "
+              f"long P50 {per[policy][1]:.1f} ms, "
+              f"{sum(r.tokens_generated for r in resp)} tokens in "
+              f"{wall:.2f} s, launches {launches}, finish order "
+              f"{[r.request_id for r in resp]}  [{smi}]")
+    print(f"[paged-burst] SJF short P50 {per['sjf'][0]:.1f} ms vs FCFS "
+          f"{per['fcfs'][0]:.1f} ms: "
+          f"{100 * (1 - per['sjf'][0] / per['fcfs'][0]):.1f}% lower  [{smi}]")
+    phase_profile_lanes(eng, smi)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_profile_lanes(eng, smi) -> None:
+    """Where a lane step's time goes: kernels per step and the device's
+    busy share while 4 lanes decode 8 steps together."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prompts = [list(range(3 + i, 3 + i + 24)) for i in range(L_LANES)]
+    eng.generate_batch(prompts, 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.generate_batch(prompts, 9)
+        torch.cuda.synchronize()
+    events = prof.events()
+    busy = _busy_us(events)
+    if busy is None:
+        print("[profile-lanes] device busy share: not measured (the "
+              "profiler recorded no CUDA kernel)")
+        return
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events))
+    print(f"[profile-lanes] {L_LANES} lanes x (prefill + 8 decode steps), "
+          f"paged, profiler on: {len(kernels)} kernels (~"
+          f"{len(kernels) / 9:.0f} per step), device busy {busy / 1e3:.2f} "
+          f"ms of {span / 1e3:.2f} ms traced ({100 * busy / span:.1f}% busy, "
+          f"{100 - 100 * busy / span:.1f}% idle)  [{smi}]")
+    per_kernel = {}
+    for e in kernels:
+        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[profile-lanes]   {us / 1e3:8.3f} ms  {name[:90]}")
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import get_config
@@ -500,13 +976,25 @@ def main() -> int:
           f"{time.monotonic() - t0:.1f} s (host)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [phase_decode_kernel(gen), phase_flash_kernel(gen),
+    k1, k3 = phase_decode_kernel(gen), phase_flash_kernel(gen)
+    k1["max_abs_err"] = max(k1["max_abs_err"], phase_decode_lanes_kernel(gen))
+    k3["max_abs_err"] = max(k3["max_abs_err"], phase_flash_extend(gen))
+    kernels = [k1, phase_paged_kernel(gen), k3,
                phase_gbdt_kernel(predictor.model, ds.prompts)]
     cfg = get_config("smollm-360m")
     phase_full_width_reference(cfg)
-    launches = phase_slice(cfg, predictor, smi)
+    # launches on the main paths: each path resets the counters just
+    # before it runs and adds what it launched just after
+    totals = dict(phase_slice(cfg, predictor, smi))
+    phase_lanes(cfg, smi, totals)
+    phase_lanes_f32(cfg, smi, totals)
+    phase_paged_burst(cfg, predictor, smi, totals)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = totals[k["name"]]
+        if k["launches"] <= 0:
+            raise AssertionError(f"kernel {k['name']} never launched on "
+                                 "the main paths")
+    print(f"[kernels] launches on the main paths: {totals}")
     print(f"[done] {time.monotonic() - t_start:.1f} s  [{smi}]")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models.model import resolve_device
 
 MAX_BINS = 256
 
@@ -60,15 +61,19 @@ class GBDTModel:
                           self.value.astype(np.float32)))
         return cache[device]
 
-    def predict_margin(self, X: np.ndarray, device="cpu") -> np.ndarray:
-        """(B, n_classes) raw margins, scored on ``device``."""
+    def predict_margin(self, X: np.ndarray, device=None) -> np.ndarray:
+        """(B, n_classes) raw margins, scored on ``device``: the card
+        unless the caller names one (``device='cpu'`` for the plain walk
+        on the host); raises when no card is present and none is named."""
+        device = resolve_device(device)
         feature, threshold, value = self.tensors(device)
         x = torch.as_tensor(np.asarray(X, np.float32), device=device)
         m = ops.gbdt_margins(x.contiguous(), feature, threshold, value,
                              n_classes=self.n_classes)
         return m.cpu().numpy()
 
-    def predict_proba(self, X: np.ndarray, device="cpu") -> np.ndarray:
+    def predict_proba(self, X: np.ndarray, device=None) -> np.ndarray:
+        """Softmax of :meth:`predict_margin` (same device rule)."""
         m = self.predict_margin(X, device)
         m = m - m.max(axis=1, keepdims=True)
         e = np.exp(m)

@@ -272,3 +272,21 @@ class SJFQueue:
             self.stats["dispatched"] += 1
             return self._live.pop(req_id)
         return None
+
+    def pop_many(self, k: int, now: float) -> list:
+        """Pop up to ``k`` requests for lane back-fill, applying the full
+        dispatch rule -- starvation check included -- *between* pops, so
+        ``pop_many(k, now)`` is exactly ``[pop(now) for _ in range(k)]``
+        (a promoted waiter takes the next vacant lane even when its key
+        sorts last)."""
+        out = []
+        for _ in range(int(k)):
+            req = self.pop(now=now)
+            if req is None:
+                break
+            out.append(req)
+        return out
+
+    def live(self):
+        """Unsorted view of the live queued requests."""
+        return self._live.values()

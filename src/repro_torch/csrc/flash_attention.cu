@@ -1,9 +1,13 @@
-// K3: causal (or full) flash attention for the bucketed prefill.
+// K3: causal (or full) flash attention for the bucketed prefill and the
+// extend prefill of a prefix hit.
 //
 // Replaces the Pallas TPU kernel flash_attention_kernel / _flash_kernel
 // (src/repro/kernels/flash_attention.py).  Same function: softmax(q k^T *
 // hd^-0.5) v per query head, GQA through kv head = h / G, running max /
-// sum / accumulator in f32.
+// sum / accumulator in f32.  Beyond the Pallas kernel, the Sq query rows
+// may sit at absolute positions q_offset .. q_offset + Sq - 1 of a longer
+// key buffer (Skv >= q_offset + Sq when causal): the extend prefill of
+// models/attention.py, a suffix appended to a cached prefix.
 //
 // What bounds it on an H100: operations, at long prompts.  A causal
 // prefill of S tokens does 2 * 2 * H * hd * S(S+1)/2 FLOPs on
@@ -26,8 +30,13 @@
 //    key 0, a live key of every row, so the running max is finite from
 //    the first chunk on (a masked -1e30 never meets a row with no live
 //    key);
+//  * extend (q_offset > 0): each query row still runs its kv tiles from
+//    absolute tile 0 in the same order and chunks, and skips every key
+//    past its own absolute position, so a suffix row does exactly the
+//    arithmetic that row does in a cold prefill of prefix + suffix (the
+//    JAX contract of attention.py's extend branch);
 //  * a ragged S (the 96-slot bucket) is masked here, not asserted away:
-//    rows >= S compute nothing and keys >= S are never read.
+//    rows >= Sq compute nothing and keys >= Skv are never read.
 // The launcher allocates nothing and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -61,15 +70,17 @@ struct Strides {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kRows) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int S, int G, int causal,
-    Strides qs, Strides ks_, Strides vs_, Strides os, float scale) {
+    const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
+    int q_offset, int G, int causal, Strides qs, Strides ks_, Strides vs_,
+    Strides os, float scale) {
   extern __shared__ float smem[];
   float* kt = smem;                  // (kCols, HD)
   float* vt = kt + kCols * HD;       // (kCols, HD)
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x;
-  const int row = qt * kRows + r;
-  const bool live = row < S;
+  const int row = qt * kRows + r;      // query row in q
+  const bool live = row < Sq;
+  const int pos = q_offset + row;       // its absolute key position
   const int kvh = h / G;
 
   float qr[HD], acc[HD];
@@ -83,20 +94,22 @@ __global__ void __launch_bounds__(kRows) flash_kernel(
 
   const T* kb = k + b * ks_.b + (int64_t)kvh * ks_.h;
   const T* vb = v + b * vs_.b + (int64_t)kvh * vs_.h;
-  const int n_tiles = causal ? qt + 1 : (S + kCols - 1) / kCols;
+  // causal: up to the tile of the block's last live row's position
+  const int last = q_offset + min(qt * kRows + kRows, Sq) - 1;
+  const int n_tiles = causal ? last / kCols + 1 : (Skv + kCols - 1) / kCols;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int c0 = tile * kCols;
     __syncthreads();                 // previous tile fully consumed
     for (int i = r; i < kCols * HD; i += kRows) {
       const int j = i / HD, d = i % HD;
-      const bool in = c0 + j < S;
+      const bool in = c0 + j < Skv;
       kt[i] = in ? to_f32(kb[(int64_t)(c0 + j) * ks_.s + d]) : 0.f;
       vt[i] = in ? to_f32(vb[(int64_t)(c0 + j) * vs_.s + d]) : 0.f;
     }
     __syncthreads();
     if (!live) continue;
-    int n_keys = min(kCols, S - c0);
-    if (causal) n_keys = min(n_keys, row - c0 + 1);
+    int n_keys = min(kCols, Skv - c0);
+    if (causal) n_keys = min(n_keys, pos - c0 + 1);   // <= 0: skip tile
     for (int j0 = 0; j0 < n_keys; j0 += kChunk) {
       float s[kChunk];
       float cmax = kNegInf;
@@ -142,8 +155,9 @@ __global__ void __launch_bounds__(kRows) flash_kernel(
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int G, int causal, Strides qs, Strides ks,
-           Strides vs, Strides os, cudaStream_t stream) {
+           int Sq, int Skv, int q_offset, int H, int G, int causal,
+           Strides qs, Strides ks, Strides vs, Strides os,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * 2 * kCols * HD;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -152,54 +166,63 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (e != cudaSuccess) return (int)e;
   }
   const float scale = 1.0f / sqrtf((float)HD);
-  dim3 grid((S + kRows - 1) / kRows, H, B);
+  dim3 grid((Sq + kRows - 1) / kRows, H, B);
   flash_kernel<T, HD><<<grid, kRows, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, G, causal, qs, ks, vs,
-      os, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, q_offset, G,
+      causal, qs, ks, vs, os, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                int B, int S, int H, int G, int causal, Strides qs,
-                Strides ks, Strides vs, Strides os, cudaStream_t st) {
+                int B, int Sq, int Skv, int q_offset, int H, int G,
+                int causal, Strides qs, Strides ks, Strides vs, Strides os,
+                cudaStream_t st) {
+#define K3_LAUNCH(HD)                                                     \
+  return launch<T, HD>(q, k, v, o, B, Sq, Skv, q_offset, H, G, causal, qs, \
+                       ks, vs, os, st)
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, S, H, G, causal, qs, ks, vs, os, st);
+      K3_LAUNCH(16);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, S, H, G, causal, qs, ks, vs, os, st);
+      K3_LAUNCH(32);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, G, causal, qs, ks, vs, os, st);
+      K3_LAUNCH(64);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, G, causal, qs, ks, vs, os,
-                            st);
+      K3_LAUNCH(128);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef K3_LAUNCH
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/o: (B, S, H, hd), k/v: (B, S, KV,
-// hd), strides in elements for the batch, sequence and head axes; the
-// head_dim axis must be contiguous.  hd in {16, 32, 64, 128}.
+// dtype: 0 = float32, 1 = bfloat16.  q/o: (B, Sq, H, hd), k/v: (B, Skv,
+// KV, hd), strides in elements for the batch, sequence and head axes; the
+// head_dim axis must be contiguous.  hd in {16, 32, 64, 128}.  Query row
+// r sits at absolute position q_offset + r; causal calls need
+// q_offset + Sq <= Skv.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int S, int H, int KV, int hd, int causal, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, void* stream) {
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+    int Sq, int Skv, int q_offset, int H, int KV, int hd, int causal,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    void* stream) {
+  if (KV <= 0 || H % KV != 0 || q_offset < 0 ||
+      (causal && q_offset + Sq > Skv))
+    return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, o, B, S, H, G, causal, qs, ks, vs,
-                              os, st);
+    return dispatch_hd<float>(hd, q, k, v, o, B, Sq, Skv, q_offset, H, G,
+                              causal, qs, ks, vs, os, st);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, H, G, causal, qs,
-                                      ks, vs, os, st);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Skv, q_offset,
+                                      H, G, causal, qs, ks, vs, os, st);
   return (int)cudaErrorInvalidValue;
 }

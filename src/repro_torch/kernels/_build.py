@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled on
 first use into its own shared library under ``build/repro_torch/`` at the
 repository root (listed in ``.gitignore``), then loaded with ``ctypes``.
-The library's file name carries a hash of the source and flags, so an
-edited source is rebuilt and an unchanged one is reused.  No PyTorch
+The library's file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  No PyTorch
 header is compiled: a build takes seconds, not minutes.
 """
 
@@ -24,15 +25,17 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("decode_attention", "flash_attention", "gbdt_infer")
+KERNELS = ("decode_attention", "paged_decode_attention", "flash_attention",
+           "gbdt_infer")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 #: launches per kernel: each launcher adds one where it launches its
 #: kernel, and nowhere else (a run reads these to show which kernels the
 #: path went through)
-LAUNCHES: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
-                            "gbdt_margins": 0}
+LAUNCHES: Dict[str, int] = {"decode_attention": 0,
+                            "paged_decode_attention": 0,
+                            "flash_attention": 0, "gbdt_margins": 0}
 #: ``-Xptxas -v`` report (registers, shared memory, spills) per kernel build
 PTXAS_REPORT: Dict[str, str] = {}
 
@@ -46,7 +49,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 

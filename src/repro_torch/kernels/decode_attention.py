@@ -5,7 +5,8 @@
 ``repro.kernels.decode_attention.decode_attention_kernel``.
 ``decode_attention_plain`` is the same function in plain PyTorch.  Both
 take the engine's layouts: q (B, 1, H, hd), cache (B, S, KV, hd) read in
-place, and the fill level ``t`` (slots <= t attend; all once t >= S).
+place, and the fill level ``t`` (slots <= t attend; all once t >= S): one
+level shared by the batch, or one per lane ((B,), the decode lanes).
 """
 
 from __future__ import annotations
@@ -36,15 +37,16 @@ def decode_attention_plain(q, cache_k, cache_v, t):
 @functools.cache
 def _fn():
     fn = _build.load("decode_attention").decode_attention_launch
-    fn.argtypes = [_P] * 5 + [_I] * 6 + [_L] * 7 + [_P]
+    fn.argtypes = [_P] * 5 + [_I] * 7 + [_L] * 7 + [_P]
     fn.restype = ctypes.c_int
     return fn
 
 
 def decode_attention_cuda(q, cache_k, cache_v, t):
-    """Launch K1 on q's device and stream.  ``t`` is an int32 tensor of one
-    element on the same device (read by the kernel, never by the host);
-    it must be >= 0."""
+    """Launch K1 on q's device and stream.  ``t`` is an int32 tensor of
+    one element (shared by the batch) or of B elements (one per lane) on
+    the same device, read by the kernel and never by the host; every
+    level must be >= 0."""
     B, one, H, hd = q.shape
     _, S, KV, _ = cache_k.shape
     if not (q.is_cuda and cache_k.device == q.device
@@ -62,13 +64,16 @@ def decode_attention_cuda(q, cache_k, cache_v, t):
             or cache_v.stride() != cache_k.stride():
         raise ValueError("head_dim must be contiguous and both caches "
                          "share one layout")
-    if t.dtype != torch.int32 or t.numel() != 1:
-        raise TypeError("t must be a one-element int32 tensor")
+    if t.dtype != torch.int32 or t.numel() not in (1, B) \
+            or not t.is_contiguous():
+        raise TypeError("t must be a contiguous int32 tensor of 1 or B "
+                        "elements")
     o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
                 t.data_ptr(), o.data_ptr(), _DTYPES[q.dtype], B, S, KV,
-                H // KV, hd, q.stride(0), q.stride(2), cache_k.stride(0),
+                H // KV, hd, int(t.numel() == B and B > 1), q.stride(0),
+                q.stride(2), cache_k.stride(0),
                 cache_k.stride(1), cache_k.stride(2), o.stride(0),
                 o.stride(2), stream)
     _build.check(err, "decode_attention")

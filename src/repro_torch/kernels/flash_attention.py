@@ -1,11 +1,15 @@
-"""K3: causal (or full) flash attention for the bucketed prefill.
+"""K3: causal (or full) flash attention for the bucketed prefill and the
+extend prefill.
 
 ``flash_attention_cuda`` launches the hand-written Hopper kernel
 (``csrc/flash_attention.cu``), which replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention_kernel``.
 ``flash_attention_plain`` is the same function in plain PyTorch.  Both
-take model layout: q (B, S, H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd).
-Unlike the Pallas kernel, any S is accepted (the ragged edge is masked).
+take model layout: q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H,
+hd), with query row i at absolute position ``q_offset + i`` of the keys
+(a host int; 0 and Sq == Skv for a cold prefill, the cached prefix's
+length for an extend prefill).  Unlike the Pallas kernel, any lengths are
+accepted (the ragged edge is masked).
 """
 
 from __future__ import annotations
@@ -23,42 +27,49 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True):
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          q_offset: int = 0):
     """Plain version: f32 einsum, (causal) softmax, einsum (model layout)."""
     o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal)
+                            v.transpose(1, 2), causal=causal,
+                            q_offset=q_offset)
     return o.transpose(1, 2)
 
 
 @functools.cache
 def _fn():
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [_P] * 4 + [_I] * 7 + [_L] * 12 + [_P]
+    fn.argtypes = [_P] * 4 + [_I] * 9 + [_L] * 12 + [_P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True):
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         q_offset: int = 0):
     """Launch K3 on q's device and stream."""
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    q_offset = int(q_offset)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA "
                          "device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"unsupported dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    if k.shape != (B, S, KV, hd) or v.shape != k.shape or H % KV \
-            or hd not in _HEAD_DIMS:
+    if k.shape != (B, Skv, KV, hd) or v.shape != k.shape or H % KV \
+            or hd not in _HEAD_DIMS or q_offset < 0 \
+            or (causal and q_offset + Sq > Skv):
         raise ValueError(f"unsupported shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} "
+                         f"q_offset {q_offset}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("head_dim must be contiguous")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if S == 0:
+    if Sq == 0:
         return o
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                _DTYPES[q.dtype], B, S, H, KV, hd, int(causal),
+                _DTYPES[q.dtype], B, Sq, Skv, q_offset, H, KV, hd,
+                int(causal),
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *o.stride()[:3], stream)
     _build.check(err, "flash_attention")

@@ -19,9 +19,11 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.gbdt_infer import (gbdt_margins_cuda,
                                             gbdt_margins_plain)
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention_cuda, paged_decode_attention_plain)
 
 __all__ = ["LAUNCHES", "reset_launches", "decode_attention",
-           "flash_attention", "gbdt_margins"]
+           "paged_decode_attention", "flash_attention", "gbdt_margins"]
 
 
 def reset_launches() -> None:
@@ -29,19 +31,30 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd)."""
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd); query row i sits
+    at key position q_offset + i (a host int)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
-    return flash_attention_cuda(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset)
+    return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def decode_attention(q, cache_k, cache_v, t):
     """q (B,1,H,hd), ring cache (B,S,KV,hd), fill level t (int32 tensor on
-    the cache's device) -> (B,1,H,hd)."""
+    the cache's device: one level, or (B,) per lane) -> (B,1,H,hd)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache_k, cache_v, t)
     return decode_attention_cuda(q, cache_k, cache_v, t)
+
+
+def paged_decode_attention(q, pool_k, pool_v, bt, t):
+    """q (B,1,H,hd), one layer's pools (n_pages,page,KV,hd), block table
+    bt (B,P) and fill levels t (B,), both int32 on the pools' device ->
+    (B,1,H,hd)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, pool_k, pool_v, bt, t)
+    return paged_decode_attention_cuda(q, pool_k, pool_v, bt, t)
 
 
 def gbdt_margins(X, feature, threshold, value, *, n_classes: int = 3):

@@ -11,33 +11,59 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
-    """q: (B, H, S, hd); k, v: (B, KV, S, hd) -> (B, H, S, hd)."""
-    B, H, S, hd = q.shape
-    KV = k.shape[1]
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """q: (B, H, Sq, hd); k, v: (B, KV, Skv, hd) -> (B, H, Sq, hd).
+
+    Query row i sits at absolute position ``q_offset + i`` of the key
+    buffer (the extend prefill: a suffix over a cached prefix); causal rows
+    attend keys at positions <= their own, as
+    ``repro.models.attention.flash_attention(q_offset=...)`` does."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
-    qg = q.reshape(B, KV, G, S, hd).float()
+    qg = q.reshape(B, KV, G, Sq, hd).float()
     s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) * hd ** -0.5
     if causal:
-        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        mask = torch.arange(Skv, device=q.device)[None, :] <= pos
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksh->bkgqh", w, v.float())
-    return o.reshape(B, H, S, hd).to(q.dtype)
+    return o.reshape(B, H, Sq, hd).to(q.dtype)
 
 
 def decode_attention_ref(q, k, v, t):
     """q: (B, KV, G, hd); k, v: (B, KV, S, hd); slots <= t attend (all of
-    them once the ring has wrapped, t >= S).  ``t``: int or 0-d tensor."""
+    them once the ring has wrapped, t >= S).  ``t``: int or 0-d tensor
+    shared by the batch, or (B,) per-sequence fill levels (decode
+    lanes)."""
     hd = q.shape[-1]
     S = k.shape[2]
     s = torch.einsum("bkgh,bksh->bkgs", q.float(), k.float()) * hd ** -0.5
     t = torch.as_tensor(t, device=q.device)
+    if t.dim():
+        t = t.view(-1, 1, 1, 1)
     mask = torch.arange(S, device=q.device) <= t
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bksh->bkgh", w, v.float())
     return o.to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_table, t):
+    """Block-paged decode: gather each sequence's logical window through
+    its block table, then :func:`decode_attention_ref`.
+
+    q: (B, KV, G, hd); k_pages, v_pages: (n_pages, KV, page, hd) shared
+    physical pool; block_table: (B, P) int32 physical page per logical
+    block; t: (B,) int32 fill levels (logical slots <= t attend)."""
+    B = q.shape[0]
+    KV, ps, hd = k_pages.shape[1:]
+    P = block_table.shape[1]
+    bt = block_table.long()
+    k = k_pages[bt].transpose(1, 2).reshape(B, KV, P * ps, hd)
+    v = v_pages[bt].transpose(1, 2).reshape(B, KV, P * ps, hd)
+    return decode_attention_ref(q, k, v, t)
 
 
 def gbdt_margins_ref(X, feature, threshold, value, *, n_classes: int = 3):

@@ -1,11 +1,13 @@
 """GQA self-attention block (port of ``repro.models.attention.attn_block``
-in its ``prefill`` and ring ``decode`` modes).
+in its ``prefill`` (cold and extend), ring ``decode`` and block-paged
+``decode`` modes).
 
-The attention itself goes through ``kernels.ops``: K3 (flash) for the
-prefill, K1 (decode) for each generated token.  The KV cache is the
-engine's ring buffer (B, S, KV, hd), updated **in place**: where the JAX
-package donates the cache and gets a new one back, this block writes the
-new K/V into the caller's buffer.
+The attention itself goes through ``kernels.ops``: K3 (flash) for every
+prefill, K1 (decode) for each generated token over a ring cache, K2
+(paged decode) for each generated token over the block-paged pool.  The
+caches are updated **in place**: where the JAX package donates a cache
+and gets a new one back, this block writes the new K/V into the caller's
+buffer.
 """
 
 from __future__ import annotations
@@ -39,27 +41,66 @@ class Attention(nn.Module):
         v = dense(h, self.wv).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
         return rope(q, *rope_cs), rope(k, *rope_cs), v
 
-    def prefill(self, x, rope_cs, cache_k, cache_v):
-        """Causal attention over the whole (padded) prompt x (B, S, D) at
-        positions 0..S-1 (``rope_cs``: their RoPE tables); writes its K/V
-        into slots [0, S) of the ring buffers."""
+    def prefill(self, x, rope_cs, cache_k, cache_v, start: int = 0):
+        """Causal attention over the (padded) tokens x (B, S, D) at
+        positions start..start+S-1 (``rope_cs``: their RoPE tables); their
+        K/V land in slots [start, start+S) of the buffers.
+
+        ``start`` 0 is a cold prefill: the tokens attend each other only.
+        ``start`` > 0 (a host int) is an extend prefill: x is a suffix
+        appended to the ``start`` cached prefix slots, its K/V are written
+        first and it attends the buffer causally through K3's
+        ``q_offset``, so each suffix row sees prefix + suffix exactly as
+        it would in a cold prefill of both (JAX ``attn_block``'s extend
+        branch)."""
         B, S, _ = x.shape
         h = rmsnorm(x, self.norm, self.cfg.norm_eps)
         q, k, v = self._project_qkv(h, rope_cs)
-        out = ops.flash_attention(q, k, v, causal=True)
-        cache_k[:, :S] = k
-        cache_v[:, :S] = v
+        if start == 0:
+            out = ops.flash_attention(q, k, v, causal=True)
+            cache_k[:, :S] = k
+            cache_v[:, :S] = v
+        else:
+            cache_k[:, start:start + S] = k
+            cache_v[:, start:start + S] = v
+            out = ops.flash_attention(q, cache_k, cache_v, causal=True,
+                                      q_offset=start)
         return x + dense(out.reshape(B, S, -1), self.wo)
 
     def decode(self, x, rope_cs, t, slot, cache_k, cache_v):
-        """One token x (B, 1, D) at absolute position ``t`` (an int32 tensor
-        on the device; ``rope_cs``: its RoPE tables): its K/V land at ring
-        slot ``slot`` (= t % S, an int64 (1,) tensor) and it attends
-        slots <= t."""
+        """One token per row, x (B, 1, D), at absolute position ``t`` (an
+        int32 tensor on the device: 0-d shared by the batch, or (B,) per
+        lane; ``rope_cs``: its RoPE tables).  Its K/V land at ring slot
+        t % S: ``slot`` is that slot as an int64 (1,) tensor for a shared
+        t, or the index pair (lanes, slots) for per-lane levels (an index
+        scatter, row b into ``cache[b, slots[b]]``).  It attends ring
+        slots <= t through K1."""
         B = x.shape[0]
         h = rmsnorm(x, self.norm, self.cfg.norm_eps)
         q, k, v = self._project_qkv(h, rope_cs)
-        cache_k.index_copy_(1, slot, k)
-        cache_v.index_copy_(1, slot, v)
+        if isinstance(slot, tuple):
+            cache_k.index_put_(slot, k[:, 0])
+            cache_v.index_put_(slot, v[:, 0])
+        else:
+            cache_k.index_copy_(1, slot, k)
+            cache_v.index_copy_(1, slot, v)
         out = ops.decode_attention(q, cache_k, cache_v, t)
+        return x + dense(out.reshape(B, 1, -1), self.wo)
+
+    def decode_paged(self, x, rope_cs, t, dest, pool_k, pool_v, bt):
+        """One token per lane, x (B, 1, D), over the block-paged pool
+        (n_pages, page, KV, hd).  ``dest`` (B,) int64 is each lane's flat
+        pool row for this step (bt[b, t // page] * page + t % page, or a
+        row of trash page 0 for a lane past its window): the K/V land
+        there, then the lane attends logical slots <= t[b] through its
+        block-table row ``bt`` with K2, which reads the pool in place."""
+        B = x.shape[0]
+        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
+        q, k, v = self._project_qkv(h, rope_cs)
+        n_pages, page, KV, hd = pool_k.shape
+        # duplicate rows only ever hit the trash page (live lanes write
+        # pages they own alone), where write order is irrelevant
+        pool_k.view(n_pages * page, KV, hd).index_copy_(0, dest, k[:, 0])
+        pool_v.view(n_pages * page, KV, hd).index_copy_(0, dest, v[:, 0])
+        out = ops.paged_decode_attention(q, pool_k, pool_v, bt, t)
         return x + dense(out.reshape(B, 1, -1), self.wo)

@@ -1,11 +1,12 @@
 """The LM (port of ``repro.models.model.LM`` for attention-only stacks):
 embedding, a plain loop over layers, tied or separate head, bucketed
-prefill and one-token decode over a ring-buffer KV cache."""
+prefill (cold, per-row prompt lengths, or extend onto a cached prefix)
+and one-token decode over a ring-buffer KV cache or a block-paged pool."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -30,10 +31,11 @@ def resolve_device(device=None) -> torch.device:
 class KVCache:
     """Ring-buffer caches of every layer, updated in place.
 
-    k, v: (layers, B, S, KV, hd).  t: int32 0-d tensor on the device, the
-    absolute fill level shared by all layers: decode writes step t at slot
-    ``t % S`` and attends slots <= t (all of them once wrapped).  RoPE
-    positions stay absolute.
+    k, v: (layers, B, S, KV, hd).  t: int32 tensor on the device, the
+    absolute fill level shared by all layers: 0-d (one level for the
+    batch, the serial path) or (B,) (one per sequence, the decode lanes).
+    Decode writes step t at slot ``t % S`` and attends slots <= t (all of
+    them once wrapped).  RoPE positions stay absolute.
     """
     k: torch.Tensor
     v: torch.Tensor
@@ -46,6 +48,31 @@ class KVCache:
     def set_fill(self, t: int) -> None:
         """Reset the fill level (``repro.models.model._set_fill``)."""
         self.t.fill_(t)
+
+
+@dataclass
+class PagedKVCache:
+    """Block-paged caches of every layer (``LM.init_paged_cache``),
+    updated in place.
+
+    k, v: (layers, n_pages, page, KV, hd) physical pools; page 0 is the
+    pinned trash page.  bt: (B, P) int32 block table and t: (B,) int32
+    fill levels, both shared by every layer: a physical page id selects
+    the same page in every layer's pool, and lane b's logical slot s
+    lives at in-page slot s % page of page bt[b, s // page].
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    bt: torch.Tensor
+    t: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def max_len(self) -> int:
+        return self.bt.shape[1] * self.page_size
 
 
 class Block(nn.Module):
@@ -89,6 +116,25 @@ class LM(nn.Module):
                        t=torch.zeros((), dtype=torch.int32,
                                      device=self.device))
 
+    def init_paged_cache(self, batch_size: int, max_len: int, n_pages: int,
+                         page_size: int) -> PagedKVCache:
+        """Zeroed block-paged caches (``repro.models.model.LM.
+        init_paged_cache``): pools of ``n_pages`` pages (page 0 = trash)
+        and, for ``batch_size`` lanes, all-zero block tables (every slot
+        unallocated, pointing at the trash page) and fill levels."""
+        cfg = self.cfg
+        if max_len % page_size:
+            raise ValueError(f"max_len {max_len} not a multiple of "
+                             f"page_size {page_size}")
+        shape = (cfg.num_layers, n_pages, page_size, cfg.num_kv_heads,
+                 cfg.head_dim)
+        kw = dict(dtype=dtype_of(cfg), device=self.device)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        return PagedKVCache(
+            k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw),
+            bt=torch.zeros((batch_size, max_len // page_size), **i32),
+            t=torch.zeros((batch_size,), **i32))
+
     # ------------------------------------------------------------------ head
     def _head(self, x):
         """Final norm + head.  Logits are float32: exact for float32 models;
@@ -102,44 +148,96 @@ class LM(nn.Module):
     # --------------------------------------------------------------- serving
     @torch.no_grad()
     def prefill(self, tokens, pad_to: Optional[int] = None,
-                prompt_len: Optional[int] = None):
+                prompt_len=None, cache: Optional[KVCache] = None,
+                fill_to: Optional[int] = None):
         """Full-prompt forward building the decode cache.
 
         tokens: (B, S) int64 on the device.  Returns (last logits (B, V),
         cache).  The ring holds ``max(S, pad_to)`` slots: allocating it at
         ``pad_to`` up front does what the JAX ``_pad_kv`` does after the
-        fact (zeros past S).  ``prompt_len`` (host int) enables bucketed
-        prefill: the tokens are right-padded to a bucket, logits come from
-        position ``prompt_len - 1`` and the fill level is reset to
-        ``prompt_len``, so decode overwrites the pad slots in order; causal
-        attention keeps the pads dead until then.
+        fact (zeros past S).  ``prompt_len`` enables bucketed prefill: the
+        tokens are right-padded to a bucket, logits come from position
+        ``prompt_len - 1`` and the fill level is reset to ``prompt_len``,
+        so decode overwrites the pad slots in order; causal attention
+        keeps the pads dead until then.  A host int is shared by the
+        batch; a sequence of B ints gives each row its own length (the
+        lane back-fill: mixed prompts in one padded batch), and the cache
+        then carries (B,) fill levels.
+
+        ``cache`` switches to an *extend* prefill (JAX ``prefill(caches=,
+        fill_to=)``): the tokens are a suffix appended at the cache's fill
+        level (a 0-d tensor, read once on the host), written into it in
+        place and attending the cached prefix.  ``prompt_len`` then counts
+        suffix tokens, and the fill level becomes ``fill_to`` (default:
+        the old level plus the suffix's length).
         """
         B, S = tokens.shape
-        cache = self.init_cache(B, max(S, pad_to or 0))
         cfg = self.cfg
-        rope_cs = rope_tables(torch.arange(S, device=self.device),
+        start = 0
+        if cache is None:
+            cache = self.init_cache(B, max(S, pad_to or 0))
+        else:
+            start = int(cache.t)              # one host read per extend
+        rope_cs = rope_tables(start + torch.arange(S, device=self.device),
                               cfg.head_dim, cfg.rope_theta)
         x = self.embed[tokens]
         for i, blk in enumerate(self.blocks):
-            x = blk.attn.prefill(x, rope_cs, cache.k[i], cache.v[i])
+            x = blk.attn.prefill(x, rope_cs, cache.k[i], cache.v[i],
+                                 start=start)
             x = blk.mlp(x)
+        if prompt_len is not None and not isinstance(prompt_len, int) \
+                and torch.as_tensor(prompt_len).dim():
+            lens = torch.as_tensor(prompt_len, dtype=torch.long,
+                                   device=self.device).view(B)
+            cache.t = (lens if fill_to is None
+                       else torch.as_tensor(fill_to, device=self.device)
+                       .view(B)).to(torch.int32)
+            last = x[torch.arange(B, device=self.device), lens - 1][:, None]
+            return self._head(last)[:, 0], cache
         n = S if prompt_len is None else int(prompt_len)
-        cache.set_fill(n)
+        cache.set_fill(start + n if fill_to is None else int(fill_to))
         return self._head(x[:, n - 1:n])[:, 0], cache
 
     @torch.no_grad()
-    def decode_step(self, cache: KVCache, tokens):
+    def decode_step(self, cache: Union[KVCache, PagedKVCache], tokens):
         """One greedy step.  tokens: (B, 1) int64 on the device.  Writes the
-        step's K/V into ``cache`` and advances its fill level, both in place
-        and on the device (no host synchronisation).  Returns logits
-        (B, V)."""
+        step's K/V into ``cache`` and advances its fill level(s), both in
+        place and on the device (no host synchronisation).  Returns logits
+        (B, V).
+
+        Over a ring ``KVCache`` with a shared t the step's K/V land at
+        slot t % S; with (B,) levels each lane takes its own RoPE position
+        and ring slot.  Over a ``PagedKVCache`` lane b writes physical
+        page bt[b, t // page] at in-page slot t % page; a lane past its
+        window (a stopped lane stepping to the end of its segment) writes
+        the trash page instead, so it can never clobber a page that the
+        allocator may hand to another lane (JAX ``attn_block``'s paged
+        branch)."""
         cfg = self.cfg
-        slot = torch.remainder(cache.t, cache.max_len).long().view(1)
-        rope_cs = rope_tables(cache.t.view(1), cfg.head_dim, cfg.rope_theta)
+        t = cache.t
+        B = tokens.shape[0]
+        if isinstance(cache, PagedKVCache):
+            page, P = cache.page_size, cache.bt.shape[1]
+            block = torch.clamp(torch.div(t, page, rounding_mode="floor"),
+                                max=P - 1).long()
+            pg = cache.bt.gather(1, block[:, None])[:, 0]
+            pg = torch.where(t < P * page, pg, torch.zeros_like(pg))
+            dest = (pg * page + torch.remainder(t, page)).long()
+        elif t.dim():
+            slot = (torch.arange(B, device=t.device),
+                    torch.remainder(t, cache.max_len).long())
+        else:
+            slot = torch.remainder(t, cache.max_len).long().view(1)
+        rope_cs = rope_tables(t.view(-1, 1) if t.dim() else t.view(1),
+                              cfg.head_dim, cfg.rope_theta)
         x = self.embed[tokens]
         for i, blk in enumerate(self.blocks):
-            x = blk.attn.decode(x, rope_cs, cache.t, slot, cache.k[i],
-                                cache.v[i])
+            if isinstance(cache, PagedKVCache):
+                x = blk.attn.decode_paged(x, rope_cs, t, dest, cache.k[i],
+                                          cache.v[i], cache.bt)
+            else:
+                x = blk.attn.decode(x, rope_cs, t, slot, cache.k[i],
+                                    cache.v[i])
             x = blk.mlp(x)
-        cache.t.add_(1)
+        t.add_(1)
         return self._head(x)[:, 0]

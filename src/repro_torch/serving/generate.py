@@ -1,5 +1,5 @@
-"""Fused greedy generation (port of ``repro.serving.generate.FusedDecoder``)
-and the prefill bucket helpers.
+"""Fused greedy generation (port of ``repro.serving.generate.FusedDecoder``,
+``LaneDecoder`` and ``PagedLaneDecoder``) and the prefill bucket helpers.
 
 The JAX decoder runs each segment as one jitted ``lax.while_loop`` with the
 stop predicate on the device.  Here a segment is a Python loop of
@@ -15,7 +15,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as Fn
+
+from repro_torch.models.model import KVCache
 
 
 class FusedDecoder:
@@ -96,6 +100,197 @@ class FusedDecoder:
                 break
         return {"tokens": out, "cancelled": cancelled, "segments": segments,
                 "cache": cache}
+
+
+class LaneDecoder:
+    """Lane-batched segmented greedy decoder: ``n_lanes`` concurrent
+    requests stepping together through one natively batched
+    ``decode_step`` per token.
+
+    The lanes share one ring ``KVCache`` whose fill level is a (lanes,)
+    vector, so lanes prefilled at different prompt lengths write their
+    next K/V at their own ring slots, take their own RoPE positions and
+    attend their own windows (K1 reads ``t[b]`` per lane).  Per lane the
+    arithmetic is the B=1 computation of the serial path; only the GEMMs
+    see the lane batch.
+
+    Segment semantics follow the JAX ``LaneDecoder``:
+
+    * the per-lane stop predicate (EOS, ``max_len`` ring budget,
+      ``max_new`` request budget) is evaluated on the device every step;
+      a stopped lane keeps its token and count frozen while the others
+      continue, and its cache receives dead writes that never reach
+      another lane and that the back-fill prefill overwrites wholesale;
+    * the host reads the per-lane token buffer once per segment;
+    * segment boundaries are the join points where the engine retires
+      finished lanes and back-fills vacant ones (:meth:`insert_lanes`).
+
+    One difference: the JAX loop ends a segment on the device as soon as
+    every lane has stopped.  Here the segment's length is fixed on the
+    host before it launches, from the budgets the host knows
+    (:meth:`segment_steps`: the longest live lane's remaining window and
+    request budget, capped at ``segment_len``), and only EOS is left to
+    the device mask.  A segment in which every lane meets EOS early
+    therefore runs on to its planned end: tokens are unchanged (the
+    masked lanes emit nothing), and ``dead_steps`` -- occupied lanes'
+    steps taken while stopped -- counts those extra steps too.
+    """
+
+    def __init__(self, lm, max_len: int, n_lanes: int, segment_len: int = 16):
+        if segment_len < 1 or n_lanes < 1:
+            raise ValueError("segment_len and n_lanes must be >= 1")
+        self.lm = lm
+        self.max_len = max_len
+        self.n_lanes = n_lanes
+        self.segment_len = segment_len
+
+    # ------------------------------------------------------------ lane admin
+    def init_lanes(self):
+        """Zero ring caches for ``n_lanes`` sequences, with (lanes,) fill
+        levels."""
+        cache = self.lm.init_cache(self.n_lanes, self.max_len)
+        cache.t = torch.zeros(self.n_lanes, dtype=torch.int32,
+                              device=self.lm.device)
+        return cache
+
+    def insert_lanes(self, lanes, lane_idx, cache):
+        """Drop a k-row prefill cache (padded to ``max_len`` slots, per-row
+        fill levels) into lanes ``lane_idx``, in place: every slot of those
+        lanes is overwritten, so a retired lane's dead writes are gone."""
+        idx = torch.as_tensor(lane_idx, dtype=torch.long,
+                              device=lanes.k.device)
+        lanes.k.index_copy_(1, idx, cache.k)
+        lanes.v.index_copy_(1, idx, cache.v)
+        lanes.t.index_copy_(0, idx, cache.t.reshape(-1).to(torch.int32))
+        return lanes
+
+    # -------------------------------------------------------------- segments
+    def segment_steps(self, tok, produced, plen, max_new, active,
+                      eos: int) -> int:
+        """Steps the coming segment runs (host numpy lane arrays): the most
+        any live lane may still take, capped at ``segment_len``; 0 when no
+        lane is live.  Live is the serial oracle's predicate, in its
+        order: not EOS, inside the window, inside the request budget."""
+        live = active & (tok != eos) & (plen + produced < self.max_len) \
+            & (produced < max_new)
+        if not live.any():
+            return 0
+        left = np.minimum(self.max_len - plen - produced,
+                          max_new - produced)[live]
+        return int(min(self.segment_len, left.max()))
+
+    @torch.no_grad()
+    def run_segment(self, caches, dev, steps: int, eos: int):
+        """Run ``steps`` decode steps across all lanes on the device.
+
+        ``dev`` holds the device lane arrays (tok, produced, plen,
+        max_new, active), all (C,); tok and produced advance in place for
+        live lanes.  Returns (buf (C, steps) int64 host array with -1
+        where a lane emitted nothing, dead lane-steps), read from the
+        device in ONE transfer."""
+        tok, produced, plen, max_new, active = dev
+        C = self.n_lanes
+        if steps == 0:
+            return np.full((C, 0), -1, np.int64), 0
+        buf = torch.empty((C, steps), dtype=torch.long, device=tok.device)
+        dead = torch.zeros((), dtype=torch.long, device=tok.device)
+        for i in range(steps):
+            lv = active & (tok != eos) & (plen + produced < self.max_len) \
+                & (produced < max_new)
+            dead += (active & ~lv).sum()
+            logits = self.lm.decode_step(caches, tok.view(C, 1))
+            tok.copy_(torch.where(lv, logits.argmax(dim=-1), tok))
+            buf[:, i] = torch.where(lv, tok, torch.full_like(tok, -1))
+            produced += lv
+        out = torch.cat([buf.view(-1), dead.view(1)]).cpu().numpy()
+        return out[:-1].reshape(C, steps), int(out[-1])
+
+
+class PagedLaneDecoder(LaneDecoder):
+    """Lane decoder over a block-paged KV pool (``serving/paging.py``).
+
+    Same segment loop and stop semantics as :class:`LaneDecoder`, but the
+    lanes share one ``PagedKVCache``: physical pools addressed through
+    per-lane block tables.  Back-fill scatters a contiguous prefill cache
+    into the lane's pages, a prefix hit gathers cached pages back into a
+    contiguous buffer for an extend prefill, and page growth and release
+    only rewrite block-table rows.  Decode reads the pool in place through
+    K2.  Every logical slot holds the value the ring path holds, so
+    per-lane tokens equal the ring lanes' (tests/test_torch_paging.py).
+    """
+
+    def __init__(self, lm, max_len: int, n_lanes: int, segment_len: int = 16,
+                 *, n_pages: int, page_size: int):
+        super().__init__(lm, max_len, n_lanes, segment_len)
+        self.n_pages = int(n_pages)        # physical pool incl. trash page 0
+        self.page_size = int(page_size)
+
+    # ------------------------------------------------------------ lane admin
+    def init_lanes(self):
+        """Zero pools of ``n_pages`` pages plus per-lane block tables (all
+        slots 0 = the pinned trash page)."""
+        return self.lm.init_paged_cache(self.n_lanes, self.max_len,
+                                        self.n_pages, self.page_size)
+
+    def insert_paged(self, lanes, lane_idx, pcache, bt_rows, tgt):
+        """Scatter a k-row contiguous prefill cache into the pool.
+
+        ``pcache`` holds (layers, k, Bf, KV, hd) buffers (a bucketed group
+        prefill or an extend prefill); ``bt_rows`` (k, P) is each lane's
+        full block table; ``tgt`` (k, ceil(Bf / page)) maps each page-sized
+        chunk to the physical page that receives it, 0 for pad chunks
+        beyond the prompt and for prefix pages whose contents already live
+        in the pool (possibly shared).  Chunks bound for page 0 are not
+        written at all, so neither a pad chunk nor a duplicate index can
+        touch a real page; the real pages are distinct and go in with one
+        ``index_copy_`` per pool."""
+        ps = self.page_size
+        L, k, Bf, KV, hd = pcache.k.shape
+        nchunk = -(-Bf // ps)
+        tgt = np.asarray(tgt, np.int64).reshape(k, -1)[:, :nchunk]
+        rows, chunks = np.nonzero(tgt)
+        dev = lanes.k.device
+        if len(rows):
+            pages = torch.as_tensor(tgt[rows, chunks], device=dev)
+            r = torch.as_tensor(rows, device=dev)
+            c = torch.as_tensor(chunks, device=dev)
+            for pool, buf in ((lanes.k, pcache.k), (lanes.v, pcache.v)):
+                if nchunk * ps != Bf:
+                    buf = Fn.pad(buf, (0, 0, 0, 0, 0, nchunk * ps - Bf))
+                buf = buf.reshape(L, k, nchunk, ps, KV, hd)
+                pool.index_copy_(1, pages, buf[:, r, c])
+        idx = torch.as_tensor(lane_idx, dtype=torch.long, device=dev)
+        lanes.t.index_copy_(0, idx, pcache.t.reshape(-1).expand(k)
+                            .to(torch.int32))
+        lanes.bt.index_copy_(0, idx, torch.as_tensor(
+            np.asarray(bt_rows, np.int32).reshape(k, -1), device=dev))
+        return lanes
+
+    def gather_prefix(self, lanes, pages, prefix_len: int) -> KVCache:
+        """Materialise cached pages as a contiguous (B=1) ring cache at fill
+        level ``prefix_len`` -- the input of an extend prefill.  ``pages``
+        (nf,) is the physical page per logical block; entries past the
+        matched prefix may be 0 (trash): the extend prefill overwrites
+        those slots before anything attends them."""
+        dev = lanes.k.device
+        idx = torch.as_tensor(np.asarray(pages, np.int64), device=dev)
+        L, _, ps, KV, hd = lanes.k.shape
+        n = len(pages) * ps
+        return KVCache(k=lanes.k[:, idx].reshape(L, 1, n, KV, hd),
+                       v=lanes.v[:, idx].reshape(L, 1, n, KV, hd),
+                       t=torch.tensor(int(prefix_len), dtype=torch.int32,
+                                      device=dev))
+
+    def set_bt(self, lanes, lane_idx, bt_rows):
+        """Rewrite block-table rows in place: page growth extends a busy
+        lane's table; release zeroes it so the lane's dead writes land on
+        the trash page instead of a reallocated page."""
+        dev = lanes.bt.device
+        idx = torch.as_tensor(lane_idx, dtype=torch.long, device=dev)
+        lanes.bt.index_copy_(0, idx, torch.as_tensor(
+            np.asarray(bt_rows, np.int32).reshape(len(lane_idx), -1),
+            device=dev))
+        return lanes
 
 
 def geometric_buckets(max_len: int, floor: int = 16) -> tuple:

@@ -1,16 +1,24 @@
 """The Clairvoyant front end (port of ``repro.serving.server.
-ClairvoyantServer`` for one serial replica): features -> predictor -> SJF
-queue -> ``RealEngine``.
+ClairvoyantServer`` for one replica): features -> predictor -> SJF queue ->
+a serial ``RealEngine`` or a lane engine (``BatchedRealEngine``,
+``PagedBatchedEngine``).
 
 Admission is batched: ``submit_many`` scores a whole arrival burst with one
 predictor call (feature extraction on the host, K4 on the card).  ``drain``
-then serves the queue serially and non-preemptively: pop (starvation guard
-first, then the policy key), tokenize, bucketed prefill, fused decode.
-Every admitted request ends in exactly one ``CompletionResponse``.
+then serves the queue non-preemptively.  A serial engine takes one request
+at a time: pop (starvation guard first, then the policy key), tokenize,
+bucketed prefill, fused decode.  A lane engine pulls through
+``SJFQueue.pop_many`` whenever lanes are vacant, so the queue stays the one
+source of dispatch order.  ``cancel`` removes a queued request at once and
+evicts a request in a lane at its next segment boundary.  Every admitted
+request ends in exactly one ``CompletionResponse``.  The JAX server's
+router, fault layer, deadlines, shedding and flight recorder are not
+ported.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -18,13 +26,14 @@ import numpy as np
 from repro_torch.core.policy import get_policy
 from repro_torch.core.scheduler import Request, SJFQueue
 from repro_torch.data.tokenizer import HashTokenizer, approx_token_len
+from repro_torch.serving.engine import BatchedRealEngine
 from repro_torch.serving.openai_api import (CompletionRequest,
                                             CompletionResponse)
 from repro_torch.serving.service_time import ServiceTimeModel
 
 
 class ClairvoyantServer:
-    """One ``RealEngine`` replica behind one ``SJFQueue``.
+    """One engine replica (serial or lanes) behind one ``SJFQueue``.
 
     ``policy``: "fcfs", "sjf" or "sjf_oracle" (or a ``Policy``); ``tau``:
     the starvation-guard timeout in seconds (None = off).
@@ -45,6 +54,7 @@ class ClairvoyantServer:
         self._tokenizer = HashTokenizer(self.engines[0].cfg.vocab_size)
         self._inflight: Dict[int, CompletionRequest] = {}
         self._terminal: Dict[int, str] = {}
+        self._disconnected: set = set()     # in-flight lane cancels, by id
         self._next_id = 1
         self.responses: List[CompletionResponse] = []
 
@@ -124,11 +134,43 @@ class ClairvoyantServer:
         ids = self._tokenizer.encode(req.prompt)[:max(1, max_len - n_total)]
         return ids, n_total
 
+    def cancel(self, request_id: int) -> bool:
+        """Client disconnect.  A queued request is removed and terminates
+        at once with a ``cancelled`` response; one in a lane of a lane
+        engine is evicted at the next segment boundary and terminates
+        then.  False otherwise (the serial engine's in-flight cancel is
+        ``RealEngine.request_cancel``)."""
+        req = self.queue._live.get(request_id)
+        if self.queue.cancel(request_id):
+            self._finish(CompletionResponse(
+                request_id=request_id, text="", tokens_generated=0,
+                queue_wait_s=0.0, service_s=0.0,
+                replica=self.engines[0].replica_id, p_long=req.p_long,
+                klass=req.klass, status="cancelled",
+                error="client disconnect (queued)"))
+            return True
+        mgr = getattr(self.engines[0], "lane_manager", None)
+        if mgr is not None and mgr.lane_of(request_id) is not None:
+            self._disconnected.add(request_id)
+            return True
+        return False
+
     def drain(self, max_new_tokens: int = 64) -> List[CompletionResponse]:
-        """Serve the queue to empty, one request at a time, on a clock
-        that starts at the engine's ``busy_until`` and advances by each
-        request's measured wall-clock service time."""
+        """Serve the queue to empty: through the lanes on a lane engine
+        (non-preemptive policies, as in the JAX server), else one request
+        at a time."""
         eng = self.engines[0]
+        if isinstance(eng, BatchedRealEngine) \
+                and not getattr(self.policy_obj, "preemptive", False):
+            self._drain_batched(eng, max_new_tokens)
+        else:
+            self._drain_serial(eng, max_new_tokens)
+        return self.responses
+
+    def _drain_serial(self, eng, max_new_tokens: int) -> None:
+        """One request at a time, on a clock that starts at the engine's
+        ``busy_until`` and advances by each request's measured wall-clock
+        service time."""
         t = eng.busy_until
         while True:
             req = self.queue.pop(now=t)
@@ -152,7 +194,61 @@ class ClairvoyantServer:
                 error="cancelled mid-generation" if out["cancelled"]
                 else None,
                 token_ids=list(out["tokens"])))
-        return self.responses
+
+    def _drain_batched(self, eng: BatchedRealEngine,
+                       max_new_tokens: int) -> None:
+        """Micro-batched wall-clock drain (JAX ``_drain_batched`` without
+        shedding, faults or recorder): up to ``eng.n_lanes`` requests
+        decode concurrently under the engine's KV budget.
+
+        The engine's lane back-fill pulls through :meth:`SJFQueue.pop_many`,
+        so the starvation guard is re-evaluated between every pop.
+        Admission is memory-aware: a head whose footprint does not fit
+        blocks back-fill until lanes retire.  A client disconnect evicts
+        its lane at the next segment boundary.  The clock starts at the
+        engine's ``busy_until`` and runs on the wall clock."""
+        t_base = eng.busy_until
+        wall0 = time.monotonic()
+
+        def now() -> float:
+            return t_base + (time.monotonic() - wall0)
+
+        def source(k: int):
+            items = []
+            for req in self.queue.pop_many(k, now=now()):
+                ids, n_total = self._prepare_ids(req, eng.max_len,
+                                                 max_new_tokens)
+                items.append({"req_id": req.req_id, "ids": ids,
+                              "max_new": n_total, "tenant": req.tenant,
+                              "meta": {"req": req}})
+            return items
+
+        def cancel_check(state) -> bool:
+            return state.req_id in self._disconnected
+
+        def on_finish(state, out):
+            req = state.meta["req"]
+            if req.start is None:
+                req.start = max(out["admit_t"], req.arrival)
+            req.finish = max(out["finish_t"], req.start)
+            cancelled = out["cancelled"]
+            self._disconnected.discard(req.req_id)
+            self._finish(CompletionResponse(
+                request_id=req.req_id, text="",
+                tokens_generated=len(out["tokens"]),
+                queue_wait_s=req.start - req.arrival,
+                service_s=req.finish - req.start,
+                ttft_s=req.start - req.arrival + out["ttft_s"],
+                promoted=req.promoted, replica=eng.replica_id,
+                p_long=req.p_long, klass=req.klass,
+                status="cancelled" if cancelled else "ok",
+                error="client disconnect (mid-generation)" if cancelled
+                else None,
+                token_ids=list(out["tokens"])))
+
+        eng.run_lanes(source, on_finish, cancel_check=cancel_check,
+                      now_fn=now)
+        eng.busy_until = now()
 
     # --------------------------------------------------------------- stats
     def percentile(self, q: float, klass: Optional[str] = None,

@@ -11,6 +11,8 @@ port, so it also runs where JAX is not installed:
 Tolerances: 1e-4 in float32 and 2e-2 in bfloat16 between kernel and plain
 version (the kernels accumulate in float32 in another order); GBDT
 margins at 1e-4 and bitwise equal from run to run (no float atomics).
+K2 against K1 on the same logical contents is exact: both run one body
+(csrc/decode_tile.cuh).
 """
 
 import numpy as np
@@ -20,7 +22,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.gbdt import GBDTParams, train_gbdt
 from repro_torch.kernels import ops, ref
-from repro_torch.serving.engine import RealEngine
+from repro_torch.serving.engine import (BatchedRealEngine, PagedBatchedEngine,
+                                       RealEngine)
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -103,3 +106,99 @@ def test_engine_on_card_fused_equals_oracle(cuda, dtype):
         == 2 * 29
     assert fused["tokens"] == eng.generate_reference(
         ids, max_new_tokens=30)["tokens"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype):
+    """K1 with (B,) fill levels, two of them wrapped: each lane is the
+    scalar-t launch for that lane, and the batch matches the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, S = 4, 128
+    q = torch.randn(B, 1, 15, 64, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, 5, 64, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    t = torch.tensor([0, 77, S + 3, 3 * S], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, t)
+    _close(got, ops.decode_attention(q.cpu(), k.cpu(), v.cpu(), t.cpu()),
+           dtype)
+    for b in range(B):
+        solo = ops.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                    t[b:b + 1])
+        assert torch.equal(solo[0], got[b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [8, 16, 32])
+def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page):
+    """K2 through a shuffled block table (trash page poisoned, one lane
+    past its window) == its plain version, and == K1 bit for bit on the
+    same logical window."""
+    g = torch.Generator(device=cuda).manual_seed(page)
+    B, P = 4, 512 // page
+    n_pages = B * P + 1
+    pk, pv = (torch.randn(n_pages, page, 5, 64, generator=g, device=cuda)
+              .to(dtype) for _ in range(2))
+    pk[0], pv[0] = 1e4, -1e4
+    bt = (torch.randperm(n_pages - 1, generator=g, device=cuda)[:B * P] + 1) \
+        .view(B, P).to(torch.int32)
+    t = torch.tensor([3, 200, 511, 600], dtype=torch.int32, device=cuda)
+    bt[0, 1:] = 0                              # lane 0: one page allocated
+    q = torch.randn(B, 1, 15, 64, generator=g, device=cuda).to(dtype)
+    before = ops.LAUNCHES["paged_decode_attention"]
+    got = ops.paged_decode_attention(q, pk, pv, bt, t)
+    assert ops.LAUNCHES["paged_decode_attention"] == before + 1
+    _close(got, ops.paged_decode_attention(q.cpu(), pk.cpu(), pv.cpu(),
+                                           bt.cpu(), t.cpu()), dtype)
+    ring_k = pk[bt.long()].reshape(B, P * page, 5, 64)
+    ring_v = pv[bt.long()].reshape(B, P * page, 5, 64)
+    assert torch.equal(got, ops.decode_attention(q, ring_k, ring_v, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prefix,suffix", [(64, 16), (48, 64), (128, 64)])
+def test_flash_kernel_extend_matches_plain(cuda, dtype, prefix, suffix):
+    """K3 with q_offset over a longer key buffer == its plain version, and
+    the suffix rows equal those rows of the cold prefill bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(prefix + suffix)
+    extent = prefix + suffix + 32
+    qf = torch.randn(1, prefix + suffix, 15, 64, generator=g,
+                     device=cuda).to(dtype)
+    k, v = (torch.randn(1, extent, 5, 64, generator=g, device=cuda)
+            .to(dtype) for _ in range(2))
+    q = qf[:, prefix:]
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=prefix)
+    _close(got, ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True,
+                                    q_offset=prefix), dtype)
+    n = prefix + suffix
+    cold = ops.flash_attention(qf, k[:, :n].contiguous(),
+                               v[:, :n].contiguous(), causal=True)
+    assert torch.equal(cold[:, prefix:], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_lanes_equal_ring_lanes_on_card(cuda, dtype):
+    """A 2-layer model's ring and paged lane engines on the card give the
+    same greedy tokens; the paged decode launches K2 and no K1."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              num_layers=2, num_heads=6, num_kv_heads=2,
+                              dtype=dtype)
+    ring = BatchedRealEngine(cfg, max_len=96, segment_len=8, n_lanes=3,
+                             device=cuda)
+    paged = PagedBatchedEngine(cfg, state_dict=ring.lm.state_dict(),
+                               max_len=96, segment_len=8, n_lanes=3,
+                               page_size=16, device=cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (5, 17, 30, 9)]
+    want = [r["tokens"] for r in ring.generate_batch(prompts, 20)]
+    before = dict(ops.LAUNCHES)
+    got = [r["tokens"] for r in paged.generate_batch(prompts, 20)]
+    assert got == want
+    assert ops.LAUNCHES["paged_decode_attention"] > \
+        before["paged_decode_attention"]
+    assert ops.LAUNCHES["decode_attention"] == before["decode_attention"]

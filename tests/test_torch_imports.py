@@ -21,17 +21,23 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
-print(len(names), bad)
+missing = sorted(set(NEW) - set(names))
+print(len(names), bad, missing)
 """
+
+#: the lane and paged slice's modules, imported by name as well
+NEW = ["repro_torch.serving.batching", "repro_torch.serving.paging",
+       "repro_torch.kernels.paged_decode_attention"]
 
 
 def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+    probe = f"NEW = {NEW!r}\n" + _PROBE
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 20                    # every module was imported
-    assert out[1].strip() == "[]"
+    assert int(out[0]) >= 23                    # every module was imported
+    assert out[1].strip() == "[] []"
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():

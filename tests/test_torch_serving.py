@@ -94,6 +94,23 @@ def test_p_long_matches_jax(dataset):
                                jpred.p_long_batch(prompts), atol=1e-6)
 
 
+def test_gbdt_scoring_defaults_to_the_card(dataset):
+    """``predict_margin``/``predict_proba`` named no device and used to
+    score on the host; they now take the card unless asked for the CPU,
+    so with no card and no device they raise."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    X = features.extract_batch(dataset.prompts[:20])
+    model = train_gbdt(X, class_labels(dataset.lengths[:20]),
+                       GBDTParams(num_rounds=2))
+    for score in (model.predict_margin, model.predict_proba):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            score(X)
+    np.testing.assert_allclose(model.predict_proba(X, device="cpu").sum(1),
+                               1.0, rtol=1e-6)
+
+
 # ----------------------------------------------------------------- queue
 @pytest.mark.parametrize("policy", ["fcfs", "sjf", "sjf_oracle"])
 def test_sjf_queue_matches_jax(policy):
