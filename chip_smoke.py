@@ -21,13 +21,20 @@ path and read just after:
   a float32 copy with TF32 off holds ring lanes, paged lanes, the serial
   engine and the warm pass to the same tokens;
 * ``[paged-burst]`` the burst again through ``ClairvoyantServer`` with
-  one ``PagedBatchedEngine``, under FCFS and SJF.
+  one ``PagedBatchedEngine``, under FCFS and SJF;
+* ``[sidecar]`` the burst over HTTP through the port's ``Sidecar``
+  (``127.0.0.1:0``) in front of one ``InProcessBackend(RealEngine)``,
+  under FCFS and then SJF, half the requests as SSE streams: every
+  admission scores one row through the packed ensemble (K5) on the
+  predictor's own stream; then a client disconnect, a deadline shed, a
+  ``/metrics`` scrape and a graceful shutdown under load.
 
 It fails (nonzero exit, no result line) without a CUDA device, without
 the repository beside it, when a kernel does not build, launch or agree
 with its plain version, when a response is not ``ok``, when tokens that
 must agree do not, or when a kernel of a path was never launched on it
-(and when the paged path launches the ring kernel K1).
+(and when the paged path launches the ring kernel K1, or the sidecar's
+one-request admissions launch the batch kernel K4).
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -335,6 +342,87 @@ def _visited_nodes(X, feat, thr) -> int:
     return int(torch.unique(flat).numel())
 
 
+def _visited_packed(X, feat, thr, child, depth) -> int:
+    """Distinct (tree, slot) pairs of the packed layout that the walks
+    over X touch."""
+    import torch
+    T, M = feat.shape
+    idx = torch.zeros(T, X.shape[0], dtype=torch.long, device=X.device)
+    seen = [idx.clone()]
+    f64, c64 = feat.long(), child.long()
+    for _ in range(depth):
+        xi = X.T.gather(0, torch.gather(f64, 1, idx))
+        idx = torch.gather(c64, 1, idx) + (
+            ~(xi < torch.gather(thr, 1, idx))).long()
+        seen.append(idx.clone())
+    tree = torch.arange(T, device=X.device)[:, None]
+    flat = torch.cat([s + tree * M for s in seen], dim=1)
+    return int(torch.unique(flat).numel())
+
+
+def phase_packed_kernel(model, prompts) -> dict:
+    """K5 on the packed 60-round ensemble over real admission features at
+    batch 1 (one sidecar admission), 16 (a burst) and 512: against its
+    plain version and against K4 (bitwise in practice, 1e-5 held), device
+    ms of both kernels, and which layout ``gbdt_margins_best`` picks."""
+    import torch
+    from repro_torch.core.features import extract_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gbdt_infer import (gbdt_margins_cuda,
+                                                gbdt_margins_packed_cuda,
+                                                gbdt_margins_packed_plain)
+    packed = model.packed()
+    pf, pt, pc, pv = packed.tensors("cuda")
+    feat, thr, val = model.tensors("cuda")
+    T, M = pf.shape
+    K, depth, base = model.n_classes, packed.depth, packed.base_score
+    kw = dict(depth=depth, n_classes=K, base_score=base)
+    rows, err = [], 0.0
+    for B in (1, 16, 512):
+        X = torch.as_tensor(extract_batch(prompts[:B]), device="cuda")
+        got = gbdt_margins_packed_cuda(X, pf, pt, pc, pv, **kw)
+        want = gbdt_margins_packed_plain(X, pf, pt, pc, pv, **kw)
+        dense = gbdt_margins_cuda(X, feat, thr, val, n_classes=K) + base
+        torch.cuda.synchronize()
+        e = _max_err(got, want)
+        _check(f"gbdt_margins_packed B={B}", e, 1e-5)
+        _check(f"gbdt_margins_packed vs K4 B={B}", _max_err(got, dense),
+               1e-5)
+        if not torch.equal(got, gbdt_margins_packed_cuda(X, pf, pt, pc, pv,
+                                                         **kw)):
+            raise AssertionError("gbdt_margins_packed is not deterministic")
+        err = max(err, e)
+        kern = lambda: gbdt_margins_packed_cuda(  # noqa: E731
+            X, pf, pt, pc, pv, **kw)
+        ms = _device_ms(kern)
+        k4 = _device_ms(lambda: gbdt_margins_cuda(X, feat, thr, val,
+                                                  n_classes=K))
+        plain = _device_ms(lambda: gbdt_margins_packed_plain(
+            X, pf, pt, pc, pv, **kw), iters=5)
+        # bytes this data needs: every distinct slot visited (feature,
+        # threshold, child and value, 16 B each) plus X and the margins
+        visited = _visited_packed(X, pf, pt, pc, depth)
+        bound, by = _bound(visited * 16 + X.numel() * 4 + B * K * 4,
+                           B * T * depth, torch.float32)
+        choice = ops.preferred_gbdt_layout(X, model) if B in (1, 16) \
+            else "-"
+        rows.append((B, ms, plain, bound, by))
+        print(f"[K5 gbdt_margins_packed] B={B} T={T} M={M} depth={depth}: "
+              f"device ms kernel {ms:.4f}, K4 {k4:.4f}, plain {plain:.4f}; "
+              f"bound {bound * 1e3:.3f} us ({by}, {visited} slots visited); "
+              f"host-paced kernel {_ms(kern):.4f} ms/call; max|err| "
+              f"{e:.2e}, == K4 {torch.equal(got, dense)}; "
+              f"gbdt_margins_best picks {choice}")
+    B, ms, plain, bound, by = rows[0]
+    print(f"[K5 gbdt_margins_packed] kernels line: f32 B={B} T={T} M={M} "
+          f"depth={depth} (one sidecar admission)")
+    return {"name": "gbdt_margins_packed", "route": "cuda",
+            "source": "src/repro_torch/csrc/gbdt_infer.cu",
+            "replaces": "src/repro/kernels/gbdt_infer.py:150",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
 def phase_full_width_reference(cfg) -> float:
     """The card's path (K1, K3, cuBLAS) against the CPU's plain path on
     the same full-width float32 weights: prefill logits and 8 greedy
@@ -369,8 +457,9 @@ def phase_full_width_reference(cfg) -> float:
     return worst
 
 
-def phase_slice(cfg, predictor, smi) -> dict:
-    """The main path at full width: burst -> predictor -> SJF -> engine."""
+def phase_slice(cfg, predictor, smi) -> tuple:
+    """The main path at full width: burst -> predictor -> SJF -> engine.
+    Returns the launches, the engine and each prompt's greedy tokens."""
     import torch
     from repro_torch.data.corpus import sample_dataset
     from repro_torch.kernels import ops
@@ -422,12 +511,17 @@ def phase_slice(cfg, predictor, smi) -> dict:
             "tokens": sum(r.tokens_generated for r in resp),
             "wall_s": wall,
             "order": [r.request_id for r in resp],
+            "by_prompt": {pool.prompts[order[r.request_id - 1]]:
+                          r.token_ids for r in resp},
             "launches": {k: ops.LAUNCHES[k] - before[k] for k in before}}
     launches = dict(ops.LAUNCHES)
     _check_path("[slice]", launches,
                 ("decode_attention", "flash_attention", "gbdt_margins"),
-                ("paged_decode_attention",))
+                ("paged_decode_attention", "gbdt_margins_packed"))
     sjf, fcfs = per_policy["sjf"], per_policy["fcfs"]
+    if sjf["by_prompt"] != fcfs["by_prompt"]:
+        raise AssertionError("[slice] a prompt's tokens differ between the "
+                             "FCFS and the SJF run")
     for p, v in per_policy.items():
         print(f"[slice] {p}: short P50 {v['short_p50_ms']:.1f} ms, long P50 "
               f"{v['long_p50_ms']:.1f} ms, sojourn-TTFT P50 "
@@ -454,7 +548,343 @@ def phase_slice(cfg, predictor, smi) -> dict:
           f"{per_tok * 1e3:.3f} ms/token ({1 / per_tok:.0f} tok/s; per-token "
           f"oracle loop {per_tok_ref * 1e3:.3f} ms/token), peak memory "
           f"{peak:.0f} MiB  [{smi}]")
-    return launches
+    return launches, eng, sjf["by_prompt"]
+
+
+async def _http(port, body=None, headers=None, method="POST",
+                path="/v1/chat/completions", close_after_first=False):
+    """One loopback HTTP exchange: ("json", status, obj), ("sse", status,
+    frames) or ("disconnected", status, frames so far) when the client
+    hangs up after the first SSE frame (``close_after_first``)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        payload = b"" if body is None else json.dumps(body).encode()
+        hdrs = {"Host": "loopback", "Connection": "close"}
+        if payload:
+            hdrs["Content-Type"] = "application/json"
+            hdrs["Content-Length"] = str(len(payload))
+        hdrs.update(headers or {})
+        writer.write((f"{method} {path} HTTP/1.1\r\n" + "".join(
+            f"{k}: {v}\r\n" for k, v in hdrs.items()) + "\r\n").encode()
+            + payload)
+        await writer.drain()
+        if close_after_first:
+            head = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"),
+                                          60.0)
+            frame = await asyncio.wait_for(reader.readuntil(b"\n\n"), 60.0)
+            return ("disconnected", int(head.split()[1]),
+                    [frame.decode().strip()])
+        data = await asyncio.wait_for(reader.read(), 120.0)
+    finally:
+        writer.close()
+        try:
+            await writer.wait_closed()
+        except (ConnectionError, OSError):
+            pass
+    head, _, raw = data.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    status = int(lines[0].split()[1])
+    if any(ln.lower().startswith("content-type: text/event-stream")
+           for ln in lines):
+        frames = [b.strip()[len("data: "):]
+                  for b in raw.decode().split("\n\n") if b.strip()]
+        return "sse", status, frames
+    if "text/plain" in head.decode("latin-1"):
+        return "text", status, raw.decode()
+    return "json", status, json.loads(raw) if raw else {}
+
+
+def _wire_tokens(kind, obj) -> list:
+    """Token ids of a wire response (its text is ``t<id>`` words)."""
+    if kind == "sse":
+        text = "".join(json.loads(f)["choices"][0]["delta"].get("content", "")
+                       for f in obj[:-1])
+    else:
+        text = obj["choices"][0]["message"]["content"]
+    return [int(w[1:]) for w in text.split()]
+
+
+def _admission_ms(predictor, eng, prompts) -> dict:
+    """Host milliseconds of one admission score (features + K5 + read
+    back), idle and while the engine decodes in another thread, on the
+    predictor's own stream and, for comparison, on the default stream."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core import features as F
+
+    def one(on_own_stream):
+        t0 = time.perf_counter()
+        if on_own_stream:
+            predictor.proba(prompts[0])
+        else:
+            predictor.model.predict_proba(F.extract(prompts[0])[None],
+                                          predictor.device)
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    for own in (True, False):
+        tag = "own stream" if own else "default stream"
+        for _ in range(5):
+            one(own)
+        out[f"idle, {tag}"] = [one(own) for _ in range(30)]
+        done = threading.Event()
+
+        def decode():
+            eng.generate(list(range(5, 29)), max_new_tokens=MAX_NEW)
+            torch.cuda.synchronize()
+            done.set()
+
+        th = threading.Thread(target=decode)
+        th.start()
+        time.sleep(0.05)                       # the decode is under way
+        busy = []
+        while not done.is_set() and len(busy) < 60:
+            busy.append(one(own))
+            time.sleep(0.005)
+        th.join(timeout=120)
+        if th.is_alive():
+            raise AssertionError("decode thread did not finish")
+        out[f"during decode, {tag}"] = busy
+    return {k: (float(np.median(v)), float(np.percentile(v, 99)), len(v))
+            for k, v in out.items()}
+
+
+def _decode_ms_by_thread(eng) -> dict:
+    """Decode ms/token of one 64-token request run on the main thread,
+    on a plain worker thread, and through ``asyncio.to_thread`` under an
+    event loop (how ``InProcessBackend`` runs it), in turns."""
+    import asyncio
+    import threading
+    import numpy as np
+    import torch
+    ids = list(range(5, 29))
+
+    def run():
+        out = eng.generate(ids, max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+        return out
+
+    def on_thread():
+        box = {}
+        th = threading.Thread(target=lambda: box.update(out=run()))
+        th.start()
+        th.join(timeout=120)
+        if th.is_alive():
+            raise AssertionError("decode thread did not finish")
+        return box["out"]
+
+    ways = {"main thread": run, "worker thread": on_thread,
+            "asyncio.to_thread": lambda: asyncio.run(asyncio.to_thread(run))}
+    ms = {k: [] for k in ways}
+    for k in list(ways) + list(ways)[::-1]:
+        out = ways[k]()
+        ms[k].append((out["service_s"] - out["ttft_s"])
+                     / (len(out["tokens"]) - 1) * 1e3)
+    return {k: float(np.median(v)) for k, v in ms.items()}
+
+
+def phase_sidecar(eng, predictor, smi, slice_tokens, totals) -> None:
+    """The serve-bench burst over HTTP through the port's Sidecar, with
+    the [slice] engine behind an InProcessBackend (the engine decodes in
+    a worker thread).  FCFS, then SJF: every response ok with the
+    [slice] tokens; under SJF one K5 launch per admission and no K4."""
+    import asyncio
+    import numpy as np
+    import torch
+    from repro_torch.data.corpus import sample_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backends import InProcessBackend
+    from repro_torch.serving.http_sidecar import Sidecar
+    from repro_torch.serving.observability import parse_prometheus
+    from repro_torch.serving.server import ClairvoyantServer
+
+    pool = sample_dataset("sharegpt", n=4000, seed=1)
+    shorts = [i for i in range(len(pool)) if pool.lengths[i] < 120][:N_SHORT]
+    longs = [i for i in range(len(pool)) if pool.lengths[i] >= 1000][:N_LONG]
+    order = longs + shorts
+
+    def make(policy, **kw):
+        server = ClairvoyantServer(policy=policy, tau=None,
+                                   predictor=predictor,
+                                   engines=[InProcessBackend(eng)],
+                                   deadline_mode="sojourn", **kw)
+        return Sidecar(server, port=0, max_new_tokens=MAX_NEW)
+
+    async def burst(sc):
+        async def client(j, i):
+            await asyncio.sleep(j * 0.002)         # arrive in burst order
+            n = 64 if i in longs else 8
+            t0 = time.monotonic()
+            out = await _http(sc.port, {
+                "messages": [{"role": "user", "content": pool.prompts[i]}],
+                "max_tokens": n, "output_tokens": n,
+                "klass": "long" if i in longs else "short",
+                "stream": j % 2 == 1})
+            return i, time.monotonic() - t0, out
+        return await asyncio.wait_for(asyncio.gather(
+            *[client(j, i) for j, i in enumerate(order)]), 600.0)
+
+    per = {}
+    for policy in ("fcfs", "sjf"):
+        sc = make(policy)
+        admit_ms = []
+        submit = sc.server.submit
+
+        def timed_submit(*a, _submit=submit, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _submit(*a, **kw)
+            finally:
+                admit_ms.append((time.perf_counter() - t0) * 1e3)
+
+        sc.server.submit = timed_submit
+
+        async def run(sc=sc):
+            await sc.start()
+            try:
+                return await burst(sc)
+            finally:
+                await sc.shutdown(drain_s=5.0)
+
+        ops.reset_launches()
+        w0 = time.monotonic()
+        outs = asyncio.run(run())
+        torch.cuda.synchronize()
+        wall = time.monotonic() - w0
+        launches = dict(ops.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] += v
+        srv = sc.server
+        bad = [(i, kind, st) for i, _, (kind, st, _) in outs
+               if st != 200 or kind not in ("json", "sse")]
+        if bad or any(v != "ok" for v in srv._terminal.values()) \
+                or len(srv._terminal) != len(order):
+            raise AssertionError(f"[sidecar] {policy}: not every response "
+                                 f"is ok: {bad} {srv._terminal}")
+        for i, _, (kind, _, obj) in outs:
+            if kind == "sse" and obj[-1] != "[DONE]":
+                raise AssertionError("[sidecar] an SSE stream did not end "
+                                     "in [DONE]")
+            if _wire_tokens(kind, obj) != slice_tokens[pool.prompts[i]]:
+                raise AssertionError(f"[sidecar] {policy}: tokens over the "
+                                     f"wire differ from [slice]'s for "
+                                     f"prompt {i}")
+        if srv.fault_stats["predictor_failures"]:
+            raise AssertionError(f"[sidecar] the predictor failed: "
+                                 f"{srv.predictor_error}")
+        if policy == "sjf":
+            _check_path("[sidecar] sjf", launches,
+                        ("decode_attention", "flash_attention",
+                         "gbdt_margins_packed"),
+                        ("paged_decode_attention", "gbdt_margins"))
+            if launches["gbdt_margins_packed"] != len(order):
+                raise AssertionError(
+                    f"[sidecar] {launches['gbdt_margins_packed']} K5 "
+                    f"launches for {len(order)} SJF admissions")
+        else:
+            _check_path("[sidecar] fcfs", launches,
+                        ("decode_attention", "flash_attention"),
+                        ("paged_decode_attention", "gbdt_margins",
+                         "gbdt_margins_packed"))
+        soj = {c: [t for i, t, _ in outs if (i in longs) == (c == "long")]
+               for c in ("short", "long")}
+        finish = [r.request_id for r in srv.responses]
+        per[policy] = {c: float(np.median(v)) * 1e3 for c, v in soj.items()}
+        print(f"[sidecar] {policy}: short P50 {per[policy]['short']:.1f} ms, "
+              f"long P50 {per[policy]['long']:.1f} ms over the wire, "
+              f"{len(order)} responses ok ({len(order) // 2} SSE), tokens == "
+              f"[slice]'s, {wall:.2f} s, admissions (submit) P50 "
+              f"{np.median(admit_ms):.3f} ms max {max(admit_ms):.3f} ms, "
+              f"launches {launches}, finish order (one serial replica: "
+              f"the dispatch order) {finish}  [{smi}]")
+    print(f"[sidecar] SJF short P50 vs FCFS over the wire: "
+          f"{100 * (1 - per['sjf']['short'] / per['fcfs']['short']):.1f}% "
+          f"lower; K5 launches == SJF admissions ({len(order)}), no K4 "
+          f"launch  [{smi}]")
+
+    by_thread = _decode_ms_by_thread(eng)
+    print("[sidecar] decode ms/token of one request (median of 2, in "
+          "turns): " + ", ".join(f"{k} {v:.3f}" for k, v in by_thread.items())
+          + f"  [{smi}]")
+    lat = _admission_ms(predictor, eng, [pool.prompts[i] for i in shorts])
+    for k, (p50, p99, n) in lat.items():
+        print(f"[sidecar] admission (features + K5 + read-back) {k}: P50 "
+              f"{p50:.3f} ms, P99 {p99:.3f} ms over {n} calls  [{smi}]")
+
+    async def extras():
+        sc = make("sjf")
+        await sc.start()
+        srv = sc.server
+        try:
+            # a client that hangs up mid-stream cancels its generation
+            long_p = pool.prompts[longs[0]]
+            kind, st, _ = await _http(sc.port, {
+                "prompt": long_p, "max_tokens": 64, "output_tokens": 64,
+                "stream": True}, close_after_first=True)
+            for _ in range(2000):
+                if 1 in srv._terminal:
+                    break
+                await asyncio.sleep(0.005)
+            cut = next(r for r in srv.responses if r.request_id == 1)
+            if (kind, st) != ("disconnected", 200) \
+                    or cut.status != "cancelled" \
+                    or "mid-generation" not in cut.error \
+                    or not 0 < cut.tokens_generated < 64:
+                raise AssertionError(f"[sidecar] disconnect: {cut}")
+            # a deadline that expires while queued behind a long request
+            blocker = asyncio.create_task(_http(sc.port, {
+                "prompt": long_p, "max_tokens": 64, "output_tokens": 64}))
+            await asyncio.sleep(0.2)
+            kind, st, obj = await _http(
+                sc.port, {"prompt": pool.prompts[shorts[0]],
+                          "max_tokens": 8, "output_tokens": 8},
+                headers={"X-Deadline-S": "0.05"})
+            if st != 429 or obj["error"]["type"] != "shed" \
+                    or (await blocker)[1] != 200:
+                raise AssertionError(f"[sidecar] deadline: {st} {obj}")
+            kind, st, text = await _http(sc.port, method="GET",
+                                         path="/metrics")
+            metrics = parse_prometheus(text)
+            if st != 200 or not metrics:
+                raise AssertionError("[sidecar] /metrics did not parse")
+            print(f"[sidecar] disconnect after the first SSE frame: "
+                  f"cancelled mid-generation after {cut.tokens_generated} "
+                  f"of 64 tokens; X-Deadline-S 0.05 behind a long request: "
+                  f"429 shed; /metrics: {len(metrics)} families parse  "
+                  f"[{smi}]")
+            # graceful shutdown under load: work held in flight on purpose
+            clients = [asyncio.create_task(_http(sc.port, {
+                "prompt": pool.prompts[i], "max_tokens": 64,
+                "output_tokens": 64, "stream": j % 2 == 0}))
+                for j, i in enumerate(order[:8])]
+            await asyncio.sleep(0.5)
+        finally:
+            await sc.shutdown(drain_s=0.5)
+        outs = await asyncio.wait_for(
+            asyncio.gather(*clients, return_exceptions=True), 120.0)
+        n_admitted = srv._next_id - 1
+        tail = [srv._terminal.get(i) for i in range(4, n_admitted + 1)]
+        if sorted(srv._terminal) != list(range(1, n_admitted + 1)) \
+                or len(srv.responses) != n_admitted \
+                or "cancelled" not in tail:
+            raise AssertionError(f"[sidecar] shutdown lost or duplicated a "
+                                 f"request: {srv._terminal}")
+        for out in outs:
+            if isinstance(out, Exception) or (
+                    out[0] == "sse" and out[2][-1] != "[DONE]"):
+                raise AssertionError(f"[sidecar] shutdown: bad client "
+                                     f"outcome {out!r}")
+        print(f"[sidecar] graceful shutdown with 8 requests in flight, "
+              f"drain 0.5 s: {n_admitted} admitted, each exactly one "
+              f"terminal ({tail.count('ok')} ok, {tail.count('cancelled')} "
+              f"cancelled), 0 lost  [{smi}]")
+
+    ops.reset_launches()
+    asyncio.run(extras())
+    for k, v in ops.LAUNCHES.items():
+        totals[k] += v
 
 
 def phase_profile(eng, smi) -> None:
@@ -980,12 +1410,17 @@ def main() -> int:
     k1["max_abs_err"] = max(k1["max_abs_err"], phase_decode_lanes_kernel(gen))
     k3["max_abs_err"] = max(k3["max_abs_err"], phase_flash_extend(gen))
     kernels = [k1, phase_paged_kernel(gen), k3,
-               phase_gbdt_kernel(predictor.model, ds.prompts)]
+               phase_gbdt_kernel(predictor.model, ds.prompts),
+               phase_packed_kernel(predictor.model, ds.prompts)]
     cfg = get_config("smollm-360m")
     phase_full_width_reference(cfg)
     # launches on the main paths: each path resets the counters just
     # before it runs and adds what it launched just after
-    totals = dict(phase_slice(cfg, predictor, smi))
+    launches, eng, slice_tokens = phase_slice(cfg, predictor, smi)
+    totals = dict(launches)
+    phase_sidecar(eng, predictor, smi, slice_tokens, totals)
+    del eng
+    torch.cuda.empty_cache()
     phase_lanes(cfg, smi, totals)
     phase_lanes_f32(cfg, smi, totals)
     phase_paged_burst(cfg, predictor, smi, totals)

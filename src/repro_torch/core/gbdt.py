@@ -2,9 +2,19 @@
 
 The trainer (``train_gbdt`` and its helpers) is an exact copy of the fast
 trainer in ``repro.core.gbdt``, so both packages grow identical trees from
-the same data.  Scoring differs: ``GBDTModel.predict_margin`` walks the
-dense complete-tree tensors through ``kernels.ops.gbdt_margins`` -- the
-hand-written K4 kernel on the card, its plain PyTorch version on the CPU.
+the same data.  Scoring differs: the JAX package scores on the host; the
+port scores on the card (its plain PyTorch versions on the CPU) through
+two layouts of the same trees:
+
+* the dense complete-tree tensors (``predict_margin_dense``,
+  ``kernels.ops.gbdt_margins``: K4);
+* the pruned packed layout of ``core.ensemble_pack`` (``packed()``,
+  ``kernels.ops.gbdt_margins_packed``: K5).
+
+``predict_margin`` scores a single row (one admission, the JAX
+``Predictor._single_path``) through the packed layout and a batch (an
+arrival burst, the JAX ``proba_batch``) through the dense one.  Both add
+``base_score``.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ class GBDTModel:
     value: np.ndarray      # (T, N) float32 (leaf contribution)
     n_classes: int
     max_depth: int
+    base_score: float = 0.0
 
     def tensors(self, device) -> tuple:
         """(feature int32, threshold, value) on ``device``, copied once."""
@@ -61,16 +72,39 @@ class GBDTModel:
                           self.value.astype(np.float32)))
         return cache[device]
 
-    def predict_margin(self, X: np.ndarray, device=None) -> np.ndarray:
-        """(B, n_classes) raw margins, scored on ``device``: the card
-        unless the caller names one (``device='cpu'`` for the plain walk
-        on the host); raises when no card is present and none is named."""
+    def packed(self, rebuild: bool = False):
+        """Pruned packed export (cached; see ``core.ensemble_pack``).
+
+        The cache is keyed on identity only: call ``packed(rebuild=True)``
+        after mutating the ensemble tensors in place."""
+        cached = self.__dict__.get("_packed")
+        if cached is None or rebuild:
+            from repro_torch.core.ensemble_pack import pack_ensemble
+            cached = pack_ensemble(self)
+            self.__dict__["_packed"] = cached
+        return cached
+
+    def predict_margin_dense(self, X: np.ndarray, device=None) -> np.ndarray:
+        """(B, n_classes) raw margins through the dense layout (K4 on the
+        card), scored on ``device``: the card unless the caller names one
+        (``device='cpu'`` for the plain walk on the host); raises when no
+        card is present and none is named."""
         device = resolve_device(device)
-        feature, threshold, value = self.tensors(device)
         x = torch.as_tensor(np.asarray(X, np.float32), device=device)
-        m = ops.gbdt_margins(x.contiguous(), feature, threshold, value,
+        m = ops.gbdt_margins(x.contiguous(), *self.tensors(device),
                              n_classes=self.n_classes)
-        return m.cpu().numpy()
+        return (m + self.base_score).cpu().numpy()
+
+    def predict_margin(self, X: np.ndarray, device=None) -> np.ndarray:
+        """(B, n_classes) raw margins on ``device`` (same rule as
+        :meth:`predict_margin_dense`): one row through the packed layout
+        (K5), a batch through the dense one (K4)."""
+        X = np.asarray(X, np.float32)
+        if X.shape[0] != 1:
+            return self.predict_margin_dense(X, device)
+        device = resolve_device(device)
+        x = torch.as_tensor(X, device=device)
+        return ops.gbdt_margins_packed_from(self.packed(), x).cpu().numpy()
 
     def predict_proba(self, X: np.ndarray, device=None) -> np.ndarray:
         """Softmax of :meth:`predict_margin` (same device rule)."""

@@ -1,15 +1,29 @@
 """The Clairvoyant predictor: features -> GBDT -> P(Long).
 
-Admission scores whole bursts: ``proba_batch`` extracts the 19 lexical
-features on the host (``features.extract_batch``) and scores them with the
-K4 kernel on ``device`` (its plain version when ``device`` is the CPU).
+Features are extracted on the host (``core.features``); the ensemble is
+scored on ``device`` (its plain PyTorch versions when ``device`` is the
+CPU).  As in the JAX package there are two admission paths over the same
+trained ensemble:
+
+* ``p_long`` / ``proba`` -- one request at a time (the sidecar admits
+  each HTTP request as it arrives): one feature row through the packed
+  layout, K5;
+* ``proba_batch`` / ``p_long_batch`` -- an arrival burst scored in one
+  call through the dense layout, K4.
+
+On the card the predictor scores on a CUDA stream of its own.  The engine
+decodes on the default stream, often from another thread (the sidecar's
+worker); on that stream a one-row admission would queue behind a whole
+decode segment, and its read-back would wait for it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core import features as F
 from repro_torch.core.gbdt import GBDTModel, GBDTParams, train_gbdt
@@ -31,9 +45,30 @@ class Predictor:
     def __init__(self, model: GBDTModel, device=None):
         self.model = model
         self.device = resolve_device(device)
+        self._stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+
+    def _on_stream(self):
+        return torch.cuda.stream(self._stream) if self._stream is not None \
+            else contextlib.nullcontext()
+
+    def features(self, prompt: str) -> np.ndarray:
+        return F.extract(prompt)
+
+    def proba_features(self, X: np.ndarray) -> np.ndarray:
+        """(B, 3) class probabilities of feature rows X (B, F): one row
+        through K5, more through K4, on the predictor's stream."""
+        with self._on_stream():
+            return self.model.predict_proba(X, self.device)
+
+    def proba(self, prompt: str) -> np.ndarray:
+        return self.proba_features(F.extract(prompt)[None])[0]
+
+    def p_long(self, prompt: str) -> float:
+        return float(self.proba(prompt)[LONG_CLASS])
 
     def proba_batch(self, prompts: Sequence[str]) -> np.ndarray:
-        return self.model.predict_proba(F.extract_batch(prompts), self.device)
+        return self.proba_features(F.extract_batch(prompts))
 
     def p_long_batch(self, prompts: Sequence[str]) -> np.ndarray:
         return self.proba_batch(prompts)[:, LONG_CLASS]
@@ -44,4 +79,10 @@ class Predictor:
               device=None) -> "Predictor":
         X = F.extract_batch(prompts)
         y = class_labels(response_lengths)
+        return cls(train_gbdt(X, y, params or GBDTParams()), device)
+
+    @classmethod
+    def train_on_features(cls, X: np.ndarray, y: np.ndarray,
+                          params: Optional[GBDTParams] = None,
+                          device=None) -> "Predictor":
         return cls(train_gbdt(X, y, params or GBDTParams()), device)

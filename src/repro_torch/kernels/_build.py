@@ -35,7 +35,8 @@ _lock = threading.Lock()
 #: path went through)
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0,
-                            "flash_attention": 0, "gbdt_margins": 0}
+                            "flash_attention": 0, "gbdt_margins": 0,
+                            "gbdt_margins_packed": 0}
 #: ``-Xptxas -v`` report (registers, shared memory, spills) per kernel build
 PTXAS_REPORT: Dict[str, str] = {}
 

@@ -12,18 +12,24 @@ nothing here transposes a cache.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.gbdt_infer import (gbdt_margins_cuda,
+                                            gbdt_margins_packed_cuda,
+                                            gbdt_margins_packed_plain,
                                             gbdt_margins_plain)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention_cuda, paged_decode_attention_plain)
 
 __all__ = ["LAUNCHES", "reset_launches", "decode_attention",
-           "paged_decode_attention", "flash_attention", "gbdt_margins"]
+           "paged_decode_attention", "flash_attention", "gbdt_margins",
+           "gbdt_margins_packed", "gbdt_margins_packed_from",
+           "preferred_gbdt_layout", "gbdt_margins_best"]
 
 
 def reset_launches() -> None:
@@ -64,3 +70,74 @@ def gbdt_margins(X, feature, threshold, value, *, n_classes: int = 3):
                                   n_classes=n_classes)
     return gbdt_margins_cuda(X, feature, threshold, value,
                              n_classes=n_classes)
+
+
+def gbdt_margins_packed(X, feature, threshold, child, value, *, depth: int,
+                        n_classes: int = 3, base_score: float = 0.0):
+    """X (B,F) f32, packed ensemble tensors (T,M) walked ``depth`` steps
+    -> (B, n_classes) margins + ``base_score``."""
+    kw = dict(depth=depth, n_classes=n_classes, base_score=base_score)
+    if X.device.type == "cpu":
+        return gbdt_margins_packed_plain(X, feature, threshold, child, value,
+                                         **kw)
+    return gbdt_margins_packed_cuda(X, feature, threshold, child, value,
+                                    **kw)
+
+
+def gbdt_margins_packed_from(packed, X):
+    """Score X (B,F) f32, on its device, with a
+    :class:`~repro_torch.core.ensemble_pack.PackedEnsemble` (base score
+    included)."""
+    if X.shape[1] < packed.n_features:
+        raise ValueError(f"X has {X.shape[1]} features, the ensemble reads "
+                         f"{packed.n_features}")
+    return gbdt_margins_packed(X, *packed.tensors(X.device),
+                               depth=int(packed.depth),
+                               n_classes=int(packed.n_classes),
+                               base_score=float(packed.base_score))
+
+
+def _dense_from(model, X):
+    m = gbdt_margins(X, *model.tensors(X.device),
+                     n_classes=int(model.n_classes))
+    return m + model.base_score
+
+
+def _event_ms(fn, iters: int = 20) -> float:
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def preferred_gbdt_layout(X, model) -> str:
+    """Which layout scores X's batch faster on X's device: ``"dense"``
+    (K4) or ``"packed"`` (K5).  On the card both kernels are timed once
+    with CUDA events at X's batch size, and the answer is cached on the
+    model per (device, batch size); on the CPU it is ``"dense"``, as the
+    JAX package's answer off the TPU."""
+    if X.device.type != "cuda":
+        return "dense"
+    cache = model.__dict__.setdefault("_layout", {})
+    key = (X.device, X.shape[0])
+    if key not in cache:
+        packed = model.packed()
+        ms = {"dense": _event_ms(lambda: _dense_from(model, X)),
+              "packed": _event_ms(lambda: gbdt_margins_packed_from(packed,
+                                                                   X))}
+        cache[key] = min(ms, key=ms.get)
+    return cache[key]
+
+
+def gbdt_margins_best(X, model):
+    """Score X (B,F) f32 with whichever layout :func:`preferred_gbdt_layout`
+    picks for its device and batch size.  ``model`` is a
+    ``core.gbdt.GBDTModel``; the margins include its base score."""
+    if preferred_gbdt_layout(X, model) == "packed":
+        return gbdt_margins_packed_from(model.packed(), X)
+    return _dense_from(model, X)

@@ -85,3 +85,23 @@ def gbdt_margins_ref(X, feature, threshold, value, *, n_classes: int = 3):
         idx = torch.where(f < 0, idx, nxt)
     vals = torch.gather(value, 1, idx)                       # (T, B)
     return vals.reshape(T // n_classes, n_classes, B).sum(0).T.contiguous()
+
+
+def gbdt_margins_packed_ref(X, feature, threshold, child, value, *,
+                            depth: int, n_classes: int = 3):
+    """Pruned-layout walk (see ``core.ensemble_pack``).  Tensors (T, M):
+    in-tree left-child indices, leaf self-loops with +inf thresholds;
+    every walk takes exactly ``depth`` steps, going right iff
+    ``not x < threshold``.  Returns (B, n_classes) f32 (no base score)."""
+    X = X.float()
+    B = X.shape[0]
+    T = feature.shape[0]
+    feature, child = feature.long(), child.long()
+    idx = torch.zeros(T, B, dtype=torch.long, device=X.device)
+    for _ in range(depth):
+        f = torch.gather(feature, 1, idx)                    # (T, B)
+        xi = X.T.gather(0, f)                                # (T, B)
+        go_right = ~(xi < torch.gather(threshold, 1, idx))
+        idx = torch.gather(child, 1, idx) + go_right.long()
+    vals = torch.gather(value, 1, idx)                       # (T, B)
+    return vals.reshape(T // n_classes, n_classes, B).sum(0).T.contiguous()

@@ -1,11 +1,13 @@
 """The backends (port of ``repro.serving.engine``'s ``RealEngine``,
-``BatchedRealEngine`` and ``PagedBatchedEngine``, without speculation and
-without fault injection).
+``BatchedRealEngine`` and ``PagedBatchedEngine``, without speculation).
 
 * ``RealEngine`` -- the serial backend: bucketed prefill, then fused
   greedy decode over a ring-buffer KV cache, one request in flight.
   Cancellation (``request_cancel`` or a ``cancel_cb``) stops the fused
-  loop at the next segment boundary.
+  loop at the next segment boundary, where an attached
+  ``serving.faults.FaultInjector`` is polled too (an injected crash
+  raises ``EngineCrash`` out of ``generate`` there).  The lane engines
+  do not poll an injector yet.
 * ``BatchedRealEngine`` -- ``n_lanes`` concurrent requests under a KV
   byte budget (``serving/batching.py``), stepped together by
   ``serving.generate.LaneDecoder``; lanes retire and back-fill at
@@ -56,6 +58,12 @@ class RealEngine:
         self.served = 0
         self._cancel = False
         self.buckets = geometric_buckets(max_len)
+        # optional serving.faults.FaultInjector, polled at fused-decode
+        # segment boundaries (the join points of cancellation)
+        self.fault_injector = None
+        # optional serving.observability.FlightRecorder, attached by the
+        # server (the serial drain stamps spans from the server's clock)
+        self.recorder = None
 
     # ---------------------------------------------------------------- admin
     def request_cancel(self) -> None:
@@ -135,6 +143,10 @@ class RealEngine:
         ttft = time.monotonic() - t0
 
         def cancelled():
+            if self.fault_injector is not None:
+                # may raise EngineCrash: the crash lands at the segment
+                # boundary, exactly where a cancel would
+                self.fault_injector.poll_segment(self.replica_id)
             return self._cancel or (cancel_cb is not None and cancel_cb())
 
         dec = FusedDecoder(self.lm, self.max_len,

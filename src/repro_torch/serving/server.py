@@ -1,19 +1,37 @@
 """The Clairvoyant front end (port of ``repro.serving.server.
-ClairvoyantServer`` for one replica): features -> predictor -> SJF queue ->
-a serial ``RealEngine`` or a lane engine (``BatchedRealEngine``,
-``PagedBatchedEngine``).
+ClairvoyantServer``): features -> predictor -> SJF queue -> engine.
 
-Admission is batched: ``submit_many`` scores a whole arrival burst with one
-predictor call (feature extraction on the host, K4 on the card).  ``drain``
-then serves the queue non-preemptively.  A serial engine takes one request
-at a time: pop (starvation guard first, then the policy key), tokenize,
-bucketed prefill, fused decode.  A lane engine pulls through
-``SJFQueue.pop_many`` whenever lanes are vacant, so the queue stays the one
-source of dispatch order.  ``cancel`` removes a queued request at once and
-evicts a request in a lane at its next segment boundary.  Every admitted
-request ends in exactly one ``CompletionResponse``.  The JAX server's
-router, fault layer, deadlines, shedding and flight recorder are not
-ported.
+``ClairvoyantServer`` fronts N replica engines; each replica has its own
+``SJFQueue`` (+ starvation guard) and the multi-replica case routes by
+predicted work (``core.router.PredictiveRouter``).  The policy is a
+``core.policy.Policy`` (registry name or instance).
+
+Admission: ``submit`` scores one request (the predictor's single-row path,
+K5 on the card) -- the sidecar calls it per HTTP request; ``submit_many``
+scores an arrival burst with one batched call (K4).  A predictor
+exception, a non-finite score or an injected outage admits with
+``p_long = 0`` (FCFS order) and sets ``degraded`` until a later call
+succeeds.  Without ``true_output_tokens`` a request's own ``max_tokens``
+budget stands in for its output length (the JAX server samples one from
+its service model, which the port has not copied).
+
+Two drains serve the queues in process (the sidecar has its own dispatch
+loop, ``serving/http_sidecar.py``):
+
+* a serial ``RealEngine`` replica: ``_drain_real``, non-preemptive, with
+  the fault layer (``fault_plan``: transients at dispatch, crashes at
+  segment boundaries, retried under ``RetryPolicy`` with the original
+  arrival, ``failed`` once retries run out), deadline shedding, sojourn
+  timeouts (``deadline_mode="sojourn"``) and flight-recorder spans;
+* a lane engine (``BatchedRealEngine``, ``PagedBatchedEngine``):
+  ``_drain_batched``, with deadline shedding but no faults, sojourn
+  timeouts or recorder spans yet.
+
+Preemptive policies (the JAX server's arrival-aware pops, evictions and
+resume) and the virtual-time drains wait for later slices: ``drain``
+raises for them.  Every admitted request ends in exactly one terminal
+``CompletionResponse`` (``ok | shed | failed | timeout | cancelled``):
+``_finish`` raises on a second one.
 """
 
 from __future__ import annotations
@@ -23,62 +41,182 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core import features as F
 from repro_torch.core.policy import get_policy
-from repro_torch.core.scheduler import Request, SJFQueue
+from repro_torch.core.predictor import Predictor
+from repro_torch.core.router import PredictiveRouter
+from repro_torch.core.scheduler import Request
 from repro_torch.data.tokenizer import HashTokenizer, approx_token_len
-from repro_torch.serving.engine import BatchedRealEngine
+from repro_torch.serving.engine import BatchedRealEngine, RealEngine
+from repro_torch.serving.faults import (CircuitBreaker, EngineCrash,
+                                        RetryPolicy, TransientBackendError,
+                                        as_injector)
+from repro_torch.serving.observability import (Observability,
+                                               record_service_spans)
 from repro_torch.serving.openai_api import (CompletionRequest,
                                             CompletionResponse)
 from repro_torch.serving.service_time import ServiceTimeModel
 
 
 class ClairvoyantServer:
-    """One engine replica (serial or lanes) behind one ``SJFQueue``.
-
-    ``policy``: "fcfs", "sjf" or "sjf_oracle" (or a ``Policy``); ``tau``:
-    the starvation-guard timeout in seconds (None = off).
-    """
+    """Replica engines (or sidecar backends) behind per-replica
+    ``SJFQueue``s.  ``policy``: a registry name or ``Policy``; ``tau``:
+    the starvation-guard timeout in seconds (None = off)."""
 
     def __init__(self, *, engines: Sequence, policy="sjf",
                  tau: Optional[float] = None, predictor=None,
-                 service_model: Optional[ServiceTimeModel] = None):
-        if len(engines) != 1:
-            raise ValueError("the port serves exactly one replica")
+                 service_model: Optional[ServiceTimeModel] = None,
+                 seed: int = 0, fault_plan=None,
+                 retry: Optional[RetryPolicy] = None,
+                 deadline_s: Optional[float] = None,
+                 deadline_mode: str = "queue",
+                 max_queue_depth: Optional[int] = None,
+                 breaker: Optional[CircuitBreaker] = None,
+                 observability: Optional[Observability] = None):
+        if not engines:
+            raise ValueError("the port serves real engines: pass engines=")
         self.engines = list(engines)
         self.policy_obj = get_policy(policy)
         self.policy = self.policy_obj.name
-        self.queue = SJFQueue(self.policy_obj, tau)
         self.predictor = predictor
         self.service_model = service_model or ServiceTimeModel(
             prefill_tok_per_s=8000.0, decode_tok_per_s=60.0)
-        self._tokenizer = HashTokenizer(self.engines[0].cfg.vocab_size)
+        self.router = PredictiveRouter(len(self.engines), policy=policy,
+                                       tau=tau, breaker=breaker)
         self._inflight: Dict[int, CompletionRequest] = {}
-        self._terminal: Dict[int, str] = {}
-        self._disconnected: set = set()     # in-flight lane cancels, by id
-        self._next_id = 1
+        self._decoding: Dict[int, int] = {}     # replica_id -> request_id
+        self._disconnected: set = set()         # mid-flight client cancels
+        self._tokenizer: Optional[HashTokenizer] = None
         self.responses: List[CompletionResponse] = []
+        # --- robustness layer (serving/faults.py) ---
+        self.faults = as_injector(fault_plan)
+        self.retry = retry if retry is not None else RetryPolicy(seed=seed)
+        self.deadline_s = deadline_s
+        # "queue": the deadline bounds queue wait (undispatched work is
+        # shed); "sojourn": it bounds arrival-to-finish, and expiry in
+        # service ends the request with status "timeout" (the wire's)
+        if deadline_mode not in ("queue", "sojourn"):
+            raise ValueError(f"unknown deadline_mode {deadline_mode!r}")
+        self.deadline_mode = deadline_mode
+        self.max_queue_depth = max_queue_depth
+        self.degraded = False                   # predictor-outage FCFS mode
+        #: the last exception the predictor raised (degraded admissions)
+        self.predictor_error: Optional[str] = None
+        self._terminal: Dict[int, str] = {}     # req_id -> terminal status
+        self._next_id = 1                       # per-server request-id space
+        self.fault_stats = {"predictor_failures": 0,
+                            "degraded_admissions": 0, "sheds": 0,
+                            "retries": 0, "failures": 0, "crashes": 0,
+                            "transients": 0, "requeues": 0, "timeouts": 0}
+        if self.faults is not None:
+            for eng in self.engines:
+                if isinstance(eng, RealEngine):
+                    eng.fault_injector = self.faults
+        self.obs: Optional[Observability] = None
+        self._obs_arrival: Dict[int, float] = {}   # req_id -> arrival time
+        if observability is not None:
+            self.attach_observability(observability)
+
+    @property
+    def queue(self):
+        """The first replica's queue (the whole queue of a one-replica
+        server)."""
+        return self.router.replicas[0].queue
+
+    def attach_observability(self, obs: Observability) -> None:
+        """Wire the flight recorder and metrics registry into the stack:
+        the router's route instants, the engines' recorder, and the
+        scrape-time collectors over stats the server and engines keep."""
+        self.obs = obs
+        self.router.recorder = obs.recorder
+        for eng in self.engines:
+            if hasattr(eng, "recorder"):
+                eng.recorder = obs.recorder
+        obs.register_server(self)
+        obs.register_engines(self.engines)
 
     # ------------------------------------------------------------ admission
-    def _predict_probas(self, prompts: List[str]):
+    def _predict_probas(self, prompts: List[str], now: float,
+                        rid_hint: Optional[int] = None):
+        """Predictor call with graceful degradation: an exception, a
+        non-finite score or an injected outage returns None (admission
+        then uses ``p_long = 0`` for all: FCFS order) and sets
+        ``degraded``; a later successful call heals it.
+
+        With observability attached, feature extraction and scoring are
+        timed apart (``feature_extract`` / ``predict`` spans at the
+        batch's arrival, measured wall durations) and the per-request
+        predictor latency feeds its histogram."""
         if self.predictor is None or not self.policy_obj.uses_predictor \
                 or not prompts:
             return None
-        return np.asarray(self.predictor.proba_batch(prompts), float)
+        obs = self.obs
+        rec = obs.recorder if obs is not None else None
+        probas = None
+        if self.faults is None or not self.faults.predictor_down(now):
+            try:
+                if obs is not None and isinstance(self.predictor, Predictor):
+                    rid = rid_hint if rid_hint is not None else self._next_id
+                    w0 = time.perf_counter()
+                    X = F.extract_batch(prompts)
+                    w1 = time.perf_counter()
+                    probas = np.asarray(self.predictor.proba_features(X),
+                                        float)
+                    w2 = time.perf_counter()
+                    if rec is not None:
+                        trk = f"req{rid}"
+                        rec.span("feature_extract", rid, now,
+                                 now + (w1 - w0), track=trk,
+                                 args={"batch": len(prompts)})
+                        rec.span("predict", rid, now + (w1 - w0),
+                                 now + (w2 - w0), track=trk,
+                                 args={"batch": len(prompts)})
+                    obs.observe_predict(len(prompts), w2 - w0)
+                else:
+                    probas = np.asarray(self.predictor.proba_batch(prompts),
+                                        float)
+                if not np.all(np.isfinite(probas)):
+                    probas = None                # NaN/inf scores: degrade
+            except Exception as e:               # predictor raised: degrade
+                self.predictor_error = f"{type(e).__name__}: {e}"
+                probas = None
+        if probas is None:
+            self.fault_stats["predictor_failures"] += 1
+            self.degraded = True
+            return None
+        self.degraded = False                    # predictor healed
+        return probas
+
+    def allocate_id(self) -> int:
+        """Reserve the next request id (the sidecar pre-assigns ids so it
+        can register a waiter before admission can emit a shed)."""
+        rid = self._next_id
+        self._next_id += 1
+        return rid
 
     def submit(self, req: CompletionRequest, *, arrival: float = 0.0,
                true_output_tokens: Optional[int] = None,
-               klass: str = "") -> int:
-        """Admit one request; returns its replica (always 0)."""
-        probas = self._predict_probas([req.prompt])
+               klass: str = "", deadline_s: Optional[float] = None) -> int:
+        """Admit one request: one predictor call for its one row.
+        ``deadline_s`` overrides the server-wide budget for it.  Returns
+        the chosen replica, or -1 if it was shed at admission."""
+        probas = self._predict_probas([req.prompt], arrival,
+                                      rid_hint=req.request_id)
         return self._admit(req, None if probas is None else probas[0],
-                           arrival, true_output_tokens, klass)
+                           arrival, true_output_tokens, klass,
+                           deadline_s=deadline_s)
 
     def submit_many(self, reqs: Sequence[CompletionRequest], *,
                     arrivals: Optional[Sequence[float]] = None,
                     true_output_tokens: Optional[Sequence[int]] = None,
                     klasses: Optional[Sequence[str]] = None) -> List[int]:
-        """Admit an arrival burst with ONE batched predictor call."""
-        probas = self._predict_probas([r.prompt for r in reqs])
+        """Admit an arrival burst with ONE batched predictor call.
+        Returns the chosen replica per request (-1: shed at admission)."""
+        n = len(reqs)
+        probas = self._predict_probas(
+            [r.prompt for r in reqs],
+            0.0 if arrivals is None or not n else float(arrivals[0]),
+            rid_hint=reqs[0].request_id if n else None)
         return [
             self._admit(
                 req, None if probas is None else probas[i],
@@ -89,124 +227,333 @@ class ClairvoyantServer:
             for i, req in enumerate(reqs)]
 
     def _admit(self, req: CompletionRequest, proba, arrival: float,
-               true_output_tokens: Optional[int], klass: str) -> int:
+               true_output_tokens: Optional[int], klass: str,
+               deadline_s: Optional[float] = None) -> int:
         """``true_output_tokens`` is the ground truth a simulator knows
         (only ``sjf_oracle`` reads it); without it the request's own
         ``max_tokens`` budget stands in."""
         if req.request_id is None:
-            req.request_id = self._next_id
-            self._next_id += 1
+            req.request_id = self.allocate_id()
         else:
             self._next_id = max(self._next_id, int(req.request_id) + 1)
         if req.request_id in self._terminal \
                 or req.request_id in self._inflight:
             raise ValueError(f"request id {req.request_id} already "
                              "submitted to this server")
+        obs = self.obs
+        if obs is not None:
+            self._obs_arrival[req.request_id] = arrival
+            obs.observe_admission(1, self.policy)
         if true_output_tokens is None:
             true_output_tokens = req.max_tokens
         prompt_toks = approx_token_len(req.prompt)
+        p_long = float(proba[2]) if proba is not None else 0.0
+        degraded = proba is None and self.degraded \
+            and self.policy_obj.uses_predictor
         r = Request(req_id=req.request_id, prompt=req.prompt, arrival=arrival,
-                    p_long=float(proba[2]) if proba is not None else 0.0,
-                    klass=klass, tenant=req.tenant,
+                    p_long=p_long, klass=klass,
                     true_service=self.service_model.service(
                         prompt_toks, true_output_tokens),
+                    tenant=req.tenant,
                     meta={"prompt_tokens": prompt_toks,
                           "output_tokens": true_output_tokens})
+        if deadline_s is not None:
+            r.meta["deadline_s"] = float(deadline_s)
+        if degraded:
+            r.meta["degraded"] = True
+            self.fault_stats["degraded_admissions"] += 1
+        depth = sum(len(rep.queue) for rep in self.router.replicas)
+        if (self.max_queue_depth is not None
+                and depth >= self.max_queue_depth) \
+                or (self.faults is not None
+                    and self.faults.overflow_active(arrival)):
+            self.fault_stats["sheds"] += 1
+            self._finish(CompletionResponse(
+                request_id=req.request_id, text="", tokens_generated=0,
+                queue_wait_s=0.0, service_s=0.0, replica=-1,
+                p_long=p_long, klass=klass, status="shed",
+                error="admission queue overflow", degraded=degraded))
+            return -1
         self._inflight[req.request_id] = req
-        self.queue.push(r)
-        return 0
+        return self.router.route(r, proba=proba, now=arrival)
 
-    # --------------------------------------------------------------- drain
+    # -------------------------------------------------------- terminal path
     def _finish(self, resp: CompletionResponse) -> None:
-        """The single exit gate: every request passes here exactly once."""
+        """The single exit gate: every admitted request passes here
+        exactly once (a duplicate terminal response raises)."""
         prev = self._terminal.get(resp.request_id)
         if prev is not None:
-            raise RuntimeError(f"request {resp.request_id} already "
-                               f"terminated ({prev!r})")
+            raise RuntimeError(
+                f"request {resp.request_id} already terminated "
+                f"({prev!r}); duplicate terminal status {resp.status!r}")
         self._terminal[resp.request_id] = resp.status
         self._inflight.pop(resp.request_id, None)
         self.responses.append(resp)
+        obs = self.obs
+        if obs is not None:
+            obs.observe_terminal(
+                resp, self._obs_arrival.pop(resp.request_id, None))
+
+    def _deadline_of(self, req) -> Optional[float]:
+        """The request's deadline budget: its own (``submit(...,
+        deadline_s=)``) or the server-wide one."""
+        return req.meta.get("deadline_s", self.deadline_s)
+
+    def _maybe_shed(self, rep, req, now: float) -> bool:
+        """Deadline shedding at dispatch: a request not yet started and
+        already past its budget terminates ``shed``."""
+        dl = self._deadline_of(req)
+        if dl is None or req.start is not None \
+                or (now - req.arrival) <= dl:
+            return False
+        self.router.release(rep.replica_id, req)
+        self.fault_stats["sheds"] += 1
+        req.finish = now
+        obs = self.obs
+        if obs is not None and obs.recorder is not None:
+            obs.recorder.span("queue_wait", req.req_id, req.arrival, now,
+                              track=f"req{req.req_id}")
+        self._finish(CompletionResponse(
+            request_id=req.req_id, text="", tokens_generated=0,
+            queue_wait_s=max(0.0, now - req.arrival), service_s=0.0,
+            replica=rep.replica_id, p_long=req.p_long, klass=req.klass,
+            status="shed", error="deadline budget exceeded before dispatch",
+            retries=req.meta.get("fault_retries", 0),
+            degraded=bool(req.meta.get("degraded"))))
+        return True
+
+    def _retry_or_fail(self, rep, req, now: float, exc: Exception,
+                       charge_backoff: bool = True) -> float:
+        """Fault epilogue: the popped request re-enters its queue (bounded
+        retries, original arrival kept) or terminates ``failed``.  Returns
+        the (possibly backoff-advanced) clock."""
+        n = req.meta.get("fault_retries", 0) + 1
+        req.meta["fault_retries"] = n
+        self.router.record_failure(rep.replica_id, now)
+        if isinstance(exc, EngineCrash):
+            self.fault_stats["crashes"] += 1
+        elif isinstance(exc, TransientBackendError):
+            self.fault_stats["transients"] += 1
+        if n > self.retry.max_retries:
+            self.fault_stats["failures"] += 1
+            self.router.release(rep.replica_id, req)
+            start = req.start if req.start is not None else now
+            req.finish = now
+            self._finish(CompletionResponse(
+                request_id=req.req_id, text="", tokens_generated=0,
+                queue_wait_s=max(0.0, start - req.arrival),
+                service_s=max(0.0, now - start),
+                replica=rep.replica_id, p_long=req.p_long, klass=req.klass,
+                status="failed", error=f"{type(exc).__name__}: {exc}",
+                retries=n, degraded=bool(req.meta.get("degraded"))))
+            return now
+        self.fault_stats["retries"] += 1
+        self.fault_stats["requeues"] += 1
+        if charge_backoff:
+            now += self.retry.backoff(n - 1)
+        rep.queue.push_requeue(
+            req, req.meta.get("queue_key",
+                              req.meta.get("policy_key0", 0.0)),
+            reason="fault")
+        return now
+
+    def cancel(self, request_id: int) -> bool:
+        """Client disconnect.  A queued request terminates ``cancelled``
+        at once; one in a lane of a lane engine is evicted at the next
+        segment boundary; one decoding on a serial engine or backend is
+        flagged so the fused loop stops at the next segment boundary.
+        False when the request is neither queued nor in flight."""
+        for rep in self.router.replicas:
+            req = rep.queue._live.get(request_id)
+            if rep.queue.cancel(request_id):
+                self.router.release(rep.replica_id, req)
+                self._finish(CompletionResponse(
+                    request_id=request_id, text="", tokens_generated=0,
+                    queue_wait_s=0.0, service_s=0.0,
+                    replica=rep.replica_id, p_long=req.p_long,
+                    klass=req.klass, status="cancelled",
+                    error="client disconnect (queued)",
+                    degraded=bool(req.meta.get("degraded"))))
+                return True
+        for eng in self.engines:
+            if isinstance(eng, BatchedRealEngine) \
+                    and eng.lane_manager is not None \
+                    and eng.lane_manager.lane_of(request_id) is not None:
+                self._disconnected.add(request_id)
+                return True
+        for replica_id, rid in self._decoding.items():
+            if rid == request_id:
+                eng = self.engines[replica_id]
+                if hasattr(eng, "request_cancel"):
+                    # a disconnect, told apart from other stops by the
+                    # drain loop through _disconnected
+                    self._disconnected.add(request_id)
+                    eng.request_cancel()
+                    return True
+        return False
+
+    # ---------------------------------------------------------------- drain
+    def drain(self, max_new_tokens: int = 64) -> List[CompletionResponse]:
+        """Serve every replica's queue to empty: through the lanes on a
+        lane engine, else one request at a time."""
+        if self.policy_obj.preemptive:
+            raise NotImplementedError(
+                f"policy {self.policy!r} is preemptive: the port's drains "
+                "are non-preemptive so far")
+        for rep, eng in zip(self.router.replicas, self.engines):
+            if isinstance(eng, BatchedRealEngine):
+                self._drain_batched(rep, eng, max_new_tokens)
+            elif isinstance(eng, RealEngine):
+                self._drain_real(rep, eng, max_new_tokens)
+            else:
+                raise TypeError(f"cannot drain {type(eng).__name__} in "
+                                "process (a sidecar backend is served by "
+                                "Sidecar)")
+        return self.responses
 
     def _prepare_ids(self, req: Request, max_len: int, max_new_tokens: int):
         """Token budget and prompt ids: the prompt is clamped so that
         prompt + budget fits the engine's ``max_len``."""
+        if self._tokenizer is None:
+            self._tokenizer = HashTokenizer(self.engines[0].cfg.vocab_size)
         n_total = max(1, min(max_new_tokens, req.meta["output_tokens"]))
         ids = self._tokenizer.encode(req.prompt)[:max(1, max_len - n_total)]
         return ids, n_total
 
-    def cancel(self, request_id: int) -> bool:
-        """Client disconnect.  A queued request is removed and terminates
-        at once with a ``cancelled`` response; one in a lane of a lane
-        engine is evicted at the next segment boundary and terminates
-        then.  False otherwise (the serial engine's in-flight cancel is
-        ``RealEngine.request_cancel``)."""
-        req = self.queue._live.get(request_id)
-        if self.queue.cancel(request_id):
-            self._finish(CompletionResponse(
-                request_id=request_id, text="", tokens_generated=0,
-                queue_wait_s=0.0, service_s=0.0,
-                replica=self.engines[0].replica_id, p_long=req.p_long,
-                klass=req.klass, status="cancelled",
-                error="client disconnect (queued)"))
-            return True
-        mgr = getattr(self.engines[0], "lane_manager", None)
-        if mgr is not None and mgr.lane_of(request_id) is not None:
-            self._disconnected.add(request_id)
-            return True
-        return False
-
-    def drain(self, max_new_tokens: int = 64) -> List[CompletionResponse]:
-        """Serve the queue to empty: through the lanes on a lane engine
-        (non-preemptive policies, as in the JAX server), else one request
-        at a time."""
-        eng = self.engines[0]
-        if isinstance(eng, BatchedRealEngine) \
-                and not getattr(self.policy_obj, "preemptive", False):
-            self._drain_batched(eng, max_new_tokens)
-        else:
-            self._drain_serial(eng, max_new_tokens)
-        return self.responses
-
-    def _drain_serial(self, eng, max_new_tokens: int) -> None:
-        """One request at a time, on a clock that starts at the engine's
-        ``busy_until`` and advances by each request's measured wall-clock
-        service time."""
+    def _drain_real(self, rep, eng: RealEngine, max_new_tokens: int) -> None:
+        """Serial non-preemptive loop (pop -> tokenize -> fused decode) on
+        a clock that starts at the engine's ``busy_until`` and advances by
+        each attempt's measured wall-clock time.  Exception-safe: an
+        injected or organic engine fault charges the wall time burned
+        (plus a crash's repair time) and goes through ``_retry_or_fail``;
+        the loop always re-pops, so a requeued request is served later in
+        the same drain."""
+        obs = self.obs
+        rec = obs.recorder if obs is not None else None
+        trk = f"replica{rep.replica_id}"
         t = eng.busy_until
         while True:
-            req = self.queue.pop(now=t)
+            req = rep.queue.pop(now=t)
             if req is None:
                 break
             t = max(t, req.arrival)
-            ids, n_total = self._prepare_ids(req, eng.max_len, max_new_tokens)
-            req.start = t
-            out = eng.generate(ids, max_new_tokens=n_total)
-            t += out["service_s"]
-            eng.busy_until = req.finish = t
-            self._finish(CompletionResponse(
-                request_id=req.req_id, text="",
-                tokens_generated=len(out["tokens"]),
-                queue_wait_s=req.start - req.arrival,
-                service_s=out["service_s"],
-                ttft_s=req.start - req.arrival + out["ttft_s"],
-                promoted=req.promoted, replica=eng.replica_id,
-                p_long=req.p_long, klass=req.klass,
-                status="cancelled" if out["cancelled"] else "ok",
-                error="cancelled mid-generation" if out["cancelled"]
-                else None,
-                token_ids=list(out["tokens"])))
+            if self._maybe_shed(rep, req, t):
+                continue
+            ids, n_total = self._prepare_ids(req, eng.max_len,
+                                             max_new_tokens)
+            deadline_hit = []
+            cancel_cb = None
+            dl = self._deadline_of(req) \
+                if self.deadline_mode == "sojourn" else None
+            if dl is not None:
+                wall0, waited = time.monotonic(), max(0.0, t - req.arrival)
 
-    def _drain_batched(self, eng: BatchedRealEngine,
+                def cancel_cb(_w0=wall0, _dl=dl, _waited=waited):
+                    # sojourn budget: the queue wait already spent plus
+                    # this attempt's wall time; expiry stops the fused
+                    # loop at the next segment boundary -> ``timeout``
+                    if _waited + (time.monotonic() - _w0) > _dl:
+                        deadline_hit.append(True)
+                        return True
+                    return False
+
+            if req.start is None:
+                req.start = t                 # first dispatch
+            if self.faults is not None:
+                spec = self.faults.transient_due(rep.replica_id, t)
+                if spec is not None:
+                    t = self._retry_or_fail(rep, req, t,
+                                            TransientBackendError(
+                                                "injected transient "
+                                                "backend error"))
+                    continue
+            self._decoding[rep.replica_id] = req.req_id
+            wall_gen0 = time.monotonic()
+            seg_marks: List[float] = []
+            on_seg = None
+            if rec is not None:
+                def on_seg(new_toks, _m=seg_marks):
+                    _m.append(time.monotonic())
+            try:
+                out = eng.generate(ids, max_new_tokens=n_total,
+                                   cancel_cb=cancel_cb, on_segment=on_seg)
+            except Exception as e:
+                # the popped request must not be lost: charge the wall
+                # time burned, then requeue or fail; its decoded tokens
+                # died with the engine (no resume credit)
+                t += time.monotonic() - wall_gen0
+                if isinstance(e, EngineCrash):
+                    t += e.repair_s           # replica down for repair
+                eng.busy_until = t
+                t = self._retry_or_fail(rep, req, t, e)
+                continue
+            finally:
+                self._decoding.pop(rep.replica_id, None)
+            service = out["service_s"]
+            tokens = list(out["tokens"])
+            req.meta.setdefault("ttft_s", out["ttft_s"])
+            t += service
+            eng.busy_until = req.finish = t
+            if rec is not None:
+                t0 = t - service
+                record_service_spans(rec, req.req_id, arrival=req.arrival,
+                                     start=t0, finish=t,
+                                     ttft=out["ttft_s"], max_segments=0,
+                                     track=trk)
+                edges = [min(t0 + out["ttft_s"], t)]
+                for m in seg_marks:           # measured segment boundaries
+                    edges.append(min(max(t0 + (m - wall_gen0), edges[-1]),
+                                     t))
+                edges.append(t)
+                for i in range(len(edges) - 1):
+                    rec.span("decode_segment", req.req_id, edges[i],
+                             edges[i + 1], track=trk)
+            common = dict(
+                request_id=req.req_id, text="", tokens_generated=len(tokens),
+                queue_wait_s=req.start - req.arrival, service_s=service,
+                ttft_s=req.start - req.arrival + req.meta["ttft_s"],
+                promoted=req.promoted, replica=rep.replica_id,
+                p_long=req.p_long, klass=req.klass,
+                retries=req.meta.get("fault_retries", 0),
+                degraded=bool(req.meta.get("degraded")), token_ids=tokens)
+            if out["cancelled"] and req.req_id in self._disconnected:
+                self._disconnected.discard(req.req_id)
+                self._finish(CompletionResponse(
+                    status="cancelled",
+                    error="client disconnect (mid-generation)", **common))
+                continue
+            if out["cancelled"] and deadline_hit:
+                self.fault_stats["timeouts"] += 1
+                self.router.release(rep.replica_id, req)
+                self._finish(CompletionResponse(
+                    status="timeout", error="deadline expired in service",
+                    **common))
+                continue
+            if out["cancelled"]:                  # engine-level cancel
+                self.router.release(rep.replica_id, req)
+                self._finish(CompletionResponse(
+                    status="cancelled", error="cancelled mid-generation",
+                    **common))
+                continue
+            self.router.on_dispatch(rep.replica_id, req, t,
+                                    service_estimate=service)
+            self.router.record_success(rep.replica_id, t)
+            self._finish(CompletionResponse(**common))
+
+    def _drain_batched(self, rep, eng: BatchedRealEngine,
                        max_new_tokens: int) -> None:
-        """Micro-batched wall-clock drain (JAX ``_drain_batched`` without
-        shedding, faults or recorder): up to ``eng.n_lanes`` requests
+        """Micro-batched wall-clock drain: up to ``eng.n_lanes`` requests
         decode concurrently under the engine's KV budget.
 
-        The engine's lane back-fill pulls through :meth:`SJFQueue.pop_many`,
-        so the starvation guard is re-evaluated between every pop.
+        The engine's lane back-fill pulls through ``SJFQueue.pop_many``,
+        so the starvation guard is re-evaluated between every pop, and a
+        request past its deadline budget is shed instead of admitted.
         Admission is memory-aware: a head whose footprint does not fit
         blocks back-fill until lanes retire.  A client disconnect evicts
         its lane at the next segment boundary.  The clock starts at the
-        engine's ``busy_until`` and runs on the wall clock."""
+        engine's ``busy_until`` and runs on the wall clock.  (The JAX
+        drain's fault handling, sojourn timeouts and lane spans are not
+        ported yet.)"""
         t_base = eng.busy_until
         wall0 = time.monotonic()
 
@@ -215,12 +562,18 @@ class ClairvoyantServer:
 
         def source(k: int):
             items = []
-            for req in self.queue.pop_many(k, now=now()):
-                ids, n_total = self._prepare_ids(req, eng.max_len,
-                                                 max_new_tokens)
-                items.append({"req_id": req.req_id, "ids": ids,
-                              "max_new": n_total, "tenant": req.tenant,
-                              "meta": {"req": req}})
+            while len(items) < k:
+                got = rep.queue.pop_many(k - len(items), now=now())
+                if not got:
+                    break
+                for req in got:
+                    if self._maybe_shed(rep, req, now()):
+                        continue              # shed: pull a replacement
+                    ids, n_total = self._prepare_ids(req, eng.max_len,
+                                                     max_new_tokens)
+                    items.append({"req_id": req.req_id, "ids": ids,
+                                  "max_new": n_total, "tenant": req.tenant,
+                                  "meta": {"req": req}})
             return items
 
         def cancel_check(state) -> bool:
@@ -232,14 +585,19 @@ class ClairvoyantServer:
                 req.start = max(out["admit_t"], req.arrival)
             req.finish = max(out["finish_t"], req.start)
             cancelled = out["cancelled"]
-            self._disconnected.discard(req.req_id)
+            if cancelled:
+                self._disconnected.discard(req.req_id)
+            else:
+                self.router.on_dispatch(rep.replica_id, req, req.finish,
+                                        service_estimate=out["service_s"])
+                self.router.record_success(rep.replica_id, req.finish)
             self._finish(CompletionResponse(
                 request_id=req.req_id, text="",
                 tokens_generated=len(out["tokens"]),
                 queue_wait_s=req.start - req.arrival,
                 service_s=req.finish - req.start,
                 ttft_s=req.start - req.arrival + out["ttft_s"],
-                promoted=req.promoted, replica=eng.replica_id,
+                promoted=req.promoted, replica=rep.replica_id,
                 p_long=req.p_long, klass=req.klass,
                 status="cancelled" if cancelled else "ok",
                 error="client disconnect (mid-generation)" if cancelled
@@ -261,9 +619,18 @@ class ClairvoyantServer:
                 and (statuses is None or r.status in statuses)]
         return float(np.percentile(vals, q)) if vals else float("nan")
 
+    @property
+    def ok_responses(self) -> List[CompletionResponse]:
+        return [r for r in self.responses if r.status == "ok"]
+
     @staticmethod
     def _klass_of(resp: CompletionResponse) -> str:
         if resp.klass:
             return resp.klass
         toks = resp.tokens_generated
         return "short" if toks < 200 else ("medium" if toks < 800 else "long")
+
+    @property
+    def promotions(self) -> int:
+        return sum(rep.queue.stats["promotions"]
+                   for rep in self.router.replicas)

@@ -12,7 +12,8 @@ Tolerances: 1e-4 in float32 and 2e-2 in bfloat16 between kernel and plain
 version (the kernels accumulate in float32 in another order); GBDT
 margins at 1e-4 and bitwise equal from run to run (no float atomics).
 K2 against K1 on the same logical contents is exact: both run one body
-(csrc/decode_tile.cuh).
+(csrc/decode_tile.cuh).  K5 (packed GBDT) is held to its plain version
+and to K4 at 1e-5: both sum each class's trees in tree order.
 """
 
 import numpy as np
@@ -202,3 +203,63 @@ def test_paged_lanes_equal_ring_lanes_on_card(cuda, dtype):
     assert ops.LAUNCHES["paged_decode_attention"] > \
         before["paged_decode_attention"]
     assert ops.LAUNCHES["decode_attention"] == before["decode_attention"]
+
+
+def _gbdt_model(base_score=0.0):
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 3, 600)
+    X = rng.normal(0, 1, (600, 19)).astype(np.float32)
+    X[:, 0] += y * 1.2
+    model = train_gbdt(X, y, GBDTParams(num_rounds=20))
+    model.base_score = base_score
+    return model, X
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 64, 512])
+def test_packed_gbdt_kernel_matches_plain_and_dense_kernel(cuda, B):
+    """K5 == its plain version and == K4's margins (plus the base score)
+    within 1e-5, and bitwise equal from run to run."""
+    model, X = _gbdt_model(base_score=0.5)
+    packed = model.packed()
+    x = torch.as_tensor(X[:B], device=cuda)
+    before = ops.LAUNCHES["gbdt_margins_packed"]
+    got = ops.gbdt_margins_packed_from(packed, x)
+    assert ops.LAUNCHES["gbdt_margins_packed"] == before + 1
+    want = ops.gbdt_margins_packed_from(packed, x.cpu())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+    dense = ops.gbdt_margins(x, *model.tensors(cuda)) + 0.5
+    np.testing.assert_allclose(got.cpu().numpy(), dense.cpu().numpy(),
+                               atol=1e-5)
+    assert torch.equal(got, ops.gbdt_margins_packed_from(packed, x))
+
+
+@pytest.mark.cuda
+def test_single_row_admission_launches_k5_on_the_predictor_stream(cuda):
+    """One admission row scores through K5, a burst through K4; both on
+    the predictor's own stream, not the stream the engine decodes on."""
+    from repro_torch.core.predictor import Predictor
+    model, X = _gbdt_model()
+    pred = Predictor(model, device=cuda)
+    seen = []
+    orig = ops.gbdt_margins_packed_cuda
+
+    def spy(*a, **kw):
+        seen.append(torch.cuda.current_stream(cuda))
+        return orig(*a, **kw)
+
+    before = dict(ops.LAUNCHES)
+    try:
+        ops.gbdt_margins_packed_cuda = spy
+        one = pred.proba_features(X[:1])
+    finally:
+        ops.gbdt_margins_packed_cuda = orig
+    burst = pred.proba_features(X[:16])
+    assert ops.LAUNCHES["gbdt_margins_packed"] == \
+        before["gbdt_margins_packed"] + 1
+    assert ops.LAUNCHES["gbdt_margins"] == before["gbdt_margins"] + 1
+    assert seen == [pred._stream]
+    assert seen[0] != torch.cuda.default_stream(cuda)
+    np.testing.assert_allclose(one[0], burst[0], atol=1e-6)
+    assert ops.preferred_gbdt_layout(
+        torch.as_tensor(X[:16], device=cuda), model) in ("dense", "packed")
