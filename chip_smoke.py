@@ -25,9 +25,9 @@ path and read just after:
 * ``[sidecar]`` the burst over HTTP through the port's ``Sidecar``
   (``127.0.0.1:0``) in front of one ``InProcessBackend(RealEngine)``,
   under FCFS and then SJF, half the requests as SSE streams: every
-  admission scores one row through the packed ensemble (K5) on the
-  predictor's own stream; then a client disconnect, a deadline shed, a
-  ``/metrics`` scrape and a graceful shutdown under load.
+  admission scores one row through the packed ensemble (K5); then a
+  client disconnect, a deadline shed, a ``/metrics`` scrape and a
+  graceful shutdown under load.
 
 It fails (nonzero exit, no result line) without a CUDA device, without
 the repository beside it, when a kernel does not build, launch or agree
@@ -304,15 +304,19 @@ def phase_gbdt_kernel(model, prompts) -> dict:
         ms = _device_ms(kern)
         plain = _device_ms(lambda: gbdt_margins_plain(X, feat, thr, val,
                                                       n_classes=K), iters=5)
-        # bytes this data needs: every distinct node visited (feature,
-        # threshold and value, 12 B each) plus X and the margins
-        visited = _visited_nodes(X, feat, thr)
-        bound, by = _bound(visited * 12 + X.numel() * 4 + B * K * 4,
+        # bytes this data needs: feature and threshold (8 B) of every
+        # distinct inner node visited, the value (4 B) of every leaf
+        # reached and its feature (4 B) where the walk must read the leaf
+        # marker to stop, plus X and the margins
+        inner, leaves, marked = _visited_nodes(X, feat, thr)
+        bound, by = _bound(inner * 8 + leaves * 4 + marked * 4
+                           + X.numel() * 4 + B * K * 4,
                            B * T * (math.log2(N + 1) - 1), torch.float32)
         rows.append((B, ms, plain, bound, by))
         print(f"[K4 gbdt_margins] B={B} T={T} N={N}: device ms kernel "
-              f"{ms:.4f}, plain {plain:.4f}; bound {bound * 1e3:.3f} us "
-              f"({by}); host-paced kernel {_ms(kern):.4f} ms/call; "
+              f"{ms:.4f}, plain {plain:.4f}; bound {bound * 1e3:.4f} us "
+              f"({by}; {inner} inner nodes, {leaves} leaves, {marked} read "
+              f"as leaves); host-paced kernel {_ms(kern):.4f} ms/call; "
               f"max|err| {e:.2e}")
     B, ms, plain, bound, by = rows[0]
     print(f"[K4 gbdt_margins] kernels line: f32 B={B} T={T} N={N}")
@@ -323,14 +327,18 @@ def phase_gbdt_kernel(model, prompts) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
-def _visited_nodes(X, feat, thr) -> int:
-    """Distinct (tree, node) pairs that the walks over X touch."""
+def _visited_nodes(X, feat, thr) -> tuple:
+    """(inner, leaves, marked): distinct (tree, node) pairs that the walks
+    over X step through, distinct leaves where they end, and the leaves
+    among those above the bottom level, whose leaf marker a walk must
+    read to stop."""
     import torch
     T, N = feat.shape
+    depth = int(math.log2(N + 1)) - 1
     idx = torch.zeros(T, X.shape[0], dtype=torch.long, device=X.device)
     seen = [idx.clone()]
     f64 = feat.long()
-    for _ in range(int(math.log2(N + 1)) - 1):
+    for _ in range(depth):
         f = torch.gather(f64, 1, idx)
         xi = X.T.gather(0, f.clamp(min=0))
         nxt = torch.where(xi < torch.gather(thr, 1, idx), 2 * idx + 1,
@@ -338,13 +346,17 @@ def _visited_nodes(X, feat, thr) -> int:
         idx = torch.where(f < 0, idx, nxt)
         seen.append(idx.clone())
     tree = torch.arange(T, device=X.device)[:, None]
-    flat = torch.cat([s + tree * N for s in seen], dim=1)
-    return int(torch.unique(flat).numel())
+    every = torch.unique(torch.cat([s + tree * N for s in seen], dim=1))
+    ends = torch.unique(idx + tree * N)
+    marked = int(((ends % N) < 2 ** depth - 1).sum())
+    return int(every.numel() - ends.numel()), int(ends.numel()), marked
 
 
-def _visited_packed(X, feat, thr, child, depth) -> int:
-    """Distinct (tree, slot) pairs of the packed layout that the walks
-    over X touch."""
+def _visited_packed(X, feat, thr, child, depth) -> tuple:
+    """(inner, leaves): distinct (tree, slot) pairs of the packed layout
+    that the walks over X step out of, and distinct leaf slots where they
+    end.  A walk takes exactly ``depth`` steps, so every walk ends on a
+    leaf and no slot is both."""
     import torch
     T, M = feat.shape
     idx = torch.zeros(T, X.shape[0], dtype=torch.long, device=X.device)
@@ -356,8 +368,9 @@ def _visited_packed(X, feat, thr, child, depth) -> int:
             ~(xi < torch.gather(thr, 1, idx))).long()
         seen.append(idx.clone())
     tree = torch.arange(T, device=X.device)[:, None]
-    flat = torch.cat([s + tree * M for s in seen], dim=1)
-    return int(torch.unique(flat).numel())
+    every = torch.unique(torch.cat([s + tree * M for s in seen], dim=1))
+    ends = torch.unique(idx + tree * M)
+    return int(every.numel() - ends.numel()), int(ends.numel())
 
 
 def phase_packed_kernel(model, prompts) -> dict:
@@ -399,17 +412,19 @@ def phase_packed_kernel(model, prompts) -> dict:
                                                   n_classes=K))
         plain = _device_ms(lambda: gbdt_margins_packed_plain(
             X, pf, pt, pc, pv, **kw), iters=5)
-        # bytes this data needs: every distinct slot visited (feature,
-        # threshold, child and value, 16 B each) plus X and the margins
-        visited = _visited_packed(X, pf, pt, pc, depth)
-        bound, by = _bound(visited * 16 + X.numel() * 4 + B * K * 4,
-                           B * T * depth, torch.float32)
+        # bytes this data needs: feature, threshold and child (12 B) of
+        # every distinct inner slot visited and the value (4 B) of every
+        # leaf slot reached, plus X and the margins
+        inner, leaves = _visited_packed(X, pf, pt, pc, depth)
+        bound, by = _bound(inner * 12 + leaves * 4 + X.numel() * 4
+                           + B * K * 4, B * T * depth, torch.float32)
         choice = ops.preferred_gbdt_layout(X, model) if B in (1, 16) \
             else "-"
         rows.append((B, ms, plain, bound, by))
         print(f"[K5 gbdt_margins_packed] B={B} T={T} M={M} depth={depth}: "
               f"device ms kernel {ms:.4f}, K4 {k4:.4f}, plain {plain:.4f}; "
-              f"bound {bound * 1e3:.3f} us ({by}, {visited} slots visited); "
+              f"bound {bound * 1e3:.4f} us ({by}; {inner} inner slots, "
+              f"{leaves} leaves); "
               f"host-paced kernel {_ms(kern):.4f} ms/call; max|err| "
               f"{e:.2e}, == K4 {torch.equal(got, dense)}; "
               f"gbdt_margins_best picks {choice}")
@@ -607,46 +622,37 @@ def _wire_tokens(kind, obj) -> list:
 
 def _admission_ms(predictor, eng, prompts) -> dict:
     """Host milliseconds of one admission score (features + K5 + read
-    back), idle and while the engine decodes in another thread, on the
-    predictor's own stream and, for comparison, on the default stream."""
+    back), idle and while the engine decodes in another thread."""
     import threading
     import numpy as np
     import torch
-    from repro_torch.core import features as F
 
-    def one(on_own_stream):
+    def one():
         t0 = time.perf_counter()
-        if on_own_stream:
-            predictor.proba(prompts[0])
-        else:
-            predictor.model.predict_proba(F.extract(prompts[0])[None],
-                                          predictor.device)
+        predictor.proba(prompts[0])
         return (time.perf_counter() - t0) * 1e3
 
-    out = {}
-    for own in (True, False):
-        tag = "own stream" if own else "default stream"
-        for _ in range(5):
-            one(own)
-        out[f"idle, {tag}"] = [one(own) for _ in range(30)]
-        done = threading.Event()
+    for _ in range(5):
+        one()
+    out = {"idle": [one() for _ in range(30)]}
+    done = threading.Event()
 
-        def decode():
-            eng.generate(list(range(5, 29)), max_new_tokens=MAX_NEW)
-            torch.cuda.synchronize()
-            done.set()
+    def decode():
+        eng.generate(list(range(5, 29)), max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+        done.set()
 
-        th = threading.Thread(target=decode)
-        th.start()
-        time.sleep(0.05)                       # the decode is under way
-        busy = []
-        while not done.is_set() and len(busy) < 60:
-            busy.append(one(own))
-            time.sleep(0.005)
-        th.join(timeout=120)
-        if th.is_alive():
-            raise AssertionError("decode thread did not finish")
-        out[f"during decode, {tag}"] = busy
+    th = threading.Thread(target=decode)
+    th.start()
+    time.sleep(0.05)                           # the decode is under way
+    busy = []
+    while not done.is_set() and len(busy) < 60:
+        busy.append(one())
+        time.sleep(0.005)
+    th.join(timeout=120)
+    if th.is_alive():
+        raise AssertionError("decode thread did not finish")
+    out["during decode"] = busy
     return {k: (float(np.median(v)), float(np.percentile(v, 99)), len(v))
             for k, v in out.items()}
 

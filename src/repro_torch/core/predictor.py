@@ -11,19 +11,17 @@ trained ensemble:
 * ``proba_batch`` / ``p_long_batch`` -- an arrival burst scored in one
   call through the dense layout, K4.
 
-On the card the predictor scores on a CUDA stream of its own.  The engine
-decodes on the default stream, often from another thread (the sidecar's
-worker); on that stream a one-row admission would queue behind a whole
-decode segment, and its read-back would wait for it.
+Scoring runs on the caller's current CUDA stream, the one the engine
+decodes on.  The eager decode loop is host-bound (the host enqueues its
+kernels slower than the card runs them), so that stream's queue stays
+shallow and an admission does not wait behind a decode segment.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
 
 from repro_torch.core import features as F
 from repro_torch.core.gbdt import GBDTModel, GBDTParams, train_gbdt
@@ -45,21 +43,14 @@ class Predictor:
     def __init__(self, model: GBDTModel, device=None):
         self.model = model
         self.device = resolve_device(device)
-        self._stream = torch.cuda.Stream(self.device) \
-            if self.device.type == "cuda" else None
-
-    def _on_stream(self):
-        return torch.cuda.stream(self._stream) if self._stream is not None \
-            else contextlib.nullcontext()
 
     def features(self, prompt: str) -> np.ndarray:
         return F.extract(prompt)
 
     def proba_features(self, X: np.ndarray) -> np.ndarray:
         """(B, 3) class probabilities of feature rows X (B, F): one row
-        through K5, more through K4, on the predictor's stream."""
-        with self._on_stream():
-            return self.model.predict_proba(X, self.device)
+        through K5, more through K4."""
+        return self.model.predict_proba(X, self.device)
 
     def proba(self, prompt: str) -> np.ndarray:
         return self.proba_features(F.extract(prompt)[None])[0]
