@@ -134,6 +134,12 @@ def _bound(n_bytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _ratio(ms: float, lib_ms: float, bound_ms: float) -> str:
+    """The kernel against the library call and against its bound."""
+    return (f"kernel/sdpa {ms / lib_ms:.2f}, bound share "
+            f"{100 * bound_ms / ms:.2f}%")
+
+
 def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -173,14 +179,16 @@ def phase_decode_kernel(gen) -> dict:
     """K1 at the serving shapes: B 1, H 15 over KV 5, hd 64, ring S 512."""
     import torch
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                      decode_attention_plain)
+                                                      decode_attention_plain,
+                                                      split_plan)
     B, H, KV, hd, S = 1, 15, 5, 64, MAX_LEN
     errs = {}
     for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         q = torch.randn(B, 1, H, hd, generator=gen, device="cuda").to(dt)
         ck = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
         cv = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
-        for t_host in (0, 17, 127, 300, S - 1, S + 200):   # last: wrapped
+        # rank 0 alone up to t 63, the whole cluster from t 64, wrapped
+        for t_host in (0, 3, 17, 63, 64, 127, 300, S - 1, S + 200):
             t = torch.tensor(t_host, dtype=torch.int32, device="cuda")
             got = decode_attention_cuda(q, ck, cv, t)
             want = decode_attention_plain(q, ck, cv, t)
@@ -190,13 +198,13 @@ def phase_decode_kernel(gen) -> dict:
             errs[(label, t_host)] = err
     print("[K1 decode_attention] max|err| " + " ".join(
         f"{l}@t={t}:{e:.2e}" for (l, t), e in errs.items()))
-    # timing at a mid-ring fill level, bf16 (the serving dtype)
+    # timing at the serial path's fill levels, bf16 (the serving dtype)
     q = torch.randn(B, 1, H, hd, generator=gen, device="cuda",
                     dtype=torch.float32).bfloat16()
     ck = torch.randn(B, S, KV, hd, generator=gen, device="cuda").bfloat16()
     cv = torch.randn(B, S, KV, hd, generator=gen, device="cuda").bfloat16()
-    rows = []
-    for t_host in (63, 127, 511):
+    rows = {}
+    for t_host in (23, 63, 127, 511):
         t = torch.tensor(t_host, dtype=torch.int32, device="cuda")
         n = min(S, t_host + 1)
         kx = ck[:, :n].transpose(1, 2).repeat_interleave(H // KV, dim=1)
@@ -211,17 +219,19 @@ def phase_decode_kernel(gen) -> dict:
         esz = 2
         bound, by = _bound(2 * n * KV * hd * esz + 2 * B * H * hd * esz + 4,
                            4 * B * H * n * hd, torch.bfloat16)
-        rows.append((t_host, ms, plain, lib, bound, by))
-        print(f"[K1 decode_attention] bf16 S={S} t={t_host}: device ms "
-              f"kernel {ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}; bound "
-              f"{bound * 1e3:.3f} us ({by}); host-paced kernel "
+        rows[t_host] = (ms, plain, lib, bound, by)
+        print(f"[K1 decode_attention] bf16 S={S} t={t_host} "
+              f"({split_plan(S)} splits): device ms kernel {ms:.4f}, plain "
+              f"{plain:.4f}, sdpa {lib:.4f}; bound {bound * 1e3:.3f} us "
+              f"({by}); {_ratio(ms, lib, bound)}; host-paced kernel "
               f"{_ms(kern):.4f} ms/call")
-    t_host, ms, plain, lib, bound, by = rows[1]
+    t_host = 127
+    ms, plain, lib, bound, by = rows[t_host]
     print(f"[K1 decode_attention] kernels line: bf16 B1 H15 KV5 hd64 S{S} "
           f"t={t_host}")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention.py:163",
+            "replaces": "src/repro/kernels/decode_attention.py:180",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
@@ -262,8 +272,8 @@ def phase_flash_kernel(gen) -> dict:
             timed.append((S, ms, plain, lib, bound, by))
             print(f"[K3 flash_attention] bf16 S={S}: device ms kernel "
                   f"{ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}; bound "
-                  f"{bound * 1e3:.3f} us ({by}); host-paced kernel "
-                  f"{_ms(kern):.4f} ms/call")
+                  f"{bound * 1e3:.3f} us ({by}); {_ratio(ms, lib, bound)}; "
+                  f"host-paced kernel {_ms(kern):.4f} ms/call")
     print("[K3 flash_attention] max|err| " + " ".join(
         f"{l}@S={s}:{e:.2e}" for (l, s), e in errs.items()))
     S, ms, plain, lib, bound, by = timed[1]          # the 32-token bucket
@@ -271,7 +281,7 @@ def phase_flash_kernel(gen) -> dict:
           f"S={S}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:71",
+            "replaces": "src/repro/kernels/flash_attention.py:89",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
@@ -322,7 +332,7 @@ def phase_gbdt_kernel(model, prompts) -> dict:
     print(f"[K4 gbdt_margins] kernels line: f32 B={B} T={T} N={N}")
     return {"name": "gbdt_margins", "route": "cuda",
             "source": "src/repro_torch/csrc/gbdt_infer.cu",
-            "replaces": "src/repro/kernels/gbdt_infer.py:111",
+            "replaces": "src/repro/kernels/gbdt_infer.py:131",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
@@ -433,7 +443,7 @@ def phase_packed_kernel(model, prompts) -> dict:
           f"depth={depth} (one sidecar admission)")
     return {"name": "gbdt_margins_packed", "route": "cuda",
             "source": "src/repro_torch/csrc/gbdt_infer.cu",
-            "replaces": "src/repro/kernels/gbdt_infer.py:150",
+            "replaces": "src/repro/kernels/gbdt_infer.py:171",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
@@ -959,12 +969,23 @@ def phase_decode_lanes_kernel(gen) -> float:
         if label == "bf16":
             ms = _device_ms(lambda: decode_attention_cuda(q, ck, cv, t))
             plain = _device_ms(lambda: decode_attention_plain(q, ck, cv, t))
+            # SDPA over the whole ring with a boolean mask of each lane's
+            # live slots (K/V expanded to the H query heads)
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    <= t[:, None]).view(B, 1, 1, S)
+            qx = q.transpose(1, 2).contiguous()
+            kx = ck.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+            vx = cv.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+            lib = _device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qx, kx, vx, attn_mask=mask))
             n = sum(min(S, x + 1) for x in t_host)
             bound, by = _bound(2 * n * KV * hd * 2 + 2 * B * H * hd * 2
                                + 4 * B, 4 * H * n * hd, torch.bfloat16)
             print(f"[K1 decode_attention] lanes bf16 B{B} S{S} t={t_host}: "
-                  f"device ms kernel {ms:.4f}, plain {plain:.4f}; bound "
-                  f"{bound * 1e3:.3f} us ({by}); max|err| {err:.2e}")
+                  f"device ms kernel {ms:.4f}, plain {plain:.4f}, sdpa "
+                  f"(boolean mask) {lib:.4f}; bound {bound * 1e3:.3f} us "
+                  f"({by}); {_ratio(ms, lib, bound)}; max|err| {err:.2e}")
     print(f"[K1 decode_attention] (B,) t: each lane == its scalar-t launch "
           f"(bitwise), max|err| vs plain {worst:.2e}")
     return worst
@@ -1026,7 +1047,8 @@ def phase_paged_kernel(gen) -> dict:
                 print(f"[K2 paged_decode_attention] bf16 B{B} H15 KV5 hd64 "
                       f"page {page} P{P} t={t_host}: device ms kernel "
                       f"{ms:.4f}, plain {plain:.4f}; bound "
-                      f"{bound * 1e3:.3f} us ({by}); host-paced kernel "
+                      f"{bound * 1e3:.3f} us ({by}); bound share "
+                      f"{100 * bound / ms:.2f}%; host-paced kernel "
                       f"{_ms(kern):.4f} ms/call")
     print("[K2 paged_decode_attention] max|err| " + " ".join(
         f"{l}@page={p}:{e:.2e}" for (l, p), e in errs.items())
@@ -1078,14 +1100,25 @@ def phase_flash_extend(gen) -> float:
                 ms = _device_ms(kern)
                 plain = _device_ms(lambda: flash_attention_plain(
                     q, k, v, q_offset=prefix))
+                # SDPA with an explicit mask: key j <= prefix + row i
+                mask = (torch.arange(extent, device="cuda")[None, :]
+                        <= prefix + torch.arange(suffix, device="cuda")
+                        [:, None]).view(1, 1, suffix, extent)
+                qx = q.transpose(1, 2)
+                kx = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+                vx = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+                lib = _device_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qx, kx, vx, attn_mask=mask))
                 pairs = sum(prefix + i + 1 for i in range(suffix))
                 bound, by = _bound((2 * suffix * H * hd
                                     + 2 * extent * KV * hd) * 2,
                                    4 * H * hd * pairs, torch.bfloat16)
                 print(f"[K3 flash_attention] extend bf16 q_offset {prefix} "
                       f"Sq {suffix} Skv {extent}: device ms kernel "
-                      f"{ms:.4f}, plain {plain:.4f}; bound "
-                      f"{bound * 1e3:.3f} us ({by})")
+                      f"{ms:.4f}, plain {plain:.4f}, sdpa (mask) "
+                      f"{lib:.4f}; bound {bound * 1e3:.3f} us ({by}); "
+                      f"{_ratio(ms, lib, bound)}")
     print("[K3 flash_attention] extend max|err| " + " ".join(
         f"{l}@{p}+{s}:{e:.2e}" for (l, p, s), e in errs.items())
           + "; suffix rows == cold-prefill rows bitwise")

@@ -7,36 +7,44 @@
 // one value shared by the batch (the serial engine) or one per lane (the
 // decode lanes, whose sequences sit at different lengths).
 //
-// What bounds it on an H100: bytes.  Each decoded token reads the live
+// What bounds it on an H100: latency.  Each decoded token reads the live
 // part of the cache once (2 * min(S, t+1) * KV * hd elements per layer)
-// and does 4 FLOPs per element read, far below the ~295 FLOP/byte at which
-// bf16 tensor-core work would be the limit.  At the serving shapes
+// and does 4 FLOPs per element read, far below the ~295 FLOP/byte at
+// which bf16 tensor-core work would be the limit.  At the serving shapes
 // (B 1-4, KV 5, hd 64, S 128-512, bf16) that is at most 655 KB per lane
-// and layer, a fraction of a microsecond at 3.35 TB/s, so in practice the
-// kernel is bound by launch latency and by parallelism: one block per
-// (lane, KV head) is only 5 to 20 blocks on 132 SMs.  Splitting S across
-// blocks (flash-decoding) is the later fix.
+// and layer, a fraction of a microsecond at 3.35 TB/s, so the time of a
+// call is its chain of dependent steps and the number of SMs it reaches.
 //
-// Design (the body is decode_tile.cuh, shared with K2):
-//  * one block per (kv head, lane); the K/V tile of the cache is staged in
-//    shared memory once and reused by all G query heads of the group;
+// Design (the body is decode_tile.cuh, shared with K2; its note has the
+// details):
+//  * one launch per call over a grid of (n_split, KV, B) blocks, launched
+//    with cudaLaunchKernelEx as clusters of n_split = split_plan(S) <= 8
+//    blocks, one cluster per (lane, KV head); each block attends a
+//    contiguous range of the lane's live slots, and rank 0 merges the
+//    blocks' partials through distributed shared memory;
+//  * warps own slots, 16-byte loads, scores by warp shuffles, an online
+//    softmax per row group in registers: no barrier inside the slot loop;
 //  * the cache is read in place in the engine's layout (B, S, KV, hd)
 //    through its strides: no transposed copy of the cache per call;
 //  * the fill level t is read from device memory (t[0] for all lanes, or
 //    t[b] per lane), so the host never synchronises per decode step; the
-//    loop covers min(S, t[b]+1) slots only, instead of masking the buffer;
+//    blocks cover min(S, t[b]+1) slots only, instead of masking the buffer;
 //  * q is read and the output written in model layout (B, 1, H, hd).
 
 #include "decode_tile.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
 // (head_dim) axis of q, the caches and o must be contiguous.  t_stride is
-// 0 (one fill level for every lane) or 1 (t holds B levels).
+// 0 (one fill level for every lane) or 1 (t holds B levels).  n_split is
+// the cluster size of kernels/decode_attention.py's split_plan(S); hd is
+// a multiple of 8, at most 128, and every pointer and stride but the
+// last axis's is a multiple of 16 bytes.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* t, void* o,
     int dtype, int B, int S, int KV, int G, int hd, int t_stride,
     long long q_sb, long long q_sh, long long c_sb, long long c_ss,
-    long long c_sh, long long o_sb, long long o_sh, void* stream) {
+    long long c_sh, long long o_sb, long long o_sh, int n_split,
+    void* stream) {
   if (t_stride != 0 && t_stride != 1) return (int)cudaErrorInvalidValue;
   DecodeArgs a{};
   a.q = q;
@@ -60,7 +68,6 @@ extern "C" int decode_attention_launch(
   a.c_ss = c_ss;
   a.c_sh = c_sh;
   a.bt_sb = 0;
-  a.scale = 1.0f / sqrtf((float)hd);
-  return dispatch_dtype<false>(dtype, a, B, KV,
+  return dispatch_dtype<false>(dtype, a, B, KV, n_split,
                                static_cast<cudaStream_t>(stream));
 }

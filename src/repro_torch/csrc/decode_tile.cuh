@@ -4,45 +4,81 @@
 //
 // Both kernels run this same template and differ only in where the K/V
 // row of logical slot s lives: ring slot s of the lane's buffer, or
-// in-page slot s % page of physical page bt[b, s / page].  The tile size,
-// the slot order and every float32 operation are shared, so on the same
-// logical contents the paged kernel's output is bitwise equal to the ring
-// kernel's (paged lanes and ring lanes then decode the same tokens).
+// in-page slot s % page of physical page bt[b, s / page].  The split of
+// the slots, their order and every float32 operation are shared, so on
+// the same logical contents the paged kernel's output is bitwise equal to
+// the ring kernel's (paged lanes and ring lanes then decode the same
+// tokens).
 //
-// One block per (kv head, lane).  The block stages kTile slots of K and V
-// in shared memory as f32 and all G query heads of the group read them
-// (the G-fold read saving of the TPU kernels); an online softmax per head
-// keeps the running max, sum and accumulator in f32.  The fill level is
-// read on the device, one shared value (t_stride 0) or one per lane
-// (t_stride 1), and the loop covers min(S, t + 1) slots only: a ring that
-// has wrapped attends every slot, and a lane whose t has run past its
-// window (a stopped lane still stepping until its segment ends) stays
-// finite.  The launcher allocates nothing and returns cudaGetLastError().
+// What bounds it on an H100.  One token reads the live part of the cache
+// once: 2 * min(S, t+1) * KV * hd elements per lane, 4 FLOPs each, far
+// below the ~295 FLOP/byte at which the tensor cores would be the limit.
+// At the serving shapes that is 20-660 KB, 0.01-0.2 us at 3.35 TB/s:
+// what a call costs is latency, i.e. how many dependent steps (loads,
+// barriers, reductions) lie between launch and the last store, and how
+// few SMs the work lands on.  The design cuts both:
+//
+//  * Split over a thread-block cluster.  Each (lane, KV head) runs on a
+//    cluster of n = split_plan(S) blocks (a power of two <= 8, from S
+//    alone; kernels/decode_attention.py).  Past 64 live slots, block
+//    `rank` takes the contiguous slots [rank * per, (rank + 1) * per) of
+//    the live range [0, min(S, t[b] + 1)), per = ceil(live / n), so a
+//    lane's plan depends on (t[b], S) only: never on B or on the other
+//    lanes, which keeps each lane equal bit for bit to its scalar-t
+//    launch and K2 equal to K1.  B = 1, S = 512 is 40 blocks, not 5.
+//  * Solo: up to 64 live slots (the serial path's first tokens, a lane's
+//    early steps) rank 0 takes them all, folds its warps and stores the
+//    output; the other ranks return at once and no block touches the
+//    cluster barrier, which with the merge costs more than 64 slots do
+//    on one block.  Folding that single partial in rank 0 would give the
+//    same bits (the empty partials weigh 0 and the full one exactly 1).
+//  * Warps own slots.  A warp holds R = 32 / lpr slot rows at a time,
+//    lpr lanes to a row, each lane loading 16 bytes (8 bf16 or 4 f32 of
+//    the row) of K and of V; 8 warps cover 32 slots a step at hd 64 in
+//    bf16.  The G query rows of the group sit in registers; a score is a
+//    register dot product over the lane's 16 bytes and a butterfly of
+//    warp shuffles over the row's lanes.
+//  * Each row group of lanes keeps its own online softmax (m, l, acc) in
+//    registers, with one exponential per slot and head, and there is no
+//    barrier of any kind inside the slot loop.
+//  * One merge at the end: row groups by shuffles, warps through shared
+//    memory, then the cluster through distributed shared memory: every
+//    block stores its partial into rank 0's shared memory at its rank,
+//    one cluster barrier, and rank 0 folds the partials in rank order and
+//    writes the output.  One launch per call: no second combine kernel,
+//    no global scratch and no atomics.  An empty split's partial is
+//    (kNegInf, 0, 0) and folding it in leaves the other partial bitwise
+//    unchanged.  Outside solo (which every block of a cluster decides
+//    alike, from (t, S)) every block reaches both cluster barriers: a
+//    relaxed arrive once t is read, waited on just before its remote
+//    stores, proves that rank 0 has started, and rank 0 reads only its
+//    own shared memory after the second barrier, so a block may exit
+//    right after it.  Pulling the partials from rank 0 instead would
+//    cost a second full barrier, to keep every block alive until rank 0
+//    has read it, and remote loads in series.
+//
+// The fill level is read on the device, one shared value (t_stride 0) or
+// one per lane (t_stride 1): a ring that has wrapped attends every slot,
+// and a lane whose t has run past its window (a stopped lane still
+// stepping until its segment ends) stays finite.  The launcher allocates
+// nothing and returns the launch's cudaError_t.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 32;           // cache slots staged per step
-constexpr float kNegInf = -1e30f;   // the reference's finite mask value
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxSplits = 8;       // the portable cluster size
+constexpr int kSplitSlots = 64;     // live slots rank 0 takes alone
+constexpr float kNegInf = -1e30f;   // the reference's finite mask value
 
 // Element strides; the head_dim axis is contiguous everywhere.
 struct DecodeArgs {
@@ -54,6 +90,7 @@ struct DecodeArgs {
   void* o;                  // (B, 1, H, hd)
   int S;                    // logical window: ring slots | P * page
   int G, hd;
+  int lpr;                  // lanes per slot row: pow2 >= hd / (16 B)
   int t_stride;             // 0: one shared t, 1: t[b]
   int page, P;              // paged only
   int64_t q_sb, q_sh, o_sb, o_sh;
@@ -64,129 +101,313 @@ struct DecodeArgs {
   float scale;
 };
 
-inline size_t smem_bytes(const DecodeArgs& a, bool paged) {
-  // q (G,hd) + K tile (kTile, hd+1) + V tile (kTile, hd) + p (G, kTile)
-  // + acc (G, hd) + m, l, alpha (G each) [+ the block-table row (P)]
-  return sizeof(float) * (2 * a.G * a.hd + kTile * (2 * a.hd + 1) +
-                          a.G * kTile + 3 * a.G) +
+// 16 bytes of one row as floats: 8 bf16 or 4 f32.
+template <typename T> struct Row16;
+template <> struct Row16<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void cvt(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <> struct Row16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ void cvt(const uint4& u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+};
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Shared memory: per-warp partials (m, l: G each; acc: G * hd), the
+// cluster's block partials (written into rank 0's copy by every block)
+// and, paged, the block-table row.
+template <int GM>
+struct Smem {
+  float wm[kWarps][GM], wl[kWarps][GM];
+  float cm[kMaxSplits][GM], cl[kMaxSplits][GM];
+};
+
+inline size_t smem_bytes(const DecodeArgs& a, int gm, int n_split,
+                         bool paged) {
+  return sizeof(float) * (2 * (kWarps + kMaxSplits) * gm +
+                          (size_t)(kWarps + n_split) * gm * a.hd) +
          (paged ? sizeof(int32_t) * a.P : 0);
 }
 
-template <typename T, bool kPaged>
-__global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
-  extern __shared__ float smem[];
-  const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int G = a.G, hd = a.hd;
-  const int ld = hd + 1;             // padded K rows: conflict-free dots
-  float* qs = smem;                  // (G, hd)
-  float* ks = qs + G * hd;           // (kTile, ld)
-  float* vs = ks + kTile * ld;       // (kTile, hd)
-  float* ps = vs + kTile * hd;       // (G, kTile) scores, then weights
-  float* acc = ps + G * kTile;       // (G, hd)
-  float* m = acc + G * hd;           // (G) running max
-  float* l = m + G;                  // (G) running sum
-  float* alpha = l + G;              // (G) rescale of this step
-  int32_t* row = reinterpret_cast<int32_t*>(alpha + G);   // (P) paged
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* kb = static_cast<const T*>(a.k) + kvh * a.c_sh;
-  const T* vb = static_cast<const T*>(a.v) + kvh * a.c_sh;
+template <typename T, int GM, bool kPaged>
+__global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
+  constexpr int V = Row16<T>::kN;
+  extern __shared__ float smem[];
+  Smem<GM>& sh = *reinterpret_cast<Smem<GM>*>(smem);
+  float* wacc = smem + sizeof(Smem<GM>) / sizeof(float);   // [kWarps][GM][hd]
+  float* cacc = wacc + kWarps * GM * a.hd;            // [n_split][GM][hd]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  int32_t* row = reinterpret_cast<int32_t*>(cacc + n_split * GM * a.hd);
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = a.G, hd = a.hd, lpr = a.lpr;
+  const int R = 32 / lpr;                  // slot rows a warp holds
+  const int rg = lane / lpr, c = lane % lpr;
+  const bool has_chunk = c * V < hd;
+
+  const T* kb = static_cast<const T*>(a.k) + kvh * a.c_sh + c * V;
+  const T* vb = static_cast<const T*>(a.v) + kvh * a.c_sh + c * V;
   if (!kPaged) {
     kb += b * a.c_sb;
     vb += b * a.c_sb;
   }
+  // the split plan: up to kSplitSlots live slots, rank 0 alone takes
+  // them all, computes and stores the output, and no block touches the
+  // cluster's barrier or another block's shared memory; past that,
+  // contiguous ranges of ceil(live / n) slots by rank
   const int t = a.t[b * a.t_stride];
-  const int n_valid = t + 1 < a.S ? t + 1 : a.S;
+  const int live = t + 1 < a.S ? t + 1 : a.S;
+  const bool solo = live <= kSplitSlots;
+  const int per = solo ? live : (live + n_split - 1) / n_split;
+  const int lo = min(live, rank * per);
+  const int hi = min(live, lo + per);
+  if (solo && rank != 0) return;
+  // announce that this block runs; the matching wait, before the first
+  // store into rank 0's shared memory, overlaps the slot loop
+  if (!solo) cluster_arrive_relaxed();
 
-  for (int i = tid; i < G * hd; i += kThreads) {
-    const int g = i / hd, d = i % hd;
-    qs[i] = to_f32(q[b * a.q_sb + (int64_t)(kvh * G + g) * a.q_sh + d]);
-    acc[i] = 0.f;
-  }
-  if (tid < G) {
-    m[tid] = kNegInf;
-    l[tid] = 0.f;
-  }
   if (kPaged) {                      // no scalar prefetch: load the row
     for (int i = tid; i < a.P; i += kThreads) row[i] = a.bt[b * a.bt_sb + i];
+    __syncthreads();
+  }
+
+  float q[GM][V];
+  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + c * V;
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (g < G && has_chunk)
+      u = __ldg(reinterpret_cast<const uint4*>(
+          qb + (int64_t)(kvh * G + g) * a.q_sh));
+    Row16<T>::cvt(u, q[g]);
+  }
+  float m[GM], l[GM], acc[GM][V];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[g][i] = 0.f;
+  }
+
+  // row group rg of warp w holds slot base + w * R + rg of each step
+  for (int base = lo; base < hi; base += kWarps * R) {
+    const int s = base + warp * R + rg;
+    const bool ok = s < hi;
+    uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
+    if (ok && has_chunk) {
+      const int64_t off = kPaged ? (int64_t)row[s / a.page] * a.c_sp +
+                                       (int64_t)(s % a.page) * a.c_ss
+                                 : (int64_t)s * a.c_ss;
+      kr = __ldg(reinterpret_cast<const uint4*>(kb + off));
+      vr = __ldg(reinterpret_cast<const uint4*>(vb + off));
+    }
+    float kf[V], vf[V];
+    Row16<T>::cvt(kr, kf);
+    Row16<T>::cvt(vr, vf);
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) d = fmaf(q[g][i], kf[i], d);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)     // over the row's lpr lanes
+        if (o < lpr) d += __shfl_xor_sync(0xffffffffu, d, o);
+      // online softmax with one exponential: the larger of the running
+      // max and the score keeps weight 1
+      const float sc = d * a.scale;
+      const float e = __expf(-fabsf(sc - m[g]));
+      const bool up = ok && sc > m[g];
+      const float alpha = up ? e : 1.f;
+      const float pg = !ok ? 0.f : up ? 1.f : e;
+      m[g] = up ? sc : m[g];
+      l[g] = fmaf(l[g], alpha, pg);
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        acc[g][i] = fmaf(acc[g][i], alpha, pg * vf[i]);
+    }
+  }
+
+  // merge the warp's row groups; symmetric in the two sides, so every
+  // lane of a row group ends with the same partial
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    if (o < lpr) continue;
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float e = __expf(-fabsf(m[g] - mo));
+      const float ea = m[g] >= mo ? 1.f : e, eb = mo >= m[g] ? 1.f : e;
+      l[g] = l[g] * ea + lo_ * eb;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i], o);
+        acc[g][i] = acc[g][i] * ea + ao * eb;
+      }
+      m[g] = fmaxf(m[g], mo);
+    }
+  }
+  if (rg == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) break;
+      if (has_chunk) {
+        float* dst = wacc + (warp * GM + g) * hd + c * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i) dst[i] = acc[g][i];
+      }
+      if (c == 0) {
+        sh.wm[warp][g] = m[g];
+        sh.wl[warp][g] = l[g];
+      }
+    }
   }
   __syncthreads();
-
-  for (int s0 = 0; s0 < n_valid; s0 += kTile) {
-    const int n = min(kTile, n_valid - s0);
-    for (int i = tid; i < n * hd; i += kThreads) {
-      const int j = i / hd, d = i % hd;
-      const int s = s0 + j;
-      const int64_t off =
-          kPaged ? (int64_t)row[s / a.page] * a.c_sp +
-                       (int64_t)(s % a.page) * a.c_ss + d
-                 : (int64_t)s * a.c_ss + d;
-      ks[j * ld + d] = to_f32(kb[off]);
-      vs[j * hd + d] = to_f32(vb[off]);
-    }
-    __syncthreads();
-    for (int i = tid; i < G * n; i += kThreads) {
-      const int g = i / n, j = i % n;
-      const float* qg = qs + g * hd;
-      const float* kj = ks + j * ld;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qg[d], kj[d], s);
-      ps[g * kTile + j] = s * a.scale;
-    }
-    __syncthreads();
-    if (tid < G) {                    // online-softmax step for head tid
-      float* p = ps + tid * kTile;
-      const float m_prev = m[tid];
-      float m_new = m_prev;
-      for (int j = 0; j < n; ++j) m_new = fmaxf(m_new, p[j]);
-      float sum = 0.f;
-      for (int j = 0; j < n; ++j) {
-        const float e = expf(p[j] - m_new);
-        p[j] = e;
-        sum += e;
-      }
-      const float al = expf(m_prev - m_new);
-      m[tid] = m_new;
-      l[tid] = fmaf(l[tid], al, sum);
-      alpha[tid] = al;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * hd; i += kThreads) {
-      const int g = i / hd, d = i % hd;
-      const float* p = ps + g * kTile;
-      float acc_i = acc[i] * alpha[g];
-      for (int j = 0; j < n; ++j) acc_i = fmaf(p[j], vs[j * hd + d], acc_i);
-      acc[i] = acc_i;
-    }
-    __syncthreads();
-  }
-  T* o = static_cast<T*>(a.o);
+  // the block's partial, warps folded in order: the output itself when
+  // the block runs solo, else stored straight into rank 0's shared memory
+  // at this block's rank (every block has started once the wait returns)
+  if (!solo) cluster_wait();
+  float* pm = cluster.map_shared_rank(&sh.cm[0][0], 0) + rank * GM;
+  float* pl = cluster.map_shared_rank(&sh.cl[0][0], 0) + rank * GM;
+  float* pacc = cluster.map_shared_rank(cacc, 0) + rank * GM * hd;
+  T* o = static_cast<T*>(a.o) + b * a.o_sb;
   for (int i = tid; i < G * hd; i += kThreads) {
     const int g = i / hd, d = i % hd;
-    o[b * a.o_sb + (int64_t)(kvh * G + g) * a.o_sh + d] =
-        from_f32<T>(acc[i] / fmaxf(l[g], 1e-30f));
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sh.wm[w][g]);
+    float lsum = 0.f, asum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float e = __expf(sh.wm[w][g] - mx);
+      lsum = fmaf(sh.wl[w][g], e, lsum);
+      asum = fmaf(wacc[(w * GM + g) * hd + d], e, asum);
+    }
+    if (solo) {
+      o[(int64_t)(kvh * G + g) * a.o_sh + d] =
+          from_f32<T>(asum / fmaxf(lsum, 1e-30f));
+      continue;
+    }
+    pacc[g * hd + d] = asum;
+    if (d == 0) {
+      pm[g] = mx;
+      pl[g] = lsum;
+    }
+  }
+  if (solo) return;
+  cluster.sync();                    // every partial is in rank 0
+  if (rank != 0) return;             // nothing reads this block any more
+  // rank 0 folds the blocks' partials in rank order
+  for (int i = tid; i < G * hd; i += kThreads) {
+    const int g = i / hd, d = i % hd;
+    float mx = kNegInf;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < n_split) mx = fmaxf(mx, sh.cm[r][g]);
+    float lsum = 0.f, asum = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) {
+      if (r < n_split) {
+        const float e = __expf(sh.cm[r][g] - mx);
+        lsum = fmaf(sh.cl[r][g], e, lsum);
+        asum = fmaf(cacc[(r * GM + g) * hd + d], e, asum);
+      }
+    }
+    o[(int64_t)(kvh * G + g) * a.o_sh + d] =
+        from_f32<T>(asum / fmaxf(lsum, 1e-30f));
   }
 }
 
-template <typename T, bool kPaged>
-int launch_decode(const DecodeArgs& a, int B, int KV, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a, kPaged);
+template <typename T, int GM, bool kPaged>
+int launch_decode(const DecodeArgs& a, int B, int KV, int n_split,
+                  cudaStream_t stream) {
+  auto kern = decode_kernel<T, GM, kPaged>;
+  const size_t smem = smem_bytes(a, GM, n_split, kPaged);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<T, kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_kernel<T, kPaged><<<dim3(KV, B), kThreads, smem, stream>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, KV, B);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// GM: the group width the kernel is compiled for (G <= GM; rows past G
+// are zero and never stored).
+template <typename T, bool kPaged>
+int dispatch_group(const DecodeArgs& a, int B, int KV, int n_split,
+                   cudaStream_t st) {
+  if (a.G == 1) return launch_decode<T, 1, kPaged>(a, B, KV, n_split, st);
+  if (a.G == 2) return launch_decode<T, 2, kPaged>(a, B, KV, n_split, st);
+  if (a.G == 3) return launch_decode<T, 3, kPaged>(a, B, KV, n_split, st);
+  if (a.G == 4) return launch_decode<T, 4, kPaged>(a, B, KV, n_split, st);
+  if (a.G <= 8) return launch_decode<T, 8, kPaged>(a, B, KV, n_split, st);
+  if (a.G <= 16) return launch_decode<T, 16, kPaged>(a, B, KV, n_split, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Validates what the kernel assumes and launches: dtype 0 = float32,
+// 1 = bfloat16; hd a multiple of 8, at most 128; 1 <= n_split <= 8.
 template <bool kPaged>
-int dispatch_dtype(int dtype, const DecodeArgs& a, int B, int KV,
+int dispatch_dtype(int dtype, DecodeArgs a, int B, int KV, int n_split,
                    cudaStream_t stream) {
-  if (dtype == 0) return launch_decode<float, kPaged>(a, B, KV, stream);
+  if (a.hd < 8 || a.hd > 128 || a.hd % 8 || n_split < 1 ||
+      n_split > kMaxSplits || a.G < 1)
+    return (int)cudaErrorInvalidValue;
+  const int vec = dtype == 0 ? 4 : 8;
+  int lpr = 1;
+  while (lpr * vec < a.hd) lpr *= 2;
+  a.lpr = lpr;
+  a.scale = 1.0f / sqrtf((float)a.hd);
+  if (dtype == 0)
+    return dispatch_group<float, kPaged>(a, B, KV, n_split, stream);
   if (dtype == 1)
-    return launch_decode<__nv_bfloat16, kPaged>(a, B, KV, stream);
+    return dispatch_group<__nv_bfloat16, kPaged>(a, B, KV, n_split, stream);
   return (int)cudaErrorInvalidValue;
 }
 

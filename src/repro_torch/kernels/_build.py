@@ -108,6 +108,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def rows_aligned(x, nbytes: int = 16) -> bool:
+    """True when every row of ``x`` along its last (contiguous) axis
+    starts on an ``nbytes`` boundary: the kernels load rows in 16-byte
+    vectors.  The stride of an axis of length 1 is never used."""
+    esize = x.element_size()
+    return x.data_ptr() % nbytes == 0 and all(
+        st * esize % nbytes == 0
+        for st, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1)
+
+
 def check(err: int, name: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launcher."""
     if err != 0:

@@ -7,6 +7,11 @@
 take the engine's layouts: q (B, 1, H, hd), cache (B, S, KV, hd) read in
 place, and the fill level ``t`` (slots <= t attend; all once t >= S): one
 level shared by the batch, or one per lane ((B,), the decode lanes).
+
+The kernel splits each lane's live slots over a cluster of up to eight
+blocks per (lane, KV head); :func:`split_plan` and :func:`split_ranges`
+state that plan on the host, in the same integer arithmetic as the
+kernel, so the tests can hold it without a card.
 """
 
 from __future__ import annotations
@@ -22,6 +27,40 @@ from repro_torch.kernels.ref import decode_attention_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_G, _MAX_HD = 16, 128
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the portable thread-block-cluster size of Hopper (kMaxSplits in
+#: csrc/decode_tile.cuh)
+MAX_SPLITS = 8
+#: ring slots per split that set the cluster size; up to as many live
+#: slots, rank 0 takes them all alone (kSplitSlots in the kernel)
+SLOTS_PER_SPLIT = 64
+
+
+def split_plan(S: int) -> int:
+    """Blocks of the cluster that one (lane, KV head) runs on: the
+    smallest power of two that gives each at most ``SLOTS_PER_SPLIT`` of
+    the ``S``-slot window, capped at ``MAX_SPLITS``.  It depends on S
+    alone, so K2 (window ``P * page``) splits a window as K1 does."""
+    n = 1
+    while n < MAX_SPLITS and n * SLOTS_PER_SPLIT < S:
+        n *= 2
+    return n
+
+
+def split_ranges(t, S: int) -> torch.Tensor:
+    """The slot range ``[lo, hi)`` that each block of a lane's cluster
+    attends: (..., split_plan(S), 2) int64 for fill levels ``t`` of any
+    shape.  Up to ``SLOTS_PER_SPLIT`` live slots ``[0, min(S, t + 1))``
+    rank 0 takes them all and runs alone; past that they are cut into
+    contiguous ranges of ``ceil(live / n)`` slots in rank order.  Ranks
+    past the end get an empty range.  A lane's ranges depend on its own
+    level and S only, never on the batch."""
+    n = split_plan(S)
+    live = torch.clamp(torch.as_tensor(t, dtype=torch.int64) + 1, max=S)
+    per = torch.where(live <= SLOTS_PER_SPLIT, live, (live + n - 1) // n)
+    rank = torch.arange(n)
+    lo = torch.minimum(rank * per[..., None], live[..., None])
+    hi = torch.minimum(lo + per[..., None], live[..., None])
+    return torch.stack([lo, hi], dim=-1)
 
 
 def decode_attention_plain(q, cache_k, cache_v, t):
@@ -37,16 +76,17 @@ def decode_attention_plain(q, cache_k, cache_v, t):
 @functools.cache
 def _fn():
     fn = _build.load("decode_attention").decode_attention_launch
-    fn.argtypes = [_P] * 5 + [_I] * 7 + [_L] * 7 + [_P]
+    fn.argtypes = [_P] * 5 + [_I] * 7 + [_L] * 7 + [_I, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
 def decode_attention_cuda(q, cache_k, cache_v, t):
-    """Launch K1 on q's device and stream.  ``t`` is an int32 tensor of
-    one element (shared by the batch) or of B elements (one per lane) on
-    the same device, read by the kernel and never by the host; every
-    level must be >= 0."""
+    """Launch K1 on q's device and stream: one launch of
+    ``split_plan(S)``-block clusters.  ``t`` is an int32 tensor of one
+    element (shared by the batch) or of B elements (one per lane) on the
+    same device, read by the kernel and never by the host; every level
+    must be >= 0.  head_dim is a multiple of 8, at most 128."""
     B, one, H, hd = q.shape
     _, S, KV, _ = cache_k.shape
     if not (q.is_cuda and cache_k.device == q.device
@@ -57,13 +97,14 @@ def decode_attention_cuda(q, cache_k, cache_v, t):
             or cache_v.dtype != q.dtype:
         raise TypeError(f"unsupported dtypes {q.dtype}/{cache_k.dtype}")
     if one != 1 or cache_v.shape != cache_k.shape or H % KV \
-            or H // KV > _MAX_G or hd > _MAX_HD:
+            or H // KV > _MAX_G or hd > _MAX_HD or hd % 8:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)} "
                          f"cache {tuple(cache_k.shape)}")
     if q.stride(3) != 1 or cache_k.stride(3) != 1 \
-            or cache_v.stride() != cache_k.stride():
-        raise ValueError("head_dim must be contiguous and both caches "
-                         "share one layout")
+            or cache_v.stride() != cache_k.stride() \
+            or not all(map(_build.rows_aligned, (q, cache_k, cache_v))):
+        raise ValueError("head_dim must be contiguous, rows 16-byte "
+                         "aligned, and both caches share one layout")
     if t.dtype != torch.int32 or t.numel() not in (1, B) \
             or not t.is_contiguous():
         raise TypeError("t must be a contiguous int32 tensor of 1 or B "
@@ -75,7 +116,7 @@ def decode_attention_cuda(q, cache_k, cache_v, t):
                 H // KV, hd, int(t.numel() == B and B > 1), q.stride(0),
                 q.stride(2), cache_k.stride(0),
                 cache_k.stride(1), cache_k.stride(2), o.stride(0),
-                o.stride(2), stream)
+                o.stride(2), split_plan(S), stream)
     _build.check(err, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1
     return o

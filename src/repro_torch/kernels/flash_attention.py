@@ -46,7 +46,9 @@ def _fn():
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          q_offset: int = 0):
-    """Launch K3 on q's device and stream."""
+    """Launch K3 on q's device and stream: bf16 on the tensor cores with
+    the G query heads of a KV head stacked into one row tile, float32 on
+    the CUDA cores in full f32."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     q_offset = int(q_offset)
@@ -63,6 +65,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          f"q_offset {q_offset}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("head_dim must be contiguous")
+    if q.dtype == torch.bfloat16 and not (
+            _build.rows_aligned(q, 4) and _build.rows_aligned(k)
+            and _build.rows_aligned(v)):
+        raise ValueError("bf16 rows must start on 4-byte (q) and 16-byte "
+                         "(k, v) boundaries")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     if Sq == 0:
         return o

@@ -20,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import split_plan
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,15 +42,16 @@ def paged_decode_attention_plain(q, pool_k, pool_v, bt, t):
 @functools.cache
 def _fn():
     fn = _build.load("paged_decode_attention").paged_decode_attention_launch
-    fn.argtypes = [_P] * 6 + [_I] * 7 + [_L] * 8 + [_P]
+    fn.argtypes = [_P] * 6 + [_I] * 7 + [_L] * 8 + [_I, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
 def paged_decode_attention_cuda(q, pool_k, pool_v, bt, t):
-    """Launch K2 on q's device and stream.  ``bt`` (B, P) and ``t`` (B,)
-    are int32 tensors on the same device, read by the kernel and never by
-    the host; table entries must be valid page ids and every t >= 0."""
+    """Launch K2 on q's device and stream, split as K1 splits a window of
+    ``P * page`` slots.  ``bt`` (B, P) and ``t`` (B,) are int32 tensors on
+    the same device, read by the kernel and never by the host; table
+    entries must be valid page ids and every t >= 0."""
     B, one, H, hd = q.shape
     n_pages, page, KV, _ = pool_k.shape
     if not (q.is_cuda and all(x.device == q.device
@@ -60,13 +62,15 @@ def paged_decode_attention_cuda(q, pool_k, pool_v, bt, t):
             or pool_v.dtype != q.dtype:
         raise TypeError(f"unsupported dtypes {q.dtype}/{pool_k.dtype}")
     if one != 1 or pool_v.shape != pool_k.shape or H % KV \
-            or H // KV > _MAX_G or hd > _MAX_HD or pool_k.shape[3] != hd:
+            or H // KV > _MAX_G or hd > _MAX_HD or hd % 8 \
+            or pool_k.shape[3] != hd:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)} "
                          f"pool {tuple(pool_k.shape)}")
     if q.stride(3) != 1 or pool_k.stride(3) != 1 \
-            or pool_v.stride() != pool_k.stride():
-        raise ValueError("head_dim must be contiguous and both pools share "
-                         "one layout")
+            or pool_v.stride() != pool_k.stride() \
+            or not all(map(_build.rows_aligned, (q, pool_k, pool_v))):
+        raise ValueError("head_dim must be contiguous, rows 16-byte "
+                         "aligned, and both pools share one layout")
     if bt.dtype != torch.int32 or bt.dim() != 2 or bt.shape[0] != B \
             or bt.stride(1) != 1:
         raise TypeError("bt must be a (B, P) int32 table with contiguous "
@@ -80,7 +84,7 @@ def paged_decode_attention_cuda(q, pool_k, pool_v, bt, t):
                 B, bt.shape[1], page, KV, H // KV, hd, q.stride(0),
                 q.stride(2), pool_k.stride(0), pool_k.stride(1),
                 pool_k.stride(2), bt.stride(0), o.stride(0), o.stride(2),
-                stream)
+                split_plan(bt.shape[1] * page), stream)
     _build.check(err, "paged_decode_attention")
     _build.LAUNCHES["paged_decode_attention"] += 1
     return o

@@ -12,8 +12,11 @@ Tolerances: 1e-4 in float32 and 2e-2 in bfloat16 between kernel and plain
 version (the kernels accumulate in float32 in another order); GBDT
 margins at 1e-4 and bitwise equal from run to run (no float atomics).
 K2 against K1 on the same logical contents is exact: both run one body
-(csrc/decode_tile.cuh).  K5 (packed GBDT) is held to its plain version
-and to K4 at 1e-5: both sum each class's trees in tree order.
+(csrc/decode_tile.cuh) with one split plan, which depends on a lane's
+fill level and the window only, so a lane also equals its own scalar-t
+launch bit for bit; K3's extend rows equal the cold prefill's rows.  K5
+(packed GBDT) is held to its plain version and to K4 at 1e-5: both sum
+each class's trees in tree order.
 """
 
 import numpy as np
@@ -23,6 +26,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.gbdt import GBDTParams, train_gbdt
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import split_plan
 from repro_torch.serving.engine import (BatchedRealEngine, PagedBatchedEngine,
                                        RealEngine)
 
@@ -62,14 +66,20 @@ def test_decode_kernel_matches_plain(cuda, dtype, S, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [16, 96, 512])
+@pytest.mark.parametrize("S", [16, 32, 48, 64, 96, 512])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernel_matches_plain(cuda, dtype, S, causal):
-    g = torch.Generator(device=cuda).manual_seed(S)
-    q = torch.randn(1, S, 15, 64, generator=g, device=cuda).to(dtype)
-    k, v = (torch.randn(1, S, 5, 64, generator=g, device=cuda).to(dtype)
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_kernel_matches_plain(cuda, dtype, S, causal, hd):
+    """K3 at every serving bucket (ragged 48 and 96 too), B 4: bf16 on
+    the tensor cores within 2e-2, float32 on the CUDA cores within
+    1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(S + hd)
+    q = torch.randn(4, S, 15, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(4, S, 5, hd, generator=g, device=cuda).to(dtype)
             for _ in range(2))
+    before = ops.LAUNCHES["flash_attention"]
     got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
     want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), causal=causal)
     _close(got, want.transpose(1, 2), dtype)
@@ -109,35 +119,59 @@ def test_engine_on_card_fused_equals_oracle(cuda, dtype):
         ids, max_new_tokens=30)["tokens"]
 
 
+def _split_edges(S):
+    """Fill levels on both sides of every split boundary of K1's plan
+    (the live range [0, min(S, t + 1)) cut into split_plan(S) ranges of
+    ceil(live / n) slots past 64 live slots, which rank 0 takes alone),
+    the empty ring (every other split empty) and wrapped rings."""
+    n = split_plan(S)
+    ts = {0, 1, 2, 63, 64, 65, S - 2, S - 1, S, S + 3, 3 * S}
+    for r in range(1, n):
+        per = -(-S // n)
+        ts |= {r * per - 1, r * per, r * per + 1}
+    return sorted(t for t in ts if t >= 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype):
-    """K1 with (B,) fill levels, two of them wrapped: each lane is the
-    scalar-t launch for that lane, and the batch matches the plain
-    version."""
-    g = torch.Generator(device=cuda).manual_seed(4)
-    B, S = 4, 128
+@pytest.mark.parametrize("S", [16, 128, 512])
+@pytest.mark.parametrize("B", [1, 3, 4])
+def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype, S, B):
+    """K1 with (B,) fill levels on both sides of every split boundary,
+    with empty splits and wrapped rings: each lane is the scalar-t
+    launch for that lane bit for bit, and the batch matches the plain
+    version.  One launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(4 + S + B)
+    edges = _split_edges(S)
+    levels = edges + edges[:(-len(edges)) % B]
     q = torch.randn(B, 1, 15, 64, generator=g, device=cuda).to(dtype)
     k, v = (torch.randn(B, S, 5, 64, generator=g, device=cuda).to(dtype)
             for _ in range(2))
-    t = torch.tensor([0, 77, S + 3, 3 * S], dtype=torch.int32, device=cuda)
-    got = ops.decode_attention(q, k, v, t)
-    _close(got, ops.decode_attention(q.cpu(), k.cpu(), v.cpu(), t.cpu()),
-           dtype)
-    for b in range(B):
-        solo = ops.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
-                                    t[b:b + 1])
-        assert torch.equal(solo[0], got[b])
+    for i in range(0, len(levels), B):
+        t = torch.tensor(levels[i:i + B], dtype=torch.int32, device=cuda)
+        before = ops.LAUNCHES["decode_attention"]
+        got = ops.decode_attention(q, k, v, t)
+        assert ops.LAUNCHES["decode_attention"] == before + 1
+        _close(got, ops.decode_attention(q.cpu(), k.cpu(), v.cpu(),
+                                         t.cpu()), dtype)
+        for b in range(B):
+            solo = ops.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                        t[b:b + 1])
+            assert torch.equal(solo[0], got[b]), (levels[i + b], b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("page", [8, 16, 32])
-def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page):
-    """K2 through a shuffled block table (trash page poisoned, one lane
-    past its window) == its plain version, and == K1 bit for bit on the
-    same logical window."""
-    g = torch.Generator(device=cuda).manual_seed(page)
+@pytest.mark.parametrize("levels", [(200, 511, 600), (1, 63, 64),
+                                    (65, 127, 128), (255, 256, 449)])
+def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page,
+                                                    levels):
+    """K2 through a shuffled block table (trash page poisoned, lane 0 on
+    one page, fill levels on both sides of split boundaries, one past its
+    window) == its plain version, and == K1 bit for bit on the same
+    logical window."""
+    g = torch.Generator(device=cuda).manual_seed(page + levels[0])
     B, P = 4, 512 // page
     n_pages = B * P + 1
     pk, pv = (torch.randn(n_pages, page, 5, 64, generator=g, device=cuda)
@@ -145,7 +179,7 @@ def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page):
     pk[0], pv[0] = 1e4, -1e4
     bt = (torch.randperm(n_pages - 1, generator=g, device=cuda)[:B * P] + 1) \
         .view(B, P).to(torch.int32)
-    t = torch.tensor([3, 200, 511, 600], dtype=torch.int32, device=cuda)
+    t = torch.tensor((3,) + levels, dtype=torch.int32, device=cuda)
     bt[0, 1:] = 0                              # lane 0: one page allocated
     q = torch.randn(B, 1, 15, 64, generator=g, device=cuda).to(dtype)
     before = ops.LAUNCHES["paged_decode_attention"]
@@ -160,7 +194,8 @@ def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("prefix,suffix", [(64, 16), (48, 64), (128, 64)])
+@pytest.mark.parametrize("prefix,suffix", [(64, 16), (48, 64), (128, 64),
+                                           (48, 16), (64, 32), (256, 48)])
 def test_flash_kernel_extend_matches_plain(cuda, dtype, prefix, suffix):
     """K3 with q_offset over a longer key buffer == its plain version, and
     the suffix rows equal those rows of the cold prefill bit for bit."""

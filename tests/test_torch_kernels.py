@@ -205,3 +205,17 @@ def test_cuda_launchers_refuse_cpu_tensors():
         gbdt_margins_cuda(torch.zeros(2, 19),
                           torch.zeros(3, 7, dtype=torch.int32),
                           torch.zeros(3, 7), torch.zeros(3, 7))
+
+
+def test_rows_aligned_reads_the_strides_that_address_rows():
+    """The 16-byte row check the K1/K2/K3 launchers make before a launch:
+    a view whose rows start off the boundary is refused; the stride of an
+    axis of length 1 is ignored."""
+    from repro_torch.kernels._build import rows_aligned
+    x = torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16)
+    assert rows_aligned(x)
+    assert not rows_aligned(x[..., 4:])                # offset 8 bytes
+    assert rows_aligned(x[:, :, 1:], 16)               # offset 128 bytes
+    assert not rows_aligned(torch.zeros(3, 12, dtype=torch.bfloat16))
+    assert rows_aligned(torch.zeros(1, 1, 2, 8).as_strided(
+        (1, 1, 2, 8), (3, 5, 8, 1)))
