@@ -15,8 +15,10 @@ K2 against K1 on the same logical contents is exact: both run one body
 (csrc/decode_tile.cuh) with one split plan, which depends on a lane's
 fill level and the window only, so a lane also equals its own scalar-t
 launch bit for bit; K3's extend rows equal the cold prefill's rows.  K5
-(packed GBDT) is held to its plain version and to K4 at 1e-5: both sum
-each class's trees in tree order.
+(packed GBDT) is held to its plain version at 1e-5, and K4 and K5 to
+each other and to ``tree_fold`` of the plain walks' leaf values bit for
+bit: both split the trees by one plan from (T, K) and sum the leaves in
+one fixed order, so a row also scores the same alone and in a batch.
 """
 
 import numpy as np
@@ -24,9 +26,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.gbdt import GBDTParams, train_gbdt
+from repro_torch.core.gbdt import GBDTModel, GBDTParams, train_gbdt
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import split_plan
+from repro_torch.kernels.gbdt_infer import tree_fold
 from repro_torch.serving.engine import (BatchedRealEngine, PagedBatchedEngine,
                                        RealEngine)
 
@@ -297,3 +300,100 @@ def test_single_row_admission_launches_k5_on_the_caller_stream(cuda):
     np.testing.assert_allclose(one[0], burst[0], atol=1e-6)
     assert ops.preferred_gbdt_layout(
         torch.as_tensor(X[:16], device=cuda), model) in ("dense", "packed")
+
+
+def _tiled(model, repeat, base_score=0.5):
+    """``model``'s trees repeated ``repeat`` times along T (every tree keeps
+    its class): a large ensemble without a long training."""
+    return GBDTModel(*(np.tile(a, (repeat, 1)) for a in (
+        model.feature, model.threshold, model.value)), model.n_classes,
+        model.max_depth, base_score)
+
+
+def _leaves(x, dense):
+    """(T, B) leaf values of the plain dense walk (one class per tree)."""
+    return ref.gbdt_margins_ref(x, *dense, n_classes=dense[0].shape[0]).T
+
+
+def _both_kernels(model, x):
+    """K4's margins + base score and K5's margins, one launch each."""
+    before = dict(ops.LAUNCHES)
+    k4 = ops.gbdt_margins(x, *model.tensors(x.device),
+                          n_classes=model.n_classes) + model.base_score
+    k5 = ops.gbdt_margins_packed_from(model.packed(), x)
+    assert ops.LAUNCHES["gbdt_margins"] == before["gbdt_margins"] + 1
+    assert ops.LAUNCHES["gbdt_margins_packed"] == \
+        before["gbdt_margins_packed"] + 1
+    return k4, k5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16, 512])
+@pytest.mark.parametrize("repeat", [3, 30])
+def test_gbdt_kernels_fold_in_plan_order(cuda, repeat, B):
+    """T 180 (each slice staged at once) and T 1800 (slices streamed
+    through the two-buffer ring): K4 and K5 within 1e-5 of their plain
+    versions (relative 1e-6 above that at T 1800, where margins reach
+    ~40), K5 == K4 + base score and both == ``tree_fold`` of the plain
+    walks' leaves bit for bit, and the same bits on every call."""
+    base, X = _gbdt_model()
+    model = _tiled(base, repeat)
+    assert model.feature.shape[0] == 60 * repeat
+    x = torch.as_tensor(np.tile(X, (2, 1))[:B], device=cuda)
+    k4, k5 = _both_kernels(model, x)
+    tol = dict(atol=1e-5, rtol=1e-6 if repeat > 3 else 0)
+    xc, dense = x.cpu(), model.tensors("cpu")
+    np.testing.assert_allclose(
+        (k4 - model.base_score).cpu().numpy(),
+        ref.gbdt_margins_ref(xc, *dense, n_classes=3).numpy(), **tol)
+    np.testing.assert_allclose(
+        k5.cpu().numpy(), ops.gbdt_margins_packed_from(model.packed(),
+                                                       xc).numpy(), **tol)
+    assert torch.equal(k5, k4)
+    fold = tree_fold(_leaves(xc, dense), 3)
+    assert torch.equal(k5.cpu(), fold + model.base_score)
+    for _ in range(3):
+        again4, again5 = _both_kernels(model, x)
+        assert torch.equal(again4, k4) and torch.equal(again5, k5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeat", [3, 30])
+def test_gbdt_row_alone_equals_row_in_batch(cuda, repeat):
+    """A row's margins are the same bits scored alone (one admission) and
+    in a burst of 16 or 512: the tree split depends on (T, K) only."""
+    base, X = _gbdt_model()
+    model = _tiled(base, repeat)
+    x = torch.as_tensor(X[:512], device=cuda)
+    k4, k5 = _both_kernels(model, x)
+    k4_16, k5_16 = _both_kernels(model, x[:16])
+    assert torch.equal(k4[:16], k4_16) and torch.equal(k5[:16], k5_16)
+    for b in (0, 5, 15, 300, 511):
+        a4, a5 = _both_kernels(model, x[b:b + 1].clone())
+        assert torch.equal(a4[0], k4[b]) and torch.equal(a5[0], k5[b])
+
+
+@pytest.mark.cuda
+def test_gbdt_trees_too_large_to_stage_walk_from_global(cuda):
+    """Depth-13 trees (16,383 nodes: more than half of shared memory a
+    tree in either layout) are walked from global memory: K4 and K5
+    still equal their plain versions within 1e-5 and each other bit for
+    bit."""
+    rng = np.random.default_rng(3)
+    depth, T, F = 13, 3, 19
+    N = 2 ** (depth + 1) - 1
+    feature = rng.integers(0, F, (T, N)).astype(np.int32)
+    feature[:, 2 ** depth - 1:] = -1                 # the bottom level
+    feature[1, 5] = -1                               # an early leaf
+    model = GBDTModel(feature, rng.normal(0, 1, (T, N)).astype(np.float32),
+                      rng.normal(0, 0.1, (T, N)).astype(np.float32), 3,
+                      depth, 0.25)
+    x = torch.as_tensor(rng.normal(0, 1, (16, F)).astype(np.float32),
+                        device=cuda)
+    k4, k5 = _both_kernels(model, x)
+    want = ref.gbdt_margins_ref(x.cpu(), *model.tensors("cpu"), n_classes=3)
+    np.testing.assert_allclose((k4 - 0.25).cpu().numpy(), want.numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(k5.cpu().numpy(), want.numpy() + 0.25,
+                               atol=1e-5)
+    assert torch.equal(k5, k4)
