@@ -5,7 +5,8 @@
 
 Builds the hand-written Hopper kernels from ``src/repro_torch/csrc`` with
 nvcc, holds each against its plain PyTorch version at the serving paths'
-shapes and times both.  Then, at the full width of smollm-360m (bf16,
+shapes and times both; K4 and K5 also on the 120-round ensemble that the
+launch CLIs train, at their burst (B 100) and admission (B 1) shapes.  Then, at the full width of smollm-360m (bf16,
 seeded random weights), it drives each serving path through the entry
 points a user calls, with the launch counters set to 0 just before each
 path and read just after:
@@ -27,14 +28,30 @@ path and read just after:
   under FCFS and then SJF, half the requests as SSE streams: every
   admission scores one row through the packed ensemble (K5); then a
   client disconnect, a deadline shed, a ``/metrics`` scrape and a
-  graceful shutdown under load.
+  graceful shutdown under load;
+* ``[preempt]`` the burst longs first through the serial engine under
+  ``srpt``: a short evicts the decoding long at a segment boundary and
+  the long resumes by re-prefill (float32 with TF32 off: the resumed
+  tokens equal an uninterrupted decode's; bf16: the agreement printed);
+* ``[lanes-faults]`` the paging backlog through ring and paged lanes
+  under a fault plan (a lane crash, a transient that the lane drain
+  leaves unfired, as the JAX one does, a whole-engine crash) and a
+  sojourn deadline: one terminal status per request, none lost;
+* ``[launch-serve]`` ``repro_torch.launch.serve`` (virtual-time replicas
+  on the gemma3-4b-edge service model; the burst scored by K4) under
+  fcfs, sjf and srpt, and sjf at rho 0.74;
+* ``[launch-sidecar]`` ``python -m repro_torch.launch.sidecar --port 0``
+  as a child process with the full-width real backend, then the sim
+  backend, under fcfs and sjf: the burst over HTTP, then SIGTERM.
 
 It fails (nonzero exit, no result line) without a CUDA device, without
 the repository beside it, when a kernel does not build, launch or agree
 with its plain version, when a response is not ``ok``, when tokens that
 must agree do not, or when a kernel of a path was never launched on it
 (and when the paged path launches the ring kernel K1, or the sidecar's
-one-request admissions launch the batch kernel K4).
+one-request admissions launch the batch kernel K4), when a request is
+lost or ends twice, when SJF's short P50 is not below FCFS's on the
+launch CLIs, or when a sidecar child does not drain and exit 0.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -63,6 +80,9 @@ TOL = {"bf16": 2e-2, "f32": 1e-4}
 L_MAX_LEN, L_SEGMENT, L_LANES, L_PAGE = 128, 8, 4, 16
 L_PROMPT, L_LONG, L_SHORT, L_PREFIX = 16, 96, 12, 48
 PATTERN = "LLSSSSLSSLSS"
+# [lanes-faults]: a long's sojourn deadline, far below its ~96 lane
+# steps at full width
+FAULT_DEADLINE_S = 1.0
 
 
 def _ms(fn, iters: int = 100, warmup: int = 10) -> float:
@@ -484,6 +504,98 @@ def phase_packed_kernel(model, prompts) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+def phase_cli_predictor_kernels() -> tuple:
+    """K4 and K5 on the ensemble the launch CLIs build
+    (``launch.serve.build_predictor``: 120 rounds, T 360), at the shapes
+    their paths give them: K4 on ``launch.serve``'s 100-request burst,
+    within 1e-5 of its plain version and equal bit for bit to
+    ``tree_fold`` of the plain walk's leaves; K5 on each of the sidecar
+    burst's 16 admissions alone (B 1), within 1e-5 of its plain version
+    and equal to K4 + base score bit for bit.  Returns the two max|err|."""
+    import torch
+    from repro_torch.core.features import extract_batch
+    from repro_torch.data.corpus import sample_dataset
+    from repro_torch.kernels.gbdt_infer import (gbdt_margins_cuda,
+                                                gbdt_margins_packed_cuda,
+                                                gbdt_margins_packed_plain,
+                                                gbdt_margins_plain,
+                                                tree_fold)
+    from repro_torch.launch import serve
+    t0 = time.monotonic()
+    model = serve.build_predictor(device="cuda").model
+    t_train = time.monotonic() - t0
+    feat, thr, val = model.tensors("cuda")
+    T, N = feat.shape
+    K = model.n_classes
+    # launch.serve's burst: --requests 100 --seed 0 draws seed 1
+    burst = sample_dataset("sharegpt", n=100, seed=1).prompts
+    X = torch.as_tensor(extract_batch(burst), device="cuda")
+    B = X.shape[0]
+    got = gbdt_margins_cuda(X, feat, thr, val, n_classes=K)
+    want = gbdt_margins_plain(X, feat, thr, val, n_classes=K)
+    torch.cuda.synchronize()
+    e4 = _max_err(got, want)
+    _check(f"gbdt_margins CLI ensemble B={B} T={T}", e4, 1e-5)
+    leaves = gbdt_margins_plain(X, feat, thr, val, n_classes=T).T
+    if not torch.equal(got, tree_fold(leaves, K)):
+        raise AssertionError("gbdt_margins (CLI ensemble): not tree_fold's "
+                             "sums")
+    if not torch.equal(got, gbdt_margins_cuda(X, feat, thr, val,
+                                              n_classes=K)):
+        raise AssertionError("gbdt_margins (CLI ensemble) is not "
+                             "deterministic")
+    kern4 = lambda: gbdt_margins_cuda(X, feat, thr, val,   # noqa: E731
+                                      n_classes=K)
+    ms4 = _device_ms(kern4)
+    plain4 = _device_ms(lambda: gbdt_margins_plain(X, feat, thr, val,
+                                                   n_classes=K), iters=5)
+    inner, n_leaves, marked = _visited_nodes(X, feat, thr)
+    bound4, by4 = _bound(inner * 8 + n_leaves * 4 + marked * 4
+                         + X.numel() * 4 + B * K * 4,
+                         B * T * (math.log2(N + 1) - 1), torch.float32)
+    print(f"[K4 gbdt_margins] CLI ensemble (120 rounds, trained in "
+          f"{t_train:.1f} s on the host) B={B} T={T} N={N}: device ms "
+          f"kernel {ms4:.4f}, plain {plain4:.4f}; bound {bound4 * 1e3:.4f} "
+          f"us ({by4}); max|err| {e4:.2e}, == tree_fold")
+
+    packed = model.packed()
+    pf, pt, pc, pv = packed.tensors("cuda")
+    kw = dict(depth=packed.depth, n_classes=K, base_score=packed.base_score)
+    pool, longs, shorts = _burst_pool()
+    rows = torch.as_tensor(extract_batch(
+        [pool.prompts[i] for i in longs + shorts]), device="cuda")
+    e5 = 0.0
+    for b in range(rows.shape[0]):
+        x = rows[b:b + 1].clone()
+        got = gbdt_margins_packed_cuda(x, pf, pt, pc, pv, **kw)
+        want = gbdt_margins_packed_plain(x, pf, pt, pc, pv, **kw)
+        dense = gbdt_margins_cuda(x, feat, thr, val, n_classes=K) \
+            + packed.base_score
+        torch.cuda.synchronize()
+        e = _max_err(got, want)
+        _check(f"gbdt_margins_packed CLI ensemble admission {b} T={T}", e,
+               1e-5)
+        if not torch.equal(got, dense):
+            raise AssertionError(f"gbdt_margins_packed (CLI ensemble) "
+                                 f"admission {b}: not K4's margins + base "
+                                 "score bit for bit")
+        e5 = max(e5, e)
+    kern5 = lambda: gbdt_margins_packed_cuda(x, pf, pt, pc, pv,  # noqa: E731
+                                             **kw)
+    ms5 = _device_ms(kern5)
+    plain5 = _device_ms(lambda: gbdt_margins_packed_plain(
+        x, pf, pt, pc, pv, **kw), iters=5)
+    inner, n_leaves = _visited_packed(x, pf, pt, pc, packed.depth)
+    bound5, by5 = _bound(inner * 12 + n_leaves * 4 + x.numel() * 4 + K * 4,
+                         T * packed.depth, torch.float32)
+    print(f"[K5 gbdt_margins_packed] CLI ensemble B=1 T={T} "
+          f"M={pf.shape[1]} depth={packed.depth}, {rows.shape[0]} sidecar "
+          f"admissions each alone: device ms kernel {ms5:.4f} (last "
+          f"admission), plain {plain5:.4f}; bound {bound5 * 1e3:.4f} us "
+          f"({by5}); max|err| {e5:.2e}, == K4 + base")
+    return e4, e5
+
+
 def phase_full_width_reference(cfg) -> float:
     """The card's path (K1, K3, cuBLAS) against the CPU's plain path on
     the same full-width float32 weights: prefill logits and 8 greedy
@@ -522,15 +634,12 @@ def phase_slice(cfg, predictor, smi) -> tuple:
     """The main path at full width: burst -> predictor -> SJF -> engine.
     Returns the launches, the engine and each prompt's greedy tokens."""
     import torch
-    from repro_torch.data.corpus import sample_dataset
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import RealEngine
     from repro_torch.serving.openai_api import CompletionRequest
     from repro_torch.serving.server import ClairvoyantServer
 
-    pool = sample_dataset("sharegpt", n=4000, seed=1)
-    shorts = [i for i in range(len(pool)) if pool.lengths[i] < 120][:N_SHORT]
-    longs = [i for i in range(len(pool)) if pool.lengths[i] >= 1000][:N_LONG]
+    pool, longs, shorts = _burst_pool()
     order = longs + shorts
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -745,16 +854,13 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals) -> None:
     import asyncio
     import numpy as np
     import torch
-    from repro_torch.data.corpus import sample_dataset
     from repro_torch.kernels import ops
     from repro_torch.serving.backends import InProcessBackend
     from repro_torch.serving.http_sidecar import Sidecar
     from repro_torch.serving.observability import parse_prometheus
     from repro_torch.serving.server import ClairvoyantServer
 
-    pool = sample_dataset("sharegpt", n=4000, seed=1)
-    shorts = [i for i in range(len(pool)) if pool.lengths[i] < 120][:N_SHORT]
-    longs = [i for i in range(len(pool)) if pool.lengths[i] >= 1000][:N_LONG]
+    pool, longs, shorts = _burst_pool()
     order = longs + shorts
 
     def make(policy, **kw):
@@ -1368,15 +1474,12 @@ def phase_paged_burst(cfg, predictor, smi, totals) -> None:
     PagedBatchedEngine (4 lanes, page 16, max_len 512) under FCFS and
     SJF: every response ok, short and long P50 per policy."""
     import torch
-    from repro_torch.data.corpus import sample_dataset
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import PagedBatchedEngine
     from repro_torch.serving.openai_api import CompletionRequest
     from repro_torch.serving.server import ClairvoyantServer
 
-    pool = sample_dataset("sharegpt", n=4000, seed=1)
-    shorts = [i for i in range(len(pool)) if pool.lengths[i] < 120][:N_SHORT]
-    longs = [i for i in range(len(pool)) if pool.lengths[i] >= 1000][:N_LONG]
+    pool, longs, shorts = _burst_pool()
     order = longs + shorts
     eng = PagedBatchedEngine(cfg, max_len=MAX_LEN, segment_len=SEGMENT,
                              n_lanes=L_LANES, page_size=L_PAGE, seed=0)
@@ -1456,6 +1559,387 @@ def phase_profile_lanes(eng, smi) -> None:
         print(f"[profile-lanes]   {us / 1e3:8.3f} ms  {name[:90]}")
 
 
+def _burst_pool(n_long=N_LONG, n_short=N_SHORT):
+    """The serve-bench burst's prompts: ``n_long`` long then ``n_short``
+    short sharegpt-profile prompts."""
+    from repro_torch.data.corpus import sample_dataset
+    pool = sample_dataset("sharegpt", n=4000, seed=1)
+    shorts = [i for i in range(len(pool)) if pool.lengths[i] < 120][:n_short]
+    longs = [i for i in range(len(pool)) if pool.lengths[i] >= 1000][:n_long]
+    return pool, longs, shorts
+
+
+def phase_launch_serve(smi, totals) -> None:
+    """``repro_torch.launch.serve.main`` (the queueing CLI: virtual-time
+    ``SimEngine`` replicas on the gemma3-4b-edge service model, priced at
+    the H100's data-sheet peaks) under fcfs, sjf and srpt on a 100-request
+    burst, and under sjf at rho 0.74.  The predictor scores each burst in
+    one K4 launch on the card; srpt must drain through the preemptive
+    DES."""
+    import contextlib
+    import io
+    from repro_torch.core import _native
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.server import ClairvoyantServer
+
+    preemptive_drains = []
+    orig = ClairvoyantServer._drain_sim_preemptive
+
+    def spy(self, rep, eng):
+        preemptive_drains.append(self.policy)
+        return orig(self, rep, eng)
+
+    ClairvoyantServer._drain_sim_preemptive = spy
+    p50 = {}
+    try:
+        for policy, rho in (("fcfs", 0.0), ("sjf", 0.0), ("srpt", 0.0),
+                            ("sjf", 0.74)):
+            ops.reset_launches()
+            preemptive_drains.clear()
+            out = io.StringIO()
+            w0 = time.monotonic()
+            with contextlib.redirect_stdout(out):
+                srv = serve.main(["--policy", policy, "--requests", "100",
+                                  "--rho", str(rho)])
+            wall = time.monotonic() - w0
+            launches = dict(ops.LAUNCHES)
+            for k, v in launches.items():
+                totals[k] += v
+            for line in out.getvalue().splitlines():
+                print(f"[launch-serve]   {line}")
+            if len(srv.ok_responses) != 100:
+                raise AssertionError(f"[launch-serve] {policy}: "
+                                     f"{len(srv.ok_responses)} of 100 ok")
+            want_k4 = 1 if srv.policy_obj.uses_predictor else 0
+            if launches["gbdt_margins"] != want_k4 \
+                    or launches["gbdt_margins_packed"]:
+                raise AssertionError(f"[launch-serve] {policy}: launches "
+                                     f"{launches}, expected {want_k4} K4 "
+                                     "and no K5")
+            if (policy == "srpt") != bool(preemptive_drains):
+                raise AssertionError(f"[launch-serve] {policy}: preemptive "
+                                     f"drains {preemptive_drains}")
+            if rho == 0.0:
+                p50[policy] = srv.percentile(50, "short")
+            pct = " ".join(
+                f"{c} P50/P95/P99 " + "/".join(
+                    f"{srv.percentile(q, c):.3f}" for q in (50, 95, 99))
+                + " s" for c in ("short", "medium", "long"))
+            print(f"[launch-serve] {policy} rho {rho}: tau "
+                  f"{srv.router.replicas[0].queue.tau:.3f} s, {pct}, K4 "
+                  f"launches {launches['gbdt_margins']}, drain "
+                  f"{'_drain_sim_preemptive' if preemptive_drains else '_drain_sim'}"
+                  f" (DES engine: {_native.des_engine()}), {wall:.2f} s "
+                  f"wall  [{smi}]")
+    finally:
+        ClairvoyantServer._drain_sim_preemptive = orig
+    if not p50["sjf"] < p50["fcfs"]:
+        raise AssertionError(f"[launch-serve] SJF short P50 {p50['sjf']} s "
+                             f"not below FCFS's {p50['fcfs']} s")
+    print(f"[launch-serve] burst short P50: SJF {p50['sjf']:.3f} s vs FCFS "
+          f"{p50['fcfs']:.3f} s ({100 * (1 - p50['sjf'] / p50['fcfs']):.1f}"
+          f"% lower), srpt {p50['srpt']:.3f} s (virtual time)  [{smi}]")
+
+
+def _start_child(args):
+    """``python -m repro_torch.launch.sidecar ARGS`` from the checkout, its
+    output read line by line on a thread.  Returns (process, lines queue,
+    bound port)."""
+    import queue
+    import re
+    import threading
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sidecar", "--port", "0",
+         *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+
+    def pump():
+        for line in child.stdout:
+            lines.put(line.rstrip("\n"))
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        try:
+            line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+        except queue.Empty:
+            break
+        if line is None:
+            break
+        m = re.search(r"listening on http://[\d.]+:(\d+)", line)
+        if m:
+            print(f"[launch-sidecar]   {line}")
+            return child, lines, int(m.group(1))
+        print(f"[launch-sidecar]   {line}")
+    child.kill()
+    child.wait()
+    raise AssertionError("[launch-sidecar] the child never listened")
+
+
+def _stop_child(child, lines) -> list:
+    """SIGTERM the child, wait for it (120 s at most) and return the lines
+    it printed after listening."""
+    import signal
+    child.send_signal(signal.SIGTERM)
+    try:
+        child.wait(timeout=120)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    out = []
+    while True:
+        line = lines.get(timeout=30)
+        if line is None:
+            return out
+        out.append(line)
+
+
+def phase_launch_sidecar(smi, totals) -> None:
+    """``python -m repro_torch.launch.sidecar --port 0`` as a child process:
+    the real backend (smollm-360m at full width on the card, the
+    predictor scoring each admission through K5) under fcfs and sjf, then
+    the sim backend likewise.  The serve-bench burst goes over HTTP (2 ms
+    apart, half as SSE streams), then SIGTERM: the child must drain all 16
+    requests ok and exit 0, and SJF's short P50 over the wire must be
+    below FCFS's."""
+    import asyncio
+    import numpy as np
+    pool, longs, shorts = _burst_pool()
+    order = longs + shorts
+
+    async def burst(port):
+        async def client(j, i):
+            await asyncio.sleep(j * 0.002)
+            n = 64 if i in longs else 8
+            t0 = time.monotonic()
+            out = await _http(port, {
+                "messages": [{"role": "user", "content": pool.prompts[i]}],
+                "max_tokens": n, "output_tokens": n,
+                "stream": j % 2 == 1})
+            return i, time.monotonic() - t0, out
+        return await asyncio.wait_for(asyncio.gather(
+            *[client(j, i) for j, i in enumerate(order)]), 600.0)
+
+    for backend, extra in (("real", []),
+                           ("sim", ["--time-scale", "0.5"])):
+        p50 = {}
+        for policy in ("fcfs", "sjf"):
+            w0 = time.monotonic()
+            child, lines, port = _start_child(
+                ["--backend", backend, "--policy", policy, *extra])
+            t_ready = time.monotonic() - w0
+            try:
+                outs = asyncio.run(burst(port))
+            finally:
+                report = _stop_child(child, lines)
+            for line in report:
+                print(f"[launch-sidecar]   {line}")
+            bad = [(i, kind, st) for i, _, (kind, st, _) in outs
+                   if st != 200 or kind not in ("json", "sse")]
+            drained = [ln for ln in report if ln.startswith("drained: ")]
+            if bad or child.returncode != 0 or not drained \
+                    or not drained[0].startswith(
+                        f"drained: {len(order)} terminals "
+                        f"({len(order)} ok)"):
+                raise AssertionError(
+                    f"[launch-sidecar] {backend} {policy}: exit "
+                    f"{child.returncode}, not ok {bad}, report {report}")
+            for i, _, (kind, _, obj) in outs:
+                n = len(_wire_tokens(kind, obj))
+                if n != (64 if i in longs else 8):
+                    raise AssertionError(f"[launch-sidecar] {backend} "
+                                         f"{policy}: {n} tokens for "
+                                         f"prompt {i}")
+            launched = [ln for ln in report
+                        if ln.startswith("kernel launches: ")]
+            launches = json.loads(launched[0][len("kernel launches: "):])
+            if backend == "real":
+                for k, v in launches.items():
+                    totals[k] += v
+                run = ("decode_attention", "flash_attention") + (
+                    ("gbdt_margins_packed",) if policy == "sjf" else ())
+                _check_path(f"[launch-sidecar] real {policy}", launches,
+                            run, ("paged_decode_attention", "gbdt_margins"))
+                # one K5 launch an admission, and one more for the CLI's
+                # scorer warm-up before it listens
+                if policy == "sjf" and \
+                        launches["gbdt_margins_packed"] != len(order) + 1:
+                    raise AssertionError(
+                        f"[launch-sidecar] {launches['gbdt_margins_packed']}"
+                        f" K5 launches for {len(order)} SJF admissions and "
+                        "the warm-up")
+            soj = {c: [t for i, t, _ in outs if (i in longs) == (c == "long")]
+                   for c in ("short", "long")}
+            p50[policy] = float(np.median(soj["short"])) * 1e3
+            print(f"[launch-sidecar] {backend} {policy}: listening after "
+                  f"{t_ready:.1f} s, short P50 {p50[policy]:.1f} ms, long "
+                  f"P50 {float(np.median(soj['long'])) * 1e3:.1f} ms over "
+                  f"the wire, {len(order)} ok ({len(order) // 2} SSE), "
+                  f"drained on SIGTERM, exit 0, child launches {launches}, "
+                  f"{time.monotonic() - w0:.1f} s  [{smi}]")
+        if not p50["sjf"] < p50["fcfs"]:
+            raise AssertionError(f"[launch-sidecar] {backend}: SJF short P50 "
+                                 f"{p50['sjf']:.1f} ms not below FCFS's "
+                                 f"{p50['fcfs']:.1f} ms")
+        print(f"[launch-sidecar] {backend}: SJF short P50 over the wire "
+              f"{100 * (1 - p50['sjf'] / p50['fcfs']):.1f}% below FCFS's  "
+              f"[{smi}]")
+
+
+def phase_preempt(cfg, predictor, smi, totals) -> None:
+    """Live preemption at full width: the burst longs first (3 long, 5
+    short, arrivals 1e-6 s apart) through ``ClairvoyantServer`` under
+    ``srpt`` with the serial ``RealEngine``.  A short evicts the decoding
+    long at a segment boundary; the long resumes by re-prefilling prompt +
+    generated prefix.  Every request ok with its full budget; in float32
+    (TF32 off) each resumed request's tokens equal an uninterrupted
+    decode's; in bf16 the agreement is printed."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import RealEngine
+    from repro_torch.serving.openai_api import CompletionRequest
+    from repro_torch.serving.server import ClairvoyantServer
+    pool, longs, shorts = _burst_pool(3, 5)
+    order = longs + shorts
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        eng = RealEngine(c, max_len=MAX_LEN, segment_len=SEGMENT, seed=0)
+        eng.generate(list(range(1, 20)), max_new_tokens=2)   # set-up
+        server = ClairvoyantServer(policy="srpt", tau=None,
+                                   predictor=predictor, engines=[eng])
+        evicted = []
+        requeue = server._requeue_evicted
+
+        def spy(rep, req, *a, _requeue=requeue):
+            evicted.append(req.req_id)
+            return _requeue(rep, req, *a)
+
+        server._requeue_evicted = spy
+        ops.reset_launches()
+        server.submit_many(
+            [CompletionRequest(prompt=pool.prompts[i]) for i in order],
+            arrivals=[j * 1e-6 for j in range(len(order))],
+            true_output_tokens=[64 if i in longs else 8 for i in order],
+            klasses=["long" if i in longs else "short" for i in order])
+        w0 = time.monotonic()
+        resp = server.drain(max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - w0
+        launches = dict(ops.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] += v
+        _check_path(f"[preempt] {dtype}", launches,
+                    ("decode_attention", "flash_attention", "gbdt_margins"),
+                    ("paged_decode_attention",))
+        pre = server.router.replicas[0].queue.stats["preemptions"]
+        budgets = {j + 1: 64 if i in longs else 8 for j, i in enumerate(order)}
+        if len(resp) != len(order) or not all(r.ok for r in resp) \
+                or any(r.tokens_generated != budgets[r.request_id]
+                       for r in resp) or pre < 1 or not evicted:
+            raise AssertionError(
+                f"[preempt] {dtype}: preemptions {pre}, responses "
+                f"{[(r.request_id, r.status, r.tokens_generated) for r in resp]}")
+        by_id = {r.request_id: r for r in resp}
+        agree = []
+        for rid in sorted(set(evicted)):
+            prompt = pool.prompts[order[rid - 1]]
+            n = budgets[rid]
+            ids = server._tokenizer.encode(prompt)[:max(1, eng.max_len - n)]
+            want = eng.generate(ids, max_new_tokens=n)["tokens"]
+            agree.append(by_id[rid].token_ids == list(want))
+        if dtype == "float32" and not all(agree):
+            raise AssertionError(f"[preempt] float32: resumed tokens differ "
+                                 f"from an uninterrupted decode: evicted "
+                                 f"{sorted(set(evicted))}, agree {agree}")
+        finish = [(r.request_id, r.klass[0]) for r in resp]
+        print(f"[preempt] {dtype}: srpt, {len(order)} requests ok with full "
+              f"budgets, {pre} preemptions (evicted requests "
+              f"{sorted(set(evicted))}), resumed == uninterrupted tokens "
+              f"{sum(agree)}/{len(agree)}, finish order {finish}, short P50 "
+              f"{server.percentile(50, 'short') * 1e3:.1f} ms, long P50 "
+              f"{server.percentile(50, 'long') * 1e3:.1f} ms, {wall:.2f} s, "
+              f"launches {launches}  [{smi}]")
+        del eng, server
+        torch.cuda.empty_cache()
+
+
+def phase_lanes_faults(cfg, smi, totals) -> None:
+    """The paging benchmark's backlog (as text prompts) through
+    ``ClairvoyantServer`` with ring lanes, then paged lanes, under one
+    fault plan each (a lane crash at the 3rd segment boundary, a transient
+    at time 0, a whole-engine crash at the 9th boundary) and a sojourn
+    deadline on the second long (``FAULT_DEADLINE_S``: it is admitted at
+    once and expires in service).  The lane drain leaves the transient to
+    the serial drains, as the JAX lane drain does, so it must not fire.
+    Every request must end in exactly one terminal status (none lost), at
+    least one ``timeout``; paged lanes launch K2 and never K1."""
+    import collections
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.faults import FaultPlan, FaultSpec, RetryPolicy
+    from repro_torch.serving.openai_api import CompletionRequest
+    from repro_torch.serving.server import ClairvoyantServer
+    pool, longs, shorts = _burst_pool(PATTERN.count("L"), PATTERN.count("S"))
+    it = {"L": iter(longs), "S": iter(shorts)}
+    picks = [(next(it[c]), c) for c in PATTERN]
+    ring, paged = _lane_engines(cfg)
+    for name, eng in (("ring", ring), ("paged", paged)):
+        plan = FaultPlan([
+            FaultSpec(kind="lane_crash", after_polls=3, replica=0),
+            FaultSpec(kind="transient", at=0.0, replica=0),
+            FaultSpec(kind="crash", after_polls=9, replica=0, repair_s=0.0)])
+        server = ClairvoyantServer(policy="fcfs", tau=None, engines=[eng],
+                                   fault_plan=plan,
+                                   retry=RetryPolicy(max_retries=4, seed=0),
+                                   deadline_mode="sojourn", seed=0)
+        for j, (i, c) in enumerate(picks):
+            server.submit(CompletionRequest(prompt=pool.prompts[i]),
+                          true_output_tokens=L_LONG if c == "L" else L_SHORT,
+                          klass="long" if c == "L" else "short",
+                          deadline_s=FAULT_DEADLINE_S if j == 1 else None)
+        ops.reset_launches()
+        w0 = time.monotonic()
+        resp = server.drain(max_new_tokens=L_LONG)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - w0
+        eng.fault_injector = None
+        launches = dict(ops.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] += v
+        ids = [r.request_id for r in resp]
+        statuses = collections.Counter(r.status for r in resp)
+        if sorted(ids) != list(range(1, len(picks) + 1)) \
+                or sorted(server._terminal) != sorted(ids) \
+                or server._inflight or server.queue.live():
+            raise AssertionError(f"[lanes-faults] {name}: terminals {ids}, "
+                                 f"in flight {list(server._inflight)}")
+        if statuses["timeout"] < 1 or server.fault_stats["crashes"] < 2 \
+                or server.fault_stats["transients"] != 0:
+            raise AssertionError(f"[lanes-faults] {name}: statuses "
+                                 f"{dict(statuses)}, fault_stats "
+                                 f"{server.fault_stats}")
+        if name == "paged":
+            _check_path("[lanes-faults] paged", launches,
+                        ("paged_decode_attention", "flash_attention"),
+                        ("decode_attention",))
+        else:
+            _check_path("[lanes-faults] ring", launches,
+                        ("decode_attention", "flash_attention"),
+                        ("paged_decode_attention",))
+        print(f"[lanes-faults] {name}: {len(resp)} requests, one terminal "
+              f"each, none lost: {dict(statuses)}; fault_stats "
+              f"{ {k: v for k, v in server.fault_stats.items() if v} }, "
+              f"{wall:.2f} s, launches {launches}  [{smi}]")
+    del ring, paged
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import get_config
@@ -1487,6 +1971,9 @@ def main() -> int:
     kernels = [k1, phase_paged_kernel(gen), k3,
                phase_gbdt_kernel(predictor.model, ds.prompts),
                phase_packed_kernel(predictor.model, ds.prompts)]
+    e4, e5 = phase_cli_predictor_kernels()
+    kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], e4)
+    kernels[4]["max_abs_err"] = max(kernels[4]["max_abs_err"], e5)
     cfg = get_config("smollm-360m")
     phase_full_width_reference(cfg)
     # launches on the main paths: each path resets the counters just
@@ -1499,6 +1986,10 @@ def main() -> int:
     phase_lanes(cfg, smi, totals)
     phase_lanes_f32(cfg, smi, totals)
     phase_paged_burst(cfg, predictor, smi, totals)
+    phase_preempt(cfg, predictor, smi, totals)
+    phase_lanes_faults(cfg, smi, totals)
+    phase_launch_serve(smi, totals)
+    phase_launch_sidecar(smi, totals)
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:

@@ -1,10 +1,18 @@
 """Architecture configuration for the PyTorch port.
 
 A copy of the fields of ``repro.configs.base.ArchConfig`` that an
-attention-only stack reads, the ``reduced()`` rule the tests use, and the
-one architecture this slice serves: ``smollm-360m`` (HuggingFaceTB/SmolLM-360M
-``config.json``: 32 layers, d_model 960, 15 query heads over 5 KV heads of
-width 64, SwiGLU d_ff 2560, vocab 49152, tied embeddings, RoPE theta 1e4).
+attention-only stack reads, the ``reduced()`` rule the tests use, and two
+architectures:
+
+* ``smollm-360m`` (HuggingFaceTB/SmolLM-360M ``config.json``: 32 layers,
+  d_model 960, 15 query heads over 5 KV heads of width 64, SwiGLU d_ff
+  2560, vocab 49152, tied embeddings, RoPE theta 1e4), the model the port
+  serves;
+* ``gemma3-4b-edge`` (Gemma3-4b's text stack, the paper's own backend: 34
+  layers, d_model 2560, 8 query heads over 4 KV heads of width 256, GeGLU
+  d_ff 10240, vocab 262144), for the service-time model of the launch
+  CLIs only (``ServiceTimeModel.from_arch``).  ``models.model.LM`` refuses
+  it: the GeGLU MLP is not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
+    mlp_activation: str = "silu"   # silu (SwiGLU) | gelu (GeGLU)
 
     @property
     def attn_dim(self) -> int:
@@ -44,6 +53,10 @@ class ArchConfig:
                      + self.attn_dim * d + d + 3 * d * ff + d)
         head = 0 if self.tie_embeddings else v * d
         return v * d + head + d + self.num_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: all of them in a dense stack."""
+        return self.param_count()
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (same rule as the JAX
@@ -63,7 +76,12 @@ SMOLLM_360M = ArchConfig(
     num_kv_heads=5, head_dim=64, d_ff=2560, vocab_size=49152,
     rope_theta=10000.0, tie_embeddings=True)
 
-_CONFIGS = {SMOLLM_360M.name: SMOLLM_360M}
+GEMMA3_4B_EDGE = ArchConfig(
+    name="gemma3-4b-edge", num_layers=34, d_model=2560, num_heads=8,
+    num_kv_heads=4, head_dim=256, d_ff=10240, vocab_size=262144,
+    mlp_activation="gelu", rope_theta=1000000.0, tie_embeddings=True)
+
+_CONFIGS = {c.name: c for c in (SMOLLM_360M, GEMMA3_4B_EDGE)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -24,9 +24,13 @@ replica, behind a uniform async contract:
   timeouts — both feed the server's existing ``RetryPolicy`` /
   ``CircuitBreaker`` machinery unchanged.
 
-Two adapters (the JAX package's third, ``SimTextBackend``, serves from
-the full ``ServiceTimeModel`` and waits for the port of the simulator):
+Three adapters:
 
+* :class:`SimTextBackend` — virtual service times from a
+  ``ServiceTimeModel`` scaled by ``time_scale``, slept on the event loop
+  and streamed as synthetic text.  The wire-level chaos tests and the
+  ``launch.sidecar --backend sim`` demo run on this (hundreds of requests
+  in seconds).
 * :class:`InProcessBackend` — wraps a ``RealEngine``: the fused decode
   runs in a worker thread, segments marshal back to the loop.  The
   paper's single-binary deployment.
@@ -45,7 +49,9 @@ import json
 import time
 from typing import Callable, Optional
 
+from repro_torch.data.tokenizer import approx_token_len
 from repro_torch.serving.faults import TransientBackendError
+from repro_torch.serving.service_time import ServiceTimeModel
 
 
 def tokens_to_text(tokens) -> str:
@@ -106,6 +112,62 @@ class Backend:
         whatever this backend can cheaply report about its serving state.
         Adapters that wrap a real engine delegate to it."""
         return {"replica": self.replica_id, "served": self.served}
+
+
+class SimTextBackend(Backend):
+    """Virtual-time backend: sleeps out a ``ServiceTimeModel`` service
+    time (scaled by ``time_scale``) and streams synthetic text in
+    segment-sized chunks.
+
+    Service time is a function of the *request* (prompt tokens +
+    ``max_new_tokens``), so SJF-vs-FCFS comparisons over the wire
+    reproduce the virtual-time queueing results.  Injected stall windows
+    stretch the sleeps; injected crashes raise out of the segment poll.
+    """
+
+    def __init__(self, model: Optional[ServiceTimeModel] = None,
+                 replica_id: int = 0, *, time_scale: float = 1.0,
+                 segment_tokens: int = 8):
+        super().__init__(replica_id)
+        self.model = model or ServiceTimeModel(prefill_tok_per_s=8000.0,
+                                               decode_tok_per_s=60.0)
+        self.time_scale = float(time_scale)
+        self.segment_tokens = int(segment_tokens)
+
+    async def generate(self, prompt: str, *, max_new_tokens: int = 32,
+                       on_segment=None, cancel_cb=None) -> dict:
+        self._cancel = False
+        t0 = time.monotonic()
+        ptoks = approx_token_len(prompt)
+        n = max(1, int(max_new_tokens))
+        full = self.model.service(ptoks, n) * self.time_scale
+        prefill = (self.model.overhead_s
+                   + ptoks / self.model.prefill_tok_per_s) * self.time_scale
+        per_tok = max(0.0, full - prefill) / n
+        await asyncio.sleep(prefill)
+        ttft = time.monotonic() - t0
+        tokens = [0]
+        if on_segment is not None:
+            on_segment(tokens_to_text(tokens))     # prefill token
+        cancelled = False
+        while len(tokens) < n:
+            if self._poll_cancel(cancel_cb):       # may raise EngineCrash
+                cancelled = True
+                break
+            k = min(self.segment_tokens, n - len(tokens))
+            f = 1.0 if self.fault_injector is None \
+                else self.fault_injector.stall_factor(self.replica_id,
+                                                      self.now())
+            await asyncio.sleep(per_tok * k * f)
+            new = list(range(len(tokens), len(tokens) + k))
+            tokens.extend(new)
+            if on_segment is not None:
+                on_segment(" " + tokens_to_text(new))
+        self.served += not cancelled
+        self._cancel = False
+        return {"text": tokens_to_text(tokens), "tokens": len(tokens),
+                "ttft_s": ttft, "service_s": time.monotonic() - t0,
+                "cancelled": cancelled}
 
 
 class InProcessBackend(Backend):

@@ -1,17 +1,23 @@
-"""The backends (port of ``repro.serving.engine``'s ``RealEngine``,
-``BatchedRealEngine`` and ``PagedBatchedEngine``, without speculation).
+"""The backends (port of ``repro.serving.engine``'s ``SimEngine``,
+``RealEngine``, ``BatchedRealEngine`` and ``PagedBatchedEngine``, without
+speculation).
 
+* ``SimEngine`` -- a virtual-time serial backend: service seconds come
+  from a ``ServiceTimeModel`` (the queueing runs of ``launch.serve``).
 * ``RealEngine`` -- the serial backend: bucketed prefill, then fused
   greedy decode over a ring-buffer KV cache, one request in flight.
   Cancellation (``request_cancel`` or a ``cancel_cb``) stops the fused
   loop at the next segment boundary, where an attached
   ``serving.faults.FaultInjector`` is polled too (an injected crash
-  raises ``EngineCrash`` out of ``generate`` there).  The lane engines
-  do not poll an injector yet.
+  raises ``EngineCrash`` out of ``generate`` there).
 * ``BatchedRealEngine`` -- ``n_lanes`` concurrent requests under a KV
   byte budget (``serving/batching.py``), stepped together by
   ``serving.generate.LaneDecoder``; lanes retire and back-fill at
-  segment boundaries.  Per-request greedy tokens equal serial runs.
+  segment boundaries.  Per-request greedy tokens equal serial runs.  At
+  each boundary an attached injector is polled: a whole-engine crash
+  raises out of ``run_lanes``, a lane crash evicts one lane (reported
+  with ``crashed=True``).  An attached flight recorder gets per-lane
+  ``prefill``, ``decode`` and ``decode_segment`` spans.
 * ``PagedBatchedEngine`` -- the same lane loop over a block-paged pool
   with prefix reuse, page growth and preemption (``serving/paging.py``,
   ``serving.generate.PagedLaneDecoder``); decode reads the pool through
@@ -34,6 +40,23 @@ from repro_torch.serving.generate import (FusedDecoder, LaneDecoder,
                                           geometric_buckets)
 from repro_torch.serving.paging import (BlockAllocator, PagedLaneManager,
                                         pages_for)
+from repro_torch.serving.service_time import ServiceTimeModel
+
+
+class SimEngine:
+    """Virtual-time serial backend: a clock (``busy_until``) and a
+    ``ServiceTimeModel`` the server's virtual-time drains advance it by
+    (the JAX class's unused ``execute`` is not copied)."""
+
+    def __init__(self, model: ServiceTimeModel, replica_id: int = 0):
+        self.model = model
+        self.replica_id = replica_id
+        self.busy_until = 0.0
+        self.served = 0
+
+    def engine_stats(self) -> dict:
+        """Wire-facing stats snapshot (sidecar /healthz, /metrics)."""
+        return {"replica": self.replica_id, "served": self.served}
 
 
 class RealEngine:
@@ -362,7 +385,11 @@ class BatchedRealEngine(RealEngine):
         retires.  ``cancel_check(LaneState) -> bool`` is polled at segment
         boundaries; a cancelled lane is evicted and reported with
         ``cancelled=True``.  ``now_fn`` supplies admission and finish
-        timestamps (default: the wall clock).
+        timestamps (default: the wall clock).  At each boundary an
+        attached ``fault_injector`` is polled: ``poll_segment`` may raise
+        a whole-engine crash out of this method (the caller recovers the
+        lanes' requests and ``take_pending``), and each due lane crash
+        evicts one busy lane, reported with ``crashed=True``.
 
         The host keeps exact lane arrays (last token, tokens produced,
         prompt length, budget, occupancy): every token reaches the host in
@@ -371,6 +398,9 @@ class BatchedRealEngine(RealEngine):
         admission or release changes the lane composition.
         """
         now = now_fn if now_fn is not None else time.monotonic
+        rec = self.recorder
+        ltrk = [f"replica{self.replica_id}/lane{i}"
+                for i in range(self.n_lanes)]
         mgr = self._new_manager()
         self.lane_manager = mgr
         self.dead_steps = 0
@@ -418,34 +448,60 @@ class BatchedRealEngine(RealEngine):
             caches = self._prefill_claims(mgr, dec, caches, claims, now,
                                           tok, plen, produced, max_new,
                                           active)
+            if rec is not None:
+                for st, lane, _, _ in claims:
+                    rec.span("prefill", st.req_id, st.admit_t,
+                             st.admit_t + max(st.ttft_s, 0.0),
+                             track=ltrk[lane])
             dev["d"] = None             # lane composition changed
 
-        def finish(state, cancelled: bool) -> None:
+        def finish(state, cancelled: bool, crashed: bool = False) -> None:
             t_fin = now()
             self.served += not cancelled
+            if rec is not None:
+                t0d = min(state.admit_t + max(state.ttft_s, 0.0), t_fin)
+                rec.span("decode", state.req_id, t0d, t_fin,
+                         track=ltrk[state.lane])
             on_finish(state, {
                 "tokens": self._result_tokens(state), "cancelled": cancelled,
+                "crashed": crashed,
                 "ttft_s": state.ttft_s, "admit_t": state.admit_t,
                 "finish_t": t_fin, "service_s": t_fin - state.admit_t,
                 "lane": state.lane, "evictions": state.evictions})
 
+        inj = self.fault_injector
         fill()
         # `pending` in the condition: growth preemption (paged) can empty
         # every lane while the just-preempted head sits deferred for the
         # boundary -- the next iteration lifts the deferral and re-admits
         while active.any() or pending:
             self._boundary_reset()
-            evictions = []
+            # segment boundary: client disconnects and injected lane
+            # crashes are evicted, then back-filled, in one pass
+            evictions = []                  # (lane, crashed)
             if cancel_check is not None:
-                evictions = [lane for lane in mgr.busy_lanes()
+                evictions = [(lane, False) for lane in mgr.busy_lanes()
                              if cancel_check(mgr.lanes[lane])]
+            if inj is not None:
+                inj.poll_segment(self.replica_id)   # may raise EngineCrash
+                spec = inj.lane_crash_due(self.replica_id)
+                while spec is not None:
+                    taken = {lane for lane, _ in evictions}
+                    busy = [ln for ln in mgr.busy_lanes()
+                            if ln not in taken]
+                    if not busy:
+                        break
+                    victim = spec.lane if spec.lane in busy else busy[0]
+                    evictions.append((victim, True))
+                    spec = inj.lane_crash_due(self.replica_id)
             if evictions:
-                for lane in evictions:
+                for lane, crashed in evictions:
                     st = mgr.evict(lane)
                     active[lane] = False
-                    finish(st, cancelled=True)
+                    finish(st, cancelled=True, crashed=crashed)
                 dev["d"] = None
-                caches = self._post_release(dec, caches, evictions)
+                caches = self._post_release(
+                    dec, caches, [lane for lane, _ in evictions])
                 fill(backfill=True)
                 if not active.any():
                     continue
@@ -468,9 +524,15 @@ class BatchedRealEngine(RealEngine):
                     for a in (tok, produced, plen, max_new, active))
             steps = dec.segment_steps(tok, produced, plen, max_new, active,
                                       eos)
+            t_seg0 = now() if rec is not None else 0.0
             buf, dead = dec.run_segment(caches, dev["d"], steps, eos)
             self.dead_steps += dead
             mgr.stats["dead_steps"] = self.dead_steps
+            if rec is not None:
+                t_seg1 = now()
+                for lane in mgr.busy_lanes():
+                    rec.span("decode_segment", mgr.lanes[lane].req_id,
+                             t_seg0, t_seg1, track=ltrk[lane])
             released = []
             for lane in mgr.busy_lanes():
                 new = buf[lane][buf[lane] >= 0].tolist()

@@ -132,8 +132,9 @@ class LaneDecoder:
     request budget, capped at ``segment_len``), and only EOS is left to
     the device mask.  A segment in which every lane meets EOS early
     therefore runs on to its planned end: tokens are unchanged (the
-    masked lanes emit nothing), and ``dead_steps`` -- occupied lanes'
-    steps taken while stopped -- counts those extra steps too.
+    masked lanes emit nothing).  ``dead_steps`` -- occupied lanes' steps
+    taken while stopped -- counts only steps in which some lane is still
+    live, so it equals the JAX loop's.
     """
 
     def __init__(self, lm, max_len: int, n_lanes: int, segment_len: int = 16):
@@ -197,7 +198,9 @@ class LaneDecoder:
         for i in range(steps):
             lv = active & (tok != eos) & (plen + produced < self.max_len) \
                 & (produced < max_new)
-            dead += (active & ~lv).sum()
+            # a step counts its stopped lanes only while some lane is
+            # live: the JAX loop ends the segment once none is
+            dead += (active & ~lv).sum() * lv.any()
             logits = self.lm.decode_step(caches, tok.view(C, 1))
             tok.copy_(torch.where(lv, logits.argmax(dim=-1), tok))
             buf[:, i] = torch.where(lv, tok, torch.full_like(tok, -1))

@@ -328,11 +328,13 @@ def _both_kernels(model, x):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 16, 512])
-@pytest.mark.parametrize("repeat", [3, 30])
+@pytest.mark.parametrize("B", [1, 16, 100, 512])
+@pytest.mark.parametrize("repeat", [3, 6, 30])
 def test_gbdt_kernels_fold_in_plan_order(cuda, repeat, B):
-    """T 180 (each slice staged at once) and T 1800 (slices streamed
-    through the two-buffer ring): K4 and K5 within 1e-5 of their plain
+    """T 180 and T 360 (the launch CLIs' ensemble; each slice staged at
+    once) and T 1800 (slices streamed through the two-buffer ring), at a
+    sidecar admission (B 1), bursts of 16 and of 100 (``launch.serve``)
+    and 512: K4 and K5 within 1e-5 of their plain
     versions (relative 1e-6 above that at T 1800, where margins reach
     ~40), K5 == K4 + base score and both == ``tree_fold`` of the plain
     walks' leaves bit for bit, and the same bits on every call."""
@@ -397,3 +399,101 @@ def test_gbdt_trees_too_large_to_stage_walk_from_global(cuda):
     np.testing.assert_allclose(k5.cpu().numpy(), want.numpy() + 0.25,
                                atol=1e-5)
     assert torch.equal(k5, k4)
+
+
+class _TwoClass:
+    """Scores without a device: "long" prompts P(Long) = 1, others 0."""
+
+    def proba_batch(self, prompts):
+        return np.array([[0.0, 0.0, 1.0] if "long" in p else [1.0, 0.0, 0.0]
+                         for p in prompts])
+
+
+@pytest.mark.cuda
+def test_full_width_preemption_resumes_to_the_uninterrupted_tokens(cuda):
+    """smollm-360m at full width in float32 (TF32 off) under ``srpt``: the
+    short (arriving 1e-6 s after the long) evicts the decoding long at a
+    segment boundary, and the long's resumed tokens equal an
+    uninterrupted decode's."""
+    import dataclasses
+
+    from repro_torch.serving.openai_api import CompletionRequest
+    from repro_torch.serving.server import ClairvoyantServer
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(get_config("smollm-360m"),
+                                  dtype="float32")
+        eng = RealEngine(cfg, max_len=96, segment_len=4, device=cuda)
+        server = ClairvoyantServer(policy="srpt", predictor=_TwoClass(),
+                                   engines=[eng])
+        long_req = CompletionRequest(prompt="long story please")
+        server.submit(long_req, arrival=0.0, true_output_tokens=600,
+                      klass="long")
+        server.submit(CompletionRequest(prompt="quick question"),
+                      arrival=1e-6, true_output_tokens=30, klass="short")
+        before = dict(ops.LAUNCHES)
+        resp = server.drain(max_new_tokens=24)
+        assert ops.LAUNCHES["decode_attention"] > before["decode_attention"]
+        assert [r.status for r in resp] == ["ok", "ok"]
+        assert resp[0].klass == "short"
+        assert server.router.replicas[0].queue.stats["preemptions"] >= 1
+        long_resp = next(r for r in resp
+                         if r.request_id == long_req.request_id)
+        ids = server._tokenizer.encode(long_req.prompt)
+        want = eng.generate(ids, max_new_tokens=24)["tokens"]
+        assert long_resp.tokens_generated == 24
+        assert long_resp.token_ids == list(want)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+@pytest.mark.cuda
+def test_launch_serve_scores_the_burst_with_one_k4_launch(cuda):
+    """``python -m repro_torch.launch.serve`` on the card: the predictor
+    scores the 100-request burst in one K4 launch (no K5), and SJF serves
+    every request."""
+    from repro_torch.launch import serve
+    before = dict(ops.LAUNCHES)
+    srv = serve.main(["--policy", "sjf", "--requests", "100"])
+    assert ops.LAUNCHES["gbdt_margins"] == before["gbdt_margins"] + 1
+    assert ops.LAUNCHES["gbdt_margins_packed"] == \
+        before["gbdt_margins_packed"]
+    assert srv.predictor.device.type == "cuda"
+    assert len(srv.ok_responses) == 100
+
+
+@pytest.mark.cuda
+def test_cli_ensemble_kernels_match_plain(cuda):
+    """The ensemble the launch CLIs train (``build_predictor``: 120
+    rounds, T 360): K4 on ``launch.serve``'s 100-request burst within 1e-5
+    of its plain version and == ``tree_fold`` of the plain walk's leaves;
+    K5 on single admissions within 1e-5 of its plain version and == K4 +
+    base score bit for bit."""
+    from repro_torch.core.features import extract_batch
+    from repro_torch.data.corpus import sample_dataset
+    from repro_torch.launch import serve
+    model = serve.build_predictor(device=cuda).model
+    assert model.feature.shape[0] == 360
+    prompts = sample_dataset("sharegpt", n=100, seed=1).prompts
+    x = torch.as_tensor(extract_batch(prompts), device=cuda)
+    dense = model.tensors(cuda)
+    k4 = ops.gbdt_margins(x, *dense, n_classes=3)
+    xc, dense_c = x.cpu(), model.tensors("cpu")
+    np.testing.assert_allclose(
+        k4.cpu().numpy(),
+        ref.gbdt_margins_ref(xc, *dense_c, n_classes=3).numpy(), atol=1e-5)
+    assert torch.equal(k4.cpu(), tree_fold(_leaves(xc, dense_c), 3))
+    packed = model.packed()
+    for b in (0, 37, 99):
+        row = x[b:b + 1].clone()
+        k5 = ops.gbdt_margins_packed_from(packed, row)
+        np.testing.assert_allclose(
+            k5.cpu().numpy(),
+            ops.gbdt_margins_packed_from(packed, row.cpu()).numpy(),
+            atol=1e-5)
+        assert torch.equal(k5, ops.gbdt_margins(row, *dense, n_classes=3)
+                           + model.base_score)

@@ -342,10 +342,15 @@ def test_max_queue_depth_sheds_at_admission():
 
 
 def test_drain_rejects_preemptive_policies():
+    """The name is historical: ``drain`` used to reject a preemptive
+    policy.  It no longer does: the serial drain serves it (arrival-aware
+    pops, eviction at segment boundaries), and the request ends ``ok``
+    with its full budget."""
     srv = ClairvoyantServer(policy="srpt", engines=[_port_engine()])
-    srv.submit(CompletionRequest(prompt="x", max_tokens=2))
-    with pytest.raises(NotImplementedError, match="preemptive"):
-        srv.drain()
+    srv.submit(CompletionRequest(prompt="x", max_tokens=2),
+               true_output_tokens=2)
+    resp = srv.drain(max_new_tokens=2)
+    assert [(r.status, r.tokens_generated) for r in resp] == [("ok", 2)]
 
 
 # --------------------------------------------------------- wire helpers
@@ -450,7 +455,8 @@ def test_sse_stream_and_json_body_carry_the_engine_tokens():
             finals = [c["choices"][0]["finish_reason"] for c in chunks]
             assert finals[-1] == "stop" and set(finals[:-1]) == {None}
             kind, status, obj = await _request(sc.port, {
-                "prompt": "stream please", "max_tokens": 24})
+                "prompt": "stream please", "max_tokens": 24,
+                "output_tokens": 24})
             assert (kind, status) == ("json", 200)
             assert obj["object"] == "chat.completion"
             assert obj["choices"][0]["message"]["content"] == \
@@ -546,7 +552,8 @@ def test_inflight_cap_returns_503_with_retry_after():
         await sc.start()
         try:
             slow = asyncio.create_task(_request(sc.port, {
-                "prompt": "slow", "max_tokens": 120}))
+                "prompt": "slow", "max_tokens": 120,
+                "output_tokens": 120}))
             await asyncio.sleep(0.1)
             _, status, obj = await _request(sc.port, {"prompt": "x",
                                                       "max_tokens": 4})
@@ -564,11 +571,13 @@ def test_deadline_timeout_and_predispatch_shed():
         await sc.start()
         try:
             kind, status, obj = await _request(sc.port, {
-                "prompt": "too slow", "max_tokens": 120, "timeout_s": 0.1})
+                "prompt": "too slow", "max_tokens": 120,
+                "output_tokens": 120, "timeout_s": 0.1})
             assert (kind, status) == ("json", 504)
             assert obj["error"]["type"] == "timeout"
             blocker = asyncio.create_task(_request(sc.port, {
-                "prompt": "blocker", "max_tokens": 60}))
+                "prompt": "blocker", "max_tokens": 60,
+                "output_tokens": 60}))
             await asyncio.sleep(0.1)
             _, status, obj = await _request(
                 sc.port, {"prompt": "impatient", "max_tokens": 4},
@@ -589,11 +598,13 @@ def test_disconnect_cancels_queued_and_midgeneration():
         await sc.start()
         try:
             a = asyncio.create_task(_request(
-                sc.port, {"prompt": "a", "max_tokens": 120, "stream": True},
+                sc.port, {"prompt": "a", "max_tokens": 120,
+                          "output_tokens": 120, "stream": True},
                 disconnect_after=0.3))
             await asyncio.sleep(0.1)
             b = asyncio.create_task(_request(
-                sc.port, {"prompt": "b", "max_tokens": 8},
+                sc.port, {"prompt": "b", "max_tokens": 8,
+                          "output_tokens": 8},
                 disconnect_after=0.05))
             assert (await b)[0] == "disconnected"
             assert (await a)[0] == "disconnected"
@@ -624,8 +635,8 @@ def test_engine_crash_at_segment_boundary_is_retried():
                                                    after_polls=3)])
         await sc.start()
         try:
-            _, status, obj = await _request(sc.port, {"prompt": "crash me",
-                                                      "max_tokens": 40})
+            _, status, obj = await _request(sc.port, {
+                "prompt": "crash me", "max_tokens": 40, "output_tokens": 40})
             assert status == 200 and obj["clairvoyant"]["retries"] == 1
         finally:
             await sc.shutdown(drain_s=1.0)
