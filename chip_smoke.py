@@ -40,9 +40,20 @@ path and read just after:
 * ``[launch-serve]`` ``repro_torch.launch.serve`` (virtual-time replicas
   on the gemma3-4b-edge service model; the burst scored by K4) under
   fcfs, sjf and srpt, and sjf at rho 0.74;
+* ``[sweep]`` the paper's grids through ``core.sweep``: Fig. 3's
+  (fcfs / sjf x 5 rhos x 5 seeds, n 2,000) and Table 8's burst with the
+  grid DES on the card (``backend="torch"``) and on the host, and a grid
+  mixing srpt rows (host preemptive engine) with key-based rows;
+* ``[ranking]`` the ranking metric (Algorithm 1) on a held-out sample,
+  scored in one batch through K4 and through the plain walk;
+* ``[speculative]`` draft-verify decode (K=4) in float32 and bf16: the
+  burst's prompts through the serial engine with an agreeing and an
+  independent draft, and the paging backlog through speculative ring and
+  paged lanes;
 * ``[launch-sidecar]`` ``python -m repro_torch.launch.sidecar --port 0``
   as a child process with the full-width real backend, then the sim
-  backend, under fcfs and sjf: the burst over HTTP, then SIGTERM.
+  backend, under fcfs and sjf, and the real backend with
+  ``--speculative`` under sjf: the burst over HTTP, then SIGTERM.
 
 It fails (nonzero exit, no result line) without a CUDA device, without
 the repository beside it, when a kernel does not build, launch or agree
@@ -51,7 +62,12 @@ must agree do not, or when a kernel of a path was never launched on it
 (and when the paged path launches the ring kernel K1, or the sidecar's
 one-request admissions launch the batch kernel K4), when a request is
 lost or ends twice, when SJF's short P50 is not below FCFS's on the
-launch CLIs, or when a sidecar child does not drain and exit 0.
+launch CLIs, when a sidecar child does not drain and exit 0, when a
+sweep metric differs between the card and the host or an srpt row runs
+on the card, when the ranking metrics differ between K4 and the plain
+walk, when a float32 speculative stream differs from plain decode or
+its kernel launches differ from the rounds' count, or when the
+speculative child reports no accept rate.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -1790,6 +1806,60 @@ def phase_launch_sidecar(smi, totals) -> None:
               f"{100 * (1 - p50['sjf'] / p50['fcfs']):.1f}% below FCFS's  "
               f"[{smi}]")
 
+    _launch_sidecar_speculative(burst, order, longs, smi, totals)
+
+
+def _launch_sidecar_speculative(burst, order, longs, smi, totals) -> None:
+    """The speculative child: ``--backend real --speculative --policy
+    sjf``, each replica's engine decoding draft-verify (the default draft:
+    the target's own config, seeded with ``--seed``).  The burst over
+    HTTP, a ``/metrics`` scrape, then SIGTERM: all ok, ``drained: 16
+    terminals (16 ok)``, exit 0, and the accept-rate gauge above 0."""
+    import asyncio
+    import numpy as np
+    from repro_torch.serving.observability import parse_prometheus
+    w0 = time.monotonic()
+    child, lines, port = _start_child(["--backend", "real", "--speculative",
+                                       "--policy", "sjf"])
+    t_ready = time.monotonic() - w0
+    try:
+        outs = asyncio.run(burst(port))
+        _, st, text = asyncio.run(_http(port, method="GET",
+                                        path="/metrics"))
+    finally:
+        report = _stop_child(child, lines)
+    for line in report:
+        print(f"[launch-sidecar]   {line}")
+    rates = [v for _, _, v in parse_prometheus(text).get(
+        "clairvoyant_speculative_accept_rate", [])] if st == 200 else []
+    bad = [(i, kind, code) for i, _, (kind, code, _) in outs
+           if code != 200 or kind not in ("json", "sse")]
+    short = [i for i, _, (kind, _, obj) in outs
+             if len(_wire_tokens(kind, obj)) != (64 if i in longs else 8)]
+    drained = [ln for ln in report if ln.startswith("drained: ")]
+    if bad or short or child.returncode != 0 or not drained \
+            or not drained[0].startswith(f"drained: {len(order)} terminals "
+                                         f"({len(order)} ok)") \
+            or not rates or not all(r > 0 for r in rates):
+        raise AssertionError(
+            f"[launch-sidecar] real --speculative sjf: exit "
+            f"{child.returncode}, not ok {bad}, short streams {short}, "
+            f"accept-rate gauge {rates}, report {report}")
+    launched = [ln for ln in report if ln.startswith("kernel launches: ")]
+    launches = json.loads(launched[0][len("kernel launches: "):])
+    for k, v in launches.items():
+        totals[k] += v
+    _check_path("[launch-sidecar] real --speculative sjf", launches,
+                ("decode_attention", "flash_attention", "gbdt_margins_packed"),
+                ("paged_decode_attention", "gbdt_margins"))
+    soj = [t for i, t, _ in outs if i not in longs]
+    print(f"[launch-sidecar] real --speculative sjf: listening after "
+          f"{t_ready:.1f} s, {len(order)} ok ({len(order) // 2} SSE), "
+          f"/metrics clairvoyant_speculative_accept_rate {rates}, short P50 "
+          f"{float(np.median(soj)) * 1e3:.1f} ms over the wire, drained on "
+          f"SIGTERM, exit 0, child launches {launches}, "
+          f"{time.monotonic() - w0:.1f} s  [{smi}]")
+
 
 def phase_preempt(cfg, predictor, smi, totals) -> None:
     """Live preemption at full width: the burst longs first (3 long, 5
@@ -1940,6 +2010,312 @@ def phase_lanes_faults(cfg, smi, totals) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- sweeps, ranking, drafts
+#: Fig. 3's grid (benchmarks/fig3_rho_sweep.py:21-30): FCFS and SJF with
+#: the tau = 3 x E[S_short] guard, five loads, five seeds, 2,000 requests
+FIG3_RHOS = (0.3, 0.5, 0.74, 0.85, 0.95)
+SPEC_K = 4
+
+
+def _same_metrics(name, got, want) -> None:
+    import numpy as np
+    for m in want:
+        if not np.array_equal(np.asarray(got[m]), np.asarray(want[m]),
+                              equal_nan=True):
+            raise AssertionError(f"[sweep] {name}: metric {m} differs "
+                                 "between backend='torch' and 'auto'")
+
+
+def phase_sweep(smi) -> None:
+    """The paper's sweep grids through ``core.sweep``: Fig. 3's grid
+    (fcfs / sjf at tau 10.5 x 5 rhos x 5 seeds, n 2,000, the RTX 4090
+    service model, mix 0.5) and Table 8's burst (50 short + 50 long in
+    50 ms, fcfs / sjf / sjf_oracle, 5 runs) with the grid DES on the card
+    (``backend="torch"``, float64) and on the host C engine
+    (``backend="auto"``); then one grid that mixes srpt rows with
+    key-based rows.  Every metric must be equal bit for bit between the
+    backends, and the srpt rows must run on the host preemptive engine."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sim_torch, sweep
+    from repro_torch.core.sim_fast import RequestBatch
+    from repro_torch.serving.service_time import (PAPER_4090_LONG,
+                                                  PAPER_4090_SHORT)
+    S, L = PAPER_4090_SHORT, PAPER_4090_LONG
+    tau = 3.0 * S.mean
+    conds = [("fcfs", None), ("sjf", tau)]
+    grids = {
+        "fig3": lambda **kw: sweep.sweep_poisson(
+            conds, rhos=FIG3_RHOS, seeds=range(5), n=2000, short=S,
+            long=L, mix_long=0.5, **kw),
+        "table8": lambda **kw: sweep.sweep_burst(
+            [("fcfs", None), ("sjf", None), ("sjf_oracle", None)],
+            seeds=range(5), n_short=50, n_long=50, short=S, long=L, **kw)}
+    sweep.sweep_poisson(conds, rhos=(0.5,), seeds=(0,), n=50, short=S,
+                        long=L, backend="torch", device="cuda")  # set-up
+    res = {}
+    for name, run in grids.items():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        dev = run(backend="torch", device="cuda")
+        t_dev = time.monotonic() - t0
+        t0 = time.monotonic()
+        host = run(backend="auto")
+        t_host = time.monotonic() - t0
+        _same_metrics(name, dev.metrics, host.metrics)
+        res[name] = dev
+        G = len(dev.conditions) * len(dev.rhos) * len(dev.seeds)
+        print(f"[sweep] {name}: {G} cells, backend='torch' (cuda, float64) "
+              f"{t_dev:.3f} s, backend='auto' (host C engine) {t_host:.3f} "
+              f"s, all {len(dev.metrics)} metrics equal bit for bit  "
+              f"[{smi}]")
+    sp50 = res["fig3"].metric("short_p50")               # (2, R, S)
+    cut = 100.0 * (1.0 - sp50[1] / sp50[0])
+    print("[sweep] fig3 SJF short-P50 reduction by rho (mean of 5 "
+          "seeds): " + ", ".join(f"{r}: {cut[i].mean():.1f}%"
+                                 for i, r in enumerate(FIG3_RHOS)))
+    t8 = res["table8"].metric("short_p50")[:, 0]          # (3, seeds)
+    print(f"[sweep] table8 burst short P50 (mean of 5 runs): fcfs "
+          f"{t8[0].mean():.2f} s, sjf {t8[1].mean():.2f} s "
+          f"({100 * (1 - t8[1].mean() / t8[0].mean()):.1f}% lower), "
+          f"sjf_oracle {t8[2].mean():.2f} s")
+
+    rows = {"torch": 0, "host_preempt": 0}
+    real_dev, real_pre = sim_torch.simulate_grid_torch, \
+        sweep.simulate_grid_preempt
+
+    def dev_spy(arrival, *a, **kw):
+        rows["torch"] += arrival.shape[0]
+        return real_dev(arrival, *a, **kw)
+
+    def pre_spy(arrival, *a, **kw):
+        rows["host_preempt"] += arrival.shape[0]
+        return real_pre(arrival, *a, **kw)
+
+    mixed = [("fcfs", None), ("sjf", tau), ("srpt", None)]
+    batches = [RequestBatch.poisson(np.random.default_rng(s), 2000,
+                                    0.85 / (0.5 * (S.mean + L.mean)), S, L)
+               for s in range(5)]
+    sim_torch.simulate_grid_torch, sweep.simulate_grid_preempt = \
+        dev_spy, pre_spy
+    try:
+        dev = sweep.sweep_batches(batches, mixed, backend="torch",
+                                  device="cuda")
+    finally:
+        sim_torch.simulate_grid_torch, sweep.simulate_grid_preempt = \
+            real_dev, real_pre
+    _same_metrics("mixed", dev, sweep.sweep_batches(batches, mixed))
+    if rows != {"torch": 10, "host_preempt": 5}:
+        raise AssertionError(f"[sweep] mixed grid routed rows {rows}, "
+                             "expected 10 key-based rows on the card and "
+                             "5 srpt rows on the host")
+    print(f"[sweep] mixed fcfs / sjf / srpt at rho 0.85: {rows['torch']} "
+          f"key-based rows on the card, {rows['host_preempt']} srpt rows on "
+          f"the host preemptive engine, metrics equal to backend='auto'; "
+          f"short P50 fcfs {dev['short_p50'][0].mean():.2f} s, sjf "
+          f"{dev['short_p50'][1].mean():.2f} s, srpt "
+          f"{dev['short_p50'][2].mean():.2f} s")
+
+
+def phase_ranking(predictor, smi, totals) -> None:
+    """The paper's ranking metric (Algorithm 1) on a held-out, seeded
+    sample of the corpus (2,000 sharegpt-profile prompts, seed 7; the
+    predictor trained on seed 42): scored in one batch through the
+    predictor's entry point (K4, one launch) and through the plain walk;
+    ranking and 3-class accuracy must be equal between the two."""
+    import numpy as np
+    import torch
+    from repro_torch.core.features import extract_batch
+    from repro_torch.core.ranking import (classification_accuracy,
+                                          ranking_accuracy)
+    from repro_torch.data.corpus import sample_dataset
+    from repro_torch.kernels import ops
+    ds = sample_dataset("sharegpt", n=2000, seed=7)
+    lengths = np.asarray(ds.lengths)
+    ops.reset_launches()
+    t0 = time.monotonic()
+    proba = predictor.proba_batch(ds.prompts)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    for k, v in launches.items():
+        totals[k] += v
+    if launches["gbdt_margins"] != 1 or launches["gbdt_margins_packed"]:
+        raise AssertionError(f"[ranking] launches {launches}: expected one "
+                             "K4 launch")
+    plain = predictor.model.predict_proba(extract_batch(ds.prompts),
+                                          device="cpu")
+    err = float(np.abs(proba - plain).max())
+    acc = {name: (ranking_accuracy(lengths, p[:, 2]),
+                  classification_accuracy(lengths, p))
+           for name, p in (("K4", proba), ("plain", plain))}
+    if acc["K4"] != acc["plain"] or not all(map(math.isfinite,
+                                                acc["K4"])):
+        raise AssertionError(f"[ranking] K4 {acc['K4']} != plain "
+                             f"{acc['plain']}")
+    n_s, n_l = int((lengths < 200).sum()), int((lengths >= 800).sum())
+    print(f"[ranking] held-out {len(ds)} prompts ({n_s} short, {n_l} long): "
+          f"ranking accuracy {100 * acc['K4'][0]:.2f}% (paper 62-96%), "
+          f"3-class accuracy {100 * acc['K4'][1]:.2f}%; K4 == plain walk "
+          f"on both (max |P - P_plain| {err:.1e}); one K4 launch, "
+          f"{wall * 1e3:.1f} ms incl. features  [{smi}]")
+
+
+def _count_rounds(dec) -> dict:
+    """Wrap a lane decoder's ``run_segment`` to sum the rounds it runs."""
+    n = {"rounds": 0}
+    real = dec.run_segment
+
+    def run(caches, dev, steps, eos):
+        n["rounds"] += steps
+        return real(caches, dev, steps, eos)
+
+    dec.run_segment = run
+    return n
+
+
+def phase_speculative(cfg, smi, totals) -> None:
+    """Draft-verify decode at full width (K=4, all 32 layers), in float32
+    (TF32 off) and in bf16: the serve-bench prompts through a serial
+    ``RealEngine`` with an agreeing draft (the same config and seed) and
+    with an independent one (another seed, on a subset), then the paging
+    backlog through speculative ring and paged lanes (agreeing draft).
+    Float32: every token stream must equal the plain engine's; bf16: the
+    agreement is printed.  Launches are held exactly: a serial round
+    launches K1 (K+1 draft steps + K+1 verify positions) x layers times,
+    a paged lane round K1 (K+1) x layers (the draft ring) and K2 (K+1) x
+    layers (the verify)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batching import kv_bytes_per_token
+    from repro_torch.serving.engine import (BatchedRealEngine,
+                                            PagedBatchedEngine, RealEngine)
+    pool, longs, shorts = _burst_pool()
+    tok = HashTokenizer(cfg.vocab_size)
+    burst = [(tok.encode(pool.prompts[i]), 64 if i in longs else 8)
+             for i in longs + shorts]
+    subset = [burst[0]] + burst[len(longs):len(longs) + 2]
+    K, W, nl = SPEC_K, SPEC_K + 1, cfg.num_layers
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        plain = RealEngine(c, max_len=MAX_LEN, segment_len=SEGMENT, seed=0)
+        engines = {"agree": RealEngine(c, max_len=MAX_LEN,
+                                       segment_len=SEGMENT, seed=0,
+                                       draft_cfg=c, draft_seed=0,
+                                       draft_k=K),
+                   "indep": RealEngine(c, max_len=MAX_LEN,
+                                       segment_len=SEGMENT, seed=0,
+                                       draft_cfg=c, draft_seed=1,
+                                       draft_k=K)}
+        if not torch.equal(engines["agree"].draft_lm.embed, plain.lm.embed):
+            raise AssertionError("[speculative] the agreeing draft's "
+                                 "weights are not the target's")
+        for eng in (plain, *engines.values()):      # first-call set-up
+            eng.generate(list(range(1, 20)), max_new_tokens=6)
+        runs = {}
+        for name, eng, work in (("plain", plain, burst),
+                                ("agree", engines["agree"], burst),
+                                ("plain-subset", plain, subset),
+                                ("indep", engines["indep"], subset)):
+            ops.reset_launches()
+            t0 = time.monotonic()
+            res = [eng.generate(ids, max_new_tokens=m) for ids, m in work]
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = dict(ops.LAUNCHES)
+            for k, v in launches.items():
+                totals[k] += v
+            n_tok = sum(len(r["tokens"]) for r in res)
+            runs[name] = {"tokens": [r["tokens"] for r in res],
+                          "wall": wall, "n_tok": n_tok,
+                          "launches": launches, "res": res}
+            if name in ("agree", "indep"):
+                rounds = sum(r["segments"] for r in res)
+                want = rounds * (K + 1 + W) * nl
+                if launches["decode_attention"] != want:
+                    raise AssertionError(
+                        f"[speculative] {dtype} {name}: "
+                        f"{launches['decode_attention']} K1 launches for "
+                        f"{rounds} rounds, expected {want}")
+                _check_path(f"[speculative] {dtype} {name}", launches,
+                            ("decode_attention", "flash_attention"),
+                            ("paged_decode_attention",))
+                drafted = sum(r["drafted"] for r in res)
+                accepted = sum(r["accepted"] for r in res)
+                runs[name].update(rounds=rounds, rate=accepted / drafted)
+        for name, base in (("agree", "plain"), ("indep", "plain-subset")):
+            r, b = runs[name], runs[base]
+            same = sum(x == y for x, y in zip(r["tokens"], b["tokens"]))
+            if dtype == "float32" and same != len(b["tokens"]):
+                raise AssertionError(f"[speculative] float32 {name}: "
+                                     f"{same}/{len(b['tokens'])} streams "
+                                     "equal plain decode")
+            print(f"[speculative] {dtype} serial, {name} draft, K={K}: "
+                  f"{len(b['tokens'])} requests, == plain tokens "
+                  f"{same}/{len(b['tokens'])}; accept rate "
+                  f"{r['rate']:.3f}; {r['rounds']} rounds, "
+                  f"{r['n_tok'] / r['rounds']:.2f} tokens a round; "
+                  f"{r['wall'] / r['n_tok'] * 1e3:.3f} ms/token vs plain "
+                  f"{b['wall'] / b['n_tok'] * 1e3:.3f}; K1 launches a "
+                  f"round {r['launches']['decode_attention'] / r['rounds']:.0f}"
+                  f" = (K+1 draft steps + {W} verify positions) x {nl}  "
+                  f"[{smi}]")
+        sd = plain.lm.state_dict()
+        del plain, engines
+        torch.cuda.empty_cache()
+
+        # lanes: the paging backlog, agreeing draft, a budget of two
+        # worst-case speculative longs (target + draft K/V)
+        budget = 2 * (L_PROMPT + L_LONG) * 2 * kv_bytes_per_token(c)
+        kw = dict(max_len=L_MAX_LEN, segment_len=L_SEGMENT,
+                  n_lanes=L_LANES, budget_bytes=budget, state_dict=sd,
+                  draft_cfg=c, draft_state_dict=sd, draft_k=K)
+        serial = RealEngine(c, state_dict=sd, max_len=L_MAX_LEN,
+                            segment_len=L_SEGMENT)
+        prompts, maxes = _pattern(cfg.vocab_size, np.random.default_rng(100))
+        want = [serial.generate(p, max_new_tokens=m)["tokens"]
+                for p, m in zip(prompts, maxes)]
+        for name, eng in (("ring", BatchedRealEngine(c, **kw)),
+                          ("paged", PagedBatchedEngine(c, page_size=L_PAGE,
+                                                       **kw))):
+            eng.generate_batch(prompts[:L_LANES], 4)        # set-up
+            if name == "paged":
+                eng.allocator.drop_cache()
+            n = _count_rounds(eng._lane_decoder)
+            r = _drain_pattern(eng, prompts, maxes)
+            for k, v in r["launches"].items():
+                totals[k] += v
+            R, la = n["rounds"], r["launches"]
+            if name == "ring":
+                ok = la["decode_attention"] == R * (K + 1 + W) * nl \
+                    and la["paged_decode_attention"] == 0
+            else:
+                ok = la["decode_attention"] == R * (K + 1) * nl \
+                    and la["paged_decode_attention"] == R * W * nl
+            if not ok or la["flash_attention"] <= 0:
+                raise AssertionError(f"[speculative] {dtype} {name} lanes: "
+                                     f"launches {la} for {R} rounds")
+            same = sum(a == b for a, b in zip(r["tokens"], want))
+            pre = r["preempted"]
+            if dtype == "float32" and same != len(want):
+                raise AssertionError(f"[speculative] float32 {name} lanes: "
+                                     f"{same}/{len(want)} streams equal "
+                                     "plain decode")
+            print(f"[speculative] {dtype} {name} lanes, agreeing draft: "
+                  f"{len(want)} requests, == plain serial tokens "
+                  f"{same}/{len(want)} (preempted {pre}); accept rate "
+                  f"{eng.accept_rate:.3f}, {r['n_tok']} tokens in "
+                  f"{r['wall']:.2f} s = {r['tok_s']:.1f} tok/s, short P50 "
+                  f"{r['short_p50_ms']:.1f} ms, {R} rounds, dead steps "
+                  f"{eng.dead_steps}, launches {la}  [{smi}]")
+            del eng
+        del serial
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import get_config
@@ -1980,6 +2356,8 @@ def main() -> int:
     # before it runs and adds what it launched just after
     launches, eng, slice_tokens = phase_slice(cfg, predictor, smi)
     totals = dict(launches)
+    phase_sweep(smi)
+    phase_ranking(predictor, smi, totals)
     phase_sidecar(eng, predictor, smi, slice_tokens, totals)
     del eng
     torch.cuda.empty_cache()
@@ -1988,6 +2366,7 @@ def main() -> int:
     phase_paged_burst(cfg, predictor, smi, totals)
     phase_preempt(cfg, predictor, smi, totals)
     phase_lanes_faults(cfg, smi, totals)
+    phase_speculative(cfg, smi, totals)
     phase_launch_serve(smi, totals)
     phase_launch_sidecar(smi, totals)
     for k in kernels:

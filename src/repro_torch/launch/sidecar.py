@@ -42,9 +42,14 @@ span timeline at shutdown; ``--log-json FILE`` writes the same spans as
 structured JSONL.
 
 ``--speculative`` mirrors draft-verify decode in the service-time model
-(the sim backend and the tau calibration); speculative decode itself is
-not ported, so ``--speculative --backend real`` and ``--draft-model``
-exit with a message.
+(the sim backend and the tau calibration); with ``--backend real`` each
+replica's engine also decodes draft-verify: a draft model proposes
+``--draft-k`` tokens a round and the target verifies them in one
+forward.  The draft is ``--draft-model`` at full width (``--reduced``
+reduces it with the target), by default the target's own config, seeded
+with ``--seed``.  Every draft must share the target's vocabulary (the
+decoder raises otherwise).  Responses and ``/metrics``
+(``clairvoyant_speculative_accept_rate``) report the accept rate.
 """
 
 from __future__ import annotations
@@ -67,12 +72,6 @@ from repro_torch.serving.service_time import (ServiceTimeModel,
 
 
 def build_sidecar(args) -> Sidecar:
-    if args.speculative and args.backend == "real":
-        raise SystemExit("--speculative --backend real: speculative decode "
-                         "is not ported yet (ROADMAP A8)")
-    if args.draft_model:
-        raise SystemExit("--draft-model: speculative decode is not ported "
-                         "yet (ROADMAP A8)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     model = ServiceTimeModel.from_arch(cfg, chips=args.chips)
@@ -104,11 +103,22 @@ def build_sidecar(args) -> Sidecar:
         rcfg = get_config("smollm-360m")
         if args.reduced:
             rcfg = rcfg.reduced()
+        spec_kw = {}
+        if args.speculative:
+            dcfg = rcfg
+            if args.draft_model:
+                dcfg = get_config(args.draft_model)
+                if args.reduced:
+                    dcfg = dcfg.reduced()
+            spec_kw = dict(draft_cfg=dcfg, draft_k=args.draft_k,
+                           draft_seed=args.seed)
         # a 512-slot ring (the JAX CLI's 96 slots were sized for the
-        # reduced model on a CPU): prompt + 64 new tokens fit untruncated
+        # reduced model on a CPU): prompt + 64 new tokens fit untruncated.
+        # Each replica's engine (and draft) is built here, before the
+        # listener opens
         backends = [InProcessBackend(RealEngine(rcfg, replica_id=i,
                                                 seed=args.seed, max_len=512,
-                                                device=device))
+                                                device=device, **spec_kw))
                     for i in range(args.replicas)]
     else:                                    # http: proxy to upstreams
         from repro_torch.serving.backends import HTTPBackend
@@ -226,13 +236,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--drain-s", type=float, default=30.0)
     ap.add_argument("--breaker-recovery-s", type=float, default=5.0)
     ap.add_argument("--speculative", action="store_true",
-                    help="the sim backend (and the tau calibration) "
-                         "apply the expected speculative speedup to the "
-                         "service-time model; speculative decode on the "
-                         "real backend is not ported yet")
+                    help="draft-verify decode on the real backend; the "
+                         "sim backend (and the tau calibration) apply the "
+                         "expected speculative speedup to the service-"
+                         "time model")
     ap.add_argument("--draft-model", default=None,
                     help="draft arch name for the real backend's "
-                         "draft-verify decode (not ported yet: refused)")
+                         "draft-verify decode (default: the target's "
+                         "own config, seeded with --seed)")
     ap.add_argument("--draft-k", type=int, default=4,
                     help="draft tokens proposed per verify step")
     ap.add_argument("--accept-rate", type=float, default=0.7,

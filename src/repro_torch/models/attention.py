@@ -1,17 +1,21 @@
 """GQA self-attention block (port of ``repro.models.attention.attn_block``
-in its ``prefill`` (cold and extend), ring ``decode`` and block-paged
-``decode`` modes).
+in its ``prefill`` (cold and extend), ring ``decode``, block-paged
+``decode`` and ``verify`` (ring and paged) modes).
 
 The attention itself goes through ``kernels.ops``: K3 (flash) for every
 prefill, K1 (decode) for each generated token over a ring cache, K2
 (paged decode) for each generated token over the block-paged pool.  The
-caches are updated **in place**: where the JAX package donates a cache
-and gets a new one back, this block writes the new K/V into the caller's
-buffer.
+speculative verify forward runs K1 or K2 once per verified position
+``w`` at fill level ``t + w``: by the JAX ``verify_attention``'s own
+contract, its row ``w`` is decode attention at that level with all W new
+K/Vs written.  The caches are updated **in place**: where the JAX package
+donates a cache and gets a new one back, this block writes the new K/V
+into the caller's buffer.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -104,3 +108,54 @@ class Attention(nn.Module):
         pool_v.view(n_pages * page, KV, hd).index_copy_(0, dest, v[:, 0])
         out = ops.paged_decode_attention(q, pool_k, pool_v, bt, t)
         return x + dense(out.reshape(B, 1, -1), self.wo)
+
+    def verify(self, x, rope_cs, fills, write, cache_k, cache_v):
+        """Speculative verification over a ring cache: x (B, W, D) holds
+        the pending token and K = W - 1 draft tokens per row at positions
+        ``t + w`` (``rope_cs``: their RoPE tables).  All W K/Vs are
+        written first, then query row w attends slots <= t + w through
+        K1 at ``fills[w]`` (= t + w), so each row sees the draft tokens
+        before it through their just-written K/V.  The fill level is not
+        advanced; the caller commits the accepted prefix.
+
+        ``write`` = (lanes, slots, keep), each over the B*W positions in
+        row-major order: ring slot ``(t + w) % S`` and whether the
+        position is inside the ring.  A position past the ring is dropped,
+        not wrapped (JAX writes it with ``mode="drop"``): its slot gets
+        back the value it holds, so a live early slot is never clobbered
+        before its masked read.  In-ring and dropped slots never coincide
+        while W <= S, so every slot is written once."""
+        B, W, _ = x.shape
+        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
+        q, k, v = self._project_qkv(h, rope_cs)
+        lanes, slots, keep = write
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            new = new.reshape(B * W, *new.shape[2:])
+            cache.index_put_((lanes, slots),
+                             torch.where(keep, new, cache[lanes, slots]))
+        out = torch.cat([ops.decode_attention(q[:, w:w + 1], cache_k,
+                                              cache_v, fills[w])
+                         for w in range(W)], dim=1)
+        return x + dense(out.reshape(B, W, -1), self.wo)
+
+    def verify_paged(self, x, rope_cs, fills, dest, pool_k, pool_v, bt):
+        """Speculative verification over the block-paged pool: as
+        :meth:`verify`, with the W K/Vs of lane b landing at the flat
+        pool rows ``dest`` (B*W,) (bt[b, p // page] * page + p % page for
+        position p = t[b] + w, or a row of trash page 0 past the window)
+        and each query row w attending through the lane's table with K2
+        at ``fills[w]``, which reads the pool in place."""
+        B, W, _ = x.shape
+        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
+        q, k, v = self._project_qkv(h, rope_cs)
+        n_pages, page, KV, hd = pool_k.shape
+        # duplicate rows only ever hit the trash page (live positions
+        # write pages their lane owns alone)
+        pool_k.view(n_pages * page, KV, hd).index_copy_(
+            0, dest, k.reshape(B * W, KV, hd))
+        pool_v.view(n_pages * page, KV, hd).index_copy_(
+            0, dest, v.reshape(B * W, KV, hd))
+        out = torch.cat([ops.paged_decode_attention(q[:, w:w + 1], pool_k,
+                                                    pool_v, bt, fills[w])
+                         for w in range(W)], dim=1)
+        return x + dense(out.reshape(B, W, -1), self.wo)

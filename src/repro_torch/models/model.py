@@ -1,7 +1,8 @@
 """The LM (port of ``repro.models.model.LM`` for attention-only stacks):
 embedding, a plain loop over layers, tied or separate head, bucketed
-prefill (cold, per-row prompt lengths, or extend onto a cached prefix)
-and one-token decode over a ring-buffer KV cache or a block-paged pool."""
+prefill (cold, per-row prompt lengths, or extend onto a cached prefix),
+one-token decode over a ring-buffer KV cache or a block-paged pool, and
+the speculative W-position verify forward over either."""
 
 from __future__ import annotations
 
@@ -246,3 +247,49 @@ class LM(nn.Module):
             x = blk.mlp(x)
         t.add_(1)
         return self._head(x)[:, 0]
+
+    @torch.no_grad()
+    def verify_step(self, cache: Union[KVCache, PagedKVCache], tokens):
+        """Speculative verification (JAX ``LM.verify_step``): score W
+        consecutive positions in one forward.  tokens: (B, W) int64 on the
+        device, the pending token plus K = W - 1 draft tokens per row.
+        Token w is written into the cache at its absolute position t + w
+        and attends its own causal prefix, so the logits of position w
+        are those serial decode would give after consuming the first
+        w + 1 tokens.  The fill level is *not* advanced: the caller
+        commits the accepted prefix by resetting it, which is also how
+        rejected drafts roll back.  Returns logits (B, W, V).
+
+        A ring position past the buffer is dropped, not wrapped; a paged
+        position past the window goes to trash page 0.  Everything stays
+        on the device."""
+        cfg = self.cfg
+        t = cache.t
+        B, W = tokens.shape
+        w = torch.arange(W, dtype=torch.int32, device=t.device)
+        pos = t[:, None] + w if t.dim() else t + w       # (B, W) or (W,)
+        rope_cs = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        fills = [t + i for i in range(W)]               # shared by layers
+        posb = pos.expand(B, W)
+        if isinstance(cache, PagedKVCache):
+            page, P = cache.page_size, cache.bt.shape[1]
+            block = torch.clamp(torch.div(posb, page, rounding_mode="floor"),
+                                max=P - 1).long()
+            pg = cache.bt.gather(1, block)
+            pg = torch.where(posb < P * page, pg, torch.zeros_like(pg))
+            dest = (pg * page + torch.remainder(posb, page)).long().view(-1)
+        else:
+            S = cache.max_len
+            write = (torch.arange(B, device=t.device).repeat_interleave(W),
+                     torch.remainder(posb, S).long().reshape(-1),
+                     (posb < S).reshape(-1, 1, 1))
+        x = self.embed[tokens]
+        for i, blk in enumerate(self.blocks):
+            if isinstance(cache, PagedKVCache):
+                x = blk.attn.verify_paged(x, rope_cs, fills, dest, cache.k[i],
+                                          cache.v[i], cache.bt)
+            else:
+                x = blk.attn.verify(x, rope_cs, fills, write, cache.k[i],
+                                    cache.v[i])
+            x = blk.mlp(x)
+        return self._head(x)

@@ -1,6 +1,5 @@
 """The backends (port of ``repro.serving.engine``'s ``SimEngine``,
-``RealEngine``, ``BatchedRealEngine`` and ``PagedBatchedEngine``, without
-speculation).
+``RealEngine``, ``BatchedRealEngine`` and ``PagedBatchedEngine``).
 
 * ``SimEngine`` -- a virtual-time serial backend: service seconds come
   from a ``ServiceTimeModel`` (the queueing runs of ``launch.serve``).
@@ -22,6 +21,16 @@ speculation).
   with prefix reuse, page growth and preemption (``serving/paging.py``,
   ``serving.generate.PagedLaneDecoder``); decode reads the pool through
   K2.
+
+Each real engine decodes draft-verify (speculative decoding) when given a
+draft config and ``draft_k >= 1``: a draft ``LM`` (seeded with
+``draft_seed``, or ``draft_state_dict``) proposes ``draft_k`` tokens a
+round and the target verifies them in one W = K + 1 position forward
+(``LM.verify_step``: K1 per position over a ring, K2 over the paged
+pool).  Tokens equal plain greedy decode's; results and
+``engine_stats()`` add the drafted and accepted counts and the accept
+rate.  A lane's draft ring is charged to its budget (ring lanes: bytes;
+paged lanes: overhead pages).
 """
 
 from __future__ import annotations
@@ -36,8 +45,11 @@ from repro_torch.models.model import LM, KVCache
 from repro_torch.serving.batching import (KVBudget, LaneManager,
                                           kv_bytes_per_token)
 from repro_torch.serving.generate import (FusedDecoder, LaneDecoder,
-                                          PagedLaneDecoder, bucket_for,
-                                          geometric_buckets)
+                                          PagedLaneDecoder,
+                                          SpeculativeDecoder,
+                                          SpeculativeLaneDecoder,
+                                          SpeculativePagedLaneDecoder,
+                                          bucket_for, geometric_buckets)
 from repro_torch.serving.paging import (BlockAllocator, PagedLaneManager,
                                         pages_for)
 from repro_torch.serving.service_time import ServiceTimeModel
@@ -63,17 +75,34 @@ class RealEngine:
     """An ``LM`` decoding on ``device`` (the card unless ``device='cpu'``).
 
     ``state_dict`` (e.g. from ``bridge.params_from_jax``) replaces the
-    seeded initialisation.
+    seeded initialisation; ``draft_state_dict`` likewise for the draft.
+    With ``draft_cfg`` and ``draft_k >= 1`` it decodes draft-verify
+    (``SpeculativeDecoder``); ``draft_k`` 0 keeps the plain fused path
+    even with a draft config, as in JAX.
     """
 
     def __init__(self, cfg, state_dict=None, replica_id: int = 0,
                  seed: int = 0, max_len: int = 256, segment_len: int = 16,
-                 device=None):
+                 device=None, draft_cfg=None, draft_state_dict=None,
+                 draft_k: int = 0, draft_seed: int = 0):
         self.cfg = cfg
         self.lm = LM(cfg, device=device, seed=seed)
         if state_dict is not None:
             self.lm.load_state_dict(state_dict)
         self.device = self.lm.device
+        self.draft_cfg = draft_cfg
+        self.draft_k = int(draft_k)
+        self.speculative = draft_cfg is not None and self.draft_k > 0
+        self.draft_lm = None
+        if self.speculative:
+            self.draft_lm = LM(draft_cfg, device=self.device,
+                               seed=draft_seed)
+            if draft_state_dict is not None:
+                self.draft_lm.load_state_dict(draft_state_dict)
+            self._spec_decoder = SpeculativeDecoder(
+                self.lm, self.draft_lm, max_len, self.draft_k)
+        self.drafted_total = 0         # draft positions proposed
+        self.accepted_total = 0        # draft positions accepted
         self.replica_id = replica_id
         self.max_len = max_len
         self.segment_len = segment_len
@@ -94,27 +123,45 @@ class RealEngine:
         segment boundary."""
         self._cancel = True
 
+    @property
+    def accept_rate(self) -> Optional[float]:
+        """Draft acceptance over the engine's requests (a lane engine:
+        over its most recent run), or None before any draft position was
+        proposed."""
+        return self.accepted_total / self.drafted_total \
+            if self.drafted_total else None
+
     def engine_stats(self) -> dict:
-        return {"replica": self.replica_id, "served": self.served,
-                "speculative": False}
+        """Wire-facing stats snapshot (sidecar /healthz, /metrics); a
+        speculative engine adds its drafted/accepted counts and accept
+        rate (the ``clairvoyant_speculative_accept_rate`` gauge)."""
+        st = {"replica": self.replica_id, "served": self.served,
+              "speculative": self.speculative}
+        if self.speculative:
+            st.update(drafted=self.drafted_total,
+                      accepted=self.accepted_total,
+                      accept_rate=self.accept_rate)
+        return st
 
     # -------------------------------------------------------------- prefill
-    def _run_prefill(self, prompt_ids):
+    def _run_prefill(self, prompt_ids, lm=None):
         """Bucket-pad + prefill.  Returns (last logits (1, V), cache,
-        prompt_len)."""
+        prompt_len).  ``lm`` overrides the target model (the draft
+        prefills through the same bucketing, so its cache rows lay out
+        like the target's)."""
         ids = np.asarray(prompt_ids, np.int64).reshape(-1)
         plen = len(ids)
         if plen < 1:
             raise ValueError("empty prompt: prefill needs >= 1 token")
         toks = np.zeros((1, bucket_for(plen, self.buckets)), np.int64)
         toks[0, :plen] = ids
-        logits, cache = self.lm.prefill(
+        logits, cache = (self.lm if lm is None else lm).prefill(
             torch.from_numpy(toks).to(self.device), pad_to=self.max_len,
             prompt_len=plen)
         return logits, cache, plen
 
     def _run_prefill_group(self, ids_list, pad_rows: Optional[int] = None,
-                           pad_to: Optional[int] = None):
+                           pad_to: Optional[int] = None, lm=None):
         """One padded prefill for prompts sharing a bucket (lane admission
         groups).  Returns (last logits (k, V), cache with per-row fill
         levels, plens).  Rows are padded exactly as their solo bucketed
@@ -128,7 +175,8 @@ class RealEngine:
         arithmetic independent of how many prompts share its group.  Ring
         and paged lanes, which admit in different groups, then prefill a
         prompt bit for bit alike on the card.  It costs at most
-        ``pad_rows`` times a prefill of one prompt."""
+        ``pad_rows`` times a prefill of one prompt.  ``lm`` overrides the
+        target model, as in :meth:`_run_prefill`."""
         ids_list = [np.asarray(i, np.int64).reshape(-1) for i in ids_list]
         plens = [len(i) for i in ids_list]
         if min(plens) < 1:
@@ -144,7 +192,7 @@ class RealEngine:
         toks = np.zeros((kp, bucket), np.int64)
         for r, ids in enumerate(ids_list):
             toks[r, :len(ids)] = ids
-        logits, cache = self.lm.prefill(
+        logits, cache = (self.lm if lm is None else lm).prefill(
             torch.from_numpy(toks).to(self.device), pad_to=pad_to,
             prompt_len=plens + [1] * (kp - k))
         if kp != k:
@@ -158,7 +206,9 @@ class RealEngine:
                  eos_id: Optional[int] = None, cancel_cb=None,
                  segment_len: Optional[int] = None, on_segment=None) -> dict:
         """Fused greedy decode.  Returns {"tokens", "ttft_s", "service_s",
-        "cancelled", "segments"}."""
+        "cancelled", "segments"}, plus {"drafted", "accepted",
+        "accept_rate"} when speculative (the draft prefills after the
+        target, through K3 too)."""
         self._cancel = False
         t0 = time.monotonic()
         logits, cache, plen = self._run_prefill(prompt_ids)
@@ -172,15 +222,29 @@ class RealEngine:
                 self.fault_injector.poll_segment(self.replica_id)
             return self._cancel or (cancel_cb is not None and cancel_cb())
 
-        dec = FusedDecoder(self.lm, self.max_len,
-                           segment_len or self.segment_len)
-        out = dec.decode(cache, tok, plen, max_new_tokens, eos_id=eos_id,
-                         cancel_check=cancelled, on_segment=on_segment)
+        if self.speculative:
+            _, dcache, _ = self._run_prefill(prompt_ids, lm=self.draft_lm)
+            out = self._spec_decoder.decode(
+                cache, dcache, tok, plen, max_new_tokens, eos_id=eos_id,
+                cancel_check=cancelled, on_segment=on_segment)
+        else:
+            dec = FusedDecoder(self.lm, self.max_len,
+                               segment_len or self.segment_len)
+            out = dec.decode(cache, tok, plen, max_new_tokens, eos_id=eos_id,
+                             cancel_check=cancelled, on_segment=on_segment)
         self.served += 1
         self._cancel = False
-        return {"tokens": out["tokens"], "ttft_s": ttft,
-                "service_s": time.monotonic() - t0,
-                "cancelled": out["cancelled"], "segments": out["segments"]}
+        res = {"tokens": out["tokens"], "ttft_s": ttft,
+               "service_s": time.monotonic() - t0,
+               "cancelled": out["cancelled"], "segments": out["segments"]}
+        if self.speculative:
+            self.drafted_total += out["drafted"]
+            self.accepted_total += out["accepted"]
+            res["drafted"] = out["drafted"]
+            res["accepted"] = out["accepted"]
+            res["accept_rate"] = out["accepted"] / out["drafted"] \
+                if out["drafted"] else None
+        return res
 
     def generate_reference(self, prompt_ids, max_new_tokens: int = 32,
                            eos_id: Optional[int] = None) -> dict:
@@ -232,17 +296,34 @@ class BatchedRealEngine(RealEngine):
     def __init__(self, cfg, state_dict=None, replica_id: int = 0,
                  seed: int = 0, max_len: int = 256, segment_len: int = 16,
                  n_lanes: int = 4, budget_bytes: Optional[int] = None,
-                 device=None):
+                 device=None, draft_cfg=None, draft_state_dict=None,
+                 draft_k: int = 0, draft_seed: int = 0):
         super().__init__(cfg, state_dict=state_dict, replica_id=replica_id,
                          seed=seed, max_len=max_len, segment_len=segment_len,
-                         device=device)
+                         device=device, draft_cfg=draft_cfg,
+                         draft_state_dict=draft_state_dict, draft_k=draft_k,
+                         draft_seed=draft_seed)
         self.n_lanes = int(n_lanes)
         self._bytes_per_token = kv_bytes_per_token(cfg)
+        # a speculative lane carries the draft model's ring K/V beside the
+        # target's: real memory, charged against the same budget
+        self._draft_bytes_per_token = kv_bytes_per_token(draft_cfg) \
+            if self.speculative else 0
+        lane_bpt = self._bytes_per_token + self._draft_bytes_per_token
         self.budget_bytes = int(budget_bytes) if budget_bytes is not None \
-            else self.n_lanes * max_len * max(1, self._bytes_per_token)
-        self._lane_decoder = LaneDecoder(self.lm, max_len, self.n_lanes,
-                                         segment_len)
-        self._growth_span = segment_len
+            else self.n_lanes * max_len * max(1, lane_bpt)
+        if self.speculative:
+            self._lane_decoder = SpeculativeLaneDecoder(
+                self.lm, self.draft_lm, max_len, self.n_lanes, segment_len,
+                draft_k=self.draft_k)
+            # paged growth must cover every verify position a segment can
+            # write: rounds x (K+1) slots, against segment_len plain steps
+            self._growth_span = self._lane_decoder.rounds * (self.draft_k
+                                                             + 1)
+        else:
+            self._lane_decoder = LaneDecoder(self.lm, max_len, self.n_lanes,
+                                             segment_len)
+            self._growth_span = segment_len
         self.lane_manager = None       # the most recent run's manager/stats
         self.dead_steps = 0            # lane-steps burned on stopped lanes
         self._pending_items: list = []
@@ -255,13 +336,36 @@ class BatchedRealEngine(RealEngine):
         return items
 
     def engine_stats(self) -> dict:
-        """Adds dead-step accounting and live lane occupancy."""
+        """Adds dead-step and speculation accounting and live lane
+        occupancy."""
         st = super().engine_stats()
         mgr = self.lane_manager
         st.update(dead_steps=self.dead_steps, lanes=self.n_lanes,
                   lanes_busy=len(mgr.busy_lanes()) if mgr is not None
-                  else 0)
+                  else 0, drafted=self.drafted_total,
+                  accepted=self.accepted_total,
+                  accept_rate=self.accept_rate)
         return st
+
+    def _accumulate_spec(self, mgr, dec) -> None:
+        """Post-segment speculation accounting: per-lane and aggregate
+        drafted/accepted counts, and wasted draft positions (drafted -
+        accepted) folded into ``dead_steps``, since they burn lane time as
+        a stopped lane's masked compute does."""
+        if not self.speculative:
+            return
+        drafted, accepted = dec.last_drafted, dec.last_accepted
+        for lane in mgr.busy_lanes():
+            st = mgr.lanes[lane]
+            st.drafted += int(drafted[lane])
+            st.accepted += int(accepted[lane])
+        d, a = int(drafted.sum()), int(accepted.sum())
+        self.drafted_total += d
+        self.accepted_total += a
+        self.dead_steps += d - a
+        mgr.stats["drafted"] = self.drafted_total
+        mgr.stats["accepted"] = self.accepted_total
+        mgr.stats["accept_rate"] = self.accept_rate
 
     # ----------------------------------------------------------- batch API
     def generate_batch(self, prompts, max_new_tokens=32,
@@ -301,7 +405,8 @@ class BatchedRealEngine(RealEngine):
     # preemption) and the post-release hook (block-table scrub).
     def _new_manager(self):
         return LaneManager(self.n_lanes, KVBudget(self.budget_bytes),
-                           self._bytes_per_token, self.max_len)
+                           self._bytes_per_token
+                           + self._draft_bytes_per_token, self.max_len)
 
     def _head_fits(self, mgr, item, ids) -> bool:
         return mgr.can_admit(len(ids), item["max_new"])
@@ -327,6 +432,19 @@ class BatchedRealEngine(RealEngine):
             max_new[lane] = mx
             active[lane] = True
 
+    def _insert_draft(self, dec, caches, lanes, ids_list):
+        """Speculative only: prefill the draft model over the same ids (the
+        same bucketing and row padding, through K3) and drop the rows into
+        the lanes' draft rings.  Resumed and prefix-hit requests take this
+        same full prefill: the draft has no prefix cache, and its state
+        moves only the accept rate, never the emitted tokens."""
+        if not self.speculative:
+            return caches
+        _, dcache, _ = self._run_prefill_group(
+            ids_list, pad_rows=self.n_lanes, pad_to=self.max_len,
+            lm=self.draft_lm)
+        return dec.insert_draft(caches, lanes, dcache)
+
     def _prefill_claims(self, mgr, dec, caches, claims, now, tok, plen,
                         produced, max_new, active):
         """Prefill admitted claims per bucket group -- one prefill and one
@@ -342,6 +460,9 @@ class BatchedRealEngine(RealEngine):
             first = logits.argmax(dim=-1).cpu().numpy()
             caches = dec.insert_lanes(
                 caches, [lane for _, lane, _, _ in group], pcache)
+            caches = self._insert_draft(
+                dec, caches, [lane for _, lane, _, _ in group],
+                [ids for _, _, ids, _ in group])
             self._post_insert(group, first, plens, now, tok, plen,
                               produced, max_new, active)
         return caches
@@ -404,6 +525,8 @@ class BatchedRealEngine(RealEngine):
         mgr = self._new_manager()
         self.lane_manager = mgr
         self.dead_steps = 0
+        self.drafted_total = 0
+        self.accepted_total = 0
         dec = self._lane_decoder
         C = self.n_lanes
         caches = self._init_lanes(dec)
@@ -462,12 +585,17 @@ class BatchedRealEngine(RealEngine):
                 t0d = min(state.admit_t + max(state.ttft_s, 0.0), t_fin)
                 rec.span("decode", state.req_id, t0d, t_fin,
                          track=ltrk[state.lane])
-            on_finish(state, {
+            res = {
                 "tokens": self._result_tokens(state), "cancelled": cancelled,
                 "crashed": crashed,
                 "ttft_s": state.ttft_s, "admit_t": state.admit_t,
                 "finish_t": t_fin, "service_s": t_fin - state.admit_t,
-                "lane": state.lane, "evictions": state.evictions})
+                "lane": state.lane, "evictions": state.evictions}
+            if self.speculative:
+                res["drafted"] = state.drafted
+                res["accepted"] = state.accepted
+                res["accept_rate"] = state.accept_rate
+            on_finish(state, res)
 
         inj = self.fault_injector
         fill()
@@ -527,6 +655,7 @@ class BatchedRealEngine(RealEngine):
             t_seg0 = now() if rec is not None else 0.0
             buf, dead = dec.run_segment(caches, dev["d"], steps, eos)
             self.dead_steps += dead
+            self._accumulate_spec(mgr, dec)
             mgr.stats["dead_steps"] = self.dead_steps
             if rec is not None:
                 t_seg1 = now()
@@ -585,24 +714,40 @@ class PagedBatchedEngine(BatchedRealEngine):
     def __init__(self, cfg, state_dict=None, replica_id: int = 0,
                  seed: int = 0, max_len: int = 256, segment_len: int = 16,
                  n_lanes: int = 4, budget_bytes: Optional[int] = None,
-                 page_size: int = 16, device=None):
+                 page_size: int = 16, device=None, draft_cfg=None,
+                 draft_state_dict=None, draft_k: int = 0,
+                 draft_seed: int = 0):
         super().__init__(cfg, state_dict=state_dict, replica_id=replica_id,
                          seed=seed, max_len=max_len, segment_len=segment_len,
                          n_lanes=n_lanes, budget_bytes=budget_bytes,
-                         device=device)
+                         device=device, draft_cfg=draft_cfg,
+                         draft_state_dict=draft_state_dict, draft_k=draft_k,
+                         draft_seed=draft_seed)
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} not a multiple of "
                              f"page_size {page_size}")
         self.page_size = int(page_size)
         page_bytes = self.page_size * max(1, self._bytes_per_token)
+        # a speculative lane's draft ring, in target pages (ceil):
+        # anonymous pages the admission layer charges per lane
+        self._overhead_pages = -(-max_len * self._draft_bytes_per_token
+                                 // page_bytes) if self.speculative else 0
         # the same byte budget as the worst-case engine, in pages (floor);
-        # never below one full sequence, so a solo lane always fits
-        self.n_pages = max(pages_for(max_len, self.page_size),
+        # never below one full sequence (plus its draft overhead), so a
+        # solo lane always fits
+        self.n_pages = max(pages_for(max_len, self.page_size)
+                           + self._overhead_pages,
                            self.budget_bytes // page_bytes)
         self.allocator = BlockAllocator(self.n_pages, self.page_size)
-        self._lane_decoder = PagedLaneDecoder(
-            self.lm, max_len, self.n_lanes, segment_len,
-            n_pages=self.n_pages + 1, page_size=self.page_size)
+        if self.speculative:
+            self._lane_decoder = SpeculativePagedLaneDecoder(
+                self.lm, self.draft_lm, max_len, self.n_lanes, segment_len,
+                n_pages=self.n_pages + 1, page_size=self.page_size,
+                draft_k=self.draft_k)
+        else:
+            self._lane_decoder = PagedLaneDecoder(
+                self.lm, max_len, self.n_lanes, segment_len,
+                n_pages=self.n_pages + 1, page_size=self.page_size)
         self._deferred: set = set()    # req_ids preempted at this boundary
         self._caches = None            # pools retained between runs
 
@@ -619,7 +764,8 @@ class PagedBatchedEngine(BatchedRealEngine):
         self.allocator.reset_transient()   # drop refs an aborted run left
         self._deferred = set()
         return PagedLaneManager(self.n_lanes, self.allocator,
-                                self._bytes_per_token, self.max_len)
+                                self._bytes_per_token, self.max_len,
+                                overhead_pages=self._overhead_pages)
 
     def _init_lanes(self, dec):
         # reuse the previous run's pools: the LRU-parked prefix pages keep
@@ -691,6 +837,9 @@ class PagedBatchedEngine(BatchedRealEngine):
             caches = dec.insert_paged(
                 caches, [lane for _, lane, _, _ in group], pcache,
                 bt_rows, tgt)
+            caches = self._insert_draft(
+                dec, caches, [lane for _, lane, _, _ in group],
+                [ids for _, _, ids, _ in group])
             self._post_insert(group, first, plens, now, tok, plen,
                               produced, max_new, active)
             for st, lane, ids, _ in group:
@@ -729,6 +878,7 @@ class PagedBatchedEngine(BatchedRealEngine):
         # lives in the pool (and may be shared -- it must not be rewritten)
         tgt[0, n_match:npp] = st.pages[n_match:npp]
         caches = dec.insert_paged(caches, [lane], pcache, bt_rows, tgt)
+        caches = self._insert_draft(dec, caches, [lane], [ids])
         self._post_insert([claim], first, [len(ids)], now, tok, plen,
                           produced, max_new, active)
         mgr.register_prompt(lane, ids)
@@ -746,6 +896,9 @@ class PagedBatchedEngine(BatchedRealEngine):
                      active, dev, pending):
         ps = self.page_size
         P = self.max_len // ps
+        # speculative segments write verify positions ahead of the fill
+        # level (rounds x (K+1) slots); an unallocated page would route
+        # those writes to the trash page and lose real K/V
         K = self._growth_span
         changed = False
         new_rows: dict = {}                   # lane -> block-table row

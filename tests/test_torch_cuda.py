@@ -497,3 +497,117 @@ def test_cli_ensemble_kernels_match_plain(cuda):
             atol=1e-5)
         assert torch.equal(k5, ops.gbdt_margins(row, *dense, n_classes=3)
                            + model.base_score)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_grid_des_on_card_equals_host_engine_bitwise(cuda, seed):
+    """The grid DES in float64 on the card: start, finish, promoted and
+    promotions equal the host engine's bit for bit (the first maximal
+    index of ``argmax`` on CUDA is the FIFO head and the tie-break)."""
+    from repro_torch.core.sim_fast import dispatch_key, simulate_grid
+    from repro_torch.core.sim_torch import simulate_grid_torch
+    rng = np.random.default_rng(seed)
+    G, n = 12, 400
+    arrival = np.sort(np.round(rng.uniform(0, 300, (G, n)), 1), axis=1)
+    service = np.round(rng.uniform(0.5, 4, (G, n)), 1)   # ties in keys
+    p_long = np.round(rng.random((G, n)), 1)
+    policies = ["fcfs", "sjf", "sjf_oracle"] * 4
+    taus = [None, 5.0, 0.0, None, 10.5, 2.0] * 2
+    key = np.stack([dispatch_key(p, arrival[g], p_long[g], service[g])
+                    for g, p in enumerate(policies)])
+    got = simulate_grid_torch(arrival, service, key, taus, device=cuda)
+    want = simulate_grid(arrival, service, key, taus)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _small_cfg(dtype):
+    import dataclasses
+    return dataclasses.replace(get_config("smollm-360m").reduced(),
+                               num_layers=2, num_heads=6, num_kv_heads=2,
+                               dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["ring-scalar", "ring-lanes", "paged"])
+def test_verify_forward_on_card_matches_plain(cuda, dtype, kind):
+    """``LM.verify_step`` on the card (K1 per position over a ring, K2
+    over the paged pool, W launches a layer) against the same forward on
+    the CPU (the plain versions), windows crossing the ring's end
+    included; the paged verify launches no K1."""
+    from repro_torch.models.model import LM
+    cfg = _small_cfg(str(dtype).split(".")[1])
+    W, B = 5, 3
+    lm = LM(cfg, device=cuda, seed=0)
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in lm.state_dict().items()})
+    g = torch.Generator().manual_seed(1)
+    if kind == "paged":
+        caches = [m.init_paged_cache(B, 64, 14, 16) for m in (lm, cpu)]
+        bt = torch.tensor([[5, 2, 0, 0], [7, 1, 12, 3], [9, 4, 13, 0]],
+                          dtype=torch.int32)
+        t = torch.tensor([20, 61, 40], dtype=torch.int32)
+    else:
+        caches = [m.init_cache(B, 64) for m in (lm, cpu)]
+        t = torch.tensor(60, dtype=torch.int32) if kind == "ring-scalar" \
+            else torch.tensor([3, 61, 70], dtype=torch.int32)
+    k = torch.randn(caches[1].k.shape, generator=g).to(caches[1].k.dtype)
+    v = torch.randn(caches[1].v.shape, generator=g).to(caches[1].v.dtype)
+    for c in caches:
+        dev = c.k.device
+        c.k.copy_(k.to(dev))
+        c.v.copy_(v.to(dev))
+        c.t = t.to(dev).clone()
+        if kind == "paged":
+            c.bt.copy_(bt.to(dev))
+    toks = torch.randint(0, cfg.vocab_size, (B, W), generator=g)
+    before = dict(ops.LAUNCHES)
+    got = lm.verify_step(caches[0], toks.to(cuda))
+    torch.cuda.synchronize()
+    want = cpu.verify_step(caches[1], toks)
+    name, other = ("paged_decode_attention", "decode_attention") \
+        if kind == "paged" else ("decode_attention", "paged_decode_attention")
+    assert ops.LAUNCHES[name] - before[name] == W * cfg.num_layers
+    assert ops.LAUNCHES[other] == before[other]
+    _close(got, want, dtype)
+    if dtype == torch.float32:
+        assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_speculative_tokens_on_card_equal_plain_decode(cuda):
+    """Float32 (TF32 off): the serial speculative engine (agreeing and
+    independent drafts) and speculative ring lanes give plain greedy
+    decode's tokens on the card."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = _small_cfg("float32")
+        ref = RealEngine(cfg, max_len=64, device=cuda)
+        sd = ref.lm.state_dict()
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in (4, 17, 9, 30)]
+        maxes = [20, 12, 30, 8]
+        want = [ref.generate(p, max_new_tokens=m)["tokens"]
+                for p, m in zip(prompts, maxes)]
+        for draft in ({"draft_state_dict": sd}, {"draft_seed": 5}):
+            spec = RealEngine(cfg, state_dict=sd, max_len=64, device=cuda,
+                              draft_cfg=cfg, draft_k=3, **draft)
+            got = [spec.generate(p, max_new_tokens=m)["tokens"]
+                   for p, m in zip(prompts, maxes)]
+            assert got == want
+        lanes = BatchedRealEngine(cfg, state_dict=sd, max_len=64,
+                                  segment_len=8, n_lanes=3, device=cuda,
+                                  draft_cfg=cfg, draft_state_dict=sd,
+                                  draft_k=3)
+        outs = lanes.generate_batch(prompts, maxes)
+        assert [o["tokens"] for o in outs] == want
+        assert lanes.accept_rate > 0.5
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev

@@ -28,7 +28,8 @@ print(len(names), bad, missing)
 #: the later slices' modules, imported by name as well: lanes and paging;
 #: the sidecar, its backends and fault, routing and observability layers,
 #: and the packed ensemble; the simulator, its calibration and the launch
-#: CLIs
+#: CLIs; the sweep grids, the grid DES on the device and the ranking
+#: metric
 NEW = ["repro_torch.serving.batching", "repro_torch.serving.paging",
        "repro_torch.kernels.paged_decode_attention",
        "repro_torch.core.ensemble_pack", "repro_torch.core.router",
@@ -37,7 +38,9 @@ NEW = ["repro_torch.serving.batching", "repro_torch.serving.paging",
        "repro_torch.serving.http_sidecar", "repro_torch.core.simulation",
        "repro_torch.core.sim_fast", "repro_torch.core._native",
        "repro_torch.core.calibration", "repro_torch.launch",
-       "repro_torch.launch.serve", "repro_torch.launch.sidecar"]
+       "repro_torch.launch.serve", "repro_torch.launch.sidecar",
+       "repro_torch.core.sweep", "repro_torch.core.sim_torch",
+       "repro_torch.core.ranking"]
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -46,7 +49,7 @@ def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", probe], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 37                    # every module was imported
+    assert int(out[0]) >= 40                    # every module was imported
     assert out[1].strip() == "[] []"
 
 

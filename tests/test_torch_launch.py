@@ -116,16 +116,68 @@ def test_build_sidecar_backends(backend):
         assert sc.backends[1].engine.replica_id == 1
 
 
+async def _post(port, body, path="/v1/chat/completions", method="POST"):
+    """One loopback HTTP/1.1 exchange: (status, body bytes)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        data = b"" if body is None else json.dumps(body).encode()
+        writer.write((f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+                      "Connection: close\r\nContent-Type: application/json"
+                      f"\r\nContent-Length: {len(data)}\r\n\r\n").encode()
+                     + data)
+        await writer.drain()
+        raw = await asyncio.wait_for(reader.read(), timeout=60.0)
+    finally:
+        writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), payload
+
+
 def test_sidecar_real_full_width_and_speculative_refusal():
+    """The real backend is full width by default.  ``--speculative
+    --backend real`` (reduced, on the CPU) builds each replica's engine
+    with a draft -- the target's own config seeded with ``--seed``, or
+    ``--draft-model`` -- and serves ``ok`` over the wire with an accept
+    rate in the response and in ``/metrics``.  Refused: a draft the port
+    cannot build (gemma3-4b-edge's GeGLU blocks), and ``--backend http``
+    without ``--upstream``."""
+    import asyncio
     args = _args("--backend", "real")
     assert not args.reduced                     # full width by default
-    with pytest.raises(SystemExit, match="not ported yet"):
-        sidecar.build_sidecar(_args("--backend", "real", "--speculative"))
-    for extra in (["--backend", "real"], ["--backend", "sim",
-                                          "--speculative"]):
-        with pytest.raises(SystemExit, match="--draft-model: .*not ported"):
-            sidecar.build_sidecar(_args(*extra, "--draft-model",
-                                        "smollm-360m"))
+    for extra in ([], ["--draft-model", "smollm-360m"]):
+        sc = sidecar.build_sidecar(_args(
+            "--backend", "real", "--reduced", "--speculative",
+            "--draft-k", "3", "--policy", "fcfs", "--max-new-tokens", "12",
+            *extra))
+        eng = sc.backends[0].engine
+        assert eng.speculative and eng.draft_k == 3
+        assert eng.draft_cfg == CFG and eng.device.type == "cpu"
+
+        async def go():
+            await sc.start()
+            try:
+                st, body = await _post(sc.port, {
+                    "messages": [{"role": "user", "content": "tell me"}],
+                    "max_tokens": 12})
+                _, metrics = await _post(sc.port, None, path="/metrics",
+                                         method="GET")
+            finally:
+                await sc.shutdown()
+            return st, json.loads(body), metrics.decode()
+
+        st, obj, metrics = asyncio.run(asyncio.wait_for(go(), 120.0))
+        assert st == 200 and obj["clairvoyant"]["status"] == "ok"
+        assert obj["usage"]["completion_tokens"] == 12
+        rate = obj["clairvoyant"]["accept_rate"]
+        assert rate is not None and 0.0 <= rate <= 1.0
+        m = re.search(r"^clairvoyant_speculative_accept_rate\{[^}]*\} "
+                      r"(\S+)$", metrics, re.M)
+        assert m and float(m.group(1)) == eng.accept_rate
+    with pytest.raises(NotImplementedError, match="not ported"):
+        sidecar.build_sidecar(_args("--backend", "real", "--reduced",
+                                    "--speculative", "--draft-model",
+                                    "gemma3-4b-edge"))
     with pytest.raises(SystemExit, match="--upstream"):
         sidecar.build_sidecar(_args("--backend", "http"))
 

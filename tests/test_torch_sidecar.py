@@ -341,11 +341,10 @@ def test_max_queue_depth_sheds_at_admission():
     assert srv.fault_stats["sheds"] == 2
 
 
-def test_drain_rejects_preemptive_policies():
-    """The name is historical: ``drain`` used to reject a preemptive
-    policy.  It no longer does: the serial drain serves it (arrival-aware
-    pops, eviction at segment boundaries), and the request ends ``ok``
-    with its full budget."""
+def test_drain_serves_preemptive_policies():
+    """The serial drain serves a preemptive policy (arrival-aware pops,
+    eviction at segment boundaries): the request ends ``ok`` with its
+    full budget."""
     srv = ClairvoyantServer(policy="srpt", engines=[_port_engine()])
     srv.submit(CompletionRequest(prompt="x", max_tokens=2),
                true_output_tokens=2)
