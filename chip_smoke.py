@@ -53,7 +53,18 @@ path and read just after:
 * ``[launch-sidecar]`` ``python -m repro_torch.launch.sidecar --port 0``
   as a child process with the full-width real backend, then the sim
   backend, under fcfs and sjf, and the real backend with
-  ``--speculative`` under sjf: the burst over HTTP, then SIGTERM.
+  ``--speculative`` under sjf: the burst over HTTP, then SIGTERM;
+* ``[train]`` training: a float32 2-layer copy's gradients through K3
+  (with its log-sum-exp) and K3b against the plain attention, then 20
+  AdamW steps of all 32 layers in bf16 on the Markov stream through
+  ``make_train_step`` (K3 2 x 32 and K3b 32 launches a step);
+* ``[launch-train]`` ``python -m repro_torch.launch.train`` as child
+  processes: 6 steps straight, and 3 steps then a resumed 3 from the
+  checkpoint, with equal losses.
+
+Before the paths, ``[K3b flash_attention_bwd]`` holds the attention
+backward kernel to its plain version (and K3's log-sum-exp to the plain
+logsumexp) and times it at the training shape.
 
 It fails (nonzero exit, no result line) without a CUDA device, without
 the repository beside it, when a kernel does not build, launch or agree
@@ -67,7 +78,11 @@ sweep metric differs between the card and the host or an srpt row runs
 on the card, when the ranking metrics differ between K4 and the plain
 walk, when a float32 speculative stream differs from plain decode or
 its kernel launches differ from the rounds' count, or when the
-speculative child reports no accept rate.
+speculative child reports no accept rate, when a K3b gradient or K3's
+log-sum-exp disagrees with its plain version, when the training loss
+does not fall or the train step's K3/K3b launches differ from 2 x 32 /
+32 a step, or when a resumed training run's losses differ from the
+straight run's.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -2316,6 +2331,294 @@ def phase_speculative(cfg, smi, totals) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- training
+# lr 3e-4: at 3e-3 (the CLI's default) the first 20 steps' loss rises at
+# this width, through the kernels, through the plain attention and in
+# float32 alike (scripts/train_lr_probe.py)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 512, 20, 3e-4
+
+
+def phase_flash_bwd_kernel(gen) -> dict:
+    """K3b against its plain version on K3's own o and lse (f32 with TF32
+    off and bf16; hd 64, 16 and 128; S 128, 512 and a ragged 1000; B 2, H
+    15 over KV 5), K3's lse against the plain logsumexp and its output
+    with a null lse bit-equal to the output with one, two K3b calls
+    bit-equal, then K3b timed at the training shape (B 8, S 512, bf16,
+    causal) beside its plain version and autograd's SDPA backward.
+    Tolerances: K3b within TOL x max|plain| (gradients are not O(1)); the
+    lse within 1e-4 (f32) and 1e-3 (bf16)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    H, KV = 15, 5
+    errs, lse_errs = {}, {}
+    for hd, S in ((64, 128), (64, 512), (64, 1000), (16, 128), (16, 512),
+                  (16, 1000), (128, 128), (128, 512), (128, 1000)):
+        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q = torch.randn(2, S, H, hd, generator=gen, device="cuda").to(dt)
+            k = torch.randn(2, S, KV, hd, generator=gen, device="cuda").to(dt)
+            v = torch.randn(2, S, KV, hd, generator=gen, device="cuda").to(dt)
+            do = torch.randn(2, S, H, hd, generator=gen, device="cuda").to(dt)
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+            if not torch.equal(o, flash_attention_cuda(q, k, v)):
+                raise AssertionError(f"K3 output with lse differs from K3 "
+                                     f"without ({label} hd {hd} S {S})")
+            _, want_lse = flash_attention_plain(q, k, v, return_lse=True)
+            lerr = _max_err(lse, want_lse)
+            _check(f"K3 lse {label} hd {hd} S {S}", lerr,
+                   1e-4 if label == "f32" else 1e-3)
+            lse_errs[(label, hd, S)] = lerr
+            got = flash_attention_bwd_cuda(q, k, v, o, do, lse)
+            want = flash_attention_bwd_plain(q, k, v, o, do, lse)
+            torch.cuda.synchronize()
+            rel = 0.0
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                scale = max(float(b.float().abs().max()), 1.0)
+                err = _max_err(a, b)
+                _check(f"K3b {name} {label} hd {hd} S {S}", err / scale,
+                       TOL[label])
+                rel = max(rel, err / scale)
+            errs[(label, hd, S)] = rel
+            if hd == 64 and S == 1000:
+                again = flash_attention_bwd_cuda(q, k, v, o, do, lse)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"K3b not deterministic ({label})")
+    print("[K3b flash_attention_bwd] max|err|/max|plain| " + " ".join(
+        f"{l}/hd{h}@S={s}:{e:.2e}" for (l, h, s), e in errs.items()))
+    print("[K3b flash_attention_bwd] K3 lse max|err| " + " ".join(
+        f"{l}/hd{h}@S={s}:{e:.2e}" for (l, h, s), e in lse_errs.items())
+          + "; K3 with a null lse == K3 with an lse, bitwise; two K3b "
+          "calls bitwise equal")
+
+    B, S, hd, dt = TRAIN_B, TRAIN_S, 64, torch.bfloat16
+    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
+    do = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    ms = _device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse))
+    plain = _device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do,
+                                                         lse), iters=5)
+    qx, kx, vx = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k.repeat_interleave(H // KV, dim=2),
+                            v.repeat_interleave(H // KV, dim=2)))
+    ox = torch.nn.functional.scaled_dot_product_attention(qx, kx, vx,
+                                                          is_causal=True)
+    dox = do.transpose(1, 2)
+    lib = _device_ms(lambda: torch.autograd.grad(ox, (qx, kx, vx), dox,
+                                                 retain_graph=True))
+    n_bytes = (4 * B * S * H * hd + 4 * B * S * KV * hd) * 2 + B * H * S * 4
+    bound, by = _bound(n_bytes, 10 * B * H * hd * S * (S + 1) / 2, dt)
+    print(f"[K3b flash_attention_bwd] bf16 causal B{B} S{S} H{H} KV{KV} "
+          f"hd{hd}: device ms kernel {ms:.4f}, plain {plain:.4f}, sdpa "
+          f"backward {lib:.4f}; bound {bound * 1e3:.3f} us ({by}, "
+          f"{n_bytes / 1e6:.1f} MB); kernel/sdpa-bwd {ms / lib:.2f}, bound "
+          f"share {100 * bound / ms:.2f}%")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:119",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib}
+
+
+def _plain_attention(q, k, v, *, causal=True):
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    return flash_attention_plain(q, k, v, causal=causal)
+
+
+def phase_train(cfg, smi, totals) -> None:
+    """Training at the full width of smollm-360m.  (a) float32 (TF32
+    off), 2 layers: one loss's gradients through K3/K3b against the same
+    loss through the plain attention on the card.  (b) bf16, all 32
+    layers, batch 8 x 512 tokens: 20 AdamW steps (lr 3e-4) on the Markov
+    stream through ``make_train_step``; K3 must launch 2 x 32 and K3b 32
+    times a step (per-block remat), the loss must stay finite and fall.
+    Prints ms/step, tokens/s, peak memory and the device busy share of
+    one profiled step."""
+    import contextlib
+    import dataclasses
+    import statistics
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLMStream
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    data = SyntheticLMStream(LMDataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=TRAIN_S,
+                                          global_batch=TRAIN_B))
+
+    def batch(step, n=TRAIN_B):
+        return {k: torch.from_numpy(x[:n]).long().cuda()
+                for k, x in data.batch(step).items()}
+
+    # (a) kernels vs plain, f32
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=2)
+    lm = LM(cfg32, device="cuda", seed=2)
+    lm.requires_grad_(True)
+    b = batch(0, n=2)
+    grads = []
+    for patch in (False, True):
+        before = dict(ops.LAUNCHES)
+        with mock.patch.object(ops, "flash_attention_train",
+                               _plain_attention) if patch \
+                else contextlib.nullcontext():
+            lm.loss(b).backward()
+        torch.cuda.synchronize()
+        runs = {k: ops.LAUNCHES[k] - before[k] for k in
+                ("flash_attention", "flash_attention_bwd")}
+        want_runs = {"flash_attention": 0, "flash_attention_bwd": 0} \
+            if patch else {"flash_attention": 4, "flash_attention_bwd": 2}
+        if runs != want_runs:
+            raise AssertionError(f"[train] f32 launches {runs}, expected "
+                                 f"{want_runs}")
+        grads.append({n: p.grad.clone() for n, p in lm.named_parameters()})
+        lm.zero_grad(set_to_none=True)
+    worst, worst_name = 0.0, ""
+    for n, want in grads[1].items():
+        rel = _max_err(grads[0][n], want) / float(want.abs().max())
+        if not math.isfinite(rel) or rel > 1e-3:
+            raise AssertionError(f"[train] f32 grad {n}: kernels vs plain "
+                                 f"{rel:g} of max|plain|")
+        if rel >= worst:
+            worst, worst_name = rel, n
+    print(f"[train] f32 (TF32 off), 2 layers at full width, B2 S{TRAIN_S}: "
+          f"gradients through K3+K3b vs the plain attention on the card, "
+          f"largest max|err|/max|plain| {worst:.2e} ({worst_name}) over "
+          f"{len(grads[1])} tensors; K3 4, K3b 2 launches")
+    del lm, grads
+    torch.cuda.empty_cache()
+
+    # (b) bf16, 32 layers, AdamW
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 1))
+    state = init_train_state(cfg, opt, device="cuda", seed=0)
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    ops.reset_launches()
+    for step in range(TRAIN_STEPS):
+        bt = batch(step)
+        t0 = time.monotonic()
+        state, metrics = step_fn(state, bt)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+    launched = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L * TRAIN_STEPS,
+            "flash_attention_bwd": L * TRAIN_STEPS}
+    for k, n in want.items():
+        if launched[k] != n:
+            raise AssertionError(f"[train] {k} launched {launched[k]} times "
+                                 f"in {TRAIN_STEPS} steps, expected {n}")
+    for k, n in launched.items():
+        totals[k] += n
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"[train] loss did not fall: {losses}")
+    ms = 1e3 * statistics.median(secs[-10:])
+    print(f"[train] bf16 smollm-360m, {L} layers at full width, AdamW lr "
+          f"{TRAIN_LR}, B{TRAIN_B} x S{TRAIN_S}, {TRAIN_STEPS} steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {ms:.1f} ms/step (median "
+          f"of the last 10), {TRAIN_B * TRAIN_S / ms * 1e3:.0f} tokens/s; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB; launches a step: K3 "
+          f"{launched['flash_attention'] // TRAIN_STEPS}, K3b "
+          f"{launched['flash_attention_bwd'] // TRAIN_STEPS}  [{smi}]")
+    print("[train] losses " + " ".join(f"{x:.4f}" for x in losses))
+    _profile_train_step(step_fn, state, batch(TRAIN_STEPS), smi)
+    del state
+    torch.cuda.empty_cache()
+
+
+def _profile_train_step(step_fn, state, bt, smi) -> None:
+    """One train step under the profiler: the device's busy share (the
+    union of CUDA kernel intervals over the span of the trace) and the
+    kernels that take the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, bt)
+        torch.cuda.synchronize()
+    events = prof.events()
+    busy = _busy_us(events)
+    if busy is None:
+        print("[train] device busy share: not measured (the profiler "
+              "recorded no CUDA kernel)")
+        return
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events))
+    print(f"[train] one step profiled: {len(kernels)} kernels, device busy "
+          f"{busy / 1e3:.2f} ms of {span / 1e3:.2f} ms traced "
+          f"({100 * busy / span:.1f}% busy, {100 - 100 * busy / span:.1f}% "
+          f"idle)  [{smi}]")
+    per_kernel = {}
+    for e in kernels:
+        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[train]   {us / 1e3:8.3f} ms  {name[:90]}")
+
+
+def _train_child(args) -> list:
+    """``python -m repro_torch.launch.train ARGS`` from the checkout on the
+    card; returns its per-step losses (it logs every step)."""
+    import re
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "smollm-360m", "--log-every", "1", *args], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        if not re.match(r"step \d+: loss=", line):
+            print(f"[launch-train]   {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"[launch-train] child exited "
+                             f"{out.returncode}:\n{out.stderr[-3000:]}")
+    return [float(m) for m in re.findall(r"step \d+: loss=([\d.]+)",
+                                         out.stdout)]
+
+
+def phase_launch_train(smi) -> None:
+    """``python -m repro_torch.launch.train`` as child processes on the
+    card at full width (bf16, the CLI's batch 8 x 128): 6 steps straight
+    with checkpoints, then 3 steps into another checkpoint directory and a
+    second process that resumes from it for 3 more.  The resumed losses
+    must equal the straight run's last 3 within rtol 1e-4 (the printed
+    4 decimals; as the JAX package's resume test)."""
+    import tempfile
+    import numpy as np
+    from repro_torch.training import checkpoint as ckpt_lib
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        a, b = os.path.join(tmp, "straight"), os.path.join(tmp, "resumed")
+        t0 = time.monotonic()
+        straight = _train_child(["--steps", "6", "--ckpt", a,
+                                 "--ckpt-every", "3"])
+        first = _train_child(["--steps", "3", "--ckpt", b])
+        resumed = _train_child(["--steps", "3", "--ckpt", b])
+        secs = time.monotonic() - t0
+        if ckpt_lib.all_steps(a) != [3, 6] or ckpt_lib.latest_step(b) != 6:
+            raise AssertionError("[launch-train] checkpoints missing: "
+                                 f"{ckpt_lib.all_steps(a)} "
+                                 f"{ckpt_lib.all_steps(b)}")
+    if len(straight) != 6 or len(first) != 3 or len(resumed) != 3:
+        raise AssertionError(f"[launch-train] losses {straight} {first} "
+                             f"{resumed}")
+    np.testing.assert_allclose(first, straight[:3], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(resumed, straight[3:], rtol=1e-4, atol=1e-4)
+    print(f"[launch-train] 3 children in {secs:.1f} s: straight "
+          f"{' '.join(f'{x:.4f}' for x in straight)}; 3 + resumed 3 "
+          f"{' '.join(f'{x:.4f}' for x in first + resumed)}; equal  [{smi}]")
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import get_config
@@ -2346,7 +2649,8 @@ def main() -> int:
     k3["max_abs_err"] = max(k3["max_abs_err"], phase_flash_extend(gen))
     kernels = [k1, phase_paged_kernel(gen), k3,
                phase_gbdt_kernel(predictor.model, ds.prompts),
-               phase_packed_kernel(predictor.model, ds.prompts)]
+               phase_packed_kernel(predictor.model, ds.prompts),
+               phase_flash_bwd_kernel(gen)]
     e4, e5 = phase_cli_predictor_kernels()
     kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], e4)
     kernels[4]["max_abs_err"] = max(kernels[4]["max_abs_err"], e5)
@@ -2369,6 +2673,8 @@ def main() -> int:
     phase_speculative(cfg, smi, totals)
     phase_launch_serve(smi, totals)
     phase_launch_sidecar(smi, totals)
+    phase_train(cfg, smi, totals)
+    phase_launch_train(smi)
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:

@@ -63,6 +63,12 @@
 // (B, S, H|KV, hd) through their strides: no transposed copies; a ragged
 // S (the 96-slot bucket) is masked here, not asserted away.  The
 // launcher allocates nothing and returns cudaGetLastError().
+//
+// Training asks for each query row's log-sum-exp as well (``lse``, (B, H,
+// Sq) f32, m + log(l) in natural units): the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from it.  Serving
+// passes a null ``lse``; the store is then skipped and nothing else
+// changes, so o keeps its bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -195,8 +201,9 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int Sq, int Skv, int q_offset, int G, int causal, Strides qs,
-    Strides ks_, Strides vs_, Strides os, float scale_log2) {
+    float* __restrict__ lse, int Sq, int Skv, int q_offset, int G,
+    int causal, Strides qs, Strides ks_, Strides vs_, Strides os,
+    float scale_log2) {
   constexpr int LD = HD + 8;             // padded smem row (elements)
   constexpr int KS = HD / 16;            // k steps of QK^T
   constexpr int CH = HD / 8;             // 16-byte chunks of a row
@@ -215,6 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
   // this thread's two stacked rows: gid and gid + 8 of the warp's 16
   bool live[2];
   int pos[2];
+  float* lp[2];                          // this row's lse, or null
   const __nv_bfloat16* qp[2];
   __nv_bfloat16* op[2];
 #pragma unroll
@@ -227,6 +235,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
             (int64_t)(kvh * G + g) * qs.h;
     op[i] = o + b * os.b + (int64_t)qrow * os.s +
             (int64_t)(kvh * G + g) * os.h;
+    lp[i] = lse ? lse + ((int64_t)b * gridDim.y * G + kvh * G + g) * Sq +
+                      qrow
+                : nullptr;
   }
   uint32_t qa[KS][4];                    // q as A fragments
 #pragma unroll
@@ -366,6 +377,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
     li += __shfl_xor_sync(0xffffffffu, li, 1);
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     if (!live[i]) continue;
+    if (lp[i] && tig == 0) *lp[i] = (mx + log2f(li)) * (1.f / kLog2e);
     const float inv = 1.f / fmaxf(li, 1e-30f);
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
@@ -383,8 +395,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
 }
 
 template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int q_offset, int KV, int G, int causal,
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Skv, int q_offset, int KV,
+               int G, int causal,
                Strides qs, Strides ks, Strides vs, Strides os,
                cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * 2 * 2 * kStageKeys * (HD + 8);
@@ -399,7 +412,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Skv, q_offset, G, causal, qs, ks, vs, os,
+      lse, Sq, Skv, q_offset, G, causal, qs, ks, vs, os,
       kLog2e / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
@@ -412,9 +425,10 @@ constexpr int kChunk = 16;         // keys scored per online-softmax step
 template <int HD>
 __global__ void __launch_bounds__(kRows) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-    int q_offset, int G, int causal, Strides qs, Strides ks_, Strides vs_,
-    Strides os, float scale) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Skv, int q_offset, int G,
+    int causal, Strides qs, Strides ks_, Strides vs_, Strides os,
+    float scale) {
   extern __shared__ float smem[];
   float* kt = smem;                  // (kCols, HD)
   float* vt = kt + kCols * HD;       // (kCols, HD)
@@ -492,12 +506,14 @@ __global__ void __launch_bounds__(kRows) flash_f32_kernel(
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int d = 0; d < HD; ++d) op[d] = acc[d] * inv;
+    if (lse) lse[((int64_t)b * gridDim.y + h) * Sq + row] = m + logf(l);
   }
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int q_offset, int H, int G, int causal,
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Skv, int q_offset, int H,
+               int G, int causal,
                Strides qs, Strides ks, Strides vs, Strides os,
                cudaStream_t stream) {
   const size_t smem = sizeof(float) * 2 * kCols * HD;
@@ -510,20 +526,21 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + kRows - 1) / kRows, H, B);
   flash_f32_kernel<HD><<<grid, kRows, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv,
       q_offset, G, causal, qs, ks, vs, os, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int B, int Sq, int Skv, int q_offset, int H, int KV, int causal,
+           float* lse, int B, int Sq, int Skv, int q_offset, int H, int KV,
+           int causal,
            Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t st) {
   if (dtype == 0)
-    return launch_f32<HD>(q, k, v, o, B, Sq, Skv, q_offset, H, H / KV,
+    return launch_f32<HD>(q, k, v, o, lse, B, Sq, Skv, q_offset, H, H / KV,
                           causal, qs, ks, vs, os, st);
   if (dtype == 1)
-    return launch_mma<HD>(q, k, v, o, B, Sq, Skv, q_offset, KV, H / KV,
+    return launch_mma<HD>(q, k, v, o, lse, B, Sq, Skv, q_offset, KV, H / KV,
                           causal, qs, ks, vs, os, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -535,14 +552,15 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // head_dim axis must be contiguous, and in bf16 every row of k and v
 // starts on a 16-byte boundary and every row of q and o on a 4-byte one.
 // hd in {16, 32, 64, 128}.  Query row r sits at absolute position
-// q_offset + r; causal calls need q_offset + Sq <= Skv.
+// q_offset + r; causal calls need q_offset + Sq <= Skv.  ``lse`` is null,
+// or (B, H, Sq) f32 contiguous for each row's log-sum-exp.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int q_offset, int H, int KV, int hd, int causal,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-    void* stream) {
+    void* stream, float* lse) {
   if (KV <= 0 || H % KV != 0 || q_offset < 0 ||
       (causal && q_offset + Sq > Skv))
     return (int)cudaErrorInvalidValue;
@@ -550,7 +568,8 @@ extern "C" int flash_attention_launch(
       os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define K3_LAUNCH(HD)                                                     \
-  return launch<HD>(dtype, q, k, v, o, B, Sq, Skv, q_offset, H, KV, causal, \
+  return launch<HD>(dtype, q, k, v, o, lse, B, Sq, Skv, q_offset, H, KV,   \
+                    causal,                                               \
                     qs, ks, vs, os, st)
   switch (hd) {
     case 16:

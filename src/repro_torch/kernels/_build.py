@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("decode_attention", "paged_decode_attention", "flash_attention",
-           "gbdt_infer")
+           "flash_attention_bwd", "gbdt_infer")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -35,8 +35,8 @@ _lock = threading.Lock()
 #: path went through)
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0,
-                            "flash_attention": 0, "gbdt_margins": 0,
-                            "gbdt_margins_packed": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "gbdt_margins": 0, "gbdt_margins_packed": 0}
 #: ``-Xptxas -v`` report (registers, shared memory, spills) per kernel build
 PTXAS_REPORT: Dict[str, str] = {}
 

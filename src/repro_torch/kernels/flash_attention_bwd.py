@@ -1,0 +1,99 @@
+"""K3b: the backward of causal (or full) flash attention, for training.
+
+``flash_attention_bwd_cuda`` launches the hand-written Hopper kernel
+(``csrc/flash_attention_bwd.cu``).  The JAX package has no Pallas kernel
+here: it takes this gradient by autodiff of its chunked jnp flash
+attention (``repro.models.attention.flash_attention``, whose nested
+``jax.checkpoint`` replays the same recurrence).
+``flash_attention_bwd_plain`` is the recurrence in plain PyTorch, f32.
+
+Both take model layout and the training shapes: q, o, do (B, S, H, hd),
+k, v (B, S, KV, hd), query row i at key position i, and K3's per-row
+log-sum-exp ``lse`` (B, H, S) f32.  They return (dq, dk, dv) in the
+inputs' dtype:
+
+    P = exp(q k^T * scale - lse),  D = rowsum(do * o),
+    dS = P * (do v^T - D),
+    dq = scale * dS k,  dk = scale * dS^T q,  dv = P^T do,
+
+with dk and dv summed over the G query heads of each KV head.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import NEG_INF
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True):
+    """Plain version: the recurrence over the whole (S, S) plane in f32."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qg = q.float().reshape(B, S, KV, G, hd)
+    dog = do.float().reshape(B, S, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.reshape(B, KV, G, S, 1))
+    D = (do.float() * o.float()).sum(-1).reshape(B, S, KV, G)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, vf)
+    ds = p * (dp - D.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@functools.cache
+def _fn():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True):
+    """Launch K3b's three passes (D, then dK/dV per key tile, then dQ per
+    query tile) on q's device and stream; counts one launch per call."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    tensors = (q, k, v, o, do, lse)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("flash_attention_bwd_cuda needs every input on one "
+                         "CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype
+                                     for t in (k, v, o, do)) \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"unsupported dtypes {[t.dtype for t in tensors]}")
+    if k.shape != (B, S, KV, hd) or v.shape != k.shape or o.shape != q.shape \
+            or do.shape != q.shape or lse.shape != (B, H, S) or KV == 0 \
+            or H % KV or hd not in _HEAD_DIMS or S == 0:
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} "
+                         f"o {tuple(o.shape)} do {tuple(do.shape)} "
+                         f"lse {tuple(lse.shape)}")
+    q, k, v, o, do, lse = (t.contiguous() for t in tensors)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    D = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, S, H, KV,
+                hd, int(causal), stream)
+    _build.check(err, "flash_attention_bwd")
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -7,6 +7,9 @@ is no fallback from one to the other.  Layouts are the model's: the
 kernels read (B, S, H|KV, hd) in place, so unlike ``repro.kernels.ops``
 nothing here transposes a cache.
 
+``flash_attention_train`` is the training attention: differentiable, with
+K3 (emitting its log-sum-exp) forward and K3b backward on the card.
+
 ``LAUNCHES`` counts kernel launches per kernel (see ``_build.LAUNCHES``).
 """
 
@@ -19,6 +22,7 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.gbdt_infer import (gbdt_margins_cuda,
                                             gbdt_margins_packed_cuda,
                                             gbdt_margins_packed_plain,
@@ -27,7 +31,8 @@ from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention_cuda, paged_decode_attention_plain)
 
 __all__ = ["LAUNCHES", "reset_launches", "decode_attention",
-           "paged_decode_attention", "flash_attention", "gbdt_margins",
+           "paged_decode_attention", "flash_attention",
+           "flash_attention_train", "gbdt_margins",
            "gbdt_margins_packed", "gbdt_margins_packed_from",
            "preferred_gbdt_layout", "gbdt_margins_best"]
 
@@ -44,6 +49,39 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+
+
+class _FlashTrain(torch.autograd.Function):
+    """K3 with its log-sum-exp forward, K3b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                      return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                              causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_train(q, k, v, *, causal: bool = True):
+    """Differentiable attention over the training shapes: q (B,S,H,hd),
+    k/v (B,S,KV,hd) -> (B,S,H,hd), query row i at key position i.  A CPU
+    tensor runs the plain forward under autograd; a CUDA tensor runs K3
+    forward and K3b backward (``torch.autograd.Function``)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"training attention needs Sq == Skv, got "
+                         f"{q.shape[1]} and {k.shape[1]}")
+    return _FlashTrain.apply(q, k, v, causal)
 
 
 def decode_attention(q, cache_k, cache_v, t):

@@ -11,13 +11,16 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        return_lse: bool = False):
     """q: (B, H, Sq, hd); k, v: (B, KV, Skv, hd) -> (B, H, Sq, hd).
 
     Query row i sits at absolute position ``q_offset + i`` of the key
     buffer (the extend prefill: a suffix over a cached prefix); causal rows
     attend keys at positions <= their own, as
-    ``repro.models.attention.flash_attention(q_offset=...)`` does."""
+    ``repro.models.attention.flash_attention(q_offset=...)`` does.
+    ``return_lse`` also returns each row's log-sum-exp of the scaled,
+    masked scores, (B, H, Sq) float32."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
@@ -29,7 +32,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksh->bkgqh", w, v.float())
-    return o.reshape(B, H, Sq, hd).to(q.dtype)
+    o = o.reshape(B, H, Sq, hd).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o
 
 
 def decode_attention_ref(q, k, v, t):

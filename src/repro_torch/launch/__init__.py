@@ -1,2 +1,3 @@
 """Command-line entry points: ``serve`` (the paper's queueing experiment in
-virtual time) and ``sidecar`` (the HTTP/SSE proxy)."""
+virtual time), ``sidecar`` (the HTTP/SSE proxy) and ``train`` (the LM's
+training loop)."""

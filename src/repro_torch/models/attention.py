@@ -1,6 +1,9 @@
 """GQA self-attention block (port of ``repro.models.attention.attn_block``
-in its ``prefill`` (cold and extend), ring ``decode``, block-paged
-``decode`` and ``verify`` (ring and paged) modes).
+in its ``train``, ``prefill`` (cold and extend), ring ``decode``,
+block-paged ``decode`` and ``verify`` (ring and paged) modes).
+
+Training (``forward``) goes through ``ops.flash_attention_train``: K3
+forward with its log-sum-exp and K3b backward on the card.
 
 The attention itself goes through ``kernels.ops``: K3 (flash) for every
 prefill, K1 (decode) for each generated token over a ring cache, K2
@@ -44,6 +47,17 @@ class Attention(nn.Module):
         k = dense(h, self.wk).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
         v = dense(h, self.wv).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
         return rope(q, *rope_cs), rope(k, *rope_cs), v
+
+    def forward(self, x, rope_cs):
+        """Training (JAX ``attn_block`` mode ``"train"``): causal attention
+        over x (B, S, D) at positions 0..S-1 (``rope_cs``: their RoPE
+        tables) through ``ops.flash_attention_train``, differentiable; no
+        cache."""
+        B, S, _ = x.shape
+        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
+        q, k, v = self._project_qkv(h, rope_cs)
+        out = ops.flash_attention_train(q, k, v, causal=True)
+        return x + dense(out.reshape(B, S, -1), self.wo)
 
     def prefill(self, x, rope_cs, cache_k, cache_v, start: int = 0):
         """Causal attention over the (padded) tokens x (B, S, D) at

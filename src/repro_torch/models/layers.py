@@ -1,6 +1,6 @@
-"""Foundational layers (port of ``repro.models.layers``): dense, RMSNorm,
-half-split RoPE, the SwiGLU MLP, and the initialisers with the JAX init's
-scales."""
+"""Foundational layers (port of ``repro.models.layers``): dense, the
+float32-output product of the training logits, RMSNorm, half-split RoPE,
+the SwiGLU MLP, and the initialisers with the JAX init's scales."""
 
 from __future__ import annotations
 
@@ -31,6 +31,47 @@ def dense(x, w):
     float32 (TF32 stays off unless the caller turns it on) and bf16 inputs
     accumulate in float32 inside the GEMM, as the JAX ``dense`` does."""
     return torch.matmul(x, w)
+
+
+def _mm_f32(a, b):
+    """a @ b for 2-D a, b of one dtype, as float32.  A bf16 product on the
+    card is one GEMM that accumulates in float32 and writes float32
+    (``torch.mm(out_dtype=)``); on the CPU the operands are widened."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """x @ w with a float32 result from operands of a narrower dtype.  The
+    backward casts the float32 cotangent to the operands' dtype and
+    returns gradients in it, each product summed in float32."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(w.dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        gx = _mm_f32(g2, w.T).to(x.dtype).reshape(x.shape)
+        gw = _mm_f32(x2.T, g2).to(w.dtype)
+        return gx, gw
+
+
+def matmul_f32(x, w):
+    """x (..., in) @ w (in, out) -> float32 (..., out): the JAX
+    ``jnp.matmul(x, w, preferred_element_type=float32)`` of the LM's
+    training logits.  Exact float32 autograd for float32 operands."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    return _MatmulF32.apply(x, w)
 
 
 def rmsnorm(x, w, eps: float = 1e-5):

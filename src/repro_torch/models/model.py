@@ -1,8 +1,13 @@
 """The LM (port of ``repro.models.model.LM`` for attention-only stacks):
-embedding, a plain loop over layers, tied or separate head, bucketed
-prefill (cold, per-row prompt lengths, or extend onto a cached prefix),
-one-token decode over a ring-buffer KV cache or a block-paged pool, and
-the speculative W-position verify forward over either."""
+embedding, a plain loop over layers, tied or separate head, the training
+forward and its sequence-chunked cross entropy, bucketed prefill (cold,
+per-row prompt lengths, or extend onto a cached prefix), one-token decode
+over a ring-buffer KV cache or a block-paged pool, and the speculative
+W-position verify forward over either.
+
+The parameters are created with ``requires_grad=False``: serving never
+builds a graph.  A train state (``training.train_loop``) turns them on;
+the serving calls stay under ``no_grad`` either way."""
 
 from __future__ import annotations
 
@@ -10,11 +15,15 @@ from dataclasses import dataclass
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as Fn
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import (MLP, dense, dtype_of, init_dense,
-                                       rmsnorm, rope_tables)
+                                       matmul_f32, rmsnorm, rope_tables)
+
+LOSS_CHUNK = 512  # sequence-chunked cross entropy (never all f32 logits)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -82,6 +91,27 @@ class Block(nn.Module):
         self.attn = Attention(cfg, gen, device)
         self.mlp = MLP(cfg, gen, device)
 
+    def forward(self, x, rope_cs):
+        return self.mlp(self.attn(x, rope_cs))
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``jax.checkpoint``) when a graph is being built."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _chunk_nll(h, w, labels):
+    """Summed next-token NLL of one sequence chunk: float32 logits from
+    the product, labels < 0 masked."""
+    logits = matmul_f32(h, w)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    return torch.where(labels >= 0, lse - tgt, torch.zeros_like(lse)).sum()
+
 
 class LM(nn.Module):
     """Attention-only decoder LM.  Weights are drawn from a seeded
@@ -140,6 +170,52 @@ class LM(nn.Module):
             k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw),
             bt=torch.zeros((batch_size, max_len // page_size), **i32),
             t=torch.zeros((batch_size,), **i32))
+
+    # ------------------------------------------------------------- training
+    def _hidden(self, tokens, remat: bool):
+        """Final-normed hidden states (B, S, D) of the training forward:
+        every block in train mode at positions 0..S-1, each recomputed in
+        the backward pass when ``remat`` (JAX ``run_stack``'s per-block
+        checkpoint)."""
+        cfg = self.cfg
+        rope_cs = rope_tables(torch.arange(tokens.shape[1],
+                                           device=self.device),
+                              cfg.head_dim, cfg.rope_theta)
+        # F.embedding: its gradient is not among the ops PyTorch documents
+        # as nondeterministic on the card, so a resumed run repeats a
+        # straight one
+        x = Fn.embedding(tokens, self.embed)
+        for blk in self.blocks:
+            x = _remat(blk, x, rope_cs) if remat else blk(x, rope_cs)
+        return rmsnorm(x, self.final_norm, cfg.norm_eps)
+
+    def _head_weight(self):
+        return self.embed.T if self.cfg.tie_embeddings else self.head
+
+    def forward(self, tokens, remat: bool = True):
+        """Training forward (JAX ``LM.forward``): tokens (B, S) int64 on
+        the device -> float32 logits (B, S, V), the head's product taken
+        to float32 without rounding to the model's dtype."""
+        return matmul_f32(self._hidden(tokens, remat), self._head_weight())
+
+    def loss(self, batch, remat: bool = True):
+        """Sequence-chunked next-token cross entropy (JAX ``LM.loss``):
+        ``batch`` holds "tokens" and "labels" (B, S) int64 on the device,
+        labels < 0 masked.  The f32 logits of one ``LOSS_CHUNK`` slice of
+        the sequence exist at a time, and each chunk's are recomputed in
+        the backward pass.  A dense stack has no MoE auxiliary loss (the
+        JAX loss adds ``AUX_LOSS_WEIGHT`` x 0 for it)."""
+        labels = batch["labels"]
+        h = self._hidden(batch["tokens"], remat)
+        w = self._head_weight()
+        S = labels.shape[1]
+        chunk = min(LOSS_CHUNK, S)
+        tot = torch.zeros((), dtype=torch.float32, device=self.device)
+        for c0 in range(0, S, chunk):
+            tot = tot + _remat(_chunk_nll, h[:, c0:c0 + chunk], w,
+                               labels[:, c0:c0 + chunk])
+        cnt = (labels >= 0).sum().clamp(min=1).float()
+        return tot / cnt
 
     # ------------------------------------------------------------------ head
     def _head(self, x):

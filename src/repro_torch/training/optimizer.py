@@ -1,0 +1,178 @@
+"""Optimizers from scratch: AdamW and Adafactor (port of
+``repro.training.optimizer``).
+
+``params`` and ``grads`` are dicts of tensors keyed by the model's
+state-dict names (``dict(lm.named_parameters())``).  The arithmetic is the
+JAX package's, step for step: the gradient norm is reported before
+clipping, clipping scales by ``min(1, clip / max(norm, 1e-9))``, the
+moments are kept in ``moment_dtype`` (float32 by default) and computed in
+float32, bias correction uses the float32 step, AdamW's weight decay
+applies to every parameter (norms included), and each parameter becomes
+``(p32 - lr * delta)`` in its own dtype.  Unlike the JAX function, the
+parameters are updated **in place** (the dict given is returned): the
+model keeps its tensors and no second copy of the weights is made.
+
+Adafactor factors the second moment of every tensor of two or more
+dimensions over its last two axes.  The JAX package stacks each block
+parameter over layers, so there a per-layer norm weight is one (layers,
+d) matrix and its statistics are factored across layers.  The port keeps
+that: block parameters are grouped by name (``blocks.<part>.<name>``),
+stacked over layers for the update, and their statistics are held per
+group.
+
+All of it is plain PyTorch under ``no_grad`` (``torch._foreach_*`` for
+AdamW), as the JAX package leaves it to XLA outside any kernel.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+from typing import Dict, NamedTuple
+
+import torch
+
+_LAYER = re.compile(r"^blocks\.\d+\.")
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    betas: tuple = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"
+    kind: str = "adamw"          # adamw | adafactor
+    warmup_steps: int = 100
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor   # int32, 0-d
+    m: Dict[str, torch.Tensor]   # adamw: first moment | adafactor: row stats
+    v: Dict[str, torch.Tensor]   # adamw: second moment | adafactor: col stats
+
+
+def _groups(names) -> Dict[str, list]:
+    """Adafactor's groups: each block parameter name with its layer index
+    dropped (``blocks.3.attn.wq`` -> ``blocks.attn.wq``) -> its names in
+    layer order; every other parameter is a group of its own."""
+    out: Dict[str, list] = {}
+    for n in names:
+        out.setdefault(_LAYER.sub("blocks.", n), []).append(n)
+    return out
+
+
+def _stacked(tensors: dict, names: list, group: str) -> torch.Tensor:
+    if group.startswith("blocks."):
+        return torch.stack([tensors[n] for n in names])
+    return tensors[names[0]]
+
+
+def init_opt_state(params: Dict[str, torch.Tensor],
+                   cfg: OptConfig) -> OptState:
+    """Zero moments on the parameters' devices, step 0."""
+    dev = next(iter(params.values())).device
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.kind == "adamw":
+        dt = getattr(torch, cfg.moment_dtype)
+        m = {n: torch.zeros_like(p, dtype=dt) for n, p in params.items()}
+        v = {n: torch.zeros_like(p, dtype=dt) for n, p in params.items()}
+        return OptState(step, m, v)
+    if cfg.kind == "adafactor":
+        m, v = {}, {}
+        for group, names in _groups(params).items():
+            shape = _stacked(params, names, group).shape
+            kw = dict(dtype=torch.float32, device=dev)
+            if len(shape) < 2:
+                m[group] = torch.zeros(shape, **kw)
+                v[group] = torch.zeros((), **kw)
+            else:
+                m[group] = torch.zeros(shape[:-1], **kw)
+                v[group] = torch.zeros(shape[:-2] + shape[-1:], **kw)
+        return OptState(step, m, v)
+    raise ValueError(cfg.kind)
+
+
+def _schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
+    warm = torch.clamp(step.float() / max(cfg.warmup_steps, 1), max=1.0)
+    return cfg.lr * warm
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in float32."""
+    norms = torch._foreach_norm([g.float() for g in grads])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@torch.no_grad()
+def apply_updates(params: Dict[str, torch.Tensor],
+                  grads: Dict[str, torch.Tensor], state: OptState,
+                  cfg: OptConfig):
+    """One optimizer step.  Returns (params, new_state, metrics) with
+    ``params`` updated in place and metrics {"grad_norm", "lr"} as 0-d
+    tensors on the parameters' device (no host synchronisation)."""
+    names = list(params)
+    gnorm = global_norm([grads[n] for n in names])
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    g32 = dict(zip(names, torch._foreach_mul(
+        [grads[n].float() for n in names], scale)))
+    step = state.step + 1
+    step_f = step.float()
+    lr = _schedule(cfg, step)
+
+    if cfg.kind == "adamw":
+        b1, b2 = cfg.betas
+        mdt = getattr(torch, cfg.moment_dtype)
+        g = [g32[n] for n in names]
+        p32 = [params[n].float() for n in names]
+        m_new = torch._foreach_add(
+            torch._foreach_mul([state.m[n].float() for n in names], b1),
+            torch._foreach_mul(g, 1 - b1))
+        v_new = torch._foreach_add(
+            torch._foreach_mul([state.v[n].float() for n in names], b2),
+            torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
+        mhat = torch._foreach_div(m_new, 1 - b1 ** step_f)
+        vhat = torch._foreach_div(v_new, 1 - b2 ** step_f)
+        delta = torch._foreach_div(
+            mhat, torch._foreach_add(torch._foreach_sqrt(vhat), cfg.eps))
+        delta = torch._foreach_add(
+            delta, torch._foreach_mul(p32, cfg.weight_decay))
+        new = torch._foreach_sub(p32, torch._foreach_mul(delta, lr))
+        for n, x in zip(names, new):
+            params[n].copy_(x)
+        new_state = OptState(
+            step, {n: x.to(mdt) for n, x in zip(names, m_new)},
+            {n: x.to(mdt) for n, x in zip(names, v_new)})
+        return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+    if cfg.kind == "adafactor":
+        eps = 1e-30
+        decay = 1.0 - (step_f + 1.0) ** -0.8
+        new_m, new_v = {}, {}
+        for group, gnames in _groups(names).items():
+            g = _stacked(g32, gnames, group)
+            p32 = _stacked(params, gnames, group).float()
+            r, c = state.m[group], state.v[group]
+            if g.dim() < 2:
+                v_new = decay * r + (1 - decay) * (g * g)
+                delta = g / torch.sqrt(v_new + eps)
+                r_new, c_new = v_new, c
+            else:
+                r_new = decay * r + (1 - decay) * torch.mean(g * g, dim=-1)
+                c_new = decay * c + (1 - decay) * torch.mean(g * g, dim=-2)
+                rc = r_new / torch.clamp(
+                    torch.mean(r_new, dim=-1, keepdim=True), min=eps)
+                vhat = rc[..., None] * c_new[..., None, :]
+                delta = g / torch.sqrt(vhat + eps)
+            new = p32 - lr * delta
+            if group.startswith("blocks."):
+                for i, n in enumerate(gnames):
+                    params[n].copy_(new[i])
+            else:
+                params[gnames[0]].copy_(new)
+            new_m[group], new_v[group] = r_new, c_new
+        return params, OptState(step, new_m, new_v), {"grad_norm": gnorm,
+                                                      "lr": lr}
+    raise ValueError(cfg.kind)

@@ -19,6 +19,10 @@ launch bit for bit; K3's extend rows equal the cold prefill's rows.  K5
 each other and to ``tree_fold`` of the plain walks' leaf values bit for
 bit: both split the trees by one plan from (T, K) and sum the leaves in
 one fixed order, so a row also scores the same alone and in a batch.
+K3b (attention backward) is held to its plain version within the same
+1e-4 / 2e-2, scaled to max|plain| (gradients are not O(1)), and is
+bitwise repeatable; K3's log-sum-exp within 1e-4 (f32) / 1e-3 (bf16) of
+the plain logsumexp, its output unchanged bit for bit by asking for it.
 """
 
 import numpy as np
@@ -611,3 +615,172 @@ def test_speculative_tokens_on_card_equal_plain_decode(cuda):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
+
+
+def _scaled_close(name, got, want, dtype):
+    """max |kernel - plain| within the kernel tolerance scaled to the
+    largest |plain| entry (gradients are not O(1))."""
+    tol = TOL[dtype]["atol"] * max(float(want.float().abs().max()), 1.0)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, f"{name}: {err} > {tol}"
+
+
+def _bwd_inputs(cuda, dtype, B, S, H, KV, hd, seed, causal=True):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+    o, lse = ops.flash_attention_plain(q, k, v, causal=causal,
+                                       return_lse=True)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [64, 100, 512])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, S, hd, causal):
+    """K3b against ``flash_attention_bwd_plain`` on the same q, k, v, o,
+    dO and lse (ragged S 100 included), H 15 over KV 5: within 1e-4
+    (f32, TF32 off) and 2e-2 (bf16, the outputs' rounding) of max|plain|;
+    one launch counted per call."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        args = _bwd_inputs(cuda, dtype, 2, S, 15, 5, hd, S + hd, causal)
+        before = ops.LAUNCHES["flash_attention_bwd"]
+        got = flash_attention_bwd_cuda(*args, causal=causal)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+        want = flash_attention_bwd_plain(*args, causal=causal)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _scaled_close(name, a, b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_deterministic(cuda, dtype):
+    """Two K3b calls on the same inputs give the same bits (no float
+    atomics, a fixed walk)."""
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_cuda
+    args = _bwd_inputs(cuda, dtype, 2, 200, 15, 5, 64, 7)
+    a = flash_attention_bwd_cuda(*args)
+    b = flash_attention_bwd_cuda(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [16, 96, 512])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_lse_matches_plain(cuda, dtype, S, hd, causal):
+    """K3's log-sum-exp against the plain logsumexp of the scaled masked
+    scores (within 1e-4 in f32, 1e-3 in bf16: the scores are exact
+    products of the same bf16 inputs, the sums run in another order), and
+    K3's output with the lse requested equals its output without, bit for
+    bit (a null lse changes nothing)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    g = torch.Generator(device=cuda).manual_seed(S * hd)
+    q = torch.randn(2, S, 15, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, S, 5, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    plain = flash_attention_cuda(q, k, v, causal=causal)
+    _, want = ops.flash_attention_plain(q, k, v, causal=causal,
+                                        return_lse=True)
+    assert lse.shape == (2, 15, S) and lse.dtype == torch.float32
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(o, plain)
+
+
+@pytest.mark.cuda
+def test_flash_attention_train_reaches_k3_and_k3b(cuda):
+    """``ops.flash_attention_train`` on the card: one K3 launch forward,
+    one K3b launch backward, and gradients equal to K3b on K3's own o and
+    lse."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_cuda
+    q, k, v, _, do, _ = _bwd_inputs(cuda, torch.bfloat16, 2, 128, 15, 5,
+                                    64, 3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention_train(*leaves)
+    out.backward(do)
+    assert ops.LAUNCHES["flash_attention"] - before["flash_attention"] == 1
+    assert (ops.LAUNCHES["flash_attention_bwd"]
+            - before["flash_attention_bwd"]) == 1
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    assert torch.equal(out.detach(), o)
+    for leaf, want in zip(leaves, flash_attention_bwd_cuda(q, k, v, o, do,
+                                                           lse)):
+        assert torch.equal(leaf.grad, want)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """A reduced float32 model (2 layers, H 6 over KV 2, TF32 off): its
+    loss gradients on the card (K3 with lse forward, K3b backward, 2 x 2
+    and 2 launches with remat) within 1e-4 of max|g| of the CPU's (the
+    plain versions), and one AdamW train step's loss (rtol 1e-5), grad
+    norm (rtol 1e-4) and params (atol 2 x lr: an element whose gradient
+    is ~0 may take the other sign of Adam's first, sign-like step)."""
+    from repro_torch.models.model import LM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainState, make_train_step
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = _small_cfg("float32")
+        opt = OptConfig(lr=1e-3, warmup_steps=1)
+        models = [LM(cfg, device=cuda, seed=0), LM(cfg, device="cpu")]
+        models[1].load_state_dict({k: v.cpu() for k, v in
+                                   models[0].state_dict().items()})
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab_size, (4, 65))
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+                 "labels": torch.from_numpy(toks[:, 1:])}
+        grads = []
+        for lm in models:
+            lm.requires_grad_(True)
+            before = dict(ops.LAUNCHES)
+            lm.loss({k: v.to(lm.device) for k, v in batch.items()}).backward()
+            if lm.device.type == "cuda":
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES["flash_attention"] \
+                    - before["flash_attention"] == 2 * cfg.num_layers
+                assert ops.LAUNCHES["flash_attention_bwd"] \
+                    - before["flash_attention_bwd"] == cfg.num_layers
+            grads.append({n: p.grad.cpu() for n, p in lm.named_parameters()})
+            lm.zero_grad(set_to_none=True)
+        for n, want in grads[1].items():
+            err = float((grads[0][n] - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), n
+        step = make_train_step(cfg, opt)
+        out = [step(TrainState(lm, init_opt_state(
+                   dict(lm.named_parameters()), opt)),
+                    {k: v.to(lm.device) for k, v in batch.items()})
+               for lm in models]
+        (sc, mc), (sh, mh) = out
+        np.testing.assert_allclose(float(mc["loss"]), float(mh["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(mc["grad_norm"]),
+                                   float(mh["grad_norm"]), rtol=1e-4)
+        for (n, a), b in zip(sc.params.items(), sh.params.values()):
+            np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                       b.detach().numpy(), atol=2 * opt.lr,
+                                       rtol=0, err_msg=n)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module loads
-neither JAX nor any module of the JAX package, and ``chip_smoke.py``
+neither JAX nor any module of the JAX package (nor ``msgpack``, which the
+JAX checkpoints need and the card's machine lacks), and ``chip_smoke.py``
 imports nothing of it either.  Checked in a fresh interpreter, since this
 test process has both packages loaded."""
 
@@ -20,7 +21,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.") or m == "msgpack")
 missing = sorted(set(NEW) - set(names))
 print(len(names), bad, missing)
 """
@@ -29,7 +30,8 @@ print(len(names), bad, missing)
 #: the sidecar, its backends and fault, routing and observability layers,
 #: and the packed ensemble; the simulator, its calibration and the launch
 #: CLIs; the sweep grids, the grid DES on the device and the ranking
-#: metric
+#: metric; training (data, optimizer, train step, checkpoints, the CLI)
+#: and the attention backward kernel
 NEW = ["repro_torch.serving.batching", "repro_torch.serving.paging",
        "repro_torch.kernels.paged_decode_attention",
        "repro_torch.core.ensemble_pack", "repro_torch.core.router",
@@ -40,7 +42,11 @@ NEW = ["repro_torch.serving.batching", "repro_torch.serving.paging",
        "repro_torch.core.calibration", "repro_torch.launch",
        "repro_torch.launch.serve", "repro_torch.launch.sidecar",
        "repro_torch.core.sweep", "repro_torch.core.sim_torch",
-       "repro_torch.core.ranking"]
+       "repro_torch.core.ranking", "repro_torch.data.lm_data",
+       "repro_torch.data.pipeline", "repro_torch.training",
+       "repro_torch.training.straggler", "repro_torch.training.optimizer",
+       "repro_torch.training.train_loop", "repro_torch.training.checkpoint",
+       "repro_torch.launch.train", "repro_torch.kernels.flash_attention_bwd"]
 
 
 def test_port_imports_no_jax_and_no_repro():
