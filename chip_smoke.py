@@ -64,7 +64,9 @@ path and read just after:
 
 Before the paths, ``[K3b flash_attention_bwd]`` holds the attention
 backward kernel to its plain version (and K3's log-sum-exp to the plain
-logsumexp) and times it at the training shape.
+logsumexp), prints each of its kernels' registers and spills, and holds
+it to its plain version and times it beside autograd's SDPA backward at
+B 8, S 128, 512 and 1000, pass by pass at the training shape.
 
 It fails (nonzero exit, no result line) without a CUDA device, without
 the repository beside it, when a kernel does not build, launch or agree
@@ -81,8 +83,9 @@ its kernel launches differ from the rounds' count, or when the
 speculative child reports no accept rate, when a K3b gradient or K3's
 log-sum-exp disagrees with its plain version, when the training loss
 does not fall or the train step's K3/K3b launches differ from 2 x 32 /
-32 a step, or when a resumed training run's losses differ from the
-straight run's.
+32 a step, when a K3b pass is among the profiled train step's two
+longest kernels, or when a resumed training run's losses differ from
+the straight run's.
 
 The second-to-last line of standard output is a JSON object with one
 entry per kernel; the last line is
@@ -94,6 +97,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2338,24 +2342,119 @@ def phase_speculative(cfg, smi, totals) -> None:
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 512, 20, 3e-4
 
 
+K3B_PASSES = (("bwd_dot", "D"), ("bwd_dkdv", "dK/dV"), ("bwd_dq", "dQ"))
+
+
+def _k3b_pass_ms(fn):
+    """Device ms of each K3b pass in one profiled call of ``fn``, and each
+    pass's launch record from the profiler's trace: registers a thread,
+    warps an SM and the profiler's estimate of achieved occupancy (from
+    the grid and the kernel's resources, not a hardware counter)."""
+    import tempfile
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {tag: 0.0 for _, tag in K3B_PASSES}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for key, tag in K3B_PASSES:
+            if key in e.name:
+                out[tag] += (e.time_range.end - e.time_range.start) / 1e3
+    occupancy = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "k3b_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    for ev in events:
+        args = ev.get("args", {})
+        for key, tag in K3B_PASSES:
+            if ev.get("cat") == "kernel" and key in ev.get("name", ""):
+                occupancy[tag] = tuple(args.get(k) for k in (
+                    "registers per thread", "warps per SM",
+                    "est. achieved occupancy %"))
+    return out, occupancy
+
+
+def _k3b_ptxas_lines(log: str):
+    """(kernel, its register and spill lines) for each K3b kernel entry of
+    an ``nvcc -Xptxas -v`` log, the lines as ptxas prints them."""
+    out, dtype = [], {None: "", "f": ", f32", "13__nv_bfloat16": ", bf16"}
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"'\S*?(bwd_[a-z_]+kernel)ILi(\d+)E"
+                          r"(13__nv_bfloat16|f)?", line)
+            out.append((m and f"{m[1]}<{m[2]}{dtype[m[3]]}>", []))
+        elif out and ("Used" in line or "spill" in line):
+            out[-1][1].append(line.split(" : ")[-1].strip())
+    return [(name, lines) for name, lines in out if name]
+
+
+def _k3b_errs(tag, got, want, tol=None) -> float:
+    """Largest max|got - want| / max(max|want|, 1) over dq, dk, dv (the
+    gradients are not O(1)); each is held to ``tol`` when one is given."""
+    worst = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = _max_err(a, b) / max(float(b.float().abs().max()), 1.0)
+        if tol is not None:
+            _check(f"K3b {name} {tag}", err, tol)
+        worst = max(worst, err)
+    return worst
+
+
+def _sdpa_bwd(q, k, v, do):
+    """Autograd's backward of causal ``scaled_dot_product_attention`` on
+    the same inputs (K/V expanded to every query head): the yardstick,
+    timed only."""
+    import torch
+    G = q.shape[2] // k.shape[2]
+    qx, kx, vx = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k.repeat_interleave(G, dim=2),
+                            v.repeat_interleave(G, dim=2)))
+    ox = torch.nn.functional.scaled_dot_product_attention(qx, kx, vx,
+                                                          is_causal=True)
+    dox = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(ox, (qx, kx, vx), dox,
+                                       retain_graph=True)
+
+
 def phase_flash_bwd_kernel(gen) -> dict:
     """K3b against its plain version on K3's own o and lse (f32 with TF32
-    off and bf16; hd 64, 16 and 128; S 128, 512 and a ragged 1000; B 2, H
-    15 over KV 5), K3's lse against the plain logsumexp and its output
-    with a null lse bit-equal to the output with one, two K3b calls
-    bit-equal, then K3b timed at the training shape (B 8, S 512, bf16,
-    causal) beside its plain version and autograd's SDPA backward.
+    off and bf16; hd 64, 16 and 128; S 16, 48, 128, 512 and a ragged
+    1000; B 2, H 15 over KV 5), bf16 also against the plain version that
+    rounds P and dS to bf16 where the kernel does; K3's lse against the
+    plain logsumexp and its output with a null lse bit-equal to the output
+    with one, two K3b calls bit-equal; the ``-Xptxas -v`` lines of each
+    K3b kernel; then K3b at B 8, bf16, causal, S 128, 512 (the train
+    step's shape) and 1000, held against both plain versions and timed
+    beside autograd's SDPA backward, its plain version timed at S 512, and
+    each pass's device ms at S 512 from one profiled call.
     Tolerances: K3b within TOL x max|plain| (gradients are not O(1)); the
     lse within 1e-4 (f32) and 1e-3 (bf16)."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    report = _build.PTXAS_REPORT.get("flash_attention_bwd")
+    if report is None:
+        print("[K3b flash_attention_bwd] ptxas: not rebuilt in this run")
+    else:
+        for name, lines in _k3b_ptxas_lines(report):
+            print(f"[K3b flash_attention_bwd] ptxas {name}: "
+                  + "; ".join(lines))
     H, KV = 15, 5
-    errs, lse_errs = {}, {}
-    for hd, S in ((64, 128), (64, 512), (64, 1000), (16, 128), (16, 512),
-                  (16, 1000), (128, 128), (128, 512), (128, 1000)):
+    errs, rounded, lse_errs = {}, {}, {}
+    for hd, S in ((64, 16), (64, 48), (64, 128), (64, 512), (64, 1000),
+                  (16, 128), (16, 512), (16, 1000), (128, 128), (128, 512),
+                  (128, 1000)):
         for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             q = torch.randn(2, S, H, hd, generator=gen, device="cuda").to(dt)
             k = torch.randn(2, S, KV, hd, generator=gen, device="cuda").to(dt)
@@ -2372,55 +2471,80 @@ def phase_flash_bwd_kernel(gen) -> dict:
             lse_errs[(label, hd, S)] = lerr
             got = flash_attention_bwd_cuda(q, k, v, o, do, lse)
             want = flash_attention_bwd_plain(q, k, v, o, do, lse)
-            torch.cuda.synchronize()
-            rel = 0.0
-            for name, a, b in zip(("dq", "dk", "dv"), got, want):
-                scale = max(float(b.float().abs().max()), 1.0)
-                err = _max_err(a, b)
-                _check(f"K3b {name} {label} hd {hd} S {S}", err / scale,
-                       TOL[label])
-                rel = max(rel, err / scale)
-            errs[(label, hd, S)] = rel
+            errs[(label, hd, S)] = _k3b_errs(f"{label} hd {hd} S {S}", got,
+                                             want, TOL[label])
+            if label == "bf16":
+                rounded[(label, hd, S)] = _k3b_errs(
+                    f"{label} hd {hd} S {S}", got, flash_attention_bwd_plain(
+                        q, k, v, o, do, lse, round_dtype=torch.bfloat16))
             if hd == 64 and S == 1000:
                 again = flash_attention_bwd_cuda(q, k, v, o, do, lse)
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise AssertionError(f"K3b not deterministic ({label})")
     print("[K3b flash_attention_bwd] max|err|/max|plain| " + " ".join(
         f"{l}/hd{h}@S={s}:{e:.2e}" for (l, h, s), e in errs.items()))
+    print("[K3b flash_attention_bwd] bf16 against the plain version rounding "
+          "P and dS to bf16 (beside against f32 P, dS): " + " ".join(
+              f"hd{h}@S={s}:{e:.2e} ({errs[(l, h, s)]:.2e})"
+              for (l, h, s), e in rounded.items()))
     print("[K3b flash_attention_bwd] K3 lse max|err| " + " ".join(
         f"{l}/hd{h}@S={s}:{e:.2e}" for (l, h, s), e in lse_errs.items())
           + "; K3 with a null lse == K3 with an lse, bitwise; two K3b "
           "calls bitwise equal")
 
-    B, S, hd, dt = TRAIN_B, TRAIN_S, 64, torch.bfloat16
-    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
-    k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
-    v = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
-    do = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
-    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
-    ms = _device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse))
-    plain = _device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do,
-                                                         lse), iters=5)
-    qx, kx, vx = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k.repeat_interleave(H // KV, dim=2),
-                            v.repeat_interleave(H // KV, dim=2)))
-    ox = torch.nn.functional.scaled_dot_product_attention(qx, kx, vx,
-                                                          is_causal=True)
-    dox = do.transpose(1, 2)
-    lib = _device_ms(lambda: torch.autograd.grad(ox, (qx, kx, vx), dox,
-                                                 retain_graph=True))
-    n_bytes = (4 * B * S * H * hd + 4 * B * S * KV * hd) * 2 + B * H * S * 4
-    bound, by = _bound(n_bytes, 10 * B * H * hd * S * (S + 1) / 2, dt)
-    print(f"[K3b flash_attention_bwd] bf16 causal B{B} S{S} H{H} KV{KV} "
-          f"hd{hd}: device ms kernel {ms:.4f}, plain {plain:.4f}, sdpa "
-          f"backward {lib:.4f}; bound {bound * 1e3:.3f} us ({by}, "
-          f"{n_bytes / 1e6:.1f} MB); kernel/sdpa-bwd {ms / lib:.2f}, bound "
-          f"share {100 * bound / ms:.2f}%")
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/models/attention.py:119",
-            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib}
+    B, hd, dt = TRAIN_B, 64, torch.bfloat16
+    entry = None
+    for S in (128, TRAIN_S, 1000):
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
+        k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
+        v = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
+        do = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+
+        def kernel():
+            return flash_attention_bwd_cuda(q, k, v, o, do, lse)
+        got = kernel()
+        tag = f"bf16 B{B} hd {hd} S {S}"
+        rel = _k3b_errs(tag, got, flash_attention_bwd_plain(
+            q, k, v, o, do, lse), TOL["bf16"])
+        rel_r = _k3b_errs(tag, got, flash_attention_bwd_plain(
+            q, k, v, o, do, lse, round_dtype=torch.bfloat16))
+        errs[(f"bf16/B{B}", hd, S)] = rel
+        del got
+        lib_fn = _sdpa_bwd(q, k, v, do)
+        ms = _device_ms(kernel)
+        lib = _device_ms(lib_fn)
+        ms = (ms + _device_ms(kernel)) / 2          # kernel, sdpa, kernel
+        n_bytes = ((4 * B * S * H * hd + 4 * B * S * KV * hd) * 2
+                   + B * H * S * 4)
+        bound, by = _bound(n_bytes, 10 * B * H * hd * S * (S + 1) / 2, dt)
+        line = (f"[K3b flash_attention_bwd] bf16 causal B{B} S{S} H{H} "
+                f"KV{KV} hd{hd}: max|err|/max|plain| {rel:.2e} (against "
+                f"the plain version rounding P and dS {rel_r:.2e}); "
+                f"device ms kernel {ms:.4f}, sdpa backward "
+                f"{lib:.4f}, kernel/sdpa-bwd {ms / lib:.2f}; bound "
+                f"{bound * 1e3:.3f} us ({by}, {n_bytes / 1e6:.1f} MB), "
+                f"bound share {100 * bound / ms:.2f}%")
+        if S == TRAIN_S:
+            plain = _device_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, o, do, lse), iters=5)
+            passes, occupancy = _k3b_pass_ms(kernel)
+            line += (f"; plain {plain:.4f}; one profiled call: " + ", ".join(
+                f"{tag} {t:.4f}" for tag, t in passes.items()) + " ms; "
+                "registers a thread / warps an SM / est. achieved "
+                "occupancy % (profiler): " + ", ".join(
+                    f"{tag} {' / '.join(map(str, o))}"
+                    for tag, o in occupancy.items()))
+            entry = {"name": "flash_attention_bwd", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                     "replaces": "src/repro/models/attention.py:119",
+                     "max_abs_err": None, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                     "library_ms": lib}
+        print(line)
+        del q, k, v, do, o, lse, lib_fn
+    entry["max_abs_err"] = max(errs.values())
+    return entry
 
 
 def _plain_attention(q, k, v, *, causal=True):
@@ -2564,8 +2688,18 @@ def _profile_train_step(step_fn, state, bt, smi) -> None:
     for e in kernels:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
-    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
+    for name, us in top[:8]:
         print(f"[train]   {us / 1e3:8.3f} ms  {name[:90]}")
+    k3b = {tag: sum(us for name, us in per_kernel.items() if key in name)
+           for key, tag in K3B_PASSES}
+    print(f"[train] K3b in the step: " + ", ".join(
+        f"{tag} {us / 1e3:.3f} ms" for tag, us in k3b.items())
+          + f"; {100 * sum(k3b.values()) / busy:.1f}% of the device's busy "
+          f"time")
+    if any(key in name for name, _ in top[:2] for key, _ in K3B_PASSES):
+        raise AssertionError("[train] a K3b pass is among the step's two "
+                             "longest kernels")
 
 
 def _train_child(args) -> list:

@@ -15,34 +15,79 @@
 //
 // Shapes are the training ones: Sq == Skv == S, query row i at key
 // position i, q/o/dO/dq (B, S, H, hd) and k/v/dk/dv (B, S, KV, hd), all
-// contiguous, GQA through kv head = h / G; lse and D are (B, H, S) f32.
-// bf16 and f32 in, the input dtype out, every sum in f32.
+// contiguous with rows on 16-byte boundaries, GQA through kv head = h /
+// G; lse and D are (B, H, S) f32.  bf16 and f32 in, the input dtype out,
+// every sum in f32.
 //
-// What bounds it on an H100: operations.  A causal backward does five
-// S x S x hd products per head over half the (q, k) plane, about
-// 5 * 2 * H * hd * S^2 / 2 FLOPs on 4 H S hd + 4 KV S hd elements; at S
-// 512, H 15, hd 64 that is ~S FLOPs a byte, past the bf16 ridge.  This
-// first version runs them on the CUDA cores in f32 from tiles staged in
-// shared memory (the tensor-core version is queued work): simple, and
-// right.
+// What bounds it on an H100.  The function does five S x S x hd products
+// per head over the causal half, 5 * 2 * B * H * hd * S^2 / 2 FLOPs
+// (1.0e10 at B 8, S 512, H 15, hd 64: 10 us at the bf16 tensor-core
+// peak) on 42 MB that must be read or written once (12.6 us at 3.35
+// TB/s): it sits near the ridge, and only the tensor cores reach either
+// bound.  What bounds this design: it does seven products, not five, to
+// stay deterministic (S and dP again in pass 3), and it issues them as
+// mma.sync with its B fragments brought by ldmatrix, at about the
+// per-FLOP rate of autograd's SDPA backward on this card.  Its mma
+// passes hold ~240 registers a thread (the -Xptxas -v lines), so the
+// register file lets an SM hold at most one 256-thread pass-2 block or
+// two 128-thread pass-3 blocks: 8 warps.  Hypothesis, not measured (no
+// stall reason or achieved occupancy has been read on the card): what
+// is left is latency, the 8 warps' own phases (products, then P and dS,
+// then products) leaving the tensor pipe idle in turn.
 //
-// Design:
-//  * Pass 2 (dK, dV): one block per (64-key tile, KV head, batch row).
-//    It keeps its K and V tile in shared memory and walks, in a fixed
-//    order, the G query heads of its KV head and, for each, the 64-row
-//    query tiles that can see the tile (from the diagonal on when
-//    causal).  The G heads' contributions sum inside the block, so no
-//    two blocks write one dK or dV row.
-//  * Pass 3 (dQ): one block per (64-row query tile, head, batch row),
-//    walking the key tiles up to the diagonal.
-//  * Each (query tile, key tile) step recomputes S = q k^T and
-//    dP = dO v^T for its 64 x 64 tile (256 threads, a 4 x 4 patch each),
-//    turns them into P and dS in shared memory, and then every thread
-//    updates the hd / 4 accumulator entries of the one key (pass 2) or
-//    query row (pass 3) it owns.
-//  * No atomics and a fixed walk: two runs give the same bits.
-//  * Shared-memory rows are padded by one float, so the column walks of
-//    the products are free of bank conflicts.
+// bf16 (the training dtype) runs every product on the tensor cores with
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate), fragments through
+// ldmatrix from shared memory rows padded by 16 bytes (free of bank
+// conflicts), tiles brought by cp.async (16 bytes a thread; lse and D 4
+// bytes a thread) into two-stage rings, rows past S zero-filled:
+//  * Pass 1 (D): L = hd / 8 neighbouring lanes read a row's o and dO,
+//    16 bytes each, and sum their partial dots by a butterfly of
+//    shuffles (one fixed order).
+//  * Pass 2 (dK, dV): one block per (64-key tile, KV head, batch row),
+//    key tile 0 launched first (it walks the most query tiles when
+//    causal), two groups of four warps of 16 keys each.  A warp computes
+//    the transposed tiles with its keys as the M rows: S^T = K Q^T and
+//    dP^T = V dO^T (K and V the A operands, held in registers for hd <=
+//    64; Q and dO the B operands from the ring), P^T and dS^T per column
+//    (query) from lse and D, then dV += P^T dO and dK += dS^T Q with P^T
+//    and dS^T turned from accumulator fragments straight into A
+//    fragments and Q, dO through ldmatrix.trans.  The block walks the G
+//    query heads of the KV head, each over the query tiles that can see
+//    the key tile (from the diagonal on when causal), in one fixed order;
+//    the two groups take its steps in turn, each with its own ring and
+//    named barrier, so that they drift apart and one group's products
+//    overlap the other's P and dS.
+//    dK and dV stay in f32 registers for the whole walk; group 1's sums
+//    are added to group 0's, in that order, at the end.  No two blocks
+//    write one dK or dV row.
+//  * Pass 3 (dQ): the G query heads of a KV head stacked into rows (row
+//    r = query r / G, head r % G), one block per (128 stacked rows, KV
+//    head, batch row; 64 at hd 128), the causal tail's longest row tiles
+//    first: each K/V tile is fetched once per group, not G times.  A warp
+//    holds its 32 rows' (16 at hd 128) Q and dO as A fragments, walks
+//    32-key tiles from tile 0 up to the last one its rows can see, in one
+//    fixed order, computes S = Q K^T, dP = dO V^T, dS, and dQ += dS K (K
+//    through ldmatrix.trans), each K and V fragment serving both 16-row
+//    m-tiles, dQ in f32 registers until its one store.
+//  * A step whose tile crosses no row's diagonal and no end of S skips
+//    the per-element mask.  At hd 128 pass 2 takes 32 query rows a step
+//    and reads K and V fragments from shared memory, so that nothing
+//    spills.
+//  * Rounding: each product's inputs are bf16 and its sums f32.  P and dS
+//    are computed in f32 and rounded to bf16 for the products that
+//    consume them (P^T for dV; dS^T for dK; dS for dQ), as the plain
+//    version does with round_dtype=torch.bfloat16; dK and dQ are scaled
+//    in f32 and every output is rounded to bf16 once, at its store.
+//  * No atomics and a fixed walk: two runs give the same bits.  S and dP
+//    are recomputed in pass 3: the price of that.
+//
+// float32 runs the three passes on the CUDA cores in full f32 (TF32
+// would break the 1e-4 bar): pass 1 as above (4 floats a lane), then
+// 256-thread blocks that stage f32 tiles in shared memory (rows padded by
+// one float), compute each 64 x 64 step's S and dP (a 4 x 4 patch a
+// thread) into P and dS tiles, and update the hd / 4 accumulator entries
+// of the one key (pass 2) or query row (pass 3, one block per head) each
+// thread owns.
 //
 // The launcher runs the three passes on the caller's stream, allocates
 // nothing (D is a (B, H, S) f32 scratch the wrapper passes) and returns
@@ -52,38 +97,535 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
+// ------------------------------------------------------------------ pass 1
+constexpr int kDotThreads = 256;
+
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b,
+                                       float) {
+  const float* x = reinterpret_cast<const float*>(&a);
+  const float* y = reinterpret_cast<const float*>(&b);
+  float s = x[0] * y[0];
+#pragma unroll
+  for (int i = 1; i < 4; ++i) s = fmaf(x[i], y[i], s);
+  return s;
+}
+
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b,
+                                       __nv_bfloat16) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
+}
+
+// D[b, h, i] = sum_d dO[b, i, h, d] * o[b, i, h, d]: the L lanes of a row
+// read 16 bytes each (neighbouring lanes, neighbouring addresses) and sum
+// by a butterfly of shuffles; rows are (b, i, h) in memory order
+template <int HD, typename T>
+__global__ void __launch_bounds__(kDotThreads) bwd_dot_kernel(
+    const T* __restrict__ o, const T* __restrict__ dout,
+    float* __restrict__ D, int64_t rows, int S, int H) {
+  constexpr int E = 16 / sizeof(T);      // elements a lane reads
+  constexpr int L = HD / E;              // lanes a row
+  static_assert(L >= 1 && L <= 32 && (L & (L - 1)) == 0, "lanes a row");
+  const int64_t t = (int64_t)blockIdx.x * kDotThreads + threadIdx.x;
+  const int64_t r = t / L;
+  const int c = (int)(t % L) * E;
+  float acc = 0.f;
+  if (r < rows)
+    acc = dot16(*reinterpret_cast<const uint4*>(o + r * HD + c),
+                *reinterpret_cast<const uint4*>(dout + r * HD + c), T());
+#pragma unroll
+  for (int w = L / 2; w > 0; w /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (r < rows && c == 0) {
+    const int h = (int)(r % H);
+    const int64_t bs = r / H;
+    const int i = (int)(bs % S);
+    const int64_t b = bs / S;
+    D[(b * H + h) * S + i] = acc;
+  }
+}
+
+// ------------------------------------------------------ bf16, mma.sync
+constexpr int kWarps = 4;    // a warp group: 16 keys or 16 MT rows a warp
+constexpr int kMmaThreads = 32 * kWarps;
+constexpr int kDkdvThreads = 2 * kMmaThreads;    // pass 2: two groups
+constexpr int kKeyTile = 16 * kWarps;    // pass 2's keys a block
+
+template <int HD>
+struct Tiles {
+  static constexpr int LD = HD + 8;      // padded smem row (elements)
+  static constexpr int KS = HD / 16;     // k steps over hd
+  static constexpr int CH = HD / 8;      // 16-byte chunks of a row
+  static constexpr int QT = HD <= 64 ? 64 : 32;   // pass 2's query step
+  static constexpr int KT = 32;                   // pass 3's key step
+  static constexpr int MT = HD <= 64 ? 2 : 1;      // pass 3's m-tiles a warp
+  static constexpr int RT = 16 * MT * kWarps;      // pass 3's rows a block
+  static constexpr bool kHoldKV = HD <= 64;       // pass 2's K/V in regs
+  // pass 2's ring of one warp group: Q, dO [2][QT][LD]; lse, D [2][QT]
+  static constexpr int kRingBytes =
+      2 * 2 * QT * LD * (int)sizeof(__nv_bfloat16) + 2 * 2 * QT * 4;
+};
+
+// n_rows rows of head h from row r0 of a (B, S, heads, HD) bf16 tensor
+// into a padded smem tile by cp.async, thread t of NT; rows past S are
+// zero
+template <int HD, int NT>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int b,
+                                          int r0, int n_rows, int S,
+                                          int heads, int h, int t) {
+  using T = Tiles<HD>;
+  for (int i = t; i < n_rows * T::CH; i += NT) {
+    const int j = i / T::CH, c = (i % T::CH) * 8;
+    const bool in = r0 + j < S;
+    const int64_t row = in ? r0 + j : 0;
+    cp_async16(dst + j * T::LD + c,
+               src + (((int64_t)b * S + row) * heads + h) * HD + c, in);
+  }
+}
+
+// S^T = K Q^T and dP^T = V dO^T for one warp's 16 keys against the
+// step's QT query rows (the n axis): ka/va are the keys' A fragments
+template <int HD>
+__device__ __forceinline__ void kq_tile(
+    float (&s)[Tiles<HD>::QT / 8][4], float (&dp)[Tiles<HD>::QT / 8][4],
+    const uint32_t (&ka)[4], const uint32_t (&va)[4],
+    const __nv_bfloat16* tq, const __nv_bfloat16* tdo, int kk, int lane) {
+  using T = Tiles<HD>;
+#pragma unroll
+  for (int jp = 0; jp < T::QT / 16; ++jp) {
+    const int at = (16 * jp + (lane / 16) * 8 + lane % 8) * T::LD + 16 * kk +
+                   ((lane / 8) & 1) * 8;
+    uint32_t r[4];
+    ldsm_x4(r, tq + at);
+    mma16816(s[2 * jp], ka, r[0], r[1]);
+    mma16816(s[2 * jp + 1], ka, r[2], r[3]);
+    ldsm_x4(r, tdo + at);
+    mma16816(dp[2 * jp], va, r[0], r[1]);
+    mma16816(dp[2 * jp + 1], va, r[2], r[3]);
+  }
+}
+
+// pass 2's P^T and dS^T in place of S^T and dP^T: entry (key, query) of
+// the thread's fragments, lse and D per column from the step's smem
+template <bool kMask, int NQ>
+__device__ __forceinline__ void p_ds_cols(float (&s)[NQ][4],
+                                          float (&dp)[NQ][4],
+                                          const float* tl, const float* td,
+                                          int key0, int q0, int tig, int S,
+                                          int causal, float scale_log2) {
+#pragma unroll
+  for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * n + 2 * tig + e;
+      const float l2 = tl[col] * kLog2e, dd = td[col];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float p = ex2(fmaf(s[n][2 * i + e], scale_log2, -l2));
+        if (kMask) {
+          const int key = key0 + 8 * i, query = q0 + col;
+          if (key >= S || query >= S || (causal && key > query)) p = 0.f;
+        }
+        s[n][2 * i + e] = p;
+        dp[n][2 * i + e] = p * (dp[n][2 * i + e] - dd);
+      }
+    }
+  }
+}
+
+// acc[mt] (16 rows x hd) += f[mt] (16 x 16 kc, accumulator fragments
+// turned into A fragments, rounded to bf16) x the first 16 kc rows of a
+// padded smem tile through ldmatrix.trans, for a warp's MT m-tiles, each
+// B fragment loaded once for all of them
+template <int HD, int NK, int MT>
+__device__ __forceinline__ void acc_product(
+    float (&acc)[MT][HD / 8][4], const float (&f)[MT][NK][4],
+    const __nv_bfloat16* tile, int lane) {
+  constexpr int LD = Tiles<HD>::LD;
+#pragma unroll
+  for (int kc = 0; kc < NK / 2; ++kc) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      a[mt][0] = pack_bf16(f[mt][2 * kc][0], f[mt][2 * kc][1]);
+      a[mt][1] = pack_bf16(f[mt][2 * kc][2], f[mt][2 * kc][3]);
+      a[mt][2] = pack_bf16(f[mt][2 * kc + 1][0], f[mt][2 * kc + 1][1]);
+      a[mt][3] = pack_bf16(f[mt][2 * kc + 1][2], f[mt][2 * kc + 1][3]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      uint32_t r[4];
+      ldsm_x4_t(r, tile + (16 * kc + ((lane / 8) & 1) * 8 + lane % 8) * LD +
+                       16 * dp + (lane / 16) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma16816(acc[mt][2 * dp], a[mt], r[0], r[1]);
+        mma16816(acc[mt][2 * dp + 1], a[mt], r[2], r[3]);
+      }
+    }
+  }
+}
+
+// the 128 threads of warp group g (0 or 1) of a pass-2 block wait for
+// each other (named barrier 1 + g; barrier 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "r"(kMmaThreads));
+}
+
+// pass 2: dK, dV of one 64-key tile of one KV head (grid: KV * B, key
+// tiles; key tile 0 first).  Two groups of four warps take the walk's
+// steps in turn (group g the steps g, g + 2, ...), each with its own ring,
+// its own barrier and its own dK/dV accumulators, so one group's products
+// can run while the other computes P and dS; at the end group 1 hands its
+// sums to group 0 through shared memory, which adds them in that order.
+template <int HD>
+__global__ void __launch_bounds__(kDkdvThreads) bwd_dkdv_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ D, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int S, int H, int KV, int causal,
+    float scale, float scale_log2) {
+  using T = Tiles<HD>;
+  constexpr int LD = T::LD, KS = T::KS, QT = T::QT, NQ = QT / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + kKeyTile * LD;
+  unsigned char* rings = reinterpret_cast<unsigned char*>(sV + kKeyTile * LD);
+
+  const int kvh = blockIdx.x % KV, b = blockIdx.x / KV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = warp / kWarps, gt = tid % kMmaThreads;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int G = H / KV, k0 = blockIdx.y * kKeyTile;
+  const int kw0 = k0 + 16 * (warp % kWarps);
+  const int qt0 = causal ? k0 / QT : 0;
+  const int nqt = (S + QT - 1) / QT - qt0;
+  const int n_steps = G * nqt, n_rounds = (n_steps + 1) / 2;
+  // this group's ring: Q and dO [2][QT][LD], then lse and D [2][QT]
+  __nv_bfloat16* sQ =
+      reinterpret_cast<__nv_bfloat16*>(rings + grp * T::kRingBytes);
+  __nv_bfloat16* sdO = sQ + 2 * QT * LD;
+  float* sL = reinterpret_cast<float*>(sdO + 2 * QT * LD);
+  float* sD = sL + 2 * QT;
+
+  // the group's step st into its ring stage buf; past the walk, an empty
+  // cp.async group, so every thread commits the same count
+  auto load_step = [&](int st, int buf) {
+    if (st < n_steps) {
+      const int h = kvh * G + st / nqt, q0 = (qt0 + st % nqt) * QT;
+      load_rows<HD, kMmaThreads>(sQ + buf * QT * LD, q, b, q0, QT, S, H, h,
+                                 gt);
+      load_rows<HD, kMmaThreads>(sdO + buf * QT * LD, dout, b, q0, QT, S, H,
+                                 h, gt);
+      if (gt < 2 * QT) {
+        const int i = gt % QT, row = q0 + i;
+        const bool in = row < S;
+        const int64_t at = ((int64_t)b * H + h) * S + (in ? row : 0);
+        if (gt < QT)
+          cp_async4(sL + buf * QT + i, lse + at, in);
+        else
+          cp_async4(sD + buf * QT + i, D + at, in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  load_rows<HD, kDkdvThreads>(sK, k, b, k0, kKeyTile, S, KV, kvh, tid);
+  load_rows<HD, kDkdvThreads>(sV, v, b, k0, kKeyTile, S, KV, kvh, tid);
+  cp_async_commit();
+  load_step(grp, 0);
+  cp_async_wait<1>();                    // K and V are in
+  __syncthreads();
+  const __nv_bfloat16* wk = sK + 16 * (warp % kWarps) * LD;
+  const __nv_bfloat16* wv = sV + 16 * (warp % kWarps) * LD;
+  const int a_at = (lane % 16) * LD + (lane / 16) * 8;
+  // K and V as A fragments: all of hd held, or one k step at a time
+  uint32_t ka[T::kHoldKV ? KS : 1][4], va[T::kHoldKV ? KS : 1][4];
+  if constexpr (T::kHoldKV) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldsm_x4(ka[kk], wk + a_at + 16 * kk);
+      ldsm_x4(va[kk], wv + a_at + 16 * kk);
+    }
+  }
+
+  float adk[1][HD / 8][4], adv[1][HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) adk[0][n][j] = adv[0][n][j] = 0.f;
+  }
+  for (int rd = 0; rd < n_rounds; ++rd) {
+    if (rd + 1 < n_rounds) {
+      load_step(2 * (rd + 1) + grp, (rd + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    group_sync(grp);                     // the round's tiles visible
+    const int st = 2 * rd + grp, buf = rd & 1;
+    const int q0 = (qt0 + st % nqt) * QT;
+    // a warp whose keys are all past S, or all past the step's last
+    // query when causal, has nothing to add
+    if (st < n_steps && kw0 < S && (!causal || kw0 <= q0 + QT - 1)) {
+      const __nv_bfloat16* tq = sQ + buf * QT * LD;
+      const __nv_bfloat16* tdo = sdO + buf * QT * LD;
+      float s[1][NQ][4], dp[1][NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[0][n][j] = dp[0][n][j] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        if constexpr (T::kHoldKV) {
+          kq_tile<HD>(s[0], dp[0], ka[kk], va[kk], tq, tdo, kk, lane);
+        } else {
+          ldsm_x4(ka[0], wk + a_at + 16 * kk);
+          ldsm_x4(va[0], wv + a_at + 16 * kk);
+          kq_tile<HD>(s[0], dp[0], ka[0], va[0], tq, tdo, kk, lane);
+        }
+      }
+      const float* tl = sL + buf * QT;
+      const float* td = sD + buf * QT;
+      if (kw0 + 16 > S || q0 + QT > S || (causal && kw0 + 15 > q0)) {
+        p_ds_cols<true, NQ>(s[0], dp[0], tl, td, kw0 + gid, q0, tig, S, causal,
+                            scale_log2);
+      } else {
+        p_ds_cols<false, NQ>(s[0], dp[0], tl, td, kw0 + gid, q0, tig, S, causal,
+                             scale_log2);
+      }
+      acc_product<HD, NQ, 1>(adv, s, tdo, lane);    // dV += P^T dO
+      acc_product<HD, NQ, 1>(adk, dp, tq, lane);    // dK += dS^T Q
+    }
+    group_sync(grp);                     // the ring stage is free again
+  }
+  __syncthreads();                       // both groups are done
+  // group 1's sums into the free rings, [value][thread] so that the
+  // stores are conflict-free; group 0 adds them to its own and stores
+  float* part = reinterpret_cast<float*>(rings);
+  static_assert(HD * kMmaThreads * sizeof(float) <= 2 * T::kRingBytes,
+                "the rings hold the hand-over");
+  if (grp == 1) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        part[(4 * n + j) * kMmaThreads + gt] = adk[0][n][j];
+        part[(HD / 2 + 4 * n + j) * kMmaThreads + gt] = adv[0][n][j];
+      }
+    }
+  }
+  __syncthreads();
+  if (grp == 1) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kw0 + gid + 8 * i;
+    if (key >= S) continue;
+    const int64_t at = (((int64_t)b * S + key) * KV + kvh) * HD + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const float* pk = part + (4 * n + 2 * i) * kMmaThreads + gt;
+      const float* pv = part + (HD / 2 + 4 * n + 2 * i) * kMmaThreads + gt;
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * n) =
+          pack_bf16((adk[0][n][2 * i] + pk[0]) * scale,
+                    (adk[0][n][2 * i + 1] + pk[kMmaThreads]) * scale);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * n) =
+          pack_bf16(adv[0][n][2 * i] + pv[0],
+                    adv[0][n][2 * i + 1] + pv[kMmaThreads]);
+    }
+  }
+}
+
+// pass 3: dQ of RT stacked rows (query r / G, head r % G) of one KV head,
+// 16 MT a warp (grid: KV * B, row tiles; when causal the last row tile
+// first)
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ D, __nv_bfloat16* __restrict__ dq, int S,
+    int H, int KV, int causal, float scale, float scale_log2) {
+  using T = Tiles<HD>;
+  constexpr int LD = T::LD, KS = T::KS, KT = T::KT, NK = KT / 8;
+  constexpr int MT = T::MT, RT = T::RT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + 2 * KT * LD;            // [2][KT][LD] each
+
+  const int kvh = blockIdx.x % KV, b = blockIdx.x / KV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int G = H / KV, rows = G * S;
+  const int rt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int r_blk = rt * RT, r_warp = r_blk + 16 * MT * warp;
+
+  auto load_tile = [&](int t, int buf) {
+    load_rows<HD, kMmaThreads>(sK + buf * KT * LD, k, b, t * KT, KT, S, KV,
+                               kvh, tid);
+    load_rows<HD, kMmaThreads>(sV + buf * KT * LD, v, b, t * KT, KT, S, KV,
+                               kvh, tid);
+    cp_async_commit();
+  };
+  load_tile(0, 0);                       // in flight while Q, dO load
+
+  // this thread's rows: gid and gid + 8 of each of the warp's m-tiles
+  bool live[MT][2];
+  int pos[MT][2];
+  float l2[MT][2], dd[MT][2];
+  __nv_bfloat16* dqp[MT][2];
+  uint32_t qa[MT][KS][4], oa[MT][KS][4];   // Q and dO as A fragments
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_warp + 16 * mt + gid + 8 * i;
+      const bool in = r < rows;
+      const int qrow = in ? r / G : 0, h = kvh * G + (in ? r % G : 0);
+      const int64_t row_at = (((int64_t)b * S + qrow) * H + h) * HD;
+      const int64_t at = ((int64_t)b * H + h) * S + qrow;
+      live[mt][i] = in;
+      pos[mt][i] = qrow;
+      l2[mt][i] = in ? lse[at] * kLog2e : 0.f;
+      dd[mt][i] = in ? D[at] : 0.f;
+      dqp[mt][i] = dq + row_at;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int d = 16 * kk + 2 * tig + 8 * hf;
+          qa[mt][kk][i + 2 * hf] =
+              in ? *reinterpret_cast<const uint32_t*>(q + row_at + d) : 0;
+          oa[mt][kk][i + 2 * hf] =
+              in ? *reinterpret_cast<const uint32_t*>(dout + row_at + d) : 0;
+        }
+      }
+    }
+  }
+  // causal: up to the key tile of the block's last live row's position
+  const int r_last = min(r_blk + RT, rows) - 1;
+  const int n_kt = causal ? (r_last / G) / KT + 1 : (S + KT - 1) / KT;
+  const bool warp_live = r_warp < rows;
+  const int warp_first_pos = r_warp / G;
+  const int warp_last_pos = (min(r_warp + 16 * MT, rows) - 1) / G;
+
+  float acc[MT][HD / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][n][j] = 0.f;
+    }
+  }
+  for (int t = 0; t < n_kt; ++t) {
+    if (t + 1 < n_kt) {
+      load_tile(t + 1, (t + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                     // the tile visible to all warps
+    const int c0 = t * KT;
+    if (warp_live && (!causal || c0 <= warp_last_pos)) {
+      const __nv_bfloat16* tk = sK + (t & 1) * KT * LD;
+      const __nv_bfloat16* tv = sV + (t & 1) * KT * LD;
+      float s[MT][NK][4], dp[MT][NK][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[mt][n][j] = dp[mt][n][j] = 0.f;
+        }
+      }
+      // S = Q K^T, dP = dO V^T: ldmatrix x4 gives b0/b1 of two n-tiles,
+      // used by every m-tile
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < KT / 16; ++jp) {
+          const int at = (16 * jp + (lane / 16) * 8 + lane % 8) * LD +
+                         16 * kk + ((lane / 8) & 1) * 8;
+          uint32_t r[4];
+          ldsm_x4(r, tk + at);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma16816(s[mt][2 * jp], qa[mt][kk], r[0], r[1]);
+            mma16816(s[mt][2 * jp + 1], qa[mt][kk], r[2], r[3]);
+          }
+          ldsm_x4(r, tv + at);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma16816(dp[mt][2 * jp], oa[mt][kk], r[0], r[1]);
+            mma16816(dp[mt][2 * jp + 1], oa[mt][kk], r[2], r[3]);
+          }
+        }
+      }
+      // dS per row (its lse and D in registers); a masked entry is 0
+      const bool mask =
+          c0 + KT > S || (causal && c0 + KT - 1 > warp_first_pos);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = j / 2, key = c0 + 8 * n + 2 * tig + (j & 1);
+            float p = ex2(fmaf(s[mt][n][j], scale_log2, -l2[mt][i]));
+            if (mask && (key >= S || (causal && key > pos[mt][i]))) p = 0.f;
+            dp[mt][n][j] = p * (dp[mt][n][j] - dd[mt][i]);
+          }
+        }
+      }
+      acc_product<HD, NK, MT>(acc, dp, tk, lane);   // dQ += dS K
+    }
+    __syncthreads();                     // the ring stage is free again
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!live[mt][i]) continue;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dqp[mt][i] + 8 * n + 2 * tig) =
+            pack_bf16(acc[mt][n][2 * i] * scale,
+                      acc[mt][n][2 * i + 1] * scale);
+    }
+  }
+}
+
+// ------------------------------------------------------ float32, CUDA cores
 constexpr int kTile = 64;          // query rows and keys per tile
 constexpr int kThreads = 256;
 constexpr int kLdT = kTile + 1;    // padded row of a P / dS tile
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // rows [r0, r0 + 64) of head h of a (B, S, heads, HD) tensor into a
 // (64, HD + 1) f32 tile; rows past S are zero
-template <int HD, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int b, int r0,
-                                      int S, int heads, int h) {
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int b,
+                                      int r0, int S, int heads, int h) {
   for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
     const int row = r0 + r;
     dst[r * (HD + 1) + d] =
-        row < S ? to_f32(src[(((int64_t)b * S + row) * heads + h) * HD + d])
-                : 0.f;
+        row < S ? src[(((int64_t)b * S + row) * heads + h) * HD + d] : 0.f;
   }
 }
 
@@ -143,33 +685,15 @@ __device__ __forceinline__ void p_ds_tile(
   }
 }
 
-// pass 1: D[b, h, i] = sum_d dO[b, i, h, d] * o[b, i, h, d], one thread a
-// row
-template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads) bwd_dot_kernel(
-    const T* __restrict__ o, const T* __restrict__ dout,
-    float* __restrict__ D, int B, int S, int H) {
-  const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= (int64_t)B * S * H) return;
-  const int h = r % H;
-  const int64_t bs = r / H;
-  const int i = bs % S, b = bs / S;
-  const T* op = o + r * HD;
-  const T* gp = dout + r * HD;
-  float acc = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) acc = fmaf(to_f32(gp[d]), to_f32(op[d]), acc);
-  D[((int64_t)b * H + h) * S + i] = acc;
-}
 
-// pass 2: dK, dV of one 64-key tile of one KV head.  Thread t owns key
+// float32 pass 2: dK, dV of one 64-key tile of one KV head.  Thread t owns key
 // j = t % 64 and the hd / 4 dims starting at (t / 64) * hd / 4.
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ D,
-    T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KV,
     int causal, float scale) {
   constexpr int LD = HD + 1, NC = HD / 4;
   extern __shared__ float smem[];
@@ -224,19 +748,19 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(
   const int64_t at = (((int64_t)b * S + key) * KV + kvh) * HD + c0;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    dk[at + c] = from_f32<T>(adk[c] * scale);
-    dv[at + c] = from_f32<T>(adv[c]);
+    dk[at + c] = adk[c] * scale;
+    dv[at + c] = adv[c];
   }
 }
 
-// pass 3: dQ of one 64-row query tile of one head.  Thread t owns row
+// float32 pass 3: dQ of one 64-row query tile of one head.  Thread t owns row
 // i = t % 64 and the hd / 4 dims starting at (t / 64) * hd / 4.
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ D,
-    T* __restrict__ dq, int S, int H, int KV, int causal, float scale) {
+    float* __restrict__ dq, int S, int H, int KV, int causal, float scale) {
   constexpr int LD = HD + 1, NC = HD / 4;
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -281,8 +805,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
   if (row >= S) return;
   const int64_t at = (((int64_t)b * S + row) * H + h) * HD + c0;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) dq[at + c] = from_f32<T>(adq[c] * scale);
+  for (int c = 0; c < NC; ++c) dq[at + c] = adq[c] * scale;
 }
+
 
 template <typename F>
 int allow_smem(F* kernel, size_t bytes) {
@@ -291,57 +816,104 @@ int allow_smem(F* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+
 template <int HD, typename T>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* D, void* dq, void* dk,
-           void* dv, int B, int S, int H, int KV, int causal,
-           cudaStream_t st) {
-  constexpr int LD = HD + 1;
-  const float scale = 1.0f / sqrtf((float)HD);
+int launch_dot(const void* o, const void* dout, float* D, int B, int S,
+               int H, cudaStream_t st) {
   const int64_t rows = (int64_t)B * S * H;
-  bwd_dot_kernel<HD, T><<<(unsigned)((rows + kThreads - 1) / kThreads),
-                          kThreads, 0, st>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), D, B, S, H);
-  int e = (int)cudaGetLastError();
-  if (e) return e;
-  const int nt = (S + kTile - 1) / kTile;
-  const size_t smem2 =
-      sizeof(float) * (4 * kTile * LD + 2 * kTile * kLdT + 2 * kTile);
-  if ((e = allow_smem(bwd_dkdv_kernel<HD, T>, smem2))) return e;
-  bwd_dkdv_kernel<HD, T><<<dim3(nt, KV, B), kThreads, smem2, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, D,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, causal, scale);
-  if ((e = (int)cudaGetLastError())) return e;
-  const size_t smem3 =
-      sizeof(float) * (4 * kTile * LD + kTile * kLdT + 2 * kTile);
-  if ((e = allow_smem(bwd_dq_kernel<HD, T>, smem3))) return e;
-  bwd_dq_kernel<HD, T><<<dim3(nt, H, B), kThreads, smem3, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, D,
-      static_cast<T*>(dq), S, H, KV, causal, scale);
+  const int64_t threads = rows * (HD * (int)sizeof(T) / 16);
+  bwd_dot_kernel<HD, T>
+      <<<(unsigned)((threads + kDotThreads - 1) / kDotThreads), kDotThreads,
+         0, st>>>(static_cast<const T*>(o), static_cast<const T*>(dout), D,
+                  rows, S, H);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_dtype(int dtype, const void* q, const void* k, const void* v,
-                 const void* o, const void* dout, const float* lse, float* D,
-                 void* dq, void* dk, void* dv, int B, int S, int H, int KV,
-                 int causal, cudaStream_t st) {
-  if (dtype == 0)
-    return launch<HD, float>(q, k, v, o, dout, lse, D, dq, dk, dv, B, S, H,
-                             KV, causal, st);
-  if (dtype == 1)
-    return launch<HD, __nv_bfloat16>(q, k, v, o, dout, lse, D, dq, dk, dv, B,
-                                     S, H, KV, causal, st);
+int launch_f32(const void* q, const void* k, const void* v,
+               const void* dout, const float* lse, const float* D, void* dq,
+               void* dk, void* dv, int B, int S, int H, int KV, int causal,
+               cudaStream_t st) {
+  constexpr int LD = HD + 1;
+  const float scale = 1.0f / sqrtf((float)HD);
+  const int nt = (S + kTile - 1) / kTile;
+  const size_t smem2 =
+      sizeof(float) * (4 * kTile * LD + 2 * kTile * kLdT + 2 * kTile);
+  int e;
+  if ((e = allow_smem(bwd_dkdv_kernel<HD>, smem2))) return e;
+  bwd_dkdv_kernel<HD><<<dim3(nt, KV, B), kThreads, smem2, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, D,
+      static_cast<float*>(dk), static_cast<float*>(dv), S, H, KV, causal,
+      scale);
+  if ((e = (int)cudaGetLastError())) return e;
+  const size_t smem3 =
+      sizeof(float) * (4 * kTile * LD + kTile * kLdT + 2 * kTile);
+  if ((e = allow_smem(bwd_dq_kernel<HD>, smem3))) return e;
+  bwd_dq_kernel<HD><<<dim3(nt, H, B), kThreads, smem3, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, D,
+      static_cast<float*>(dq), S, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v,
+               const void* dout, const float* lse, const float* D, void* dq,
+               void* dk, void* dv, int B, int S, int H, int KV, int causal,
+               cudaStream_t st) {
+  using T = Tiles<HD>;
+  using bf = __nv_bfloat16;
+  const float scale = 1.0f / sqrtf((float)HD), scale_log2 = scale * kLog2e;
+  const size_t smem2 =
+      sizeof(bf) * 2 * kKeyTile * T::LD + 2 * (size_t)T::kRingBytes;
+  int e;
+  if ((e = allow_smem(bwd_dkdv_mma_kernel<HD>, smem2))) return e;
+  bwd_dkdv_mma_kernel<HD>
+      <<<dim3(KV * B, (S + kKeyTile - 1) / kKeyTile), kDkdvThreads, smem2,
+         st>>>(static_cast<const bf*>(q), static_cast<const bf*>(k),
+               static_cast<const bf*>(v), static_cast<const bf*>(dout), lse,
+               D, static_cast<bf*>(dk), static_cast<bf*>(dv), S, H, KV,
+               causal, scale, scale_log2);
+  if ((e = (int)cudaGetLastError())) return e;
+  const size_t smem3 = sizeof(bf) * 4 * T::KT * T::LD;
+  if ((e = allow_smem(bwd_dq_mma_kernel<HD>, smem3))) return e;
+  const int64_t rows = (int64_t)(H / KV) * S;
+  bwd_dq_mma_kernel<HD>
+      <<<dim3(KV * B, (unsigned)((rows + T::RT - 1) / T::RT)),
+         kMmaThreads, smem3, st>>>(
+          static_cast<const bf*>(q), static_cast<const bf*>(k),
+          static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, D,
+          static_cast<bf*>(dq), S, H, KV, causal, scale, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(int dtype, const void* q, const void* k, const void* v,
+           const void* o, const void* dout, const float* lse, float* D,
+           void* dq, void* dk, void* dv, int B, int S, int H, int KV,
+           int causal, cudaStream_t st) {
+  int e;
+  if (dtype == 0) {
+    if ((e = launch_dot<HD, float>(o, dout, D, B, S, H, st))) return e;
+    return launch_f32<HD>(q, k, v, dout, lse, D, dq, dk, dv, B, S, H, KV,
+                          causal, st);
+  }
+  if (dtype == 1) {
+    if ((e = launch_dot<HD, __nv_bfloat16>(o, dout, D, B, S, H, st)))
+      return e;
+    return launch_mma<HD>(q, k, v, dout, lse, D, dq, dk, dv, B, S, H, KV,
+                          causal, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, o, dout, dq: (B, S, H, hd); k, v,
-// dk, dv: (B, S, KV, hd); all contiguous in that dtype.  lse and the
-// scratch D: (B, H, S) f32 contiguous.  hd in {16, 32, 64, 128}.
+// dk, dv: (B, S, KV, hd); all contiguous in that dtype, starting on
+// 16-byte boundaries.  lse and the scratch D: (B, H, S) f32 contiguous.
+// hd in {16, 32, 64, 128}.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* D, void* dq, void* dk,
@@ -350,20 +922,20 @@ extern "C" int flash_attention_bwd_launch(
   if (KV <= 0 || H % KV != 0 || B <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K3B_LAUNCH(HD)                                                    \
+  return launch<HD>(dtype, q, k, v, o, dout, lse, D, dq, dk, dv, B, S, H, \
+                    KV, causal, st)
   switch (hd) {
     case 16:
-      return launch_dtype<16>(dtype, q, k, v, o, dout, lse, D, dq, dk, dv, B,
-                              S, H, KV, causal, st);
+      K3B_LAUNCH(16);
     case 32:
-      return launch_dtype<32>(dtype, q, k, v, o, dout, lse, D, dq, dk, dv, B,
-                              S, H, KV, causal, st);
+      K3B_LAUNCH(32);
     case 64:
-      return launch_dtype<64>(dtype, q, k, v, o, dout, lse, D, dq, dk, dv, B,
-                              S, H, KV, causal, st);
+      K3B_LAUNCH(64);
     case 128:
-      return launch_dtype<128>(dtype, q, k, v, o, dout, lse, D, dq, dk, dv,
-                               B, S, H, KV, causal, st);
+      K3B_LAUNCH(128);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef K3B_LAUNCH
 }

@@ -5,7 +5,9 @@
 here: it takes this gradient by autodiff of its chunked jnp flash
 attention (``repro.models.attention.flash_attention``, whose nested
 ``jax.checkpoint`` replays the same recurrence).
-``flash_attention_bwd_plain`` is the recurrence in plain PyTorch, f32.
+``flash_attention_bwd_plain`` is the recurrence in plain PyTorch, f32;
+with ``round_dtype=torch.bfloat16`` it rounds P and dS where the bf16
+kernel does, before the products that consume them.
 
 Both take model layout and the training shapes: q, o, do (B, S, H, hd),
 k, v (B, S, KV, hd), query row i at key position i, and K3's per-row
@@ -34,8 +36,12 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True):
-    """Plain version: the recurrence over the whole (S, S) plane in f32."""
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
+                              round_dtype=None):
+    """Plain version: the recurrence over the whole (S, S) plane in f32.
+    ``round_dtype`` (e.g. ``torch.bfloat16``) rounds P before dV and dS
+    before dQ and dK, as the bf16 kernel feeds them to the tensor cores;
+    None keeps them in f32."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -51,6 +57,8 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True):
     D = (do.float() * o.float()).sum(-1).reshape(B, S, KV, G)
     dp = torch.einsum("bqkgh,bskh->bkgqs", dog, vf)
     ds = p * (dp - D.permute(0, 2, 3, 1)[..., None])
+    if round_dtype is not None:
+        p, ds = (x.to(round_dtype).float() for x in (p, ds))
     dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
     dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg) * scale
     dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
@@ -68,7 +76,8 @@ def _fn():
 
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True):
     """Launch K3b's three passes (D, then dK/dV per key tile, then dQ per
-    query tile) on q's device and stream; counts one launch per call."""
+    tile of stacked query rows) on q's device and stream; counts one
+    launch per call."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     tensors = (q, k, v, o, do, lse)
@@ -86,7 +95,11 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True):
                          f"k {tuple(k.shape)} v {tuple(v.shape)} "
                          f"o {tuple(o.shape)} do {tuple(do.shape)} "
                          f"lse {tuple(lse.shape)}")
-    q, k, v, o, do, lse = (t.contiguous() for t in tensors)
+    # the kernel reads rows in 16-byte vectors: a view that starts off
+    # such a boundary is copied, as a strided one is
+    q, k, v, o, do = (c if _build.rows_aligned(c) else c.clone()
+                      for c in (t.contiguous() for t in tensors[:5]))
+    lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     D = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -97,3 +110,4 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True):
     _build.check(err, "flash_attention_bwd")
     _build.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
+

@@ -638,14 +638,15 @@ def _bwd_inputs(cuda, dtype, B, S, H, KV, hd, seed, causal=True):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [64, 100, 512])
+@pytest.mark.parametrize("S", [16, 48, 64, 100, 512, 1000])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, S, hd, causal):
     """K3b against ``flash_attention_bwd_plain`` on the same q, k, v, o,
-    dO and lse (ragged S 100 included), H 15 over KV 5: within 1e-4
-    (f32, TF32 off) and 2e-2 (bf16, the outputs' rounding) of max|plain|;
-    one launch counted per call."""
+    dO and lse (S below one tile, 16 and 48, and ragged S 100 and 1000
+    included), H 15 over KV 5: within 1e-4 (f32, TF32 off) and 2e-2
+    (bf16: P, dS and the outputs rounded to bf16) of max|plain|; one
+    launch counted per call."""
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain)
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -662,6 +663,38 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, S, hd, causal):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == b.shape
         _scaled_close(name, a, b, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_matches_plain_at_training_shape(cuda):
+    """K3b at the train step's shape (bf16, causal, B 8, S 512, H 15 over
+    KV 5, hd 64) within 2e-2 of max|plain|, against the f32 plain version
+    and against the one that rounds P and dS to bf16 where the kernel
+    does."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    args = _bwd_inputs(cuda, torch.bfloat16, 8, 512, 15, 5, 64, 11)
+    got = flash_attention_bwd_cuda(*args)
+    for round_dtype in (None, torch.bfloat16):
+        want = flash_attention_bwd_plain(*args, round_dtype=round_dtype)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            _scaled_close(name, a, b, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bf16_kernels_do_not_spill(cuda, tmp_path, monkeypatch):
+    """Every bf16 instance of K3b's passes (pass 1 and the two mma.sync
+    passes at hd 16, 32, 64 and 128) compiles with no register spills, as
+    ``_build.PTXAS_REPORT`` shows after a fresh build."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    _build.build(["flash_attention_bwd"])
+    entries = _build.PTXAS_REPORT["flash_attention_bwd"].split(
+        "Compiling entry function '")[1:]
+    bf16 = [e for e in entries if "nv_bfloat16" in e.split("'")[0]]
+    assert len(bf16) == 12, [e.split("'")[0] for e in entries]
+    for e in bf16:
+        assert "0 bytes spill stores, 0 bytes spill loads" in e, e
 
 
 @pytest.mark.cuda

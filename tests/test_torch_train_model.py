@@ -147,6 +147,42 @@ def test_bwd_plain_matches_jax_vjp(B, S, H, KV, hd):
                                    rtol=0)
 
 
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 37, 4, 2, 16), (1, 130, 6, 2, 32),
+                                         (2, 64, 3, 3, 64)])
+def test_bwd_plain_rounded_matches_jax_vjp(B, S, H, KV, hd):
+    """K3b's plain version rounding P and dS to bf16 where the bf16 kernel
+    does (``round_dtype``) against ``jax.vjp`` of the JAX flash attention
+    in f32, on ``test_bwd_plain_matches_jax_vjp``'s inputs: the rounding
+    the kernel adds fits inside the bf16 bar, 2e-2 of max|JAX|; and it
+    does round (the result differs from the f32 plain version's)."""
+    q, k, v, do = _attn_inputs(B, S, H, KV, hd, S)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=True,
+                                               q_chunk=32, kv_chunk=64),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = flash_attention_plain(tq, tk, tv, return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse,
+                                    round_dtype=torch.bfloat16)
+    exact = flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse)
+    for g, w, x in zip(got, want, exact):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w,
+                                   atol=2e-2 * np.abs(w).max(), rtol=0)
+        assert not torch.equal(g, x)
+
+
+def test_bwd_cuda_refuses_cpu_tensors():
+    """K3b's launcher never falls back to its plain version: CPU tensors
+    are refused before any build or launch."""
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_cuda
+    q, k, v, do = map(torch.from_numpy, _attn_inputs(1, 16, 4, 2, 16, 0))
+    o, lse = flash_attention_plain(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(q, k, v, o, do, lse)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_bwd_plain_matches_autograd_of_plain_forward(causal):
     """K3b's plain version against autograd of ``flash_attention_plain``,
