@@ -5,8 +5,10 @@
 
 Builds the hand-written Hopper kernels from ``src/repro_torch/csrc`` with
 nvcc, holds each against its plain PyTorch version at the serving paths'
-shapes and times both; K4 and K5 also on the 120-round ensemble that the
-launch CLIs train, at their burst (B 100) and admission (B 1) shapes.  Then, at the full width of smollm-360m (bf16,
+shapes (K1, K2 and K3 at smollm-360m's heads and at gemma3-4b-edge's,
+head width 256) and times both; K4 and K5 also on the 120-round
+ensemble that the launch CLIs train, at their burst (B 100) and
+admission (B 1) shapes.  Then, at the full width of smollm-360m (bf16,
 seeded random weights), it drives each serving path through the entry
 points a user calls, with the launch counters set to 0 just before each
 path and read just after:
@@ -38,14 +40,15 @@ path and read just after:
   leaves unfired, as the JAX one does, a whole-engine crash) and a
   sojourn deadline: one terminal status per request, none lost;
 * ``[launch-serve]`` ``repro_torch.launch.serve`` (virtual-time replicas
-  on the gemma3-4b-edge service model; the burst scored by K4) under
+  on the gemma3-4b-edge service model; the burst scored by K5) under
   fcfs, sjf and srpt, and sjf at rho 0.74;
 * ``[sweep]`` the paper's grids through ``core.sweep``: Fig. 3's
   (fcfs / sjf x 5 rhos x 5 seeds, n 2,000) and Table 8's burst with the
   grid DES on the card (``backend="torch"``) and on the host, and a grid
   mixing srpt rows (host preemptive engine) with key-based rows;
 * ``[ranking]`` the ranking metric (Algorithm 1) on a held-out sample,
-  scored in one batch through K4 and through the plain walk;
+  scored in one batch through the packed layout (K5, the predictor's
+  entry point), the dense layout (K4) and the plain walk;
 * ``[speculative]`` draft-verify decode (K=4) in float32 and bf16: the
   burst's prompts through the serial engine with an agreeing and an
   independent draft, and the paging backlog through speculative ring and
@@ -60,7 +63,19 @@ path and read just after:
   ``make_train_step`` (K3 2 x 32 and K3b 32 launches a step);
 * ``[launch-train]`` ``python -m repro_torch.launch.train`` as child
   processes: 6 steps straight, and 3 steps then a resumed 3 from the
-  checkpoint, with equal losses.
+  checkpoint, with equal losses;
+* then the paper's own backend, gemma3-4b-edge (8 query heads over 4 KV
+  heads of width 256, GeGLU, vocab 262,144), once the card is freed:
+  ``[gemma3-f32]`` a float32 copy cut to 2 layers at full width against
+  the CPU's plain path (prefill logits, 8 greedy steps), and its ring
+  lanes == paged lanes == serial engine; then all 34 layers in bf16
+  (3.88 B seeded parameters): ``[gemma3-slice]`` the burst through the
+  serial engine (FCFS, SJF) with TTFT, ms/token beside the service-time
+  model's price, kernels a token and the busy share, ``[gemma3-sidecar]``
+  the burst over HTTP, ``[gemma3-lanes]`` the paging backlog through ring
+  and paged lanes and the shared prefix cold then warm.  Every serial
+  request launches K3 once a layer and K1 once a layer a decode step,
+  every lane step K1 or K2 once a layer, exactly.
 
 Before the paths, ``[K3b flash_attention_bwd]`` holds the attention
 backward kernel to its plain version (and K3's log-sum-exp to the plain
@@ -72,13 +87,15 @@ It fails (nonzero exit, no result line) without a CUDA device, without
 the repository beside it, when a kernel does not build, launch or agree
 with its plain version, when a response is not ``ok``, when tokens that
 must agree do not, or when a kernel of a path was never launched on it
-(and when the paged path launches the ring kernel K1, or the sidecar's
-one-request admissions launch the batch kernel K4), when a request is
-lost or ends twice, when SJF's short P50 is not below FCFS's on the
-launch CLIs, when a sidecar child does not drain and exit 0, when a
+(and when the paged path launches the ring kernel K1, or a predictor
+path launches the dense kernel K4 instead of the packed K5), when a
+path's K1, K2 or K3 launches differ from its prefills and decode steps
+times its layers, when a request is lost or ends twice, when SJF's short
+P50 is not below FCFS's in process, over the wire or on the launch
+CLIs, when a sidecar child does not drain and exit 0, when a
 sweep metric differs between the card and the host or an srpt row runs
-on the card, when the ranking metrics differ between K4 and the plain
-walk, when a float32 speculative stream differs from plain decode or
+on the card, when the ranking metrics differ between K5, K4 and the
+plain walk, when a float32 speculative stream differs from plain decode or
 its kernel launches differ from the rounds' count, or when the
 speculative child reports no accept rate, when a K3b gradient or K3's
 log-sum-exp disagrees with its plain version, when the training loss
@@ -88,7 +105,9 @@ longest kernels, or when a resumed training run's losses differ from
 the straight run's.
 
 The second-to-last line of standard output is a JSON object with one
-entry per kernel; the last line is
+entry per kernel (K1, K2 and K3 twice: at head width 64, launched on the
+smollm paths, and ``*_hd256``, launched on the gemma3 paths); the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -118,6 +137,16 @@ PATTERN = "LLSSSSLSSLSS"
 # [lanes-faults]: a long's sojourn deadline, far below its ~96 lane
 # steps at full width
 FAULT_DEADLINE_S = 1.0
+# (H, KV, hd) of the two served models' attention
+SMOLLM_HEADS, GEMMA_HEADS = (15, 5, 64), (8, 4, 256)
+
+
+def _kname(base: str, heads) -> tuple:
+    """A kernel's entry name and print tag at ``heads``: the smollm-360m
+    shapes keep the kernel's own name, others add their head width."""
+    hd = heads[2]
+    return ((base, "") if heads == SMOLLM_HEADS
+            else (f"{base}_hd{hd}", f" hd{hd}"))
 
 
 def _ms(fn, iters: int = 100, warmup: int = 10) -> float:
@@ -250,13 +279,15 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
 
-def phase_decode_kernel(gen) -> dict:
-    """K1 at the serving shapes: B 1, H 15 over KV 5, hd 64, ring S 512."""
+def phase_decode_kernel(gen, heads=SMOLLM_HEADS) -> dict:
+    """K1 at the serving shapes: B 1, ``heads`` (H 15 over KV 5, hd 64;
+    gemma3-4b-edge: 8 over 4, hd 256), ring S 512."""
     import torch
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_plain,
                                                       split_plan)
-    B, H, KV, hd, S = 1, 15, 5, 64, MAX_LEN
+    (H, KV, hd), (B, S) = heads, (1, MAX_LEN)
+    name, tag = _kname("decode_attention", heads)
     errs = {}
     for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         q = torch.randn(B, 1, H, hd, generator=gen, device="cuda").to(dt)
@@ -271,7 +302,7 @@ def phase_decode_kernel(gen) -> dict:
             err = _max_err(got, want)
             _check(f"decode_attention {label} t={t_host}", err, TOL[label])
             errs[(label, t_host)] = err
-    print("[K1 decode_attention] max|err| " + " ".join(
+    print(f"[K1 decode_attention{tag}] max|err| " + " ".join(
         f"{l}@t={t}:{e:.2e}" for (l, t), e in errs.items()))
     # timing at the serial path's fill levels, bf16 (the serving dtype)
     q = torch.randn(B, 1, H, hd, generator=gen, device="cuda",
@@ -295,28 +326,29 @@ def phase_decode_kernel(gen) -> dict:
         bound, by = _bound(2 * n * KV * hd * esz + 2 * B * H * hd * esz + 4,
                            4 * B * H * n * hd, torch.bfloat16)
         rows[t_host] = (ms, plain, lib, bound, by)
-        print(f"[K1 decode_attention] bf16 S={S} t={t_host} "
+        print(f"[K1 decode_attention{tag}] bf16 S={S} t={t_host} "
               f"({split_plan(S)} splits): device ms kernel {ms:.4f}, plain "
               f"{plain:.4f}, sdpa {lib:.4f}; bound {bound * 1e3:.3f} us "
               f"({by}); {_ratio(ms, lib, bound)}; host-paced kernel "
               f"{_ms(kern):.4f} ms/call")
     t_host = 127
     ms, plain, lib, bound, by = rows[t_host]
-    print(f"[K1 decode_attention] kernels line: bf16 B1 H15 KV5 hd64 S{S} "
-          f"t={t_host}")
-    return {"name": "decode_attention", "route": "cuda",
+    print(f"[K1 decode_attention{tag}] kernels line: bf16 B1 H{H} KV{KV} "
+          f"hd{hd} S{S} t={t_host}")
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:180",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
 
-def phase_flash_kernel(gen) -> dict:
-    """K3 at the serving prefill buckets 16..512: B 1, H 15 over KV 5."""
+def phase_flash_kernel(gen, heads=SMOLLM_HEADS) -> dict:
+    """K3 at the serving prefill buckets 16..512: B 1, ``heads``."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
-    B, H, KV, hd = 1, 15, 5, 64
+    (H, KV, hd), B = heads, 1
+    name, tag = _kname("flash_attention", heads)
     errs = {}
     timed = []
     for S in (16, 32, 64, 96, 128, 256, 512):        # 96: a ragged bucket
@@ -345,16 +377,16 @@ def phase_flash_kernel(gen) -> dict:
                 (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2,
                 4 * B * H * hd * S * (S + 1) / 2, torch.bfloat16)
             timed.append((S, ms, plain, lib, bound, by))
-            print(f"[K3 flash_attention] bf16 S={S}: device ms kernel "
+            print(f"[K3 flash_attention{tag}] bf16 S={S}: device ms kernel "
                   f"{ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}; bound "
                   f"{bound * 1e3:.3f} us ({by}); {_ratio(ms, lib, bound)}; "
                   f"host-paced kernel {_ms(kern):.4f} ms/call")
-    print("[K3 flash_attention] max|err| " + " ".join(
+    print(f"[K3 flash_attention{tag}] max|err| " + " ".join(
         f"{l}@S={s}:{e:.2e}" for (l, s), e in errs.items()))
     S, ms, plain, lib, bound, by = timed[1]          # the 32-token bucket
-    print(f"[K3 flash_attention] kernels line: bf16 causal B1 H15 KV5 hd64 "
-          f"S={S}")
-    return {"name": "flash_attention", "route": "cuda",
+    print(f"[K3 flash_attention{tag}] kernels line: bf16 causal B1 H{H} "
+          f"KV{KV} hd{hd} S={S}")
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:89",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
@@ -470,10 +502,9 @@ def phase_packed_kernel(model, prompts) -> dict:
     batch 1 (one sidecar admission), 16 (a burst) and 512: within 1e-5
     of its plain version, equal to K4 + base score bit for bit, each row
     equal to the same row scored alone; device ms of both kernels warm
-    and cold, and which layout ``gbdt_margins_best`` picks."""
+    and cold."""
     import torch
     from repro_torch.core.features import extract_batch
-    from repro_torch.kernels import ops
     from repro_torch.kernels.gbdt_infer import (gbdt_margins_cuda,
                                                 gbdt_margins_packed_cuda,
                                                 gbdt_margins_packed_plain)
@@ -519,8 +550,6 @@ def phase_packed_kernel(model, prompts) -> dict:
         inner, leaves = _visited_packed(X, pf, pt, pc, depth)
         bound, by = _bound(inner * 12 + leaves * 4 + X.numel() * 4
                            + B * K * 4, B * T * depth, torch.float32)
-        choice = ops.preferred_gbdt_layout(X, model) if B in (1, 16) \
-            else "-"
         rows.append((B, ms, cold, plain, bound, by))
         print(f"[K5 gbdt_margins_packed] B={B} T={T} M={M} depth={depth}: "
               f"device ms kernel {ms:.4f} warm, {cold:.4f} cold (L2 "
@@ -528,7 +557,7 @@ def phase_packed_kernel(model, prompts) -> dict:
               f"{plain:.4f}; bound {bound * 1e3:.4f} us ({by}; {inner} inner "
               f"slots, {leaves} leaves); host-paced kernel "
               f"{_ms(kern):.4f} ms/call; max|err| {e:.2e}, == K4 + base, "
-              f"rows == alone; gbdt_margins_best picks {choice}")
+              f"rows == alone")
     B, ms, cold, plain, bound, by = rows[0]
     print(f"[K5 gbdt_margins_packed] kernels line: f32 B={B} T={T} M={M} "
           f"depth={depth} (one sidecar admission)")
@@ -631,7 +660,7 @@ def phase_cli_predictor_kernels() -> tuple:
     return e4, e5
 
 
-def phase_full_width_reference(cfg) -> float:
+def phase_full_width_reference(cfg, tag="reference") -> float:
     """The card's path (K1, K3, cuBLAS) against the CPU's plain path on
     the same full-width float32 weights: prefill logits and 8 greedy
     decode steps.  Returns the largest logit difference."""
@@ -658,21 +687,26 @@ def phase_full_width_reference(cfg) -> float:
     scale = float(lc.abs().max())
     if not math.isfinite(worst) or worst > 1e-3 * max(1.0, scale):
         raise AssertionError(f"full-width f32 logits differ by {worst:g}")
-    print(f"[reference] full-width f32, card vs CPU plain path: max|logit "
+    print(f"[{tag}] full-width f32, card vs CPU plain path: max|logit "
           f"diff| {worst:.3e} (logit scale {scale:.2f}), greedy tokens equal")
     del gpu, cpu
     torch.cuda.empty_cache()
     return worst
 
 
-def phase_slice(cfg, predictor, smi) -> tuple:
+def phase_slice(cfg, predictor, smi, tag="slice") -> tuple:
     """The main path at full width: burst -> predictor -> SJF -> engine.
-    Returns the launches, the engine and each prompt's greedy tokens."""
+    Each request launches K3 once a layer for its prefill and K1 once a
+    layer for each of its decode steps, exactly.  Prints TTFT and decode
+    ms/token beside the price the launch CLIs' service-time model sets for
+    a token.  Returns the launches, the engine and each prompt's greedy
+    tokens."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import RealEngine
     from repro_torch.serving.openai_api import CompletionRequest
     from repro_torch.serving.server import ClairvoyantServer
+    from repro_torch.serving.service_time import ServiceTimeModel
 
     pool, longs, shorts = _burst_pool()
     order = longs + shorts
@@ -680,7 +714,7 @@ def phase_slice(cfg, predictor, smi) -> tuple:
     t0 = time.monotonic()
     eng = RealEngine(cfg, max_len=MAX_LEN, segment_len=SEGMENT, seed=0)
     torch.cuda.synchronize()
-    print(f"[slice] {cfg.name} {cfg.dtype} {cfg.num_layers}L d{cfg.d_model} "
+    print(f"[{tag}] {cfg.name} {cfg.dtype} {cfg.num_layers}L d{cfg.d_model} "
           f"{cfg.param_count() / 1e6:.0f}M params, seeded init "
           f"{time.monotonic() - t0:.1f} s")
     for b in eng.buckets[:3]:                  # first-call set-up
@@ -709,6 +743,14 @@ def phase_slice(cfg, predictor, smi) -> tuple:
                                           for x in r.token_ids):
                 raise AssertionError(f"{policy}: bad tokens for request "
                                      f"{r.request_id}")
+        steps = sum(len(r.token_ids) - 1 for r in resp)
+        for k, want in (("flash_attention", len(resp)),
+                        ("decode_attention", steps)):
+            got = ops.LAUNCHES[k] - before[k]
+            if got != want * cfg.num_layers:
+                raise AssertionError(f"[{tag}] {policy}: {got} {k} "
+                                     f"launches, expected {want} x "
+                                     f"{cfg.num_layers} layers")
         per_policy[policy] = {
             "short_p50_ms": server.percentile(50, "short") * 1e3,
             "long_p50_ms": server.percentile(50, "long") * 1e3,
@@ -720,22 +762,26 @@ def phase_slice(cfg, predictor, smi) -> tuple:
                           r.token_ids for r in resp},
             "launches": {k: ops.LAUNCHES[k] - before[k] for k in before}}
     launches = dict(ops.LAUNCHES)
-    _check_path("[slice]", launches,
-                ("decode_attention", "flash_attention", "gbdt_margins"),
-                ("paged_decode_attention", "gbdt_margins_packed"))
+    _check_path(f"[{tag}]", launches,
+                ("decode_attention", "flash_attention", "gbdt_margins_packed"),
+                ("paged_decode_attention", "gbdt_margins"))
     sjf, fcfs = per_policy["sjf"], per_policy["fcfs"]
     if sjf["by_prompt"] != fcfs["by_prompt"]:
-        raise AssertionError("[slice] a prompt's tokens differ between the "
+        raise AssertionError(f"[{tag}] a prompt's tokens differ between the "
                              "FCFS and the SJF run")
     for p, v in per_policy.items():
-        print(f"[slice] {p}: short P50 {v['short_p50_ms']:.1f} ms, long P50 "
+        print(f"[{tag}] {p}: short P50 {v['short_p50_ms']:.1f} ms, long P50 "
               f"{v['long_p50_ms']:.1f} ms, sojourn-TTFT P50 "
               f"{v['ttft_p50_ms']:.1f} ms, {v['tokens']} tokens in "
               f"{v['wall_s']:.2f} s, launches {v['launches']}, dispatch "
               f"order {v['order']}  [{smi}]")
-    print(f"[slice] SJF short P50 vs FCFS: "
+    print(f"[{tag}] SJF short P50 vs FCFS: "
           f"{100 * (1 - sjf['short_p50_ms'] / fcfs['short_p50_ms']):.1f}% "
-          f"lower  [{smi}]")
+          f"lower; K3 once a layer a request, K1 once a layer a decode step "
+          f"(exact)  [{smi}]")
+    if not sjf["short_p50_ms"] < fcfs["short_p50_ms"]:
+        raise AssertionError(f"[{tag}] SJF short P50 {sjf['short_p50_ms']} "
+                             f"ms not below FCFS's {fcfs['short_p50_ms']}")
 
     # fused decode == per-token oracle, and the engine's own timings
     ids = list(range(5, 5 + 24))
@@ -747,12 +793,18 @@ def phase_slice(cfg, predictor, smi) -> tuple:
     per_tok = (fused["service_s"] - fused["ttft_s"]) / max(1, n - 1)
     per_tok_ref = (ref["service_s"] - ref["ttft_s"]) / max(1, n - 1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    phase_profile(eng, smi)
-    print(f"[slice] fused == reference over {n} tokens; prompt 24 tokens: "
+    phase_profile(eng, smi, tag.replace("slice", "profile"))
+    priced = 1e3 / ServiceTimeModel.from_arch(cfg).decode_tok_per_s
+    weights = 2 * cfg.param_count()
+    print(f"[{tag}] fused == reference over {n} tokens; prompt 24 tokens: "
           f"TTFT {fused['ttft_s'] * 1e3:.2f} ms, decode "
           f"{per_tok * 1e3:.3f} ms/token ({1 / per_tok:.0f} tok/s; per-token "
           f"oracle loop {per_tok_ref * 1e3:.3f} ms/token), peak memory "
-          f"{peak:.0f} MiB  [{smi}]")
+          f"{peak:.0f} MiB; the service-time model prices a token at "
+          f"{priced:.3f} ms, the bf16 weight stream "
+          f"({weights / 1e9:.2f} GB) at 3.35 TB/s "
+          f"{weights / HBM_BYTES_PER_S * 1e3:.3f} "
+          f"ms  [{smi}]")
     return launches, eng, sjf["by_prompt"]
 
 
@@ -881,11 +933,14 @@ def _decode_ms_by_thread(eng) -> dict:
     return {k: float(np.median(v)) for k, v in ms.items()}
 
 
-def phase_sidecar(eng, predictor, smi, slice_tokens, totals) -> None:
+def phase_sidecar(eng, predictor, smi, slice_tokens, totals,
+                  tag="sidecar", extras=True) -> None:
     """The serve-bench burst over HTTP through the port's Sidecar, with
-    the [slice] engine behind an InProcessBackend (the engine decodes in
-    a worker thread).  FCFS, then SJF: every response ok with the
-    [slice] tokens; under SJF one K5 launch per admission and no K4."""
+    the in-process run's engine behind an InProcessBackend (the engine
+    decodes in a worker thread).  FCFS, then SJF: every response ok with
+    the in-process run's tokens; under SJF one K5 launch per admission
+    and no K4.  With ``extras``, then a disconnect, a deadline shed,
+    ``/metrics`` and a graceful shutdown under load."""
     import asyncio
     import numpy as np
     import torch
@@ -954,30 +1009,38 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals) -> None:
                if st != 200 or kind not in ("json", "sse")]
         if bad or any(v != "ok" for v in srv._terminal.values()) \
                 or len(srv._terminal) != len(order):
-            raise AssertionError(f"[sidecar] {policy}: not every response "
+            raise AssertionError(f"[{tag}] {policy}: not every response "
                                  f"is ok: {bad} {srv._terminal}")
         for i, _, (kind, _, obj) in outs:
             if kind == "sse" and obj[-1] != "[DONE]":
-                raise AssertionError("[sidecar] an SSE stream did not end "
+                raise AssertionError(f"[{tag}] an SSE stream did not end "
                                      "in [DONE]")
             if _wire_tokens(kind, obj) != slice_tokens[pool.prompts[i]]:
-                raise AssertionError(f"[sidecar] {policy}: tokens over the "
-                                     f"wire differ from [slice]'s for "
+                raise AssertionError(f"[{tag}] {policy}: tokens over the "
+                                     f"wire differ from the in-process "
+                                     f"run's for "
                                      f"prompt {i}")
+        layers = eng.cfg.num_layers
+        steps = sum(len(slice_tokens[pool.prompts[i]]) - 1 for i in order)
+        if launches["flash_attention"] != len(order) * layers \
+                or launches["decode_attention"] != steps * layers:
+            raise AssertionError(f"[{tag}] {policy}: launches {launches}, "
+                                 f"expected K3 {len(order)} and K1 {steps} "
+                                 f"x {layers} layers")
         if srv.fault_stats["predictor_failures"]:
-            raise AssertionError(f"[sidecar] the predictor failed: "
+            raise AssertionError(f"[{tag}] the predictor failed: "
                                  f"{srv.predictor_error}")
         if policy == "sjf":
-            _check_path("[sidecar] sjf", launches,
+            _check_path(f"[{tag}] sjf", launches,
                         ("decode_attention", "flash_attention",
                          "gbdt_margins_packed"),
                         ("paged_decode_attention", "gbdt_margins"))
             if launches["gbdt_margins_packed"] != len(order):
                 raise AssertionError(
-                    f"[sidecar] {launches['gbdt_margins_packed']} K5 "
+                    f"[{tag}] {launches['gbdt_margins_packed']} K5 "
                     f"launches for {len(order)} SJF admissions")
         else:
-            _check_path("[sidecar] fcfs", launches,
+            _check_path(f"[{tag}] fcfs", launches,
                         ("decode_attention", "flash_attention"),
                         ("paged_decode_attention", "gbdt_margins",
                          "gbdt_margins_packed"))
@@ -985,28 +1048,33 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals) -> None:
                for c in ("short", "long")}
         finish = [r.request_id for r in srv.responses]
         per[policy] = {c: float(np.median(v)) * 1e3 for c, v in soj.items()}
-        print(f"[sidecar] {policy}: short P50 {per[policy]['short']:.1f} ms, "
+        print(f"[{tag}] {policy}: short P50 {per[policy]['short']:.1f} ms, "
               f"long P50 {per[policy]['long']:.1f} ms over the wire, "
               f"{len(order)} responses ok ({len(order) // 2} SSE), tokens == "
-              f"[slice]'s, {wall:.2f} s, admissions (submit) P50 "
+              f"in process, {wall:.2f} s, admissions (submit) P50 "
               f"{np.median(admit_ms):.3f} ms max {max(admit_ms):.3f} ms, "
               f"launches {launches}, finish order (one serial replica: "
               f"the dispatch order) {finish}  [{smi}]")
-    print(f"[sidecar] SJF short P50 vs FCFS over the wire: "
+    print(f"[{tag}] SJF short P50 vs FCFS over the wire: "
           f"{100 * (1 - per['sjf']['short'] / per['fcfs']['short']):.1f}% "
           f"lower; K5 launches == SJF admissions ({len(order)}), no K4 "
-          f"launch  [{smi}]")
+          f"launch; K3 and K1 once a layer a prefill and a decode step "
+          f"(exact)  [{smi}]")
+    if not per["sjf"]["short"] < per["fcfs"]["short"]:
+        raise AssertionError(f"[{tag}] SJF short P50 over the wire "
+                             f"{per['sjf']['short']} ms not below FCFS's "
+                             f"{per['fcfs']['short']}")
 
     by_thread = _decode_ms_by_thread(eng)
-    print("[sidecar] decode ms/token of one request (median of 2, in "
+    print(f"[{tag}] decode ms/token of one request (median of 2, in "
           "turns): " + ", ".join(f"{k} {v:.3f}" for k, v in by_thread.items())
           + f"  [{smi}]")
     lat = _admission_ms(predictor, eng, [pool.prompts[i] for i in shorts])
     for k, (p50, p99, n) in lat.items():
-        print(f"[sidecar] admission (features + K5 + read-back) {k}: P50 "
+        print(f"[{tag}] admission (features + K5 + read-back) {k}: P50 "
               f"{p50:.3f} ms, P99 {p99:.3f} ms over {n} calls  [{smi}]")
 
-    async def extras():
+    async def wire_extras():
         sc = make("sjf")
         await sc.start()
         srv = sc.server
@@ -1025,7 +1093,7 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals) -> None:
                     or cut.status != "cancelled" \
                     or "mid-generation" not in cut.error \
                     or not 0 < cut.tokens_generated < 64:
-                raise AssertionError(f"[sidecar] disconnect: {cut}")
+                raise AssertionError(f"[{tag}] disconnect: {cut}")
             # a deadline that expires while queued behind a long request
             blocker = asyncio.create_task(_http(sc.port, {
                 "prompt": long_p, "max_tokens": 64, "output_tokens": 64}))
@@ -1036,13 +1104,13 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals) -> None:
                 headers={"X-Deadline-S": "0.05"})
             if st != 429 or obj["error"]["type"] != "shed" \
                     or (await blocker)[1] != 200:
-                raise AssertionError(f"[sidecar] deadline: {st} {obj}")
+                raise AssertionError(f"[{tag}] deadline: {st} {obj}")
             kind, st, text = await _http(sc.port, method="GET",
                                          path="/metrics")
             metrics = parse_prometheus(text)
             if st != 200 or not metrics:
-                raise AssertionError("[sidecar] /metrics did not parse")
-            print(f"[sidecar] disconnect after the first SSE frame: "
+                raise AssertionError(f"[{tag}] /metrics did not parse")
+            print(f"[{tag}] disconnect after the first SSE frame: "
                   f"cancelled mid-generation after {cut.tokens_generated} "
                   f"of 64 tokens; X-Deadline-S 0.05 behind a long request: "
                   f"429 shed; /metrics: {len(metrics)} families parse  "
@@ -1062,25 +1130,27 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals) -> None:
         if sorted(srv._terminal) != list(range(1, n_admitted + 1)) \
                 or len(srv.responses) != n_admitted \
                 or "cancelled" not in tail:
-            raise AssertionError(f"[sidecar] shutdown lost or duplicated a "
+            raise AssertionError(f"[{tag}] shutdown lost or duplicated a "
                                  f"request: {srv._terminal}")
         for out in outs:
             if isinstance(out, Exception) or (
                     out[0] == "sse" and out[2][-1] != "[DONE]"):
-                raise AssertionError(f"[sidecar] shutdown: bad client "
+                raise AssertionError(f"[{tag}] shutdown: bad client "
                                      f"outcome {out!r}")
-        print(f"[sidecar] graceful shutdown with 8 requests in flight, "
+        print(f"[{tag}] graceful shutdown with 8 requests in flight, "
               f"drain 0.5 s: {n_admitted} admitted, each exactly one "
               f"terminal ({tail.count('ok')} ok, {tail.count('cancelled')} "
               f"cancelled), 0 lost  [{smi}]")
 
+    if not extras:
+        return
     ops.reset_launches()
-    asyncio.run(extras())
+    asyncio.run(wire_extras())
     for k, v in ops.LAUNCHES.items():
         totals[k] += v
 
 
-def phase_profile(eng, smi) -> None:
+def phase_profile(eng, smi, tag="profile") -> None:
     """Where a decode step's time goes: kernels launched per token and the
     device's busy share while the engine serves one request (the union of
     CUDA kernel intervals over the span of the whole trace)."""
@@ -1097,7 +1167,7 @@ def phase_profile(eng, smi) -> None:
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = _busy_us(events)
     if busy is None:
-        print("[profile] device busy share: not measured (the profiler "
+        print(f"[{tag}] device busy share: not measured (the profiler "
               "recorded no CUDA kernel)")
         return
     span = (max(e.time_range.end for e in events)
@@ -1107,17 +1177,17 @@ def phase_profile(eng, smi) -> None:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
     n = len(out["tokens"])
-    print(f"[profile] one request, 24-token prompt, {n} tokens (prefill + "
+    print(f"[{tag}] one request, 24-token prompt, {n} tokens (prefill + "
           f"{n - 1} decode steps), profiler on: {len(kernels)} kernels "
           f"(~{len(kernels) / n:.0f} per token), device busy "
           f"{busy / 1e3:.2f} ms of {span / 1e3:.2f} ms traced "
           f"({100 * busy / span:.1f}% busy, {100 - 100 * busy / span:.1f}% "
           f"idle)  [{smi}]")
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"[profile]   {us / 1e3:8.3f} ms  {name[:90]}")
+        print(f"[{tag}]   {us / 1e3:8.3f} ms  {name[:90]}")
 
 
-def phase_decode_lanes_kernel(gen) -> float:
+def phase_decode_lanes_kernel(gen, heads=SMOLLM_HEADS) -> float:
     """K1 with per-lane fill levels, as the ring lanes launch it: B 4 over
     a 128-slot ring, two lanes wrapped.  Each lane must equal the
     scalar-t launch for that lane bit for bit.  Returns the largest
@@ -1125,7 +1195,8 @@ def phase_decode_lanes_kernel(gen) -> float:
     import torch
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_plain)
-    B, H, KV, hd, S = L_LANES, 15, 5, 64, L_MAX_LEN
+    (H, KV, hd), (B, S) = heads, (L_LANES, L_MAX_LEN)
+    tag = _kname("", heads)[1]
     t_host = [5, 60, S + 3, 3 * S + 100]
     worst = 0.0
     for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
@@ -1159,25 +1230,28 @@ def phase_decode_lanes_kernel(gen) -> float:
             n = sum(min(S, x + 1) for x in t_host)
             bound, by = _bound(2 * n * KV * hd * 2 + 2 * B * H * hd * 2
                                + 4 * B, 4 * H * n * hd, torch.bfloat16)
-            print(f"[K1 decode_attention] lanes bf16 B{B} S{S} t={t_host}: "
+            print(f"[K1 decode_attention{tag}] lanes bf16 B{B} S{S} "
+                  f"t={t_host}: "
                   f"device ms kernel {ms:.4f}, plain {plain:.4f}, sdpa "
                   f"(boolean mask) {lib:.4f}; bound {bound * 1e3:.3f} us "
                   f"({by}); {_ratio(ms, lib, bound)}; max|err| {err:.2e}")
-    print(f"[K1 decode_attention] (B,) t: each lane == its scalar-t launch "
+    print(f"[K1 decode_attention{tag}] (B,) t: each lane == its scalar-t "
+          f"launch "
           f"(bitwise), max|err| vs plain {worst:.2e}")
     return worst
 
 
-def phase_paged_kernel(gen) -> dict:
-    """K2 at the serving shapes: B 4, H 15 over KV 5, hd 64, page 16, 32
-    pages a lane (max_len 512), mixed fill levels including one past the
-    window; page sizes 8 / 16 / 32; bf16 and f32.  On the same logical
-    contents K2 must equal K1 bit for bit."""
+def phase_paged_kernel(gen, heads=SMOLLM_HEADS) -> dict:
+    """K2 at the serving shapes: B 4, ``heads``, page 16, 32 pages a lane
+    (max_len 512), mixed fill levels including one past the window; page
+    sizes 8 / 16 / 32; bf16 and f32.  On the same logical contents K2
+    must equal K1 bit for bit."""
     import torch
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention_cuda, paged_decode_attention_plain)
-    B, H, KV, hd, window = 4, 15, 5, 64, MAX_LEN
+    (H, KV, hd), (B, window) = heads, (4, MAX_LEN)
+    name, tag = _kname("paged_decode_attention", heads)
     t_host = [3, 130, 400, window + 70]            # last: past the window
     errs = {}
     timed = None
@@ -1221,24 +1295,25 @@ def phase_paged_kernel(gen) -> dict:
                     2 * n * KV * hd * 2 + 2 * B * H * hd * 2
                     + bt.numel() * 4 + 4 * B, 4 * H * n * hd, torch.bfloat16)
                 timed = (ms, plain, bound, by)
-                print(f"[K2 paged_decode_attention] bf16 B{B} H15 KV5 hd64 "
-                      f"page {page} P{P} t={t_host}: device ms kernel "
+                print(f"[K2 paged_decode_attention{tag}] bf16 B{B} H{H} "
+                      f"KV{KV} hd{hd} page {page} P{P} t={t_host}: device "
+                      f"ms kernel "
                       f"{ms:.4f}, plain {plain:.4f}; bound "
                       f"{bound * 1e3:.3f} us ({by}); bound share "
                       f"{100 * bound / ms:.2f}%; host-paced kernel "
                       f"{_ms(kern):.4f} ms/call")
-    print("[K2 paged_decode_attention] max|err| " + " ".join(
+    print(f"[K2 paged_decode_attention{tag}] max|err| " + " ".join(
         f"{l}@page={p}:{e:.2e}" for (l, p), e in errs.items())
           + "; K2 == K1 bitwise on every case")
     ms, plain, bound, by = timed
-    return {"name": "paged_decode_attention", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:155",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
-def phase_flash_extend(gen) -> float:
+def phase_flash_extend(gen, heads=SMOLLM_HEADS) -> float:
     """K3 in extend mode: suffix buckets 16..64 over a 48..128-token prefix
     (q_offset) in a longer key buffer.  The suffix rows must equal those
     rows of the cold prefill bit for bit.  Returns the largest
@@ -1246,7 +1321,8 @@ def phase_flash_extend(gen) -> float:
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
-    B, H, KV, hd = 1, 15, 5, 64
+    (H, KV, hd), B = heads, 1
+    tag = _kname("", heads)[1]
     errs = {}
     for prefix, suffix in ((48, 16), (64, 16), (64, 32), (64, 64),
                            (128, 16), (128, 64)):
@@ -1291,12 +1367,13 @@ def phase_flash_extend(gen) -> float:
                 bound, by = _bound((2 * suffix * H * hd
                                     + 2 * extent * KV * hd) * 2,
                                    4 * H * hd * pairs, torch.bfloat16)
-                print(f"[K3 flash_attention] extend bf16 q_offset {prefix} "
+                print(f"[K3 flash_attention{tag}] extend bf16 q_offset "
+                      f"{prefix} "
                       f"Sq {suffix} Skv {extent}: device ms kernel "
                       f"{ms:.4f}, plain {plain:.4f}, sdpa (mask) "
                       f"{lib:.4f}; bound {bound * 1e3:.3f} us ({by}); "
                       f"{_ratio(ms, lib, bound)}")
-    print("[K3 flash_attention] extend max|err| " + " ".join(
+    print(f"[K3 flash_attention{tag}] extend max|err| " + " ".join(
         f"{l}@{p}+{s}:{e:.2e}" for (l, p, s), e in errs.items())
           + "; suffix rows == cold-prefill rows bitwise")
     return max(errs.values())
@@ -1314,18 +1391,41 @@ def _pattern(vocab, rng, prefix=None, long_new=L_LONG, short_new=L_SHORT):
     return prompts, maxes
 
 
-def _drain_pattern(eng, prompts, maxes) -> dict:
+def _drain_pattern(eng, prompts, maxes, exact=True) -> dict:
     """One ``generate_batch`` over the backlog: wall, tokens, tok/s and the
-    short requests' P50 sojourn from the drain's start."""
+    short requests' P50 sojourn from the drain's start.  With ``exact``,
+    every prefill (cold or extend) must launch K3 once a layer and every
+    lane step K1 (ring) or K2 (paged) once a layer: the LM's calls are
+    counted (speculative lanes check their rounds' launches instead)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
+    lm, calls = eng.lm, {"prefill": 0, "decode_step": 0}
+
+    def counted(name):
+        fn = getattr(lm, name)
+
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+    for name in calls:
+        setattr(lm, name, counted(name))
     ops.reset_launches()
     t0 = time.monotonic()
-    res = eng.generate_batch(prompts, maxes)
-    torch.cuda.synchronize()
+    try:
+        res = eng.generate_batch(prompts, maxes)
+        torch.cuda.synchronize()
+    finally:
+        for name in calls:
+            delattr(lm, name)
     wall = time.monotonic() - t0
     launches = dict(ops.LAUNCHES)
+    L = lm.cfg.num_layers
+    decode = launches["decode_attention"] + launches["paged_decode_attention"]
+    if exact and (launches["flash_attention"] != calls["prefill"] * L
+                  or decode != calls["decode_step"] * L):
+        raise AssertionError(f"launches {launches} for {calls} x {L} layers")
     toks = sum(len(r["tokens"]) for r in res)
     start = min(r["admit_t"] for r in res)
     short = [r["finish_t"] - start for r, c in zip(res, PATTERN) if c == "S"]
@@ -1362,7 +1462,7 @@ def _check_path(name, launches, run, skip=()):
                                  f"{launches[k]} times, expected none")
 
 
-def phase_lanes(cfg, smi, totals) -> None:
+def phase_lanes(cfg, smi, totals, tag="lanes") -> None:
     """The lane and paged engines at full width (bf16): the paging
     benchmark's backlog through ring lanes, then paged lanes (growth and
     preemption under the two-long budget), then with a shared 48-token
@@ -1375,7 +1475,7 @@ def phase_lanes(cfg, smi, totals) -> None:
     t0 = time.monotonic()
     ring, paged = _lane_engines(cfg)
     torch.cuda.synchronize()
-    print(f"[lanes] {cfg.name} {cfg.dtype} {cfg.num_layers}L, {L_LANES} "
+    print(f"[{tag}] {cfg.name} {cfg.dtype} {cfg.num_layers}L, {L_LANES} "
           f"lanes, max_len {L_MAX_LEN}, segment {L_SEGMENT}, page {L_PAGE}, "
           f"budget {ring.budget_bytes} B = {paged.n_pages} pages, pattern "
           f"{PATTERN} (long {L_LONG} / short {L_SHORT} new tokens); engines "
@@ -1396,16 +1496,16 @@ def phase_lanes(cfg, smi, totals) -> None:
         steps = (r["launches"]["decode_attention"]
                  + r["launches"]["paged_decode_attention"]) // cfg.num_layers
         steps = max(1, steps)
-        print(f"[lanes] {name}: {r['n_tok']} tokens in {r['wall']:.2f} s = "
+        print(f"[{tag}] {name}: {r['n_tok']} tokens in {r['wall']:.2f} s = "
               f"{r['tok_s']:.1f} tok/s, {steps} lane steps "
               f"({r['wall'] / steps * 1e3:.1f} ms per step incl. prefills), "
               f"short P50 {r['short_p50_ms']:.1f} ms, preemptions "
               f"{eng.lane_manager.stats.get('preemptions', 0)}, dead steps "
               f"{eng.dead_steps}, launches {r['launches']}  [{smi}]")
-    _check_path("[lanes] ring", out["ring"]["launches"],
+    _check_path(f"[{tag}] ring", out["ring"]["launches"],
                 ("decode_attention", "flash_attention"),
                 ("paged_decode_attention",))
-    _check_path("[lanes] paged", out["paged"]["launches"],
+    _check_path(f"[{tag}] paged", out["paged"]["launches"],
                 ("paged_decode_attention", "flash_attention"),
                 ("decode_attention",))
     same = [a == b for a, b in zip(out["ring"]["tokens"],
@@ -1413,14 +1513,14 @@ def phase_lanes(cfg, smi, totals) -> None:
     pre = out["paged"]["preempted"]
     bad = [i for i, ok in enumerate(same) if not ok and i not in pre]
     if bad:
-        raise AssertionError(f"[lanes] paged != ring tokens for requests "
+        raise AssertionError(f"[{tag}] paged != ring tokens for requests "
                              f"{bad} that were never preempted")
-    print(f"[lanes] paged == ring tokens ({cfg.dtype}): "
+    print(f"[{tag}] paged == ring tokens ({cfg.dtype}): "
           f"{sum(same)}/{len(same)} requests; preempted and resumed "
           f"{pre}, of which equal "
           f"{[i for i in pre if same[i]]}")
     cut = 1 - out["paged"]["short_p50_ms"] / out["ring"]["short_p50_ms"]
-    print(f"[lanes] paged vs ring: short P50 {100 * cut:.1f}% lower, tok/s "
+    print(f"[{tag}] paged vs ring: short P50 {100 * cut:.1f}% lower, tok/s "
           f"x{out['paged']['tok_s'] / out['ring']['tok_s']:.2f}  [{smi}]")
 
     prefix = np.random.default_rng(7).integers(
@@ -1436,26 +1536,26 @@ def phase_lanes(cfg, smi, totals) -> None:
         for k, v in r["launches"].items():
             totals[k] += v
         r["hit_pages"] = paged.allocator.stats["prefix_hit_pages"] - h0
-        print(f"[lanes] prefix {L_PREFIX} {name}: {r['n_tok']} tokens in "
+        print(f"[{tag}] prefix {L_PREFIX} {name}: {r['n_tok']} tokens in "
               f"{r['wall']:.2f} s = {r['tok_s']:.1f} tok/s, short P50 "
               f"{r['short_p50_ms']:.1f} ms, prefix-hit pages "
               f"{r['hit_pages']}, preemptions "
               f"{paged.lane_manager.stats['preemptions']}, launches "
               f"{r['launches']}  [{smi}]")
-        _check_path(f"[lanes] prefix {name}", r["launches"],
+        _check_path(f"[{tag}] prefix {name}", r["launches"],
                     ("paged_decode_attention", "flash_attention"),
                     ("decode_attention",))
     if passes["warm"]["hit_pages"] <= 0:
-        raise AssertionError("[lanes] the warm pass had no prefix hit")
+        raise AssertionError(f"[{tag}] the warm pass had no prefix hit")
     agree = sum(a == b for a, b in zip(passes["cold"]["tokens"],
                                        passes["warm"]["tokens"]))
-    print(f"[lanes] prefix warm == cold tokens ({cfg.dtype}): "
+    print(f"[{tag}] prefix warm == cold tokens ({cfg.dtype}): "
           f"{agree}/{len(pp)}")
     del ring, paged
     torch.cuda.empty_cache()
 
 
-def phase_lanes_f32(cfg, smi, totals) -> None:
+def phase_lanes_f32(cfg, smi, totals, tag="lanes-f32") -> None:
     """Float32 full-width copy, TF32 off: ring lanes, paged lanes, the
     serial engine and the warm prefix-hit pass give the same tokens on
     the pattern with budgets capped at 16 tokens."""
@@ -1492,10 +1592,10 @@ def phase_lanes_f32(cfg, smi, totals) -> None:
         got = runs[name]["tokens"]
         if got != want:
             diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
-            raise AssertionError(f"[lanes-f32] {name} tokens differ from "
+            raise AssertionError(f"[{tag}] {name} tokens differ from "
                                  f"the serial engine for requests {diff}")
     hits = paged.allocator.stats["prefix_hit_pages"]
-    print(f"[lanes-f32] float32, TF32 off, budgets capped at {cap}: ring "
+    print(f"[{tag}] float32, TF32 off, budgets capped at {cap}: ring "
           f"lanes == paged lanes == serial engine on {len(prompts)} "
           f"requests; prefix cold == warm == serial on {len(pp)} "
           f"({hits} prefix-hit pages, preemptions "
@@ -1542,9 +1642,9 @@ def phase_paged_burst(cfg, predictor, smi, totals) -> None:
                                  "response is ok")
         _check_path(f"[paged-burst] {policy}", launches,
                     ("paged_decode_attention", "flash_attention",
-                     "gbdt_margins") if policy == "sjf" else
+                     "gbdt_margins_packed") if policy == "sjf" else
                     ("paged_decode_attention", "flash_attention"),
-                    ("decode_attention",))
+                    ("decode_attention", "gbdt_margins"))
         per[policy] = (server.percentile(50, "short") * 1e3,
                        server.percentile(50, "long") * 1e3)
         print(f"[paged-burst] {policy}: short P50 {per[policy][0]:.1f} ms, "
@@ -1609,8 +1709,8 @@ def phase_launch_serve(smi, totals) -> None:
     ``SimEngine`` replicas on the gemma3-4b-edge service model, priced at
     the H100's data-sheet peaks) under fcfs, sjf and srpt on a 100-request
     burst, and under sjf at rho 0.74.  The predictor scores each burst in
-    one K4 launch on the card; srpt must drain through the preemptive
-    DES."""
+    one K5 launch on the card (the packed layout, as the JAX model
+    scores); srpt must drain through the preemptive DES."""
     import contextlib
     import io
     from repro_torch.core import _native
@@ -1646,12 +1746,12 @@ def phase_launch_serve(smi, totals) -> None:
             if len(srv.ok_responses) != 100:
                 raise AssertionError(f"[launch-serve] {policy}: "
                                      f"{len(srv.ok_responses)} of 100 ok")
-            want_k4 = 1 if srv.policy_obj.uses_predictor else 0
-            if launches["gbdt_margins"] != want_k4 \
-                    or launches["gbdt_margins_packed"]:
+            want_k5 = 1 if srv.policy_obj.uses_predictor else 0
+            if launches["gbdt_margins_packed"] != want_k5 \
+                    or launches["gbdt_margins"]:
                 raise AssertionError(f"[launch-serve] {policy}: launches "
-                                     f"{launches}, expected {want_k4} K4 "
-                                     "and no K5")
+                                     f"{launches}, expected {want_k5} K5 "
+                                     "and no K4")
             if (policy == "srpt") != bool(preemptive_drains):
                 raise AssertionError(f"[launch-serve] {policy}: preemptive "
                                      f"drains {preemptive_drains}")
@@ -1662,8 +1762,8 @@ def phase_launch_serve(smi, totals) -> None:
                     f"{srv.percentile(q, c):.3f}" for q in (50, 95, 99))
                 + " s" for c in ("short", "medium", "long"))
             print(f"[launch-serve] {policy} rho {rho}: tau "
-                  f"{srv.router.replicas[0].queue.tau:.3f} s, {pct}, K4 "
-                  f"launches {launches['gbdt_margins']}, drain "
+                  f"{srv.router.replicas[0].queue.tau:.3f} s, {pct}, K5 "
+                  f"launches {launches['gbdt_margins_packed']}, drain "
                   f"{'_drain_sim_preemptive' if preemptive_drains else '_drain_sim'}"
                   f" (DES engine: {_native.des_engine()}), {wall:.2f} s "
                   f"wall  [{smi}]")
@@ -1924,8 +2024,9 @@ def phase_preempt(cfg, predictor, smi, totals) -> None:
         for k, v in launches.items():
             totals[k] += v
         _check_path(f"[preempt] {dtype}", launches,
-                    ("decode_attention", "flash_attention", "gbdt_margins"),
-                    ("paged_decode_attention",))
+                    ("decode_attention", "flash_attention",
+                     "gbdt_margins_packed"),
+                    ("paged_decode_attention", "gbdt_margins"))
         pre = server.router.replicas[0].queue.stats["preemptions"]
         budgets = {j + 1: 64 if i in longs else 8 for j, i in enumerate(order)}
         if len(resp) != len(order) or not all(r.ok for r in resp) \
@@ -2140,8 +2241,10 @@ def phase_ranking(predictor, smi, totals) -> None:
     """The paper's ranking metric (Algorithm 1) on a held-out, seeded
     sample of the corpus (2,000 sharegpt-profile prompts, seed 7; the
     predictor trained on seed 42): scored in one batch through the
-    predictor's entry point (K4, one launch) and through the plain walk;
-    ranking and 3-class accuracy must be equal between the two."""
+    predictor's entry point (the packed layout, one K5 launch), through
+    the dense layout (``predict_margin_dense``, one K4 launch) and through
+    the plain walk; ranking and 3-class accuracy must be equal between
+    the three, and the two layouts' probabilities within 1e-5."""
     import numpy as np
     import torch
     from repro_torch.core.features import extract_batch
@@ -2156,27 +2259,34 @@ def phase_ranking(predictor, smi, totals) -> None:
     proba = predictor.proba_batch(ds.prompts)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    X = extract_batch(ds.prompts)
+    m = predictor.model.predict_margin_dense(X, device="cuda")
+    m = np.exp(m - m.max(axis=1, keepdims=True))
+    dense = m / m.sum(axis=1, keepdims=True)
     launches = dict(ops.LAUNCHES)
     for k, v in launches.items():
         totals[k] += v
-    if launches["gbdt_margins"] != 1 or launches["gbdt_margins_packed"]:
+    if launches["gbdt_margins"] != 1 or launches["gbdt_margins_packed"] != 1:
         raise AssertionError(f"[ranking] launches {launches}: expected one "
-                             "K4 launch")
-    plain = predictor.model.predict_proba(extract_batch(ds.prompts),
-                                          device="cpu")
+                             "K5 and one K4 launch")
+    plain = predictor.model.predict_proba(X, device="cpu")
     err = float(np.abs(proba - plain).max())
+    err_dense = float(np.abs(proba - dense).max())
+    _check("[ranking] packed (K5) vs dense (K4) probabilities", err_dense,
+           1e-5)
     acc = {name: (ranking_accuracy(lengths, p[:, 2]),
                   classification_accuracy(lengths, p))
-           for name, p in (("K4", proba), ("plain", plain))}
-    if acc["K4"] != acc["plain"] or not all(map(math.isfinite,
-                                                acc["K4"])):
-        raise AssertionError(f"[ranking] K4 {acc['K4']} != plain "
-                             f"{acc['plain']}")
+           for name, p in (("K5", proba), ("K4", dense), ("plain", plain))}
+    if not acc["K5"] == acc["K4"] == acc["plain"] \
+            or not all(map(math.isfinite, acc["K5"])):
+        raise AssertionError(f"[ranking] K5 {acc['K5']}, K4 {acc['K4']}, "
+                             f"plain {acc['plain']} differ")
     n_s, n_l = int((lengths < 200).sum()), int((lengths >= 800).sum())
     print(f"[ranking] held-out {len(ds)} prompts ({n_s} short, {n_l} long): "
-          f"ranking accuracy {100 * acc['K4'][0]:.2f}% (paper 62-96%), "
-          f"3-class accuracy {100 * acc['K4'][1]:.2f}%; K4 == plain walk "
-          f"on both (max |P - P_plain| {err:.1e}); one K4 launch, "
+          f"ranking accuracy {100 * acc['K5'][0]:.2f}% (paper 62-96%), "
+          f"3-class accuracy {100 * acc['K5'][1]:.2f}%; K5 == K4 == plain "
+          f"walk on both (max |P - P_plain| {err:.1e}, |P_K5 - P_K4| "
+          f"{err_dense:.1e}); one K5 and one K4 launch, K5 "
           f"{wall * 1e3:.1f} ms incl. features  [{smi}]")
 
 
@@ -2304,7 +2414,7 @@ def phase_speculative(cfg, smi, totals) -> None:
             if name == "paged":
                 eng.allocator.drop_cache()
             n = _count_rounds(eng._lane_decoder)
-            r = _drain_pattern(eng, prompts, maxes)
+            r = _drain_pattern(eng, prompts, maxes, exact=False)
             for k, v in r["launches"].items():
                 totals[k] += v
             R, la = n["rounds"], r["launches"]
@@ -2753,7 +2863,30 @@ def phase_launch_train(smi) -> None:
           f"{' '.join(f'{x:.4f}' for x in first + resumed)}; equal  [{smi}]")
 
 
+def _free_card(tag) -> None:
+    """Drop what earlier phases left on the card and print what stays
+    and the peak so far; the peak restarts from here."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] card freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+          f" GiB allocated, peak so far "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _timed(fn, *args, **kw):
+    """``fn(*args, **kw)``, printing its wall seconds."""
+    t0 = time.monotonic()
+    out = fn(*args, **kw)
+    print(f"[time] {fn.__name__} {kw.get('tag', '')}: "
+          f"{time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.gbdt import GBDTParams
@@ -2778,43 +2911,73 @@ def main() -> int:
           f"{time.monotonic() - t0:.1f} s (host)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k1, k3 = phase_decode_kernel(gen), phase_flash_kernel(gen)
-    k1["max_abs_err"] = max(k1["max_abs_err"], phase_decode_lanes_kernel(gen))
-    k3["max_abs_err"] = max(k3["max_abs_err"], phase_flash_extend(gen))
-    kernels = [k1, phase_paged_kernel(gen), k3,
-               phase_gbdt_kernel(predictor.model, ds.prompts),
-               phase_packed_kernel(predictor.model, ds.prompts),
-               phase_flash_bwd_kernel(gen)]
+    kernels = []
+    for heads in (SMOLLM_HEADS, GEMMA_HEADS):
+        k1 = phase_decode_kernel(gen, heads)
+        k3 = phase_flash_kernel(gen, heads)
+        k1["max_abs_err"] = max(k1["max_abs_err"],
+                                phase_decode_lanes_kernel(gen, heads))
+        k3["max_abs_err"] = max(k3["max_abs_err"],
+                                phase_flash_extend(gen, heads))
+        kernels += [k1, phase_paged_kernel(gen, heads), k3]
+    kernels += [phase_gbdt_kernel(predictor.model, ds.prompts),
+                phase_packed_kernel(predictor.model, ds.prompts),
+                phase_flash_bwd_kernel(gen)]
+    by_name = {k["name"]: k for k in kernels}
     e4, e5 = phase_cli_predictor_kernels()
-    kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], e4)
-    kernels[4]["max_abs_err"] = max(kernels[4]["max_abs_err"], e5)
+    by_name["gbdt_margins"]["max_abs_err"] = max(
+        by_name["gbdt_margins"]["max_abs_err"], e4)
+    by_name["gbdt_margins_packed"]["max_abs_err"] = max(
+        by_name["gbdt_margins_packed"]["max_abs_err"], e5)
+    print(f"[time] kernel phases: {time.monotonic() - t_start:.1f} s")
     cfg = get_config("smollm-360m")
-    phase_full_width_reference(cfg)
+    _timed(phase_full_width_reference, cfg)
     # launches on the main paths: each path resets the counters just
     # before it runs and adds what it launched just after
-    launches, eng, slice_tokens = phase_slice(cfg, predictor, smi)
+    launches, eng, slice_tokens = _timed(phase_slice, cfg, predictor, smi)
     totals = dict(launches)
-    phase_sweep(smi)
-    phase_ranking(predictor, smi, totals)
-    phase_sidecar(eng, predictor, smi, slice_tokens, totals)
+    _timed(phase_sweep, smi)
+    _timed(phase_ranking, predictor, smi, totals)
+    _timed(phase_sidecar, eng, predictor, smi, slice_tokens, totals)
     del eng
     torch.cuda.empty_cache()
-    phase_lanes(cfg, smi, totals)
-    phase_lanes_f32(cfg, smi, totals)
-    phase_paged_burst(cfg, predictor, smi, totals)
-    phase_preempt(cfg, predictor, smi, totals)
-    phase_lanes_faults(cfg, smi, totals)
-    phase_speculative(cfg, smi, totals)
-    phase_launch_serve(smi, totals)
-    phase_launch_sidecar(smi, totals)
-    phase_train(cfg, smi, totals)
-    phase_launch_train(smi)
+    _timed(phase_lanes, cfg, smi, totals)
+    _timed(phase_lanes_f32, cfg, smi, totals)
+    _timed(phase_paged_burst, cfg, predictor, smi, totals)
+    _timed(phase_preempt, cfg, predictor, smi, totals)
+    _timed(phase_lanes_faults, cfg, smi, totals)
+    _timed(phase_speculative, cfg, smi, totals)
+    _timed(phase_launch_serve, smi, totals)
+    _timed(phase_launch_sidecar, smi, totals)
+    _timed(phase_train, cfg, smi, totals)
+    _timed(phase_launch_train, smi)
+
+    # the paper's own backend, gemma3-4b-edge (head width 256, GeGLU):
+    # a float32 2-layer copy against the CPU's plain path, then all 34
+    # layers in bf16 through the serial engine, the sidecar and the lanes
+    _free_card("gemma3")
+    gcfg = get_config("gemma3-4b-edge")
+    g2 = dataclasses.replace(gcfg, num_layers=2)
+    _timed(phase_full_width_reference, g2, tag="gemma3-f32")
+    g_totals = {k: 0 for k in totals}
+    _timed(phase_lanes_f32, g2, smi, g_totals, tag="gemma3-f32")
+    g_launches, geng, g_tokens = _timed(phase_slice, gcfg, predictor, smi,
+                                        tag="gemma3-slice")
+    for k, v in g_launches.items():
+        g_totals[k] += v
+    _timed(phase_sidecar, geng, predictor, smi, g_tokens, g_totals,
+           tag="gemma3-sidecar", extras=False)
+    del geng
+    _free_card("gemma3-lanes")
+    _timed(phase_lanes, gcfg, smi, g_totals, tag="gemma3-lanes")
     for k in kernels:
-        k["launches"] = totals[k["name"]]
+        base = k["name"].split("_hd")[0]
+        k["launches"] = (totals if k["name"] == base else g_totals)[base]
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on "
                                  "the main paths")
-    print(f"[kernels] launches on the main paths: {totals}")
+    print(f"[kernels] launches on the main paths: smollm-360m {totals}; "
+          f"gemma3-4b-edge (hd 256) {g_totals}")
     print(f"[done] {time.monotonic() - t_start:.1f} s  [{smi}]")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -6,13 +6,14 @@ architectures:
 
 * ``smollm-360m`` (HuggingFaceTB/SmolLM-360M ``config.json``: 32 layers,
   d_model 960, 15 query heads over 5 KV heads of width 64, SwiGLU d_ff
-  2560, vocab 49152, tied embeddings, RoPE theta 1e4), the model the port
-  serves;
+  2560, vocab 49152, tied embeddings, RoPE theta 1e4), the engines' and
+  the sidecar's default;
 * ``gemma3-4b-edge`` (Gemma3-4b's text stack, the paper's own backend: 34
   layers, d_model 2560, 8 query heads over 4 KV heads of width 256, GeGLU
-  d_ff 10240, vocab 262144), for the service-time model of the launch
-  CLIs only (``ServiceTimeModel.from_arch``).  ``models.model.LM`` refuses
-  it: the GeGLU MLP is not ported.
+  d_ff 10240, vocab 262144, tied embeddings, RoPE theta 1e6), served by
+  the same engines and priced by the launch CLIs' service-time model
+  (``ServiceTimeModel.from_arch``).  As in the reference, it has no
+  embedding scale, no QK-norm, no softcap and no sliding window.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """A pre-norm attention + SwiGLU decoder stack (the only block kind
-    ported)."""
+    """A pre-norm attention + gated-MLP (SwiGLU or GeGLU) decoder stack
+    (the only block kind ported)."""
     name: str
     num_layers: int
     d_model: int

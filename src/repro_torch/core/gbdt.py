@@ -11,10 +11,10 @@ two layouts of the same trees:
 * the pruned packed layout of ``core.ensemble_pack`` (``packed()``,
   ``kernels.ops.gbdt_margins_packed``: K5).
 
-``predict_margin`` scores a single row (one admission, the JAX
-``Predictor._single_path``) through the packed layout and a batch (an
-arrival burst, the JAX ``proba_batch``) through the dense one.  Both add
-``base_score``.
+``predict_margin`` scores every batch, a single row (one admission, the
+JAX ``Predictor._single_path``) or an arrival burst (the JAX
+``proba_batch``), through the packed layout, as the JAX model does;
+``predict_margin_dense`` is the dense oracle.  Both add ``base_score``.
 """
 
 from __future__ import annotations
@@ -97,14 +97,13 @@ class GBDTModel:
 
     def predict_margin(self, X: np.ndarray, device=None) -> np.ndarray:
         """(B, n_classes) raw margins on ``device`` (same rule as
-        :meth:`predict_margin_dense`): one row through the packed layout
-        (K5), a batch through the dense one (K4)."""
-        X = np.asarray(X, np.float32)
-        if X.shape[0] != 1:
-            return self.predict_margin_dense(X, device)
+        :meth:`predict_margin_dense`), every batch size through the packed
+        layout (K5 on the card), as the JAX model always scores packed;
+        :meth:`predict_margin_dense` (K4) is the dense oracle."""
         device = resolve_device(device)
-        x = torch.as_tensor(X, device=device)
-        return ops.gbdt_margins_packed_from(self.packed(), x).cpu().numpy()
+        x = torch.as_tensor(np.asarray(X, np.float32), device=device)
+        return ops.gbdt_margins_packed_from(self.packed(),
+                                            x.contiguous()).cpu().numpy()
 
     def predict_proba(self, X: np.ndarray, device=None) -> np.ndarray:
         """Softmax of :meth:`predict_margin` (same device rule)."""

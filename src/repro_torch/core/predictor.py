@@ -6,10 +6,12 @@ CPU).  As in the JAX package there are two admission paths over the same
 trained ensemble:
 
 * ``p_long`` / ``proba`` -- one request at a time (the sidecar admits
-  each HTTP request as it arrives): one feature row through the packed
-  layout, K5;
+  each HTTP request as it arrives): one feature row;
 * ``proba_batch`` / ``p_long_batch`` -- an arrival burst scored in one
-  call through the dense layout, K4.
+  call.
+
+Both score through the packed layout, K5 on the card, as the JAX model
+always scores packed.
 
 Scoring runs on the caller's current CUDA stream, the one the engine
 decodes on.  The eager decode loop is host-bound (the host enqueues its
@@ -48,8 +50,8 @@ class Predictor:
         return F.extract(prompt)
 
     def proba_features(self, X: np.ndarray) -> np.ndarray:
-        """(B, 3) class probabilities of feature rows X (B, F): one row
-        through K5, more through K4."""
+        """(B, 3) class probabilities of feature rows X (B, F), through
+        the packed layout (K5 on the card)."""
         return self.model.predict_proba(X, self.device)
 
     def proba(self, prompt: str) -> np.ndarray:

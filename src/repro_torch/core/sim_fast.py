@@ -49,9 +49,15 @@ Usage::
     res = simulate_batch(batch, policy="sjf", tau=10.5)
     res.percentile(50, klass="short")          # one cell
 
+    from repro_torch.core.sweep import sweep_poisson
+    sweep = sweep_poisson(                      # whole grid, one call
+        conditions=[("fcfs", None), ("sjf", 10.5)],
+        rhos=(0.5, 0.74, 0.85), seeds=range(5), n=2000,
+        short=S, long=L)
+    sweep.metric("short_p50")                   # (C, R, S) array
+
 This module is a copy of ``repro.core.sim_fast`` (imports renamed), held
-to it bit for bit by ``tests/test_torch_des.py``.  The grid sweep API
-built on it (``core.sweep``) is not ported yet.
+to it bit for bit by ``tests/test_torch_des.py``.
 """
 
 from __future__ import annotations

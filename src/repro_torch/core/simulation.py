@@ -10,8 +10,8 @@ engine cost model (serving/service_time.py).
 inner loop with a run-batched numpy fallback); the seed per-event Python
 loop is kept as ``simulate_reference``, the trace-equivalence oracle and
 the "old" side of ``benchmarks/sim_bench.py``.  For whole grids
-(policy x tau x rho x seed) the JAX package has ``core.sweep``, which
-the port does not have yet.  A copy of ``repro.core.simulation``
+(policy x tau x rho x seed) use ``core.sweep`` — one call per sweep,
+not one per cell.  A copy of ``repro.core.simulation``
 (imports renamed), held to it by ``tests/test_torch_des.py``.
 """
 

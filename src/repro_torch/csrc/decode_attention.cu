@@ -12,8 +12,9 @@
 // and does 4 FLOPs per element read, far below the ~295 FLOP/byte at
 // which bf16 tensor-core work would be the limit.  At the serving shapes
 // (B 1-4, KV 5, hd 64, S 128-512, bf16) that is at most 655 KB per lane
-// and layer, a fraction of a microsecond at 3.35 TB/s, so the time of a
-// call is its chain of dependent steps and the number of SMs it reaches.
+// and layer (gemma3-4b-edge, KV 4 and hd 256: 1.05 MB), a fraction of a
+// microsecond at 3.35 TB/s, so the time of a call is its chain of
+// dependent steps and the number of SMs it reaches.
 //
 // Design (the body is decode_tile.cuh, shared with K2; its note has the
 // details):
@@ -37,7 +38,7 @@
 // (head_dim) axis of q, the caches and o must be contiguous.  t_stride is
 // 0 (one fill level for every lane) or 1 (t holds B levels).  n_split is
 // the cluster size of kernels/decode_attention.py's split_plan(S); hd is
-// a multiple of 8, at most 128, and every pointer and stride but the
+// a multiple of 8, at most 256, and every pointer and stride but the
 // last axis's is a multiple of 16 bytes.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* t, void* o,

@@ -33,11 +33,15 @@
 //    on one block.  Folding that single partial in rank 0 would give the
 //    same bits (the empty partials weigh 0 and the full one exactly 1).
 //  * Warps own slots.  A warp holds R = 32 / lpr slot rows at a time,
-//    lpr lanes to a row, each lane loading 16 bytes (8 bf16 or 4 f32 of
-//    the row) of K and of V; 8 warps cover 32 slots a step at hd 64 in
-//    bf16.  The G query rows of the group sit in registers; a score is a
-//    register dot product over the lane's 16 bytes and a butterfly of
-//    warp shuffles over the row's lanes.
+//    lpr lanes to a row, each lane loading NC chunks of 16 bytes (8 bf16
+//    or 4 f32 of the row) of K and of V, chunk j of lane c at column
+//    (c + j * lpr) * 16 bytes, so a warp's loads stay contiguous; 8 warps
+//    cover 32 slots a step at hd 64 in bf16.  NC is 1 up to 32 chunks a
+//    row (hd 256 in bf16: a whole warp to a row); float32 rows past 128
+//    take NC = 2, 8 floats a lane, as a bf16 row of 256 does.  The G
+//    query rows of the group sit in registers; a score is a register dot
+//    product over the lane's chunks and a butterfly of warp shuffles over
+//    the row's lanes.
 //  * Each row group of lanes keeps its own online softmax (m, l, acc) in
 //    registers, with one exponential per slot and head, and there is no
 //    barrier of any kind inside the slot loop.
@@ -79,6 +83,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxSplits = 8;       // the portable cluster size
 constexpr int kSplitSlots = 64;     // live slots rank 0 takes alone
 constexpr float kNegInf = -1e30f;   // the reference's finite mask value
+constexpr size_t kMaxSmem = 232448; // dynamic shared memory of a block
 
 // Element strides; the head_dim axis is contiguous everywhere.
 struct DecodeArgs {
@@ -90,7 +95,7 @@ struct DecodeArgs {
   void* o;                  // (B, 1, H, hd)
   int S;                    // logical window: ring slots | P * page
   int G, hd;
-  int lpr;                  // lanes per slot row: pow2 >= hd / (16 B)
+  int lpr;                  // lanes per slot row: pow2 >= chunks, <= 32
   int t_stride;             // 0: one shared t, 1: t[b]
   int page, P;              // paged only
   int64_t q_sb, q_sh, o_sb, o_sh;
@@ -137,7 +142,10 @@ from_f32<__nv_bfloat16>(float x) {
 
 // Shared memory: per-warp partials (m, l: G each; acc: G * hd), the
 // cluster's block partials (written into rank 0's copy by every block)
-// and, paged, the block-table row.
+// and, paged, the block-table row.  kernels/decode_attention.py's
+// decode_smem_bytes states the same sum, so the wrapper refuses a shape
+// whose block would not fit (hd 256 with more than 8 query heads a KV
+// head at a split of 8).
 template <int GM>
 struct Smem {
   float wm[kWarps][GM], wl[kWarps][GM];
@@ -158,9 +166,10 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-template <typename T, int GM, bool kPaged>
+template <typename T, int GM, int NC, bool kPaged>
 __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
-  constexpr int V = Row16<T>::kN;
+  constexpr int V = Row16<T>::kN;       // elements of one 16-byte chunk
+  constexpr int VE = NC * V;            // elements a lane holds of a row
   extern __shared__ float smem[];
   Smem<GM>& sh = *reinterpret_cast<Smem<GM>*>(smem);
   float* wacc = smem + sizeof(Smem<GM>) / sizeof(float);   // [kWarps][GM][hd]
@@ -174,7 +183,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
   const int G = a.G, hd = a.hd, lpr = a.lpr;
   const int R = 32 / lpr;                  // slot rows a warp holds
   const int rg = lane / lpr, c = lane % lpr;
-  const bool has_chunk = c * V < hd;
+  bool has_chunk[NC];                   // chunk j: column (c + j*lpr) * V
+#pragma unroll
+  for (int j = 0; j < NC; ++j) has_chunk[j] = (c + j * lpr) * V < hd;
 
   const T* kb = static_cast<const T*>(a.k) + kvh * a.c_sh + c * V;
   const T* vb = static_cast<const T*>(a.v) + kvh * a.c_sh + c * V;
@@ -202,45 +213,54 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
     __syncthreads();
   }
 
-  float q[GM][V];
+  float q[GM][VE];
   const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + c * V;
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (g < G && has_chunk)
-      u = __ldg(reinterpret_cast<const uint4*>(
-          qb + (int64_t)(kvh * G + g) * a.q_sh));
-    Row16<T>::cvt(u, q[g]);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      uint4 u = make_uint4(0, 0, 0, 0);
+      if (g < G && has_chunk[j])
+        u = __ldg(reinterpret_cast<const uint4*>(
+            qb + (int64_t)(kvh * G + g) * a.q_sh + j * lpr * V));
+      Row16<T>::cvt(u, q[g] + j * V);
+    }
   }
-  float m[GM], l[GM], acc[GM][V];
+  float m[GM], l[GM], acc[GM][VE];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < VE; ++i) acc[g][i] = 0.f;
   }
 
   // row group rg of warp w holds slot base + w * R + rg of each step
   for (int base = lo; base < hi; base += kWarps * R) {
     const int s = base + warp * R + rg;
     const bool ok = s < hi;
-    uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
-    if (ok && has_chunk) {
-      const int64_t off = kPaged ? (int64_t)row[s / a.page] * a.c_sp +
-                                       (int64_t)(s % a.page) * a.c_ss
-                                 : (int64_t)s * a.c_ss;
-      kr = __ldg(reinterpret_cast<const uint4*>(kb + off));
-      vr = __ldg(reinterpret_cast<const uint4*>(vb + off));
+    float kf[VE], vf[VE];
+    {
+      const int64_t off = !ok ? 0
+                          : kPaged ? (int64_t)row[s / a.page] * a.c_sp +
+                                         (int64_t)(s % a.page) * a.c_ss
+                                   : (int64_t)s * a.c_ss;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
+        if (ok && has_chunk[j]) {
+          kr = __ldg(reinterpret_cast<const uint4*>(kb + off + j * lpr * V));
+          vr = __ldg(reinterpret_cast<const uint4*>(vb + off + j * lpr * V));
+        }
+        Row16<T>::cvt(kr, kf + j * V);
+        Row16<T>::cvt(vr, vf + j * V);
+      }
     }
-    float kf[V], vf[V];
-    Row16<T>::cvt(kr, kf);
-    Row16<T>::cvt(vr, vf);
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       float d = 0.f;
 #pragma unroll
-      for (int i = 0; i < V; ++i) d = fmaf(q[g][i], kf[i], d);
+      for (int i = 0; i < VE; ++i) d = fmaf(q[g][i], kf[i], d);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)     // over the row's lpr lanes
         if (o < lpr) d += __shfl_xor_sync(0xffffffffu, d, o);
@@ -254,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
       m[g] = up ? sc : m[g];
       l[g] = fmaf(l[g], alpha, pg);
 #pragma unroll
-      for (int i = 0; i < V; ++i)
+      for (int i = 0; i < VE; ++i)
         acc[g][i] = fmaf(acc[g][i], alpha, pg * vf[i]);
     }
   }
@@ -272,7 +292,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
       const float ea = m[g] >= mo ? 1.f : e, eb = mo >= m[g] ? 1.f : e;
       l[g] = l[g] * ea + lo_ * eb;
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
+      for (int i = 0; i < VE; ++i) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i], o);
         acc[g][i] = acc[g][i] * ea + ao * eb;
       }
@@ -283,10 +303,13 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       if (g >= G) break;
-      if (has_chunk) {
-        float* dst = wacc + (warp * GM + g) * hd + c * V;
 #pragma unroll
-        for (int i = 0; i < V; ++i) dst[i] = acc[g][i];
+      for (int j = 0; j < NC; ++j) {
+        if (has_chunk[j]) {
+          float* dst = wacc + (warp * GM + g) * hd + (c + j * lpr) * V;
+#pragma unroll
+          for (int i = 0; i < V; ++i) dst[i] = acc[g][j * V + i];
+        }
       }
       if (c == 0) {
         sh.wm[warp][g] = m[g];
@@ -350,11 +373,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
   }
 }
 
-template <typename T, int GM, bool kPaged>
+template <typename T, int GM, int NC, bool kPaged>
 int launch_decode(const DecodeArgs& a, int B, int KV, int n_split,
                   cudaStream_t stream) {
-  auto kern = decode_kernel<T, GM, kPaged>;
+  auto kern = decode_kernel<T, GM, NC, kPaged>;
   const size_t smem = smem_bytes(a, GM, n_split, kPaged);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -378,36 +402,48 @@ int launch_decode(const DecodeArgs& a, int B, int KV, int n_split,
 }
 
 // GM: the group width the kernel is compiled for (G <= GM; rows past G
-// are zero and never stored).
-template <typename T, bool kPaged>
+// are zero and never stored).  Two chunks a lane (float32 past hd 128)
+// are compiled up to GM 8: the block's shared memory at hd 256 holds no
+// more, and the registers of q and acc stay those of GM 8 at one chunk.
+template <typename T, int NC, bool kPaged>
 int dispatch_group(const DecodeArgs& a, int B, int KV, int n_split,
                    cudaStream_t st) {
-  if (a.G == 1) return launch_decode<T, 1, kPaged>(a, B, KV, n_split, st);
-  if (a.G == 2) return launch_decode<T, 2, kPaged>(a, B, KV, n_split, st);
-  if (a.G == 3) return launch_decode<T, 3, kPaged>(a, B, KV, n_split, st);
-  if (a.G == 4) return launch_decode<T, 4, kPaged>(a, B, KV, n_split, st);
-  if (a.G <= 8) return launch_decode<T, 8, kPaged>(a, B, KV, n_split, st);
-  if (a.G <= 16) return launch_decode<T, 16, kPaged>(a, B, KV, n_split, st);
+  if (a.G == 1) return launch_decode<T, 1, NC, kPaged>(a, B, KV, n_split, st);
+  if (a.G == 2) return launch_decode<T, 2, NC, kPaged>(a, B, KV, n_split, st);
+  if (a.G == 3) return launch_decode<T, 3, NC, kPaged>(a, B, KV, n_split, st);
+  if (a.G == 4) return launch_decode<T, 4, NC, kPaged>(a, B, KV, n_split, st);
+  if (a.G <= 8) return launch_decode<T, 8, NC, kPaged>(a, B, KV, n_split, st);
+  if constexpr (NC == 1) {
+    if (a.G <= 16)
+      return launch_decode<T, 16, NC, kPaged>(a, B, KV, n_split, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 // Validates what the kernel assumes and launches: dtype 0 = float32,
-// 1 = bfloat16; hd a multiple of 8, at most 128; 1 <= n_split <= 8.
+// 1 = bfloat16; hd a multiple of 8, at most 256; 1 <= n_split <= 8.
+// lpr lanes take a row, a power of two up to a warp; a float32 row of
+// more than 32 chunks (hd > 128) takes two chunks a lane.
 template <bool kPaged>
 int dispatch_dtype(int dtype, DecodeArgs a, int B, int KV, int n_split,
                    cudaStream_t stream) {
-  if (a.hd < 8 || a.hd > 128 || a.hd % 8 || n_split < 1 ||
+  if (a.hd < 8 || a.hd > 256 || a.hd % 8 || n_split < 1 ||
       n_split > kMaxSplits || a.G < 1)
     return (int)cudaErrorInvalidValue;
   const int vec = dtype == 0 ? 4 : 8;
+  const int chunks = a.hd / vec;
   int lpr = 1;
-  while (lpr * vec < a.hd) lpr *= 2;
+  while (lpr < chunks && lpr < 32) lpr *= 2;
   a.lpr = lpr;
   a.scale = 1.0f / sqrtf((float)a.hd);
-  if (dtype == 0)
-    return dispatch_group<float, kPaged>(a, B, KV, n_split, stream);
+  if (dtype == 0) {
+    if (chunks > 32)
+      return dispatch_group<float, 2, kPaged>(a, B, KV, n_split, stream);
+    return dispatch_group<float, 1, kPaged>(a, B, KV, n_split, stream);
+  }
   if (dtype == 1)
-    return dispatch_group<__nv_bfloat16, kPaged>(a, B, KV, n_split, stream);
+    return dispatch_group<__nv_bfloat16, 1, kPaged>(a, B, KV, n_split,
+                                                    stream);
   return (int)cudaErrorInvalidValue;
 }
 

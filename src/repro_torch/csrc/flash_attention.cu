@@ -44,6 +44,16 @@
 //  * K/V stages of 128 keys brought by cp.async (16 bytes a thread) into
 //    a two-stage ring in shared memory, rows padded by 16 bytes so that
 //    ldmatrix is free of bank conflicts; keys past Skv are zero-filled.
+//  * Head width 256 (gemma3-4b-edge) cannot keep that shape: the 128-key
+//    two-stage ring would need 270 KB of shared memory, and q's A
+//    fragments (64 registers), the accumulator (128) and the scores (32)
+//    would pass 255 registers a thread.  So MmaCfg<256> runs one key
+//    group of 4 warps (128 threads) over 64-key stages (a 135 KB ring)
+//    and keeps the block's 64 stacked q rows in shared memory (33 KB,
+//    brought by cp.async with the first stage), from where each k-step
+//    of QK^T reads its A fragment by ldmatrix: 247 registers a thread
+//    by ptxas, no spill.
+//    The mask, the softmax and the P V product are the narrow widths'.
 //  * Extend rows equal cold-prefill rows bit for bit: key tiles start at
 //    absolute key 0, belong to a key group by their absolute index and
 //    run in the same order for every row; a tile that is fully masked for
@@ -54,8 +64,12 @@
 //    rows of its tile.
 //
 // float32 stays on CUDA cores in full f32 (TF32 would break the 1e-4
-// bar): one thread per query row keeps its q row and accumulator in
-// registers, K/V tiles of 64 keys are staged in shared memory as f32,
+// bar): kSplit threads per query row (1 up to hd 64, hd / 64 past it: at
+// hd 256 one thread would need 512 registers for q and the accumulator) keep
+// their share of the row's q and accumulator in registers, dimension d
+// in thread d % kSplit (neighbouring threads on neighbouring banks), and
+// sum a score's partial dot products by shuffles within the row's
+// threads; K/V tiles of 64 keys are staged in shared memory as f32,
 // causal rows skip keys past their position and walk kv tiles from
 // absolute tile 0 (so extend rows equal cold rows there too).
 //
@@ -88,9 +102,21 @@ struct Strides {
 constexpr int kRowWarps = 4;             // warps along the stacked rows
 constexpr int kMRows = 16 * kRowWarps;   // stacked rows per block
 constexpr int kKeys = 64;                // keys per warp tile
-constexpr int kKeyGroups = 2;            // warps along the keys
-constexpr int kThreads = 32 * kRowWarps * kKeyGroups;
-constexpr int kStageKeys = kKeys * kKeyGroups;   // keys per ring stage
+
+// The block's shape by head width: up to 128, two key groups (warps
+// along the keys) over 128-key stages with q's A fragments in registers;
+// past 128, one key group over 64-key stages with q in shared memory.
+template <int HD>
+struct MmaCfg {
+  static constexpr bool kWide = HD > 128;
+  static constexpr int kKeyGroups = kWide ? 1 : 2;
+  static constexpr int kThreads = 32 * kRowWarps * kKeyGroups;
+  static constexpr int kStageKeys = kKeys * kKeyGroups;   // keys a stage
+  static constexpr int LD = HD + 8;      // padded smem row (elements)
+  static constexpr size_t kSmem =
+      sizeof(__nv_bfloat16) *
+      (2 * 2 * kStageKeys * LD + (kWide ? kMRows * LD : 0));
+};
 
 // One 64-key tile of the online softmax for the thread's two rows: scale
 // the scores s into log2 units, mask (kMask: the tile crosses a row's
@@ -153,18 +179,23 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
+__global__ void __launch_bounds__(MmaCfg<HD>::kThreads, 1) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int Sq, int Skv, int q_offset, int G,
     int causal, Strides qs, Strides ks_, Strides vs_, Strides os,
     float scale_log2) {
-  constexpr int LD = HD + 8;             // padded smem row (elements)
+  using Cfg = MmaCfg<HD>;
+  constexpr int kKeyGroups = Cfg::kKeyGroups;
+  constexpr int kThreads = Cfg::kThreads;
+  constexpr int kStageKeys = Cfg::kStageKeys;
+  constexpr int LD = Cfg::LD;
   constexpr int KS = HD / 16;            // k steps of QK^T
   constexpr int CH = HD / 8;             // 16-byte chunks of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sv = sk + 2 * kStageKeys * LD;   // [2][kStageKeys][LD]
+  __nv_bfloat16* sq = sv + 2 * kStageKeys * LD;   // wide: [kMRows][LD]
 
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -194,16 +225,34 @@ __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
                       qrow
                 : nullptr;
   }
-  uint32_t qa[KS][4];                    // q as A fragments
+  // q as A fragments: in registers (narrow), or, wide, the block's
+  // stacked rows in shared memory (4-byte copies, dead rows zero-filled;
+  // they complete with the first stage's group)
+  uint32_t qa[Cfg::kWide ? 1 : KS][4];
+  if constexpr (Cfg::kWide) {
+    for (int i = tid; i < kMRows * (HD / 2); i += kThreads) {
+      const int j = i / (HD / 2), c = (i % (HD / 2)) * 2;
+      const int r = r_blk + j;
+      const bool in = r < rows;
+      const int qrow = in ? r / G : 0, g = in ? r % G : 0;
+      cp_async4(sq + j * LD + c,
+                q + b * qs.b + (int64_t)qrow * qs.s +
+                    (int64_t)(kvh * G + g) * qs.h + c,
+                in);
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int d = 16 * kk + 2 * tig;
-    qa[kk][0] = live[0] ? *reinterpret_cast<const uint32_t*>(qp[0] + d) : 0;
-    qa[kk][1] = live[1] ? *reinterpret_cast<const uint32_t*>(qp[1] + d) : 0;
-    qa[kk][2] =
-        live[0] ? *reinterpret_cast<const uint32_t*>(qp[0] + d + 8) : 0;
-    qa[kk][3] =
-        live[1] ? *reinterpret_cast<const uint32_t*>(qp[1] + d + 8) : 0;
+    for (int kk = 0; kk < KS; ++kk) {
+      const int d = 16 * kk + 2 * tig;
+      qa[kk][0] =
+          live[0] ? *reinterpret_cast<const uint32_t*>(qp[0] + d) : 0;
+      qa[kk][1] =
+          live[1] ? *reinterpret_cast<const uint32_t*>(qp[1] + d) : 0;
+      qa[kk][2] =
+          live[0] ? *reinterpret_cast<const uint32_t*>(qp[0] + d + 8) : 0;
+      qa[kk][3] =
+          live[1] ? *reinterpret_cast<const uint32_t*>(qp[1] + d + 8) : 0;
+    }
   }
 
   const __nv_bfloat16* kb = k + b * ks_.b + (int64_t)kvh * ks_.h;
@@ -257,13 +306,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
       // S = Q K^T: ldmatrix x4 gives b0/b1 of two 8-key n-tiles
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
+        uint32_t (&a)[4] = qa[Cfg::kWide ? 0 : kk];
+        if constexpr (Cfg::kWide) {
+          ldsm_x4(a, sq + (wr * 16 + lane % 16) * LD + 16 * kk +
+                         (lane / 16) * 8);
+        }
 #pragma unroll
         for (int jp = 0; jp < kKeys / 16; ++jp) {
           uint32_t r[4];
           ldsm_x4(r, tk + (16 * jp + (lane / 16) * 8 + lane % 8) * LD +
                          16 * kk + ((lane / 8) & 1) * 8);
-          mma16816(s[2 * jp], qa[kk], r[0], r[1]);
-          mma16816(s[2 * jp + 1], qa[kk], r[2], r[3]);
+          mma16816(s[2 * jp], a, r[0], r[1]);
+          mma16816(s[2 * jp + 1], a, r[2], r[3]);
         }
       }
       if (c0 + kKeys > Skv || (causal && c0 + kKeys - 1 > warp_first_pos))
@@ -299,6 +353,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
   static_assert((kKeyGroups - 1) * kPart * kPT * sizeof(float) <=
                     2 * 2 * kStageKeys * LD * sizeof(__nv_bfloat16),
                 "the ring holds the hand-over");
+  static_assert(Cfg::kSmem <= 232448, "the block fits in shared memory");
   const int pt = wr * 32 + lane;
   if (kg > 0) {
     float* part = reinterpret_cast<float*>(smem_raw) + (kg - 1) * kPart * kPT;
@@ -355,7 +410,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                int G, int causal,
                Strides qs, Strides ks, Strides vs, Strides os,
                cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * 2 * 2 * kStageKeys * (HD + 8);
+  const size_t smem = MmaCfg<HD>::kSmem;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -363,7 +418,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((G * Sq + kMRows - 1) / kMRows, KV, B);
-  flash_mma_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  flash_mma_kernel<HD><<<grid, MmaCfg<HD>::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -373,33 +428,47 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 // ------------------------------------------------------ float32, CUDA cores
-constexpr int kRows = 64;          // query rows per block (= threads)
+constexpr int kRows = 64;          // query rows per block
 constexpr int kCols = 64;          // keys per staged tile
 constexpr int kChunk = 16;         // keys scored per online-softmax step
 
+// Threads per query row: one up to hd 64 (a row's q and accumulator in
+// 2 * hd registers), then hd / 64 (2 * 64 registers each; one thread of
+// an hd-128 row spilled 804 bytes).
 template <int HD>
-__global__ void __launch_bounds__(kRows) flash_f32_kernel(
+constexpr int kF32Split = HD > 64 ? HD / 64 : 1;
+
+template <int HD>
+__global__ void __launch_bounds__(kRows * kF32Split<HD>) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, int Sq, int Skv, int q_offset, int G,
     int causal, Strides qs, Strides ks_, Strides vs_, Strides os,
     float scale) {
+  constexpr int kSplit = kF32Split<HD>;
+  constexpr int DS = HD / kSplit;    // dimensions a thread holds
+  constexpr int kBlock = kRows * kSplit;
   extern __shared__ float smem[];
   float* kt = smem;                  // (kCols, HD)
   float* vt = kt + kCols * HD;       // (kCols, HD)
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int r = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int r = tid / kSplit, part = tid % kSplit;
+  // the row's kSplit neighbouring lanes, which shuffle among themselves
+  const unsigned gmask =
+      kSplit == 1 ? 1u << (tid % 32)
+                  : ((1u << kSplit) - 1) << ((tid % 32) & ~(kSplit - 1));
   const int row = qt * kRows + r;      // query row in q
   const bool live = row < Sq;
   const int pos = q_offset + row;       // its absolute key position
   const int kvh = h / G;
 
-  float qr[HD], acc[HD];
+  float qr[DS], acc[DS];                // dimension part + kSplit * i
   const float* qp = q + b * qs.b + (int64_t)row * qs.s + (int64_t)h * qs.h;
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = live ? qp[d] : 0.f;
-    acc[d] = 0.f;
+  for (int i = 0; i < DS; ++i) {
+    qr[i] = live ? qp[part + kSplit * i] : 0.f;
+    acc[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
 
@@ -411,7 +480,7 @@ __global__ void __launch_bounds__(kRows) flash_f32_kernel(
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int c0 = tile * kCols;
     __syncthreads();                 // previous tile fully consumed
-    for (int i = r; i < kCols * HD; i += kRows) {
+    for (int i = tid; i < kCols * HD; i += kBlock) {
       const int j = i / HD, d = i % HD;
       const bool in = c0 + j < Skv;
       kt[i] = in ? kb[(int64_t)(c0 + j) * ks_.s + d] : 0.f;
@@ -429,10 +498,13 @@ __global__ void __launch_bounds__(kRows) flash_f32_kernel(
         const int j = j0 + jj;
         s[jj] = kNegInf;
         if (j < n_keys) {
-          const float* kj = kt + j * HD;
+          const float* kj = kt + j * HD + part;
           float dot = 0.f;
 #pragma unroll
-          for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kj[d], dot);
+          for (int i = 0; i < DS; ++i) dot = fmaf(qr[i], kj[kSplit * i], dot);
+#pragma unroll
+          for (int w = 1; w < kSplit; w <<= 1)
+            dot += __shfl_xor_sync(gmask, dot, w);
           s[jj] = dot * scale;
           cmax = fmaxf(cmax, s[jj]);
         }
@@ -441,16 +513,16 @@ __global__ void __launch_bounds__(kRows) flash_f32_kernel(
       const float alpha = expf(m - m_new);
       l *= alpha;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+      for (int i = 0; i < DS; ++i) acc[i] *= alpha;
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
         const int j = j0 + jj;
         if (j < n_keys) {
           const float p = expf(s[jj] - m_new);
           l += p;
-          const float* vj = vt + j * HD;
+          const float* vj = vt + j * HD + part;
 #pragma unroll
-          for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, vj[d], acc[d]);
+          for (int i = 0; i < DS; ++i) acc[i] = fmaf(p, vj[kSplit * i], acc[i]);
         }
       }
       m = m_new;
@@ -460,8 +532,9 @@ __global__ void __launch_bounds__(kRows) flash_f32_kernel(
     float* op = o + b * os.b + (int64_t)row * os.s + (int64_t)h * os.h;
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < HD; ++d) op[d] = acc[d] * inv;
-    if (lse) lse[((int64_t)b * gridDim.y + h) * Sq + row] = m + logf(l);
+    for (int i = 0; i < DS; ++i) op[part + kSplit * i] = acc[i] * inv;
+    if (lse && part == 0)
+      lse[((int64_t)b * gridDim.y + h) * Sq + row] = m + logf(l);
   }
 }
 
@@ -479,7 +552,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((Sq + kRows - 1) / kRows, H, B);
-  flash_f32_kernel<HD><<<grid, kRows, smem, stream>>>(
+  flash_f32_kernel<HD><<<grid, kRows * kF32Split<HD>, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv,
       q_offset, G, causal, qs, ks, vs, os, 1.0f / sqrtf((float)HD));
@@ -506,7 +579,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // KV, hd), strides in elements for the batch, sequence and head axes; the
 // head_dim axis must be contiguous, and in bf16 every row of k and v
 // starts on a 16-byte boundary and every row of q and o on a 4-byte one.
-// hd in {16, 32, 64, 128}.  Query row r sits at absolute position
+// hd in {16, 32, 64, 128, 256}.  Query row r sits at absolute position
 // q_offset + r; causal calls need q_offset + Sq <= Skv.  ``lse`` is null,
 // or (B, H, Sq) f32 contiguous for each row's log-sum-exp.
 extern "C" int flash_attention_launch(
@@ -535,6 +608,8 @@ extern "C" int flash_attention_launch(
       K3_LAUNCH(64);
     case 128:
       K3_LAUNCH(128);
+    case 256:
+      K3_LAUNCH(256);
     default:
       return (int)cudaErrorInvalidValue;
   }

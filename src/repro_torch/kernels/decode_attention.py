@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_G, _MAX_HD = 16, 128
+_MAX_G, _MAX_HD = 16, 256
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the portable thread-block-cluster size of Hopper (kMaxSplits in
 #: csrc/decode_tile.cuh)
@@ -33,6 +33,31 @@ MAX_SPLITS = 8
 #: ring slots per split that set the cluster size; up to as many live
 #: slots, rank 0 takes them all alone (kSplitSlots in the kernel)
 SLOTS_PER_SPLIT = 64
+#: dynamic shared memory one block may use on an H100 (kMaxSmem)
+MAX_SMEM_BYTES = 232_448
+_WARPS = 8                      # kWarps in csrc/decode_tile.cuh
+
+
+def decode_smem_bytes(G: int, hd: int, n_split: int, P: int = 0) -> int:
+    """Shared memory of one K1/K2 block (``smem_bytes`` in
+    csrc/decode_tile.cuh): the warps' and the cluster's (m, l) pairs and
+    accumulators at the group width the kernel is compiled for (G up to
+    4, then 8, then 16), and K2's table row of P entries."""
+    gm = G if G <= 4 else 8 if G <= 8 else 16
+    return 4 * (2 * (_WARPS + MAX_SPLITS) * gm
+                + (_WARPS + n_split) * gm * hd) + 4 * P
+
+
+def check_fits(G: int, hd: int, n_split: int, P: int = 0) -> None:
+    """Raise when a K1/K2 block at this shape would not fit: the shared
+    memory past the card's 227 KB, or more than 8 query heads a KV head
+    past hd 128 (two chunks a lane are compiled up to a group of 8)."""
+    need = decode_smem_bytes(G, hd, n_split, P)
+    if need > MAX_SMEM_BYTES or (hd > 128 and G > 8):
+        raise ValueError(
+            f"decode attention at G={G} hd={hd} over {n_split} splits "
+            f"needs {need} bytes of shared memory a block (at most "
+            f"{MAX_SMEM_BYTES}, and G <= 8 past hd 128)")
 
 
 def split_plan(S: int) -> int:
@@ -86,7 +111,9 @@ def decode_attention_cuda(q, cache_k, cache_v, t):
     ``split_plan(S)``-block clusters.  ``t`` is an int32 tensor of one
     element (shared by the batch) or of B elements (one per lane) on the
     same device, read by the kernel and never by the host; every level
-    must be >= 0.  head_dim is a multiple of 8, at most 128."""
+    must be >= 0.  head_dim is a multiple of 8, at most 256; a shape
+    whose block would not fit in shared memory is refused
+    (:func:`check_fits`)."""
     B, one, H, hd = q.shape
     _, S, KV, _ = cache_k.shape
     if not (q.is_cuda and cache_k.device == q.device
@@ -109,6 +136,7 @@ def decode_attention_cuda(q, cache_k, cache_v, t):
             or not t.is_contiguous():
         raise TypeError("t must be a contiguous int32 tensor of 1 or B "
                         "elements")
+    check_fits(H // KV, hd, split_plan(S))
     o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),

@@ -32,7 +32,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+#: head widths K3b is compiled for; K3 (the forward) also takes 256
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def check_head_dim(hd: int) -> None:
+    """Raise unless K3b takes head width ``hd``: at most 128 (K3b's
+    register and shared-memory plan is sized for it; gemma3-4b-edge's 256
+    is served, not trained, on the card)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention_bwd (K3b) takes head widths {HEAD_DIMS}, at "
+            f"most 128; head_dim {hd} has no backward kernel on the card")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -88,9 +99,10 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True):
                                      for t in (k, v, o, do)) \
             or lse.dtype != torch.float32:
         raise TypeError(f"unsupported dtypes {[t.dtype for t in tensors]}")
+    check_head_dim(hd)
     if k.shape != (B, S, KV, hd) or v.shape != k.shape or o.shape != q.shape \
             or do.shape != q.shape or lse.shape != (B, H, S) or KV == 0 \
-            or H % KV or hd not in _HEAD_DIMS or S == 0:
+            or H % KV or S == 0:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} "
                          f"o {tuple(o.shape)} do {tuple(do.shape)} "

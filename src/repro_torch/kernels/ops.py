@@ -33,8 +33,7 @@ from repro_torch.kernels.paged_decode_attention import (
 __all__ = ["LAUNCHES", "reset_launches", "decode_attention",
            "paged_decode_attention", "flash_attention",
            "flash_attention_train", "gbdt_margins",
-           "gbdt_margins_packed", "gbdt_margins_packed_from",
-           "preferred_gbdt_layout", "gbdt_margins_best"]
+           "gbdt_margins_packed", "gbdt_margins_packed_from"]
 
 
 def reset_launches() -> None:
@@ -133,49 +132,3 @@ def gbdt_margins_packed_from(packed, X):
                                depth=int(packed.depth),
                                n_classes=int(packed.n_classes),
                                base_score=float(packed.base_score))
-
-
-def _dense_from(model, X):
-    m = gbdt_margins(X, *model.tensors(X.device),
-                     n_classes=int(model.n_classes))
-    return m + model.base_score
-
-
-def _event_ms(fn, iters: int = 20) -> float:
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def preferred_gbdt_layout(X, model) -> str:
-    """Which layout scores X's batch faster on X's device: ``"dense"``
-    (K4) or ``"packed"`` (K5).  On the card both kernels are timed once
-    with CUDA events at X's batch size, and the answer is cached on the
-    model per (device, batch size); on the CPU it is ``"dense"``, as the
-    JAX package's answer off the TPU."""
-    if X.device.type != "cuda":
-        return "dense"
-    cache = model.__dict__.setdefault("_layout", {})
-    key = (X.device, X.shape[0])
-    if key not in cache:
-        packed = model.packed()
-        ms = {"dense": _event_ms(lambda: _dense_from(model, X)),
-              "packed": _event_ms(lambda: gbdt_margins_packed_from(packed,
-                                                                   X))}
-        cache[key] = min(ms, key=ms.get)
-    return cache[key]
-
-
-def gbdt_margins_best(X, model):
-    """Score X (B,F) f32 with whichever layout :func:`preferred_gbdt_layout`
-    picks for its device and batch size.  ``model`` is a
-    ``core.gbdt.GBDTModel``; the margins include its base score."""
-    if preferred_gbdt_layout(X, model) == "packed":
-        return gbdt_margins_packed_from(model.packed(), X)
-    return _dense_from(model, X)

@@ -20,11 +20,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import split_plan
+from repro_torch.kernels.decode_attention import check_fits, split_plan
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_G, _MAX_HD = 16, 128
+_MAX_G, _MAX_HD = 16, 256
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -51,7 +51,8 @@ def paged_decode_attention_cuda(q, pool_k, pool_v, bt, t):
     """Launch K2 on q's device and stream, split as K1 splits a window of
     ``P * page`` slots.  ``bt`` (B, P) and ``t`` (B,) are int32 tensors on
     the same device, read by the kernel and never by the host; table
-    entries must be valid page ids and every t >= 0."""
+    entries must be valid page ids and every t >= 0.  head_dim and the
+    shared memory a block needs are limited as for K1."""
     B, one, H, hd = q.shape
     n_pages, page, KV, _ = pool_k.shape
     if not (q.is_cuda and all(x.device == q.device
@@ -77,6 +78,7 @@ def paged_decode_attention_cuda(q, pool_k, pool_v, bt, t):
                         "rows")
     if t.dtype != torch.int32 or t.shape != (B,) or not t.is_contiguous():
         raise TypeError("t must be a contiguous (B,) int32 tensor")
+    check_fits(H // KV, hd, split_plan(bt.shape[1] * page), bt.shape[1])
     o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),

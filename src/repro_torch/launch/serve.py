@@ -9,7 +9,7 @@ Trains the predictor on the sharegpt-profile corpus, calibrates tau =
 under the chosen policy and prints the per-class latency percentiles — the
 one-command version of the paper's §5.4 experiment.  The replicas are
 virtual-time ``SimEngine``s; the predictor scores the admission burst on
-``--device`` (the card by default, through K4; ``--device cpu`` runs its
+``--device`` (the card by default, through K5; ``--device cpu`` runs its
 plain version).
 """
 

@@ -5,11 +5,13 @@ device).
         --steps 20 --batch 8 --seq 128 --ckpt /tmp/ckpt
 
 Runs on the card unless given ``--device cpu`` (``--reduced`` is the tiny
-CPU config).  Features exercised: the train step with per-block remat
-(every layer's attention through K3 forward and K3b backward on the
-card), the deterministic synthetic data stream (resume-safe), async
-checkpointing with atomic commits, auto-resume from the latest step and
-straggler monitoring.  ``main`` returns the per-step losses.
+CPU config).  On the card a config whose head width K3b does not take
+(gemma3-4b-edge's 256) is refused before any weight is built.
+Features exercised: the train step with per-block remat (every layer's
+attention through K3 forward and K3b backward on the card), the
+deterministic synthetic data stream (resume-safe), async checkpointing
+with atomic commits, auto-resume from the latest step and straggler
+monitoring.  ``main`` returns the per-step losses.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.lm_data import LMDataConfig, SyntheticLMStream
+from repro_torch.kernels.flash_attention_bwd import check_head_dim
 from repro_torch.models.model import resolve_device
 from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training.optimizer import OptConfig
@@ -52,14 +55,17 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        # refused before any weight is built: no plain-backward fallback
+        try:
+            check_head_dim(cfg.head_dim)
+        except ValueError as e:
+            raise SystemExit(f"train.py: {cfg.name}: {e}")
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1))
     data = SyntheticLMStream(LMDataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch))
-    try:
-        state = init_train_state(cfg, opt_cfg, device=device, seed=0)
-    except NotImplementedError as e:
-        raise SystemExit(f"train.py: {e}")
+    state = init_train_state(cfg, opt_cfg, device=device, seed=0)
     step_fn = make_train_step(cfg, opt_cfg, microbatches=args.microbatches)
 
     start_step = 0

@@ -1,6 +1,7 @@
 """Foundational layers (port of ``repro.models.layers``): dense, the
 float32-output product of the training logits, RMSNorm, half-split RoPE,
-the SwiGLU MLP, and the initialisers with the JAX init's scales."""
+the gated MLP (SwiGLU or GeGLU), and the initialisers with the JAX init's
+scales."""
 
 from __future__ import annotations
 
@@ -100,12 +101,24 @@ def rope(x, cos, sin):
                      dim=-1).to(x.dtype)
 
 
+#: the gated MLP's activation by ``cfg.mlp_activation``: ``jax.nn.silu``
+#: (SwiGLU) and ``jax.nn.gelu``, whose default is the tanh form (GeGLU)
+ACTIVATIONS = {"silu": Fn.silu,
+               "gelu": lambda x: Fn.gelu(x, approximate="tanh")}
+
+
 class MLP(nn.Module):
-    """Pre-norm SwiGLU MLP with its residual."""
+    """Pre-norm gated MLP (``repro.models.layers.apply_mlp``) with its
+    residual: SwiGLU or GeGLU by ``cfg.mlp_activation``."""
 
     def __init__(self, cfg, gen, device):
         super().__init__()
+        if cfg.mlp_activation not in ACTIVATIONS:
+            raise NotImplementedError(
+                f"{cfg.name}: mlp_activation={cfg.mlp_activation!r} is not "
+                f"one of {sorted(ACTIVATIONS)}")
         dt, d, ff = dtype_of(cfg), cfg.d_model, cfg.d_ff
+        self.act = ACTIVATIONS[cfg.mlp_activation]
         self.eps = cfg.norm_eps
         self.norm = ones(d, dt, device)
         self.w_gate = init_dense(gen, d, ff, dt, device)
@@ -114,5 +127,5 @@ class MLP(nn.Module):
 
     def forward(self, x):
         h = rmsnorm(x, self.norm, self.eps)
-        hidden = Fn.silu(dense(h, self.w_gate)) * dense(h, self.w_up)
+        hidden = self.act(dense(h, self.w_gate)) * dense(h, self.w_up)
         return x + dense(hidden, self.w_down)

@@ -121,11 +121,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg, *, device=None, seed: int = 0):
         super().__init__()
-        if cfg.mlp_activation != "silu":
-            raise NotImplementedError(
-                f"{cfg.name}: mlp_activation={cfg.mlp_activation!r} is not "
-                "ported (the port's blocks are SwiGLU); the config serves "
-                "the service-time model only")
         self.cfg = cfg
         self.device = resolve_device(device)
         dev, dt = self.device, dtype_of(cfg)

@@ -10,7 +10,7 @@ segment boundary.
 
 Admission: ``submit`` scores one request (the predictor's single-row path,
 K5 on the card) -- the sidecar calls it per HTTP request; ``submit_many``
-scores an arrival burst with one batched call (K4).  A predictor
+scores an arrival burst with one batched call (K5 too).  A predictor
 exception, a non-finite score or an injected outage admits with
 ``p_long = 0`` (FCFS order) and sets ``degraded`` until a later call
 succeeds.  Without ``true_output_tokens`` a request's output length is

@@ -39,6 +39,8 @@ from repro_torch.serving.engine import (BatchedRealEngine, PagedBatchedEngine,
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+#: the serving paths' heads: (H, KV, hd) of smollm-360m and gemma3-4b-edge
+HEADS = [(15, 5, 64), (8, 4, 256)]
 
 
 @pytest.fixture
@@ -57,17 +59,18 @@ def _close(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,t", [(64, 0), (64, 40), (64, 100), (512, 300)])
-def test_decode_kernel_matches_plain(cuda, dtype, S, t):
+@pytest.mark.parametrize("H,KV,hd", HEADS)
+def test_decode_kernel_matches_plain(cuda, dtype, S, t, H, KV, hd):
     g = torch.Generator(device=cuda).manual_seed(S + t)
-    q = torch.randn(1, 1, 15, 64, generator=g, device=cuda).to(dtype)
-    k, v = (torch.randn(1, S, 5, 64, generator=g, device=cuda).to(dtype)
+    q = torch.randn(1, 1, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(1, S, KV, hd, generator=g, device=cuda).to(dtype)
             for _ in range(2))
     tt = torch.tensor(t, dtype=torch.int32, device=cuda)
     before = ops.LAUNCHES["decode_attention"]
     got = ops.decode_attention(q, k, v, tt)
     assert ops.LAUNCHES["decode_attention"] == before + 1
-    want = ref.decode_attention_ref(q.reshape(1, 5, 3, 64), k.transpose(1, 2),
-                                    v.transpose(1, 2), tt)
+    want = ref.decode_attention_ref(q.reshape(1, KV, H // KV, hd),
+                                    k.transpose(1, 2), v.transpose(1, 2), tt)
     _close(got, want.reshape(got.shape), dtype)
 
 
@@ -75,7 +78,7 @@ def test_decode_kernel_matches_plain(cuda, dtype, S, t):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [16, 32, 48, 64, 96, 512])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_flash_kernel_matches_plain(cuda, dtype, S, causal, hd):
     """K3 at every serving bucket (ragged 48 and 96 too), B 4: bf16 on
     the tensor cores within 2e-2, float32 on the CUDA cores within
@@ -143,7 +146,9 @@ def _split_edges(S):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [16, 128, 512])
 @pytest.mark.parametrize("B", [1, 3, 4])
-def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype, S, B):
+@pytest.mark.parametrize("H,KV,hd", HEADS)
+def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype, S, B, H, KV,
+                                                hd):
     """K1 with (B,) fill levels on both sides of every split boundary,
     with empty splits and wrapped rings: each lane is the scalar-t
     launch for that lane bit for bit, and the batch matches the plain
@@ -151,8 +156,8 @@ def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype, S, B):
     g = torch.Generator(device=cuda).manual_seed(4 + S + B)
     edges = _split_edges(S)
     levels = edges + edges[:(-len(edges)) % B]
-    q = torch.randn(B, 1, 15, 64, generator=g, device=cuda).to(dtype)
-    k, v = (torch.randn(B, S, 5, 64, generator=g, device=cuda).to(dtype)
+    q = torch.randn(B, 1, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
             for _ in range(2))
     for i in range(0, len(levels), B):
         t = torch.tensor(levels[i:i + B], dtype=torch.int32, device=cuda)
@@ -172,8 +177,9 @@ def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype, S, B):
 @pytest.mark.parametrize("page", [8, 16, 32])
 @pytest.mark.parametrize("levels", [(200, 511, 600), (1, 63, 64),
                                     (65, 127, 128), (255, 256, 449)])
+@pytest.mark.parametrize("H,KV,hd", HEADS)
 def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page,
-                                                    levels):
+                                                    levels, H, KV, hd):
     """K2 through a shuffled block table (trash page poisoned, lane 0 on
     one page, fill levels on both sides of split boundaries, one past its
     window) == its plain version, and == K1 bit for bit on the same
@@ -181,21 +187,21 @@ def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page,
     g = torch.Generator(device=cuda).manual_seed(page + levels[0])
     B, P = 4, 512 // page
     n_pages = B * P + 1
-    pk, pv = (torch.randn(n_pages, page, 5, 64, generator=g, device=cuda)
+    pk, pv = (torch.randn(n_pages, page, KV, hd, generator=g, device=cuda)
               .to(dtype) for _ in range(2))
     pk[0], pv[0] = 1e4, -1e4
     bt = (torch.randperm(n_pages - 1, generator=g, device=cuda)[:B * P] + 1) \
         .view(B, P).to(torch.int32)
     t = torch.tensor((3,) + levels, dtype=torch.int32, device=cuda)
     bt[0, 1:] = 0                              # lane 0: one page allocated
-    q = torch.randn(B, 1, 15, 64, generator=g, device=cuda).to(dtype)
+    q = torch.randn(B, 1, H, hd, generator=g, device=cuda).to(dtype)
     before = ops.LAUNCHES["paged_decode_attention"]
     got = ops.paged_decode_attention(q, pk, pv, bt, t)
     assert ops.LAUNCHES["paged_decode_attention"] == before + 1
     _close(got, ops.paged_decode_attention(q.cpu(), pk.cpu(), pv.cpu(),
                                            bt.cpu(), t.cpu()), dtype)
-    ring_k = pk[bt.long()].reshape(B, P * page, 5, 64)
-    ring_v = pv[bt.long()].reshape(B, P * page, 5, 64)
+    ring_k = pk[bt.long()].reshape(B, P * page, KV, hd)
+    ring_v = pv[bt.long()].reshape(B, P * page, KV, hd)
     assert torch.equal(got, ops.decode_attention(q, ring_k, ring_v, t))
 
 
@@ -203,14 +209,16 @@ def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("prefix,suffix", [(64, 16), (48, 64), (128, 64),
                                            (48, 16), (64, 32), (256, 48)])
-def test_flash_kernel_extend_matches_plain(cuda, dtype, prefix, suffix):
+@pytest.mark.parametrize("H,KV,hd", HEADS)
+def test_flash_kernel_extend_matches_plain(cuda, dtype, prefix, suffix, H,
+                                           KV, hd):
     """K3 with q_offset over a longer key buffer == its plain version, and
     the suffix rows equal those rows of the cold prefill bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(prefix + suffix)
     extent = prefix + suffix + 32
-    qf = torch.randn(1, prefix + suffix, 15, 64, generator=g,
+    qf = torch.randn(1, prefix + suffix, H, hd, generator=g,
                      device=cuda).to(dtype)
-    k, v = (torch.randn(1, extent, 5, 64, generator=g, device=cuda)
+    k, v = (torch.randn(1, extent, KV, hd, generator=g, device=cuda)
             .to(dtype) for _ in range(2))
     q = qf[:, prefix:]
     got = ops.flash_attention(q, k, v, causal=True, q_offset=prefix)
@@ -278,8 +286,9 @@ def test_packed_gbdt_kernel_matches_plain_and_dense_kernel(cuda, B):
 
 @pytest.mark.cuda
 def test_single_row_admission_launches_k5_on_the_caller_stream(cuda):
-    """One admission row scores through K5, a burst through K4; both on
-    the caller's current stream."""
+    """One admission row and a burst both score through K5 (as the JAX
+    model scores packed), on the caller's current stream; the dense
+    oracle launches K4."""
     from repro_torch.core.predictor import Predictor
     model, X = _gbdt_model()
     pred = Predictor(model, device=cuda)
@@ -298,12 +307,14 @@ def test_single_row_admission_launches_k5_on_the_caller_stream(cuda):
         ops.gbdt_margins_packed_cuda = orig
     burst = pred.proba_features(X[:16])
     assert ops.LAUNCHES["gbdt_margins_packed"] == \
-        before["gbdt_margins_packed"] + 1
-    assert ops.LAUNCHES["gbdt_margins"] == before["gbdt_margins"] + 1
+        before["gbdt_margins_packed"] + 2
+    assert ops.LAUNCHES["gbdt_margins"] == before["gbdt_margins"]
     assert seen == [torch.cuda.current_stream(cuda)]
     np.testing.assert_allclose(one[0], burst[0], atol=1e-6)
-    assert ops.preferred_gbdt_layout(
-        torch.as_tensor(X[:16], device=cuda), model) in ("dense", "packed")
+    dense = model.predict_margin_dense(X[:16], cuda)
+    assert ops.LAUNCHES["gbdt_margins"] == before["gbdt_margins"] + 1
+    np.testing.assert_allclose(model.predict_margin(X[:16], cuda), dense,
+                               atol=1e-5)
 
 
 def _tiled(model, repeat, base_score=0.5):
@@ -458,14 +469,15 @@ def test_full_width_preemption_resumes_to_the_uninterrupted_tokens(cuda):
 @pytest.mark.cuda
 def test_launch_serve_scores_the_burst_with_one_k4_launch(cuda):
     """``python -m repro_torch.launch.serve`` on the card: the predictor
-    scores the 100-request burst in one K4 launch (no K5), and SJF serves
-    every request."""
+    scores the 100-request burst in one launch, of K5 since every batch
+    takes the packed layout as in JAX (the name is from when a burst went
+    to K4, which now launches no time), and SJF serves every request."""
     from repro_torch.launch import serve
     before = dict(ops.LAUNCHES)
     srv = serve.main(["--policy", "sjf", "--requests", "100"])
-    assert ops.LAUNCHES["gbdt_margins"] == before["gbdt_margins"] + 1
     assert ops.LAUNCHES["gbdt_margins_packed"] == \
-        before["gbdt_margins_packed"]
+        before["gbdt_margins_packed"] + 1
+    assert ops.LAUNCHES["gbdt_margins"] == before["gbdt_margins"]
     assert srv.predictor.device.type == "cuda"
     assert len(srv.ok_responses) == 100
 
@@ -698,6 +710,48 @@ def test_flash_bwd_bf16_kernels_do_not_spill(cuda, tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode_attention", "paged_decode_attention",
+                                  "flash_attention"])
+def test_serving_kernels_do_not_spill(cuda, tmp_path, monkeypatch, name):
+    """Every instance of K1, K2 and K3 that a group of up to 8 query
+    heads a KV head reaches, the head-width-256 ones among them (K1/K2 at
+    two 16-byte chunks a lane in float32, K3's wide bf16 block and its
+    float32 rows over four threads), compiles with no register spills, as
+    ``_build.PTXAS_REPORT`` shows after a fresh build.  K1/K2's bf16
+    instance for groups of 9 to 16 (``Li16ELi1E``: q and the accumulator
+    are 256 registers a lane) spills, as it did before hd 256; no
+    reference config has such a group (ROADMAP Queue B)."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    _build.build([name])
+    entries = _build.PTXAS_REPORT[name].split(
+        "Compiling entry function '")[1:]
+    checked = [e for e in entries
+               if "nv_bfloat16Li16ELi1E" not in e.split("'")[0]]
+    assert checked and len(entries) - len(checked) <= 1
+    for e in checked:
+        assert "0 bytes spill stores, 0 bytes spill loads" in e, e
+
+
+@pytest.mark.cuda
+def test_hd256_refused_by_k3b_and_the_train_cli(cuda):
+    """K3b takes head widths up to 128: at hd 256 it raises with its
+    limit, and ``launch.train`` on the card stops with that message
+    before it builds any weight (no plain-backward fallback)."""
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_cuda
+    from repro_torch.launch import train as train_mod
+    args = _bwd_inputs(cuda, torch.bfloat16, 1, 32, 8, 4, 256, 1)
+    with pytest.raises(ValueError, match="at most 128"):
+        flash_attention_bwd_cuda(*args)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with pytest.raises(SystemExit, match="K3b.*at most 128"):
+        train_mod.main(["--arch", "gemma3-4b-edge", "--steps", "1"])
+    assert torch.cuda.max_memory_allocated() == base
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_is_deterministic(cuda, dtype):
     """Two K3b calls on the same inputs give the same bits (no float
@@ -714,7 +768,7 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [16, 96, 512])
-@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_lse_matches_plain(cuda, dtype, S, hd, causal):
     """K3's log-sum-exp against the plain logsumexp of the scaled masked

@@ -19,8 +19,9 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention_kernel
-from repro_torch.kernels.decode_attention import (MAX_SPLITS,
-                                                  SLOTS_PER_SPLIT,
+from repro_torch.kernels.decode_attention import (MAX_SMEM_BYTES, MAX_SPLITS,
+                                                  SLOTS_PER_SPLIT, check_fits,
+                                                  decode_smem_bytes,
                                                   split_plan, split_ranges)
 
 NEG_INF = -1e30
@@ -153,3 +154,21 @@ def test_split_mirror_matches_jax_ref_and_pallas(S):
             interpret=True))
         np.testing.assert_allclose(got[b:b + 1], pallas, atol=1e-6,
                                    rtol=1e-6)
+
+
+@pytest.mark.parametrize("G,hd,fits", [(3, 64, True), (16, 128, True),
+                                       (2, 256, True), (8, 256, True),
+                                       (16, 256, False)])
+def test_block_shared_memory_fit_rule(G, hd, fits):
+    """The wrapper's shared-memory rule for a K1/K2 block at the widest
+    split and a 512-slot window of page 16 (32 table entries): the served
+    groups (smollm-360m G 3 at hd 64, gemma3-4b-edge G 2 at hd 256) and
+    up to 8 query heads a KV head at hd 256 fit; 16 at hd 256 is refused
+    with a message before any launch."""
+    need = decode_smem_bytes(G, hd, MAX_SPLITS, 32)
+    assert (need <= MAX_SMEM_BYTES) == fits
+    if fits:
+        check_fits(G, hd, MAX_SPLITS, 32)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            check_fits(G, hd, MAX_SPLITS, 32)

@@ -367,6 +367,32 @@ def test_config_counts_match_jax(name, count):
 
 
 def test_lm_refuses_an_unported_activation():
+    """The reduced gemma3-4b-edge (GeGLU: ``jax.nn.gelu``'s tanh form)
+    builds, and on the JAX package's weights its prefill logits equal the
+    JAX LM's within 1e-5 (float32); an activation that neither package's
+    gated MLP names is refused."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.models.model import LM as JLM
+    from repro_torch.models.bridge import params_from_jax
     from repro_torch.models.model import LM
-    with pytest.raises(NotImplementedError, match="gelu"):
-        LM(get_config("gemma3-4b-edge").reduced(), device="cpu")
+    cfg = get_config("gemma3-4b-edge").reduced()
+    jlm = JLM(jax_config("gemma3-4b-edge").reduced())
+    params = jlm.init(jax.random.key(5))
+    lm = LM(cfg, device="cpu")
+    lm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),
+                                       cfg))
+    toks = np.zeros((1, 16), np.int32)
+    toks[0, :9] = np.random.default_rng(2).integers(0, cfg.vocab_size, 9)
+    jl, _ = jlm.prefill(params, {"tokens": jnp.asarray(toks)}, pad_to=32,
+                        prompt_len=jnp.asarray(9, jnp.int32))
+    tl, _ = lm.prefill(torch.from_numpy(toks.astype(np.int64)), pad_to=32,
+                       prompt_len=9)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
+                               rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="relu"):
+        LM(dataclasses.replace(cfg, mlp_activation="relu"), device="cpu")

@@ -158,18 +158,13 @@ def test_packed_cache_and_device_tensors():
 
 
 def test_ops_dispatch_on_the_cpu():
-    """A CPU tensor takes the plain versions; off the card the layout
-    choice is dense, as the JAX package's off the TPU; the CUDA wrapper
-    refuses host tensors instead of falling back."""
+    """A CPU tensor takes the plain versions; the CUDA wrapper refuses
+    host tensors instead of falling back."""
     _, pm, X = _models(SHAPES[0], base_score=0.25)
     x = torch.as_tensor(X[:9])
     packed = pm.packed()
     got = ops.gbdt_margins_packed_from(packed, x)
     np.testing.assert_allclose(got.numpy(), _plain(packed, X[:9]) + 0.25,
-                               atol=0)
-    assert ops.preferred_gbdt_layout(x, pm) == "dense"
-    np.testing.assert_allclose(ops.gbdt_margins_best(x, pm).numpy(),
-                               pm.predict_margin_dense(X[:9], "cpu"),
                                atol=0)
     with pytest.raises(ValueError, match="CUDA"):
         gbdt_margins_packed_cuda(x, *packed.tensors("cpu"),
@@ -179,16 +174,28 @@ def test_ops_dispatch_on_the_cpu():
 
 
 def test_single_row_scores_through_packed_layout(monkeypatch):
-    """``predict_margin`` sends one row to the packed walk and a batch to
-    the dense walk."""
+    """``predict_margin`` sends every batch, one row, 5, 16 and 512, to the
+    packed walk, as the JAX model always scores packed; the dense walk is
+    reached only through ``predict_margin_dense``."""
     _, pm, X = _models(SHAPES[0])
     calls = []
     packed_fn, dense_fn = ops.gbdt_margins_packed, ops.gbdt_margins
     monkeypatch.setattr(ops, "gbdt_margins_packed", lambda *a, **k: (
         calls.append("packed"), packed_fn(*a, **k))[1])
-    monkeypatch.setattr(ops, "gbdt_margins", lambda *a, **k: (
-        calls.append("dense"), dense_fn(*a, **k))[1])
+
+    def no_dense(*a, **k):
+        raise AssertionError("predict_margin reached the dense walk")
+    monkeypatch.setattr(ops, "gbdt_margins", no_dense)
+    rows = np.resize(X, (512, X.shape[1]))      # 512 rows from X's
     one = pm.predict_margin(X[:1], "cpu")
     many = pm.predict_margin(X[:5], "cpu")
-    assert calls == ["packed", "dense"]
+    batch = pm.predict_margin(rows[:16], "cpu")
+    burst = pm.predict_margin(rows, "cpu")
+    assert calls == ["packed"] * 4
+    assert batch.shape == (16, pm.n_classes) and burst.shape == (512,
+                                                                 pm.n_classes)
     np.testing.assert_allclose(one, many[:1], atol=ATOL)
+    np.testing.assert_allclose(burst[:16], batch, atol=ATOL)
+    monkeypatch.setattr(ops, "gbdt_margins", dense_fn)
+    np.testing.assert_allclose(burst, pm.predict_margin_dense(rows, "cpu"),
+                               atol=ATOL)

@@ -1,7 +1,8 @@
 """The port's kernels (K1 decode attention, K3 flash attention, K4 GBDT)
 held against the JAX package: each plain PyTorch version against
 ``repro.kernels.ref`` on the shapes of tests/test_kernels.py and the
-serving path's head layout (15 query heads over 5 KV heads, hd 64), in
+serving paths' head layouts (15 query heads over 5 KV heads, hd 64, and
+gemma3-4b-edge's 8 over 4, hd 256), in
 the kernel layout and through the model-layout ``ops`` wrappers; and
 against the Pallas kernel in interpret mode where the JAX tests do not
 already hold that kernel to ``ref`` (the serving heads, and one GBDT
@@ -61,6 +62,7 @@ def _np(x):
     (1, 4, 1, 128, 128),    # MQA
     (2, 6, 2, 384, 32),     # non-pow2 heads, 3 kv blocks
     (1, 15, 5, 64, 64),     # the serving path's heads (smollm-360m)
+    (1, 8, 4, 128, 256),    # gemma3-4b-edge's heads, hd 256
 ])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False])
@@ -72,7 +74,7 @@ def test_flash_attention_plain_matches_pallas_and_ref(B, H, KV, S, hd, dtype,
     vn = rng.normal(size=(B, KV, S, hd)).astype(np.float32)
     (qj, qt), (kj, kt), (vj, vt) = (_pair(x, dtype) for x in (qn, kn, vn))
     want = [jref.flash_attention_ref(qj, kj, vj, causal=causal)]
-    if H == 15:     # test_kernels.py holds Pallas to ref on the others
+    if H in (8, 15):  # test_kernels.py holds Pallas to ref on the others
         want.append(flash_attention_kernel(qj, kj, vj, causal=causal,
                                            block_q=64, block_kv=64,
                                            interpret=True))
@@ -107,6 +109,8 @@ def test_flash_ops_matches_jax_ops_model_layout():
     (3, 1, 8, 256, 64, 17),     # MQA, mostly-empty cache
     (1, 5, 3, 64, 64, 40),      # the serving path's heads, t < S
     (1, 5, 3, 64, 64, 100),     # ... wrapped ring, t >= S
+    (1, 4, 2, 256, 256, 127),   # gemma3-4b-edge's heads, hd 256
+    (2, 4, 2, 128, 256, 300),   # ... wrapped ring
 ])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_decode_attention_plain_matches_pallas_and_ref(B, KV, G, S, hd, t,
@@ -117,7 +121,7 @@ def test_decode_attention_plain_matches_pallas_and_ref(B, KV, G, S, hd, t,
     vn = rng.normal(size=(B, KV, S, hd)).astype(np.float32)
     (qj, qt), (kj, kt), (vj, vt) = (_pair(x, dtype) for x in (qn, kn, vn))
     want = [jref.decode_attention_ref(qj, kj, vj, t)]
-    if KV == 5:     # test_kernels.py holds Pallas to ref on the others
+    if KV in (4, 5):  # test_kernels.py holds Pallas to ref on the others
         want.append(decode_attention_kernel(qj, kj, vj, t, block_kv=128,
                                             interpret=True))
     tt = torch.tensor(t, dtype=torch.int32)

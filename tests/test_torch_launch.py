@@ -138,21 +138,24 @@ def test_sidecar_real_full_width_and_speculative_refusal():
     """The real backend is full width by default.  ``--speculative
     --backend real`` (reduced, on the CPU) builds each replica's engine
     with a draft -- the target's own config seeded with ``--seed``, or
-    ``--draft-model`` -- and serves ``ok`` over the wire with an accept
-    rate in the response and in ``/metrics``.  Refused: a draft the port
-    cannot build (gemma3-4b-edge's GeGLU blocks), and ``--backend http``
-    without ``--upstream``."""
+    ``--draft-model``, among them the reduced gemma3-4b-edge (GeGLU
+    blocks, as the JAX CLI builds it) -- and serves ``ok`` over the wire
+    with an accept rate in the response and in ``/metrics``.  Refused: a
+    draft model of no known arch, and ``--backend http`` without
+    ``--upstream``."""
     import asyncio
     args = _args("--backend", "real")
     assert not args.reduced                     # full width by default
-    for extra in ([], ["--draft-model", "smollm-360m"]):
+    gemma = get_config("gemma3-4b-edge").reduced()
+    for extra, draft in (([], CFG), (["--draft-model", "smollm-360m"], CFG),
+                         (["--draft-model", "gemma3-4b-edge"], gemma)):
         sc = sidecar.build_sidecar(_args(
             "--backend", "real", "--reduced", "--speculative",
             "--draft-k", "3", "--policy", "fcfs", "--max-new-tokens", "12",
             *extra))
         eng = sc.backends[0].engine
         assert eng.speculative and eng.draft_k == 3
-        assert eng.draft_cfg == CFG and eng.device.type == "cpu"
+        assert eng.draft_cfg == draft and eng.device.type == "cpu"
 
         async def go():
             await sc.start()
@@ -174,10 +177,10 @@ def test_sidecar_real_full_width_and_speculative_refusal():
         m = re.search(r"^clairvoyant_speculative_accept_rate\{[^}]*\} "
                       r"(\S+)$", metrics, re.M)
         assert m and float(m.group(1)) == eng.accept_rate
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(KeyError, match="unknown arch"):
         sidecar.build_sidecar(_args("--backend", "real", "--reduced",
                                     "--speculative", "--draft-model",
-                                    "gemma3-4b-edge"))
+                                    "no-such-arch"))
     with pytest.raises(SystemExit, match="--upstream"):
         sidecar.build_sidecar(_args("--backend", "http"))
 

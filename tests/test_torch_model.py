@@ -9,6 +9,9 @@ and one rotation away from the embeddings.
 
 ``reduced()`` is one layer with H = KV = 4, so the 3-layer G = 2 variant
 is held too: it exercises the per-layer unstacking and grouped heads.
+gemma3-4b-edge's reduced config (GeGLU, RoPE theta 1e6) and a copy of it
+with head width 256 (the full config's) are held at 1e-5 on logits; its
+GeGLU MLP alone at 1e-6 against ``apply_mlp``.
 """
 
 import dataclasses
@@ -20,24 +23,35 @@ import pytest
 import torch
 
 from repro.configs import get_config
+from repro.models.layers import apply_mlp
 from repro.models.model import LM as JLM
 from repro_torch.configs import get_config as port_config
 from repro_torch.models.bridge import params_from_jax
+from repro_torch.models.layers import MLP
 from repro_torch.models.model import LM
 
 MAX_LEN = 64
-LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 KV_TOL = dict(atol=1e-5, rtol=1e-5)
-VARIANTS = {"reduced": {}, "3L-G2": {"num_layers": 3, "num_kv_heads": 2}}
+VARIANTS = {"reduced": ("smollm-360m", {}),
+            "3L-G2": ("smollm-360m", {"num_layers": 3, "num_kv_heads": 2}),
+            "gemma3": ("gemma3-4b-edge", {}),
+            "gemma3-hd256": ("gemma3-4b-edge", {"head_dim": 256})}
+
+
+def _logit_tol(lm):
+    """1e-4 for the smollm variants (tests/test_generate.py's bar), 1e-5
+    for gemma3-4b-edge's."""
+    tol = 1e-5 if lm.cfg.name.startswith("gemma3") else 1e-4
+    return dict(atol=tol, rtol=tol)
 
 
 @pytest.fixture(scope="module", params=sorted(VARIANTS))
 def pair(request):
     """(JAX LM, JAX params, port LM, jitted JAX prefill and decode step)
     sharing one set of weights."""
-    over = VARIANTS[request.param]
-    jcfg = dataclasses.replace(get_config("smollm-360m").reduced(), **over)
-    tcfg = dataclasses.replace(port_config("smollm-360m").reduced(), **over)
+    arch, over = VARIANTS[request.param]
+    jcfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    tcfg = dataclasses.replace(port_config(arch).reduced(), **over)
     jlm = JLM(jcfg)
     params = jlm.init(jax.random.key(3))
     lm = LM(tcfg, device="cpu")
@@ -75,7 +89,8 @@ def test_bucketed_prefill_matches_jax(pair, plen, bucket):
     ids = np.random.default_rng(plen).integers(0, 512, plen)
     (jl, jc), (tl, tc) = _prefill_both(pair, ids, bucket)
     assert tl.shape == (1, 512) and tl.dtype == torch.float32
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                               **_logit_tol(pair[2]))
     assert int(tl.argmax()) == int(jnp.argmax(jl))
     _assert_caches_close(jc, tc)
     assert int(tc.t) == plen
@@ -91,7 +106,8 @@ def test_decode_steps_match_jax(pair):
         jl, jc = step(params, jc, {"tokens": jnp.full((1, 1), tok,
                                                       jnp.int32)})
         tl = lm.decode_step(tc, torch.full((1, 1), int(tok)))
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                               **_logit_tol(pair[2]))
         _assert_caches_close(jc, tc)
 
 
@@ -125,8 +141,28 @@ def test_ring_wrap_matches_jax(pair):
         jl, jc = step(params, jc, {"tokens": jnp.full((1, 1), tok,
                                                       jnp.int32)})
         tl = lm.decode_step(tc, torch.full((1, 1), int(tok)))
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                               **_logit_tol(pair[2]))
     _assert_caches_close(jc, tc)
+
+
+def test_geglu_mlp_matches_jax():
+    """The GeGLU MLP (``jax.nn.gelu``'s tanh form) with its residual, on
+    the JAX init's weights, within 1e-6 of ``apply_mlp``."""
+    import jax
+    from repro.models.layers import init_mlp
+    jcfg = get_config("gemma3-4b-edge").reduced()
+    tcfg = port_config("gemma3-4b-edge").reduced()
+    p, _ = init_mlp(jcfg, jax.random.key(1))
+    mlp = MLP(tcfg, torch.Generator().manual_seed(0), "cpu")
+    mlp.load_state_dict({k: torch.from_numpy(np.array(v))
+                         for k, v in p.items()})
+    x = np.random.default_rng(3).normal(
+        size=(2, 5, tcfg.d_model)).astype(np.float32)
+    want = apply_mlp(jcfg, p, jnp.asarray(x))
+    got = mlp(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-6, rtol=1e-6)
 
 
 def test_seeded_init_is_reproducible_and_scaled():

@@ -49,14 +49,17 @@ def _tol(name):
 # ------------------------------------------------------------------ K2
 @pytest.mark.parametrize("B,KV,G,hd,ps,P", [(3, 2, 4, 64, 16, 4),
                                             (2, 1, 8, 32, 8, 6),
-                                            (4, 5, 3, 64, 16, 8)])
+                                            (4, 5, 3, 64, 16, 8),
+                                            # gemma3-4b-edge's heads
+                                            (4, 4, 2, 256, 16, 4)])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_paged_plain_matches_jax_ref_and_pallas(B, KV, G, hd, ps, P, dtype):
     """The port's plain K2 (kernel layout and the engine-layout ``ops``
     wrapper) == the JAX gather oracle == the Pallas kernel in interpret
-    mode (on the serving heads; tests/test_paging.py holds it to the ref
-    on its own shapes), with unallocated table slots on a poisoned trash
-    page and one lane past its window."""
+    mode (on the serving heads of smollm-360m and gemma3-4b-edge;
+    tests/test_paging.py holds it to the ref on its own shapes), with
+    unallocated table slots on a poisoned trash page and one lane past
+    its window."""
     rng = np.random.default_rng(B * 7 + ps)
     n_pages = B * P + 1
     qn = rng.normal(size=(B, KV, G, hd)).astype(np.float32)
@@ -72,7 +75,7 @@ def test_paged_plain_matches_jax_ref_and_pallas(B, KV, G, hd, ps, P, dtype):
     jdt, tdt = DTYPES[dtype]
     qj, kj, vj = (jnp.asarray(x, jdt) for x in (qn, kn, vn))
     want = [jpaged_ref(qj, kj, vj, jnp.asarray(bt), jnp.asarray(t))]
-    if KV == 5:     # test_paging.py holds Pallas to ref on the others
+    if KV in (4, 5):  # test_paging.py holds Pallas to ref on the others
         want.append(paged_decode_attention_kernel(qj, kj, vj, bt, t,
                                                   interpret=True))
     qt, kt, vt = (torch.from_numpy(x).to(tdt) for x in (qn, kn, vn))
