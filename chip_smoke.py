@@ -6,7 +6,9 @@
 Builds the hand-written Hopper kernels from ``src/repro_torch/csrc`` with
 nvcc, holds each against its plain PyTorch version at the serving paths'
 shapes (K1, K2 and K3 at smollm-360m's heads and at gemma3-4b-edge's,
-head width 256) and times both; K4 and K5 also on the 120-round
+head width 256; K1 and K3 at jamba-v0.1-52b's, 32 query heads over 8 KV
+heads of width 128, K3 also at exact prompt lengths 1..129 with NaN
+rows past the keys' end) and times both; K4 and K5 also on the 120-round
 ensemble that the launch CLIs train, at their burst (B 100) and
 admission (B 1) shapes.  Then, at the full width of smollm-360m (bf16,
 seeded random weights), it drives each serving path through the entry
@@ -62,8 +64,8 @@ path and read just after:
   AdamW steps of all 32 layers in bf16 on the Markov stream through
   ``make_train_step`` (K3 2 x 32 and K3b 32 launches a step);
 * ``[launch-train]`` ``python -m repro_torch.launch.train`` as child
-  processes: 6 steps straight, and 3 steps then a resumed 3 from the
-  checkpoint, with equal losses;
+  processes: 6 steps straight beside 3 steps in a second process, then a
+  resumed 3 from the latter's checkpoint, with equal losses;
 * then the paper's own backend, gemma3-4b-edge (8 query heads over 4 KV
   heads of width 256, GeGLU, vocab 262,144), once the card is freed:
   ``[gemma3-f32]`` a float32 copy cut to 2 layers at full width against
@@ -75,7 +77,25 @@ path and read just after:
   the burst over HTTP, ``[gemma3-lanes]`` the paging backlog through ring
   and paged lanes and the shared prefix cold then warm.  Every serial
   request launches K3 once a layer and K1 once a layer a decode step,
-  every lane step K1 or K2 once a layer, exactly.
+  every lane step K1 or K2 once a layer, exactly;
+* then jamba-v0.1-52b (Mamba, MoE with 16 experts top-2, and attention
+  in an 8-block pattern), once the card is freed, at full width and two
+  of its four pattern repeats (the whole model, 95.8 GiB in bf16, does
+  not fit the card): ``[jamba-f32]`` a float32 one-repeat copy (8
+  layers, 13.27 B parameters), prefill logits and 8 greedy steps
+  through K1/K3 against the plain attention on the card, and ring lanes
+  through the kernels against ring lanes through the plain attention
+  (MoE capacity is shared by a step's tokens, so lanes are held to
+  lanes, not to the serial engine); then 16 layers in bf16 (25.99 B
+  seeded parameters): ``[jamba-slice]`` the burst (its longs cut to 32
+  new tokens) through the serial engine (exact-length prefill, FCFS and
+  SJF) with TTFT and ms/token beside the weight stream and the
+  service-time model's price, ``[jamba-profile]``, ``[jamba-sidecar]``
+  the burst over HTTP, and ``[jamba-lanes]`` the paging backlog through
+  ring lanes, after the block-paged engine and speculative engines
+  refuse the stack.  Every
+  jamba prefill launches K3 once an attention layer (2), every step K1
+  once an attention layer, exactly.
 
 Before the paths, ``[K3b flash_attention_bwd]`` holds the attention
 backward kernel to its plain version (and K3's log-sum-exp to the plain
@@ -90,14 +110,17 @@ must agree do not, or when a kernel of a path was never launched on it
 (and when the paged path launches the ring kernel K1, or a predictor
 path launches the dense kernel K4 instead of the packed K5), when a
 path's K1, K2 or K3 launches differ from its prefills and decode steps
-times its layers, when a request is lost or ends twice, when SJF's short
-P50 is not below FCFS's in process, over the wire or on the launch
-CLIs, when a sidecar child does not drain and exit 0, when a
+times its attention layers, when a request is lost or ends twice, when
+SJF's short P50 is not below FCFS's in process, over the wire or on the
+launch CLIs, when a sidecar child does not drain and exit 0, when a
 sweep metric differs between the card and the host or an srpt row runs
 on the card, when the ranking metrics differ between K5, K4 and the
 plain walk, when a float32 speculative stream differs from plain decode or
 its kernel launches differ from the rounds' count, or when the
-speculative child reports no accept rate, when a K3b gradient or K3's
+speculative child reports no accept rate, when K3 at an exact length
+reads a key past its end, when jamba's kernels-vs-plain logits, tokens
+or lane tokens differ, when the paged or a speculative engine builds a
+jamba stack instead of refusing it, when a K3b gradient or K3's
 log-sum-exp disagrees with its plain version, when the training loss
 does not fall or the train step's K3/K3b launches differ from 2 x 32 /
 32 a step, when a K3b pass is among the profiled train step's two
@@ -105,9 +128,9 @@ longest kernels, or when a resumed training run's losses differ from
 the straight run's.
 
 The second-to-last line of standard output is a JSON object with one
-entry per kernel (K1, K2 and K3 twice: at head width 64, launched on the
-smollm paths, and ``*_hd256``, launched on the gemma3 paths); the last
-line is
+entry per kernel (K1, K2 and K3 at head width 64, launched on the smollm
+paths, and ``*_hd256``, launched on the gemma3 paths; K1 and K3 at
+``*_hd128``, launched on the jamba paths); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -137,8 +160,14 @@ PATTERN = "LLSSSSLSSLSS"
 # [lanes-faults]: a long's sojourn deadline, far below its ~96 lane
 # steps at full width
 FAULT_DEADLINE_S = 1.0
-# (H, KV, hd) of the two served models' attention
-SMOLLM_HEADS, GEMMA_HEADS = (15, 5, 64), (8, 4, 256)
+# (H, KV, hd) of the served models' attention
+SMOLLM_HEADS, GEMMA_HEADS, JAMBA_HEADS = (15, 5, 64), (8, 4, 256), (32, 8, 128)
+# K3's exact prompt lengths (a stack with Mamba or MoE blocks prefills
+# unbucketed)
+EXACT_S = (1, 7, 23, 45, 129)
+# the jamba bursts' long budget: half the other models' (the whole run must
+# stay inside its time limit); widths, depth and the 8-token shorts as theirs
+JAMBA_LONG_NEW = 32
 
 
 def _kname(base: str, heads) -> tuple:
@@ -694,8 +723,10 @@ def phase_full_width_reference(cfg, tag="reference") -> float:
     return worst
 
 
-def phase_slice(cfg, predictor, smi, tag="slice") -> tuple:
-    """The main path at full width: burst -> predictor -> SJF -> engine.
+def phase_slice(cfg, predictor, smi, tag="slice",
+                long_new=MAX_NEW) -> tuple:
+    """The main path at full width: burst -> predictor -> SJF -> engine
+    (``long_new`` tokens a long request, 8 a short).
     Each request launches K3 once a layer for its prefill and K1 once a
     layer for each of its decode steps, exactly.  Prints TTFT and decode
     ms/token beside the price the launch CLIs' service-time model sets for
@@ -703,6 +734,7 @@ def phase_slice(cfg, predictor, smi, tag="slice") -> tuple:
     tokens."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.models.transformer import attention_layers
     from repro_torch.serving.engine import RealEngine
     from repro_torch.serving.openai_api import CompletionRequest
     from repro_torch.serving.server import ClairvoyantServer
@@ -714,10 +746,11 @@ def phase_slice(cfg, predictor, smi, tag="slice") -> tuple:
     t0 = time.monotonic()
     eng = RealEngine(cfg, max_len=MAX_LEN, segment_len=SEGMENT, seed=0)
     torch.cuda.synchronize()
-    print(f"[{tag}] {cfg.name} {cfg.dtype} {cfg.num_layers}L d{cfg.d_model} "
-          f"{cfg.param_count() / 1e6:.0f}M params, seeded init "
+    print(f"[{tag}] {cfg.name} {cfg.dtype} {cfg.num_layers}L "
+          f"({attention_layers(cfg)} attention) d{cfg.d_model} "
+          f"{cfg.param_count():,} params, seeded init "
           f"{time.monotonic() - t0:.1f} s")
-    for b in eng.buckets[:3]:                  # first-call set-up
+    for b in eng.buckets[:3] or (16,):         # first-call set-up
         eng.generate(list(range(1, b)), max_new_tokens=2)
 
     ops.reset_launches()
@@ -730,7 +763,8 @@ def phase_slice(cfg, predictor, smi, tag="slice") -> tuple:
         server.submit_many(
             [CompletionRequest(prompt=pool.prompts[i]) for i in order],
             arrivals=[j * 1e-4 for j in range(len(order))],
-            true_output_tokens=[64 if i in longs else 8 for i in order],
+            true_output_tokens=[long_new if i in longs else 8
+                                for i in order],
             klasses=["long" if i in longs else "short" for i in order])
         w0 = time.monotonic()
         resp = server.drain(max_new_tokens=MAX_NEW)
@@ -747,10 +781,11 @@ def phase_slice(cfg, predictor, smi, tag="slice") -> tuple:
         for k, want in (("flash_attention", len(resp)),
                         ("decode_attention", steps)):
             got = ops.LAUNCHES[k] - before[k]
-            if got != want * cfg.num_layers:
+            if got != want * attention_layers(cfg):
                 raise AssertionError(f"[{tag}] {policy}: {got} {k} "
                                      f"launches, expected {want} x "
-                                     f"{cfg.num_layers} layers")
+                                     f"{attention_layers(cfg)} attention "
+                                     "layers")
         per_policy[policy] = {
             "short_p50_ms": server.percentile(50, "short") * 1e3,
             "long_p50_ms": server.percentile(50, "long") * 1e3,
@@ -777,8 +812,8 @@ def phase_slice(cfg, predictor, smi, tag="slice") -> tuple:
               f"order {v['order']}  [{smi}]")
     print(f"[{tag}] SJF short P50 vs FCFS: "
           f"{100 * (1 - sjf['short_p50_ms'] / fcfs['short_p50_ms']):.1f}% "
-          f"lower; K3 once a layer a request, K1 once a layer a decode step "
-          f"(exact)  [{smi}]")
+          f"lower; K3 once an attention layer a request, K1 once an "
+          f"attention layer a decode step (exact)  [{smi}]")
     if not sjf["short_p50_ms"] < fcfs["short_p50_ms"]:
         raise AssertionError(f"[{tag}] SJF short P50 {sjf['short_p50_ms']} "
                              f"ms not below FCFS's {fcfs['short_p50_ms']}")
@@ -934,17 +969,19 @@ def _decode_ms_by_thread(eng) -> dict:
 
 
 def phase_sidecar(eng, predictor, smi, slice_tokens, totals,
-                  tag="sidecar", extras=True) -> None:
+                  tag="sidecar", extras=True, long_new=MAX_NEW) -> None:
     """The serve-bench burst over HTTP through the port's Sidecar, with
     the in-process run's engine behind an InProcessBackend (the engine
-    decodes in a worker thread).  FCFS, then SJF: every response ok with
-    the in-process run's tokens; under SJF one K5 launch per admission
-    and no K4.  With ``extras``, then a disconnect, a deadline shed,
-    ``/metrics`` and a graceful shutdown under load."""
+    decodes in a worker thread; ``long_new`` tokens a long request).
+    FCFS, then SJF: every response ok with the in-process run's tokens;
+    under SJF one K5 launch per admission and no K4.  With ``extras``,
+    then a disconnect, a deadline shed, ``/metrics`` and a graceful
+    shutdown under load."""
     import asyncio
     import numpy as np
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.models.transformer import attention_layers
     from repro_torch.serving.backends import InProcessBackend
     from repro_torch.serving.http_sidecar import Sidecar
     from repro_torch.serving.observability import parse_prometheus
@@ -963,7 +1000,7 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals,
     async def burst(sc):
         async def client(j, i):
             await asyncio.sleep(j * 0.002)         # arrive in burst order
-            n = 64 if i in longs else 8
+            n = long_new if i in longs else 8
             t0 = time.monotonic()
             out = await _http(sc.port, {
                 "messages": [{"role": "user", "content": pool.prompts[i]}],
@@ -1020,7 +1057,7 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals,
                                      f"wire differ from the in-process "
                                      f"run's for "
                                      f"prompt {i}")
-        layers = eng.cfg.num_layers
+        layers = attention_layers(eng.cfg)
         steps = sum(len(slice_tokens[pool.prompts[i]]) - 1 for i in order)
         if launches["flash_attention"] != len(order) * layers \
                 or launches["decode_attention"] != steps * layers:
@@ -1379,6 +1416,54 @@ def phase_flash_extend(gen, heads=SMOLLM_HEADS) -> float:
     return max(errs.values())
 
 
+def phase_flash_exact(gen, heads=JAMBA_HEADS) -> float:
+    """K3 at exact prompt lengths (``EXACT_S``, not power-of-two buckets),
+    as a stack with Mamba or MoE blocks prefills: B 1, ``heads``, bf16
+    and f32, causal, against the plain version.  The keys and values are
+    views into buffers whose rows past S hold NaN: the output must be
+    finite and equal bit for bit to the launch on clean contiguous
+    copies, so the tail tile's masked keys contribute exact zeros.
+    Returns the largest |kernel - plain|."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    (H, KV, hd), B = heads, 1
+    tag = _kname("", heads)[1]
+    errs = {}
+    for S in EXACT_S:
+        for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
+            kb, vb = (torch.full((B, S + 64, KV, hd), float("nan"),
+                                 dtype=dt, device="cuda") for _ in range(2))
+            kb[:, :S] = torch.randn(B, S, KV, hd, generator=gen,
+                                    device="cuda").to(dt)
+            vb[:, :S] = torch.randn(B, S, KV, hd, generator=gen,
+                                    device="cuda").to(dt)
+            k, v = kb[:, :S], vb[:, :S]
+            got = flash_attention_cuda(q, k, v, causal=True)
+            clean = flash_attention_cuda(q, k.contiguous(), v.contiguous(),
+                                         causal=True)
+            want = flash_attention_plain(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all() or not torch.equal(got, clean):
+                raise AssertionError(f"K3 at exact S={S} ({label}) read "
+                                     "keys past S")
+            err = _max_err(got, want)
+            _check(f"flash_attention exact {label} S={S}", err, TOL[label])
+            errs[(label, S)] = err
+    q = torch.randn(B, 45, H, hd, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(B, 45, KV, hd, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    ms = _device_ms(lambda: flash_attention_cuda(q, k, v))
+    plain = _device_ms(lambda: flash_attention_plain(q, k, v))
+    print(f"[K3 flash_attention{tag}] exact lengths max|err| " + " ".join(
+        f"{l}@S={s}:{e:.2e}" for (l, s), e in errs.items())
+          + "; NaN rows past S never read (output == clean launch, "
+          f"bitwise); bf16 S=45 device ms kernel {ms:.4f}, plain "
+          f"{plain:.4f}")
+    return max(errs.values())
+
+
 def _pattern(vocab, rng, prefix=None, long_new=L_LONG, short_new=L_SHORT):
     """The paging benchmark's backlog: 16-token prompts (after an optional
     shared prefix), long / short budgets in PATTERN order."""
@@ -1400,6 +1485,7 @@ def _drain_pattern(eng, prompts, maxes, exact=True) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.models.transformer import attention_layers
     lm, calls = eng.lm, {"prefill": 0, "decode_step": 0}
 
     def counted(name):
@@ -1421,7 +1507,7 @@ def _drain_pattern(eng, prompts, maxes, exact=True) -> dict:
             delattr(lm, name)
     wall = time.monotonic() - t0
     launches = dict(ops.LAUNCHES)
-    L = lm.cfg.num_layers
+    L = attention_layers(lm.cfg)
     decode = launches["decode_attention"] + launches["paged_decode_attention"]
     if exact and (launches["flash_attention"] != calls["prefill"] * L
                   or decode != calls["decode_step"] * L):
@@ -1472,6 +1558,7 @@ def phase_lanes(cfg, smi, totals, tag="lanes") -> None:
     bf16; its agreement is reported)."""
     import numpy as np
     import torch
+    from repro_torch.models.transformer import attention_layers
     t0 = time.monotonic()
     ring, paged = _lane_engines(cfg)
     torch.cuda.synchronize()
@@ -1494,7 +1581,8 @@ def phase_lanes(cfg, smi, totals, tag="lanes") -> None:
         # decode steps = decode-kernel launches / layers (one per layer
         # per step; prefills launch K3, not K1/K2)
         steps = (r["launches"]["decode_attention"]
-                 + r["launches"]["paged_decode_attention"]) // cfg.num_layers
+                 + r["launches"]["paged_decode_attention"]) \
+            // attention_layers(cfg)
         steps = max(1, steps)
         print(f"[{tag}] {name}: {r['n_tok']} tokens in {r['wall']:.2f} s = "
               f"{r['tok_s']:.1f} tok/s, {steps} lane steps "
@@ -1601,6 +1689,171 @@ def phase_lanes_f32(cfg, smi, totals, tag="lanes-f32") -> None:
           f"({hits} prefix-hit pages, preemptions "
           f"{paged.lane_manager.stats['preemptions']})  [{smi}]")
     del ring, paged, serial
+    torch.cuda.empty_cache()
+
+
+def _plain_attention_ops():
+    """A context in which the model's attention calls take the kernels'
+    plain PyTorch versions on the card (``ops.flash_attention`` and
+    ``ops.decode_attention`` patched): the oracle a path through the
+    kernels is held to."""
+    import contextlib
+    from unittest import mock
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(ops, "flash_attention",
+                                          flash_attention_plain))
+    stack.enter_context(mock.patch.object(ops, "decode_attention",
+                                          decode_attention_plain))
+    return stack
+
+
+def phase_jamba_f32(cfg, smi, totals, tag="jamba-f32") -> None:
+    """A float32 copy of jamba at full width, one pattern repeat (8
+    layers: 7 Mamba, 4 of them MoE, and 1 attention), TF32 off: prefill
+    logits and 8 greedy steps through K1/K3 against the same weights
+    through the plain attention on the card, within ``TOL["f32"]`` of
+    the logit scale, tokens equal; then the paging backlog (budgets
+    capped at 16) through ring lanes, kernels against plain, tokens
+    equal.  Lanes are held to lanes, not to the serial engine: MoE
+    capacity is shared by the tokens of a step, so a lane's tokens
+    depend on its neighbours (as in the JAX package)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.serving.batching import kv_bytes_per_token
+    from repro_torch.serving.engine import BatchedRealEngine
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=len(cfg.block_pattern))
+    t0 = time.monotonic()
+    eng = BatchedRealEngine(
+        cfg32, seed=1, max_len=L_MAX_LEN, segment_len=L_SEGMENT,
+        n_lanes=L_LANES,
+        budget_bytes=2 * (L_PROMPT + L_LONG) * kv_bytes_per_token(cfg32))
+    torch.cuda.synchronize()
+    lm = eng.lm
+    print(f"[{tag}] {cfg32.num_layers} layers {cfg32.block_pattern}, "
+          f"{cfg32.param_count():,} float32 parameters "
+          f"({cfg32.param_count() * 4 / 1e9:.1f} GB), seeded init "
+          f"{time.monotonic() - t0:.1f} s")
+    toks = (torch.arange(3, 3 + 40) * 97 % cfg.vocab_size).view(1, 40)
+    toks = toks.cuda()
+
+    def greedy():
+        lg, cache = lm.prefill(toks, pad_to=L_MAX_LEN)
+        logits, out = [lg], []
+        for _ in range(8):
+            tok = lg.argmax(-1).view(1, 1)
+            out.append(int(tok))
+            lg = lm.decode_step(cache, tok)
+            logits.append(lg)
+        return torch.stack(logits), out
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    k_logits, k_toks = greedy()
+    launches = dict(ops.LAUNCHES)
+    with _plain_attention_ops():
+        p_logits, p_toks = greedy()
+    if launches["flash_attention"] != 1 or launches["decode_attention"] != 8:
+        raise AssertionError(f"[{tag}] launches {launches}, expected K3 1 "
+                             "and K1 8 (one attention layer)")
+    worst = _max_err(k_logits, p_logits)
+    scale = float(p_logits.abs().max())
+    if k_toks != p_toks:
+        raise AssertionError(f"[{tag}] greedy tokens differ: {k_toks} vs "
+                             f"{p_toks}")
+    _check(f"[{tag}] logits", worst / max(1.0, scale), TOL["f32"])
+    print(f"[{tag}] card K1/K3 vs card plain attention: prefill 40 tokens "
+          f"+ 8 greedy steps, max|logit diff| {worst:.3e} (logit scale "
+          f"{scale:.2f}), tokens equal {k_toks}  [{smi}]")
+    prompts, maxes = _pattern(cfg.vocab_size, np.random.default_rng(300),
+                              long_new=16)
+    eng.generate_batch(prompts[:L_LANES], 2)        # first-call set-up
+    ring = _drain_pattern(eng, prompts, maxes)
+    for k, v in ring["launches"].items():
+        totals[k] += v
+    with _plain_attention_ops():
+        plain = eng.generate_batch(prompts, maxes)
+    if ring["tokens"] != [r["tokens"] for r in plain]:
+        raise AssertionError(f"[{tag}] ring-lane tokens through the "
+                             "kernels differ from the plain attention's")
+    _check_path(f"[{tag}] ring", ring["launches"],
+                ("decode_attention", "flash_attention"),
+                ("paged_decode_attention",))
+    print(f"[{tag}] ring lanes ({L_LANES}), {len(prompts)} requests, "
+          f"budgets capped at 16: kernels == plain attention tokens, "
+          f"launches {ring['launches']}  [{smi}]")
+    del eng, lm
+    _free_card(tag)
+
+
+def phase_jamba_lanes(cfg, smi, totals, tag="jamba-lanes") -> None:
+    """jamba (bf16, two pattern repeats) through ring lanes on the paging
+    benchmark's backlog, with K1/K3 launches held exactly to the lane
+    steps and prefills; the block-paged engine and a speculative engine
+    must refuse the stack with the JAX engine's messages before building
+    any weight."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import attention_layers
+    from repro_torch.serving.batching import kv_bytes_per_token
+    from repro_torch.serving.engine import (BatchedRealEngine,
+                                            PagedBatchedEngine, RealEngine)
+    before = torch.cuda.memory_allocated()
+    for build, want in (
+            (lambda: PagedBatchedEngine(cfg, max_len=L_MAX_LEN),
+             "block-paged KV needs a pure-attention stack"),
+            (lambda: RealEngine(cfg, draft_cfg=get_config("smollm-360m"),
+                                draft_k=4),
+             "speculative decoding needs a pure-attention stack"),
+            (lambda: BatchedRealEngine(
+                cfg, draft_cfg=get_config("smollm-360m"), draft_k=4),
+             "speculative decoding needs a pure-attention stack")):
+        try:
+            build()
+        except ValueError as e:
+            if want not in str(e):
+                raise
+        else:
+            raise AssertionError(f"[{tag}] not refused: {want}")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"[{tag}] a refused engine built weights")
+    print(f"[{tag}] PagedBatchedEngine and speculative RealEngine / "
+          "BatchedRealEngine refuse the stack before building weights "
+          "(the JAX messages)")
+    t0 = time.monotonic()
+    budget = 2 * (L_PROMPT + L_LONG) * kv_bytes_per_token(cfg)
+    eng = BatchedRealEngine(cfg, seed=0, max_len=L_MAX_LEN,
+                            segment_len=L_SEGMENT, n_lanes=L_LANES,
+                            budget_bytes=budget)
+    torch.cuda.synchronize()
+    print(f"[{tag}] {cfg.name} bf16 {cfg.num_layers}L, {L_LANES} lanes, "
+          f"max_len {L_MAX_LEN}, budget {budget} B, pattern {PATTERN}; "
+          f"engine {time.monotonic() - t0:.1f} s")
+    eng.generate_batch(
+        _pattern(cfg.vocab_size, np.random.default_rng(0))[0][:L_LANES], 4)
+    prompts, maxes = _pattern(cfg.vocab_size, np.random.default_rng(100))
+    r = _drain_pattern(eng, prompts, maxes)
+    for k, v in r["launches"].items():
+        totals[k] += v
+    _check_path(f"[{tag}] ring", r["launches"],
+                ("decode_attention", "flash_attention"),
+                ("paged_decode_attention",))
+    for x in r["res"]:
+        if not x["tokens"] or not all(0 <= t < cfg.vocab_size
+                                      for t in x["tokens"]):
+            raise AssertionError(f"[{tag}] bad tokens {x['tokens'][:8]}")
+    steps = max(1, r["launches"]["decode_attention"]
+                // attention_layers(cfg))
+    print(f"[{tag}] ring: {r['n_tok']} tokens in {r['wall']:.2f} s = "
+          f"{r['tok_s']:.1f} tok/s, {steps} lane steps "
+          f"({r['wall'] / steps * 1e3:.1f} ms per step incl. prefills), "
+          f"short P50 {r['short_p50_ms']:.1f} ms, dead steps "
+          f"{eng.dead_steps}, launches {r['launches']}  [{smi}]")
+    del eng
     torch.cuda.empty_cache()
 
 
@@ -2304,7 +2557,8 @@ def _count_rounds(dec) -> dict:
 
 
 def phase_speculative(cfg, smi, totals) -> None:
-    """Draft-verify decode at full width (K=4, all 32 layers), in float32
+    """Draft-verify decode at full width (K=4; ``cfg``'s layers, 8 from
+    ``main``), in float32
     (TF32 off) and in bf16: the serve-bench prompts through a serial
     ``RealEngine`` with an agreeing draft (the same config and seed) and
     with an independent one (another seed, on a subset), then the paging
@@ -2834,19 +3088,23 @@ def _train_child(args) -> list:
 def phase_launch_train(smi) -> None:
     """``python -m repro_torch.launch.train`` as child processes on the
     card at full width (bf16, the CLI's batch 8 x 128): 6 steps straight
-    with checkpoints, then 3 steps into another checkpoint directory and a
-    second process that resumes from it for 3 more.  The resumed losses
-    must equal the straight run's last 3 within rtol 1e-4 (the printed
-    4 decimals; as the JAX package's resume test)."""
+    with checkpoints and, at the same time in a second process, 3 steps
+    into another checkpoint directory; then a third process resumes from
+    it for 3 more.  The resumed losses must equal the straight run's last
+    3 within rtol 1e-4 (the printed 4 decimals; as the JAX package's
+    resume test)."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     from repro_torch.training import checkpoint as ckpt_lib
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         a, b = os.path.join(tmp, "straight"), os.path.join(tmp, "resumed")
         t0 = time.monotonic()
-        straight = _train_child(["--steps", "6", "--ckpt", a,
-                                 "--ckpt-every", "3"])
-        first = _train_child(["--steps", "3", "--ckpt", b])
+        with ThreadPoolExecutor(1) as pool:
+            side = pool.submit(_train_child, ["--steps", "6", "--ckpt", a,
+                                              "--ckpt-every", "3"])
+            first = _train_child(["--steps", "3", "--ckpt", b])
+            straight = side.result()
         resumed = _train_child(["--steps", "3", "--ckpt", b])
         secs = time.monotonic() - t0
         if ckpt_lib.all_steps(a) != [3, 6] or ckpt_lib.latest_step(b) != 6:
@@ -2861,6 +3119,45 @@ def phase_launch_train(smi) -> None:
     print(f"[launch-train] 3 children in {secs:.1f} s: straight "
           f"{' '.join(f'{x:.4f}' for x in straight)}; 3 + resumed 3 "
           f"{' '.join(f'{x:.4f}' for x in first + resumed)}; equal  [{smi}]")
+
+
+def jamba_kernels(gen) -> list:
+    """K1 and K3 at jamba's attention heads (H32/KV8 hd 128), the kernels
+    line's ``*_hd128`` entries: no paged pool (refused for the stack) and
+    no extend prefill; K1 also with (B,) fill levels, K3 also at exact
+    prompt lengths."""
+    k1 = phase_decode_kernel(gen, JAMBA_HEADS)
+    k3 = phase_flash_kernel(gen, JAMBA_HEADS)
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            phase_decode_lanes_kernel(gen, JAMBA_HEADS))
+    k3["max_abs_err"] = max(k3["max_abs_err"],
+                            phase_flash_exact(gen, JAMBA_HEADS))
+    return [k1, k3]
+
+
+def jamba_paths(predictor, smi) -> dict:
+    """jamba-v0.1-52b at full width, two of its four pattern repeats (the
+    whole model, 95.8 GiB in bf16, does not fit one card): a float32
+    one-repeat copy held to the plain attention, then Mamba, MoE and
+    attention (H32/KV8 hd 128) in bf16 through the serial engine, the
+    sidecar and ring lanes.  Returns the paths' launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, num_layers=2 * len(full.block_pattern))
+    totals = {k: 0 for k in LAUNCHES}
+    _timed(phase_jamba_f32, cfg, smi, totals, tag="jamba-f32")
+    launches, eng, tokens = _timed(phase_slice, cfg, predictor, smi,
+                                   tag="jamba-slice", long_new=JAMBA_LONG_NEW)
+    for k, v in launches.items():
+        totals[k] += v
+    _timed(phase_sidecar, eng, predictor, smi, tokens, totals,
+           tag="jamba-sidecar", extras=False, long_new=JAMBA_LONG_NEW)
+    del eng
+    _free_card("jamba-lanes")
+    _timed(phase_jamba_lanes, cfg, smi, totals, tag="jamba-lanes")
+    return totals
 
 
 def _free_card(tag) -> None:
@@ -2920,6 +3217,7 @@ def main() -> int:
         k3["max_abs_err"] = max(k3["max_abs_err"],
                                 phase_flash_extend(gen, heads))
         kernels += [k1, phase_paged_kernel(gen, heads), k3]
+    kernels += jamba_kernels(gen)
     kernels += [phase_gbdt_kernel(predictor.model, ds.prompts),
                 phase_packed_kernel(predictor.model, ds.prompts),
                 phase_flash_bwd_kernel(gen)]
@@ -2970,14 +3268,20 @@ def main() -> int:
     del geng
     _free_card("gemma3-lanes")
     _timed(phase_lanes, gcfg, smi, g_totals, tag="gemma3-lanes")
+
+    _free_card("jamba")
+    j_totals = jamba_paths(predictor, smi)
+    by_width = {SMOLLM_HEADS[2]: totals, GEMMA_HEADS[2]: g_totals,
+                JAMBA_HEADS[2]: j_totals}
     for k in kernels:
-        base = k["name"].split("_hd")[0]
-        k["launches"] = (totals if k["name"] == base else g_totals)[base]
+        base, _, hd = k["name"].partition("_hd")
+        k["launches"] = by_width[int(hd) if hd else SMOLLM_HEADS[2]][base]
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on "
                                  "the main paths")
     print(f"[kernels] launches on the main paths: smollm-360m {totals}; "
-          f"gemma3-4b-edge (hd 256) {g_totals}")
+          f"gemma3-4b-edge (hd 256) {g_totals}; jamba-v0.1-52b (hd 128) "
+          f"{j_totals}")
     print(f"[done] {time.monotonic() - t_start:.1f} s  [{smi}]")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,11 @@ device).
         --steps 20 --batch 8 --seq 128 --ckpt /tmp/ckpt
 
 Runs on the card unless given ``--device cpu`` (``--reduced`` is the tiny
-CPU config).  On the card a config whose head width K3b does not take
-(gemma3-4b-edge's 256) is refused before any weight is built.
+CPU config of any arch the port builds: dense, MoE or hybrid).  On the
+card a config whose head width K3b does not take (gemma3-4b-edge's 256),
+or whose weights, gradients and float32 AdamW moments would not fit the
+card's memory (jamba-v0.1-52b's 51 B parameters), is refused before any
+weight is built.
 Features exercised: the train step with per-block remat (every layer's
 attention through K3 forward and K3b backward on the card), the
 deterministic synthetic data stream (resume-safe), async checkpointing
@@ -29,6 +32,14 @@ from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training.optimizer import OptConfig
 from repro_torch.training.straggler import StepTimer
 from repro_torch.training.train_loop import init_train_state, make_train_step
+
+
+def train_state_bytes(cfg) -> int:
+    """Bytes of a train state: the weights and their gradients in the
+    model's dtype and AdamW's two float32 moments, for every parameter
+    (activations not counted)."""
+    w = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    return cfg.param_count() * (2 * w + 8)
 
 
 def main(argv=None):
@@ -61,6 +72,13 @@ def main(argv=None):
             check_head_dim(cfg.head_dim)
         except ValueError as e:
             raise SystemExit(f"train.py: {cfg.name}: {e}")
+        need = train_state_bytes(cfg)
+        have = torch.cuda.get_device_properties(device).total_memory
+        if need > have:
+            raise SystemExit(
+                f"train.py: {cfg.name}: weights, gradients and float32 "
+                f"AdamW moments need {need / 2 ** 30:.1f} GiB, the card "
+                f"has {have / 2 ** 30:.1f} GiB")
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1))
     data = SyntheticLMStream(LMDataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,

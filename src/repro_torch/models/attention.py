@@ -1,6 +1,7 @@
-"""GQA self-attention block (port of ``repro.models.attention.attn_block``
-in its ``train``, ``prefill`` (cold and extend), ring ``decode``,
-block-paged ``decode`` and ``verify`` (ring and paged) modes).
+"""GQA self-attention block (port of ``repro.models.attention.attn_block``,
+QK-norm included, in its ``train``, ``prefill`` (cold and extend), ring
+``decode``, block-paged ``decode`` and ``verify`` (ring and paged)
+modes).
 
 Training (``forward``) goes through ``ops.flash_attention_train``: K3
 forward with its log-sum-exp and K3b backward on the card.
@@ -39,13 +40,22 @@ class Attention(nn.Module):
         self.wv = init_dense(gen, d, cfg.kv_dim, dt, device)
         self.wo = init_dense(gen, cfg.attn_dim, d, dt, device,
                              scale=cfg.attn_dim ** -0.5)
+        if cfg.qk_norm:
+            self.q_norm = ones(cfg.head_dim, dt, device)
+            self.k_norm = ones(cfg.head_dim, dt, device)
 
     def _project_qkv(self, h, rope_cs):
+        """q (B,S,H,hd), k/v (B,S,KV,hd); with ``qk_norm``, q and k are
+        RMS-normed over the head dimension before RoPE.  Every mode goes
+        through here."""
         cfg = self.cfg
         B, S, _ = h.shape
         q = dense(h, self.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
         k = dense(h, self.wk).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
         v = dense(h, self.wv).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rmsnorm(q, self.q_norm, cfg.norm_eps)
+            k = rmsnorm(k, self.k_norm, cfg.norm_eps)
         return rope(q, *rope_cs), rope(k, *rope_cs), v
 
     def forward(self, x, rope_cs):

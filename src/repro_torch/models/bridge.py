@@ -15,7 +15,7 @@ import re
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"^blocks\.(\d+)\.(attn|mlp)\.(\w+)$")
+_LAYER = re.compile(r"^blocks\.(\d+)\.(.+)$")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -25,28 +25,55 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _flat(tree, prefix=""):
+    """(dotted name, leaf) pairs of a nested dict: ``{"moe": {"experts":
+    {"w_up": a}}}`` -> ``("moe.experts.w_up", a)``."""
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _flat(val, name + ".")
+        else:
+            yield name, val
+
+
+def _nest(flat: dict) -> dict:
+    """The inverse of :func:`_flat`."""
+    out: dict = {}
+    for name, val in flat.items():
+        *parents, leaf = name.split(".")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return out
+
+
 def params_from_jax(np_params, cfg) -> dict:
     """State dict of ``LM(cfg)`` from the JAX params.
 
-    ``np_params["blocks"]`` is a 1-tuple (pattern ``(attn,)``) whose leaves
-    are stacked over layers; each is unstacked into ``blocks.<i>``.  Dense
-    weights are (in, out) in both packages (``x @ W``).  A tied head is the
-    embedding itself, so it has no entry of its own.
+    ``np_params["blocks"]`` is a tuple over the pattern's positions; each
+    position's leaves are stacked over the pattern's repeats (the JAX
+    scan layout).  Leaf r of position p becomes layer ``r * P + p``
+    (P the pattern's length), named ``blocks.<layer>.<part>.<name>``
+    with the nested names dotted (``moe.experts.w_gate``).  Dense
+    weights are (in, out) in both packages (``x @ W``).  A tied head is
+    the embedding itself, so it has no entry of its own.
     """
-    if len(np_params["blocks"]) != 1:
-        raise ValueError("only the (attn,) block pattern is ported")
-    blocks = np_params["blocks"][0]
+    P, R = len(cfg.block_pattern), cfg.pattern_repeats
+    if len(np_params["blocks"]) != P:
+        raise ValueError(f"{len(np_params['blocks'])} pattern positions, "
+                         f"config has {P}")
     sd = {"embed": _tensor(np_params["embed"]),
           "final_norm": _tensor(np_params["final_norm"])}
     if not cfg.tie_embeddings:
         sd["head"] = _tensor(np_params["head"])
-    for part in ("attn", "mlp"):
-        for name, stacked in blocks[part].items():
-            if stacked.shape[0] != cfg.num_layers:
-                raise ValueError(f"{part}.{name}: {stacked.shape[0]} layers, "
-                                 f"config has {cfg.num_layers}")
-            for i in range(cfg.num_layers):
-                sd[f"blocks.{i}.{part}.{name}"] = _tensor(stacked[i])
+    for p, tree in enumerate(np_params["blocks"]):
+        for name, stacked in _flat(tree):
+            if stacked.shape[0] != R:
+                raise ValueError(f"{name}: {stacked.shape[0]} repeats, "
+                                 f"config has {R}")
+            for r in range(R):
+                sd[f"blocks.{r * P + p}.{name}"] = _tensor(stacked[r])
     return sd
 
 
@@ -58,40 +85,46 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 def params_to_jax(state_dict, cfg) -> dict:
     """The JAX params pytree (numpy) of an ``LM(cfg)`` state dict: the
-    per-layer tensors ``blocks.<i>.<part>.<name>`` restacked over layers
-    into the 1-tuple ``blocks`` of pattern ``(attn,)``."""
+    per-layer tensors ``blocks.<i>.<name>`` restacked over the pattern's
+    repeats into the tuple ``blocks`` over its positions."""
+    P, R = len(cfg.block_pattern), cfg.pattern_repeats
     out = {"embed": _array(state_dict["embed"]),
            "final_norm": _array(state_dict["final_norm"])}
     if not cfg.tie_embeddings:
         out["head"] = _array(state_dict["head"])
-    parts = {"attn": {}, "mlp": {}}
+    names = [[] for _ in range(P)]
     for key in state_dict:
         m = _LAYER.match(key)
-        if m and m.group(1) == "0":
-            part, name = m.group(2), m.group(3)
-            parts[part][name] = np.stack(
-                [_array(state_dict[f"blocks.{i}.{part}.{name}"])
-                 for i in range(cfg.num_layers)])
-    out["blocks"] = (parts,)
+        if m and int(m.group(1)) < P:
+            names[int(m.group(1))].append(m.group(2))
+    out["blocks"] = tuple(
+        _nest({name: np.stack([_array(state_dict[f"blocks.{r * P + p}."
+                                                 f"{name}"])
+                               for r in range(R)])
+               for name in names[p]})
+        for p in range(P))
     return out
 
 
 def _grouped(tree) -> dict:
-    """A params-shaped JAX tree keyed as the port's Adafactor groups: the
-    non-block leaves by name, each stacked block leaf as
-    ``blocks.<part>.<name>``."""
+    """A params-shaped JAX tree keyed as the port's Adafactor groups
+    (``training.optimizer.group_of``): the non-block leaves by name, each
+    stacked block leaf as ``blocks.<name>`` (a one-block pattern) or
+    ``blocks.pos<p>.<name>`` (pattern position p)."""
     out = {k: _tensor(tree[k]) for k in ("embed", "final_norm", "head")
            if k in tree}
-    for part, leaves in tree["blocks"][0].items():
-        for name, stacked in leaves.items():
-            out[f"blocks.{part}.{name}"] = _tensor(stacked)
+    single = len(tree["blocks"]) == 1
+    for p, leaves in enumerate(tree["blocks"]):
+        prefix = "blocks." if single else f"blocks.pos{p}."
+        for name, stacked in _flat(leaves):
+            out[prefix + name] = _tensor(stacked)
     return out
 
 
 def opt_state_from_jax(np_opt_state, cfg):
     """``training.optimizer.OptState`` from a JAX ``OptState`` (numpy).
     AdamW moments mirror the params and unstack into state-dict names;
-    Adafactor's row/column statistics stay stacked over layers under
+    Adafactor's row/column statistics stay stacked over repeats under
     their group names (the port's Adafactor factors the stacked tensor,
     as the JAX one does).  Adafactor is recognised by the 0-d column
     statistic of ``final_norm``."""

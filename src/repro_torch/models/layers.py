@@ -1,13 +1,15 @@
 """Foundational layers (port of ``repro.models.layers``): dense, the
 float32-output product of the training logits, RMSNorm, half-split RoPE,
-the gated MLP (SwiGLU or GeGLU), and the initialisers with the JAX init's
-scales."""
+the gated MLP (SwiGLU or GeGLU), the initialisers with the JAX init's
+scales (the expert MLPs' stacked weights among them) and the per-block
+activation recomputation of training."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 import torch.nn.functional as Fn
+from torch.utils.checkpoint import checkpoint
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -20,6 +22,28 @@ def init_dense(gen, in_dim: int, out_dim: int, dtype, device,
     scale = scale if scale is not None else in_dim ** -0.5
     w = torch.randn(in_dim, out_dim, generator=gen, device=device) * scale
     return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+def init_expert_stack(gen, n: int, in_dim: int, out_dim: int, dtype,
+                      device) -> nn.Parameter:
+    """(n, in, out) expert weights ~ N(0, 1) * in_dim ** -0.5 (the JAX
+    ``init_expert_mlp``'s scales), drawn one expert at a time: only one
+    expert's (in, out) matrix exists in float32 at once (a whole
+    jamba-width stack, 16 x 4096 x 14336, would be 3.5 GiB)."""
+    w = torch.empty(n, in_dim, out_dim, dtype=dtype, device=device)
+    for e in range(n):
+        w[e] = (torch.randn(in_dim, out_dim, generator=gen, device=device)
+                .mul_(in_dim ** -0.5))
+    return nn.Parameter(w, requires_grad=False)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``jax.checkpoint``) when a graph is being built."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def ones(d: int, dtype, device) -> nn.Parameter:

@@ -1,9 +1,18 @@
-"""The LM (port of ``repro.models.model.LM`` for attention-only stacks):
-embedding, a plain loop over layers, tied or separate head, the training
-forward and its sequence-chunked cross entropy, bucketed prefill (cold,
+"""The LM (port of ``repro.models.model.LM``): embedding, a plain loop
+over the ``block_pattern x repeats`` layers (``models.transformer``),
+tied or separate head, the training forward and its sequence-chunked
+cross entropy plus the MoE auxiliary loss, prefill (cold, bucketed, with
 per-row prompt lengths, or extend onto a cached prefix), one-token decode
 over a ring-buffer KV cache or a block-paged pool, and the speculative
 W-position verify forward over either.
+
+Caches exist per kind: attention layers hold ring K/V (``KVCache.k``,
+``.v``: (attention layers, B, S, KV, hd)); Mamba layers hold a conv state
+(``.conv``: (Mamba layers, B, w-1, d_inner), the model's dtype) and an
+SSM state (``.ssm``: (Mamba layers, B, d_inner, N), float32).  A
+pure-attention stack has no recurrent state and keeps the attention-only
+layout.  The block-paged pool, the extend prefill and the verify forward
+are attention-cache operations: they refuse a stack with Mamba layers.
 
 The parameters are created with ``requires_grad=False``: serving never
 builds a graph.  A train state (``training.train_loop``) turns them on;
@@ -17,13 +26,16 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as Fn
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import Attention
-from repro_torch.models.layers import (MLP, dense, dtype_of, init_dense,
+from repro_torch.models.layers import (dense, dtype_of, init_dense,
                                        matmul_f32, rmsnorm, rope_tables)
+from repro_torch.models.layers import remat as _remat
+from repro_torch.models.transformer import (ATTN_KINDS, Block,
+                                            attention_layers, attention_only,
+                                            check_buildable)
 
 LOSS_CHUNK = 512  # sequence-chunked cross entropy (never all f32 logits)
+AUX_LOSS_WEIGHT = 0.01
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,21 +51,33 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclass
 class KVCache:
-    """Ring-buffer caches of every layer, updated in place.
+    """The decode caches of every layer, updated in place.
 
-    k, v: (layers, B, S, KV, hd).  t: int32 tensor on the device, the
-    absolute fill level shared by all layers: 0-d (one level for the
-    batch, the serial path) or (B,) (one per sequence, the decode lanes).
-    Decode writes step t at slot ``t % S`` and attends slots <= t (all of
-    them once wrapped).  RoPE positions stay absolute.
+    k, v: (attention layers, B, S, KV, hd) ring buffers.  t: int32 tensor
+    on the device, the absolute fill level shared by all attention
+    layers: 0-d (one level for the batch, the serial path) or (B,) (one
+    per sequence, the decode lanes).  Decode writes step t at slot
+    ``t % S`` and attends slots <= t (all of them once wrapped).  RoPE
+    positions stay absolute.  conv (Mamba layers, B, w-1, d_inner) and
+    ssm (Mamba layers, B, d_inner, N) float32 are the Mamba layers'
+    recurrent states, None in a stack without Mamba layers.
     """
     k: torch.Tensor
     v: torch.Tensor
     t: torch.Tensor
+    conv: Optional[torch.Tensor] = None
+    ssm: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+    def rows(self, n: int) -> "KVCache":
+        """The first ``n`` sequences (views; ``t`` must be (B,))."""
+        return KVCache(
+            k=self.k[:, :n], v=self.v[:, :n], t=self.t[:n],
+            conv=None if self.conv is None else self.conv[:, :n],
+            ssm=None if self.ssm is None else self.ssm[:, :n])
 
     def set_fill(self, t: int) -> None:
         """Reset the fill level (``repro.models.model._set_fill``)."""
@@ -85,25 +109,6 @@ class PagedKVCache:
         return self.bt.shape[1] * self.page_size
 
 
-class Block(nn.Module):
-    def __init__(self, cfg, gen, device):
-        super().__init__()
-        self.attn = Attention(cfg, gen, device)
-        self.mlp = MLP(cfg, gen, device)
-
-    def forward(self, x, rope_cs):
-        return self.mlp(self.attn(x, rope_cs))
-
-
-def _remat(fn, *args):
-    """``fn(*args)``, its activations recomputed in the backward pass
-    (``jax.checkpoint``) when a graph is being built."""
-    if not torch.is_grad_enabled():
-        return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
-
-
 def _chunk_nll(h, w, labels):
     """Summed next-token NLL of one sequence chunk: float32 logits from
     the product, labels < 0 masked."""
@@ -114,13 +119,16 @@ def _chunk_nll(h, w, labels):
 
 
 class LM(nn.Module):
-    """Attention-only decoder LM.  Weights are drawn from a seeded
-    ``torch.Generator`` on ``device`` with the JAX init's scales (the
-    numbers differ from ``jax.random``'s; carry JAX weights across with
-    ``bridge.params_from_jax`` + ``load_state_dict`` to compare)."""
+    """Decoder LM over ``cfg.block_pattern``.  Weights are drawn from a
+    seeded ``torch.Generator`` on ``device`` with the JAX init's scales
+    (the numbers differ from ``jax.random``'s; carry JAX weights across
+    with ``bridge.params_from_jax`` + ``load_state_dict`` to compare).  A
+    config needing a block the port does not build raises
+    ``NotImplementedError`` before any weight is drawn."""
 
     def __init__(self, cfg, *, device=None, seed: int = 0):
         super().__init__()
+        check_buildable(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         dev, dt = self.device, dtype_of(cfg)
@@ -129,8 +137,15 @@ class LM(nn.Module):
             (torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
                          device=dev) * cfg.d_model ** -0.5).to(dt),
             requires_grad=False)
-        self.blocks = nn.ModuleList(Block(cfg, gen, dev)
-                                    for _ in range(cfg.num_layers))
+        pattern = cfg.block_pattern
+        kinds = [pattern[i % len(pattern)] for i in range(cfg.num_layers)]
+        self.blocks = nn.ModuleList(Block(cfg, kind, gen, dev)
+                                    for kind in kinds)
+        # each layer's index among the layers of its cache kind
+        self._slot = [sum((k in ATTN_KINDS) == (kind in ATTN_KINDS)
+                          for k in kinds[:i]) for i, kind in enumerate(kinds)]
+        self.n_attn = attention_layers(cfg)
+        self.n_mamba = cfg.num_layers - self.n_attn
         self.final_norm = nn.Parameter(
             torch.ones(cfg.d_model, dtype=dt, device=dev), requires_grad=False)
         if not cfg.tie_embeddings:
@@ -138,14 +153,21 @@ class LM(nn.Module):
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_len: int) -> KVCache:
-        """Zeroed ring buffers with fill level 0."""
+        """Zeroed ring buffers with fill level 0 and zeroed recurrent
+        states (``repro.models.model.LM.init_cache``)."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
+        shape = (self.n_attn, batch_size, max_len, cfg.num_kv_heads,
                  cfg.head_dim)
         kw = dict(dtype=dtype_of(cfg), device=self.device)
-        return KVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw),
-                       t=torch.zeros((), dtype=torch.int32,
-                                     device=self.device))
+        cache = KVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw),
+                        t=torch.zeros((), dtype=torch.int32,
+                                      device=self.device))
+        if self.n_mamba:
+            m, B, di = self.n_mamba, batch_size, cfg.d_inner
+            cache.conv = torch.zeros((m, B, cfg.ssm_conv_width - 1, di), **kw)
+            cache.ssm = torch.zeros((m, B, di, cfg.ssm_state_dim),
+                                    dtype=torch.float32, device=self.device)
+        return cache
 
     def init_paged_cache(self, batch_size: int, max_len: int, n_pages: int,
                          page_size: int) -> PagedKVCache:
@@ -154,6 +176,9 @@ class LM(nn.Module):
         and, for ``batch_size`` lanes, all-zero block tables (every slot
         unallocated, pointing at the trash page) and fill levels."""
         cfg = self.cfg
+        if not attention_only(cfg):
+            raise ValueError("block-paged KV needs a pure-attention stack, "
+                             f"got {cfg.block_pattern}")
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} not a multiple of "
                              f"page_size {page_size}")
@@ -168,10 +193,10 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- training
     def _hidden(self, tokens, remat: bool):
-        """Final-normed hidden states (B, S, D) of the training forward:
-        every block in train mode at positions 0..S-1, each recomputed in
-        the backward pass when ``remat`` (JAX ``run_stack``'s per-block
-        checkpoint)."""
+        """Final-normed hidden states (B, S, D) of the training forward and
+        the summed MoE auxiliary loss: every block in train mode at
+        positions 0..S-1, each recomputed in the backward pass when
+        ``remat`` (JAX ``run_stack``'s per-block checkpoint)."""
         cfg = self.cfg
         rope_cs = rope_tables(torch.arange(tokens.shape[1],
                                            device=self.device),
@@ -180,9 +205,12 @@ class LM(nn.Module):
         # as nondeterministic on the card, so a resumed run repeats a
         # straight one
         x = Fn.embedding(tokens, self.embed)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.blocks:
-            x = _remat(blk, x, rope_cs) if remat else blk(x, rope_cs)
-        return rmsnorm(x, self.final_norm, cfg.norm_eps)
+            x, a = _remat(blk, x, rope_cs) if remat else blk(x, rope_cs)
+            if a is not None:
+                aux = aux + a
+        return rmsnorm(x, self.final_norm, cfg.norm_eps), aux
 
     def _head_weight(self):
         return self.embed.T if self.cfg.tie_embeddings else self.head
@@ -191,17 +219,18 @@ class LM(nn.Module):
         """Training forward (JAX ``LM.forward``): tokens (B, S) int64 on
         the device -> float32 logits (B, S, V), the head's product taken
         to float32 without rounding to the model's dtype."""
-        return matmul_f32(self._hidden(tokens, remat), self._head_weight())
+        return matmul_f32(self._hidden(tokens, remat)[0],
+                          self._head_weight())
 
     def loss(self, batch, remat: bool = True):
         """Sequence-chunked next-token cross entropy (JAX ``LM.loss``):
         ``batch`` holds "tokens" and "labels" (B, S) int64 on the device,
         labels < 0 masked.  The f32 logits of one ``LOSS_CHUNK`` slice of
         the sequence exist at a time, and each chunk's are recomputed in
-        the backward pass.  A dense stack has no MoE auxiliary loss (the
-        JAX loss adds ``AUX_LOSS_WEIGHT`` x 0 for it)."""
+        the backward pass.  ``AUX_LOSS_WEIGHT`` times the MoE blocks'
+        auxiliary loss is added (0 in a stack without MoE)."""
         labels = batch["labels"]
-        h = self._hidden(batch["tokens"], remat)
+        h, aux = self._hidden(batch["tokens"], remat)
         w = self._head_weight()
         S = labels.shape[1]
         chunk = min(LOSS_CHUNK, S)
@@ -210,7 +239,7 @@ class LM(nn.Module):
             tot = tot + _remat(_chunk_nll, h[:, c0:c0 + chunk], w,
                                labels[:, c0:c0 + chunk])
         cnt = (labels >= 0).sum().clamp(min=1).float()
-        return tot / cnt
+        return tot / cnt + AUX_LOSS_WEIGHT * aux
 
     # ------------------------------------------------------------------ head
     def _head(self, x):
@@ -247,6 +276,11 @@ class LM(nn.Module):
         place and attending the cached prefix.  ``prompt_len`` then counts
         suffix tokens, and the fill level becomes ``fill_to`` (default:
         the old level plus the suffix's length).
+
+        Mamba layers start from zero states and leave theirs, after the
+        last token given (pads included), in ``cache.conv``/``.ssm``: a
+        stack with Mamba layers prefills at exact length (the engines'
+        rule) and refuses an extend prefill.
         """
         B, S = tokens.shape
         cfg = self.cfg
@@ -254,14 +288,20 @@ class LM(nn.Module):
         if cache is None:
             cache = self.init_cache(B, max(S, pad_to or 0))
         else:
+            if self.n_mamba:
+                raise ValueError("an extend prefill needs a pure-attention "
+                                 f"stack (got pattern {cfg.block_pattern})")
             start = int(cache.t)              # one host read per extend
         rope_cs = rope_tables(start + torch.arange(S, device=self.device),
                               cfg.head_dim, cfg.rope_theta)
         x = self.embed[tokens]
-        for i, blk in enumerate(self.blocks):
-            x = blk.attn.prefill(x, rope_cs, cache.k[i], cache.v[i],
-                                 start=start)
-            x = blk.mlp(x)
+        for blk, j in zip(self.blocks, self._slot):
+            if blk.is_attn:
+                x = blk.attn.prefill(x, rope_cs, cache.k[j], cache.v[j],
+                                     start=start)
+            else:
+                x = self._mamba(blk, j, x, cache, fresh=True)
+            x, _ = blk.channel_mix(x)
         if prompt_len is not None and not isinstance(prompt_len, int) \
                 and torch.as_tensor(prompt_len).dim():
             lens = torch.as_tensor(prompt_len, dtype=torch.long,
@@ -289,7 +329,7 @@ class LM(nn.Module):
         window (a stopped lane stepping to the end of its segment) writes
         the trash page instead, so it can never clobber a page that the
         allocator may hand to another lane (JAX ``attn_block``'s paged
-        branch)."""
+        branch).  Mamba layers step their conv and SSM states in place."""
         cfg = self.cfg
         t = cache.t
         B = tokens.shape[0]
@@ -308,14 +348,16 @@ class LM(nn.Module):
         rope_cs = rope_tables(t.view(-1, 1) if t.dim() else t.view(1),
                               cfg.head_dim, cfg.rope_theta)
         x = self.embed[tokens]
-        for i, blk in enumerate(self.blocks):
-            if isinstance(cache, PagedKVCache):
-                x = blk.attn.decode_paged(x, rope_cs, t, dest, cache.k[i],
-                                          cache.v[i], cache.bt)
+        for blk, j in zip(self.blocks, self._slot):
+            if not blk.is_attn:
+                x = self._mamba(blk, j, x, cache, fresh=False)
+            elif isinstance(cache, PagedKVCache):
+                x = blk.attn.decode_paged(x, rope_cs, t, dest, cache.k[j],
+                                          cache.v[j], cache.bt)
             else:
-                x = blk.attn.decode(x, rope_cs, t, slot, cache.k[i],
-                                    cache.v[i])
-            x = blk.mlp(x)
+                x = blk.attn.decode(x, rope_cs, t, slot, cache.k[j],
+                                    cache.v[j])
+            x, _ = blk.channel_mix(x)
         t.add_(1)
         return self._head(x)[:, 0]
 
@@ -333,8 +375,12 @@ class LM(nn.Module):
 
         A ring position past the buffer is dropped, not wrapped; a paged
         position past the window goes to trash page 0.  Everything stays
-        on the device."""
+        on the device.  An attention-cache operation: a stack with Mamba
+        layers is refused."""
         cfg = self.cfg
+        if not attention_only(cfg):
+            raise ValueError("speculative verify needs a pure-attention "
+                             f"stack (got pattern {cfg.block_pattern})")
         t = cache.t
         B, W = tokens.shape
         w = torch.arange(W, dtype=torch.int32, device=t.device)
@@ -362,5 +408,18 @@ class LM(nn.Module):
             else:
                 x = blk.attn.verify(x, rope_cs, fills, write, cache.k[i],
                                     cache.v[i])
-            x = blk.mlp(x)
+            x, _ = blk.channel_mix(x)
         return self._head(x)
+
+    @staticmethod
+    def _mamba(blk, j, x, cache, fresh: bool):
+        """Mamba layer ``j`` of the cache: from zero states (``fresh``, a
+        prefill) or from the cached ones (a decode step); the new states
+        are written into the cache in place."""
+        if fresh:
+            x, (conv, ssm) = blk.mamba(x)
+        else:
+            x, (conv, ssm) = blk.mamba(x, cache.conv[j], cache.ssm[j])
+        cache.conv[j].copy_(conv)
+        cache.ssm[j].copy_(ssm)
+        return x

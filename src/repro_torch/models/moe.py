@@ -1,0 +1,119 @@
+"""Mixture-of-Experts with sort-based capacity dispatch (port of
+``repro.models.moe`` on one device: its single-group path, where
+``_num_groups`` returns 1 without a mesh).
+
+Per forward: a float32 router, softmax, top-k and gate renormalisation;
+the (token, choice) pairs stable-sorted by expert id and packed into an
+(E, C, D) buffer of capacity ``C = max(1, ceil(T * K / E * cf))`` over
+all T tokens of the call (overflow dropped); one batched product per
+expert weight; the gated outputs combined in float32; the Switch
+load-balance auxiliary loss.
+
+Two consequences of the reference's design the port keeps: capacity is
+shared by every token of a call, so in a lane batch a lane's tokens
+depend on its neighbours' routing (there is no lanes == serial contract
+for MoE stacks); and every expert's capacity slots are computed, so a
+decode step reads every expert's weights.  The products are plain
+``torch.bmm`` (the JAX package's are einsums outside any Pallas
+kernel).  Nothing here reads the device from the host.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers import (ACTIVATIONS, dtype_of, init_dense,
+                                       init_expert_stack, ones, rmsnorm)
+
+
+class Experts(nn.Module):
+    """The experts' gated-MLP weights, stacked over the expert axis
+    (``repro.models.layers.init_expert_mlp``)."""
+
+    def __init__(self, cfg, gen, device):
+        super().__init__()
+        dt, d, ff, e = dtype_of(cfg), cfg.d_model, cfg.d_ff, cfg.num_experts
+        self.w_gate = init_expert_stack(gen, e, d, ff, dt, device)
+        self.w_up = init_expert_stack(gen, e, d, ff, dt, device)
+        self.w_down = init_expert_stack(gen, e, ff, d, dt, device)
+
+
+class MoE(nn.Module):
+    """Pre-norm MoE MLP with its residual: ``forward(x)`` returns
+    ``(x + moe(x), aux_loss)`` (``repro.models.moe.apply_moe``)."""
+
+    def __init__(self, cfg, gen, device):
+        super().__init__()
+        if cfg.mlp_activation not in ACTIVATIONS:
+            raise NotImplementedError(
+                f"{cfg.name}: mlp_activation={cfg.mlp_activation!r} is not "
+                f"one of {sorted(ACTIVATIONS)}")
+        self.cfg = cfg
+        self.act = ACTIVATIONS[cfg.mlp_activation]
+        self.norm = ones(cfg.d_model, dtype_of(cfg), device)
+        self.router = init_dense(gen, cfg.d_model, cfg.num_experts,
+                                 torch.float32, device)
+        self.experts = Experts(cfg, gen, device)
+
+    def forward(self, x):
+        cfg = self.cfg
+        B, S, D = x.shape
+        E, K = cfg.num_experts, cfg.experts_per_token
+        T = B * S
+        C = max(1, int(math.ceil(T * K / E * cfg.moe_capacity_factor)))
+        h = rmsnorm(x, self.norm, cfg.norm_eps)
+        ht = h.reshape(T, D)
+        dev = x.device
+
+        # route: float32 router, softmax, top-k, renormalised gates
+        probs = torch.softmax(ht.float() @ self.router, dim=-1)    # (T, E)
+        gate_w, expert_idx = torch.topk(probs, K, dim=-1)           # (T, K)
+        gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
+                                      min=1e-9)
+
+        # dispatch: stable sort of the (token, choice) pairs by expert id
+        flat_e = expert_idx.reshape(-1)
+        flat_tok = torch.arange(T, device=dev).repeat_interleave(K)
+        order = torch.argsort(flat_e, stable=True)
+        se, stok, sw = flat_e[order], flat_tok[order], gate_w.reshape(-1)[order]
+        counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+            0, se, torch.ones_like(se))
+        group_start = torch.cumsum(counts, 0) - counts
+        pos = torch.arange(T * K, device=dev) - group_start[se]
+        keep = pos < C
+        dst = torch.where(keep, se * C + pos, torch.full_like(pos, E * C))
+        # the drop row E*C takes every overflow pair and is sliced off
+        buf = torch.zeros(E * C + 1, D, dtype=h.dtype, device=dev)
+        xs = buf.index_put((dst,), ht[stok])[:E * C].view(E, C, D)
+
+        # the experts' gated MLPs over their capacity slots
+        w = self.experts
+        hidden = (self.act(torch.bmm(xs, w.w_gate))
+                  * torch.bmm(xs, w.w_up))
+        out_e = torch.bmm(hidden, w.w_down).reshape(E * C, D)
+
+        # combine in float32; each token sums its K contributions in
+        # ascending expert order, the sorted order of the JAX scatter-add
+        got = torch.where(keep[:, None],
+                          out_e[torch.clamp(dst, max=E * C - 1)],
+                          torch.zeros((), dtype=out_e.dtype, device=dev))
+        contrib = got.float() * sw[:, None]
+        slot = torch.empty_like(order)
+        slot[order] = torch.arange(T * K, device=dev)
+        by_rank = contrib[slot].view(T, K, D)          # top-k rank order
+        by_expert = by_rank.gather(
+            1, torch.argsort(expert_idx, dim=-1)[..., None].expand(T, K, D))
+        combined = torch.zeros(T, D, dtype=torch.float32, device=dev)
+        for j in range(K):
+            combined = combined + by_expert[:, j]
+
+        # Switch-style load-balance auxiliary loss
+        me = probs.mean(dim=0)
+        top1 = probs.argmax(dim=-1)
+        ce = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+            0, top1, torch.ones(T, dtype=torch.float32, device=dev)) / T
+        aux = E * torch.sum(me * ce)
+        return x + combined.reshape(B, S, D).to(x.dtype), aux

@@ -21,14 +21,15 @@ package).
 The real-decode side lives in ``serving.generate.LaneDecoder`` (the
 stacked-cache segment loop) and ``serving.engine.BatchedRealEngine`` (the
 admission/retire/back-fill orchestration).  The code below the imports is
-the JAX package's, line for line, except ``kv_bytes_per_token``, which
-counts every layer (the port's stacks are attention only).
+the JAX package's, line for line.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import List, Optional
+
+from repro_torch.configs.base import ATTN, ATTN_MOE
 
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
 
@@ -39,8 +40,9 @@ def kv_bytes_per_token(cfg) -> int:
     (SSM/xLSTM) hold O(1) state per lane and contribute nothing per
     token; their fixed cost rides in the per-lane base term."""
     dt = _DTYPE_BYTES.get(cfg.dtype, 4)
-    n_attn = cfg.num_layers          # the port's stacks are all attention
-    return 2 * n_attn * cfg.num_kv_heads * cfg.head_dim * dt
+    n_attn = sum(k in (ATTN, ATTN_MOE) for k in cfg.block_pattern)
+    return 2 * n_attn * cfg.pattern_repeats * cfg.num_kv_heads \
+        * cfg.head_dim * dt
 
 
 class KVBudget:

@@ -41,7 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.model import LM, KVCache
+from repro_torch.models.model import LM
 from repro_torch.serving.batching import (KVBudget, LaneManager,
                                           kv_bytes_per_token)
 from repro_torch.serving.generate import (FusedDecoder, LaneDecoder,
@@ -71,6 +71,16 @@ class SimEngine:
         return {"replica": self.replica_id, "served": self.served}
 
 
+# Padded (bucketed) prefill is only used when every block's per-position
+# state is causal-local; SSM recurrences fold pad tokens into their state
+# and MoE capacity routing lets pad tokens evict real ones.
+_BUCKET_SAFE_KINDS = ("attn",)
+
+
+def _bucket_safe(cfg) -> bool:
+    return all(k in _BUCKET_SAFE_KINDS for k in cfg.block_pattern)
+
+
 class RealEngine:
     """An ``LM`` decoding on ``device`` (the card unless ``device='cpu'``).
 
@@ -78,7 +88,10 @@ class RealEngine:
     seeded initialisation; ``draft_state_dict`` likewise for the draft.
     With ``draft_cfg`` and ``draft_k >= 1`` it decodes draft-verify
     (``SpeculativeDecoder``); ``draft_k`` 0 keeps the plain fused path
-    even with a draft config, as in JAX.
+    even with a draft config, as in JAX.  A stack with any block kind
+    but ``attn`` prefills at exact length (no buckets) and refuses
+    draft-verify, as the JAX engine does; the refusal comes before any
+    weight is built.
     """
 
     def __init__(self, cfg, state_dict=None, replica_id: int = 0,
@@ -86,6 +99,17 @@ class RealEngine:
                  device=None, draft_cfg=None, draft_state_dict=None,
                  draft_k: int = 0, draft_seed: int = 0):
         self.cfg = cfg
+        self._bucketing = _bucket_safe(cfg)
+        if draft_cfg is not None and int(draft_k) > 0:
+            if not self._bucketing:
+                raise ValueError(
+                    "speculative decoding needs a pure-attention stack "
+                    f"(got pattern {cfg.block_pattern}): the verify "
+                    "forward is an attention-cache operation")
+            if not _bucket_safe(draft_cfg):
+                raise ValueError(
+                    "draft model needs a pure-attention stack "
+                    f"(got pattern {draft_cfg.block_pattern})")
         self.lm = LM(cfg, device=device, seed=seed)
         if state_dict is not None:
             self.lm.load_state_dict(state_dict)
@@ -109,7 +133,7 @@ class RealEngine:
         self.busy_until = 0.0
         self.served = 0
         self._cancel = False
-        self.buckets = geometric_buckets(max_len)
+        self.buckets = geometric_buckets(max_len) if self._bucketing else ()
         # optional serving.faults.FaultInjector, polled at fused-decode
         # segment boundaries (the join points of cancellation)
         self.fault_injector = None
@@ -144,6 +168,11 @@ class RealEngine:
         return st
 
     # -------------------------------------------------------------- prefill
+    def _bucket(self, n: int) -> int:
+        """The prefill length of an ``n``-token prompt: its bucket, or
+        ``n`` itself for a stack that prefills at exact length."""
+        return bucket_for(n, self.buckets) if self._bucketing else n
+
     def _run_prefill(self, prompt_ids, lm=None):
         """Bucket-pad + prefill.  Returns (last logits (1, V), cache,
         prompt_len).  ``lm`` overrides the target model (the draft
@@ -153,7 +182,7 @@ class RealEngine:
         plen = len(ids)
         if plen < 1:
             raise ValueError("empty prompt: prefill needs >= 1 token")
-        toks = np.zeros((1, bucket_for(plen, self.buckets)), np.int64)
+        toks = np.zeros((1, self._bucket(plen)), np.int64)
         toks[0, :plen] = ids
         logits, cache = (self.lm if lm is None else lm).prefill(
             torch.from_numpy(toks).to(self.device), pad_to=self.max_len,
@@ -181,7 +210,7 @@ class RealEngine:
         plens = [len(i) for i in ids_list]
         if min(plens) < 1:
             raise ValueError("empty prompt in prefill group")
-        buckets = {bucket_for(n, self.buckets) for n in plens}
+        buckets = {self._bucket(n) for n in plens}
         if len(buckets) != 1:
             raise ValueError(f"prefill group spans buckets {buckets}")
         bucket = buckets.pop()
@@ -197,8 +226,7 @@ class RealEngine:
             prompt_len=plens + [1] * (kp - k))
         if kp != k:
             logits = logits[:k]
-            cache = KVCache(k=cache.k[:, :k], v=cache.v[:, :k],
-                            t=cache.t[:k])
+            cache = cache.rows(k)
         return logits, cache, plens
 
     # ------------------------------------------------------------- generate
@@ -451,8 +479,7 @@ class BatchedRealEngine(RealEngine):
         lane insert per group."""
         groups: dict = {}
         for claim in claims:
-            groups.setdefault(bucket_for(len(claim[2]), self.buckets),
-                              []).append(claim)
+            groups.setdefault(self._bucket(len(claim[2])), []).append(claim)
         for group in groups.values():
             logits, pcache, plens = self._run_prefill_group(
                 [ids for _, _, ids, _ in group], pad_rows=self.n_lanes,
@@ -717,6 +744,10 @@ class PagedBatchedEngine(BatchedRealEngine):
                  page_size: int = 16, device=None, draft_cfg=None,
                  draft_state_dict=None, draft_k: int = 0,
                  draft_seed: int = 0):
+        # refused before any weight is built (the JAX engine's message)
+        if not _bucket_safe(cfg):
+            raise ValueError("block-paged KV needs a pure-attention stack "
+                             f"(got pattern {cfg.block_pattern})")
         super().__init__(cfg, state_dict=state_dict, replica_id=replica_id,
                          seed=seed, max_len=max_len, segment_len=segment_len,
                          n_lanes=n_lanes, budget_bytes=budget_bytes,

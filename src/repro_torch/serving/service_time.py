@@ -93,8 +93,9 @@ class ServiceTimeModel:
         peaks = H100_SXM_PEAKS
         n_active = cfg.active_param_count()
         prefill = chips * peaks["bf16_flops"] * mfu / (2.0 * n_active)
-        # every block of the port's stacks is an attention block
-        kv_bytes_per_tok = 2 * cfg.kv_dim * 2 * cfg.num_layers
+        kv_bytes_per_tok = (2 * cfg.kv_dim * 2
+                            * sum(k.startswith("attn") for k in cfg.block_pattern)
+                            * cfg.pattern_repeats)
         bytes_per_decode = 2.0 * n_active + kv_bytes_per_tok * kv_tokens
         decode = chips * peaks["hbm_bytes_per_s"] * hbm_frac \
             / bytes_per_decode

@@ -14,11 +14,13 @@ model keeps its tensors and no second copy of the weights is made.
 
 Adafactor factors the second moment of every tensor of two or more
 dimensions over its last two axes.  The JAX package stacks each block
-parameter over layers, so there a per-layer norm weight is one (layers,
-d) matrix and its statistics are factored across layers.  The port keeps
-that: block parameters are grouped by name (``blocks.<part>.<name>``),
-stacked over layers for the update, and their statistics are held per
-group.
+parameter over the pattern's repeats, so there a per-layer norm weight
+is one (repeats, d) matrix and its statistics are factored across
+repeats.  The port keeps that: block parameters are grouped by pattern
+position and name (``blocks.<part>.<name>`` for a one-block pattern,
+``blocks.pos<p>.<part>.<name>`` otherwise; ``period`` is the pattern's
+length), stacked over repeats for the update, and their statistics are
+held per group.
 
 All of it is plain PyTorch under ``no_grad`` (``torch._foreach_*`` for
 AdamW), as the JAX package leaves it to XLA outside any kernel.
@@ -32,7 +34,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
-_LAYER = re.compile(r"^blocks\.\d+\.")
+_LAYER = re.compile(r"^blocks\.(\d+)\.")
 
 
 @dataclass(frozen=True)
@@ -53,13 +55,23 @@ class OptState(NamedTuple):
     v: Dict[str, torch.Tensor]   # adamw: second moment | adafactor: col stats
 
 
-def _groups(names) -> Dict[str, list]:
-    """Adafactor's groups: each block parameter name with its layer index
-    dropped (``blocks.3.attn.wq`` -> ``blocks.attn.wq``) -> its names in
-    layer order; every other parameter is a group of its own."""
+def group_of(name: str, period: int = 1) -> str:
+    """Adafactor's group of a parameter: a block parameter's name with its
+    layer index dropped (``blocks.3.attn.wq`` -> ``blocks.attn.wq``), or
+    replaced by its pattern position when the pattern has ``period`` > 1
+    blocks (``blocks.pos3.attn.wq``); any other name is its own group."""
+    m = _LAYER.match(name)
+    if m is None:
+        return name
+    pos = "" if period == 1 else f"pos{int(m.group(1)) % period}."
+    return f"blocks.{pos}{name[m.end():]}"
+
+
+def _groups(names, period: int = 1) -> Dict[str, list]:
+    """Adafactor's groups -> their parameter names in layer order."""
     out: Dict[str, list] = {}
     for n in names:
-        out.setdefault(_LAYER.sub("blocks.", n), []).append(n)
+        out.setdefault(group_of(n, period), []).append(n)
     return out
 
 
@@ -70,8 +82,9 @@ def _stacked(tensors: dict, names: list, group: str) -> torch.Tensor:
 
 
 def init_opt_state(params: Dict[str, torch.Tensor],
-                   cfg: OptConfig) -> OptState:
-    """Zero moments on the parameters' devices, step 0."""
+                   cfg: OptConfig, period: int = 1) -> OptState:
+    """Zero moments on the parameters' devices, step 0.  ``period``: the
+    block pattern's length (Adafactor's groups)."""
     dev = next(iter(params.values())).device
     step = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.kind == "adamw":
@@ -81,7 +94,7 @@ def init_opt_state(params: Dict[str, torch.Tensor],
         return OptState(step, m, v)
     if cfg.kind == "adafactor":
         m, v = {}, {}
-        for group, names in _groups(params).items():
+        for group, names in _groups(params, period).items():
             shape = _stacked(params, names, group).shape
             kw = dict(dtype=torch.float32, device=dev)
             if len(shape) < 2:
@@ -108,10 +121,11 @@ def global_norm(grads) -> torch.Tensor:
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state: OptState,
-                  cfg: OptConfig):
+                  cfg: OptConfig, period: int = 1):
     """One optimizer step.  Returns (params, new_state, metrics) with
     ``params`` updated in place and metrics {"grad_norm", "lr"} as 0-d
-    tensors on the parameters' device (no host synchronisation)."""
+    tensors on the parameters' device (no host synchronisation).
+    ``period``: the block pattern's length, as in :func:`init_opt_state`."""
     names = list(params)
     gnorm = global_norm([grads[n] for n in names])
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -151,7 +165,7 @@ def apply_updates(params: Dict[str, torch.Tensor],
         eps = 1e-30
         decay = 1.0 - (step_f + 1.0) ** -0.8
         new_m, new_v = {}, {}
-        for group, gnames in _groups(names).items():
+        for group, gnames in _groups(names, period).items():
             g = _stacked(g32, gnames, group)
             p32 = _stacked(params, gnames, group).float()
             r, c = state.m[group], state.v[group]

@@ -37,7 +37,7 @@ def init_train_state(cfg, opt_cfg: OptConfig, *, device=None,
     lm = LM(cfg, device=device, seed=seed)
     lm.requires_grad_(True)
     return TrainState(lm, init_opt_state(dict(lm.named_parameters()),
-                                         opt_cfg))
+                                         opt_cfg, len(cfg.block_pattern)))
 
 
 def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
@@ -76,7 +76,8 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
         for p in lm.parameters():
             p.grad = None
         _, opt, metrics = apply_updates(dict(lm.named_parameters()), grads,
-                                        state.opt, opt_cfg)
+                                        state.opt, opt_cfg,
+                                        len(cfg.block_pattern))
         metrics["loss"] = loss
         return TrainState(lm, opt), metrics
 

@@ -39,8 +39,9 @@ from repro_torch.serving.engine import (BatchedRealEngine, PagedBatchedEngine,
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
-#: the serving paths' heads: (H, KV, hd) of smollm-360m and gemma3-4b-edge
-HEADS = [(15, 5, 64), (8, 4, 256)]
+#: the serving paths' heads: (H, KV, hd) of smollm-360m, gemma3-4b-edge
+#: and jamba-v0.1-52b
+HEADS = [(15, 5, 64), (8, 4, 256), (32, 8, 128)]
 
 
 @pytest.fixture
@@ -871,3 +872,85 @@ def test_train_step_on_card_matches_cpu(cuda):
                                        rtol=0, err_msg=n)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 7, 23, 45, 129])
+@pytest.mark.parametrize("B", [1, 3])
+def test_flash_kernel_at_exact_lengths(cuda, dtype, S, B):
+    """K3 at exact prompt lengths (a stack with Mamba or MoE blocks
+    prefills unbucketed) at jamba's heads (H 32 over KV 8, hd 128),
+    causal, against ``ref.flash_attention_ref`` (2e-2 bf16, 1e-4 f32).
+    The keys and values are views of buffers whose rows past S hold NaN:
+    the output is finite and equal bit for bit to the launch on clean
+    copies, so the tail tile's masked keys contribute exact zeros."""
+    g = torch.Generator(device=cuda).manual_seed(S + B)
+    q = torch.randn(B, S, 32, 128, generator=g, device=cuda).to(dtype)
+    kb, vb = (torch.full((B, S + 40, 8, 128), float("nan"), dtype=dtype,
+                         device=cuda) for _ in range(2))
+    kb[:, :S] = torch.randn(B, S, 8, 128, generator=g, device=cuda).to(dtype)
+    vb[:, :S] = torch.randn(B, S, 8, 128, generator=g, device=cuda).to(dtype)
+    k, v = kb[:, :S], vb[:, :S]
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, ops.flash_attention(q, k.contiguous(),
+                                                v.contiguous(), causal=True))
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True)
+    _close(got, want.transpose(1, 2), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "dbrx-132b"])
+def test_hybrid_and_moe_engines_on_card_match_cpu(cuda, name):
+    """Reduced jamba (Mamba + MoE + attention) and dbrx (MoE) in float32
+    with TF32 off: greedy tokens of the serial and the lane engine on the
+    card equal the same engines' on the CPU (plain attention), with K3
+    and K1 launched once an attention layer a prefill and a step; fused
+    decode equals the per-token oracle on the card."""
+    cfg = get_config(name).reduced()
+    n_attn = sum(k.startswith("attn") for k in cfg.block_pattern)
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate((7, 7, 12, 5, 12))]
+    maxes = [10, 6, 8, 12, 5]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # one set of weights: a seeded generator draws other numbers on the card
+    sd = RealEngine(cfg, max_len=64, device="cpu", seed=2).lm.state_dict()
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            ser = RealEngine(cfg, state_dict=sd, max_len=64, segment_len=4,
+                             device=dev)
+            lanes = BatchedRealEngine(cfg, state_dict=sd, max_len=64,
+                                      segment_len=4, n_lanes=3, device=dev)
+            before = dict(ops.LAUNCHES)
+            serial = [ser.generate(p, max_new_tokens=m)["tokens"]
+                      for p, m in zip(prompts, maxes)]
+            if dev == cuda:
+                steps = sum(len(t) - 1 for t in serial)
+                assert ops.LAUNCHES["flash_attention"] \
+                    - before["flash_attention"] == 5 * n_attn
+                assert ops.LAUNCHES["decode_attention"] \
+                    - before["decode_attention"] == steps * n_attn
+                assert ser.generate_reference(prompts[2], 8)["tokens"] == \
+                    ser.generate(prompts[2], max_new_tokens=8)["tokens"]
+            out[str(dev)] = (serial, [r["tokens"] for r in
+                                      lanes.generate_batch(prompts, maxes)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert out[str(cuda)] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_train_cli_refuses_a_state_the_card_cannot_hold(cuda):
+    """jamba-v0.1-52b's bf16 weights, gradients and float32 AdamW moments
+    (575 GiB) do not fit the card: ``launch.train`` stops with the sizes
+    before it builds any weight."""
+    from repro_torch.launch import train as train_mod
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with pytest.raises(SystemExit, match="AdamW moments need"):
+        train_mod.main(["--arch", "jamba-v0.1-52b", "--steps", "1"])
+    assert torch.cuda.max_memory_allocated() == base

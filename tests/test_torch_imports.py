@@ -31,8 +31,12 @@ print(len(names), bad, missing)
 #: and the packed ensemble; the simulator, its calibration and the launch
 #: CLIs; the sweep grids, the grid DES on the device and the ranking
 #: metric; training (data, optimizer, train step, checkpoints, the CLI)
-#: and the attention backward kernel
-NEW = ["repro_torch.serving.batching", "repro_torch.serving.paging",
+#: and the attention backward kernel; the config registry's package and
+#: the block kinds of the pattern stack (MoE, Mamba, block dispatch)
+NEW = ["repro_torch.configs.base", "repro_torch.configs.jamba_v01_52b",
+       "repro_torch.configs.xlstm_350m", "repro_torch.models.moe",
+       "repro_torch.models.ssm", "repro_torch.models.transformer",
+       "repro_torch.serving.batching", "repro_torch.serving.paging",
        "repro_torch.kernels.paged_decode_attention",
        "repro_torch.core.ensemble_pack", "repro_torch.core.router",
        "repro_torch.serving.faults", "repro_torch.serving.observability",
