@@ -8,7 +8,10 @@ nvcc, holds each against its plain PyTorch version at the serving paths'
 shapes (K1, K2 and K3 at smollm-360m's heads and at gemma3-4b-edge's,
 head width 256; K1 and K3 at jamba-v0.1-52b's, 32 query heads over 8 KV
 heads of width 128, K3 also at exact prompt lengths 1..129 with NaN
-rows past the keys' end) and times both; K4 and K5 also on the 120-round
+rows past the keys' end; K1 and K3 at musicgen-large's, 32 over 32 of
+width 64, and llama-3.2-vision-90b's, 64 over 8 of width 128; K3
+non-causal at Sq 1, 16 and 45 over the vision stack's 1024 image rows
+and K1 at t = 1023 over its image cache) and times both; K4 and K5 also on the 120-round
 ensemble that the launch CLIs train, at their burst (B 100) and
 admission (B 1) shapes.  Then, at the full width of smollm-360m (bf16,
 seeded random weights), it drives each serving path through the entry
@@ -56,8 +59,8 @@ path and read just after:
   independent draft, and the paging backlog through speculative ring and
   paged lanes;
 * ``[launch-sidecar]`` ``python -m repro_torch.launch.sidecar --port 0``
-  as a child process with the full-width real backend, then the sim
-  backend, under fcfs and sjf, and the real backend with
+  as child processes, the full-width real backend beside the sim
+  backend, under fcfs and then sjf, and the real backend with
   ``--speculative`` under sjf: the burst over HTTP, then SIGTERM;
 * ``[train]`` training: a float32 2-layer copy's gradients through K3
   (with its log-sum-exp) and K3b against the plain attention, then 20
@@ -79,14 +82,15 @@ path and read just after:
   request launches K3 once a layer and K1 once a layer a decode step,
   every lane step K1 or K2 once a layer, exactly;
 * then jamba-v0.1-52b (Mamba, MoE with 16 experts top-2, and attention
-  in an 8-block pattern), once the card is freed, at full width and two
+  in an 8-block pattern), once the card is freed, at full width and one
   of its four pattern repeats (the whole model, 95.8 GiB in bf16, does
-  not fit the card): ``[jamba-f32]`` a float32 one-repeat copy (8
+  not fit the card; a second repeat would not fit the run's time limit
+  beside the last three archs): ``[jamba-f32]`` a float32 copy (8
   layers, 13.27 B parameters), prefill logits and 8 greedy steps
   through K1/K3 against the plain attention on the card, and ring lanes
   through the kernels against ring lanes through the plain attention
   (MoE capacity is shared by a step's tokens, so lanes are held to
-  lanes, not to the serial engine); then 16 layers in bf16 (25.99 B
+  lanes, not to the serial engine); then the 8 layers in bf16 (13.27 B
   seeded parameters): ``[jamba-slice]`` the burst (its longs cut to 32
   new tokens) through the serial engine (exact-length prefill, FCFS and
   SJF) with TTFT and ms/token beside the weight stream and the
@@ -94,8 +98,29 @@ path and read just after:
   the burst over HTTP, and ``[jamba-lanes]`` the paging backlog through
   ring lanes, after the block-paged engine and speculative engines
   refuse the stack.  Every
-  jamba prefill launches K3 once an attention layer (2), every step K1
-  once an attention layer, exactly.
+  jamba prefill launches K3 once an attention layer (1), every step K1
+  once an attention layer, exactly;
+* then the last three architectures, each once the card is freed:
+  xlstm-350m (alternating sLSTM and mLSTM blocks, no attention layer):
+  ``[xlstm-f32]`` a float32 one-repeat copy (2 layers) on the card
+  against the CPU (logits, 8 greedy tokens) and its ring lanes against
+  the serial engine; then all 24 layers in bf16: ``[xlstm-slice]`` (the
+  burst through the serial engine at exact-length prefill, longs of 32
+  new tokens, plus ``[xlstm-profile]``), ``[xlstm-sidecar]`` and
+  ``[xlstm-lanes]`` (ring lanes; paged and speculative engines refuse),
+  with no K1/K2/K3 launch and K5 once a burst / an admission;
+  musicgen-large (the audio frontend: frame embeddings in, one query
+  head a KV head): ``[musicgen-f32]`` 2 layers in float32, K1/K3 against
+  the plain attention and prefill + teacher-forced decode against the
+  training forward, then ``[musicgen]`` all 48 layers in bf16 through
+  ``LM.prefill``/``decode_step`` (45 seeded frames, 32 teacher-forced
+  steps); llama-3.2-vision-90b cut to one of its 20 pattern repeats (4
+  self-attention and 1 cross-attention layers; the whole model does not
+  fit the card): ``[vision-f32]`` those 5 layers in float32 against the
+  plain attention, then ``[vision]`` in bf16 (1024 seeded image rows, a
+  45-token prompt, 32 greedy steps).  Every prefill there launches K3
+  once a layer (non-causal in the cross-attention layer) and every step
+  K1 once a layer (at t = 1023 over the image cache), exactly.
 
 Before the paths, ``[K3b flash_attention_bwd]`` holds the attention
 backward kernel to its plain version (and K3's log-sum-exp to the plain
@@ -124,13 +149,19 @@ jamba stack instead of refusing it, when a K3b gradient or K3's
 log-sum-exp disagrees with its plain version, when the training loss
 does not fall or the train step's K3/K3b launches differ from 2 x 32 /
 32 a step, when a K3b pass is among the profiled train step's two
-longest kernels, or when a resumed training run's losses differ from
-the straight run's.
+longest kernels, when a resumed training run's losses differ from
+the straight run's, when an xlstm path launches an attention kernel or
+its card and CPU logits, tokens or lane tokens differ, when the
+musicgen or vision kernels-vs-plain logits or tokens differ or their
+launches are not exactly a layer's, or when two kernels-line entries
+share a name.
 
 The second-to-last line of standard output is a JSON object with one
-entry per kernel (K1, K2 and K3 at head width 64, launched on the smollm
-paths, and ``*_hd256``, launched on the gemma3 paths; K1 and K3 at
-``*_hd128``, launched on the jamba paths); the last line is
+entry per kernel, each with the launches of its own model's paths (K1,
+K2 and K3 at head width 64 and K3b, K4, K5: smollm-360m; ``*_hd256``:
+gemma3-4b-edge; ``*_hd128``: jamba-v0.1-52b; ``*_musicgen``:
+musicgen-large; ``*_vision``: llama-3.2-vision-90b's self-attention
+and ``*_vision_cross`` its cross-attention); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -162,6 +193,15 @@ PATTERN = "LLSSSSLSSLSS"
 FAULT_DEADLINE_S = 1.0
 # (H, KV, hd) of the served models' attention
 SMOLLM_HEADS, GEMMA_HEADS, JAMBA_HEADS = (15, 5, 64), (8, 4, 256), (32, 8, 128)
+MUSICGEN_HEADS, VISION_HEADS = (32, 32, 64), (64, 8, 128)
+# musicgen-large and llama-3.2-vision-90b run through LM.prefill /
+# decode_step: a 45-position prompt, 32 decode steps, B 1; the vision
+# stack attends 1024 seeded image rows and is cut to one of its 20
+# pattern repeats (4 self-attention + 1 cross-attention layers: the
+# whole model, 163 GiB in bf16, does not fit the card); their float32
+# copies take LM_F32_STEPS decode steps
+LM_PROMPT, LM_STEPS, IMAGE_ROWS = 45, 32, 1024
+LM_F32_STEPS = 8
 # K3's exact prompt lengths (a stack with Mamba or MoE blocks prefills
 # unbucketed)
 EXACT_S = (1, 7, 23, 45, 129)
@@ -170,12 +210,24 @@ EXACT_S = (1, 7, 23, 45, 129)
 JAMBA_LONG_NEW = 32
 
 
-def _kname(base: str, heads) -> tuple:
+def _kname(base: str, heads, model=None) -> tuple:
     """A kernel's entry name and print tag at ``heads``: the smollm-360m
-    shapes keep the kernel's own name, others add their head width."""
+    shapes keep the kernel's own name, gemma3's and jamba's add their
+    head width, a later model its own name (``model``)."""
     hd = heads[2]
+    if model:
+        return f"{base}_{model}", f" {model}"
     return ((base, "") if heads == SMOLLM_HEADS
             else (f"{base}_hd{hd}", f" hd{hd}"))
+
+
+def _owned(entry: dict, model: str, counter=None) -> dict:
+    """Tag a kernels-line entry with the model whose paths' launches it
+    reports and the launch counter it reads (the kernel's own by
+    default); both tags are taken off before the line is printed."""
+    entry["model"] = model
+    entry["counter"] = counter or entry["name"].split("_hd")[0]
+    return entry
 
 
 def _ms(fn, iters: int = 100, warmup: int = 10) -> float:
@@ -308,7 +360,7 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
 
-def phase_decode_kernel(gen, heads=SMOLLM_HEADS) -> dict:
+def phase_decode_kernel(gen, heads=SMOLLM_HEADS, model=None) -> dict:
     """K1 at the serving shapes: B 1, ``heads`` (H 15 over KV 5, hd 64;
     gemma3-4b-edge: 8 over 4, hd 256), ring S 512."""
     import torch
@@ -316,7 +368,7 @@ def phase_decode_kernel(gen, heads=SMOLLM_HEADS) -> dict:
                                                       decode_attention_plain,
                                                       split_plan)
     (H, KV, hd), (B, S) = heads, (1, MAX_LEN)
-    name, tag = _kname("decode_attention", heads)
+    name, tag = _kname("decode_attention", heads, model)
     errs = {}
     for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         q = torch.randn(B, 1, H, hd, generator=gen, device="cuda").to(dt)
@@ -371,13 +423,13 @@ def phase_decode_kernel(gen, heads=SMOLLM_HEADS) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
 
-def phase_flash_kernel(gen, heads=SMOLLM_HEADS) -> dict:
+def phase_flash_kernel(gen, heads=SMOLLM_HEADS, model=None) -> dict:
     """K3 at the serving prefill buckets 16..512: B 1, ``heads``."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     (H, KV, hd), B = heads, 1
-    name, tag = _kname("flash_attention", heads)
+    name, tag = _kname("flash_attention", heads, model)
     errs = {}
     timed = []
     for S in (16, 32, 64, 96, 128, 256, 512):        # 96: a ragged bucket
@@ -786,6 +838,13 @@ def phase_slice(cfg, predictor, smi, tag="slice",
                                      f"launches, expected {want} x "
                                      f"{attention_layers(cfg)} attention "
                                      "layers")
+        # one K5 launch scores the whole burst under SJF (submit_many),
+        # none under FCFS
+        k5 = ops.LAUNCHES["gbdt_margins_packed"] \
+            - before["gbdt_margins_packed"]
+        if k5 != int(policy == "sjf"):
+            raise AssertionError(f"[{tag}] {policy}: {k5} K5 launches for "
+                                 "the burst")
         per_policy[policy] = {
             "short_p50_ms": server.percentile(50, "short") * 1e3,
             "long_p50_ms": server.percentile(50, "long") * 1e3,
@@ -797,9 +856,9 @@ def phase_slice(cfg, predictor, smi, tag="slice",
                           r.token_ids for r in resp},
             "launches": {k: ops.LAUNCHES[k] - before[k] for k in before}}
     launches = dict(ops.LAUNCHES)
-    _check_path(f"[{tag}]", launches,
-                ("decode_attention", "flash_attention", "gbdt_margins_packed"),
-                ("paged_decode_attention", "gbdt_margins"))
+    _check_path(f"[{tag}]", launches, *_attn_checks(
+        cfg, ("decode_attention", "flash_attention", "gbdt_margins_packed"),
+        ("paged_decode_attention", "gbdt_margins")))
     sjf, fcfs = per_policy["sjf"], per_policy["fcfs"]
     if sjf["by_prompt"] != fcfs["by_prompt"]:
         raise AssertionError(f"[{tag}] a prompt's tokens differ between the "
@@ -830,17 +889,23 @@ def phase_slice(cfg, predictor, smi, tag="slice",
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     phase_profile(eng, smi, tag.replace("slice", "profile"))
     priced = 1e3 / ServiceTimeModel.from_arch(cfg).decode_tok_per_s
-    weights = 2 * cfg.param_count()
+    weights = _weight_bytes(eng.lm)
     print(f"[{tag}] fused == reference over {n} tokens; prompt 24 tokens: "
           f"TTFT {fused['ttft_s'] * 1e3:.2f} ms, decode "
           f"{per_tok * 1e3:.3f} ms/token ({1 / per_tok:.0f} tok/s; per-token "
           f"oracle loop {per_tok_ref * 1e3:.3f} ms/token), peak memory "
           f"{peak:.0f} MiB; the service-time model prices a token at "
-          f"{priced:.3f} ms, the bf16 weight stream "
+          f"{priced:.3f} ms, the weight stream "
           f"({weights / 1e9:.2f} GB) at 3.35 TB/s "
           f"{weights / HBM_BYTES_PER_S * 1e3:.3f} "
           f"ms  [{smi}]")
     return launches, eng, sjf["by_prompt"]
+
+
+def _weight_bytes(lm) -> int:
+    """Bytes of every parameter of ``lm``: what a decode step streams (the
+    xLSTM gate weights are float32 in a bf16 model)."""
+    return sum(p.numel() * p.element_size() for p in lm.parameters())
 
 
 async def _http(port, body=None, headers=None, method="POST",
@@ -1068,19 +1133,19 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals,
             raise AssertionError(f"[{tag}] the predictor failed: "
                                  f"{srv.predictor_error}")
         if policy == "sjf":
-            _check_path(f"[{tag}] sjf", launches,
-                        ("decode_attention", "flash_attention",
-                         "gbdt_margins_packed"),
-                        ("paged_decode_attention", "gbdt_margins"))
+            _check_path(f"[{tag}] sjf", launches, *_attn_checks(
+                eng.cfg, ("decode_attention", "flash_attention",
+                          "gbdt_margins_packed"),
+                ("paged_decode_attention", "gbdt_margins")))
             if launches["gbdt_margins_packed"] != len(order):
                 raise AssertionError(
                     f"[{tag}] {launches['gbdt_margins_packed']} K5 "
                     f"launches for {len(order)} SJF admissions")
         else:
-            _check_path(f"[{tag}] fcfs", launches,
-                        ("decode_attention", "flash_attention"),
-                        ("paged_decode_attention", "gbdt_margins",
-                         "gbdt_margins_packed"))
+            _check_path(f"[{tag}] fcfs", launches, *_attn_checks(
+                eng.cfg, ("decode_attention", "flash_attention"),
+                ("paged_decode_attention", "gbdt_margins",
+                 "gbdt_margins_packed")))
         soj = {c: [t for i, t, _ in outs if (i in longs) == (c == "long")]
                for c in ("short", "long")}
         finish = [r.request_id for r in srv.responses]
@@ -1192,7 +1257,6 @@ def phase_profile(eng, smi, tag="profile") -> None:
     device's busy share while the engine serves one request (the union of
     CUDA kernel intervals over the span of the whole trace)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     ids = list(range(7, 7 + 24))
     eng.generate(ids, max_new_tokens=4)
@@ -1200,7 +1264,16 @@ def phase_profile(eng, smi, tag="profile") -> None:
                              ProfilerActivity.CUDA]) as prof:
         out = eng.generate(ids, max_new_tokens=9)
         torch.cuda.synchronize()
-    events = prof.events()
+    n = len(out["tokens"])
+    _trace_report(prof.events(), n, f"one request, 24-token prompt, {n} "
+                  f"tokens (prefill + {n - 1} decode steps)", smi, tag)
+
+
+def _trace_report(events, n, what, smi, tag) -> None:
+    """Kernels a token, the device's busy share (the union of CUDA kernel
+    intervals over the span of the whole trace) and the six longest
+    kernels of a profiled run of ``n`` tokens."""
+    from torch.autograd import DeviceType
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = _busy_us(events)
     if busy is None:
@@ -1213,9 +1286,7 @@ def phase_profile(eng, smi, tag="profile") -> None:
     for e in kernels:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
-    n = len(out["tokens"])
-    print(f"[{tag}] one request, 24-token prompt, {n} tokens (prefill + "
-          f"{n - 1} decode steps), profiler on: {len(kernels)} kernels "
+    print(f"[{tag}] {what}, profiler on: {len(kernels)} kernels "
           f"(~{len(kernels) / n:.0f} per token), device busy "
           f"{busy / 1e3:.2f} ms of {span / 1e3:.2f} ms traced "
           f"({100 * busy / span:.1f}% busy, {100 - 100 * busy / span:.1f}% "
@@ -1518,7 +1589,7 @@ def _drain_pattern(eng, prompts, maxes, exact=True) -> dict:
     return {"res": res, "tokens": [r["tokens"] for r in res], "wall": wall,
             "n_tok": toks, "tok_s": toks / wall,
             "short_p50_ms": float(np.median(short)) * 1e3,
-            "launches": launches,
+            "launches": launches, "steps": calls["decode_step"],
             "preempted": [i for i, r in enumerate(res) if r["evictions"]]}
 
 
@@ -1536,6 +1607,18 @@ def _lane_engines(cfg, dtype_cfg=None):
     paged = PagedBatchedEngine(c, state_dict=ring.lm.state_dict(),
                                page_size=L_PAGE, **kw)
     return ring, paged
+
+
+def _attn_checks(cfg, run, skip=()) -> tuple:
+    """A path's (run, skip) kernel lists, with K1 and K3 moved from
+    ``run`` to ``skip`` when the stack has no attention layer (xlstm:
+    then neither may launch)."""
+    from repro_torch.models.transformer import attention_layers
+    if attention_layers(cfg):
+        return run, skip
+    att = ("decode_attention", "flash_attention")
+    return (tuple(k for k in run if k not in att),
+            tuple(skip) + tuple(k for k in run if k in att))
 
 
 def _check_path(name, launches, run, skip=()):
@@ -1789,16 +1872,18 @@ def phase_jamba_f32(cfg, smi, totals, tag="jamba-f32") -> None:
     _free_card(tag)
 
 
-def phase_jamba_lanes(cfg, smi, totals, tag="jamba-lanes") -> None:
-    """jamba (bf16, two pattern repeats) through ring lanes on the paging
+def phase_hybrid_lanes(cfg, smi, totals, tag="jamba-lanes") -> None:
+    """A stack with recurrent or MoE blocks (jamba bf16 at one pattern
+    repeat; xlstm bf16, all 24 layers) through ring lanes on the paging
     benchmark's backlog, with K1/K3 launches held exactly to the lane
-    steps and prefills; the block-paged engine and a speculative engine
-    must refuse the stack with the JAX engine's messages before building
-    any weight."""
+    steps and prefills (none without an attention layer); the
+    block-paged engine and a speculative engine must refuse the stack
+    with the JAX engine's messages before building any weight.  A stack
+    with no K/V per token (xlstm) takes the default budget of a full
+    ring a lane."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models.transformer import attention_layers
     from repro_torch.serving.batching import kv_bytes_per_token
     from repro_torch.serving.engine import (BatchedRealEngine,
                                             PagedBatchedEngine, RealEngine)
@@ -1825,13 +1910,14 @@ def phase_jamba_lanes(cfg, smi, totals, tag="jamba-lanes") -> None:
           "BatchedRealEngine refuse the stack before building weights "
           "(the JAX messages)")
     t0 = time.monotonic()
-    budget = 2 * (L_PROMPT + L_LONG) * kv_bytes_per_token(cfg)
+    budget = 2 * (L_PROMPT + L_LONG) * kv_bytes_per_token(cfg) or None
     eng = BatchedRealEngine(cfg, seed=0, max_len=L_MAX_LEN,
                             segment_len=L_SEGMENT, n_lanes=L_LANES,
                             budget_bytes=budget)
     torch.cuda.synchronize()
     print(f"[{tag}] {cfg.name} bf16 {cfg.num_layers}L, {L_LANES} lanes, "
-          f"max_len {L_MAX_LEN}, budget {budget} B, pattern {PATTERN}; "
+          f"max_len {L_MAX_LEN}, budget {eng.budget_bytes} B, pattern "
+          f"{PATTERN}; "
           f"engine {time.monotonic() - t0:.1f} s")
     eng.generate_batch(
         _pattern(cfg.vocab_size, np.random.default_rng(0))[0][:L_LANES], 4)
@@ -1839,15 +1925,14 @@ def phase_jamba_lanes(cfg, smi, totals, tag="jamba-lanes") -> None:
     r = _drain_pattern(eng, prompts, maxes)
     for k, v in r["launches"].items():
         totals[k] += v
-    _check_path(f"[{tag}] ring", r["launches"],
-                ("decode_attention", "flash_attention"),
-                ("paged_decode_attention",))
+    _check_path(f"[{tag}] ring", r["launches"], *_attn_checks(
+        cfg, ("decode_attention", "flash_attention"),
+        ("paged_decode_attention",)))
     for x in r["res"]:
         if not x["tokens"] or not all(0 <= t < cfg.vocab_size
                                       for t in x["tokens"]):
             raise AssertionError(f"[{tag}] bad tokens {x['tokens'][:8]}")
-    steps = max(1, r["launches"]["decode_attention"]
-                // attention_layers(cfg))
+    steps = max(1, r["steps"])
     print(f"[{tag}] ring: {r['n_tok']} tokens in {r['wall']:.2f} s = "
           f"{r['tok_s']:.1f} tok/s, {steps} lane steps "
           f"({r['wall'] / steps * 1e3:.1f} ms per step incl. prefills), "
@@ -2030,6 +2115,12 @@ def phase_launch_serve(smi, totals) -> None:
           f"% lower), srpt {p50['srpt']:.3f} s (virtual time)  [{smi}]")
 
 
+def _say(line: str) -> None:
+    """Print one line in a single write: two children's threads print
+    side by side."""
+    sys.stdout.write(line + "\n")
+
+
 def _start_child(args):
     """``python -m repro_torch.launch.sidecar ARGS`` from the checkout, its
     output read line by line on a thread.  Returns (process, lines queue,
@@ -2060,9 +2151,9 @@ def _start_child(args):
             break
         m = re.search(r"listening on http://[\d.]+:(\d+)", line)
         if m:
-            print(f"[launch-sidecar]   {line}")
+            _say(f"[launch-sidecar]   {line}")
             return child, lines, int(m.group(1))
-        print(f"[launch-sidecar]   {line}")
+        _say(f"[launch-sidecar]   {line}")
     child.kill()
     child.wait()
     raise AssertionError("[launch-sidecar] the child never listened")
@@ -2091,11 +2182,12 @@ def phase_launch_sidecar(smi, totals) -> None:
     """``python -m repro_torch.launch.sidecar --port 0`` as a child process:
     the real backend (smollm-360m at full width on the card, the
     predictor scoring each admission through K5) under fcfs and sjf, then
-    the sim backend likewise.  The serve-bench burst goes over HTTP (2 ms
-    apart, half as SSE streams), then SIGTERM: the child must drain all 16
-    requests ok and exit 0, and SJF's short P50 over the wire must be
-    below FCFS's."""
+    the sim backend likewise, each sim child beside the real child of its
+    policy.  The serve-bench burst goes over HTTP (2 ms apart, half as SSE
+    streams), then SIGTERM: the child must drain all 16 requests ok and
+    exit 0, and SJF's short P50 over the wire must be below FCFS's."""
     import asyncio
+    from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     pool, longs, shorts = _burst_pool()
     order = longs + shorts
@@ -2113,69 +2205,81 @@ def phase_launch_sidecar(smi, totals) -> None:
         return await asyncio.wait_for(asyncio.gather(
             *[client(j, i) for j, i in enumerate(order)]), 600.0)
 
-    for backend, extra in (("real", []),
-                           ("sim", ["--time-scale", "0.5"])):
-        p50 = {}
-        for policy in ("fcfs", "sjf"):
-            w0 = time.monotonic()
-            child, lines, port = _start_child(
-                ["--backend", backend, "--policy", policy, *extra])
-            t_ready = time.monotonic() - w0
-            try:
-                outs = asyncio.run(burst(port))
-            finally:
-                report = _stop_child(child, lines)
-            for line in report:
-                print(f"[launch-sidecar]   {line}")
-            bad = [(i, kind, st) for i, _, (kind, st, _) in outs
-                   if st != 200 or kind not in ("json", "sse")]
-            drained = [ln for ln in report if ln.startswith("drained: ")]
-            if bad or child.returncode != 0 or not drained \
-                    or not drained[0].startswith(
-                        f"drained: {len(order)} terminals "
-                        f"({len(order)} ok)"):
+    def child_run(backend, extra, policy) -> float:
+        """One child: listen, the burst, SIGTERM; its checks.  Returns
+        the short P50 over the wire (ms)."""
+        w0 = time.monotonic()
+        child, lines, port = _start_child(
+            ["--backend", backend, "--policy", policy, *extra])
+        t_ready = time.monotonic() - w0
+        try:
+            outs = asyncio.run(burst(port))
+        finally:
+            report = _stop_child(child, lines)
+        for line in report:
+            _say(f"[launch-sidecar]   {line}")
+        bad = [(i, kind, st) for i, _, (kind, st, _) in outs
+               if st != 200 or kind not in ("json", "sse")]
+        drained = [ln for ln in report if ln.startswith("drained: ")]
+        if bad or child.returncode != 0 or not drained \
+                or not drained[0].startswith(
+                    f"drained: {len(order)} terminals "
+                    f"({len(order)} ok)"):
+            raise AssertionError(
+                f"[launch-sidecar] {backend} {policy}: exit "
+                f"{child.returncode}, not ok {bad}, report {report}")
+        for i, _, (kind, _, obj) in outs:
+            n = len(_wire_tokens(kind, obj))
+            if n != (64 if i in longs else 8):
+                raise AssertionError(f"[launch-sidecar] {backend} "
+                                     f"{policy}: {n} tokens for "
+                                     f"prompt {i}")
+        launched = [ln for ln in report
+                    if ln.startswith("kernel launches: ")]
+        launches = json.loads(launched[0][len("kernel launches: "):])
+        if backend == "real":
+            for k, v in launches.items():
+                totals[k] += v
+            run = ("decode_attention", "flash_attention") + (
+                ("gbdt_margins_packed",) if policy == "sjf" else ())
+            _check_path(f"[launch-sidecar] real {policy}", launches,
+                        run, ("paged_decode_attention", "gbdt_margins"))
+            # one K5 launch an admission, and one more for the CLI's
+            # scorer warm-up before it listens
+            if policy == "sjf" and \
+                    launches["gbdt_margins_packed"] != len(order) + 1:
                 raise AssertionError(
-                    f"[launch-sidecar] {backend} {policy}: exit "
-                    f"{child.returncode}, not ok {bad}, report {report}")
-            for i, _, (kind, _, obj) in outs:
-                n = len(_wire_tokens(kind, obj))
-                if n != (64 if i in longs else 8):
-                    raise AssertionError(f"[launch-sidecar] {backend} "
-                                         f"{policy}: {n} tokens for "
-                                         f"prompt {i}")
-            launched = [ln for ln in report
-                        if ln.startswith("kernel launches: ")]
-            launches = json.loads(launched[0][len("kernel launches: "):])
-            if backend == "real":
-                for k, v in launches.items():
-                    totals[k] += v
-                run = ("decode_attention", "flash_attention") + (
-                    ("gbdt_margins_packed",) if policy == "sjf" else ())
-                _check_path(f"[launch-sidecar] real {policy}", launches,
-                            run, ("paged_decode_attention", "gbdt_margins"))
-                # one K5 launch an admission, and one more for the CLI's
-                # scorer warm-up before it listens
-                if policy == "sjf" and \
-                        launches["gbdt_margins_packed"] != len(order) + 1:
-                    raise AssertionError(
-                        f"[launch-sidecar] {launches['gbdt_margins_packed']}"
-                        f" K5 launches for {len(order)} SJF admissions and "
-                        "the warm-up")
-            soj = {c: [t for i, t, _ in outs if (i in longs) == (c == "long")]
-                   for c in ("short", "long")}
-            p50[policy] = float(np.median(soj["short"])) * 1e3
-            print(f"[launch-sidecar] {backend} {policy}: listening after "
-                  f"{t_ready:.1f} s, short P50 {p50[policy]:.1f} ms, long "
-                  f"P50 {float(np.median(soj['long'])) * 1e3:.1f} ms over "
-                  f"the wire, {len(order)} ok ({len(order) // 2} SSE), "
-                  f"drained on SIGTERM, exit 0, child launches {launches}, "
-                  f"{time.monotonic() - w0:.1f} s  [{smi}]")
-        if not p50["sjf"] < p50["fcfs"]:
+                    f"[launch-sidecar] {launches['gbdt_margins_packed']}"
+                    f" K5 launches for {len(order)} SJF admissions and "
+                    "the warm-up")
+        soj = {c: [t for i, t, _ in outs if (i in longs) == (c == "long")]
+               for c in ("short", "long")}
+        p50 = float(np.median(soj["short"])) * 1e3
+        _say(f"[launch-sidecar] {backend} {policy}: listening after "
+              f"{t_ready:.1f} s, short P50 {p50:.1f} ms, long "
+              f"P50 {float(np.median(soj['long'])) * 1e3:.1f} ms over "
+              f"the wire, {len(order)} ok ({len(order) // 2} SSE), "
+              f"drained on SIGTERM, exit 0, child launches {launches}, "
+              f"{time.monotonic() - w0:.1f} s  [{smi}]")
+        return p50
+
+    # each real child runs beside the sim child of its policy (both
+    # host-bound; the sim one uses the card only for K5), so FCFS and
+    # SJF share the host alike
+    p50 = {"real": {}, "sim": {}}
+    with ThreadPoolExecutor(1) as ex:
+        for policy in ("fcfs", "sjf"):
+            side = ex.submit(child_run, "sim", ["--time-scale", "0.5"],
+                             policy)
+            p50["real"][policy] = child_run("real", [], policy)
+            p50["sim"][policy] = side.result()
+    for backend, pb in p50.items():
+        if not pb["sjf"] < pb["fcfs"]:
             raise AssertionError(f"[launch-sidecar] {backend}: SJF short P50 "
-                                 f"{p50['sjf']:.1f} ms not below FCFS's "
-                                 f"{p50['fcfs']:.1f} ms")
+                                 f"{pb['sjf']:.1f} ms not below FCFS's "
+                                 f"{pb['fcfs']:.1f} ms")
         print(f"[launch-sidecar] {backend}: SJF short P50 over the wire "
-              f"{100 * (1 - p50['sjf'] / p50['fcfs']):.1f}% below FCFS's  "
+              f"{100 * (1 - pb['sjf'] / pb['fcfs']):.1f}% below FCFS's  "
               f"[{smi}]")
 
     _launch_sidecar_speculative(burst, order, longs, smi, totals)
@@ -3136,16 +3240,17 @@ def jamba_kernels(gen) -> list:
 
 
 def jamba_paths(predictor, smi) -> dict:
-    """jamba-v0.1-52b at full width, two of its four pattern repeats (the
-    whole model, 95.8 GiB in bf16, does not fit one card): a float32
-    one-repeat copy held to the plain attention, then Mamba, MoE and
-    attention (H32/KV8 hd 128) in bf16 through the serial engine, the
-    sidecar and ring lanes.  Returns the paths' launch counts."""
+    """jamba-v0.1-52b at full width, one of its four pattern repeats (the
+    whole model, 95.8 GiB in bf16, does not fit one card, and a second
+    repeat does not fit the run's time limit): a float32 copy held to
+    the plain attention, then Mamba, MoE and attention (H32/KV8 hd 128)
+    in bf16 through the serial engine, the sidecar and ring lanes.
+    Returns the paths' launch counts."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels._build import LAUNCHES
     full = get_config("jamba-v0.1-52b")
-    cfg = dataclasses.replace(full, num_layers=2 * len(full.block_pattern))
+    cfg = dataclasses.replace(full, num_layers=len(full.block_pattern))
     totals = {k: 0 for k in LAUNCHES}
     _timed(phase_jamba_f32, cfg, smi, totals, tag="jamba-f32")
     launches, eng, tokens = _timed(phase_slice, cfg, predictor, smi,
@@ -3156,7 +3261,450 @@ def jamba_paths(predictor, smi) -> dict:
            tag="jamba-sidecar", extras=False, long_new=JAMBA_LONG_NEW)
     del eng
     _free_card("jamba-lanes")
-    _timed(phase_jamba_lanes, cfg, smi, totals, tag="jamba-lanes")
+    _timed(phase_hybrid_lanes, cfg, smi, totals, tag="jamba-lanes")
+    return totals
+
+
+def phase_cross_kernels(gen) -> list:
+    """The cross-attention kernels at llama-3.2-vision-90b's heads (H64
+    over KV8, hd 128) over its 1024 image rows: K3 non-causal at Sq 1,
+    16 and 45 (the prefill; 45 is the [vision] prompt), and K1 at
+    t = 1023 over a 1024-slot image cache (the decode, every slot live),
+    each against its plain version (bf16 2e-2, f32 1e-4) and K1 also
+    against the plain non-causal attention of its one row; timed beside
+    SDPA (non-causal, K/V expanded to the query heads).  K3 at Sq 1 is
+    timed beside K1 on the same work: the decode takes K1.  Returns the
+    two kernels-line entries."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain,
+                                                      split_plan)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    (H, KV, hd), T, B = VISION_HEADS, IMAGE_ROWS, 1
+    errs, rows = {}, {}
+    t = torch.tensor(T - 1, dtype=torch.int32, device="cuda")
+    for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        k = torch.randn(B, T, KV, hd, generator=gen, device="cuda").to(dt)
+        v = torch.randn(B, T, KV, hd, generator=gen, device="cuda").to(dt)
+        kx = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+        vx = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+        for Sq in (1, 16, LM_PROMPT):
+            q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dt)
+            got = flash_attention_cuda(q, k, v, causal=False)
+            want = flash_attention_plain(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            err = _max_err(got, want)
+            _check(f"flash_attention non-causal {label} Sq={Sq}", err,
+                   TOL[label])
+            errs[("K3", label, Sq)] = err
+            if label != "bf16":
+                continue
+            qx = q.transpose(1, 2)
+            kern = lambda: flash_attention_cuda(q, k, v,  # noqa: E731
+                                                causal=False)
+            ms = _device_ms(kern)
+            plain = _device_ms(lambda: flash_attention_plain(
+                q, k, v, causal=False))
+            lib = _device_ms(lambda: sdpa(qx, kx, vx))
+            bound, by = _bound((2 * B * Sq * H * hd + 2 * B * T * KV * hd)
+                               * 2, 4 * B * H * hd * Sq * T, torch.bfloat16)
+            rows[("K3", Sq)] = (ms, plain, lib, bound, by)
+            print(f"[K3 flash_attention vision cross] bf16 non-causal "
+                  f"Sq={Sq} Skv={T}: device ms kernel {ms:.4f}, plain "
+                  f"{plain:.4f}, sdpa {lib:.4f}; bound {bound * 1e3:.3f} us "
+                  f"({by}); {_ratio(ms, lib, bound)}; host-paced kernel "
+                  f"{_ms(kern):.4f} ms/call")
+        q = torch.randn(B, 1, H, hd, generator=gen, device="cuda").to(dt)
+        got = decode_attention_cuda(q, k, v, t)
+        want = decode_attention_plain(q, k, v, t)
+        full = flash_attention_plain(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        err = max(_max_err(got, want), _max_err(got, full))
+        _check(f"decode_attention t={T - 1} over {T} image slots {label}",
+               err, TOL[label])
+        errs[("K1", label)] = err
+        if label == "bf16":
+            qx = q.transpose(1, 2)
+            kern = lambda: decode_attention_cuda(q, k, v, t)  # noqa: E731
+            ms = _device_ms(kern)
+            plain = _device_ms(lambda: decode_attention_plain(q, k, v, t))
+            lib = _device_ms(lambda: sdpa(qx, kx, vx))
+            bound, by = _bound(2 * T * KV * hd * 2 + 2 * B * H * hd * 2 + 4,
+                               4 * B * H * T * hd, torch.bfloat16)
+            rows["K1"] = (ms, plain, lib, bound, by)
+            print(f"[K1 decode_attention vision cross] bf16 t={T - 1} over "
+                  f"{T} image slots ({split_plan(T)} splits): device ms "
+                  f"kernel {ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}; "
+                  f"bound {bound * 1e3:.3f} us ({by}); "
+                  f"{_ratio(ms, lib, bound)}; host-paced kernel "
+                  f"{_ms(kern):.4f} ms/call")
+    print(f"[vision cross] one decode row over {T} image rows: K1 "
+          f"{rows['K1'][0]:.4f} ms against K3 at Sq 1 {rows['K3', 1][0]:.4f}"
+          f" ms (device); max|err| " + " ".join(
+              f"{'/'.join(map(str, key))}:{e:.2e}" for key, e in errs.items()))
+    k3 = rows["K3", LM_PROMPT]
+    entries = []
+    for name, src, line, (ms, plain, lib, bound, by), err in (
+            ("flash_attention_vision_cross",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:89", k3,
+             max(e for key, e in errs.items() if key[0] == "K3")),
+            ("decode_attention_vision_cross",
+             "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:180", rows["K1"],
+             max(e for key, e in errs.items() if key[0] == "K1"))):
+        entries.append(_owned(
+            {"name": name, "route": "cuda", "source": src, "replaces": line,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "bound_ms": bound, "bound_by": by, "library_ms": lib},
+            "llama-3.2-vision-90b", name.replace("_vision", "")))
+    return entries
+
+
+def new_arch_kernels(gen) -> list:
+    """K1 and K3 at musicgen-large's heads (32 over 32, hd 64: one query
+    head a KV head) and at llama-3.2-vision-90b's self-attention heads
+    (64 over 8, hd 128), then the vision stack's cross-attention
+    kernels: the kernels line's ``*_musicgen``, ``*_vision`` and
+    ``*_vision_cross`` entries."""
+    out = []
+    for heads, tag, model in ((MUSICGEN_HEADS, "musicgen", "musicgen-large"),
+                              (VISION_HEADS, "vision",
+                               "llama-3.2-vision-90b")):
+        out += [_owned(phase_decode_kernel(gen, heads, tag), model,
+                       "decode_attention"),
+                _owned(phase_flash_kernel(gen, heads, tag), model,
+                       "flash_attention")]
+    return out + phase_cross_kernels(gen)
+
+
+def _cross_launches():
+    """(context, counts): inside the context, the K3 and K1 launches made
+    by ``CrossAttention.prefill`` / ``.decode`` are added to ``counts``
+    ("flash_attention_cross", "decode_attention_cross"), read from the
+    launch counters around each call."""
+    import contextlib
+    from unittest import mock
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.models.attention import CrossAttention
+    counts = {"flash_attention_cross": 0, "decode_attention_cross": 0}
+    stack = contextlib.ExitStack()
+    for method, kernel in (("prefill", "flash_attention"),
+                           ("decode", "decode_attention")):
+        orig = getattr(CrossAttention, method)
+
+        def spy(self, *a, _orig=orig, _k=kernel, **kw):
+            before = LAUNCHES[_k]
+            out = _orig(self, *a, **kw)
+            counts[_k + "_cross"] += LAUNCHES[_k] - before
+            return out
+        stack.enter_context(mock.patch.object(CrossAttention, method, spy))
+    return stack, counts
+
+
+def _lm_inputs(cfg, gen, steps=LM_STEPS):
+    """Seeded inputs of an LM-API path, drawn by ``frontends.make_batch``
+    on ``gen``'s device: (key, sequence of LM_PROMPT + steps positions:
+    frames (1, S, D) in the model's dtype or tokens (1, S)), and the
+    image rows of a stack with cross-attention."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import frontends
+    batch = frontends.make_batch(cfg, SHAPES["prefill_32k"], gen,
+                                 batch_size=1, seq_len=LM_PROMPT + steps)
+    key = "frames" if cfg.audio_frontend else "tokens"
+    seq = batch.pop(key)
+    return key, seq, batch
+
+
+def _lm_run(lm, key, seq, img, steps=LM_STEPS, sync=False):
+    """Prefill the first LM_PROMPT positions into a ring of LM_PROMPT +
+    ``steps`` slots, then ``steps`` decode steps:
+    teacher-forced on the sequence's frames (audio), greedy from the
+    prompt (tokens).  Returns (logits (steps + 1, V), greedy tokens or
+    None, prefill seconds, decode seconds); the seconds only with
+    ``sync`` (the host clock around synchronised work)."""
+    import torch
+    t0 = time.monotonic()
+    lg, cache = lm.prefill(pad_to=LM_PROMPT + steps,
+                           **{key: seq[:, :LM_PROMPT]}, **img)
+    if sync:
+        torch.cuda.synchronize()
+    t1 = time.monotonic()
+    logits, toks = [lg], []
+    for i in range(steps):
+        if key == "frames":
+            step = seq[:, LM_PROMPT + i:LM_PROMPT + i + 1]
+        else:
+            step = lg.argmax(-1).view(1, 1)
+            toks.append(step)
+        lg = lm.decode_step(cache, **{key: step})
+        logits.append(lg)
+    if sync:
+        torch.cuda.synchronize()
+    t2 = time.monotonic()
+    out = torch.cat(logits)
+    return (out, [int(x) for x in torch.cat(toks).view(-1)] if toks
+            else None, t1 - t0, t2 - t1)
+
+
+def phase_lm_f32(cfg, smi, totals, tag) -> None:
+    """A float32 copy of musicgen-large (2 layers) or of the cut
+    llama-3.2-vision-90b (its 5 layers) at full width, TF32 off, through
+    LM.prefill / decode_step: LM_F32_STEPS decode steps through K1/K3
+    (cross-attention K3 non-causal and K1 at t = 1023 included) against
+    the same weights through the plain attention on the card, logits
+    within TOL["f32"] of the logit scale, greedy tokens equal.  The audio
+    stack is also held to its own training forward over the same frames
+    (prefill + teacher-forced decode == forward at each position).
+    Launches: K3 once a layer of either kind a prefill, K1 once a layer
+    a step."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    t0 = time.monotonic()
+    lm = LM(cfg, seed=1)
+    torch.cuda.synchronize()
+    print(f"[{tag}] {cfg.num_layers} layers {cfg.block_pattern[:5]}, "
+          f"{cfg.param_count():,} float32 parameters "
+          f"({cfg.param_count() * 4 / 1e9:.1f} GB), seeded init "
+          f"{time.monotonic() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    steps = LM_F32_STEPS
+    key, seq, img = _lm_inputs(cfg, gen, steps)
+    ops.reset_launches()
+    cross_ctx, cross = _cross_launches()
+    with cross_ctx:
+        k_logits, k_toks, _, _ = _lm_run(lm, key, seq, img, steps)
+    launches = dict(ops.LAUNCHES)
+    with _plain_attention_ops():
+        p_logits, p_toks, _, _ = _lm_run(lm, key, seq, img, steps)
+    L = cfg.num_layers
+    n_cross = lm.n_layers["xattn"]
+    if launches["flash_attention"] != L \
+            or launches["decode_attention"] != L * steps \
+            or cross["flash_attention_cross"] != n_cross \
+            or cross["decode_attention_cross"] != n_cross * steps:
+        raise AssertionError(f"[{tag}] launches {launches} {cross}, "
+                             f"expected K3 {L} and K1 {L} x {steps}, "
+                             f"{n_cross} layers of them cross-attention")
+    _add_launches(totals, launches, cross)
+    worst = _max_err(k_logits, p_logits)
+    scale = float(p_logits.abs().max())
+    _check(f"[{tag}] logits", worst / max(1.0, scale), TOL["f32"])
+    if k_toks != p_toks:
+        raise AssertionError(f"[{tag}] greedy tokens differ: {k_toks} vs "
+                             f"{p_toks}")
+    extra = ""
+    if key == "frames":
+        with torch.no_grad():
+            fwd = lm(frames=seq[:, :LM_PROMPT + steps], remat=False)[0]
+        fwd = fwd[LM_PROMPT - 1:LM_PROMPT + steps]
+        fworst = _max_err(k_logits, fwd)
+        _check(f"[{tag}] decode vs forward", fworst / max(1.0, scale),
+               TOL["f32"])
+        extra = (f"; prefill + teacher-forced decode vs the training "
+                 f"forward over the same frames {fworst:.3e}")
+    print(f"[{tag}] card K1/K3 vs card plain attention: prefill "
+          f"{LM_PROMPT} positions + {steps} decode steps, max|logit diff| "
+          f"{worst:.3e} (logit scale {scale:.2f})"
+          + (f", greedy tokens equal {k_toks}" if k_toks else "") + extra
+          + f"; launches {launches}, cross-attention {cross}  [{smi}]")
+    del lm
+    _free_card(tag)
+
+
+def _add_launches(totals, launches, cross=None) -> None:
+    """Add a path's launches to a model's totals, the cross-attention
+    ones under their own counters (and not the self-attention ones)."""
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+    for k, v in (cross or {}).items():
+        totals[k] = totals.get(k, 0) + v
+        totals[k.replace("_cross", "")] -= v
+
+
+def phase_lm_api(cfg, smi, totals, tag) -> None:
+    """musicgen-large (all 48 layers) or llama-3.2-vision-90b (one
+    pattern repeat: 5 layers) at full width in bf16, B 1, through
+    LM.prefill / decode_step, as the reference's LM API drives them
+    (neither goes through an engine: the engines build token batches
+    only): a LM_PROMPT-position prompt (musicgen: seeded frames; vision:
+    seeded tokens over 1024 seeded image rows), then LM_STEPS decode
+    steps (musicgen teacher-forced on the seeded frames, vision greedy).
+    Prints the prefill (TTFT) and decode ms/step beside the weight
+    stream, the busy share and the longest kernels; K3 once a layer of
+    either kind a prefill and K1 once a layer a step, exactly."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    t0 = time.monotonic()
+    lm = LM(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_self, n_cross = lm.n_attn, lm.n_layers["xattn"]
+    print(f"[{tag}] {cfg.name} {cfg.dtype} {cfg.num_layers}L ({n_self} "
+          f"self-attention, {n_cross} cross-attention) "
+          f"d{cfg.d_model} {cfg.param_count():,} params, seeded init "
+          f"{time.monotonic() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    key, seq, img = _lm_inputs(cfg, gen)
+    _lm_run(lm, key, seq, img, steps=2)                 # first-call set-up
+    ops.reset_launches()
+    cross_ctx, cross = _cross_launches()
+    with cross_ctx:
+        logits, toks, t_pre, t_dec = _lm_run(lm, key, seq, img, sync=True)
+    launches = dict(ops.LAUNCHES)
+    L = cfg.num_layers
+    if launches["flash_attention"] != L \
+            or launches["decode_attention"] != L * LM_STEPS \
+            or cross["flash_attention_cross"] != n_cross \
+            or cross["decode_attention_cross"] != n_cross * LM_STEPS:
+        raise AssertionError(f"[{tag}] launches {launches} {cross}, "
+                             f"expected K3 {L} and K1 {L} x {LM_STEPS}")
+    _check_path(f"[{tag}]", launches, ("decode_attention", "flash_attention"),
+                ("paged_decode_attention", "gbdt_margins",
+                 "gbdt_margins_packed"))
+    _add_launches(totals, launches, cross)
+    if not bool(torch.isfinite(logits).all()) or (
+            toks and not all(0 <= x < cfg.vocab_size for x in toks)):
+        raise AssertionError(f"[{tag}] non-finite logits or bad tokens")
+    weights = _weight_bytes(lm)
+    per = t_dec / LM_STEPS
+    print(f"[{tag}] prefill {LM_PROMPT} positions (TTFT) "
+          f"{t_pre * 1e3:.2f} ms, decode {per * 1e3:.3f} ms/step "
+          f"({1 / per:.0f} steps/s) over {LM_STEPS} steps; the weight "
+          f"stream ({weights / 1e9:.2f} GB) at 3.35 TB/s "
+          f"{weights / HBM_BYTES_PER_S * 1e3:.3f} ms; K3 {L} a prefill ("
+          f"{n_cross} non-causal), K1 {L} a step ({n_cross} over the "
+          f"image cache), exact; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB"
+          + (f"; greedy tokens {toks[:8]}..." if toks else "") + f"  [{smi}]")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _lm_run(lm, key, seq, img, steps=8, sync=True)
+    _trace_report(prof.events(), 9, f"prefill {LM_PROMPT} + 8 decode steps",
+                  smi, f"{tag}-profile")
+    del lm
+
+
+def xlstm_paths(predictor, smi) -> dict:
+    """xlstm-350m (alternating sLSTM and mLSTM, no attention layer) at
+    full width: a float32 one-repeat copy on the card against the CPU,
+    then all 24 layers in bf16 through the serial engine (exact-length
+    prefill), the sidecar and ring lanes.  Returns the paths' launch
+    counts (K1 and K3 must stay 0; K5 scores the admissions)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    cfg = get_config("xlstm-350m")
+    totals = {k: 0 for k in LAUNCHES}
+    _timed(phase_xlstm_f32, dataclasses.replace(
+        cfg, num_layers=len(cfg.block_pattern)), smi, totals, tag="xlstm-f32")
+    launches, eng, tokens = _timed(phase_slice, cfg, predictor, smi,
+                                   tag="xlstm-slice", long_new=JAMBA_LONG_NEW)
+    for k, v in launches.items():
+        totals[k] += v
+    _timed(phase_sidecar, eng, predictor, smi, tokens, totals,
+           tag="xlstm-sidecar", extras=False, long_new=JAMBA_LONG_NEW)
+    del eng
+    _free_card("xlstm-lanes")
+    _timed(phase_hybrid_lanes, cfg, smi, totals, tag="xlstm-lanes")
+    return totals
+
+
+def phase_xlstm_f32(cfg, smi, totals, tag="xlstm-f32") -> None:
+    """A float32 copy of xlstm-350m cut to one pattern repeat (2 layers:
+    sLSTM, mLSTM) at full width, TF32 off, on the card against the same
+    state dict on the CPU: a 40-token prefill at exact length and 8
+    greedy steps, logits within TOL["f32"] of the logit scale, tokens
+    equal; then the paging backlog (budgets capped at 16) through ring
+    lanes on the card, each request's tokens equal to the serial
+    engine's (no MoE here: a lane's arithmetic is the serial one's)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import BatchedRealEngine, RealEngine
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.monotonic()
+    ser = RealEngine(cfg32, seed=1, max_len=L_MAX_LEN, segment_len=L_SEGMENT)
+    cpu = LM(cfg32, device="cpu")
+    cpu.load_state_dict(ser.lm.state_dict())
+    print(f"[{tag}] {cfg32.num_layers} layers {cfg32.block_pattern}, "
+          f"{cfg32.param_count():,} float32 parameters, init "
+          f"{time.monotonic() - t0:.1f} s")
+    toks = (torch.arange(3, 3 + 40) * 97 % cfg.vocab_size).view(1, 40)
+
+    def greedy(lm):
+        lg, cache = lm.prefill(toks.to(lm.device))
+        logits, out = [lg.cpu()], []
+        for _ in range(8):
+            tok = lg.argmax(-1).view(1, 1)
+            out.append(int(tok))
+            lg = lm.decode_step(cache, tok)
+            logits.append(lg.cpu())
+        return torch.cat(logits), out
+    ops.reset_launches()
+    g_logits, g_toks = greedy(ser.lm)
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"[{tag}] launches {dict(ops.LAUNCHES)} with "
+                             "no attention layer")
+    c_logits, c_toks = greedy(cpu)
+    worst = _max_err(g_logits, c_logits)
+    scale = float(c_logits.abs().max())
+    if g_toks != c_toks:
+        raise AssertionError(f"[{tag}] greedy tokens differ: {g_toks} vs "
+                             f"{c_toks}")
+    _check(f"[{tag}] logits", worst / max(1.0, scale), TOL["f32"])
+    print(f"[{tag}] card vs CPU (same state dict): prefill 40 tokens + 8 "
+          f"greedy steps, max|logit diff| {worst:.3e} (logit scale "
+          f"{scale:.2f}), tokens equal {g_toks}  [{smi}]")
+    lanes = BatchedRealEngine(cfg32, state_dict=ser.lm.state_dict(),
+                              max_len=L_MAX_LEN, segment_len=L_SEGMENT,
+                              n_lanes=L_LANES)
+    prompts, maxes = _pattern(cfg.vocab_size, np.random.default_rng(300),
+                              long_new=16)
+    ring = _drain_pattern(lanes, prompts, maxes)
+    for k, v in ring["launches"].items():
+        totals[k] += v
+    serial = [ser.generate(p, max_new_tokens=m)["tokens"]
+              for p, m in zip(prompts, maxes)]
+    if ring["tokens"] != serial:
+        raise AssertionError(f"[{tag}] ring-lane tokens differ from the "
+                             "serial engine's")
+    _check_path(f"[{tag}] ring", ring["launches"], (),
+                ("decode_attention", "flash_attention",
+                 "paged_decode_attention"))
+    print(f"[{tag}] ring lanes ({L_LANES}), {len(prompts)} requests, "
+          f"budgets capped at 16: tokens == the serial engine's, "
+          f"{ring['steps']} lane steps, launches {ring['launches']}  "
+          f"[{smi}]")
+    del ser, cpu, lanes
+    _free_card(tag)
+
+
+def lm_api_paths(name, tag, smi, layers=None) -> dict:
+    """musicgen-large or llama-3.2-vision-90b (``layers`` cuts its depth)
+    at full width through the LM API: a float32 copy (musicgen: 2
+    layers; vision: its 5) held to the plain attention, then the bf16
+    run.  Returns the paths' launch counts, the cross-attention ones
+    under their own counters."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    cfg = get_config(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    totals = {k: 0 for k in LAUNCHES}
+    totals.update(flash_attention_cross=0, decode_attention_cross=0)
+    f32 = dataclasses.replace(cfg, dtype="float32",
+                              num_layers=min(cfg.num_layers, 2)
+                              if cfg.audio_frontend else cfg.num_layers)
+    _timed(phase_lm_f32, f32, smi, totals, tag=f"{tag}-f32")
+    _timed(phase_lm_api, cfg, smi, totals, tag=tag)
     return totals
 
 
@@ -3209,18 +3757,21 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = []
-    for heads in (SMOLLM_HEADS, GEMMA_HEADS):
+    for heads, model in ((SMOLLM_HEADS, "smollm-360m"),
+                         (GEMMA_HEADS, "gemma3-4b-edge")):
         k1 = phase_decode_kernel(gen, heads)
         k3 = phase_flash_kernel(gen, heads)
         k1["max_abs_err"] = max(k1["max_abs_err"],
                                 phase_decode_lanes_kernel(gen, heads))
         k3["max_abs_err"] = max(k3["max_abs_err"],
                                 phase_flash_extend(gen, heads))
-        kernels += [k1, phase_paged_kernel(gen, heads), k3]
-    kernels += jamba_kernels(gen)
-    kernels += [phase_gbdt_kernel(predictor.model, ds.prompts),
-                phase_packed_kernel(predictor.model, ds.prompts),
-                phase_flash_bwd_kernel(gen)]
+        kernels += [_owned(k, model)
+                    for k in (k1, phase_paged_kernel(gen, heads), k3)]
+    kernels += [_owned(k, "jamba-v0.1-52b") for k in jamba_kernels(gen)]
+    kernels += [_owned(k, "smollm-360m") for k in (
+        phase_gbdt_kernel(predictor.model, ds.prompts),
+        phase_packed_kernel(predictor.model, ds.prompts),
+        phase_flash_bwd_kernel(gen))]
     by_name = {k["name"]: k for k in kernels}
     e4, e5 = phase_cli_predictor_kernels()
     by_name["gbdt_margins"]["max_abs_err"] = max(
@@ -3271,17 +3822,37 @@ def main() -> int:
 
     _free_card("jamba")
     j_totals = jamba_paths(predictor, smi)
-    by_width = {SMOLLM_HEADS[2]: totals, GEMMA_HEADS[2]: g_totals,
-                JAMBA_HEADS[2]: j_totals}
+
+    # the last three archs: K1/K3 at their heads and the cross-attention
+    # kernels, then xlstm-350m through the engines and the sidecar, and
+    # musicgen-large and the cut llama-3.2-vision-90b through the LM API
+    _free_card("new-arch kernels")
+    kernels += _timed(new_arch_kernels, gen)
+    _free_card("xlstm")
+    x_totals = xlstm_paths(predictor, smi)
+    _free_card("musicgen")
+    m_totals = lm_api_paths("musicgen-large", "musicgen", smi)
+    _free_card("vision")
+    v_totals = lm_api_paths("llama-3.2-vision-90b", "vision", smi,
+                            layers=len(get_config(
+                                "llama-3.2-vision-90b").block_pattern))
+
+    # each entry reports the launches of its own model's paths
+    by_model = {"smollm-360m": totals, "gemma3-4b-edge": g_totals,
+                "jamba-v0.1-52b": j_totals, "xlstm-350m": x_totals,
+                "musicgen-large": m_totals, "llama-3.2-vision-90b": v_totals}
+    names = [k["name"] for k in kernels]
+    shared = sorted({n for n in names if names.count(n) > 1})
+    if shared:
+        raise AssertionError(f"kernels line: entries share a name: {shared}")
     for k in kernels:
-        base, _, hd = k["name"].partition("_hd")
-        k["launches"] = by_width[int(hd) if hd else SMOLLM_HEADS[2]][base]
+        model, counter = k.pop("model"), k.pop("counter")
+        k["launches"] = by_model[model][counter]
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on "
-                                 "the main paths")
-    print(f"[kernels] launches on the main paths: smollm-360m {totals}; "
-          f"gemma3-4b-edge (hd 256) {g_totals}; jamba-v0.1-52b (hd 128) "
-          f"{j_totals}")
+                                 f"{model}'s paths")
+    print("[kernels] launches on the main paths: " + "; ".join(
+        f"{m} {t}" for m, t in by_model.items()))
     print(f"[done] {time.monotonic() - t_start:.1f} s  [{smi}]")
     print(smi)
     print(json.dumps({"kernels": kernels}))

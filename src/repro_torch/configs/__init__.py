@@ -4,13 +4,12 @@ resolves every architecture the JAX package registers, eleven in all.
 Arch ids use the assignment spelling (e.g. ``llama4-maverick-400b-a17b``);
 module names use underscores.  Every config resolves, for the launch CLIs'
 service-time model (``ServiceTimeModel.from_arch``) and the KV accounting.
-The port's ``LM`` builds the ``attn``, ``attn_moe``, ``mamba`` and
-``mamba_moe`` block kinds: smollm-360m, gemma3-4b-edge, gemma-2b,
-granite-8b, qwen3-32b (QK-norm), dbrx-132b and llama4-maverick (MoE) and
-jamba-v0.1-52b (Mamba + MoE + attention).  Of the other three,
-xlstm-350m (``slstm``/``mlstm``), llama-3.2-vision-90b (``xattn``) and
-musicgen-large (the audio frontend) resolve but do not build: ``LM``
-raises ``NotImplementedError`` naming the missing block.
+The port's ``LM`` builds all eleven: smollm-360m, gemma3-4b-edge,
+gemma-2b, granite-8b, qwen3-32b (QK-norm), dbrx-132b and llama4-maverick
+(MoE), jamba-v0.1-52b (Mamba + MoE + attention), xlstm-350m (sLSTM +
+mLSTM), llama-3.2-vision-90b (cross-attention over image embeddings
+every fifth layer) and musicgen-large (the audio frontend: frame
+embeddings in, no embedding table).
 
 Two configs the engines serve at full width on the card:
 

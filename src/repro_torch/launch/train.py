@@ -5,8 +5,9 @@ device).
         --steps 20 --batch 8 --seq 128 --ckpt /tmp/ckpt
 
 Runs on the card unless given ``--device cpu`` (``--reduced`` is the tiny
-CPU config of any arch the port builds: dense, MoE or hybrid).  On the
-card a config whose head width K3b does not take (gemma3-4b-edge's 256),
+CPU config of any text arch: dense, MoE, hybrid or xLSTM).  The
+multimodal archs (llama-3.2-vision-90b, musicgen-large) are refused with
+the JAX CLI's message before any weight is built.  On the card a config whose head width K3b does not take (gemma3-4b-edge's 256),
 or whose weights, gradients and float32 AdamW moments would not fit the
 card's memory (jamba-v0.1-52b's 51 B parameters), is refused before any
 weight is built.
@@ -65,6 +66,9 @@ def main(argv=None):
         raise SystemExit(f"train.py: {e.args[0]}")
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.audio_frontend or cfg.num_image_tokens:
+        raise SystemExit("train.py drives text archs; use examples/ for "
+                         "multimodal smoke runs")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # refused before any weight is built: no plain-backward fallback

@@ -1,7 +1,7 @@
 """GQA self-attention block (port of ``repro.models.attention.attn_block``,
 QK-norm included, in its ``train``, ``prefill`` (cold and extend), ring
 ``decode``, block-paged ``decode`` and ``verify`` (ring and paged)
-modes).
+modes) and the cross-attention block over image tokens (``xattn_block``).
 
 Training (``forward``) goes through ``ops.flash_attention_train``: K3
 forward with its log-sum-exp and K3b backward on the card.
@@ -15,6 +15,14 @@ contract, its row ``w`` is decode attention at that level with all W new
 K/Vs written.  The caches are updated **in place**: where the JAX package
 donates a cache and gets a new one back, this block writes the new K/V
 into the caller's buffer.
+
+Cross-attention (``CrossAttention``) takes its queries from the text and
+its K/V from the image embeddings (no RoPE, no norm on the embeddings):
+a prefill projects them into the image cache and attends all of them
+through K3 in non-causal mode (Sq prompt rows over Skv image rows); a
+decode step reuses the cache and attends it through K1 at fill level
+``T_img - 1``, where every slot is live -- the same function with one
+query row, spread over K1's cluster split of the image slots.
 """
 
 from __future__ import annotations
@@ -183,3 +191,64 @@ class Attention(nn.Module):
                                                     pool_v, bt, fills[w])
                          for w in range(W)], dim=1)
         return x + dense(out.reshape(B, W, -1), self.wo)
+
+
+class CrossAttention(Attention):
+    """Pre-norm cross-attention over image tokens with its residual
+    (``init_attention(cross=True)`` / ``xattn_block``): the same leaves
+    as :class:`Attention`; Q/K norm only with ``cfg.qk_norm``."""
+
+    def _q(self, h):
+        cfg = self.cfg
+        B, S, _ = h.shape
+        q = dense(h, self.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rmsnorm(q, self.q_norm, cfg.norm_eps)
+        return q
+
+    def _kv(self, image_embeds):
+        """k, v (B, T_img, KV, hd) projected from the embeddings."""
+        cfg = self.cfg
+        B, T, _ = image_embeds.shape
+        k = dense(image_embeds, self.wk).reshape(B, T, cfg.num_kv_heads,
+                                                 cfg.head_dim)
+        v = dense(image_embeds, self.wv).reshape(B, T, cfg.num_kv_heads,
+                                                 cfg.head_dim)
+        if cfg.qk_norm:
+            k = rmsnorm(k, self.k_norm, cfg.norm_eps)
+        return k, v
+
+    def _attend(self, x, q, k, v, train: bool = False):
+        B, S, _ = x.shape
+        if train:
+            out = ops.flash_attention_train(q, k, v, causal=False)
+        else:
+            out = ops.flash_attention(q, k, v, causal=False)
+        return x + dense(out.reshape(B, S, -1), self.wo)
+
+    def forward(self, x, image_embeds):
+        """Training (mode ``"train"``): x (B, S, D) attends every image
+        row, through ``ops.flash_attention_train``; no cache."""
+        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
+        return self._attend(x, self._q(h), *self._kv(image_embeds),
+                            train=True)
+
+    def prefill(self, x, image_embeds, cache_k, cache_v):
+        """x (B, S, D) attends every image row through K3 (non-causal,
+        Sq = S, Skv = T_img); the projected image K/V land in the
+        (B, T_img, KV, hd) cache buffers."""
+        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
+        k, v = self._kv(image_embeds)
+        cache_k.copy_(k)
+        cache_v.copy_(v)
+        return self._attend(x, self._q(h), k, v)
+
+    def decode(self, x, cache_k, cache_v):
+        """One token per row, x (B, 1, D), attends the cached image K/V
+        through K1 at fill level T_img - 1 (every slot live)."""
+        B = x.shape[0]
+        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
+        t = torch.full((), cache_k.shape[1] - 1, dtype=torch.int32,
+                       device=x.device)
+        out = ops.decode_attention(self._q(h), cache_k, cache_v, t)
+        return x + dense(out.reshape(B, 1, -1), self.wo)

@@ -16,6 +16,9 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"^blocks\.(\d+)\.(.+)$")
+#: the leaves outside the blocks (``embed`` absent with the audio
+#: frontend, ``head`` with tied embeddings)
+_TOP = ("embed", "final_norm", "head")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -56,17 +59,16 @@ def params_from_jax(np_params, cfg) -> dict:
     scan layout).  Leaf r of position p becomes layer ``r * P + p``
     (P the pattern's length), named ``blocks.<layer>.<part>.<name>``
     with the nested names dotted (``moe.experts.w_gate``).  Dense
-    weights are (in, out) in both packages (``x @ W``).  A tied head is
-    the embedding itself, so it has no entry of its own.
+    weights are (in, out) in both packages (``x @ W``), and every leaf
+    keeps its dtype (the xLSTM gate weights stay float32 in a bf16
+    model).  A tied head is the embedding itself, so it has no entry of
+    its own; a model with the audio frontend has no embedding.
     """
     P, R = len(cfg.block_pattern), cfg.pattern_repeats
     if len(np_params["blocks"]) != P:
         raise ValueError(f"{len(np_params['blocks'])} pattern positions, "
                          f"config has {P}")
-    sd = {"embed": _tensor(np_params["embed"]),
-          "final_norm": _tensor(np_params["final_norm"])}
-    if not cfg.tie_embeddings:
-        sd["head"] = _tensor(np_params["head"])
+    sd = {k: _tensor(np_params[k]) for k in _TOP if k in np_params}
     for p, tree in enumerate(np_params["blocks"]):
         for name, stacked in _flat(tree):
             if stacked.shape[0] != R:
@@ -88,10 +90,7 @@ def params_to_jax(state_dict, cfg) -> dict:
     per-layer tensors ``blocks.<i>.<name>`` restacked over the pattern's
     repeats into the tuple ``blocks`` over its positions."""
     P, R = len(cfg.block_pattern), cfg.pattern_repeats
-    out = {"embed": _array(state_dict["embed"]),
-           "final_norm": _array(state_dict["final_norm"])}
-    if not cfg.tie_embeddings:
-        out["head"] = _array(state_dict["head"])
+    out = {k: _array(state_dict[k]) for k in _TOP if k in state_dict}
     names = [[] for _ in range(P)]
     for key in state_dict:
         m = _LAYER.match(key)
@@ -111,8 +110,7 @@ def _grouped(tree) -> dict:
     (``training.optimizer.group_of``): the non-block leaves by name, each
     stacked block leaf as ``blocks.<name>`` (a one-block pattern) or
     ``blocks.pos<p>.<name>`` (pattern position p)."""
-    out = {k: _tensor(tree[k]) for k in ("embed", "final_norm", "head")
-           if k in tree}
+    out = {k: _tensor(tree[k]) for k in _TOP if k in tree}
     single = len(tree["blocks"]) == 1
     for p, leaves in enumerate(tree["blocks"]):
         prefix = "blocks." if single else f"blocks.pos{p}."

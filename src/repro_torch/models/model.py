@@ -1,18 +1,30 @@
-"""The LM (port of ``repro.models.model.LM``): embedding, a plain loop
-over the ``block_pattern x repeats`` layers (``models.transformer``),
-tied or separate head, the training forward and its sequence-chunked
-cross entropy plus the MoE auxiliary loss, prefill (cold, bucketed, with
+"""The LM (port of ``repro.models.model.LM``): embedding (or, with the
+audio frontend, the caller's frame embeddings), a plain loop over the
+``block_pattern x repeats`` layers (``models.transformer``), tied or
+separate head, the training forward and its sequence-chunked cross
+entropy plus the MoE auxiliary loss, prefill (cold, bucketed, with
 per-row prompt lengths, or extend onto a cached prefix), one-token decode
 over a ring-buffer KV cache or a block-paged pool, and the speculative
 W-position verify forward over either.
 
-Caches exist per kind: attention layers hold ring K/V (``KVCache.k``,
-``.v``: (attention layers, B, S, KV, hd)); Mamba layers hold a conv state
-(``.conv``: (Mamba layers, B, w-1, d_inner), the model's dtype) and an
-SSM state (``.ssm``: (Mamba layers, B, d_inner, N), float32).  A
-pure-attention stack has no recurrent state and keeps the attention-only
-layout.  The block-paged pool, the extend prefill and the verify forward
-are attention-cache operations: they refuse a stack with Mamba layers.
+The inputs carry the JAX batch's names: ``tokens`` (B, S) for text,
+``frames`` (B, S, D) for the audio frontend (musicgen: no embedding
+table), and ``image_embeds`` (B, T_img, D) beside them for a stack with
+cross-attention layers (read on prefill and in training; a decode step
+reuses the projected image K/V from the cache).
+
+Caches exist per kind, each layer in a slot among the layers of its own
+kind: attention layers hold ring K/V (``KVCache.k``, ``.v``: (attention
+layers, B, S, KV, hd); empty in a stack without attention layers);
+Mamba layers a conv state (``.conv``: (Mamba layers, B, w-1, d_inner),
+the model's dtype) and an SSM state (``.ssm``: (Mamba layers, B,
+d_inner, N), float32); mLSTM layers ``.mlstm_C`` (n, B, H, hd, hd),
+``.mlstm_n`` (n, B, H, hd) and ``.mlstm_m`` (n, B, H); sLSTM layers
+``.slstm_c``, ``.slstm_n``, ``.slstm_h`` and ``.slstm_m``, each (n, B,
+H, hd), all float32; cross-attention layers the image K/V ``.xk``,
+``.xv`` (n, B, T_img, KV, hd), the model's dtype.  The block-paged pool,
+the extend prefill and the verify forward are attention-cache
+operations: they refuse a stack with any other kind of layer.
 
 The parameters are created with ``requires_grad=False``: serving never
 builds a graph.  A train state (``training.train_loop``) turns them on;
@@ -30,9 +42,9 @@ from torch import nn
 from repro_torch.models.layers import (dense, dtype_of, init_dense,
                                        matmul_f32, rmsnorm, rope_tables)
 from repro_torch.models.layers import remat as _remat
-from repro_torch.models.transformer import (ATTN_KINDS, Block,
-                                            attention_layers, attention_only,
-                                            check_buildable)
+from repro_torch.models.transformer import (attention_only, cache_group,
+                                            make_block)
+from repro_torch.models.xlstm import NEG_INIT
 
 LOSS_CHUNK = 512  # sequence-chunked cross entropy (never all f32 logits)
 AUX_LOSS_WEIGHT = 0.01
@@ -49,6 +61,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+#: the per-sequence states each cache group holds beside the ring
+STATES = {"mamba": ("conv", "ssm"),
+          "mlstm": ("mlstm_C", "mlstm_n", "mlstm_m"),
+          "slstm": ("slstm_c", "slstm_n", "slstm_h", "slstm_m"),
+          "xattn": ("xk", "xv")}
+
+
 @dataclass
 class KVCache:
     """The decode caches of every layer, updated in place.
@@ -58,26 +77,42 @@ class KVCache:
     layers: 0-d (one level for the batch, the serial path) or (B,) (one
     per sequence, the decode lanes).  Decode writes step t at slot
     ``t % S`` and attends slots <= t (all of them once wrapped).  RoPE
-    positions stay absolute.  conv (Mamba layers, B, w-1, d_inner) and
-    ssm (Mamba layers, B, d_inner, N) float32 are the Mamba layers'
-    recurrent states, None in a stack without Mamba layers.
+    positions stay absolute.  A stack without attention layers keeps
+    empty k, v (0 layers) and still advances t.
+
+    The other fields (``STATES``) are the per-sequence states of the
+    other kinds, (layers of the kind, B, ...), None in a stack without
+    such layers: the Mamba conv and SSM states, the mLSTM (C, n, m), the
+    sLSTM (c, n, h, m) and the cross-attention layers' image K/V.
     """
     k: torch.Tensor
     v: torch.Tensor
     t: torch.Tensor
     conv: Optional[torch.Tensor] = None
     ssm: Optional[torch.Tensor] = None
+    mlstm_C: Optional[torch.Tensor] = None
+    mlstm_n: Optional[torch.Tensor] = None
+    mlstm_m: Optional[torch.Tensor] = None
+    slstm_c: Optional[torch.Tensor] = None
+    slstm_n: Optional[torch.Tensor] = None
+    slstm_h: Optional[torch.Tensor] = None
+    slstm_m: Optional[torch.Tensor] = None
+    xk: Optional[torch.Tensor] = None
+    xv: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
 
+    def states(self):
+        """(name, tensor) of every per-sequence state the cache holds."""
+        return [(n, getattr(self, n)) for names in STATES.values()
+                for n in names if getattr(self, n) is not None]
+
     def rows(self, n: int) -> "KVCache":
         """The first ``n`` sequences (views; ``t`` must be (B,))."""
-        return KVCache(
-            k=self.k[:, :n], v=self.v[:, :n], t=self.t[:n],
-            conv=None if self.conv is None else self.conv[:, :n],
-            ssm=None if self.ssm is None else self.ssm[:, :n])
+        return KVCache(k=self.k[:, :n], v=self.v[:, :n], t=self.t[:n],
+                       **{name: x[:, :n] for name, x in self.states()})
 
     def set_fill(self, t: int) -> None:
         """Reset the fill level (``repro.models.model._set_fill``)."""
@@ -122,30 +157,30 @@ class LM(nn.Module):
     """Decoder LM over ``cfg.block_pattern``.  Weights are drawn from a
     seeded ``torch.Generator`` on ``device`` with the JAX init's scales
     (the numbers differ from ``jax.random``'s; carry JAX weights across
-    with ``bridge.params_from_jax`` + ``load_state_dict`` to compare).  A
-    config needing a block the port does not build raises
-    ``NotImplementedError`` before any weight is drawn."""
+    with ``bridge.params_from_jax`` + ``load_state_dict`` to compare).
+    With ``cfg.audio_frontend`` there is no embedding table."""
 
     def __init__(self, cfg, *, device=None, seed: int = 0):
         super().__init__()
-        check_buildable(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         dev, dt = self.device, dtype_of(cfg)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        self.embed = nn.Parameter(
-            (torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
-                         device=dev) * cfg.d_model ** -0.5).to(dt),
-            requires_grad=False)
         pattern = cfg.block_pattern
         kinds = [pattern[i % len(pattern)] for i in range(cfg.num_layers)]
-        self.blocks = nn.ModuleList(Block(cfg, kind, gen, dev)
+        # each layer's cache group and its slot among that group's layers
+        self._group = [cache_group(k) for k in kinds]
+        self._slot = [self._group[:i].count(g)
+                      for i, g in enumerate(self._group)]
+        self.n_layers = {g: self._group.count(g) for g in STATES}
+        self.n_attn = self._group.count("attn")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if not cfg.audio_frontend:
+            self.embed = nn.Parameter(
+                (torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
+                             device=dev) * cfg.d_model ** -0.5).to(dt),
+                requires_grad=False)
+        self.blocks = nn.ModuleList(make_block(cfg, kind, gen, dev)
                                     for kind in kinds)
-        # each layer's index among the layers of its cache kind
-        self._slot = [sum((k in ATTN_KINDS) == (kind in ATTN_KINDS)
-                          for k in kinds[:i]) for i, kind in enumerate(kinds)]
-        self.n_attn = attention_layers(cfg)
-        self.n_mamba = cfg.num_layers - self.n_attn
         self.final_norm = nn.Parameter(
             torch.ones(cfg.d_model, dtype=dt, device=dev), requires_grad=False)
         if not cfg.tie_embeddings:
@@ -153,20 +188,38 @@ class LM(nn.Module):
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_len: int) -> KVCache:
-        """Zeroed ring buffers with fill level 0 and zeroed recurrent
-        states (``repro.models.model.LM.init_cache``)."""
+        """Zeroed ring buffers with fill level 0 and the other kinds'
+        initial states (``repro.models.model.LM.init_cache``: zeros, the
+        xLSTM stabilisers at -1e30)."""
         cfg = self.cfg
-        shape = (self.n_attn, batch_size, max_len, cfg.num_kv_heads,
-                 cfg.head_dim)
+        B, KV, hd, H = batch_size, cfg.num_kv_heads, cfg.head_dim, \
+            cfg.num_heads
         kw = dict(dtype=dtype_of(cfg), device=self.device)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        shape = (self.n_attn, B, max_len, KV, hd)
         cache = KVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw),
                         t=torch.zeros((), dtype=torch.int32,
                                       device=self.device))
-        if self.n_mamba:
-            m, B, di = self.n_mamba, batch_size, cfg.d_inner
-            cache.conv = torch.zeros((m, B, cfg.ssm_conv_width - 1, di), **kw)
-            cache.ssm = torch.zeros((m, B, di, cfg.ssm_state_dim),
-                                    dtype=torch.float32, device=self.device)
+        n = self.n_layers
+        if n["mamba"]:
+            di = cfg.d_inner
+            cache.conv = torch.zeros((n["mamba"], B, cfg.ssm_conv_width - 1,
+                                      di), **kw)
+            cache.ssm = torch.zeros((n["mamba"], B, di, cfg.ssm_state_dim),
+                                    **f32)
+        if n["mlstm"]:
+            cache.mlstm_C = torch.zeros((n["mlstm"], B, H, hd, hd), **f32)
+            cache.mlstm_n = torch.zeros((n["mlstm"], B, H, hd), **f32)
+            cache.mlstm_m = torch.full((n["mlstm"], B, H), NEG_INIT, **f32)
+        if n["slstm"]:
+            shape = (n["slstm"], B, H, hd)
+            cache.slstm_c, cache.slstm_n, cache.slstm_h = (
+                torch.zeros(shape, **f32) for _ in range(3))
+            cache.slstm_m = torch.full(shape, NEG_INIT, **f32)
+        if n["xattn"]:
+            shape = (n["xattn"], B, cfg.num_image_tokens, KV, hd)
+            cache.xk = torch.zeros(shape, **kw)
+            cache.xv = torch.zeros(shape, **kw)
         return cache
 
     def init_paged_cache(self, batch_size: int, max_len: int, n_pages: int,
@@ -191,46 +244,86 @@ class LM(nn.Module):
             bt=torch.zeros((batch_size, max_len // page_size), **i32),
             t=torch.zeros((batch_size,), **i32))
 
-    # ------------------------------------------------------------- training
-    def _hidden(self, tokens, remat: bool):
-        """Final-normed hidden states (B, S, D) of the training forward and
-        the summed MoE auxiliary loss: every block in train mode at
-        positions 0..S-1, each recomputed in the backward pass when
-        ``remat`` (JAX ``run_stack``'s per-block checkpoint)."""
+    # ---------------------------------------------------------------- inputs
+    def _embed_in(self, tokens, frames, train: bool = False):
+        """(B, S, D) inputs of the stack (JAX ``_embed_in``): the token
+        embeddings, or with the audio frontend the frame embeddings cast
+        to the model's dtype."""
         cfg = self.cfg
-        rope_cs = rope_tables(torch.arange(tokens.shape[1],
-                                           device=self.device),
-                              cfg.head_dim, cfg.rope_theta)
-        # F.embedding: its gradient is not among the ops PyTorch documents
-        # as nondeterministic on the card, so a resumed run repeats a
-        # straight one
-        x = Fn.embedding(tokens, self.embed)
+        if cfg.audio_frontend:
+            if frames is None:
+                raise ValueError(f"{cfg.name} reads frame embeddings "
+                                 "(frames=), not tokens")
+            return frames.to(dtype_of(cfg))
+        if tokens is None:
+            raise ValueError(f"{cfg.name} reads tokens")
+        # F.embedding in training: its gradient is not among the ops
+        # PyTorch documents as nondeterministic on the card, so a resumed
+        # run repeats a straight one
+        return Fn.embedding(tokens, self.embed) if train \
+            else self.embed[tokens]
+
+    def _image(self, image_embeds):
+        """The image embeddings in the model's dtype; a stack with
+        cross-attention layers needs them (JAX ``xattn_block``)."""
+        if not self.n_layers["xattn"]:
+            return None
+        if image_embeds is None:
+            raise ValueError(f"{self.cfg.name}: cross-attention needs "
+                             "image_embeds")
+        return image_embeds.to(dtype_of(self.cfg))
+
+    def _rope(self, positions):
+        """RoPE tables of ``positions``, or None without attention
+        layers."""
+        cfg = self.cfg
+        if not self.n_attn:
+            return None
+        return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+    # ------------------------------------------------------------- training
+    def _hidden(self, x, remat: bool, image_embeds=None):
+        """Final-normed hidden states (B, S, D) of the training forward
+        from the inputs x (B, S, D), and the summed MoE auxiliary loss:
+        every block in train mode at positions 0..S-1, each recomputed in
+        the backward pass when ``remat`` (JAX ``run_stack``'s per-block
+        checkpoint)."""
+        rope_cs = self._rope(torch.arange(x.shape[1], device=self.device))
+        img = self._image(image_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.blocks:
-            x, a = _remat(blk, x, rope_cs) if remat else blk(x, rope_cs)
+            x, a = _remat(blk, x, rope_cs, img) if remat \
+                else blk(x, rope_cs, img)
             if a is not None:
                 aux = aux + a
-        return rmsnorm(x, self.final_norm, cfg.norm_eps), aux
+        return rmsnorm(x, self.final_norm, self.cfg.norm_eps), aux
 
     def _head_weight(self):
         return self.embed.T if self.cfg.tie_embeddings else self.head
 
-    def forward(self, tokens, remat: bool = True):
-        """Training forward (JAX ``LM.forward``): tokens (B, S) int64 on
-        the device -> float32 logits (B, S, V), the head's product taken
-        to float32 without rounding to the model's dtype."""
-        return matmul_f32(self._hidden(tokens, remat)[0],
+    def forward(self, tokens=None, remat: bool = True, *, frames=None,
+                image_embeds=None):
+        """Training forward (JAX ``LM.forward``): tokens (B, S) int64 (or
+        ``frames`` (B, S, D)) on the device, with ``image_embeds``
+        (B, T_img, D) for a stack with cross-attention -> float32 logits
+        (B, S, V), the head's product taken to float32 without rounding to
+        the model's dtype."""
+        x = self._embed_in(tokens, frames, train=True)
+        return matmul_f32(self._hidden(x, remat, image_embeds)[0],
                           self._head_weight())
 
     def loss(self, batch, remat: bool = True):
         """Sequence-chunked next-token cross entropy (JAX ``LM.loss``):
-        ``batch`` holds "tokens" and "labels" (B, S) int64 on the device,
-        labels < 0 masked.  The f32 logits of one ``LOSS_CHUNK`` slice of
-        the sequence exist at a time, and each chunk's are recomputed in
-        the backward pass.  ``AUX_LOSS_WEIGHT`` times the MoE blocks'
+        ``batch`` holds "tokens" (or "frames"), "labels" (B, S) int64 on
+        the device, labels < 0 masked, and "image_embeds" for a stack
+        with cross-attention.  The f32 logits of one ``LOSS_CHUNK`` slice
+        of the sequence exist at a time, and each chunk's are recomputed
+        in the backward pass.  ``AUX_LOSS_WEIGHT`` times the MoE blocks'
         auxiliary loss is added (0 in a stack without MoE)."""
         labels = batch["labels"]
-        h, aux = self._hidden(batch["tokens"], remat)
+        x = self._embed_in(batch.get("tokens"), batch.get("frames"),
+                           train=True)
+        h, aux = self._hidden(x, remat, batch.get("image_embeds"))
         w = self._head_weight()
         S = labels.shape[1]
         chunk = min(LOSS_CHUNK, S)
@@ -253,12 +346,16 @@ class LM(nn.Module):
 
     # --------------------------------------------------------------- serving
     @torch.no_grad()
-    def prefill(self, tokens, pad_to: Optional[int] = None,
+    def prefill(self, tokens=None, pad_to: Optional[int] = None,
                 prompt_len=None, cache: Optional[KVCache] = None,
-                fill_to: Optional[int] = None):
+                fill_to: Optional[int] = None, *, frames=None,
+                image_embeds=None):
         """Full-prompt forward building the decode cache.
 
-        tokens: (B, S) int64 on the device.  Returns (last logits (B, V),
+        tokens: (B, S) int64 on the device (or ``frames`` (B, S, D) with
+        the audio frontend; ``image_embeds`` (B, T_img, D) for a stack
+        with cross-attention, whose projected K/V the cache keeps for
+        the decode steps).  Returns (last logits (B, V),
         cache).  The ring holds ``max(S, pad_to)`` slots: allocating it at
         ``pad_to`` up front does what the JAX ``_pad_kv`` does after the
         fact (zeros past S).  ``prompt_len`` enables bucketed prefill: the
@@ -277,30 +374,33 @@ class LM(nn.Module):
         suffix tokens, and the fill level becomes ``fill_to`` (default:
         the old level plus the suffix's length).
 
-        Mamba layers start from zero states and leave theirs, after the
-        last token given (pads included), in ``cache.conv``/``.ssm``: a
-        stack with Mamba layers prefills at exact length (the engines'
-        rule) and refuses an extend prefill.
+        Recurrent layers (Mamba, mLSTM, sLSTM) start from their initial
+        states and leave theirs, after the last token given (pads
+        included), in the cache: such a stack prefills at exact length
+        (the engines' rule).  A stack with any layer but self-attention
+        refuses an extend prefill.
         """
-        B, S = tokens.shape
         cfg = self.cfg
+        x = self._embed_in(tokens, frames)
+        B, S = x.shape[:2]
+        img = self._image(image_embeds)
         start = 0
         if cache is None:
             cache = self.init_cache(B, max(S, pad_to or 0))
         else:
-            if self.n_mamba:
+            if not attention_only(cfg):
                 raise ValueError("an extend prefill needs a pure-attention "
                                  f"stack (got pattern {cfg.block_pattern})")
             start = int(cache.t)              # one host read per extend
-        rope_cs = rope_tables(start + torch.arange(S, device=self.device),
-                              cfg.head_dim, cfg.rope_theta)
-        x = self.embed[tokens]
-        for blk, j in zip(self.blocks, self._slot):
-            if blk.is_attn:
+        rope_cs = self._rope(start + torch.arange(S, device=self.device))
+        for blk, g, j in zip(self.blocks, self._group, self._slot):
+            if g == "attn":
                 x = blk.attn.prefill(x, rope_cs, cache.k[j], cache.v[j],
                                      start=start)
+            elif g == "xattn":
+                x = blk.xattn.prefill(x, img, cache.xk[j], cache.xv[j])
             else:
-                x = self._mamba(blk, j, x, cache, fresh=True)
+                x = self._recurrent(blk, g, j, x, cache, fresh=True)
             x, _ = blk.channel_mix(x)
         if prompt_len is not None and not isinstance(prompt_len, int) \
                 and torch.as_tensor(prompt_len).dim():
@@ -316,10 +416,12 @@ class LM(nn.Module):
         return self._head(x[:, n - 1:n])[:, 0], cache
 
     @torch.no_grad()
-    def decode_step(self, cache: Union[KVCache, PagedKVCache], tokens):
-        """One greedy step.  tokens: (B, 1) int64 on the device.  Writes the
-        step's K/V into ``cache`` and advances its fill level(s), both in
-        place and on the device (no host synchronisation).  Returns logits
+    def decode_step(self, cache: Union[KVCache, PagedKVCache], tokens=None,
+                    *, frames=None):
+        """One greedy step.  tokens: (B, 1) int64 on the device (or
+        ``frames`` (B, 1, D) with the audio frontend).  Writes the step's
+        K/V into ``cache`` and advances its fill level(s), both in place
+        and on the device (no host synchronisation).  Returns logits
         (B, V).
 
         Over a ring ``KVCache`` with a shared t the step's K/V land at
@@ -329,30 +431,19 @@ class LM(nn.Module):
         window (a stopped lane stepping to the end of its segment) writes
         the trash page instead, so it can never clobber a page that the
         allocator may hand to another lane (JAX ``attn_block``'s paged
-        branch).  Mamba layers step their conv and SSM states in place."""
-        cfg = self.cfg
+        branch).  Recurrent layers step their states in place;
+        cross-attention layers attend the cached image K/V."""
+        x = self._embed_in(tokens, frames)
         t = cache.t
-        B = tokens.shape[0]
-        if isinstance(cache, PagedKVCache):
-            page, P = cache.page_size, cache.bt.shape[1]
-            block = torch.clamp(torch.div(t, page, rounding_mode="floor"),
-                                max=P - 1).long()
-            pg = cache.bt.gather(1, block[:, None])[:, 0]
-            pg = torch.where(t < P * page, pg, torch.zeros_like(pg))
-            dest = (pg * page + torch.remainder(t, page)).long()
-        elif t.dim():
-            slot = (torch.arange(B, device=t.device),
-                    torch.remainder(t, cache.max_len).long())
-        else:
-            slot = torch.remainder(t, cache.max_len).long().view(1)
-        rope_cs = rope_tables(t.view(-1, 1) if t.dim() else t.view(1),
-                              cfg.head_dim, cfg.rope_theta)
-        x = self.embed[tokens]
-        for blk, j in zip(self.blocks, self._slot):
-            if not blk.is_attn:
-                x = self._mamba(blk, j, x, cache, fresh=False)
+        slot = self._decode_slots(cache, x.shape[0]) if self.n_attn else None
+        rope_cs = self._rope(t.view(-1, 1) if t.dim() else t.view(1))
+        for blk, g, j in zip(self.blocks, self._group, self._slot):
+            if g == "xattn":
+                x = blk.xattn.decode(x, cache.xk[j], cache.xv[j])
+            elif g != "attn":
+                x = self._recurrent(blk, g, j, x, cache, fresh=False)
             elif isinstance(cache, PagedKVCache):
-                x = blk.attn.decode_paged(x, rope_cs, t, dest, cache.k[j],
+                x = blk.attn.decode_paged(x, rope_cs, t, slot, cache.k[j],
                                           cache.v[j], cache.bt)
             else:
                 x = blk.attn.decode(x, rope_cs, t, slot, cache.k[j],
@@ -360,6 +451,25 @@ class LM(nn.Module):
             x, _ = blk.channel_mix(x)
         t.add_(1)
         return self._head(x)[:, 0]
+
+    @staticmethod
+    def _decode_slots(cache, B: int):
+        """Where a decode step's K/V land: over a ``PagedKVCache`` each
+        lane's flat pool row (B,) int64; over a ring the slot t % S as an
+        int64 (1,) tensor for a shared t, or the index pair (lanes,
+        slots) for (B,) levels."""
+        t = cache.t
+        if isinstance(cache, PagedKVCache):
+            page, P = cache.page_size, cache.bt.shape[1]
+            block = torch.clamp(torch.div(t, page, rounding_mode="floor"),
+                                max=P - 1).long()
+            pg = cache.bt.gather(1, block[:, None])[:, 0]
+            pg = torch.where(t < P * page, pg, torch.zeros_like(pg))
+            return (pg * page + torch.remainder(t, page)).long()
+        if t.dim():
+            return (torch.arange(B, device=t.device),
+                    torch.remainder(t, cache.max_len).long())
+        return torch.remainder(t, cache.max_len).long().view(1)
 
     @torch.no_grad()
     def verify_step(self, cache: Union[KVCache, PagedKVCache], tokens):
@@ -375,8 +485,8 @@ class LM(nn.Module):
 
         A ring position past the buffer is dropped, not wrapped; a paged
         position past the window goes to trash page 0.  Everything stays
-        on the device.  An attention-cache operation: a stack with Mamba
-        layers is refused."""
+        on the device.  An attention-cache operation: a stack with any
+        layer but self-attention is refused."""
         cfg = self.cfg
         if not attention_only(cfg):
             raise ValueError("speculative verify needs a pure-attention "
@@ -412,14 +522,18 @@ class LM(nn.Module):
         return self._head(x)
 
     @staticmethod
-    def _mamba(blk, j, x, cache, fresh: bool):
-        """Mamba layer ``j`` of the cache: from zero states (``fresh``, a
-        prefill) or from the cached ones (a decode step); the new states
-        are written into the cache in place."""
-        if fresh:
-            x, (conv, ssm) = blk.mamba(x)
+    def _recurrent(blk, group, j, x, cache, fresh: bool):
+        """Recurrent layer ``j`` of its group's cache (Mamba, mLSTM or
+        sLSTM): from the initial states (``fresh``, a prefill) or from
+        the cached ones (a decode step); the new states are written into
+        the cache in place."""
+        names = STATES[group]
+        state = None if fresh else tuple(getattr(cache, n)[j]
+                                         for n in names)
+        if group == "mamba":
+            x, new = blk.mamba(x, *(state or ()))
         else:
-            x, (conv, ssm) = blk.mamba(x, cache.conv[j], cache.ssm[j])
-        cache.conv[j].copy_(conv)
-        cache.ssm[j].copy_(ssm)
+            x, new = blk.mix(x, state)
+        for n, s in zip(names, new):
+            getattr(cache, n)[j].copy_(s)
         return x

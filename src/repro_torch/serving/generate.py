@@ -301,17 +301,16 @@ class LaneDecoder:
         """Drop a k-row prefill cache (padded to ``max_len`` slots, per-row
         fill levels) into lanes ``lane_idx``, in place: every slot of those
         lanes is overwritten, so a retired lane's dead writes are gone.
-        The Mamba layers' conv and SSM states of those lanes are replaced
-        whole by the prefill's (the JAX ``tree.map`` insert); fill levels
-        belong to the attention caches only."""
+        The other layers' per-sequence states (Mamba, mLSTM, sLSTM, image
+        K/V) of those lanes are replaced whole by the prefill's (the JAX
+        ``tree.map`` insert)."""
         idx = torch.as_tensor(lane_idx, dtype=torch.long,
                               device=lanes.k.device)
         lanes.k.index_copy_(1, idx, cache.k)
         lanes.v.index_copy_(1, idx, cache.v)
         lanes.t.index_copy_(0, idx, cache.t.reshape(-1).to(torch.int32))
-        if lanes.conv is not None:
-            lanes.conv.index_copy_(1, idx, cache.conv)
-            lanes.ssm.index_copy_(1, idx, cache.ssm)
+        for name, state in lanes.states():
+            state.index_copy_(1, idx, getattr(cache, name))
         return lanes
 
     # -------------------------------------------------------------- segments

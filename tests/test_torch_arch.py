@@ -6,22 +6,26 @@ against the JAX package's.
   parameter counts, the KV bytes per token and the service-time model's
   rates follow the JAX formulas exactly (the service-time model with the
   JAX module's peaks set to the port's H100 data-sheet peaks); each
-  reduced config the port builds holds exactly ``param_count()``
-  parameters; the three configs whose blocks are not ported refuse to
-  build, naming what is missing.
-* Models, per ported reduced config (smollm-360m, gemma3-4b-edge,
+  reduced config holds exactly ``param_count()`` parameters in the port.
+* Models, per reduced config, all eleven (smollm-360m, gemma3-4b-edge,
   gemma-2b, granite-8b, qwen3-32b with QK-norm, dbrx-132b and
-  llama4-maverick with MoE, jamba-v0.1-52b with Mamba + MoE + attention),
-  on the JAX package's weights (``bridge.params_from_jax``), float32 on
-  the CPU: training logits (atol 1e-4: the Mamba scan sums in another
-  order), the loss with the MoE auxiliary term (rtol 1e-5), every
-  parameter's gradient (atol/rtol 1e-3), and prefill then three
-  teacher-forced decode steps, against the JAX LM's (1e-4) and against
-  the port's own training forward (2e-2, the JAX smoke test's bar, with
+  llama4-maverick with MoE, jamba-v0.1-52b with Mamba + MoE + attention,
+  xlstm-350m with sLSTM + mLSTM, llama-3.2-vision-90b with
+  cross-attention over seeded image embeddings, musicgen-large with the
+  audio frontend's seeded frame embeddings), on the JAX package's
+  weights (``bridge.params_from_jax``), float32 on the CPU: training
+  logits (atol 1e-4: the Mamba and mLSTM scans sum in another order),
+  the loss with the MoE auxiliary term (rtol 1e-5), every parameter's
+  gradient (atol/rtol 1e-3), and prefill then three teacher-forced
+  decode steps, against the JAX LM's (1e-4) and against the port's own
+  training forward (2e-2, the JAX smoke test's bar, with
   ``moe_capacity_factor = E`` so no token is dropped on either path).
+  The same numpy inputs (tokens or frames, and image embeddings) go to
+  both packages.
 * Optimizer state over a pattern: three AdamW and Adafactor steps on
-  reduced jamba equal the JAX optimizer's (Adafactor's statistics are
-  factored per pattern position, as the JAX stacked layout does).
+  reduced jamba, xlstm, vision and musicgen equal the JAX optimizer's
+  (Adafactor's statistics are factored per pattern position, as the JAX
+  stacked layout does).
 * Engines: reduced jamba and dbrx prefill at exact length (no buckets)
   and their greedy tokens through ``RealEngine`` and ``BatchedRealEngine``
   (back-fill included) equal the JAX engines'; the block-paged engine and
@@ -57,6 +61,7 @@ from repro_torch.configs import (ALL_ARCH_NAMES, ARCH_NAMES, get_config,
 from repro_torch.models.bridge import (opt_state_from_jax, params_from_jax,
                                        params_to_jax)
 from repro_torch.models.model import LM
+from repro_torch.models.transformer import attention_only
 from repro_torch.serving import batching
 from repro_torch.serving.engine import (BatchedRealEngine, PagedBatchedEngine,
                                         RealEngine)
@@ -65,9 +70,8 @@ from repro_torch.training import optimizer as topt
 
 PORTED = ["smollm-360m", "gemma3-4b-edge", "gemma-2b", "granite-8b",
           "qwen3-32b", "dbrx-132b", "llama4-maverick-400b-a17b",
-          "jamba-v0.1-52b"]
-REFUSED = {"xlstm-350m": "sLSTM block", "llama-3.2-vision-90b":
-           "cross-attention block", "musicgen-large": "audio frontend"}
+          "jamba-v0.1-52b", "xlstm-350m", "llama-3.2-vision-90b",
+          "musicgen-large"]
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_TOL = dict(atol=1e-3, rtol=1e-3)
 B, S = 2, 16
@@ -126,11 +130,27 @@ def test_kv_bytes_and_service_model_equal_jax(name, reduce, monkeypatch):
 
 
 def test_jamba_two_repeats_is_the_slice_the_card_serves():
+    """The jamba slice ``chip_smoke.py`` serves: one pattern repeat (it
+    served two until the last three archs joined the run)."""
     cfg = get_config("jamba-v0.1-52b")
     assert cfg.param_count() * 2 > 80e9          # bf16 does not fit a card
-    two = dataclasses.replace(cfg, num_layers=16)
-    assert two.param_count() == 25_994_874_880
-    assert batching.kv_bytes_per_token(two) == 2 * 2 * 8 * 128 * 2
+    one = dataclasses.replace(cfg, num_layers=len(cfg.block_pattern))
+    assert one.param_count() == 13_265_874_944
+    assert batching.kv_bytes_per_token(one) == 2 * 1 * 8 * 128 * 2
+
+
+def test_vision_one_repeat_is_the_slice_the_card_serves():
+    """llama-3.2-vision-90b at full width, one of its 20 pattern repeats:
+    4 self-attention layers (the ring) and 1 cross-attention layer."""
+    cfg = get_config("llama-3.2-vision-90b")
+    assert cfg.param_count() * 2 > 80e9
+    one = dataclasses.replace(cfg, num_layers=len(cfg.block_pattern))
+    assert one.param_count() == 6_379_626_496
+    assert batching.kv_bytes_per_token(one) == 2 * 4 * 8 * 128 * 2
+
+
+def test_every_registered_arch_is_ported():
+    assert sorted(PORTED) == sorted(ALL_ARCH_NAMES)
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -138,12 +158,6 @@ def test_port_lm_holds_param_count(name):
     cfg = get_config(name).reduced()
     lm = LM(cfg, device="cpu")
     assert sum(p.numel() for p in lm.parameters()) == cfg.param_count()
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_unported_blocks_refuse_to_build(name):
-    with pytest.raises(NotImplementedError, match=REFUSED[name]):
-        LM(get_config(name).reduced(), device="cpu")
 
 
 # ------------------------------------------------------------------- models
@@ -158,14 +172,38 @@ def pair(request):
     return jlm, params, lm
 
 
-def _batch(vocab, seed, n=B, s=S):
+def _batch(cfg, seed, n=B, s=S):
+    """Seeded numpy inputs of ``cfg``: tokens (or, with the audio
+    frontend, float32 frames) and next-token labels, plus image
+    embeddings for a stack with cross-attention."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, vocab, (n, s + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+    toks = rng.integers(0, cfg.vocab_size, (n, s + 1)).astype(np.int32)
+    out = {"labels": toks[:, 1:].copy()}
+    if cfg.audio_frontend:
+        out["frames"] = rng.standard_normal((n, s, cfg.d_model),
+                                            dtype=np.float32)
+    else:
+        out["tokens"] = toks[:, :-1]
+    if cfg.num_image_tokens:
+        out["image_embeds"] = rng.standard_normal(
+            (n, cfg.num_image_tokens, cfg.d_model), dtype=np.float32)
+    return out
 
 
 def _t(batch):
-    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()}
+    """The port's tensors: int64 ids, float32 embeddings."""
+    return {k: torch.from_numpy(v.astype(np.int64 if v.dtype == np.int32
+                                         else v.dtype))
+            for k, v in batch.items()}
+
+
+def _j(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _inputs(batch):
+    """The model inputs of a batch (every entry but the labels)."""
+    return {k: v for k, v in batch.items() if k != "labels"}
 
 
 def test_bridge_round_trip(pair):
@@ -178,19 +216,18 @@ def test_bridge_round_trip(pair):
 
 def test_forward_logits_match_jax(pair):
     jlm, params, lm = pair
-    batch = _batch(lm.cfg.vocab_size, 0)
-    want, _ = jlm.forward(params, {"tokens": jnp.asarray(batch["tokens"])},
-                          remat=False)
+    batch = _inputs(_batch(lm.cfg, 0))
+    want, _ = jlm.forward(params, _j(batch), remat=False)
     with torch.no_grad():
-        got = lm(_t(batch)["tokens"], remat=False)
+        got = lm(remat=False, **_t(batch))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
 
 
 def test_loss_with_aux_matches_jax(pair):
     jlm, params, lm = pair
-    batch = _batch(lm.cfg.vocab_size, 1)
-    want = jlm.loss(params, {k: jnp.asarray(v) for k, v in batch.items()})
-    _, aux = jlm.forward(params, {"tokens": jnp.asarray(batch["tokens"])})
+    batch = _batch(lm.cfg, 1)
+    want = jlm.loss(params, _j(batch))
+    _, aux = jlm.forward(params, _j(_inputs(batch)))
     assert (float(aux) > 0) == bool(lm.cfg.num_experts)
     with torch.no_grad():
         got = lm.loss(_t(batch))
@@ -199,9 +236,8 @@ def test_loss_with_aux_matches_jax(pair):
 
 def test_every_gradient_matches_jax_grad(pair):
     jlm, params, lm = pair
-    batch = _batch(lm.cfg.vocab_size, 2)
-    want = jax.grad(lambda p: jlm.loss(
-        p, {k: jnp.asarray(v) for k, v in batch.items()}))(params)
+    batch = _batch(lm.cfg, 2)
+    want = jax.grad(lambda p: jlm.loss(p, _j(batch)))(params)
     lm.requires_grad_(True)
     try:
         for p in lm.parameters():
@@ -236,21 +272,22 @@ def test_prefill_then_decode_teacher_forced(name):
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),
                                        cfg))
-    toks = _batch(cfg.vocab_size, 3)["tokens"]
-    tt = torch.from_numpy(toks.astype(np.int64))
+    batch = _inputs(_batch(cfg, 3))
+    key = "frames" if cfg.audio_frontend else "tokens"
+    seq = batch[key]
+    prompt = dict(batch, **{key: seq[:, :S // 2]})
     with torch.no_grad():
-        full = lm(tt, remat=False)
-        got_p, cache = lm.prefill(tt[:, :S // 2], pad_to=S)
-    want_p, jc = jlm.prefill(params, {"tokens": jnp.asarray(toks[:, :S // 2])},
-                             pad_to=S)
+        full = lm(remat=False, **_t(batch))
+        got_p, cache = lm.prefill(pad_to=S, **_t(prompt))
+    want_p, jc = jlm.prefill(params, _j(prompt), pad_to=S)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p),
                                **LOGIT_TOL)
     np.testing.assert_allclose(got_p.numpy(), full[:, S // 2 - 1].numpy(),
                                atol=2e-2)
     for t in range(S // 2, S // 2 + 3):
-        want_d, jc = jlm.decode_step(params, jc,
-                                     {"tokens": jnp.asarray(toks[:, t:t + 1])})
-        got_d = lm.decode_step(cache, tt[:, t:t + 1])
+        step = {key: seq[:, t:t + 1]}
+        want_d, jc = jlm.decode_step(params, jc, _j(step))
+        got_d = lm.decode_step(cache, **_t(step))
         np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d),
                                    **LOGIT_TOL)
         np.testing.assert_allclose(got_d.numpy(), full[:, t].numpy(),
@@ -258,12 +295,10 @@ def test_prefill_then_decode_teacher_forced(name):
     assert int(cache.t) == S // 2 + 3
 
 
-@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
-def test_optimizer_over_a_pattern_matches_jax(kind):
-    """Three steps on reduced jamba's parameters and random gradients:
+def _optimizer_matches_jax(name, kind):
+    """Three steps on a reduced config's parameters and random gradients:
     parameters within 1e-6 and the carried-over JAX state equal to the
     port's (Adafactor statistics grouped per pattern position)."""
-    name = "jamba-v0.1-52b"
     jlm = JLM(jax_config(name).reduced())
     params = jax.tree.map(np.asarray, jlm.init(jax.random.key(1)))
     rng = np.random.default_rng(4)
@@ -291,6 +326,22 @@ def test_optimizer_over_a_pattern_matches_jax(kind):
         for n in mine:
             np.testing.assert_allclose(mine[n].numpy(), theirs[n].numpy(),
                                        atol=1e-6, rtol=1e-5, err_msg=n)
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
+def test_optimizer_over_a_pattern_matches_jax(kind):
+    """Reduced jamba (an 8-block pattern)."""
+    _optimizer_matches_jax("jamba-v0.1-52b", kind)
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
+@pytest.mark.parametrize("name", ["xlstm-350m", "llama-3.2-vision-90b",
+                                  "musicgen-large"])
+def test_optimizer_state_of_xlstm_xattn_and_audio_matches_jax(name, kind):
+    """The xLSTM leaves (float32 gates, the (4, H, hd, hd) recurrent
+    gates), the cross-attention block's and a model without an
+    embedding carry over both ways."""
+    _optimizer_matches_jax(name, kind)
 
 
 # ------------------------------------------------------------------ engines
@@ -364,7 +415,7 @@ def test_paged_and_speculative_refuse_with_jax_messages(hybrid):
         with pytest.raises(ValueError) as theirs:
             jax_build()
         assert str(mine.value) == str(theirs.value)
-    if ser.lm.n_mamba:              # the LM's own attention-cache refusals
+    if not attention_only(cfg):     # the LM's own attention-cache refusals
         with pytest.raises(ValueError, match="pure-attention"):
             ser.lm.init_paged_cache(2, 64, 9, 16)
         with pytest.raises(ValueError, match="pure-attention"):

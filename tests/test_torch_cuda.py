@@ -97,6 +97,47 @@ def test_flash_kernel_matches_plain(cuda, dtype, S, causal, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv", [(1, 1024), (16, 1024), (45, 1024),
+                                    (7, 40), (130, 64)])
+@pytest.mark.parametrize("H,KV,hd", [(32, 32, 64), (64, 8, 128)])
+def test_flash_kernel_noncausal_cross_lengths(cuda, dtype, Sq, Skv, H, KV,
+                                              hd):
+    """K3 non-causal with Sq != Skv, the cross-attention prefill (text
+    rows over image rows), at one query head a KV head (musicgen's heads)
+    and at eight (llama-3.2-vision-90b's)."""
+    g = torch.Generator(device=cuda).manual_seed(Sq * 7 + Skv)
+    q = torch.randn(1, Sq, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(1, Skv, KV, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=False)
+    _close(got, want.transpose(1, 2), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [40, 1024])
+@pytest.mark.parametrize("H,KV,hd", [(32, 32, 64), (64, 8, 128)])
+def test_decode_kernel_over_a_full_window(cuda, dtype, S, H, KV, hd):
+    """K1 at t = S - 1 (every slot live), the cross-attention decode over
+    the image cache, at G 1 and G 8: equal to the non-causal attention of
+    one query row."""
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q = torch.randn(2, 1, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, S, KV, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    tt = torch.tensor(S - 1, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, tt)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=False)
+    _close(got, want.transpose(1, 2), dtype)
+
+
+@pytest.mark.cuda
 def test_gbdt_kernel_matches_plain_and_is_deterministic(cuda):
     rng = np.random.default_rng(0)
     y = rng.integers(0, 3, 600)
@@ -941,6 +982,83 @@ def test_hybrid_and_moe_engines_on_card_match_cpu(cuda, name):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert out[str(cuda)] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_xlstm_engines_on_card_match_cpu(cuda):
+    """Reduced xlstm-350m (sLSTM + mLSTM, no attention layer) in float32
+    with TF32 off: serial and lane greedy tokens on the card equal the
+    CPU's, and no attention kernel is launched."""
+    cfg = get_config("xlstm-350m").reduced()
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate((7, 7, 12, 5, 12))]
+    maxes = [10, 6, 8, 12, 5]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = RealEngine(cfg, max_len=64, device="cpu", seed=2).lm.state_dict()
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            ser = RealEngine(cfg, state_dict=sd, max_len=64, segment_len=4,
+                             device=dev)
+            lanes = BatchedRealEngine(cfg, state_dict=sd, max_len=64,
+                                      segment_len=4, n_lanes=3, device=dev)
+            before = dict(ops.LAUNCHES)
+            out[str(dev)] = (
+                [ser.generate(p, max_new_tokens=m)["tokens"]
+                 for p, m in zip(prompts, maxes)],
+                [r["tokens"] for r in lanes.generate_batch(prompts, maxes)])
+            assert ops.LAUNCHES == before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert out[str(cuda)] == out["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama-3.2-vision-90b", "musicgen-large"])
+def test_cross_attention_and_audio_models_on_card_match_cpu(cuda, name):
+    """Reduced vision (self- and cross-attention) and musicgen (frame
+    embeddings) in float32 with TF32 off: prefill and 3 teacher-forced
+    decode steps on the card within 1e-4 of the CPU; each prefill
+    launches K3 once an attention layer (causal) and once a
+    cross-attention layer (non-causal), each step K1 once a layer of
+    either kind."""
+    import dataclasses
+    cfg = get_config(name).reduced()
+    cfg = dataclasses.replace(cfg, num_layers=2 * len(cfg.block_pattern))
+    g = torch.Generator().manual_seed(5)
+    key = "frames" if cfg.audio_frontend else "tokens"
+    seq = (torch.randn(2, 12, cfg.d_model, generator=g) if key == "frames"
+           else torch.randint(0, cfg.vocab_size, (2, 12), generator=g))
+    img = {"image_embeds": torch.randn(2, cfg.num_image_tokens,
+                                       cfg.d_model, generator=g)} \
+        if cfg.num_image_tokens else {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        from repro_torch.models.model import LM
+        cpu = LM(cfg, device="cpu", seed=3)
+        gpu = LM(cfg, device=cuda)
+        gpu.load_state_dict(cpu.state_dict())
+        logits = {}
+        before = dict(ops.LAUNCHES)
+        for lm in (cpu, gpu):
+            dev = lm.device
+            out, cache = lm.prefill(pad_to=16, **{key: seq[:, :8].to(dev)},
+                                    **{k: v.to(dev) for k, v in img.items()})
+            outs = [out.cpu()]
+            for t in range(8, 11):
+                outs.append(lm.decode_step(
+                    cache, **{key: seq[:, t:t + 1].to(dev)}).cpu())
+            logits[dev.type] = torch.stack(outs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    layers = cfg.num_layers
+    assert ops.LAUNCHES["flash_attention"] - before["flash_attention"] \
+        == layers
+    assert ops.LAUNCHES["decode_attention"] - before["decode_attention"] \
+        == 3 * layers
+    _close(logits["cuda"], logits["cpu"], torch.float32)
 
 
 @pytest.mark.cuda

@@ -32,8 +32,10 @@ print(len(names), bad, missing)
 #: CLIs; the sweep grids, the grid DES on the device and the ranking
 #: metric; training (data, optimizer, train step, checkpoints, the CLI)
 #: and the attention backward kernel; the config registry's package and
-#: the block kinds of the pattern stack (MoE, Mamba, block dispatch)
-NEW = ["repro_torch.configs.base", "repro_torch.configs.jamba_v01_52b",
+#: the block kinds of the pattern stack (MoE, Mamba, block dispatch); the
+#: xLSTM blocks and the modality frontends
+NEW = ["repro_torch.models.xlstm", "repro_torch.models.frontends",
+       "repro_torch.configs.base", "repro_torch.configs.jamba_v01_52b",
        "repro_torch.configs.xlstm_350m", "repro_torch.models.moe",
        "repro_torch.models.ssm", "repro_torch.models.transformer",
        "repro_torch.serving.batching", "repro_torch.serving.paging",
