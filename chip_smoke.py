@@ -67,8 +67,19 @@ path and read just after:
   AdamW steps of all 32 layers in bf16 on the Markov stream through
   ``make_train_step`` (K3 2 x 32 and K3b 32 launches a step);
 * ``[launch-train]`` ``python -m repro_torch.launch.train`` as child
-  processes: 6 steps straight beside 3 steps in a second process, then a
-  resumed 3 from the latter's checkpoint, with equal losses;
+  processes (each on ``make_local_mesh``'s one-rank NCCL group), started
+  before ``[speculative]`` and run beside it: 6 steps straight beside 3
+  steps in a second process, then a resumed 3 from the latter's
+  checkpoint, with equal losses;
+* ``[mesh]`` the sharding layer on ``[train]``'s state: one step through
+  ``make_train_step(mesh=)`` bitwise equal to the step with no mesh
+  (same K3/K3b launches), the int8 gradient exchange
+  (``apply_error_feedback``, ``compressed_psum_mean``) over NCCL bitwise
+  equal to the CPU's over gloo, with its bytes against a float32
+  all-reduce's, ``resume_on_mesh`` of ``[launch-train]``'s checkpoint
+  bitwise equal to ``checkpoint.restore``, and the step's roofline
+  (FLOPs counted on meta tensors, ``model_flops``, the compute and memory
+  bounds at the H100's peaks, device and wall ms, the bf16-peak share);
 * then the paper's own backend, gemma3-4b-edge (8 query heads over 4 KV
   heads of width 256, GeGLU, vocab 262,144), once the card is freed:
   ``[gemma3-f32]`` a float32 copy cut to 2 layers at full width against
@@ -150,7 +161,10 @@ log-sum-exp disagrees with its plain version, when the training loss
 does not fall or the train step's K3/K3b launches differ from 2 x 32 /
 32 a step, when a K3b pass is among the profiled train step's two
 longest kernels, when a resumed training run's losses differ from
-the straight run's, when an xlstm path launches an attention kernel or
+the straight run's, when the meshed train step, the card's int8
+exchange or the resharded checkpoint is not bitwise equal to its
+reference (the step with no mesh, the CPU's exchange,
+``checkpoint.restore``) or the meshed step's K3/K3b launches differ, when an xlstm path launches an attention kernel or
 its card and CPU logits, tokens or lane tokens differ, when the
 musicgen or vision kernels-vs-plain logits or tokens differ or their
 launches are not exactly a layer's, or when two kernels-line entries
@@ -171,6 +185,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -178,9 +193,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
+# the H100 SXM data sheet's HBM rate and dense bf16 / float32 peaks
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS  # noqa: E402
 L2_FLUSH_BYTES = 128 << 20          # written to flush the H100's 50 MB L2
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 MAX_LEN, SEGMENT, MAX_NEW = 512, 16, 64
 N_LONG, N_SHORT = 6, 10
 TOL = {"bf16": 2e-2, "f32": 1e-4}
@@ -3020,7 +3036,7 @@ def _plain_attention(q, k, v, *, causal=True):
     return flash_attention_plain(q, k, v, causal=causal)
 
 
-def phase_train(cfg, smi, totals) -> None:
+def phase_train(cfg, smi, totals):
     """Training at the full width of smollm-360m.  (a) float32 (TF32
     off), 2 layers: one loss's gradients through K3/K3b against the same
     loss through the plain attention on the card.  (b) bf16, all 32
@@ -3028,7 +3044,8 @@ def phase_train(cfg, smi, totals) -> None:
     stream through ``make_train_step``; K3 must launch 2 x 32 and K3b 32
     times a step (per-block remat), the loss must stay finite and fall.
     Prints ms/step, tokens/s, peak memory and the device busy share of
-    one profiled step."""
+    one profiled step.  Returns the bf16 train state (``[mesh]`` reuses
+    it)."""
     import contextlib
     import dataclasses
     import statistics
@@ -3124,14 +3141,14 @@ def phase_train(cfg, smi, totals) -> None:
           f"{launched['flash_attention_bwd'] // TRAIN_STEPS}  [{smi}]")
     print("[train] losses " + " ".join(f"{x:.4f}" for x in losses))
     _profile_train_step(step_fn, state, batch(TRAIN_STEPS), smi)
-    del state
-    torch.cuda.empty_cache()
+    return state
 
 
-def _profile_train_step(step_fn, state, bt, smi) -> None:
+def _profile_train_step(step_fn, state, bt, smi):
     """One train step under the profiler: the device's busy share (the
     union of CUDA kernel intervals over the span of the trace) and the
-    kernels that take the most time."""
+    kernels that take the most time.  Returns the busy milliseconds (None
+    when the profiler recorded no kernel)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3144,7 +3161,7 @@ def _profile_train_step(step_fn, state, bt, smi) -> None:
     if busy is None:
         print("[train] device busy share: not measured (the profiler "
               "recorded no CUDA kernel)")
-        return
+        return None
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events))
@@ -3168,61 +3185,257 @@ def _profile_train_step(step_fn, state, bt, smi) -> None:
     if any(key in name for name, _ in top[:2] for key, _ in K3B_PASSES):
         raise AssertionError("[train] a K3b pass is among the step's two "
                              "longest kernels")
+    return busy / 1e3
 
 
-def _train_child(args) -> list:
+def _train_child(args) -> tuple:
     """``python -m repro_torch.launch.train ARGS`` from the checkout on the
-    card; returns its per-step losses (it logs every step)."""
+    card (its mesh: a one-rank NCCL group); returns its per-step losses
+    (it logs every step) and its other output lines."""
     import re
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "smollm-360m", "--log-every", "1", *args], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=600)
-    for line in out.stdout.splitlines():
-        if not re.match(r"step \d+: loss=", line):
-            print(f"[launch-train]   {line}")
     if out.returncode != 0:
         raise AssertionError(f"[launch-train] child exited "
                              f"{out.returncode}:\n{out.stderr[-3000:]}")
+    lines = [line for line in out.stdout.splitlines()
+             if not re.match(r"step \d+: loss=", line)]
     return [float(m) for m in re.findall(r"step \d+: loss=([\d.]+)",
-                                         out.stdout)]
+                                         out.stdout)], lines
 
 
-def phase_launch_train(smi) -> None:
-    """``python -m repro_torch.launch.train`` as child processes on the
-    card at full width (bf16, the CLI's batch 8 x 128): 6 steps straight
-    with checkpoints and, at the same time in a second process, 3 steps
-    into another checkpoint directory; then a third process resumes from
-    it for 3 more.  The resumed losses must equal the straight run's last
-    3 within rtol 1e-4 (the printed 4 decimals; as the JAX package's
-    resume test)."""
+def start_launch_train() -> dict:
+    """Start ``[launch-train]``'s children (host-bound processes, each
+    with its own CUDA context) in the background, to run beside the next
+    phases: ``python -m repro_torch.launch.train`` on the card at full
+    width (bf16, the CLI's batch 8 x 128), 6 steps straight with
+    checkpoints and, at the same time, 3 steps into another checkpoint
+    directory followed by a third process resuming from it for 3 more.
+    :func:`phase_launch_train` collects them."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    a, b = os.path.join(tmp, "straight"), os.path.join(tmp, "resumed")
+
+    def first_then_resumed():
+        return (_train_child(["--steps", "3", "--ckpt", b]),
+                _train_child(["--steps", "3", "--ckpt", b]))
+    pool = ThreadPoolExecutor(2)
+    return {"tmp": tmp, "a": a, "b": b, "pool": pool, "t0": time.monotonic(),
+            "straight": pool.submit(_train_child, [
+                "--steps", "6", "--ckpt", a, "--ckpt-every", "3"]),
+            "resumed": pool.submit(first_then_resumed)}
+
+
+def phase_launch_train(run: dict, smi, beside: str) -> str:
+    """Collect :func:`start_launch_train`'s children: the resumed losses
+    must equal the straight run's last 3 within rtol 1e-4 (the printed 4
+    decimals; as the JAX package's resume test).  Returns the resumed
+    run's checkpoint directory (``[mesh]`` reshards it)."""
     import numpy as np
     from repro_torch.training import checkpoint as ckpt_lib
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        a, b = os.path.join(tmp, "straight"), os.path.join(tmp, "resumed")
-        t0 = time.monotonic()
-        with ThreadPoolExecutor(1) as pool:
-            side = pool.submit(_train_child, ["--steps", "6", "--ckpt", a,
-                                              "--ckpt-every", "3"])
-            first = _train_child(["--steps", "3", "--ckpt", b])
-            straight = side.result()
-        resumed = _train_child(["--steps", "3", "--ckpt", b])
-        secs = time.monotonic() - t0
-        if ckpt_lib.all_steps(a) != [3, 6] or ckpt_lib.latest_step(b) != 6:
-            raise AssertionError("[launch-train] checkpoints missing: "
-                                 f"{ckpt_lib.all_steps(a)} "
-                                 f"{ckpt_lib.all_steps(b)}")
+    (straight, l1), ((first, l2), (resumed, l3)) = \
+        run["straight"].result(), run["resumed"].result()
+    run["pool"].shutdown()
+    secs = time.monotonic() - run["t0"]
+    for line in l1 + l2 + l3:
+        print(f"[launch-train]   {line}")
+    a, b = run["a"], run["b"]
+    if ckpt_lib.all_steps(a) != [3, 6] or ckpt_lib.latest_step(b) != 6:
+        raise AssertionError("[launch-train] checkpoints missing: "
+                             f"{ckpt_lib.all_steps(a)} "
+                             f"{ckpt_lib.all_steps(b)}")
     if len(straight) != 6 or len(first) != 3 or len(resumed) != 3:
         raise AssertionError(f"[launch-train] losses {straight} {first} "
                              f"{resumed}")
     np.testing.assert_allclose(first, straight[:3], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(resumed, straight[3:], rtol=1e-4, atol=1e-4)
-    print(f"[launch-train] 3 children in {secs:.1f} s: straight "
+    print(f"[launch-train] 3 children in {secs:.1f} s (started before "
+          f"{beside} and run beside it; not a time taken alone): straight "
           f"{' '.join(f'{x:.4f}' for x in straight)}; 3 + resumed 3 "
           f"{' '.join(f'{x:.4f}' for x in first + resumed)}; equal  [{smi}]")
+    return b
+
+
+def phase_mesh(cfg, state, ckpt_dir, smi, totals) -> None:
+    """The sharding layer on the card, on ``[train]``'s full-width bf16
+    smollm-360m state and ``make_local_mesh``'s (1, 1) ("data", "model")
+    mesh over a one-rank NCCL group.  (a) One step through
+    ``make_train_step(mesh=)``: its loss and updated parameters bitwise
+    equal to the same step with no mesh from the same state, with
+    ``[train]``'s K3/K3b launches a step.  (b) That step's gradients
+    through ``apply_error_feedback`` and ``compressed_psum_mean`` over
+    NCCL, bitwise equal to the same functions on the gradients copied to
+    the CPU (a world-1 gloo group); the exchanged bytes against 2 x 4 B
+    per element.  (c) ``resume_on_mesh`` of ``[launch-train]``'s
+    checkpoint onto the mesh: every leaf bitwise equal to
+    ``checkpoint.restore``.  (d) The roofline of ``[train]``'s step at its
+    own shape: FLOPs counted on meta tensors and ``model_flops``, the
+    compute and memory bounds at the H100's peaks, the step's device
+    (profiler busy) and wall ms, and the share of the bf16 peak."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLMStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.dryrun import count_flops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training.elastic import resume_on_mesh
+    from repro_torch.training.grad_compress import (EXCHANGED,
+                                                    apply_error_feedback,
+                                                    compressed_psum_mean,
+                                                    init_error_state)
+    from repro_torch.training.optimizer import OptConfig, OptState
+    from repro_torch.training.train_loop import (TrainState,
+                                                 abstract_train_state,
+                                                 make_train_step)
+    mesh = make_local_mesh("cuda")
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 1))
+    data = SyntheticLMStream(LMDataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=TRAIN_S,
+                                          global_batch=TRAIN_B))
+    bt = {k: torch.from_numpy(x).long().cuda()
+          for k, x in data.batch(TRAIN_STEPS + 1).items()}
+    lm, L = state.model, cfg.num_layers
+    params = dict(lm.named_parameters())
+    kernels = ("flash_attention", "flash_attention_bwd")
+    start = dict(ops.LAUNCHES)
+    t0 = time.monotonic()
+
+    def secs() -> str:
+        nonlocal t0
+        t, t0 = time.monotonic() - t0, time.monotonic()
+        return f"({t:.1f} s)"
+
+    # (b)'s gradients first: the step's own, at the state it starts from
+    lm.requires_grad_(True)
+    lm.loss(bt).backward()
+    grads = {n: p.grad.detach().clone() for n, p in params.items()}
+    lm.zero_grad(set_to_none=True)
+
+    # (a) one step with no mesh and one through the mesh, same start
+    with torch.no_grad():
+        snap = {n: p.detach().clone() for n, p in params.items()}
+    opt0 = OptState(state.opt.step.clone(),
+                    {k: v.clone() for k, v in state.opt.m.items()},
+                    {k: v.clone() for k, v in state.opt.v.items()})
+    plain, meshed = make_train_step(cfg, opt), make_train_step(cfg, opt,
+                                                               mesh=mesh)
+    before = dict(ops.LAUNCHES)
+    _, m_plain = plain(state, bt)
+    mid = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        want = {n: p.detach().clone() for n, p in params.items()}
+        for n, p in params.items():
+            p.copy_(snap[n])
+    del snap
+    state, m_mesh = meshed(TrainState(lm, opt0), bt)
+    torch.cuda.synchronize()
+    after = dict(ops.LAUNCHES)
+    runs = [{k: b[k] - a[k] for k in kernels}
+            for a, b in ((before, mid), (mid, after))]
+    if runs[0] != runs[1] or runs[1] != {"flash_attention": 2 * L,
+                                         "flash_attention_bwd": L}:
+        raise AssertionError(f"[mesh] K3/K3b launches plain {runs[0]}, "
+                             f"meshed {runs[1]}; [train]'s are 2 x {L} / {L}")
+    if not torch.equal(m_plain["loss"], m_mesh["loss"]):
+        raise AssertionError(f"[mesh] loss {float(m_mesh['loss'])} != "
+                             f"{float(m_plain['loss'])}")
+    bad = [n for n, p in params.items() if not torch.equal(p, want[n])]
+    if bad:
+        raise AssertionError(f"[mesh] meshed step's parameters differ: "
+                             f"{bad[:5]}")
+    del want
+    print(f"[mesh] (a) one bf16 step through make_train_step(mesh=(1, 1) "
+          f"NCCL): loss {float(m_mesh['loss']):.6f} and all "
+          f"{len(params)} updated parameters bitwise equal to the step "
+          f"with no mesh; K3 {runs[1]['flash_attention']}, K3b "
+          f"{runs[1]['flash_attention_bwd']} launches, as [train]'s "
+          f"{secs()}")
+
+    # (b) the int8 exchange over NCCL against the CPU's over gloo
+    EXCHANGED["bytes"] = 0
+    deq, err = apply_error_feedback(grads, init_error_state(grads))
+    group = mesh.get_group("data")
+    mean = {n: compressed_psum_mean(g, group) for n, g in deq.items()}
+    torch.cuda.synchronize()
+    sent = EXCHANGED["bytes"]
+    cpu_group = dist.new_group(ranks=[0], backend="gloo")
+    cg = {n: g.cpu() for n, g in grads.items()}
+    cdeq, cerr = apply_error_feedback(cg, init_error_state(cg))
+    for n, g in cdeq.items():
+        for got, ref in ((deq[n], g), (err[n], cerr[n]),
+                         (mean[n], compressed_psum_mean(g, cpu_group))):
+            if not torch.equal(got.cpu(), ref):
+                raise AssertionError(f"[mesh] {n}: the card's exchange "
+                                     "differs from the CPU's")
+    numel = sum(g.numel() for g in grads.values())
+    print(f"[mesh] (b) apply_error_feedback + compressed_psum_mean over "
+          f"NCCL on the step's {len(grads)} gradients ({numel:,} elements):"
+          f" bitwise equal to the CPU's over gloo (world 1); exchanged "
+          f"{sent:,} B ({sent / numel:.3f} B/elem) against 2 x 4 B/elem = "
+          f"{8 * numel:,} B for a float32 ring all-reduce {secs()}")
+    del grads, deq, err, mean, cg, cdeq, cerr
+
+    # (c) the elastic reshard of [launch-train]'s checkpoint
+    _, axes = abstract_train_state(cfg, opt)
+    got = resume_on_mesh(state, axes, mesh, ckpt_dir)
+    leaves = [(p, x.clone() if isinstance(x, torch.Tensor) else x)
+              for p, x in ckpt_lib.flatten(got)]
+    ref = ckpt_lib.flatten(ckpt_lib.restore(state, ckpt_dir))
+    for (pa, x), (pb, y) in zip(leaves, ref):
+        if pa != pb or not torch.equal(torch.as_tensor(x),
+                                       torch.as_tensor(y)):
+            raise AssertionError(f"[mesh] resume_on_mesh leaf {pa} differs")
+    print(f"[mesh] (c) resume_on_mesh of [launch-train]'s step-"
+          f"{ckpt_lib.latest_step(ckpt_dir)} checkpoint onto the (1, 1) "
+          f"mesh: all {len(leaves)} leaves on the card, bitwise equal to "
+          f"checkpoint.restore {secs()}")
+    del leaves, ref
+
+    # (d) the roofline of [train]'s step at its own shape
+    shape = ShapeConfig("train_b8_s512", TRAIN_S, TRAIN_B, "train")
+    meta, _ = abstract_train_state(cfg, opt)
+    mb = {k: torch.empty(TRAIN_B, TRAIN_S, dtype=torch.long, device="meta")
+          for k in ("tokens", "labels")}
+    flops = count_flops(lambda: meta.model.loss(mb, remat=True).backward())
+    mf = rl.model_flops(cfg, shape)
+    peak = PEAK_FLOPS[str(torch.bfloat16)]
+    compute_ms = flops / peak * 1e3
+    n_bytes = rl.analytic_bytes(cfg, shape, 1)
+    memory_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state, _ = meshed(state, bt)
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = meshed(state, bt)
+        torch.cuda.synchronize()
+    busy = _busy_us(prof.events())
+    if busy is None:
+        raise AssertionError("[mesh] the profiler recorded no CUDA kernel")
+    device_ms = busy / 1e3
+    for k in kernels:
+        totals[k] += ops.LAUNCHES[k] - start[k]
+    print(f"[mesh] (d) roofline of [train]'s bf16 step, {L} layers, "
+          f"B{TRAIN_B} x S{TRAIN_S}: FLOPs counted on meta tensors "
+          f"{flops:.4e} (model_flops 6ND {mf:.4e}, x{flops / mf:.3f}: "
+          f"remat's second forward and the plain attention's S x S); "
+          f"bounds at the H100's peaks: compute {compute_ms:.3f} ms "
+          f"(989 TFLOP/s bf16), memory {memory_ms:.3f} ms (analytic "
+          f"{n_bytes:.4e} B at 3.35 TB/s); measured: device {device_ms:.3f}"
+          f" ms busy (profiler), wall {wall_ms:.3f} ms; bf16-peak share "
+          f"{100 * flops / (device_ms * 1e-3) / peak:.2f}% of the device "
+          f"time, {100 * flops / (wall_ms * 1e-3) / peak:.2f}% of the wall "
+          f"time {secs()}  [{smi}]")
+    dist.destroy_process_group()
 
 
 def jamba_kernels(gen) -> list:
@@ -3721,12 +3934,14 @@ def _free_card(tag) -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def _timed(fn, *args, **kw):
-    """``fn(*args, **kw)``, printing its wall seconds."""
+def _timed(fn, *args, beside: str = "", **kw):
+    """``fn(*args, **kw)``, printing its wall seconds (and what ran beside
+    it: such a time is not the phase's alone)."""
     t0 = time.monotonic()
     out = fn(*args, **kw)
+    note = f" (beside {beside})" if beside else ""
     print(f"[time] {fn.__name__} {kw.get('tag', '')}: "
-          f"{time.monotonic() - t0:.1f} s")
+          f"{time.monotonic() - t0:.1f} s{note}")
     return out
 
 
@@ -3795,11 +4010,17 @@ def main() -> int:
     _timed(phase_paged_burst, cfg, predictor, smi, totals)
     _timed(phase_preempt, cfg, predictor, smi, totals)
     _timed(phase_lanes_faults, cfg, smi, totals)
-    _timed(phase_speculative, cfg, smi, totals)
+    # [launch-train]'s host-bound children run beside [speculative]
+    launch_train = start_launch_train()
+    _timed(phase_speculative, cfg, smi, totals,
+           beside="[launch-train]'s children")
+    ckpt_dir = _timed(phase_launch_train, launch_train, smi, "[speculative]")
     _timed(phase_launch_serve, smi, totals)
     _timed(phase_launch_sidecar, smi, totals)
-    _timed(phase_train, cfg, smi, totals)
-    _timed(phase_launch_train, smi)
+    state = _timed(phase_train, cfg, smi, totals)
+    _timed(phase_mesh, cfg, state, ckpt_dir, smi, totals)
+    del state
+    shutil.rmtree(launch_train["tmp"])
 
     # the paper's own backend, gemma3-4b-edge (head width 256, GeGLU):
     # a float32 2-layer copy against the CPU's plain path, then all 34

@@ -3,7 +3,9 @@
 Each wrapper dispatches on where its input lies: a CPU tensor takes the
 kernel's plain PyTorch version (how the CPU tests run the port); a CUDA
 tensor launches the hand-written Hopper kernel, or the call raises.  There
-is no fallback from one to the other.  Layouts are the model's: the
+is no fallback from one to the other.  A ``meta`` tensor (the dry run's
+shape computation, ``launch.dryrun``: nothing is computed) takes the
+plain version's shapes.  Layouts are the model's: the
 kernels read (B, S, H|KV, hd) in place, so unlike ``repro.kernels.ops``
 nothing here transposes a cache.
 
@@ -30,6 +32,9 @@ from repro_torch.kernels.gbdt_infer import (gbdt_margins_cuda,
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention_cuda, paged_decode_attention_plain)
 
+#: the devices whose tensors take the plain versions
+PLAIN = ("cpu", "meta")
+
 __all__ = ["LAUNCHES", "reset_launches", "decode_attention",
            "paged_decode_attention", "flash_attention",
            "flash_attention_train", "gbdt_margins",
@@ -44,7 +49,7 @@ def reset_launches() -> None:
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd); query row i sits
     at key position q_offset + i (a host int)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
@@ -75,7 +80,7 @@ def flash_attention_train(q, k, v, *, causal: bool = True):
     k/v (B,S,KV,hd) -> (B,S,H,hd), query row i at key position i.  A CPU
     tensor runs the plain forward under autograd; a CUDA tensor runs K3
     forward and K3b backward (``torch.autograd.Function``)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return flash_attention_plain(q, k, v, causal=causal)
     if q.shape[1] != k.shape[1]:
         raise ValueError(f"training attention needs Sq == Skv, got "
@@ -86,7 +91,7 @@ def flash_attention_train(q, k, v, *, causal: bool = True):
 def decode_attention(q, cache_k, cache_v, t):
     """q (B,1,H,hd), ring cache (B,S,KV,hd), fill level t (int32 tensor on
     the cache's device: one level, or (B,) per lane) -> (B,1,H,hd)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return decode_attention_plain(q, cache_k, cache_v, t)
     return decode_attention_cuda(q, cache_k, cache_v, t)
 
@@ -95,7 +100,7 @@ def paged_decode_attention(q, pool_k, pool_v, bt, t):
     """q (B,1,H,hd), one layer's pools (n_pages,page,KV,hd), block table
     bt (B,P) and fill levels t (B,), both int32 on the pools' device ->
     (B,1,H,hd)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return paged_decode_attention_plain(q, pool_k, pool_v, bt, t)
     return paged_decode_attention_cuda(q, pool_k, pool_v, bt, t)
 

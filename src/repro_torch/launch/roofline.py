@@ -1,0 +1,242 @@
+"""Roofline terms of a step on H100s (port of ``repro.launch.roofline``).
+
+Three terms per (arch x shape x mesh), in seconds, each per device:
+
+  compute    = FLOPs            / 989e12 bf16 FLOP/s (67e12 float32)
+  memory     = HBM bytes        / 3.35e12 B/s
+  collective = collective bytes / 450e9 B/s (NVLink 4, one direction)
+
+The rates are the H100 SXM data sheet's (dense bf16 and float32 tensor
+throughput without sparsity, HBM3 bandwidth, and half of NVLink's 900
+GB/s, which counts both directions), the ones ``chip_smoke.py`` bounds
+its kernels with.
+
+The port compiles nothing, so nothing here parses HLO:
+
+* FLOPs are counted by ``torch.utils.flop_counter.FlopCounterMode`` over
+  the port's own forward (and backward, for a train cell) on ``meta``
+  tensors (``launch.dryrun``).  It counts the matrix products
+  (``mm``/``bmm``/attention); elementwise work (norms, the Mamba and
+  xLSTM scans) is not counted.
+* HBM bytes are :func:`analytic_bytes`, the JAX package's analytic floor.
+* Collective bytes are the port's own count of what its data-parallel
+  step issues (:func:`collective_bytes`; the design is ``PERF.md`` §3):
+  per step and per device, in ring wire bytes ((n-1)/n of the buffer for
+  an all-gather or a reduce-scatter over n ranks, 2(n-1)/n for an
+  all-reduce), each leaf sharded over ``data`` all-gathered once (it is
+  kept whole for every microbatch and for the backward) and its float32
+  gradient reduce-scattered, then all-reduced over the other batch axes
+  (``pod``); each replicated leaf's float32 gradient all-reduced over
+  every batch axis; and a MoE layer's dispatch buffer (its tokens x K x
+  capacity factor x d_model) exchanged by all-to-all twice a pass
+  (dispatch, combine), over forward, remat recompute and backward, when
+  the ``experts`` axis shards over ``model``.  A leaf's buffer is its
+  bytes divided by its non-batch axes' shard factor.  Tensor-parallel
+  activation collectives are not counted: the port does not execute
+  over ``model``.  Inference cells all-gather the sharded weights once.
+
+``model_flops`` (6 N D train, 2 N D inference, N the active parameters)
+and ``analytic_bytes`` are copies of the JAX functions.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict
+
+from repro_torch.sharding.rules import (PartitionSpec, mesh_axis_sizes,
+                                        spec_axes)
+
+#: dense tensor throughput per card, FLOP/s (H100 SXM data sheet)
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+HBM_BW = 3.35e12          # B/s per card (H100 SXM data sheet)
+NVLINK_BW = 450e9         # B/s per card, one direction (of 900 GB/s)
+
+#: the batch axes: a gradient is reduced over every one present
+BATCH_AXES = ("pod", "data")
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def _ring(n: int) -> float:
+    return (n - 1) / n
+
+
+def collective_bytes(params: Dict[str, object],
+                     specs: Dict[str, PartitionSpec], mesh, kind: str,
+                     moe_buffer_bytes: float = 0.0,
+                     moe_layers: int = 0) -> Dict[str, float]:
+    """Wire bytes per device and step, by collective, of the port's
+    data-parallel execution: ``params`` {name: tensor (meta)} with their
+    ``specs`` on ``mesh``; ``kind`` the cell's ("train", "prefill",
+    "decode"); ``moe_buffer_bytes`` one MoE layer's dispatch buffer on one
+    device, exchanged when the experts shard over ``model``."""
+    sizes = mesh_axis_sizes(mesh)
+    batch = [a for a in BATCH_AXES if a in sizes]
+    out = {k: 0.0 for k in COLLECTIVES}
+    experts_split = 1
+    for name, p in params.items():
+        axes = [a for e in specs[name] for a in spec_axes(e)]
+        other = math.prod(sizes[a] for a in axes if a not in batch)
+        n_gather = math.prod(sizes[a] for a in axes if a in batch)
+        n_reduce = math.prod(sizes[a] for a in batch if a not in axes)
+        numel = math.prod(p.shape) / other
+        buf = numel * p.element_size()
+        out["all-gather"] += buf * _ring(n_gather)
+        if kind == "train":
+            g = numel * 4                                  # float32 grads
+            out["reduce-scatter"] += g * _ring(n_gather)
+            out["all-reduce"] += g / n_gather * 2 * _ring(n_reduce)
+        if name.endswith("experts.w_gate") and specs[name] and \
+                spec_axes(specs[name][0]):
+            experts_split = math.prod(sizes[a]
+                                      for a in spec_axes(specs[name][0]))
+    passes = 6 if kind == "train" else 2
+    out["all-to-all"] = (moe_layers * passes * moe_buffer_bytes
+                         * _ring(experts_split))
+    return out
+
+
+@dataclass
+class RooflineReport:
+    """Every quantity is PER DEVICE except ``model_flops`` (global,
+    divided by ``chips`` where compared).  The JSON keys are the JAX
+    report's: ``hlo_flops`` holds the FLOPs counted on meta tensors
+    divided by ``chips`` (there is no HLO), ``hlo_bytes`` the analytic
+    HBM bytes, ``coll_bytes`` :func:`collective_bytes`."""
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    model_flops: float                 # analytic useful FLOPs / step (global)
+    hlo_flops: float                   # per device, counted on meta tensors
+    hlo_bytes: float                   # per device, analytic
+    coll_bytes: Dict[str, float]
+    bytes_per_device: Dict[str, float]
+    flops_source: str = "flop_counter"
+    peak_flops: float = PEAK_FLOPS["torch.bfloat16"]
+
+    analytic_bytes_dev: float = 0.0    # analytic HBM-traffic floor / device
+
+    @property
+    def coll_bytes_total(self) -> float:
+        return sum(self.coll_bytes.values())
+
+    @property
+    def compute_s(self) -> float:
+        # the analytic count is a floor: the counter skips elementwise work
+        return max(self.hlo_flops, self.model_flops / self.chips) \
+            / self.peak_flops
+
+    @property
+    def memory_s(self) -> float:
+        return self.hlo_bytes / HBM_BW
+
+    @property
+    def analytic_memory_s(self) -> float:
+        return self.analytic_bytes_dev / HBM_BW
+
+    @property
+    def collective_s(self) -> float:
+        return self.coll_bytes_total / NVLINK_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def usefulness(self) -> float:
+        """MODEL_FLOPS / counted FLOPs: how much counted compute is useful."""
+        return (self.model_flops / self.chips) / self.hlo_flops \
+            if self.hlo_flops else 0.0
+
+    @property
+    def roofline_fraction(self) -> float:
+        """useful-compute time / max(term): the fraction of the roofline."""
+        peak = self.model_flops / self.chips / self.peak_flops
+        denom = max(self.compute_s, self.memory_s, self.collective_s)
+        return peak / denom if denom else 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "chips": self.chips, "model_flops": self.model_flops,
+            "hlo_flops": self.hlo_flops, "hlo_bytes": self.hlo_bytes,
+            "coll_bytes": self.coll_bytes,
+            "coll_bytes_total": self.coll_bytes_total,
+            "bytes_per_device": self.bytes_per_device,
+            "compute_s": self.compute_s, "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "analytic_memory_s": self.analytic_memory_s,
+            "bottleneck": self.bottleneck, "usefulness": self.usefulness,
+            "roofline_fraction": self.roofline_fraction,
+            "flops_source": self.flops_source,
+        }
+
+
+def analytic_bytes(cfg, shape, chips: int, microbatches: int = 1) -> float:
+    """Per-device analytic HBM traffic per step (a floor, not a fit):
+
+    train:   params fwd read + bwd read (x microbatches, FSDP regather) +
+             grads + optimizer m/v read+write + activation carry rw
+    prefill: params once + activations (~12 bytes/token/d_model/layer) + KV write
+    decode:  params once + full KV/state cache read + write of one slot
+    """
+    n_params = cfg.param_count()
+    p_bytes = 2.0 * n_params / chips                     # bf16 shard
+    d = cfg.d_model
+    L = cfg.num_layers
+    attn_layers = sum(k in ("attn", "attn_moe", "xattn")
+                      for k in cfg.block_pattern) * cfg.pattern_repeats
+    kv_per_tok = 2 * cfg.kv_dim * 2 * attn_layers        # bytes, bf16
+
+    if shape.kind == "train":
+        tokens_dev = shape.tokens / chips
+        act = 12.0 * tokens_dev * d * L * 2 / 16         # remat carry + block io (SP/16)
+        opt = 4.0 * 2 * n_params / chips * 2             # m,v f32 read+write
+        grads = 4.0 * n_params / chips
+        return p_bytes * (2 * microbatches) + grads + opt + act
+    if shape.kind == "prefill":
+        tokens_dev = shape.tokens / chips
+        act = 12.0 * tokens_dev * d * L
+        kv = kv_per_tok * shape.tokens / chips
+        return p_bytes + act + kv
+    # decode
+    kv_read = kv_per_tok * shape.seq_len * shape.global_batch / chips
+    state = 0.0
+    for k in cfg.block_pattern:
+        if k in ("mamba", "mamba_moe"):
+            state += 4 * cfg.d_inner * cfg.ssm_state_dim
+        if k == "mlstm":
+            state += 4 * cfg.num_heads * cfg.head_dim ** 2
+        if k == "slstm":
+            state += 4 * 4 * cfg.attn_dim
+    state_read = 2 * state * cfg.pattern_repeats * shape.global_batch / chips
+    act = 12.0 * shape.global_batch * d * L / chips
+    n_active = cfg.active_param_count()
+    return 2.0 * n_active / chips + kv_read + state_read + act
+
+
+def model_flops(cfg, shape) -> float:
+    """Analytic useful FLOPs per step: 6*N_active*tokens (train),
+    2*N_active*tokens (prefill), 2*N_active*batch (decode, per token) plus
+    attention KV-cache reading for decode."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.tokens
+    if shape.kind == "prefill":
+        # + attention score/value FLOPs: 2 * 2 * H*hd * S^2/2 * B per attn layer
+        attn_layers = sum(k in ("attn", "attn_moe", "xattn")
+                          for k in cfg.block_pattern) * cfg.pattern_repeats
+        attn = 2.0 * cfg.attn_dim * shape.seq_len ** 2 * shape.global_batch \
+            * attn_layers
+        return 2.0 * n_active * shape.tokens + attn
+    # decode: one token for the whole batch
+    attn_layers = sum(k in ("attn", "attn_moe")
+                      for k in cfg.block_pattern) * cfg.pattern_repeats
+    attn = 4.0 * cfg.attn_dim * shape.seq_len * shape.global_batch * attn_layers
+    return 2.0 * n_active * shape.global_batch + attn

@@ -38,6 +38,12 @@ from repro_torch.models.layers import (dense, dtype_of, init_dense, ones,
 class Attention(nn.Module):
     """Pre-norm GQA attention with its residual."""
 
+    #: each parameter's logical axes (``init_attention``'s)
+    AXES = {"norm": ("embed",), "wq": ("embed_w", "qkv"),
+            "wk": ("embed_w", "qkv"), "wv": ("embed_w", "qkv"),
+            "wo": ("qkv", "embed_w"), "q_norm": ("head_dim",),
+            "k_norm": ("head_dim",)}
+
     def __init__(self, cfg, gen, device):
         super().__init__()
         dt, d = dtype_of(cfg), cfg.d_model

@@ -31,6 +31,8 @@ def init_expert_stack(gen, n: int, in_dim: int, out_dim: int, dtype,
     expert's (in, out) matrix exists in float32 at once (a whole
     jamba-width stack, 16 x 4096 x 14336, would be 3.5 GiB)."""
     w = torch.empty(n, in_dim, out_dim, dtype=dtype, device=device)
+    if w.is_meta:                           # shapes only: nothing to draw
+        return nn.Parameter(w, requires_grad=False)
     for e in range(n):
         w[e] = (torch.randn(in_dim, out_dim, generator=gen, device=device)
                 .mul_(in_dim ** -0.5))
@@ -134,6 +136,10 @@ ACTIVATIONS = {"silu": Fn.silu,
 class MLP(nn.Module):
     """Pre-norm gated MLP (``repro.models.layers.apply_mlp``) with its
     residual: SwiGLU or GeGLU by ``cfg.mlp_activation``."""
+
+    #: each parameter's logical axes (``init_mlp``'s)
+    AXES = {"norm": ("embed",), "w_gate": ("embed_w", "mlp"),
+            "w_up": ("embed_w", "mlp"), "w_down": ("mlp", "embed_w")}
 
     def __init__(self, cfg, gen, device):
         super().__init__()

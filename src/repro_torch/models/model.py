@@ -36,6 +36,7 @@ from dataclasses import dataclass
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as Fn
 from torch import nn
 
@@ -45,6 +46,7 @@ from repro_torch.models.layers import remat as _remat
 from repro_torch.models.transformer import (attention_only, cache_group,
                                             make_block)
 from repro_torch.models.xlstm import NEG_INIT
+from repro_torch.sharding import data_parallel
 
 LOSS_CHUNK = 512  # sequence-chunked cross entropy (never all f32 logits)
 AUX_LOSS_WEIGHT = 0.01
@@ -158,7 +160,18 @@ class LM(nn.Module):
     seeded ``torch.Generator`` on ``device`` with the JAX init's scales
     (the numbers differ from ``jax.random``'s; carry JAX weights across
     with ``bridge.params_from_jax`` + ``load_state_dict`` to compare).
-    With ``cfg.audio_frontend`` there is no embedding table."""
+    With ``cfg.audio_frontend`` there is no embedding table.  On the
+    ``meta`` device nothing is drawn or allocated: the parameters have
+    their shapes and dtypes only (the abstract state of the dry run).
+
+    :meth:`param_axes` and :meth:`cache_axes` give every parameter's and
+    cache field's logical axes (``sharding.rules``), each parameter's
+    from the module that owns it (``AXES``), as the JAX ``init_*``
+    functions return them beside the arrays."""
+
+    #: the top-level parameters' logical axes (``init_model``'s)
+    AXES = {"embed": ("vocab", "embed_w"), "final_norm": ("embed",),
+            "head": ("embed_w", "vocab")}
 
     def __init__(self, cfg, *, device=None, seed: int = 0):
         super().__init__()
@@ -173,7 +186,8 @@ class LM(nn.Module):
                       for i, g in enumerate(self._group)]
         self.n_layers = {g: self._group.count(g) for g in STATES}
         self.n_attn = self._group.count("attn")
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = None if dev.type == "meta" else \
+            torch.Generator(device=dev).manual_seed(seed)
         if not cfg.audio_frontend:
             self.embed = nn.Parameter(
                 (torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
@@ -185,6 +199,41 @@ class LM(nn.Module):
             torch.ones(cfg.d_model, dtype=dt, device=dev), requires_grad=False)
         if not cfg.tie_embeddings:
             self.head = init_dense(gen, cfg.d_model, cfg.vocab_size, dt, dev)
+
+    # ------------------------------------------------------------------ axes
+    def param_axes(self) -> dict:
+        """{state-dict name: logical axes} of every parameter, from the
+        ``AXES`` of the module that owns it: the JAX ``init_model`` axes of
+        the same leaf (``models.bridge`` names) with the stacked repeat
+        axis dropped."""
+        owner = {}
+        for mname, mod in self.named_modules():
+            for pname, _ in mod.named_parameters(recurse=False):
+                owner[f"{mname}.{pname}" if mname else pname] = \
+                    mod.AXES[pname]
+        return {n: owner[n] for n, _ in self.named_parameters()}
+
+    def cache_axes(self) -> dict:
+        """{``KVCache`` field: logical axes} of the fields
+        :meth:`init_cache` fills (the JAX ``LM.cache_axes`` per kind; the
+        leading axis counts a kind's layers, the fill level is 0-d)."""
+        cfg = self.cfg
+        kv = (None, "batch", "kv_seq", "kv_heads", "head_dim")
+        cell = (None, "batch", "heads", "head_dim")
+        axes = {"k": kv, "v": kv, "t": ()}
+        per_kind = {
+            "mamba": {"conv": (None, "batch", "conv", "ssm_inner"),
+                      "ssm": (None, "batch", "ssm_inner", "ssm_state")},
+            "mlstm": {"mlstm_C": (None, "batch", "heads", "head_dim",
+                                  "head_dim"),
+                      "mlstm_n": cell, "mlstm_m": (None, "batch", "heads")},
+            "slstm": {n: cell for n in STATES["slstm"]},
+            "xattn": {n: (None, "batch", "image_seq", "kv_heads",
+                          "head_dim") for n in STATES["xattn"]}}
+        for kind, fields in per_kind.items():
+            if self.n_layers[kind]:
+                axes.update(fields)
+        return axes
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_len: int) -> KVCache:
@@ -331,6 +380,13 @@ class LM(nn.Module):
         for c0 in range(0, S, chunk):
             tot = tot + _remat(_chunk_nll, h[:, c0:c0 + chunk], w,
                                labels[:, c0:c0 + chunk])
+        group, world = data_parallel()
+        if world > 1:
+            # this rank's share of the global batch's mean: the mean over
+            # ranks of the ranks' losses is the global loss
+            cnt = (labels >= 0).sum().float()
+            dist.all_reduce(cnt, group=group)
+            return tot * world / cnt.clamp(min=1) + AUX_LOSS_WEIGHT * aux
         cnt = (labels >= 0).sum().clamp(min=1).float()
         return tot / cnt + AUX_LOSS_WEIGHT * aux
 

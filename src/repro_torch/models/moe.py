@@ -1,16 +1,24 @@
 """Mixture-of-Experts with sort-based capacity dispatch (port of
-``repro.models.moe`` on one device: its single-group path, where
-``_num_groups`` returns 1 without a mesh).
+``repro.models.moe``).
+
+Tokens are routed in G dispatch groups (``_num_groups``, JAX's): one
+group off a mesh; under an active mesh (``sharding.use_mesh``) the mesh's
+size, halved until it divides the global batch's token count, the groups
+holding consecutive batch rows.  Under data parallelism each rank holds
+its own batch shard and routes its G / world groups: on a (world, 1)
+mesh exactly one, its own rows, as each device of the JAX mesh does.
 
 Per forward: a float32 router, softmax, top-k and gate renormalisation;
-the (token, choice) pairs stable-sorted by expert id and packed into an
-(E, C, D) buffer of capacity ``C = max(1, ceil(T * K / E * cf))`` over
-all T tokens of the call (overflow dropped); one batched product per
-expert weight; the gated outputs combined in float32; the Switch
-load-balance auxiliary loss.
+in each group the (token, choice) pairs stable-sorted by expert id and
+packed into an (E, C, D) buffer of capacity ``C = max(1, ceil(Tg * K /
+E * cf))`` over the group's Tg tokens (overflow dropped); one batched
+product per expert weight; the gated outputs combined in float32; the
+Switch load-balance auxiliary loss over the whole batch (under data
+parallelism the top-1 counts are summed over ranks, so the mean of the
+ranks' losses is the global batch's).
 
 Two consequences of the reference's design the port keeps: capacity is
-shared by every token of a call, so in a lane batch a lane's tokens
+shared by every token of a group, so in a lane batch a lane's tokens
 depend on its neighbours' routing (there is no lanes == serial contract
 for MoE stacks); and every expert's capacity slots are computed, so a
 decode step reads every expert's weights.  The products are plain
@@ -25,13 +33,33 @@ import math
 import torch
 from torch import nn
 
+import torch.distributed as dist
+
 from repro_torch.models.layers import (ACTIVATIONS, dtype_of, init_dense,
                                        init_expert_stack, ones, rmsnorm)
+from repro_torch.sharding import current_mesh, data_parallel, mesh_size
+
+
+def _num_groups(batch: int, seq: int) -> int:
+    """Dispatch groups == the active mesh's device count, halved until it
+    divides ``batch * seq`` (the global batch); 1 off a mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    g = mesh_size(mesh)
+    while g > 1 and (batch * seq) % g:
+        g //= 2
+    return max(g, 1)
 
 
 class Experts(nn.Module):
     """The experts' gated-MLP weights, stacked over the expert axis
     (``repro.models.layers.init_expert_mlp``)."""
+
+    #: each parameter's logical axes (``init_expert_mlp``'s)
+    AXES = {"w_gate": ("experts", "embed_w", "expert_mlp"),
+            "w_up": ("experts", "embed_w", "expert_mlp"),
+            "w_down": ("experts", "expert_mlp", "embed_w")}
 
     def __init__(self, cfg, gen, device):
         super().__init__()
@@ -44,6 +72,9 @@ class Experts(nn.Module):
 class MoE(nn.Module):
     """Pre-norm MoE MLP with its residual: ``forward(x)`` returns
     ``(x + moe(x), aux_loss)`` (``repro.models.moe.apply_moe``)."""
+
+    #: each parameter's logical axes (``init_moe``'s)
+    AXES = {"norm": ("embed",), "router": ("embed_w", "experts")}
 
     def __init__(self, cfg, gen, device):
         super().__init__()
@@ -63,7 +94,10 @@ class MoE(nn.Module):
         B, S, D = x.shape
         E, K = cfg.num_experts, cfg.experts_per_token
         T = B * S
-        C = max(1, int(math.ceil(T * K / E * cfg.moe_capacity_factor)))
+        group, world = data_parallel()
+        G = max(1, _num_groups(B * world, S) // world)
+        Tg = T // G
+        C = max(1, int(math.ceil(Tg * K / E * cfg.moe_capacity_factor)))
         h = rmsnorm(x, self.norm, cfg.norm_eps)
         ht = h.reshape(T, D)
         dev = x.device
@@ -73,6 +107,32 @@ class MoE(nn.Module):
         gate_w, expert_idx = torch.topk(probs, K, dim=-1)           # (T, K)
         gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
                                       min=1e-9)
+        if G == 1:
+            combined = self._group(ht, gate_w, expert_idx, C)
+        else:
+            combined = torch.cat([
+                self._group(ht[i:i + Tg], gate_w[i:i + Tg],
+                            expert_idx[i:i + Tg], C)
+                for i in range(0, T, Tg)])
+
+        # Switch-style load-balance auxiliary loss
+        me = probs.mean(dim=0)
+        top1 = probs.argmax(dim=-1)
+        counts = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+            0, top1, torch.ones(T, dtype=torch.float32, device=dev))
+        if world > 1:
+            dist.all_reduce(counts, group=group)
+        ce = counts / (T * world)
+        aux = E * torch.sum(me * ce)
+        return x + combined.reshape(B, S, D).to(x.dtype), aux
+
+    def _group(self, ht, gate_w, expert_idx, C):
+        """One dispatch group: its tokens ht (T, D) with their top-k gates
+        and experts (T, K) -> the float32 combine of their experts'
+        outputs (T, D)."""
+        T, D = ht.shape
+        E, K = self.cfg.num_experts, self.cfg.experts_per_token
+        dev = ht.device
 
         # dispatch: stable sort of the (token, choice) pairs by expert id
         flat_e = expert_idx.reshape(-1)
@@ -86,7 +146,7 @@ class MoE(nn.Module):
         keep = pos < C
         dst = torch.where(keep, se * C + pos, torch.full_like(pos, E * C))
         # the drop row E*C takes every overflow pair and is sliced off
-        buf = torch.zeros(E * C + 1, D, dtype=h.dtype, device=dev)
+        buf = torch.zeros(E * C + 1, D, dtype=ht.dtype, device=dev)
         xs = buf.index_put((dst,), ht[stok])[:E * C].view(E, C, D)
 
         # the experts' gated MLPs over their capacity slots
@@ -109,11 +169,4 @@ class MoE(nn.Module):
         combined = torch.zeros(T, D, dtype=torch.float32, device=dev)
         for j in range(K):
             combined = combined + by_expert[:, j]
-
-        # Switch-style load-balance auxiliary loss
-        me = probs.mean(dim=0)
-        top1 = probs.argmax(dim=-1)
-        ce = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
-            0, top1, torch.ones(T, dtype=torch.float32, device=dev)) / T
-        aux = E * torch.sum(me * ce)
-        return x + combined.reshape(B, S, D).to(x.dtype), aux
+        return combined

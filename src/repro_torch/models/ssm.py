@@ -85,6 +85,12 @@ class Mamba(nn.Module):
     """Pre-norm selective-SSM mixer with its residual
     (``repro.models.ssm.init_mamba`` / ``mamba_block``)."""
 
+    #: each parameter's logical axes (``init_mamba``'s)
+    AXES = {"norm": ("embed",), "in_proj": ("embed_w", "ssm_inner"),
+            "conv_w": ("conv", "ssm_inner"), "x_proj": ("ssm_inner", None),
+            "A_log": ("ssm_inner", "ssm_state"), "D": ("ssm_inner",),
+            "dt_bias": ("ssm_inner",), "out_proj": ("ssm_inner", "embed_w")}
+
     def __init__(self, cfg, gen, device):
         super().__init__()
         dt = dtype_of(cfg)

@@ -49,6 +49,12 @@ class _XLSTMBase(nn.Module):
     level (``blocks.<i>.wq``), as ``repro.models.transformer.init_block``
     returns them."""
 
+    #: the shared parameters' logical axes (``init_mlstm``'s and
+    #: ``init_slstm``'s)
+    AXES = {"norm": ("embed",), "norm2": ("embed",),
+            "wo_out": ("qkv", "embed_w"), "up": ("embed_w", "mlp"),
+            "down": ("mlp", "embed_w")}
+
     def _init_common(self, cfg, device):
         dt, d = dtype_of(cfg), cfg.d_model
         self.cfg = cfg
@@ -170,6 +176,10 @@ def mlstm_step(q, k, v, i_pre, f_pre, state):
 class MLSTMBlock(_XLSTMBase):
     """The mLSTM block (``init_mlstm`` / ``mlstm_block``)."""
 
+    AXES = {**_XLSTMBase.AXES, "wq": ("embed_w", "qkv"),
+            "wk": ("embed_w", "qkv"), "wv": ("embed_w", "qkv"),
+            "wi": ("embed_w", "heads"), "wf": ("embed_w", "heads")}
+
     def __init__(self, cfg, gen, device):
         super().__init__()
         self._init_common(cfg, device)
@@ -230,6 +240,10 @@ def _slstm_cell(r_gates, b_gates, wx_t, c, n, h, m):
 
 class SLSTMBlock(_XLSTMBase):
     """The sLSTM block (``init_slstm`` / ``slstm_block``)."""
+
+    AXES = {**_XLSTMBase.AXES, "w_gates": ("embed_w", "qkv"),
+            "r_gates": (None, "heads", "head_dim", "head_dim"),
+            "b_gates": (None, "qkv")}
 
     def __init__(self, cfg, gen, device):
         super().__init__()

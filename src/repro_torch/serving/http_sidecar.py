@@ -52,6 +52,13 @@ robustness envelope the paper's proxy needs in production:
   admitted request still gets exactly one terminal status and every
   open connection a well-formed response.
 
+A request's waiter lives in ``_waiters`` from admission until its
+terminal status: ``_on_finish`` pops it as the request resolves, before
+the connection handler writes the response.  So ``/healthz``
+``inflight``, the ``clairvoyant_wire_inflight`` gauge and the
+``max_inflight`` cap count pre-terminal requests only, and a client that
+adds the responses it holds to ``inflight`` never counts one twice.
+
 Wire shapes are OpenAI-compatible (``serving/openai_api.py``): POST
 ``/v1/chat/completions`` returns a ``chat.completion`` body (plus a
 ``clairvoyant`` extension block), or an SSE stream of
@@ -225,7 +232,7 @@ class Sidecar:
 
     def _on_finish(self, resp: CompletionResponse) -> None:
         self._orig_finish(resp)
-        w = self._waiters.get(resp.request_id)
+        w = self._waiters.pop(resp.request_id, None)   # terminal: not inflight
         if w is not None:
             w.finish(resp)
 

@@ -26,6 +26,14 @@ A state is any nesting of dicts, lists, tuples (named tuples included),
 ``nn.Module``s (their state dicts) and leaves: tensors, numpy arrays and
 Python numbers.  Restoring into a module loads the checkpoint into that
 module in place.
+
+On a mesh (``training.train_loop.make_train_step(mesh=)``) a leaf whose
+spec shards it over the ``data`` axis is held as this rank's shard.
+``save(mesh=, specs=)`` all-gathers those leaves (every rank calls it)
+and rank 0 alone writes, so the files are the full tensors in the
+single-device format.  ``restore(mesh=, axes=)`` reads the full leaves
+and lays each out by the spec its logical axes resolve to on the mesh
+(the reshard: any data-parallel width can resume any checkpoint).
 """
 
 from __future__ import annotations
@@ -64,12 +72,15 @@ def _children(node) -> Optional[List[Tuple[str, Any]]]:
     return None
 
 
-def flatten(state) -> List[Tuple[str, Any]]:
-    """(path, leaf) for every leaf of ``state``, depth first."""
+def flatten(state, is_leaf=None) -> List[Tuple[str, Any]]:
+    """(path, leaf) for every leaf of ``state``, depth first.  ``is_leaf``
+    stops the walk at nodes it accepts (``sharding.rules.is_axes_leaf``
+    for an axes tree)."""
     out = []
 
     def walk(node, path):
-        kids = _children(node)
+        kids = None if is_leaf is not None and is_leaf(node) \
+            else _children(node)
         if kids is None:
             out.append((path, node))
             return
@@ -106,8 +117,32 @@ def _from_numpy(arr: np.ndarray, dtype: str, template, device):
     return arr.item()
 
 
+def _gathered(state, mesh, specs) -> Optional[dict]:
+    """{path: full leaf} of a state held in shards on ``mesh`` (every
+    rank calls this; ``specs`` has every path), on rank 0; None on the
+    others."""
+    import torch.distributed as dist
+    from repro_torch.sharding.partition import gather_tree
+    full = gather_tree(dict(flatten(state)), specs, mesh)
+    return full if dist.get_rank() == 0 else None
+
+
+def _sharded(mesh) -> bool:
+    from repro_torch.sharding import mesh_size
+    return mesh is not None and mesh_size(mesh) > 1
+
+
 def save(state: Any, root: str | os.PathLike, step: int,
-         keep_last: Optional[int] = None) -> pathlib.Path:
+         keep_last: Optional[int] = None, *, mesh=None,
+         specs: Optional[dict] = None) -> Optional[pathlib.Path]:
+    """Write ``state`` as step ``step``.  With ``mesh`` (of more than one
+    device) and ``specs`` ({path: PartitionSpec} of every leaf,
+    ``train_loop.state_specs``), the sharded leaves are gathered first
+    and only rank 0 writes (the others return None)."""
+    if _sharded(mesh):
+        state = _gathered(state, mesh, specs)
+        if state is None:
+            return None
     root = pathlib.Path(root)
     root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:06d}"
@@ -160,16 +195,31 @@ def latest_step(root: str | os.PathLike) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _rebuild(node, leaves, device):
+def _load_module(module: nn.Module, sd: dict) -> None:
+    """Load ``sd`` into ``module`` in place; a parameter whose stored
+    tensor has another shape (a shard on a mesh) takes it as its data."""
+    params = dict(module.named_parameters())
+    if all(params[k].shape == v.shape for k, v in sd.items() if k in params):
+        module.load_state_dict(sd)
+        return
+    for k, v in sd.items():
+        params[k].data = v
+
+
+def _rebuild(node, leaves, device, layout=None, path=""):
     """``node``'s structure with its leaves taken in order from the
-    iterator ``leaves``; a module is loaded in place and returned."""
+    iterator ``leaves``; a module is loaded in place and returned.
+    ``layout(path, tensor)`` cuts each tensor leaf to its shard."""
     kids = _children(node)
     if kids is None:
         arr, dtype = next(leaves)
-        return _from_numpy(arr, dtype, node, device)
-    vals = [_rebuild(child, leaves, device) for _, child in kids]
+        leaf = _from_numpy(arr, dtype, node, device)
+        return layout(path, leaf) if layout is not None and \
+            isinstance(leaf, torch.Tensor) else leaf
+    vals = [_rebuild(child, leaves, device, layout,
+                     f"{path}/{k}" if path else str(k)) for k, child in kids]
     if isinstance(node, nn.Module):
-        node.load_state_dict({k: v for (k, _), v in zip(kids, vals)})
+        _load_module(node, {k: v for (k, _), v in zip(kids, vals)})
         return node
     if isinstance(node, dict):
         return {k: v for (k, _), v in zip(kids, vals)}
@@ -180,11 +230,14 @@ def _rebuild(node, leaves, device):
 
 def restore(template: Any, root: str | os.PathLike,
             step: Optional[int] = None, device=None,
-            verify: bool = True) -> Any:
+            verify: bool = True, *, mesh=None, axes: Any = None) -> Any:
     """Restore into the structure of ``template``.
 
     Tensors go to ``device``, or where the template's tensor lies when it
-    is None; modules in the template are loaded in place."""
+    is None; modules in the template are loaded in place.  With ``mesh``
+    and ``axes`` (the template's logical-axes tree, e.g. from
+    ``abstract_train_state``), each leaf becomes this rank's shard of the
+    spec its axes resolve to at the stored full shape."""
     root = pathlib.Path(root)
     if step is None:
         step = latest_step(root)
@@ -208,7 +261,16 @@ def restore(template: Any, root: str | os.PathLike,
                 raise IOError(f"checkpoint leaf {i} failed integrity check")
             yield arr, manifest["dtypes"][i]
 
-    return _rebuild(template, load(), device)
+    layout = None
+    if mesh is not None:
+        from repro_torch.sharding.partition import local_shard
+        from repro_torch.sharding.rules import is_axes_leaf, spec_for
+        leaf_axes = dict(flatten(axes, is_leaf=is_axes_leaf))
+
+        def layout(path, t):
+            return local_shard(t, spec_for(t.shape, leaf_axes[path], mesh),
+                               mesh)
+    return _rebuild(template, load(), device, layout)
 
 
 def _host_copy(node):
@@ -229,16 +291,24 @@ def _host_copy(node):
 
 
 class AsyncCheckpointer:
-    """Snapshot synchronously, write asynchronously (overlaps with compute)."""
+    """Snapshot synchronously, write asynchronously (overlaps with compute).
+    On a mesh every rank calls ``save``: the sharded leaves are gathered
+    synchronously and rank 0 alone writes."""
 
-    def __init__(self, root: str | os.PathLike, keep_last: int = 3):
+    def __init__(self, root: str | os.PathLike, keep_last: int = 3, *,
+                 mesh=None, specs: Optional[dict] = None):
         self.root = pathlib.Path(root)
         self.keep_last = keep_last
+        self.mesh, self.specs = mesh, specs
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     def save(self, state: Any, step: int) -> None:
         self.wait()  # one outstanding save at a time
+        if _sharded(self.mesh):
+            state = _gathered(state, self.mesh, self.specs)
+            if state is None:
+                return
         host_state = _host_copy(state)
 
         def _run():

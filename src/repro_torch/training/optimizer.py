@@ -107,6 +107,28 @@ def init_opt_state(params: Dict[str, torch.Tensor],
     raise ValueError(cfg.kind)
 
 
+def opt_state_axes(params_axes: Dict[str, tuple], cfg: OptConfig,
+                   period: int = 1) -> OptState:
+    """Logical axes of the optimizer state (``repro.training.optimizer.
+    opt_state_axes``).  AdamW's moments mirror the parameters.
+    Adafactor's statistics are per group: a block group's tensor is the
+    stack over repeats, so its axes gain the leading repeat axis (None)
+    before the row statistic drops the last axis and the column statistic
+    the second to last, as the JAX function does on its stacked tree."""
+    if cfg.kind == "adamw":
+        return OptState(step=(), m=dict(params_axes), v=dict(params_axes))
+    if cfg.kind != "adafactor":
+        raise ValueError(cfg.kind)
+    m, v = {}, {}
+    for group, names in _groups(params_axes, period).items():
+        a = params_axes[names[0]]
+        if group.startswith("blocks."):
+            a = (None, *a)
+        m[group] = a[:-1] if len(a) >= 2 else a
+        v[group] = (a[:-2] + a[-1:]) if len(a) >= 2 else ()
+    return OptState(step=(), m=m, v=v)
+
+
 def _schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     warm = torch.clamp(step.float() / max(cfg.warmup_steps, 1), max=1.0)
     return cfg.lr * warm
@@ -121,13 +143,16 @@ def global_norm(grads) -> torch.Tensor:
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state: OptState,
-                  cfg: OptConfig, period: int = 1):
+                  cfg: OptConfig, period: int = 1, gnorm=None):
     """One optimizer step.  Returns (params, new_state, metrics) with
     ``params`` updated in place and metrics {"grad_norm", "lr"} as 0-d
     tensors on the parameters' device (no host synchronisation).
-    ``period``: the block pattern's length, as in :func:`init_opt_state`."""
+    ``period``: the block pattern's length, as in :func:`init_opt_state`.
+    ``gnorm``: the global gradient norm when ``grads`` are shards of it
+    (the data-parallel step), else computed here."""
     names = list(params)
-    gnorm = global_norm([grads[n] for n in names])
+    if gnorm is None:
+        gnorm = global_norm([grads[n] for n in names])
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     g32 = dict(zip(names, torch._foreach_mul(

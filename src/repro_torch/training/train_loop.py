@@ -1,27 +1,65 @@
 """The train step: loss -> gradients -> optimizer (port of
-``repro.training.train_loop`` on one device).
+``repro.training.train_loop``).
 
 ``make_train_step(cfg, opt_cfg)`` returns ``train_step(state, batch) ->
 (state, metrics)``.  Microbatching slices the batch along its first axis,
 runs forward and backward on each slice and sums the gradients in
-``accum_dtype``, as the JAX ``lax.scan`` does.  There is no mesh yet, so
-no abstract (shape-only) state either.
+``accum_dtype``, as the JAX ``lax.scan`` does.  ``abstract_train_state``
+gives the state's shapes and dtypes on the ``meta`` device (nothing is
+allocated) beside its logical axes, and ``state_specs`` the spec every
+leaf resolves to on a mesh.
+
+With ``mesh`` (a ("data", "model") ``DeviceMesh`` whose ``model`` axis
+has size 1, ``launch.mesh.make_local_mesh``) the step is data parallel
+with FSDP over ``data``:
+
+* every rank is given the global batch and takes its own rows;
+* a leaf whose spec shards a dimension over ``data`` (the ``embed_w``
+  axis: every weight matrix, the embedding, the MoE experts and router)
+  is held as this rank's shard between steps, as are its AdamW moments
+  and every Adafactor statistic whose spec shards.  The parameter shards
+  are all-gathered before the forward; their gradients (float32) are
+  reduce-scattered, the others all-reduced, both as means over ranks;
+* the loss's token count and the MoE load statistics are summed over
+  ranks inside the forward (``sharding.data_parallel``), so the mean of
+  the ranks' losses and gradients is the global batch's, and the MoE
+  routes each rank's rows as its own dispatch group (``models.moe``);
+* AdamW updates each shard with the global gradient norm; Adafactor's
+  factored statistics are taken on the gathered gradient (every gradient
+  is all-reduced whole, and the statistics gathered for the update):
+  it holds a full float32 gradient per parameter during the update, as
+  on one device, and saves only the parameter and statistic shards
+  between steps.
+
+A ``model`` axis above 1 (tensor parallelism) is refused.  With
+``mesh=None``, or a mesh of one rank, the step is the single-device one
+bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.model import LM
+from repro_torch.sharding import use_mesh
+from repro_torch.sharding.partition import (gather_shard, local_shard,
+                                            tree_specs)
+from repro_torch.sharding.rules import (is_axes_leaf, mesh_axis_sizes,
+                                        spec_axes)
+from repro_torch.training.checkpoint import flatten
 from repro_torch.training.optimizer import (OptConfig, OptState,
-                                            apply_updates, init_opt_state)
+                                            apply_updates, init_opt_state,
+                                            opt_state_axes)
 
 
 class TrainState(NamedTuple):
     """The model, whose parameters the step updates in place, and the
-    optimizer state.  ``params`` is the model's parameters by name."""
+    optimizer state.  ``params`` is the model's parameters by name.  The
+    axes tree of :func:`abstract_train_state` has the same fields with
+    ``model`` the parameters' logical axes by name."""
     model: LM
     opt: OptState
 
@@ -40,12 +78,56 @@ def init_train_state(cfg, opt_cfg: OptConfig, *, device=None,
                                          opt_cfg, len(cfg.block_pattern)))
 
 
+def abstract_train_state(cfg, opt_cfg: OptConfig):
+    """(TrainState on the ``meta`` device, its logical-axes TrainState):
+    shapes and dtypes only, no allocation."""
+    state = init_train_state(cfg, opt_cfg, device="meta")
+    p_axes = state.model.param_axes()
+    o_axes = opt_state_axes(p_axes, opt_cfg, len(cfg.block_pattern))
+    return state, TrainState(model=p_axes, opt=o_axes)
+
+
+def state_specs(cfg, opt_cfg: OptConfig, mesh, rules=None) -> Dict:
+    """{checkpoint path ("model/<name>", "opt/m/<key>", ...): the
+    PartitionSpec of that leaf of the train state on ``mesh``}."""
+    shapes, axes = abstract_train_state(cfg, opt_cfg)
+    return tree_specs(dict(flatten(shapes)),
+                      dict(flatten(axes, is_leaf=is_axes_leaf)), mesh, rules)
+
+
+def _mean_over(group, world: int, t: torch.Tensor) -> torch.Tensor:
+    """The mean over ranks of float32 ``t`` (in place)."""
+    dist.all_reduce(t, group=group)
+    return t.div_(world)
+
+
+def _sq_sum(tensors, like: torch.Tensor) -> torch.Tensor:
+    """The sum of squares of every element of ``tensors`` (float32)."""
+    if not tensors:
+        return torch.zeros((), dtype=torch.float32, device=like.device)
+    return torch.stack(torch._foreach_norm(tensors)).square().sum()
+
+
+def _reduce_scatter_mean(g: torch.Tensor, spec, group, world: int):
+    """This rank's block (by ``spec``, sharded over ``data`` on one
+    dimension) of the mean over ranks of the full gradient ``g``."""
+    from repro_torch.sharding.compat import reduce_scatter_single
+    d = next(i for i, e in enumerate(spec) if spec_axes(e))
+    front = g.float().movedim(d, 0).contiguous()
+    out = torch.empty((front.shape[0] // world,) + front.shape[1:],
+                      dtype=torch.float32, device=g.device)
+    reduce_scatter_single(out, front, group=group)
+    return out.div_(world).movedim(0, d)
+
+
 def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
-                    remat: bool = True, accum_dtype: str = "float32"):
+                    remat: bool = True, accum_dtype: str = "float32",
+                    mesh=None):
     """``accum_dtype``: the gradient-accumulation buffers' dtype when
-    ``microbatches`` > 1.  The batch's leading axis must divide by
-    ``microbatches``."""
+    ``microbatches`` > 1.  The batch's leading axis (per rank, on a mesh)
+    must divide by ``microbatches``.  ``mesh``: see the module docstring."""
     acc_dt = getattr(torch, accum_dtype)
+    period = len(cfg.block_pattern)
 
     def grads_of(lm, batch):
         for p in lm.parameters():
@@ -54,8 +136,7 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
         loss.backward()
         return loss.detach(), {n: p.grad for n, p in lm.named_parameters()}
 
-    def train_step(state: TrainState, batch):
-        lm = state.model
+    def loss_and_grads(lm, batch):
         lm.requires_grad_(True)
         if microbatches == 1:
             loss, grads = grads_of(lm, batch)
@@ -75,10 +156,94 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
                      for name, a in acc.items()}
         for p in lm.parameters():
             p.grad = None
+        return loss, grads
+
+    def train_step(state: TrainState, batch):
+        lm = state.model
+        loss, grads = loss_and_grads(lm, batch)
         _, opt, metrics = apply_updates(dict(lm.named_parameters()), grads,
-                                        state.opt, opt_cfg,
-                                        len(cfg.block_pattern))
+                                        state.opt, opt_cfg, period)
         metrics["loss"] = loss
         return TrainState(lm, opt), metrics
 
-    return train_step
+    if mesh is None:
+        return train_step
+    sizes = mesh_axis_sizes(mesh)
+    if sizes.get("model", 1) > 1:
+        raise ValueError(
+            f"make_train_step: mesh {sizes} has a model axis of "
+            f"{sizes['model']}; the port executes data parallelism only "
+            "(tensor-parallel execution over 'model' is not implemented)")
+    world = sizes.get("data", 1)
+    if world == 1:
+        def one_rank_step(state, batch):
+            with use_mesh(mesh):
+                return train_step(state, batch)
+        return one_rank_step
+
+    group = mesh.get_group("data")
+    rank = dist.get_rank(group)
+    specs = state_specs(cfg, opt_cfg, mesh)
+    full_shape = {p: s.shape for p, s in flatten(
+        abstract_train_state(cfg, opt_cfg)[0])}
+
+    def pspec(name):
+        return specs[f"model/{name}"]
+
+    def to_shards(tree: dict, prefix: str) -> None:
+        """Cut the full leaves of ``tree`` (in place) to their shards."""
+        for k, t in tree.items():
+            path = f"{prefix}/{k}"
+            if specs[path] and t.shape == full_shape[path]:
+                tree[k] = local_shard(t, specs[path], mesh)
+
+    def dp_step(state: TrainState, batch):
+        lm, opt = state.model, state.opt
+        params = dict(lm.named_parameters())
+        b = next(iter(batch.values())).shape[0]
+        if b % world:
+            raise ValueError(f"batch {b} does not divide over {world} ranks")
+        n = b // world
+        local = {k: x[rank * n:(rank + 1) * n] for k, x in batch.items()}
+        # a full state (fresh or restored on one device) is cut on entry
+        shards = {k: p.data for k, p in params.items()}
+        to_shards(shards, "model")
+        for tree, name in ((opt.m, "m"), (opt.v, "v")):
+            to_shards(tree, f"opt/{name}")
+        fsdp = [k for k in params if pspec(k)]
+        for k in fsdp:
+            params[k].data = gather_shard(shards[k], pspec(k), mesh)
+        with use_mesh(mesh):
+            loss, grads = loss_and_grads(lm, local)
+        loss = _mean_over(group, world, loss.float().clone())
+        if opt_cfg.kind == "adamw":
+            g = {k: (_reduce_scatter_mean(x, pspec(k), group, world)
+                     if k in fsdp else _mean_over(group, world,
+                                                  x.float().clone()))
+                 for k, x in grads.items()}
+            for k in fsdp:
+                params[k].data = shards[k]
+            # the global norm: the shards' squares summed over ranks
+            sq = _sq_sum([g[k] for k in fsdp], loss)
+            _mean_over(group, 1, sq)
+            sq = sq + _sq_sum([g[k] for k in params if k not in fsdp], loss)
+            _, new_opt, metrics = apply_updates(params, g, opt, opt_cfg,
+                                                period, gnorm=sq.sqrt())
+        else:
+            g = {k: _mean_over(group, world, x.float().clone())
+                 for k, x in grads.items()}
+            whole = OptState(opt.step, *(
+                {k: gather_shard(t, specs[f"opt/{name}/{k}"], mesh)
+                 if t.shape != full_shape[f"opt/{name}/{k}"] else t
+                 for k, t in tree.items()}
+                for tree, name in ((opt.m, "m"), (opt.v, "v"))))
+            _, new_opt, metrics = apply_updates(params, g, whole, opt_cfg,
+                                                period)
+            to_shards(new_opt.m, "opt/m")
+            to_shards(new_opt.v, "opt/v")
+            for k in fsdp:
+                params[k].data = local_shard(params[k].data, pspec(k), mesh)
+        metrics["loss"] = loss
+        return TrainState(lm, new_opt), metrics
+
+    return dp_step

@@ -33,8 +33,14 @@ print(len(names), bad, missing)
 #: metric; training (data, optimizer, train step, checkpoints, the CLI)
 #: and the attention backward kernel; the config registry's package and
 #: the block kinds of the pattern stack (MoE, Mamba, block dispatch); the
-#: xLSTM blocks and the modality frontends
-NEW = ["repro_torch.models.xlstm", "repro_torch.models.frontends",
+#: xLSTM blocks and the modality frontends; the sharding layer, meshes,
+#: the roofline and dry run, elastic resume and int8 gradient exchange
+NEW = ["repro_torch.sharding", "repro_torch.sharding.rules",
+       "repro_torch.sharding.compat", "repro_torch.sharding.partition",
+       "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+       "repro_torch.launch.dryrun", "repro_torch.training.elastic",
+       "repro_torch.training.grad_compress",
+       "repro_torch.models.xlstm", "repro_torch.models.frontends",
        "repro_torch.configs.base", "repro_torch.configs.jamba_v01_52b",
        "repro_torch.configs.xlstm_350m", "repro_torch.models.moe",
        "repro_torch.models.ssm", "repro_torch.models.transformer",
