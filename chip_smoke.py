@@ -61,7 +61,8 @@ path and read just after:
 * ``[launch-sidecar]`` ``python -m repro_torch.launch.sidecar --port 0``
   as child processes, the full-width real backend beside the sim
   backend, under fcfs and then sjf, and the real backend with
-  ``--speculative`` under sjf: the burst over HTTP, then SIGTERM;
+  ``--speculative`` under sjf: the burst over HTTP, then SIGTERM; its
+  client runs on a thread beside ``[speculative]``;
 * ``[train]`` training: a float32 2-layer copy's gradients through K3
   (with its log-sum-exp) and K3b against the plain attention, then 20
   AdamW steps of all 32 layers in bf16 on the Markov stream through
@@ -70,7 +71,8 @@ path and read just after:
   processes (each on ``make_local_mesh``'s one-rank NCCL group), started
   before ``[speculative]`` and run beside it: 6 steps straight beside 3
   steps in a second process, then a resumed 3 from the latter's
-  checkpoint, with equal losses;
+  checkpoint, with equal losses, and gemma3-4b-edge for 3 steps (all 34
+  layers, K3b at head width 256);
 * ``[mesh]`` the sharding layer on ``[train]``'s state: one step through
   ``make_train_step(mesh=)`` bitwise equal to the step with no mesh
   (same K3/K3b launches), the int8 gradient exchange
@@ -91,7 +93,12 @@ path and read just after:
   the burst over HTTP, ``[gemma3-lanes]`` the paging backlog through ring
   and paged lanes and the shared prefix cold then warm.  Every serial
   request launches K3 once a layer and K1 once a layer a decode step,
-  every lane step K1 or K2 once a layer, exactly;
+  every lane step K1 or K2 once a layer, exactly.  Then training:
+  ``[gemma3-train-f32]`` a float32 2-layer copy's gradients through
+  K3/K3b (head width 256) against the plain attention's, and
+  ``[gemma3-train]`` all 34 layers in bf16, 10 AdamW steps at B 4 x 512
+  through ``make_train_step`` (K3 2 x 34 and K3b 34 launches a step, the
+  loss falling, one step profiled);
 * then jamba-v0.1-52b (Mamba, MoE with 16 experts top-2, and attention
   in an 8-block pattern), once the card is freed, at full width and one
   of its four pattern repeats (the whole model, 95.8 GiB in bf16, does
@@ -131,13 +138,24 @@ path and read just after:
   plain attention, then ``[vision]`` in bf16 (1024 seeded image rows, a
   45-token prompt, 32 greedy steps).  Every prefill there launches K3
   once a layer (non-causal in the cross-attention layer) and every step
-  K1 once a layer (at t = 1023 over the image cache), exactly.
+  K1 once a layer (at t = 1023 over the image cache), exactly.  Each
+  float32 copy's loss gradients are then held to the plain attention's
+  (``[musicgen-train-f32]``, ``[vision-train-f32]``: the cross-attention
+  layer's backward is K3b's full attention at Sq 512 over Skv 1024), and
+  each bf16 model is trained in place through ``make_train_step``
+  (``[musicgen-train]`` AdamW on seeded frames, ``[vision-train]``
+  Adafactor on seeded image embeddings), K3 twice and K3b once an
+  attention layer a step, the cross-attention ones counted apart.
 
 Before the paths, ``[K3b flash_attention_bwd]`` holds the attention
 backward kernel to its plain version (and K3's log-sum-exp to the plain
 logsumexp), prints each of its kernels' registers and spills, and holds
 it to its plain version and times it beside autograd's SDPA backward at
-B 8, S 128, 512 and 1000, pass by pass at the training shape.
+B 8, S 128, 512 and 1000, pass by pass at the training shape; then
+``[K3b flash_attention_bwd_*]`` does the same for the other trained
+stacks' instances at their train steps' shapes: head width 256
+(gemma3-4b-edge), full attention at Sq 512 over Skv 1024 and causal at
+H 64 over KV 8 (llama-3.2-vision-90b), and G 1 (musicgen-large).
 
 It fails (nonzero exit, no result line) without a CUDA device, without
 the repository beside it, when a kernel does not build, launch or agree
@@ -161,7 +179,11 @@ log-sum-exp disagrees with its plain version, when the training loss
 does not fall or the train step's K3/K3b launches differ from 2 x 32 /
 32 a step, when a K3b pass is among the profiled train step's two
 longest kernels, when a resumed training run's losses differ from
-the straight run's, when the meshed train step, the card's int8
+the straight run's, when a trained stack's float32 gradients through
+K3/K3b differ from the plain attention's by more than 1e-4 of
+max|plain|, its bf16 losses are not finite (gemma3's: do not fall) or
+its K3/K3b launches differ from 2 x / 1 x its attention layers a step,
+when the gemma3 train CLI child fails, when the meshed train step, the card's int8
 exchange or the resharded checkpoint is not bitwise equal to its
 reference (the step with no mesh, the CPU's exchange,
 ``checkpoint.restore``) or the meshed step's K3/K3b launches differ, when an xlstm path launches an attention kernel or
@@ -175,7 +197,8 @@ entry per kernel, each with the launches of its own model's paths (K1,
 K2 and K3 at head width 64 and K3b, K4, K5: smollm-360m; ``*_hd256``:
 gemma3-4b-edge; ``*_hd128``: jamba-v0.1-52b; ``*_musicgen``:
 musicgen-large; ``*_vision``: llama-3.2-vision-90b's self-attention
-and ``*_vision_cross`` its cross-attention); the last line is
+and ``*_vision_cross`` its cross-attention, K3b's among them); the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -189,6 +212,13 @@ import shutil
 import subprocess
 import sys
 import time
+
+def print(*args, sep=" ", end="\n", file=None):  # noqa: A001
+    """The builtin's output in a single write: phases and children's
+    readers print side by side on threads, and a line written in pieces
+    could be split by another's."""
+    (file or sys.stdout).write(sep.join(map(str, args)) + end)
+
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -2131,12 +2161,6 @@ def phase_launch_serve(smi, totals) -> None:
           f"% lower), srpt {p50['srpt']:.3f} s (virtual time)  [{smi}]")
 
 
-def _say(line: str) -> None:
-    """Print one line in a single write: two children's threads print
-    side by side."""
-    sys.stdout.write(line + "\n")
-
-
 def _start_child(args):
     """``python -m repro_torch.launch.sidecar ARGS`` from the checkout, its
     output read line by line on a thread.  Returns (process, lines queue,
@@ -2167,9 +2191,9 @@ def _start_child(args):
             break
         m = re.search(r"listening on http://[\d.]+:(\d+)", line)
         if m:
-            _say(f"[launch-sidecar]   {line}")
+            print(f"[launch-sidecar]   {line}")
             return child, lines, int(m.group(1))
-        _say(f"[launch-sidecar]   {line}")
+        print(f"[launch-sidecar]   {line}")
     child.kill()
     child.wait()
     raise AssertionError("[launch-sidecar] the child never listened")
@@ -2233,7 +2257,7 @@ def phase_launch_sidecar(smi, totals) -> None:
         finally:
             report = _stop_child(child, lines)
         for line in report:
-            _say(f"[launch-sidecar]   {line}")
+            print(f"[launch-sidecar]   {line}")
         bad = [(i, kind, st) for i, _, (kind, st, _) in outs
                if st != 200 or kind not in ("json", "sse")]
         drained = [ln for ln in report if ln.startswith("drained: ")]
@@ -2271,7 +2295,7 @@ def phase_launch_sidecar(smi, totals) -> None:
         soj = {c: [t for i, t, _ in outs if (i in longs) == (c == "long")]
                for c in ("short", "long")}
         p50 = float(np.median(soj["short"])) * 1e3
-        _say(f"[launch-sidecar] {backend} {policy}: listening after "
+        print(f"[launch-sidecar] {backend} {policy}: listening after "
               f"{t_ready:.1f} s, short P50 {p50:.1f} ms, long "
               f"P50 {float(np.median(soj['long'])) * 1e3:.1f} ms over "
               f"the wire, {len(order)} ok ({len(order) // 2} SSE), "
@@ -2824,6 +2848,14 @@ def phase_speculative(cfg, smi, totals) -> None:
 # this width, through the kernels, through the plain attention and in
 # float32 alike (scripts/train_lr_probe.py)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 512, 20, 3e-4
+# the other trained stacks' bf16 runs, B x TRAIN_S tokens a step: gemma3
+# at B 4 (its state is 43.4 GiB before activations), the cut vision stack
+# at B 2 over its 1024 image rows (Adafactor: bf16 weights and gradients
+# are 23.8 GiB), musicgen at B 4
+ARCH_TRAIN_B = {"gemma3-4b-edge": 4, "llama-3.2-vision-90b": 2,
+                "musicgen-large": 4}
+ARCH_TRAIN_STEPS = {"gemma3-4b-edge": 10, "llama-3.2-vision-90b": 6,
+                    "musicgen-large": 6}
 
 
 K3B_PASSES = (("bwd_dot", "D"), ("bwd_dkdv", "dK/dV"), ("bwd_dq", "dQ"))
@@ -2892,8 +2924,8 @@ def _k3b_errs(tag, got, want, tol=None) -> float:
     return worst
 
 
-def _sdpa_bwd(q, k, v, do):
-    """Autograd's backward of causal ``scaled_dot_product_attention`` on
+def _sdpa_bwd(q, k, v, do, causal=True):
+    """Autograd's backward of (causal) ``scaled_dot_product_attention`` on
     the same inputs (K/V expanded to every query head): the yardstick,
     timed only."""
     import torch
@@ -2902,7 +2934,7 @@ def _sdpa_bwd(q, k, v, do):
                   for x in (q, k.repeat_interleave(G, dim=2),
                             v.repeat_interleave(G, dim=2)))
     ox = torch.nn.functional.scaled_dot_product_attention(qx, kx, vx,
-                                                          is_causal=True)
+                                                          is_causal=causal)
     dox = do.transpose(1, 2)
     return lambda: torch.autograd.grad(ox, (qx, kx, vx), dox,
                                        retain_graph=True)
@@ -3031,6 +3063,119 @@ def phase_flash_bwd_kernel(gen) -> dict:
     return entry
 
 
+#: K3b at the other trained stacks' heads, each at its bf16 train step's
+#: shape: (entry name, model, launch counter, B, Sq, Skv, (H, KV, hd),
+#: causal, the lengths also checked at B 2)
+K3B_INSTANCES = (
+    ("flash_attention_bwd_hd256", "gemma3-4b-edge", "flash_attention_bwd",
+     ARCH_TRAIN_B["gemma3-4b-edge"], TRAIN_S, TRAIN_S, GEMMA_HEADS, True,
+     ((128, 128), (TRAIN_S, TRAIN_S))),
+    ("flash_attention_bwd_vision_cross", "llama-3.2-vision-90b",
+     "flash_attention_bwd_cross", ARCH_TRAIN_B["llama-3.2-vision-90b"],
+     TRAIN_S, IMAGE_ROWS, VISION_HEADS, False, ((TRAIN_S, IMAGE_ROWS),)),
+    ("flash_attention_bwd_vision", "llama-3.2-vision-90b",
+     "flash_attention_bwd", ARCH_TRAIN_B["llama-3.2-vision-90b"], TRAIN_S,
+     TRAIN_S, VISION_HEADS, True, ((TRAIN_S, TRAIN_S),)),
+    ("flash_attention_bwd_musicgen", "musicgen-large", "flash_attention_bwd",
+     ARCH_TRAIN_B["musicgen-large"], TRAIN_S, TRAIN_S, MUSICGEN_HEADS, True,
+     ((TRAIN_S, TRAIN_S),)),
+)
+
+
+def phase_flash_bwd_instances(gen) -> list:
+    """K3b at the heads of gemma3-4b-edge (hd 256, causal), of
+    llama-3.2-vision-90b's cross-attention (H 64 over KV 8, hd 128, full
+    attention, Sq 512 over Skv 1024 image rows) and self-attention, and of
+    musicgen-large (G 1, hd 64): at B 2, f32 (TF32 off) and bf16, each
+    against the plain version (and bf16 also against the one rounding P
+    and dS) within TOL x max|plain|, two calls bit-equal; then at each
+    path's bf16 train shape timed beside autograd's SDPA backward (K/V
+    expanded, masked alike), its plain version, its bound (bytes: q, k,
+    v, o, dO, lse read and dq, dk, dv written once; operations: 5
+    products over the causal half or the whole Sq x Skv plane) and each
+    pass's device ms in one profiled call.  Returns the kernels-line
+    entries."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    entries = []
+
+    def inputs(B, Sq, Skv, heads, dt, causal):
+        H, KV, hd = heads
+        q, do = (torch.randn(B, Sq, H, hd, generator=gen,
+                             device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn(B, Skv, KV, hd, generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        return q, k, v, o, do, lse
+
+    for name, model, counter, B, Sq, Skv, heads, causal, checks in \
+            K3B_INSTANCES:
+        H, KV, hd = heads
+        tag = f"[K3b {name}]"
+        errs = {}
+        for cq, ckv in checks:
+            for label, dt in (("f32", torch.float32),
+                              ("bf16", torch.bfloat16)):
+                args = inputs(2, cq, ckv, heads, dt, causal)
+                got = flash_attention_bwd_cuda(*args, causal=causal)
+                again = flash_attention_bwd_cuda(*args, causal=causal)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{tag} not deterministic ({label} "
+                                         f"Sq {cq} Skv {ckv})")
+                key = f"{label}@{cq}x{ckv}"
+                errs[key] = _k3b_errs(f"{name} {key}", got,
+                                      flash_attention_bwd_plain(
+                                          *args, causal=causal), TOL[label])
+                if label == "bf16":
+                    errs[key + "/rounded"] = _k3b_errs(
+                        f"{name} {key} rounded", got,
+                        flash_attention_bwd_plain(
+                            *args, causal=causal,
+                            round_dtype=torch.bfloat16), TOL[label])
+                del args, got, again
+        q, k, v, o, do, lse = inputs(B, Sq, Skv, heads, torch.bfloat16,
+                                     causal)
+
+        def kernel():
+            return flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                            causal=causal)
+        lib_fn = _sdpa_bwd(q, k, v, do, causal=causal)
+        ms = _device_ms(kernel)
+        lib = _device_ms(lib_fn)
+        ms = (ms + _device_ms(kernel)) / 2          # kernel, sdpa, kernel
+        plain = _device_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, o, do, lse, causal=causal), iters=5)
+        passes, occupancy = _k3b_pass_ms(kernel)
+        n_bytes = ((4 * B * Sq * H * hd + 4 * B * Skv * KV * hd) * 2
+                   + B * H * Sq * 4)
+        plane = Sq * (Sq + 1) / 2 if causal else Sq * Skv
+        bound, by = _bound(n_bytes, 10 * B * H * hd * plane, torch.bfloat16)
+        print(f"{tag} {model}: max|err|/max|plain| " + " ".join(
+            f"{k_}:{e:.2e}" for k_, e in errs.items()) + "; two calls "
+            f"bitwise equal; bf16 {'causal' if causal else 'full'} B{B} "
+            f"Sq{Sq} Skv{Skv} H{H} KV{KV} hd{hd}: device ms kernel "
+            f"{ms:.4f}, sdpa backward {lib:.4f}, kernel/sdpa-bwd "
+            f"{ms / lib:.2f}, plain {plain:.4f}; bound {bound * 1e3:.3f} us "
+            f"({by}, {n_bytes / 1e6:.1f} MB), bound share "
+            f"{100 * bound / ms:.2f}%; one profiled call: " + ", ".join(
+                f"{t} {x:.4f}" for t, x in passes.items()) + " ms; "
+            "registers a thread / warps an SM / est. achieved occupancy % "
+            "(profiler): " + ", ".join(
+                f"{t} {' / '.join(map(str, x))}"
+                for t, x in occupancy.items()))
+        entries.append(_owned(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/models/attention.py:119",
+             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+             "bound_ms": bound, "bound_by": by, "library_ms": lib},
+            model, counter))
+        del q, k, v, o, do, lse, lib_fn
+    return entries
+
+
 def _plain_attention(q, k, v, *, causal=True):
     from repro_torch.kernels.flash_attention import flash_attention_plain
     return flash_attention_plain(q, k, v, causal=causal)
@@ -3042,113 +3187,32 @@ def phase_train(cfg, smi, totals):
     loss through the plain attention on the card.  (b) bf16, all 32
     layers, batch 8 x 512 tokens: 20 AdamW steps (lr 3e-4) on the Markov
     stream through ``make_train_step``; K3 must launch 2 x 32 and K3b 32
-    times a step (per-block remat), the loss must stay finite and fall.
-    Prints ms/step, tokens/s, peak memory and the device busy share of
-    one profiled step.  Returns the bf16 train state (``[mesh]`` reuses
-    it)."""
-    import contextlib
+    times a step (per-block remat), the loss must stay finite and fall,
+    and no K3b pass may be among one profiled step's two longest
+    kernels.  Returns the bf16 train state (``[mesh]`` reuses it)."""
     import dataclasses
-    import statistics
-    from unittest import mock
-    import numpy as np
     import torch
-    from repro_torch.data.lm_data import LMDataConfig, SyntheticLMStream
-    from repro_torch.kernels import ops
     from repro_torch.models.model import LM
     from repro_torch.training.optimizer import OptConfig
-    from repro_torch.training.train_loop import (init_train_state,
-                                                 make_train_step)
-    data = SyntheticLMStream(LMDataConfig(vocab_size=cfg.vocab_size,
-                                          seq_len=TRAIN_S,
-                                          global_batch=TRAIN_B))
-
-    def batch(step, n=TRAIN_B):
-        return {k: torch.from_numpy(x[:n]).long().cuda()
-                for k, x in data.batch(step).items()}
-
-    # (a) kernels vs plain, f32
-    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=2)
-    lm = LM(cfg32, device="cuda", seed=2)
-    lm.requires_grad_(True)
-    b = batch(0, n=2)
-    grads = []
-    for patch in (False, True):
-        before = dict(ops.LAUNCHES)
-        with mock.patch.object(ops, "flash_attention_train",
-                               _plain_attention) if patch \
-                else contextlib.nullcontext():
-            lm.loss(b).backward()
-        torch.cuda.synchronize()
-        runs = {k: ops.LAUNCHES[k] - before[k] for k in
-                ("flash_attention", "flash_attention_bwd")}
-        want_runs = {"flash_attention": 0, "flash_attention_bwd": 0} \
-            if patch else {"flash_attention": 4, "flash_attention_bwd": 2}
-        if runs != want_runs:
-            raise AssertionError(f"[train] f32 launches {runs}, expected "
-                                 f"{want_runs}")
-        grads.append({n: p.grad.clone() for n, p in lm.named_parameters()})
-        lm.zero_grad(set_to_none=True)
-    worst, worst_name = 0.0, ""
-    for n, want in grads[1].items():
-        rel = _max_err(grads[0][n], want) / float(want.abs().max())
-        if not math.isfinite(rel) or rel > 1e-3:
-            raise AssertionError(f"[train] f32 grad {n}: kernels vs plain "
-                                 f"{rel:g} of max|plain|")
-        if rel >= worst:
-            worst, worst_name = rel, n
-    print(f"[train] f32 (TF32 off), 2 layers at full width, B2 S{TRAIN_S}: "
-          f"gradients through K3+K3b vs the plain attention on the card, "
-          f"largest max|err|/max|plain| {worst:.2e} ({worst_name}) over "
-          f"{len(grads[1])} tensors; K3 4, K3b 2 launches")
-    del lm, grads
+    from repro_torch.training.train_loop import init_train_state
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    lm = LM(dataclasses.replace(cfg, dtype="float32", num_layers=2),
+            device="cuda", seed=2)
+    _grads_vs_plain(lm, _arch_batch(lm.cfg, 2, gen)(0), smi, tag="train")
+    del lm
     torch.cuda.empty_cache()
-
-    # (b) bf16, 32 layers, AdamW
     opt = OptConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 1))
     state = init_train_state(cfg, opt, device="cuda", seed=0)
-    step_fn = make_train_step(cfg, opt)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, secs = [], []
-    ops.reset_launches()
-    for step in range(TRAIN_STEPS):
-        bt = batch(step)
-        t0 = time.monotonic()
-        state, metrics = step_fn(state, bt)
-        losses.append(float(metrics["loss"]))
-        torch.cuda.synchronize()
-        secs.append(time.monotonic() - t0)
-    launched = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    L = cfg.num_layers
-    want = {"flash_attention": 2 * L * TRAIN_STEPS,
-            "flash_attention_bwd": L * TRAIN_STEPS}
-    for k, n in want.items():
-        if launched[k] != n:
-            raise AssertionError(f"[train] {k} launched {launched[k]} times "
-                                 f"in {TRAIN_STEPS} steps, expected {n}")
-    for k, n in launched.items():
-        totals[k] += n
-    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        raise AssertionError(f"[train] loss did not fall: {losses}")
-    ms = 1e3 * statistics.median(secs[-10:])
-    print(f"[train] bf16 smollm-360m, {L} layers at full width, AdamW lr "
-          f"{TRAIN_LR}, B{TRAIN_B} x S{TRAIN_S}, {TRAIN_STEPS} steps: loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {ms:.1f} ms/step (median "
-          f"of the last 10), {TRAIN_B * TRAIN_S / ms * 1e3:.0f} tokens/s; "
-          f"peak memory {peak / 2 ** 30:.2f} GiB; launches a step: K3 "
-          f"{launched['flash_attention'] // TRAIN_STEPS}, K3b "
-          f"{launched['flash_attention_bwd'] // TRAIN_STEPS}  [{smi}]")
-    print("[train] losses " + " ".join(f"{x:.4f}" for x in losses))
-    _profile_train_step(step_fn, state, batch(TRAIN_STEPS), smi)
-    return state
+    return _train_bf16(state, opt, _arch_batch(cfg, TRAIN_B, gen),
+                       TRAIN_STEPS, smi, totals, "train", hold=True)
 
 
-def _profile_train_step(step_fn, state, bt, smi):
+def _profile_train_step(step_fn, state, bt, smi, tag="train", hold=True):
     """One train step under the profiler: the device's busy share (the
     union of CUDA kernel intervals over the span of the trace) and the
-    kernels that take the most time.  Returns the busy milliseconds (None
-    when the profiler recorded no kernel)."""
+    kernels that take the most time; with ``hold``, no K3b pass may be
+    among the two longest.  Returns the busy milliseconds (None when the
+    profiler recorded no kernel)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3159,13 +3223,13 @@ def _profile_train_step(step_fn, state, bt, smi):
     events = prof.events()
     busy = _busy_us(events)
     if busy is None:
-        print("[train] device busy share: not measured (the profiler "
+        print(f"[{tag}] device busy share: not measured (the profiler "
               "recorded no CUDA kernel)")
         return None
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events))
-    print(f"[train] one step profiled: {len(kernels)} kernels, device busy "
+    print(f"[{tag}] one step profiled: {len(kernels)} kernels, device busy "
           f"{busy / 1e3:.2f} ms of {span / 1e3:.2f} ms traced "
           f"({100 * busy / span:.1f}% busy, {100 - 100 * busy / span:.1f}% "
           f"idle)  [{smi}]")
@@ -3175,28 +3239,224 @@ def _profile_train_step(step_fn, state, bt, smi):
             e.time_range.end - e.time_range.start)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
     for name, us in top[:8]:
-        print(f"[train]   {us / 1e3:8.3f} ms  {name[:90]}")
+        print(f"[{tag}]   {us / 1e3:8.3f} ms  {name[:90]}")
     k3b = {tag: sum(us for name, us in per_kernel.items() if key in name)
            for key, tag in K3B_PASSES}
-    print(f"[train] K3b in the step: " + ", ".join(
+    print(f"[{tag}] K3b in the step: " + ", ".join(
         f"{tag} {us / 1e3:.3f} ms" for tag, us in k3b.items())
           + f"; {100 * sum(k3b.values()) / busy:.1f}% of the device's busy "
           f"time")
-    if any(key in name for name, _ in top[:2] for key, _ in K3B_PASSES):
+    if hold and any(key in name for name, _ in top[:2]
+                    for key, _ in K3B_PASSES):
         raise AssertionError("[train] a K3b pass is among the step's two "
                              "longest kernels")
     return busy / 1e3
 
 
-def _train_child(args) -> tuple:
-    """``python -m repro_torch.launch.train ARGS`` from the checkout on the
-    card (its mesh: a one-rank NCCL group); returns its per-step losses
-    (it logs every step) and its other output lines."""
+def _grads_vs_plain(lm, batch, smi, tag, host=False) -> None:
+    """One loss's gradients through K3/K3b (remat: K3 twice and K3b once
+    an attention layer of either kind, exactly; the cross-attention ones
+    under their own counters) against the same loss through the plain
+    attention on the card (TF32 off): each parameter's
+    max|err|/max|plain| within TOL["f32"].  ``host`` keeps the kernel
+    path's gradients on the CPU meanwhile (a model whose gradients do not
+    fit the card twice)."""
+    from unittest import mock
+    import torch
+    from repro_torch.kernels import ops
+    n_self, n_cross = lm.n_attn, lm.n_layers["xattn"]
+    lm.requires_grad_(True)
+    ops.reset_launches()
+    cross_ctx, cross = _cross_launches()
+    with cross_ctx:
+        lm.loss(batch).backward()
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k]
+                for k in ("flash_attention", "flash_attention_bwd")}
+    want = {"flash_attention": 2 * (n_self + n_cross),
+            "flash_attention_bwd": n_self + n_cross}
+    if launches != want or cross["flash_attention_cross"] != 2 * n_cross \
+            or cross["flash_attention_bwd_cross"] != n_cross:
+        raise AssertionError(f"[{tag}] launches {launches} {cross}, expected "
+                             f"{want}, {n_cross} layers of them "
+                             f"cross-attention")
+    kern = {n: p.grad.cpu() if host else p.grad
+            for n, p in lm.named_parameters()}
+    lm.zero_grad(set_to_none=True)
+    ops.reset_launches()
+    with mock.patch.object(ops, "flash_attention_train", _plain_attention):
+        lm.loss(batch).backward()
+    torch.cuda.synchronize()
+    if ops.LAUNCHES["flash_attention"] or ops.LAUNCHES["flash_attention_bwd"]:
+        raise AssertionError(f"[{tag}] the plain attention launched "
+                             f"{dict(ops.LAUNCHES)}")
+    worst, worst_name = 0.0, ""
+    for n, p in lm.named_parameters():
+        want_g = p.grad
+        rel = _max_err(kern[n].to(want_g.device), want_g) / max(
+            float(want_g.abs().max()), 1e-30)
+        _check(f"[{tag}] grad {n}", rel, TOL["f32"])
+        if rel >= worst:
+            worst, worst_name = rel, n
+    lm.zero_grad(set_to_none=True)
+    lm.requires_grad_(False)
+    shape = "x".join(map(str, batch["labels"].shape))
+    print(f"[{tag}] f32 (TF32 off), {lm.cfg.num_layers} layers at full "
+          f"width, B x S {shape}: gradients through K3+K3b vs the plain "
+          f"attention on the card, largest max|err|/max|plain| {worst:.2e} "
+          f"({worst_name}) over {len(kern)} tensors; launches K3 "
+          f"{launches['flash_attention']}, K3b "
+          f"{launches['flash_attention_bwd']} (cross-attention {cross})  "
+          f"[{smi}]")
+
+
+def _train_bf16(state, opt, batch, steps, smi, totals, tag, falls=True,
+                hold=False):
+    """``steps`` bf16 steps of ``make_train_step`` from ``state`` on
+    ``batch(step)``: K3 2 x and K3b 1 x the attention layers a step
+    (remat; the cross-attention ones counted apart), the loss finite and,
+    with ``falls``, lower at the end; prints ms/step, tokens/s, peak
+    memory and one profiled step's busy share (``hold``: see
+    :func:`_profile_train_step`).  Returns the state."""
+    import statistics
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.training.train_loop import make_train_step
+    lm = state.model
+    cfg = lm.cfg
+    n_self, n_cross = lm.n_attn, lm.n_layers["xattn"]
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    ops.reset_launches()
+    cross_ctx, cross = _cross_launches()
+    with cross_ctx:
+        for step in range(steps):
+            bt = batch(step)
+            t0 = time.monotonic()
+            state, metrics = step_fn(state, bt)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.monotonic() - t0)
+    launched = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n = n_self + n_cross
+    want = {"flash_attention": 2 * n * steps, "flash_attention_bwd": n * steps,
+            "flash_attention_cross": 2 * n_cross * steps,
+            "flash_attention_bwd_cross": n_cross * steps}
+    got = {**{k: launched[k] for k in ("flash_attention",
+                                       "flash_attention_bwd")}, **{
+        k: cross[k] for k in ("flash_attention_cross",
+                              "flash_attention_bwd_cross")}}
+    if got != want:
+        raise AssertionError(f"[{tag}] launches {got} in {steps} steps, "
+                             f"expected {want}")
+    _add_launches(totals, launched, cross)
+    if not all(math.isfinite(x) for x in losses) or (
+            falls and losses[-1] >= losses[0]):
+        raise AssertionError(f"[{tag}] losses {losses}")
+    B, S = bt["labels"].shape
+    ms = 1e3 * statistics.median(secs[steps // 2:])
+    print(f"[{tag}] bf16 {cfg.name}, {cfg.num_layers} layers at full width "
+          f"({n_cross} cross-attention), {opt.kind} lr {opt.lr}, B{B} x S{S}"
+          f", {steps} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{ms:.1f} ms/step (median of the last {steps - steps // 2}), "
+          f"{B * S / ms * 1e3:.0f} tokens/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches a step: K3 {2 * n}, K3b {n} "
+          f"({2 * n_cross} and {n_cross} of them cross-attention)  [{smi}]")
+    print(f"[{tag}] losses " + " ".join(f"{x:.4f}" for x in losses))
+    _profile_train_step(step_fn, state, batch(steps), smi, tag=tag,
+                        hold=hold)
+    return state
+
+
+def _arch_batch(cfg, B, gen):
+    """``batch(step)`` for a trained stack on the card: tokens and labels
+    from the Markov stream (seeded by the step), or for musicgen seeded
+    frame embeddings beside the stream's labels over its codebook, and
+    for a stack with cross-attention seeded image embeddings."""
+    import torch
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLMStream
+    from repro_torch.models.layers import dtype_of
+    data = SyntheticLMStream(LMDataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=TRAIN_S, global_batch=B))
+
+    def batch(step):
+        out = {k: torch.from_numpy(x).long().cuda()
+               for k, x in data.batch(step).items()}
+        if cfg.audio_frontend:
+            out["frames"] = torch.randn(B, TRAIN_S, cfg.d_model, generator=gen,
+                                        device="cuda").to(dtype_of(cfg))
+            del out["tokens"]
+        if cfg.num_image_tokens:
+            out["image_embeds"] = torch.randn(
+                B, cfg.num_image_tokens, cfg.d_model, generator=gen,
+                device="cuda").to(dtype_of(cfg))
+        return out
+    return batch
+
+
+def gemma3_train(smi, totals) -> None:
+    """Training gemma3-4b-edge, the paper's own backend, at full width
+    (d_model 2560, 8 heads over 4 KV heads of width 256, vocab 262,144):
+    (a) a float32 2-layer copy's gradients through K3/K3b (hd 256)
+    against the plain attention's; (b) all 34 layers in bf16, 10 AdamW
+    steps (lr 3e-4) through ``make_train_step``, the loss falling."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import init_train_state
+    cfg = get_config("gemma3-4b-edge")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=2)
+    lm = LM(cfg32, device="cuda", seed=2)
+    _timed(_grads_vs_plain, lm, _arch_batch(cfg32, 2, gen)(0), smi,
+           tag="gemma3-train-f32")
+    del lm
+    _free_card("gemma3-train")
+    steps = ARCH_TRAIN_STEPS[cfg.name]
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=max(steps // 10, 1))
+    state = init_train_state(cfg, opt, device="cuda", seed=0)
+    _timed(_train_bf16, state, opt, _arch_batch(
+        cfg, ARCH_TRAIN_B[cfg.name], gen), steps, smi, totals,
+           tag="gemma3-train")
+
+
+def phase_lm_train(lm, smi, totals, tag) -> None:
+    """The bf16 model of :func:`phase_lm_api` trained in place through
+    ``make_train_step``: musicgen-large (48 layers) with AdamW on seeded
+    frames, the cut llama-3.2-vision-90b with Adafactor (its bf16
+    weights and gradients take 23.8 GiB; AdamW's float32 moments would
+    add 47.5) on seeded image embeddings, its cross-attention layer's
+    backward through K3b at Sq 512 over Skv 1024; lr 3e-4, the loss
+    finite."""
+    import torch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainState
+    cfg = lm.cfg
+    steps = ARCH_TRAIN_STEPS[cfg.name]
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=max(steps // 10, 1),
+                    kind="adafactor" if cfg.num_image_tokens else "adamw")
+    lm.requires_grad_(True)
+    state = TrainState(lm, init_opt_state(dict(lm.named_parameters()), opt,
+                                          len(cfg.block_pattern)))
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    _train_bf16(state, opt, _arch_batch(cfg, ARCH_TRAIN_B[cfg.name], gen),
+                steps, smi, totals, tag, falls=False)
+
+
+def _train_child(args, arch="smollm-360m") -> tuple:
+    """``python -m repro_torch.launch.train --arch ARCH ARGS`` from the
+    checkout on the card (its mesh: a one-rank NCCL group); returns its
+    per-step losses (it logs every step) and its other output lines."""
     import re
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "smollm-360m", "--log-every", "1", *args], cwd=ROOT, env=env,
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--log-every", "1", *args], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
         raise AssertionError(f"[launch-train] child exited "
@@ -3213,7 +3473,9 @@ def start_launch_train() -> dict:
     phases: ``python -m repro_torch.launch.train`` on the card at full
     width (bf16, the CLI's batch 8 x 128), 6 steps straight with
     checkpoints and, at the same time, 3 steps into another checkpoint
-    directory followed by a third process resuming from it for 3 more.
+    directory followed by a third process resuming from it for 3 more;
+    and gemma3-4b-edge (all 34 layers, hd 256 through K3b) for 3 steps
+    without a checkpoint (a full-width one is ~47 GB).
     :func:`phase_launch_train` collects them."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -3223,11 +3485,13 @@ def start_launch_train() -> dict:
     def first_then_resumed():
         return (_train_child(["--steps", "3", "--ckpt", b]),
                 _train_child(["--steps", "3", "--ckpt", b]))
-    pool = ThreadPoolExecutor(2)
+    pool = ThreadPoolExecutor(3)
     return {"tmp": tmp, "a": a, "b": b, "pool": pool, "t0": time.monotonic(),
             "straight": pool.submit(_train_child, [
                 "--steps", "6", "--ckpt", a, "--ckpt-every", "3"]),
-            "resumed": pool.submit(first_then_resumed)}
+            "resumed": pool.submit(first_then_resumed),
+            "gemma3": pool.submit(_train_child, ["--steps", "3"],
+                                  arch="gemma3-4b-edge")}
 
 
 def phase_launch_train(run: dict, smi, beside: str) -> str:
@@ -3237,12 +3501,15 @@ def phase_launch_train(run: dict, smi, beside: str) -> str:
     run's checkpoint directory (``[mesh]`` reshards it)."""
     import numpy as np
     from repro_torch.training import checkpoint as ckpt_lib
-    (straight, l1), ((first, l2), (resumed, l3)) = \
-        run["straight"].result(), run["resumed"].result()
+    (straight, l1), ((first, l2), (resumed, l3)), (gemma, l4) = \
+        run["straight"].result(), run["resumed"].result(), \
+        run["gemma3"].result()
     run["pool"].shutdown()
     secs = time.monotonic() - run["t0"]
-    for line in l1 + l2 + l3:
+    for line in l1 + l2 + l3 + l4:
         print(f"[launch-train]   {line}")
+    if len(gemma) != 3 or not all(math.isfinite(x) for x in gemma):
+        raise AssertionError(f"[launch-train] gemma3-4b-edge losses {gemma}")
     a, b = run["a"], run["b"]
     if ckpt_lib.all_steps(a) != [3, 6] or ckpt_lib.latest_step(b) != 6:
         raise AssertionError("[launch-train] checkpoints missing: "
@@ -3253,10 +3520,12 @@ def phase_launch_train(run: dict, smi, beside: str) -> str:
                              f"{resumed}")
     np.testing.assert_allclose(first, straight[:3], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(resumed, straight[3:], rtol=1e-4, atol=1e-4)
-    print(f"[launch-train] 3 children in {secs:.1f} s (started before "
+    print(f"[launch-train] 4 children in {secs:.1f} s (started before "
           f"{beside} and run beside it; not a time taken alone): straight "
           f"{' '.join(f'{x:.4f}' for x in straight)}; 3 + resumed 3 "
-          f"{' '.join(f'{x:.4f}' for x in first + resumed)}; equal  [{smi}]")
+          f"{' '.join(f'{x:.4f}' for x in first + resumed)}; equal; "
+          f"gemma3-4b-edge (34 layers, hd 256) "
+          f"{' '.join(f'{x:.4f}' for x in gemma)}  [{smi}]")
     return b
 
 
@@ -3595,17 +3864,23 @@ def new_arch_kernels(gen) -> list:
 
 def _cross_launches():
     """(context, counts): inside the context, the K3 and K1 launches made
-    by ``CrossAttention.prefill`` / ``.decode`` are added to ``counts``
-    ("flash_attention_cross", "decode_attention_cross"), read from the
-    launch counters around each call."""
+    by ``CrossAttention.prefill`` / ``.decode`` / ``.forward`` (training,
+    remat's second forward included) are added to ``counts``
+    ("flash_attention_cross", "decode_attention_cross"), and K3b's
+    launches for full attention (in these stacks only the cross-attention
+    layer's backward) to "flash_attention_bwd_cross", each read from the
+    launch counters around the call."""
     import contextlib
     from unittest import mock
+    from repro_torch.kernels import ops
     from repro_torch.kernels._build import LAUNCHES
     from repro_torch.models.attention import CrossAttention
-    counts = {"flash_attention_cross": 0, "decode_attention_cross": 0}
+    counts = {"flash_attention_cross": 0, "decode_attention_cross": 0,
+              "flash_attention_bwd_cross": 0}
     stack = contextlib.ExitStack()
     for method, kernel in (("prefill", "flash_attention"),
-                           ("decode", "decode_attention")):
+                           ("decode", "decode_attention"),
+                           ("forward", "flash_attention")):
         orig = getattr(CrossAttention, method)
 
         def spy(self, *a, _orig=orig, _k=kernel, **kw):
@@ -3614,6 +3889,17 @@ def _cross_launches():
             counts[_k + "_cross"] += LAUNCHES[_k] - before
             return out
         stack.enter_context(mock.patch.object(CrossAttention, method, spy))
+    bwd = ops.flash_attention_bwd_cuda
+
+    def bwd_spy(*a, causal=True, **kw):
+        before = LAUNCHES["flash_attention_bwd"]
+        out = bwd(*a, causal=causal, **kw)
+        if not causal:
+            counts["flash_attention_bwd_cross"] += \
+                LAUNCHES["flash_attention_bwd"] - before
+        return out
+    stack.enter_context(mock.patch.object(ops, "flash_attention_bwd_cuda",
+                                          bwd_spy))
     return stack, counts
 
 
@@ -3724,8 +4010,7 @@ def phase_lm_f32(cfg, smi, totals, tag) -> None:
           f"{worst:.3e} (logit scale {scale:.2f})"
           + (f", greedy tokens equal {k_toks}" if k_toks else "") + extra
           + f"; launches {launches}, cross-attention {cross}  [{smi}]")
-    del lm
-    _free_card(tag)
+    return lm
 
 
 def _add_launches(totals, launches, cross=None) -> None:
@@ -3799,7 +4084,7 @@ def phase_lm_api(cfg, smi, totals, tag) -> None:
         _lm_run(lm, key, seq, img, steps=8, sync=True)
     _trace_report(prof.events(), 9, f"prefill {LM_PROMPT} + 8 decode steps",
                   smi, f"{tag}-profile")
-    del lm
+    return lm
 
 
 def xlstm_paths(predictor, smi) -> dict:
@@ -3902,22 +4187,35 @@ def phase_xlstm_f32(cfg, smi, totals, tag="xlstm-f32") -> None:
 def lm_api_paths(name, tag, smi, layers=None) -> dict:
     """musicgen-large or llama-3.2-vision-90b (``layers`` cuts its depth)
     at full width through the LM API: a float32 copy (musicgen: 2
-    layers; vision: its 5) held to the plain attention, then the bf16
-    run.  Returns the paths' launch counts, the cross-attention ones
-    under their own counters."""
+    layers; vision: its 5) held to the plain attention, serving and then
+    its loss's gradients; then the bf16 run, serving and then training
+    the same weights.  Returns the paths' launch counts, the
+    cross-attention ones under their own counters."""
     import dataclasses
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels._build import LAUNCHES
     cfg = get_config(name)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     totals = {k: 0 for k in LAUNCHES}
-    totals.update(flash_attention_cross=0, decode_attention_cross=0)
+    totals.update(flash_attention_cross=0, decode_attention_cross=0,
+                  flash_attention_bwd_cross=0)
     f32 = dataclasses.replace(cfg, dtype="float32",
                               num_layers=min(cfg.num_layers, 2)
                               if cfg.audio_frontend else cfg.num_layers)
-    _timed(phase_lm_f32, f32, smi, totals, tag=f"{tag}-f32")
-    _timed(phase_lm_api, cfg, smi, totals, tag=tag)
+    lm = _timed(phase_lm_f32, f32, smi, totals, tag=f"{tag}-f32")
+    # B 1 for the vision copy: its float32 gradients are 23.8 GiB, kept
+    # on the host while the plain attention's are taken
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    _timed(_grads_vs_plain, lm, _arch_batch(
+        f32, 1 if cfg.num_image_tokens else 2, gen)(0), smi,
+           tag=f"{tag}-train-f32", host=bool(cfg.num_image_tokens))
+    del lm
+    _free_card(f"{tag}-f32")
+    lm = _timed(phase_lm_api, cfg, smi, totals, tag=tag)
+    _timed(phase_lm_train, lm, smi, totals, tag=f"{tag}-train")
+    del lm
     return totals
 
 
@@ -3941,34 +4239,166 @@ def _timed(fn, *args, beside: str = "", **kw):
     out = fn(*args, **kw)
     note = f" (beside {beside})" if beside else ""
     print(f"[time] {fn.__name__} {kw.get('tag', '')}: "
-          f"{time.monotonic() - t0:.1f} s{note}")
+         f"{time.monotonic() - t0:.1f} s{note}")
     return out
 
 
-def main() -> int:
-    import dataclasses
-    import torch
-    from repro_torch.configs import get_config
+def _train_predictor():
+    """The serving paths' predictor: 60 rounds on 2,400 sharegpt-profile
+    prompts (seeded; the same trees in every process).  Returns (the
+    dataset, the predictor)."""
     from repro_torch.core.gbdt import GBDTParams
     from repro_torch.core.predictor import Predictor
     from repro_torch.data.corpus import sample_dataset
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.stdout.reconfigure(line_buffering=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.monotonic()
-    smi = phase_device()
-    phase_build()
-
     ds = sample_dataset("sharegpt", n=2400, seed=42, balanced=True)
     t0 = time.monotonic()
     predictor = Predictor.train(ds.prompts, ds.lengths,
                                 GBDTParams(num_rounds=60), device="cuda")
     print(f"[predictor] trained 60 rounds on {len(ds)} prompts in "
           f"{time.monotonic() - t0:.1f} s (host)")
+    return ds, predictor
+
+
+# ------------------------------------------------- the side process
+# jamba-v0.1-52b's and xlstm-350m's host-paced serving paths run in a
+# child process (its own CUDA context and launch counters) beside the
+# gemma3-4b-edge, musicgen and vision phases, so that the run stays
+# inside its time limit on a slow host
+SIDE_FLAG, SIDE_JAMBA_DONE = "--side-paths", "[side] jamba paths done"
+
+
+def side_paths() -> int:
+    """The child of :func:`start_side_paths`: jamba-v0.1-52b's paths,
+    then a line saying so (their card memory, up to 50.5 GiB, is free
+    from there), then xlstm-350m's, then one JSON line of both models'
+    launches.  The kernels are the parent's build."""
+    import torch
+    sys.stdout.reconfigure(line_buffering=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = phase_device()
+    _, predictor = _train_predictor()
+    totals = {"jamba-v0.1-52b": jamba_paths(predictor, smi)}
+    _free_card("xlstm")
+    print(SIDE_JAMBA_DONE)
+    totals["xlstm-350m"] = xlstm_paths(predictor, smi)
+    print(json.dumps({"side_totals": totals}))
+    return 0
+
+
+def start_side_paths() -> dict:
+    """Start :func:`side_paths` as ``python3 chip_smoke.py --side-paths``;
+    a thread keeps its output lines and sets ``jamba`` once its jamba
+    paths are done or it has ended."""
+    import threading
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             SIDE_FLAG], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    run = {"proc": proc, "lines": [], "jamba": threading.Event(),
+           "t0": time.monotonic()}
+
+    def pump():
+        for line in proc.stdout:
+            run["lines"].append(line.rstrip("\n"))
+            if line.startswith(SIDE_JAMBA_DONE):
+                run["jamba"].set()
+        run["jamba"].set()
+    run["thread"] = threading.Thread(target=pump, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def _side_failed(run) -> None:
+    """Raise, with the child's output, if it has ended and not with 0."""
+    code = run["proc"].poll()
+    if code not in (None, 0):
+        run["thread"].join(timeout=30)
+        raise AssertionError(f"[side] the jamba/xlstm child exited {code}:\n"
+                             + "\n".join(run["lines"][-60:]))
+
+
+def wait_side_jamba(run, before: str) -> None:
+    """Block until the child's jamba paths are done: ``before`` needs
+    the card memory they hold."""
+    t0 = time.monotonic()
+    run["jamba"].wait(timeout=900)
+    if SIDE_JAMBA_DONE not in run["lines"]:       # it ended first
+        run["proc"].wait(timeout=60)
+    _side_failed(run)
+    print(f"[side] waited {time.monotonic() - t0:.1f} s for the child's "
+          f"jamba paths before {before}")
+
+
+def collect_side_paths(run, smi) -> tuple:
+    """Wait for the child, print its lines and return the launches of
+    jamba-v0.1-52b's and xlstm-350m's paths."""
+    run["proc"].wait(timeout=900)
+    run["thread"].join(timeout=60)
+    _side_failed(run)
+    for line in run["lines"]:
+        print(line)
+    got = [json.loads(line) for line in run["lines"]
+           if line.startswith('{"side_totals"')]
+    if not got:
+        raise AssertionError("[side] the child printed no launch counts")
+    print(f"[side] jamba-v0.1-52b and xlstm-350m paths in a child process: "
+          f"{time.monotonic() - run['t0']:.1f} s, beside the gemma3-4b-edge, "
+          f"musicgen and vision phases (neither side's times are taken "
+          f"alone)  [{smi}]")
+    totals = got[0]["side_totals"]
+    return totals["jamba-v0.1-52b"], totals["xlstm-350m"]
+
+
+def gemma3_and_lm_api_paths(predictor, smi, child, g_totals) -> tuple:
+    """The main process's part beside the side process: gemma3-4b-edge
+    served and trained, then musicgen-large and the cut
+    llama-3.2-vision-90b through the LM API and trained.  The phases
+    whose card memory would not fit beside the child's jamba paths wait
+    for them.  Returns the three models' launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    gcfg = get_config("gemma3-4b-edge")
+    g2 = dataclasses.replace(gcfg, num_layers=2)
+    _timed(phase_full_width_reference, g2, tag="gemma3-f32")
+    _timed(phase_lanes_f32, g2, smi, g_totals, tag="gemma3-f32")
+    g_launches, geng, g_tokens = _timed(phase_slice, gcfg, predictor, smi,
+                                        tag="gemma3-slice")
+    for k, v in g_launches.items():
+        g_totals[k] += v
+    _timed(phase_sidecar, geng, predictor, smi, g_tokens, g_totals,
+           tag="gemma3-sidecar", extras=False)
+    del geng
+    _free_card("gemma3-lanes")
+    _timed(phase_lanes, gcfg, smi, g_totals, tag="gemma3-lanes")
+    wait_side_jamba(child, "[gemma3-train]")
+    _free_card("gemma3-train-f32")
+    gemma3_train(smi, g_totals)
+    _free_card("musicgen")
+    m_totals = lm_api_paths("musicgen-large", "musicgen", smi)
+    _free_card("vision")
+    v_totals = lm_api_paths("llama-3.2-vision-90b", "vision", smi,
+                            layers=len(get_config(
+                                "llama-3.2-vision-90b").block_pattern))
+    return g_totals, m_totals, v_totals
+
+
+def main() -> int:
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from repro_torch.configs import get_config
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if sys.argv[1:] == [SIDE_FLAG]:
+        return side_paths()
+    sys.stdout.reconfigure(line_buffering=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.monotonic()
+    smi = phase_device()
+    phase_build()
+    ds, predictor = _train_predictor()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = []
@@ -3987,6 +4417,7 @@ def main() -> int:
         phase_gbdt_kernel(predictor.model, ds.prompts),
         phase_packed_kernel(predictor.model, ds.prompts),
         phase_flash_bwd_kernel(gen))]
+    kernels += phase_flash_bwd_instances(gen)
     by_name = {k["name"]: k for k in kernels}
     e4, e5 = phase_cli_predictor_kernels()
     by_name["gbdt_margins"]["max_abs_err"] = max(
@@ -4010,53 +4441,46 @@ def main() -> int:
     _timed(phase_paged_burst, cfg, predictor, smi, totals)
     _timed(phase_preempt, cfg, predictor, smi, totals)
     _timed(phase_lanes_faults, cfg, smi, totals)
-    # [launch-train]'s host-bound children run beside [speculative]
+    # [launch-train]'s and [launch-sidecar]'s host-bound children run
+    # beside [speculative] (the sidecar's client on a thread; its launches
+    # are the children's, added after)
+    _free_card("launch-train")
     launch_train = start_launch_train()
-    _timed(phase_speculative, cfg, smi, totals,
-           beside="[launch-train]'s children")
+    side_totals = {k: 0 for k in totals}
+    with ThreadPoolExecutor(1) as ex:
+        side = ex.submit(_timed, phase_launch_sidecar, smi, side_totals,
+                         beside="[speculative]")
+        _timed(phase_speculative, cfg, smi, totals,
+               beside="[launch-train]'s children and [launch-sidecar]")
+        side.result()
+    for k, v in side_totals.items():
+        totals[k] += v
     ckpt_dir = _timed(phase_launch_train, launch_train, smi, "[speculative]")
     _timed(phase_launch_serve, smi, totals)
-    _timed(phase_launch_sidecar, smi, totals)
     state = _timed(phase_train, cfg, smi, totals)
     _timed(phase_mesh, cfg, state, ckpt_dir, smi, totals)
     del state
     shutil.rmtree(launch_train["tmp"])
+    # the last three archs' kernels: K1/K3 at musicgen's and vision's
+    # heads and the cross-attention kernels, timed before the side
+    # process starts
+    _free_card("new-arch kernels")
+    kernels += _timed(new_arch_kernels, gen)
 
     # the paper's own backend, gemma3-4b-edge (head width 256, GeGLU):
     # a float32 2-layer copy against the CPU's plain path, then all 34
-    # layers in bf16 through the serial engine, the sidecar and the lanes
+    # layers in bf16 through the serial engine, the sidecar and the lanes,
+    # then trained; beside them jamba-v0.1-52b and xlstm-350m in a child
     _free_card("gemma3")
-    gcfg = get_config("gemma3-4b-edge")
-    g2 = dataclasses.replace(gcfg, num_layers=2)
-    _timed(phase_full_width_reference, g2, tag="gemma3-f32")
-    g_totals = {k: 0 for k in totals}
-    _timed(phase_lanes_f32, g2, smi, g_totals, tag="gemma3-f32")
-    g_launches, geng, g_tokens = _timed(phase_slice, gcfg, predictor, smi,
-                                        tag="gemma3-slice")
-    for k, v in g_launches.items():
-        g_totals[k] += v
-    _timed(phase_sidecar, geng, predictor, smi, g_tokens, g_totals,
-           tag="gemma3-sidecar", extras=False)
-    del geng
-    _free_card("gemma3-lanes")
-    _timed(phase_lanes, gcfg, smi, g_totals, tag="gemma3-lanes")
-
-    _free_card("jamba")
-    j_totals = jamba_paths(predictor, smi)
-
-    # the last three archs: K1/K3 at their heads and the cross-attention
-    # kernels, then xlstm-350m through the engines and the sidecar, and
-    # musicgen-large and the cut llama-3.2-vision-90b through the LM API
-    _free_card("new-arch kernels")
-    kernels += _timed(new_arch_kernels, gen)
-    _free_card("xlstm")
-    x_totals = xlstm_paths(predictor, smi)
-    _free_card("musicgen")
-    m_totals = lm_api_paths("musicgen-large", "musicgen", smi)
-    _free_card("vision")
-    v_totals = lm_api_paths("llama-3.2-vision-90b", "vision", smi,
-                            layers=len(get_config(
-                                "llama-3.2-vision-90b").block_pattern))
+    child = start_side_paths()
+    try:
+        g_totals, m_totals, v_totals = gemma3_and_lm_api_paths(
+            predictor, smi, child, {k: 0 for k in totals})
+        j_totals, x_totals = collect_side_paths(child, smi)
+    finally:
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
 
     # each entry reports the launches of its own model's paths
     by_model = {"smollm-360m": totals, "gemma3-4b-edge": g_totals,

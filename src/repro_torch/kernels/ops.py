@@ -24,7 +24,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+from repro_torch.kernels.flash_attention_bwd import (check_lengths,
+                                                     flash_attention_bwd_cuda)
 from repro_torch.kernels.gbdt_infer import (gbdt_margins_cuda,
                                             gbdt_margins_packed_cuda,
                                             gbdt_margins_packed_plain,
@@ -76,15 +77,14 @@ class _FlashTrain(torch.autograd.Function):
 
 
 def flash_attention_train(q, k, v, *, causal: bool = True):
-    """Differentiable attention over the training shapes: q (B,S,H,hd),
-    k/v (B,S,KV,hd) -> (B,S,H,hd), query row i at key position i.  A CPU
+    """Differentiable attention over the training shapes: q (B,Sq,H,hd),
+    k/v (B,Skv,KV,hd) -> (B,Sq,H,hd); causal with Sq == Skv (query row i
+    at key position i), full at any Sq and Skv (cross-attention).  A CPU
     tensor runs the plain forward under autograd; a CUDA tensor runs K3
     forward and K3b backward (``torch.autograd.Function``)."""
     if q.device.type in PLAIN:
         return flash_attention_plain(q, k, v, causal=causal)
-    if q.shape[1] != k.shape[1]:
-        raise ValueError(f"training attention needs Sq == Skv, got "
-                         f"{q.shape[1]} and {k.shape[1]}")
+    check_lengths(q.shape[1], k.shape[1], causal)
     return _FlashTrain.apply(q, k, v, causal)
 
 

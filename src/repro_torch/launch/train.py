@@ -17,13 +17,15 @@ and trains on its rows; only rank 0 prints and writes checkpoints (the
 sharded leaves are gathered first), and a resume lays the checkpoint out
 on whatever mesh is running.  The multimodal archs
 (llama-3.2-vision-90b, musicgen-large) are refused with the JAX CLI's
-message before any weight is built.  On the card a stack with an
-attention layer whose head width K3b does not take (gemma3-4b-edge's
-256; xlstm-350m's 256 passes, having none), or whose weights, gradients
-and float32 AdamW moments would not fit one card's memory
-(jamba-v0.1-52b's 51 B parameters), is refused before any weight is
-built.  Features exercised: the train step with per-block remat (every
-attention layer through K3 forward and K3b backward on the card), the
+message before any weight is built (their card path is the train step,
+with ``frames`` or ``image_embeds`` in the batch, as in JAX).  On the
+card a stack with an attention layer whose head width K3b is not
+compiled for (K3b takes 16, 32, 64, 128 and 256: every registered
+arch's), or whose weights, gradients and float32 AdamW moments would not
+fit one card's memory (jamba-v0.1-52b's 51 B parameters), is refused
+before any weight is built.  Features exercised: the train step with
+per-block remat (every attention layer through K3 forward and K3b
+backward on the card), the
 deterministic synthetic data stream (resume-safe), async checkpointing
 with atomic commits, auto-resume from the latest step and straggler
 monitoring.  ``main`` returns the per-step losses (on every rank).
@@ -61,9 +63,9 @@ def train_state_bytes(cfg) -> int:
 
 
 def check_attention_backward(cfg) -> None:
-    """Raise ValueError unless K3b takes the head width of every attention
-    layer the stack has (self- or cross-attention); a stack without one
-    (xlstm-350m) never reaches K3b."""
+    """Raise ValueError unless K3b is compiled for the head width of every
+    attention layer the stack has (self- or cross-attention); a stack
+    without one (xlstm-350m) never reaches K3b."""
     if any(k in (ATTN, ATTN_MOE, XATTN) for k in cfg.block_pattern):
         check_head_dim(cfg.head_dim)
 

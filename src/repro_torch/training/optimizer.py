@@ -9,8 +9,15 @@ moments are kept in ``moment_dtype`` (float32 by default) and computed in
 float32, bias correction uses the float32 step, AdamW's weight decay
 applies to every parameter (norms included), and each parameter becomes
 ``(p32 - lr * delta)`` in its own dtype.  Unlike the JAX function, the
-parameters are updated **in place** (the dict given is returned): the
-model keeps its tensors and no second copy of the weights is made.
+parameters and AdamW's moments are updated **in place** (the dicts given
+are returned): the model keeps its tensors, and the state is consumed as
+the JAX train CLI donates it (``donate_argnums``), so no second copy of
+the weights or the moments is made.  The float32 work runs over the
+parameters a bounded slice at a time (``CHUNK`` elements; a contiguous
+tensor larger than that in flat ranges): elementwise, so the bits are
+those of one pass over all of them, while the temporaries stay a few
+hundred MiB however large the model (gemma3-4b-edge's 3.88 B parameters
+would need ~5 float32 copies of each at once).
 
 Adafactor factors the second moment of every tensor of two or more
 dimensions over its last two axes.  The JAX package stacks each block
@@ -35,6 +42,8 @@ from typing import Dict, NamedTuple
 import torch
 
 _LAYER = re.compile(r"^blocks\.(\d+)\.")
+#: elements of float32 temporaries one pass of the update holds per input
+CHUNK = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -134,10 +143,48 @@ def _schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
+def _batches(tensors, size: int = CHUNK):
+    """Consecutive runs of ``tensors`` of at most ``size`` elements in all
+    (a larger tensor alone)."""
+    run, n = [], 0
+    for t in tensors:
+        if run and n + t.numel() > size:
+            yield run
+            run, n = [], 0
+        run.append(t)
+        n += t.numel()
+    if run:
+        yield run
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in float32."""
-    norms = torch._foreach_norm([g.float() for g in grads])
+    norms = [x for run in _batches(list(grads))
+             for x in torch._foreach_norm([g.float() for g in run])]
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def _slices(groups, size: int = CHUNK):
+    """The elements of ``groups`` (tuples of equally shaped tensors:
+    parameter, gradient, moments) as runs of at most ``size`` elements:
+    each run a list of tuples of views, a view a flat range of its
+    tensor, or the whole tensor when one of its tuple is not
+    contiguous."""
+    def ranges(group):
+        if not all(t.is_contiguous() for t in group):
+            return [group]
+        return [tuple(t.view(-1)[a:a + size] for t in group)
+                for a in range(0, group[0].numel(), size)]
+    run, n = [], 0
+    for group in groups:
+        for piece in ranges(group):
+            if run and n + piece[0].numel() > size:
+                yield run
+                run, n = [], 0
+            run.append(piece)
+            n += piece[0].numel()
+    if run:
+        yield run
 
 
 @torch.no_grad()
@@ -155,42 +202,42 @@ def apply_updates(params: Dict[str, torch.Tensor],
         gnorm = global_norm([grads[n] for n in names])
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    g32 = dict(zip(names, torch._foreach_mul(
-        [grads[n].float() for n in names], scale)))
     step = state.step + 1
     step_f = step.float()
     lr = _schedule(cfg, step)
 
     if cfg.kind == "adamw":
         b1, b2 = cfg.betas
-        mdt = getattr(torch, cfg.moment_dtype)
-        g = [g32[n] for n in names]
-        p32 = [params[n].float() for n in names]
-        m_new = torch._foreach_add(
-            torch._foreach_mul([state.m[n].float() for n in names], b1),
-            torch._foreach_mul(g, 1 - b1))
-        v_new = torch._foreach_add(
-            torch._foreach_mul([state.v[n].float() for n in names], b2),
-            torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
-        mhat = torch._foreach_div(m_new, 1 - b1 ** step_f)
-        vhat = torch._foreach_div(v_new, 1 - b2 ** step_f)
-        delta = torch._foreach_div(
-            mhat, torch._foreach_add(torch._foreach_sqrt(vhat), cfg.eps))
-        delta = torch._foreach_add(
-            delta, torch._foreach_mul(p32, cfg.weight_decay))
-        new = torch._foreach_sub(p32, torch._foreach_mul(delta, lr))
-        for n, x in zip(names, new):
-            params[n].copy_(x)
-        new_state = OptState(
-            step, {n: x.to(mdt) for n, x in zip(names, m_new)},
-            {n: x.to(mdt) for n, x in zip(names, v_new)})
-        return params, new_state, {"grad_norm": gnorm, "lr": lr}
+        for run in _slices((params[n], grads[n], state.m[n], state.v[n])
+                           for n in names):
+            p, g, m, v = zip(*run)
+            g = torch._foreach_mul([x.float() for x in g], scale)
+            p32 = [x.float() for x in p]
+            m_new = torch._foreach_add(
+                torch._foreach_mul([x.float() for x in m], b1),
+                torch._foreach_mul(g, 1 - b1))
+            v_new = torch._foreach_add(
+                torch._foreach_mul([x.float() for x in v], b2),
+                torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
+            mhat = torch._foreach_div(m_new, 1 - b1 ** step_f)
+            vhat = torch._foreach_div(v_new, 1 - b2 ** step_f)
+            delta = torch._foreach_div(
+                mhat, torch._foreach_add(torch._foreach_sqrt(vhat), cfg.eps))
+            delta = torch._foreach_add(
+                delta, torch._foreach_mul(p32, cfg.weight_decay))
+            new = torch._foreach_sub(p32, torch._foreach_mul(delta, lr))
+            for dst, src in zip(p + m + v, new + m_new + v_new):
+                dst.copy_(src)
+        return params, OptState(step, state.m, state.v), {
+            "grad_norm": gnorm, "lr": lr}
 
     if cfg.kind == "adafactor":
         eps = 1e-30
         decay = 1.0 - (step_f + 1.0) ** -0.8
         new_m, new_v = {}, {}
         for group, gnames in _groups(names, period).items():
+            g32 = dict(zip(gnames, torch._foreach_mul(
+                [grads[n].float() for n in gnames], scale)))
             g = _stacked(g32, gnames, group)
             p32 = _stacked(params, gnames, group).float()
             r, c = state.m[group], state.v[group]

@@ -679,11 +679,11 @@ def _scaled_close(name, got, want, dtype):
     assert err <= tol, f"{name}: {err} > {tol}"
 
 
-def _bwd_inputs(cuda, dtype, B, S, H, KV, hd, seed, causal=True):
+def _bwd_inputs(cuda, dtype, B, S, H, KV, hd, seed, causal=True, Skv=None):
     g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
-    k, v = (torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
-            for _ in range(2))
+    k, v = (torch.randn(B, S if Skv is None else Skv, KV, hd, generator=g,
+                        device=cuda).to(dtype) for _ in range(2))
     do = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
     o, lse = ops.flash_attention_plain(q, k, v, causal=causal,
                                        return_lse=True)
@@ -693,7 +693,7 @@ def _bwd_inputs(cuda, dtype, B, S, H, KV, hd, seed, causal=True):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [16, 48, 64, 100, 512, 1000])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, S, hd, causal):
     """K3b against ``flash_attention_bwd_plain`` on the same q, k, v, o,
@@ -738,15 +738,15 @@ def test_flash_bwd_kernel_matches_plain_at_training_shape(cuda):
 @pytest.mark.cuda
 def test_flash_bwd_bf16_kernels_do_not_spill(cuda, tmp_path, monkeypatch):
     """Every bf16 instance of K3b's passes (pass 1 and the two mma.sync
-    passes at hd 16, 32, 64 and 128) compiles with no register spills, as
-    ``_build.PTXAS_REPORT`` shows after a fresh build."""
+    passes at hd 16, 32, 64, 128 and 256) compiles with no register
+    spills, as ``_build.PTXAS_REPORT`` shows after a fresh build."""
     from repro_torch.kernels import _build
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     _build.build(["flash_attention_bwd"])
     entries = _build.PTXAS_REPORT["flash_attention_bwd"].split(
         "Compiling entry function '")[1:]
     bf16 = [e for e in entries if "nv_bfloat16" in e.split("'")[0]]
-    assert len(bf16) == 12, [e.split("'")[0] for e in entries]
+    assert len(bf16) == 15, [e.split("'")[0] for e in entries]
     for e in bf16:
         assert "0 bytes spill stores, 0 bytes spill loads" in e, e
 
@@ -777,20 +777,83 @@ def test_serving_kernels_do_not_spill(cuda, tmp_path, monkeypatch, name):
 
 @pytest.mark.cuda
 def test_hd256_refused_by_k3b_and_the_train_cli(cuda):
-    """K3b takes head widths up to 128: at hd 256 it raises with its
-    limit, and ``launch.train`` on the card stops with that message
-    before it builds any weight (no plain-backward fallback)."""
+    """Head width 256 trains on the card: ``launch.train``'s card check
+    lets gemma3-4b-edge through and K3b launches at hd 256; a head width
+    K3b is not compiled for (96) still raises in K3b and stops the CLI
+    before it builds any weight (no plain-backward fallback).  Then the
+    CLI trains gemma3's hd-256 reduced copy on the card for 3 steps."""
+    import dataclasses
     from repro_torch.kernels.flash_attention_bwd import \
         flash_attention_bwd_cuda
     from repro_torch.launch import train as train_mod
+    train_mod.check_attention_backward(get_config("gemma3-4b-edge"))
     args = _bwd_inputs(cuda, torch.bfloat16, 1, 32, 8, 4, 256, 1)
-    with pytest.raises(ValueError, match="at most 128"):
-        flash_attention_bwd_cuda(*args)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    flash_attention_bwd_cuda(*args)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash_attention_bwd_cuda(*_bwd_inputs(cuda, torch.bfloat16, 1, 32, 8,
+                                              4, 96, 1))
+    wide = dataclasses.replace(get_config("gemma3-4b-edge"), head_dim=96)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    with pytest.raises(SystemExit, match="K3b.*at most 128"):
+    with pytest.raises(SystemExit, match="K3b.*head_dim 96"), \
+            pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_mod, "get_config", lambda name: wide)
         train_mod.main(["--arch", "gemma3-4b-edge", "--steps", "1"])
     assert torch.cuda.max_memory_allocated() == base
+    small = dataclasses.replace(get_config("gemma3-4b-edge").reduced(),
+                                head_dim=256, dtype="bfloat16")
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_mod, "get_config", lambda name: small)
+        try:
+            losses = train_mod.main(["--arch", "gemma3-4b-edge", "--steps",
+                                     "3", "--seq", "64", "--batch", "2"])
+        finally:
+            import torch.distributed as dist
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert ops.LAUNCHES["flash_attention_bwd"] - before == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv", [(7, 16), (16, 40), (37, 130), (100, 64),
+                                    (512, 1024)])
+@pytest.mark.parametrize("H,KV,hd", [(32, 32, 64), (64, 8, 128), (8, 4, 256),
+                                     (4, 1, 32)])
+def test_flash_bwd_kernel_at_cross_lengths(cuda, dtype, Sq, Skv, H, KV, hd):
+    """K3b's full attention at Sq != Skv (the cross-attention layer's
+    backward; musicgen's, vision's and gemma3's heads and a G 4 one)
+    against the plain version within 1e-4 (f32, TF32 off) / 2e-2 (bf16)
+    of max|plain|, bf16 also against the plain version that rounds P and
+    dS; two calls give the same bits; causal at Sq != Skv raises."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        args = _bwd_inputs(cuda, dtype, 2, Sq, H, KV, hd, Sq + Skv,
+                           causal=False, Skv=Skv)
+        got = flash_attention_bwd_cuda(*args, causal=False)
+        again = flash_attention_bwd_cuda(*args, causal=False)
+        torch.cuda.synchronize()
+        wants = [flash_attention_bwd_plain(*args, causal=False)]
+        if dtype == torch.bfloat16:
+            wants.append(flash_attention_bwd_plain(
+                *args, causal=False, round_dtype=torch.bfloat16))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for want in wants:
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert a.dtype == dtype and a.shape == b.shape
+            _scaled_close(name, a, b, dtype)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        flash_attention_bwd_cuda(*args, causal=True)
 
 
 @pytest.mark.cuda
@@ -856,6 +919,115 @@ def test_flash_attention_train_reaches_k3_and_k3b(cuda):
     for leaf, want in zip(leaves, flash_attention_bwd_cuda(q, k, v, o, do,
                                                            lse)):
         assert torch.equal(leaf.grad, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,H,KV,hd,causal", [
+    (128, 128, 8, 4, 256, True), (64, 1024, 64, 8, 128, False),
+    (40, 16, 4, 4, 256, False)])
+def test_flash_attention_train_reaches_k3_and_k3b_at_new_shapes(
+        cuda, Sq, Skv, H, KV, hd, causal):
+    """``ops.flash_attention_train`` on the card at the shapes K3b gained:
+    head width 256 (gemma3's heads, causal) and full attention at Sq !=
+    Skv (vision's cross-attention heads over 1024 image rows, and hd
+    256): one K3 launch forward, one K3b launch backward, gradients equal
+    to K3b on K3's own o and lse; causal at Sq != Skv raises."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_cuda
+    q, k, v, _, do, _ = _bwd_inputs(cuda, torch.bfloat16, 2, Sq, H, KV, hd,
+                                    3, causal=causal, Skv=Skv)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention_train(*leaves, causal=causal)
+    out.backward(do)
+    assert ops.LAUNCHES["flash_attention"] - before["flash_attention"] == 1
+    assert (ops.LAUNCHES["flash_attention_bwd"]
+            - before["flash_attention_bwd"]) == 1
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(out.detach(), o)
+    for leaf, want in zip(leaves, flash_attention_bwd_cuda(
+            q, k, v, o, do, lse, causal=causal)):
+        assert torch.equal(leaf.grad, want)
+    if Sq != Skv:
+        with pytest.raises(ValueError, match="Sq == Skv"):
+            ops.flash_attention_train(q, k, v, causal=True)
+
+
+#: reduced stacks whose training reaches K3b's new shapes: (arch, config
+#: overrides) -- gemma3 at head width 256, vision's cross-attention (full
+#: attention over its image rows), musicgen on frames
+TRAIN_ARCHS = {"gemma3-hd256": ("gemma3-4b-edge", {"head_dim": 256}),
+               "vision": ("llama-3.2-vision-90b", {}),
+               "musicgen": ("musicgen-large", {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TRAIN_ARCHS))
+def test_arch_train_step_on_card_matches_cpu(cuda, case):
+    """The reduced gemma3 (hd 256), vision (``image_embeds``) and
+    musicgen (``frames``) stacks in float32 with TF32 off: the loss
+    gradients on the card (K3 forward and K3b backward in every
+    attention layer, the cross-attention one non-causal at Sq != Skv)
+    within 1e-4 of max|g| of the CPU's (the plain versions), K3 twice
+    and K3b once a layer (remat), and one AdamW train step's loss (rtol
+    1e-5) and params (atol 2 x lr) equal."""
+    import dataclasses
+    from repro_torch.models.model import LM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainState, make_train_step
+    arch, over = TRAIN_ARCHS[case]
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    g = torch.Generator().manual_seed(9)
+    batch = {"labels": torch.randint(0, cfg.vocab_size, (2, 48), generator=g)}
+    if cfg.audio_frontend:
+        batch["frames"] = torch.randn(2, 48, cfg.d_model, generator=g)
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (2, 48),
+                                        generator=g)
+    if cfg.num_image_tokens:
+        batch["image_embeds"] = torch.randn(2, cfg.num_image_tokens,
+                                            cfg.d_model, generator=g)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        models = [LM(cfg, device=cuda, seed=0), LM(cfg, device="cpu")]
+        models[1].load_state_dict({k: v.cpu() for k, v in
+                                   models[0].state_dict().items()})
+        grads = []
+        for lm in models:
+            lm.requires_grad_(True)
+            before = dict(ops.LAUNCHES)
+            lm.loss({k: v.to(lm.device) for k, v in batch.items()}).backward()
+            if lm.device.type == "cuda":
+                torch.cuda.synchronize()
+                n_attn = sum(k in ("attn", "xattn")
+                             for k in cfg.block_pattern) \
+                    * cfg.num_layers // len(cfg.block_pattern)
+                assert ops.LAUNCHES["flash_attention"] \
+                    - before["flash_attention"] == 2 * n_attn
+                assert ops.LAUNCHES["flash_attention_bwd"] \
+                    - before["flash_attention_bwd"] == n_attn
+            grads.append({n: p.grad.cpu() for n, p in lm.named_parameters()})
+            lm.zero_grad(set_to_none=True)
+        for n, want in grads[1].items():
+            err = float((grads[0][n] - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), n
+        step = make_train_step(cfg, opt)
+        out = [step(TrainState(lm, init_opt_state(
+                   dict(lm.named_parameters()), opt)),
+                    {k: v.to(lm.device) for k, v in batch.items()})
+               for lm in models]
+        (sc, mc), (sh, mh) = out
+        np.testing.assert_allclose(float(mc["loss"]), float(mh["loss"]),
+                                   rtol=1e-5)
+        for (n, a), b in zip(sc.params.items(), sh.params.values()):
+            np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                       b.detach().numpy(), atol=2 * opt.lr,
+                                       rtol=0, err_msg=n)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 @pytest.mark.cuda

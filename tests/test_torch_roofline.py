@@ -150,12 +150,16 @@ def test_dry_run_cli_and_summary(tmp_path, capsys):
 
 def test_card_check_lets_a_stack_without_attention_through():
     """``launch.train``'s card check: xlstm-350m (head width 256, no
-    attention layer) passes; gemma3-4b-edge (256, attention) is still
+    attention layer) and gemma3-4b-edge (256, attention: K3b takes it)
+    pass; a stack at a head width K3b is not compiled for (96) is
     refused; every other text arch's attention takes K3b."""
+    import dataclasses
     from repro_torch.launch.train import check_attention_backward
     check_attention_backward(get_config("xlstm-350m"))
-    with pytest.raises(ValueError, match="head_dim 256"):
-        check_attention_backward(get_config("gemma3-4b-edge"))
+    check_attention_backward(get_config("gemma3-4b-edge"))
+    with pytest.raises(ValueError, match="head_dim 96"):
+        check_attention_backward(dataclasses.replace(
+            get_config("gemma3-4b-edge"), head_dim=96))
     for arch in ("smollm-360m", "jamba-v0.1-52b", "qwen3-32b",
                  "llama-3.2-vision-90b"):
         check_attention_backward(get_config(arch))

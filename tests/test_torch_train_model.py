@@ -120,56 +120,100 @@ def test_serving_parameters_stay_frozen():
     assert not any(p.requires_grad for p in lm.parameters())
 
 
-def _attn_inputs(B, S, H, KV, hd, seed):
+def _attn_inputs(B, S, H, KV, hd, seed, Skv=None):
     rng = np.random.default_rng(seed)
+    Skv = S if Skv is None else Skv
     q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
-    k = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
-    v = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
     do = rng.standard_normal((B, S, H, hd)).astype(np.float32)
     return q, k, v, do
 
 
-@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 37, 4, 2, 16), (1, 130, 6, 2, 32),
-                                         (2, 64, 3, 3, 64)])
-def test_bwd_plain_matches_jax_vjp(B, S, H, KV, hd):
-    """K3b's plain version (fed the plain forward's o and lse) against
-    ``jax.vjp`` of the JAX flash attention (chunked, nested remat)."""
-    q, k, v, do = _attn_inputs(B, S, H, KV, hd, S)
-    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=True,
+def _vjp_pair(inputs, causal, round_dtype=None):
+    """(``jax.vjp`` of the JAX flash attention (chunked, nested remat),
+    K3b's plain version fed the plain forward's o and lse) on one set of
+    inputs."""
+    q, k, v, do = inputs
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=causal,
                                                q_chunk=32, kv_chunk=64),
                      *map(jnp.asarray, (q, k, v)))
     want = vjp(jnp.asarray(do))
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
-    o, lse = flash_attention_plain(tq, tk, tv, return_lse=True)
-    got = flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse)
+    o, lse = flash_attention_plain(tq, tk, tv, causal=causal,
+                                   return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse, causal=causal,
+                                    round_dtype=round_dtype)
+    exact = flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse, causal=causal)
+    return [np.asarray(w) for w in want], got, exact
+
+
+def _check_vjp(inputs, causal):
+    want, got, _ = _vjp_pair(inputs, causal)
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
-                                   rtol=0)
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 37, 4, 2, 16), (1, 130, 6, 2, 32),
-                                         (2, 64, 3, 3, 64)])
+def _check_rounded_vjp(inputs, causal):
+    want, got, exact = _vjp_pair(inputs, causal, torch.bfloat16)
+    for g, w, x in zip(got, want, exact):
+        np.testing.assert_allclose(g.numpy(), w,
+                                   atol=2e-2 * np.abs(w).max(), rtol=0)
+        assert not torch.equal(g, x)
+
+
+CAUSAL_SHAPES = [(2, 37, 4, 2, 16), (1, 130, 6, 2, 32), (2, 64, 3, 3, 64),
+                 (1, 70, 4, 2, 256)]
+#: cross-attention's backward: full attention, Sq query rows over Skv
+#: keys, G 1 and 4, head widths 32 and 256
+CROSS_SHAPES = [(Sq, Skv, G, hd) for Sq, Skv in ((7, 16), (16, 40), (37, 130))
+                for G in (1, 4) for hd in (32, 256)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", CAUSAL_SHAPES)
+def test_bwd_plain_matches_jax_vjp(B, S, H, KV, hd):
+    """K3b's plain version (fed the plain forward's o and lse) against
+    ``jax.vjp`` of the JAX flash attention (chunked, nested remat)."""
+    _check_vjp(_attn_inputs(B, S, H, KV, hd, S), causal=True)
+
+
+@pytest.mark.parametrize("Sq,Skv,G,hd", CROSS_SHAPES)
+def test_bwd_plain_matches_jax_vjp_at_cross_lengths(Sq, Skv, G, hd):
+    """As ``test_bwd_plain_matches_jax_vjp``, for the cross-attention
+    layer's full attention at Sq != Skv (B 2, KV 2)."""
+    _check_vjp(_attn_inputs(2, Sq, 2 * G, 2, hd, Sq * Skv, Skv=Skv),
+               causal=False)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", CAUSAL_SHAPES)
 def test_bwd_plain_rounded_matches_jax_vjp(B, S, H, KV, hd):
     """K3b's plain version rounding P and dS to bf16 where the bf16 kernel
     does (``round_dtype``) against ``jax.vjp`` of the JAX flash attention
     in f32, on ``test_bwd_plain_matches_jax_vjp``'s inputs: the rounding
     the kernel adds fits inside the bf16 bar, 2e-2 of max|JAX|; and it
     does round (the result differs from the f32 plain version's)."""
-    q, k, v, do = _attn_inputs(B, S, H, KV, hd, S)
-    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=True,
-                                               q_chunk=32, kv_chunk=64),
-                     *map(jnp.asarray, (q, k, v)))
-    want = vjp(jnp.asarray(do))
-    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
-    o, lse = flash_attention_plain(tq, tk, tv, return_lse=True)
-    got = flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse,
-                                    round_dtype=torch.bfloat16)
-    exact = flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse)
-    for g, w, x in zip(got, want, exact):
-        w = np.asarray(w)
-        np.testing.assert_allclose(g.numpy(), w,
-                                   atol=2e-2 * np.abs(w).max(), rtol=0)
-        assert not torch.equal(g, x)
+    _check_rounded_vjp(_attn_inputs(B, S, H, KV, hd, S), causal=True)
+
+
+@pytest.mark.parametrize("Sq,Skv,G,hd", CROSS_SHAPES)
+def test_bwd_plain_rounded_matches_jax_vjp_at_cross_lengths(Sq, Skv, G, hd):
+    """As ``test_bwd_plain_rounded_matches_jax_vjp``, on
+    ``test_bwd_plain_matches_jax_vjp_at_cross_lengths``'s inputs."""
+    _check_rounded_vjp(_attn_inputs(2, Sq, 2 * G, 2, hd, Sq * Skv, Skv=Skv),
+                       causal=False)
+
+
+def test_bwd_plain_refuses_causal_at_cross_lengths():
+    """Causal training attention has one length (query row i at key
+    position i): the plain version refuses Sq != Skv when causal, with
+    the message K3b's launcher and ``ops.flash_attention_train``'s card
+    path give."""
+    q, k, v, do = map(torch.from_numpy,
+                      _attn_inputs(1, 8, 2, 2, 16, 0, Skv=12))
+    o, lse = flash_attention_plain(q, k, v, causal=False, return_lse=True)
+    with pytest.raises(ValueError, match="causal training attention needs "
+                                         "Sq == Skv"):
+        flash_attention_bwd_plain(q, k, v, o, do, lse, causal=True)
 
 
 def test_bwd_cuda_refuses_cpu_tensors():
