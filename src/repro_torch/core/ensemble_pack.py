@@ -11,8 +11,9 @@ trained ensemble into two layouts, array for array the JAX pack's:
   both children (left at ``child``, right at ``child + 1``).  Leaves are
   self-loops with an unsatisfiable threshold; thresholds are quantized to
   per-feature bin ids (``thr_bin``) over the edge tables ``bin_edges``.
+  ``bin_input`` bins inputs against these tables, as in the JAX pack.
   The JAX package scores this layout on the host (a C loop and a numpy
-  traversal); the port has no host scorer of it.
+  traversal); the port scores the padded layout below instead.
 * **Padded per-tree SoA.**  The same pruned trees padded to the max live
   node count M as ``(T, M)`` tensors ``pfeat``/``pthr``/``pchild``/
   ``pvalue`` with float thresholds (leaves: ``+inf``) and in-tree child
@@ -22,6 +23,11 @@ trained ensemble into two layouts, array for array the JAX pack's:
   ``go_right = ~(x < thr)`` matches the dense traversal for every finite
   input; a NaN feature would escape a leaf self-loop, so the path assumes
   finite features (the 19 Clairvoyant features always are).
+
+``predict_margin`` / ``predict_proba`` / ``predict_p_long`` score through
+K5 on the card unless the caller names a device (``device='cpu'`` for
+the plain version on the host); they raise when no card is present and
+none is named.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ from typing import List
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.model import resolve_device
 
 _LEAF_BIN = np.uint16(0xFFFF)   # > any input bin (edge tables cap at 0xFFFE)
 
@@ -54,6 +63,7 @@ class PackedEnsemble:
     depth: int              # max live depth over all trees
     base_score: float = 0.0
     _tensors: dict = field(default_factory=dict, repr=False, compare=False)
+    _setup: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_trees(self) -> int:
@@ -71,6 +81,63 @@ class PackedEnsemble:
                 torch.as_tensor(np.ascontiguousarray(a), device=device)
                 for a in (self.pfeat, self.pthr, self.pchild, self.pvalue))
         return self._tensors[device]
+
+    def _edges_matrix(self) -> np.ndarray:
+        """(F, Emax) NaN-padded per-feature edge tables (cached)."""
+        mat = self._setup.get("edges_mat")
+        if mat is None:
+            emax = max([e.size for e in self.bin_edges] + [1])
+            mat = np.full((self.n_features, emax), np.nan, np.float32)
+            for f, e in enumerate(self.bin_edges):
+                mat[f, :e.size] = e
+            self._setup["edges_mat"] = mat
+        return mat
+
+    def bin_input(self, X: np.ndarray) -> np.ndarray:
+        """(B, n_features) uint16 bin ids.
+
+        Small batches (the serial serving path — B=1 per admission) use
+        one broadcast compare against the cached NaN-padded edge matrix:
+        ``sum(edges <= x)`` equals ``searchsorted(..., side="right")`` for
+        every finite input and costs 3 numpy calls instead of one
+        searchsorted per feature.  Large batches keep the per-feature
+        searchsorted (linear in edges beats log only while B*Emax is
+        small); non-finite inputs also take that path (NaN must sort past
+        the last edge, as in the dense traversal).
+        """
+        X = np.asarray(X, np.float32)
+        B = X.shape[0]
+        if 0 < B <= 32 and np.isfinite(X).all():
+            mat = self._edges_matrix()
+            return (mat[None] <= X[:, :, None]).sum(axis=2).astype(np.uint16)
+        out = np.empty((B, self.n_features), np.uint16)
+        for f in range(self.n_features):
+            edges = self.bin_edges[f]
+            if edges.size:
+                out[:, f] = np.searchsorted(edges, X[:, f], side="right")
+            else:
+                out[:, f] = 0
+        return out
+
+    def predict_margin(self, X: np.ndarray, device=None) -> np.ndarray:
+        """(B, n_classes) raw margins, base score included, scored on
+        ``device`` through the padded layout (K5 on the card)."""
+        device = resolve_device(device)
+        X = np.asarray(X, np.float32)
+        if X.shape[0] == 0:
+            return np.zeros((0, self.n_classes), np.float32)
+        x = torch.as_tensor(X, device=device).contiguous()
+        return ops.gbdt_margins_packed_from(self, x).cpu().numpy()
+
+    def predict_proba(self, X: np.ndarray, device=None) -> np.ndarray:
+        """Softmax of :meth:`predict_margin` (same device rule)."""
+        from repro_torch.core.gbdt import _softmax
+        return _softmax(self.predict_margin(X, device))
+
+    def predict_p_long(self, X: np.ndarray, long_class: int = 2,
+                       device=None) -> np.ndarray:
+        """The scheduler's priority key (same device rule)."""
+        return self.predict_proba(X, device)[:, long_class]
 
 
 def pack_ensemble(model) -> PackedEnsemble:

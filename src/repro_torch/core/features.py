@@ -30,11 +30,11 @@ in the key and verify the leading boundary with one gather, giving exact
 token semantics without tokenizing.
 
 ``extract`` (single prompt) implements the same contract with scalar
-string operations.
+string operations; ``extract_reference`` is the seed-style per-keyword
+scan kept as the equivalence oracle.
 
-This module is an exact copy of ``repro.core.features`` (minus its
-seed-style reference extractor): the port keeps its own copy so that it
-imports nothing of the JAX package.
+This module is an exact copy of ``repro.core.features``: the port keeps
+its own copy so that it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -93,6 +93,17 @@ FEATURE_NAMES: tuple = NUMERIC_FEATURE_NAMES + tuple(
 
 N_FEATURES = len(FEATURE_NAMES)
 assert N_FEATURES == 19
+
+# Feature-group map for the drop-one ablation study (paper Table 4).
+FEATURE_GROUPS = {
+    "prompt_token_len": (0,),
+    "has_code_keyword": (1,),
+    "has_length_constraint": (2,),
+    "ends_with_question": (3,),
+    "has_format_keyword": (4,),
+    "clause_count": (5,),
+    "instruction_verb": tuple(range(6, 19)),
+}
 
 _SYNONYMS = {
     "summarise": "summarize", "whats": "what", "what's": "what",
@@ -272,6 +283,14 @@ _KW_COLUMN = np.asarray([1, 2, 4], np.int64)   # action id -> feature column
 # Scalar path (same contract as the batch engine)
 # ---------------------------------------------------------------------------
 
+def leading_verb(prompt: str) -> int:
+    """Index of the leading instruction verb (12 == 'other')."""
+    for w in prompt.lower().translate(_NORMALIZE_STR).encode().split(b" "):
+        if w:
+            return _VERB_TOKENS_B.get(w, _VERB_OTHER)
+    return _VERB_OTHER
+
+
 def _ends_with_question(prompt: str) -> bool:
     for ch in reversed(prompt):
         if not ch.isspace():
@@ -380,3 +399,31 @@ def extract_batch(prompts: Sequence[str]) -> np.ndarray:
                 verbs[i] = get_verb(t[:k] if k >= 0 else t, _VERB_OTHER)
     out[np.arange(n), np.asarray(verbs, np.int64) + 6] = 1.0
     return out
+
+
+# ---------------------------------------------------------------------------
+# Reference (seed-style) implementation — the equivalence oracle.  Same
+# contract and semantics, one substring scan per keyword and a Python
+# token loop.
+# ---------------------------------------------------------------------------
+
+def _count_clause_markers_reference(norm: str) -> float:
+    count = 0
+    for w in norm.split(" "):
+        if w and w in CLAUSE_MARKERS:
+            count += 1
+    return float(count)
+
+
+def extract_reference(prompt: str) -> np.ndarray:
+    """Seed-style per-keyword scan (slow; the equivalence oracle)."""
+    norm = prompt.lower().translate(_NORMALIZE_STR)
+    vec = np.zeros(N_FEATURES, dtype=np.float32)
+    vec[0] = len(prompt) // 4
+    vec[1] = _contains_any(norm, NORM_CODE_KEYWORDS)
+    vec[2] = _contains_any(norm, NORM_LENGTH_KEYWORDS)
+    vec[3] = 1.0 if prompt.rstrip().endswith("?") else 0.0
+    vec[4] = _contains_any(norm, NORM_FORMAT_KEYWORDS)
+    vec[5] = _count_clause_markers_reference(norm)
+    vec[6 + leading_verb(prompt)] = 1.0
+    return vec

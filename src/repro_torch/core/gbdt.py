@@ -1,8 +1,10 @@
 """Histogram gradient-boosted trees: the Clairvoyant predictor's model.
 
-The trainer (``train_gbdt`` and its helpers) is an exact copy of the fast
-trainer in ``repro.core.gbdt``, so both packages grow identical trees from
-the same data.  Scoring differs: the JAX package scores on the host; the
+The trainers (``train_gbdt`` and its helpers, and the seed per-node
+``train_gbdt_reference``) are exact copies of those in ``repro.core.gbdt``,
+so both packages grow identical trees from the same data; ``save`` and
+``load`` pickle the same dataclass fields, so a file either package
+writes loads in the other.  Scoring differs: the JAX package scores on the host; the
 port scores on the card (its plain PyTorch versions on the CPU) through
 two layouts of the same trees:
 
@@ -19,6 +21,8 @@ JAX ``Predictor._single_path``) or an arrival burst (the JAX
 
 from __future__ import annotations
 
+import dataclasses
+import pickle
 from dataclasses import dataclass
 
 import numpy as np
@@ -60,6 +64,10 @@ class GBDTModel:
     max_depth: int
     base_score: float = 0.0
 
+    @property
+    def num_trees(self) -> int:
+        return self.feature.shape[0]
+
     def tensors(self, device) -> tuple:
         """(feature int32, threshold, value) on ``device``, copied once."""
         device = torch.device(device)
@@ -100,17 +108,27 @@ class GBDTModel:
         :meth:`predict_margin_dense`), every batch size through the packed
         layout (K5 on the card), as the JAX model always scores packed;
         :meth:`predict_margin_dense` (K4) is the dense oracle."""
-        device = resolve_device(device)
-        x = torch.as_tensor(np.asarray(X, np.float32), device=device)
-        return ops.gbdt_margins_packed_from(self.packed(),
-                                            x.contiguous()).cpu().numpy()
+        return self.packed().predict_margin(X, device)
 
     def predict_proba(self, X: np.ndarray, device=None) -> np.ndarray:
         """Softmax of :meth:`predict_margin` (same device rule)."""
-        m = self.predict_margin(X, device)
-        m = m - m.max(axis=1, keepdims=True)
-        e = np.exp(m)
-        return e / e.sum(axis=1, keepdims=True)
+        return _softmax(self.predict_margin(X, device))
+
+    def predict_p_long(self, X: np.ndarray, long_class: int = 2,
+                       device=None) -> np.ndarray:
+        """The scheduler's priority key (same device rule)."""
+        return self.predict_proba(X, device)[:, long_class]
+
+    def save(self, path: str) -> None:
+        with open(path, "wb") as f:
+            pickle.dump({fl.name: getattr(self, fl.name)
+                         for fl in dataclasses.fields(self)}, f)
+
+    @classmethod
+    def load(cls, path: str) -> "GBDTModel":
+        with open(path, "rb") as f:
+            d = pickle.load(f)
+        return cls(**d)
 
 
 # ---------------------------------------------------------------------------
@@ -324,3 +342,115 @@ def _build_tree(binned, thresholds, keys, layout, g, h, p: GBDTParams,
         Hh = np.concatenate([Hh_s, Hh_b])
         counts = np.concatenate([cnts[small], cnts[big]])
     return node
+
+
+def _eval_tree_binned(binned, thresholds, feature, threshold, value, X):
+    """Dense single-tree traversal (kept as an oracle for the trainer)."""
+    B = X.shape[0]
+    idx = np.zeros(B, np.int32)
+    depth = int(np.log2(feature.shape[0] + 1)) - 1
+    for _ in range(depth):
+        feat = feature[idx]
+        leaf = feat < 0
+        f = np.maximum(feat, 0)
+        go_left = X[np.arange(B), f] < threshold[idx]
+        nxt = np.where(go_left, 2 * idx + 1, 2 * idx + 2)
+        idx = np.where(leaf, idx, nxt)
+    return value[idx]
+
+
+# ---------------------------------------------------------------------------
+# Reference (seed) trainer — per-node histograms, full re-traversal per
+# round (exact copy of repro.core.gbdt's).
+# ---------------------------------------------------------------------------
+
+def train_gbdt_reference(X: np.ndarray, y: np.ndarray,
+                         params: GBDTParams | None = None) -> GBDTModel:
+    """Seed implementation of :func:`train_gbdt` (slow; the oracle)."""
+    p = params or GBDTParams()
+    rng = np.random.default_rng(p.seed)
+    X = np.asarray(X, np.float32)
+    y = np.asarray(y, np.int64)
+    B, F = X.shape
+    K = p.n_classes
+    N = 2 ** (p.max_depth + 1) - 1
+    T = p.num_rounds * K
+
+    binned, thresholds = _bin_features(X)
+    y_onehot = np.eye(K, dtype=np.float32)[y]
+
+    feature = np.full((T, N), -1, np.int32)
+    threshold = np.zeros((T, N), np.float32)
+    value = np.zeros((T, N), np.float32)
+    margins = np.zeros((B, K), np.float32)
+
+    t = 0
+    for _round in range(p.num_rounds):
+        probs = _softmax(margins)
+        G_all = probs - y_onehot
+        H_all = np.maximum(probs * (1.0 - probs), 1e-6)
+        if p.subsample < 1.0:
+            mask = rng.random(B) < p.subsample
+        else:
+            mask = None
+        for k in range(K):
+            g, h = G_all[:, k].copy(), H_all[:, k].copy()
+            if mask is not None:
+                g, h = g * mask, h * mask
+            _build_tree_reference(binned, thresholds, g, h, p,
+                                  feature[t], threshold[t], value[t])
+            margins[:, k] += _eval_tree_binned(
+                binned, thresholds, feature[t], threshold[t], value[t], X)
+            t += 1
+
+    return GBDTModel(feature=feature, threshold=threshold, value=value,
+                     n_classes=K, max_depth=p.max_depth)
+
+
+def _build_tree_reference(binned, thresholds, g, h, p: GBDTParams,
+                          feature_out, threshold_out, value_out):
+    """Seed tree grower: one histogram pair per node, per-node np.repeat."""
+    B, F = binned.shape
+    lam = p.reg_lambda
+    keys_full = (binned.astype(np.int32)
+                 + np.arange(F, dtype=np.int32)[None, :] * MAX_BINS)
+    active = {0: np.arange(B)}
+
+    def leaf_weight(gs, hs):
+        return float(-p.learning_rate * gs / (hs + lam))
+
+    for depth in range(p.max_depth + 1):
+        next_active = {}
+        for node, idx in active.items():
+            gs, hs = float(g[idx].sum()), float(h[idx].sum())
+            value_out[node] = leaf_weight(gs, hs)
+            if depth == p.max_depth or len(idx) < 2 \
+                    or hs < 2 * p.min_child_weight:
+                continue  # stays leaf (feature_out[node] == -1)
+            keys = keys_full[idx].ravel()
+            Gh = np.bincount(keys, weights=np.repeat(g[idx], F),
+                             minlength=F * MAX_BINS).reshape(F, MAX_BINS)
+            Hh = np.bincount(keys, weights=np.repeat(h[idx], F),
+                             minlength=F * MAX_BINS).reshape(F, MAX_BINS)
+            GL = np.cumsum(Gh, axis=1)[:, :-1]
+            HL = np.cumsum(Hh, axis=1)[:, :-1]
+            GR, HR = gs - GL, hs - HL
+            valid = (HL >= p.min_child_weight) & (HR >= p.min_child_weight)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                gain = 0.5 * (GL ** 2 / (HL + lam) + GR ** 2 / (HR + lam)
+                              - gs ** 2 / (hs + lam)) - p.gamma
+            gain = np.where(valid, gain, -np.inf)
+            for f in range(F):
+                gain[f, len(thresholds[f]):] = -np.inf
+            best = np.unravel_index(np.argmax(gain), gain.shape)
+            if not np.isfinite(gain[best]) or gain[best] <= 0:
+                continue
+            f_best, b_best = int(best[0]), int(best[1])
+            feature_out[node] = f_best
+            threshold_out[node] = thresholds[f_best][b_best]
+            go_left = binned[idx, f_best] <= b_best
+            next_active[2 * node + 1] = idx[go_left]
+            next_active[2 * node + 2] = idx[~go_left]
+        active = next_active
+        if not active:
+            break

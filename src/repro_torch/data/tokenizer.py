@@ -35,3 +35,10 @@ class HashTokenizer:
                 h = (h * 1000003 ^ ord(ch)) & 0x7FFFFFFF
             ids.append(h % self.vocab_size)
         return np.asarray(ids, np.int32)
+
+    def encode_batch(self, texts, pad_to: int) -> np.ndarray:
+        out = np.zeros((len(texts), pad_to), np.int32)
+        for i, t in enumerate(texts):
+            ids = self.encode(t)[:pad_to]
+            out[i, : len(ids)] = ids
+        return out

@@ -200,6 +200,12 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = init_dense(gen, cfg.d_model, cfg.vocab_size, dt, dev)
 
+    def param_count_actual(self) -> int:
+        """Every parameter counted once (a tied head reads ``embed``), as
+        the JAX ``LM.param_count_actual`` sums its tree's leaves; on the
+        ``meta`` device nothing is allocated."""
+        return sum(p.numel() for p in self.parameters())
+
     # ------------------------------------------------------------------ axes
     def param_axes(self) -> dict:
         """{state-dict name: logical axes} of every parameter, from the

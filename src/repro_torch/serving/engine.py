@@ -57,8 +57,8 @@ from repro_torch.serving.service_time import ServiceTimeModel
 
 class SimEngine:
     """Virtual-time serial backend: a clock (``busy_until``) and a
-    ``ServiceTimeModel`` the server's virtual-time drains advance it by
-    (the JAX class's unused ``execute`` is not copied)."""
+    ``ServiceTimeModel`` the server's virtual-time drains advance it by;
+    ``execute`` serves one request on that clock."""
 
     def __init__(self, model: ServiceTimeModel, replica_id: int = 0):
         self.model = model
@@ -69,6 +69,15 @@ class SimEngine:
     def engine_stats(self) -> dict:
         """Wire-facing stats snapshot (sidecar /healthz, /metrics)."""
         return {"replica": self.replica_id, "served": self.served}
+
+    def execute(self, start: float, prompt_tokens: int,
+                output_tokens: int) -> tuple[float, float]:
+        """Returns (ttft_s, service_s); advances the virtual clock."""
+        service = self.model.service(prompt_tokens, output_tokens)
+        ttft = self.model.overhead_s + prompt_tokens / self.model.prefill_tok_per_s
+        self.busy_until = start + service
+        self.served += 1
+        return ttft, service
 
 
 # Padded (bucketed) prefill is only used when every block's per-position
@@ -274,6 +283,19 @@ class RealEngine:
                 if out["drafted"] else None
         return res
 
+    def generate_batch(self, prompts, max_new_tokens=32,
+                       eos_id: Optional[int] = None) -> list:
+        """Serial fallback so both engine classes share one batch API."""
+        maxes = self._per_request_budgets(prompts, max_new_tokens)
+        return [self.generate(ids, max_new_tokens=m, eos_id=eos_id)
+                for ids, m in zip(prompts, maxes)]
+
+    @staticmethod
+    def _per_request_budgets(prompts, max_new_tokens) -> list:
+        if np.isscalar(max_new_tokens):
+            return [int(max_new_tokens)] * len(prompts)
+        return [int(m) for m in max_new_tokens]
+
     def generate_reference(self, prompt_ids, max_new_tokens: int = 32,
                            eos_id: Optional[int] = None) -> dict:
         """Per-token loop with one host read per token: the equivalence
@@ -404,9 +426,8 @@ class BatchedRealEngine(RealEngine):
         one dict per request: {"tokens", "ttft_s", "service_s",
         "cancelled", "admit_t", "finish_t", "lane", "evictions"}.
         """
+        maxes = self._per_request_budgets(prompts, max_new_tokens)
         n = len(prompts)
-        maxes = [int(max_new_tokens)] * n if np.isscalar(max_new_tokens) \
-            else [int(m) for m in max_new_tokens]
         results: list = [None] * n
         cursor = {"i": 0}
 

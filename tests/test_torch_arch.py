@@ -37,6 +37,8 @@ these inputs (probabilities of random weights agree to ~1e-7 and differ
 from each other far more).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import dataclasses
 
 import jax

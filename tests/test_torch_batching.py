@@ -14,6 +14,8 @@ tests/test_torch_model.py.  Tokens, dispatch order and manager decisions
 are compared exactly.  Inputs are drawn with numpy and handed to both.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import dataclasses
 
 import jax

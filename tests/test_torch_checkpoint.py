@@ -3,6 +3,8 @@ the async saver, restore onto the caller's device (bf16 leaves included),
 and kill/restart equivalence through the port's training CLI.  CPU only;
 every restored leaf must equal the saved one exactly."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import json
 
 import numpy as np

@@ -25,6 +25,8 @@ bitwise repeatable; K3's log-sum-exp within 1e-4 (f32) / 1e-3 (bf16) of
 the plain logsumexp, its output unchanged bit for bit by asking for it.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import numpy as np
 import pytest
 import torch
@@ -1244,3 +1246,45 @@ def test_train_cli_refuses_a_state_the_card_cannot_hold(cuda):
     with pytest.raises(SystemExit, match="AdamW moments need"):
         train_mod.main(["--arch", "jamba-v0.1-52b", "--steps", "1"])
     assert torch.cuda.max_memory_allocated() == base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16, 257])
+def test_packed_ensemble_and_p_long_score_through_k5(cuda, B):
+    """``PackedEnsemble.predict_proba`` and ``GBDTModel.predict_p_long`` on
+    the card launch K5 once a batch and K4 never, within 1e-5 of the
+    CPU's plain version."""
+    model, X = _gbdt_model(base_score=0.5)
+    X = np.concatenate([X, X])[:B]
+    packed = model.packed()
+    before = dict(ops.LAUNCHES)
+    proba = packed.predict_proba(X, cuda)
+    p_long = model.predict_p_long(X, device=cuda)
+    assert ops.LAUNCHES["gbdt_margins_packed"] == \
+        before["gbdt_margins_packed"] + 2
+    assert ops.LAUNCHES["gbdt_margins"] == before["gbdt_margins"]
+    np.testing.assert_allclose(proba, packed.predict_proba(X, "cpu"),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(p_long, model.predict_p_long(X, device="cpu"),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(packed.predict_p_long(X, device=cuda), p_long,
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_real_engine_generate_batch_on_card_equals_generate(cuda):
+    """The serial engine's batch API on the card: each request's tokens
+    equal its own ``generate`` call's, scalar and per-request budgets."""
+    cfg = get_config("smollm-360m").reduced()
+    eng = RealEngine(cfg, max_len=64, segment_len=4, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 11, 23, 7)]
+    for maxes in (9, [10, 25, 6, 18]):
+        per = [maxes] * 4 if np.isscalar(maxes) else maxes
+        before = ops.LAUNCHES["flash_attention"]
+        outs = eng.generate_batch(prompts, max_new_tokens=maxes)
+        assert ops.LAUNCHES["flash_attention"] - before == \
+            4 * cfg.num_layers
+        for out, ids, m in zip(outs, prompts, per):
+            assert out["tokens"] == \
+                eng.generate(ids, max_new_tokens=m)["tokens"]

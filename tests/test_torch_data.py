@@ -3,6 +3,8 @@ token stream (bit for bit, per host shard and step), the prefetch
 loader's order, and the Table 3 splits and held-out sets (the same
 arrays).  All numpy on the CPU: exact equality throughout."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import numpy as np
 import pytest
 

@@ -12,6 +12,8 @@ to its Pallas kernel in interpret mode at 1e-6 in float32 (the same
 softmax, summed in another order).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,8 @@ arrays compared with ``np.array_equal``, NaN == NaN where a request was
 shed).  The port's compiled loops must equal its heapq fallbacks.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import copy
 
 import numpy as np

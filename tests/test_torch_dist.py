@@ -18,6 +18,8 @@ steps use ``tests/test_torch_training.py``'s (losses and gradient norms
 rtol 1e-4, parameters atol 5e-4, rtol 5e-3); elastic restores are exact.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import json
 import os
 import pickle

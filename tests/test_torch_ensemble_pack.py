@@ -6,6 +6,8 @@ tree-order float32 sum against the JAX oracles' pairwise ones); the
 base score carried over; P(Long) equal through both layouts.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

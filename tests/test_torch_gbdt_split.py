@@ -15,6 +15,8 @@ the margins at T 1800 reach ~40, so there the tolerance is relative,
 1e-6, over an absolute 1e-5).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

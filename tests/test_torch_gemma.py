@@ -10,6 +10,8 @@ width 16) and a copy with the full config's head width 256.  Float32 on
 the CPU; tokens are compared exactly (logits are held at 1e-5 by
 tests/test_torch_model.py)."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import dataclasses
 
 import jax

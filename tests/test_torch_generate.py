@@ -4,6 +4,8 @@ bit for bit, and the cases of tests/test_generate.py (EOS early exit,
 max_len truncation, ring wrap, bucketing, cancellation at a segment
 boundary).  Float32 on the CPU; tokens are compared exactly."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import jax
 import numpy as np
 import pytest

@@ -1,8 +1,11 @@
-"""The port stands alone: importing every ``repro_torch`` module loads
-neither JAX nor any module of the JAX package (nor ``msgpack``, which the
-JAX checkpoints need and the card's machine lacks), and ``chip_smoke.py``
-imports nothing of it either.  Checked in a fresh interpreter, since this
+"""The port stands alone: importing every ``repro_torch`` module and
+every script of ``examples_torch/`` loads neither JAX nor any module of
+the JAX package (nor ``msgpack``, which the JAX checkpoints need and the
+card's machine lacks), and ``chip_smoke.py`` imports nothing of it
+either.  Checked in a fresh interpreter, since this
 test process has both packages loaded."""
+
+import torch_threads  # noqa: F401  (first: caps torch threads)
 
 import ast
 import os
@@ -10,15 +13,20 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+for path in SCRIPTS:
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro.") or m == "msgpack")
@@ -61,9 +69,14 @@ NEW = ["repro_torch.sharding", "repro_torch.sharding.rules",
        "repro_torch.launch.train", "repro_torch.kernels.flash_attention_bwd"]
 
 
+#: the port's example scripts
+SCRIPTS = sorted(str(p) for p in (ROOT / "examples_torch").glob("*.py"))
+
+
 def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    probe = f"NEW = {NEW!r}\n" + _PROBE
+    assert len(SCRIPTS) == 6
+    probe = f"NEW = {NEW!r}\nSCRIPTS = {SCRIPTS!r}\n" + _PROBE
     out = subprocess.run([sys.executable, "-c", probe], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
@@ -80,5 +93,18 @@ def test_chip_smoke_imports_nothing_of_jax_or_repro():
         elif isinstance(node, ast.ImportFrom):
             mods.add(node.module or "")
     roots = {m.split(".")[0] for m in mods}
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: Path(p).stem)
+def test_example_script_imports_only_the_port(path):
+    tree = ast.parse(Path(path).read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            roots.add((node.module or "").split(".")[0])
     assert "repro_torch" in roots
     assert not roots & {"jax", "jaxlib", "repro"}

@@ -17,6 +17,8 @@ The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
 compares them with their plain versions there.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,8 @@ timing.  Children started by a test are given a time limit and killed
 if they outlive it.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import json
 import os
 import re

@@ -14,6 +14,8 @@ with head width 256 (the full config's) are held at 1e-5 on logits; its
 GeGLU MLP alone at 1e-6 against ``apply_mlp``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import dataclasses
 
 import jax

@@ -13,6 +13,8 @@ probabilities agree between the packages to ~1e-7 and no two of a
 token's are that close, so no tie decides a route here.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import dataclasses
 import math
 

@@ -4,6 +4,8 @@ ranking``, and equality with the JAX package's functions on seeded
 inputs (the module is a numpy copy, so results are compared exactly,
 NaN included)."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import numpy as np
 import pytest
 

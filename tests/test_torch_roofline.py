@@ -13,6 +13,8 @@ the plain attention's forward (4 B S^2 attn_dim a layer: the full S x S
 products, no causal skip) — 2.19 times ``model_flops``'s 6 N D.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import json
 import math
 

@@ -10,6 +10,8 @@ K4 walk (its plain version here), and the margins agree to the 1e-4 of
 tests/test_kernels.py or better.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import jax
 import numpy as np
 import pytest

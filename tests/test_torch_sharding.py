@@ -13,6 +13,8 @@ is put back.  Then the JAX sharding tests' cases, and
 ``placements_for`` on a world-1 gloo ``DeviceMesh``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import jax
 import numpy as np
 import pytest

@@ -21,6 +21,8 @@ Every asyncio run has its own ``asyncio.wait_for`` limit, so a hung
 socket fails one test instead of the suite.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import asyncio
 import dataclasses
 import json

@@ -13,6 +13,8 @@ admission's output-length draw, and ``SimTextBackend`` behind both
 sidecars over loopback HTTP.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import asyncio
 import json
 import zlib

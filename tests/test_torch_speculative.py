@@ -18,6 +18,8 @@ the projections see B*W rows instead of B).  Tokens and counts are
 compared exactly.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import dataclasses
 
 import jax

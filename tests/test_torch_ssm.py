@@ -14,6 +14,8 @@ step continued from the prefill's states equals JAX's, and equals the
 prefill of the longer sequence's last position where no pad intervenes.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

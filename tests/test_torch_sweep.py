@@ -16,6 +16,8 @@
   preemptive engine and only key-based rows to the grid DES.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,8 @@ backward sums in another order); every parameter after step 5 atol and
 rtol 1e-4.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import dataclasses
 
 import jax

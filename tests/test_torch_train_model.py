@@ -9,6 +9,8 @@ gradient atol 1e-5, rtol 1e-4 (the backward sums over batch and sequence
 in another order); the attention backward atol 1e-5.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import dataclasses
 
 import jax

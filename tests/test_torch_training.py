@@ -12,6 +12,8 @@ lr x 2^-7); train losses rtol 1e-4 and params atol 5e-4, rtol 5e-3 (the JAX
 package's own microbatch-equivalence tolerance, tests/test_training.py).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import dataclasses
 
 import jax

@@ -19,6 +19,8 @@ CPU, float32.
 * the train CLI refuses both multimodal archs with the JAX CLI's message.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import dataclasses
 
 import jax

@@ -25,6 +25,8 @@ twice.  The comparison gives the JAX lane decoder caches with every leaf
 copied (``jnp.copy``), which changes no value.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
