@@ -11,7 +11,10 @@ heads of width 128, K3 also at exact prompt lengths 1..129 with NaN
 rows past the keys' end; K1 and K3 at musicgen-large's, 32 over 32 of
 width 64, and llama-3.2-vision-90b's, 64 over 8 of width 128; K3
 non-causal at Sq 1, 16 and 45 over the vision stack's 1024 image rows
-and K1 at t = 1023 over its image cache) and times both; K4 and K5 also on the 120-round
+and K1 at t = 1023 over its image cache) and times both, each kernel in
+turns with SDPA (kernel, SDPA, kernel) and, at head widths 128 and 256,
+once more with the L2 flushed (``[build] ptxas`` lines give those
+instances' registers and spills); K4 and K5 also on the 120-round
 ensemble that the launch CLIs train, at their burst (B 100) and
 admission (B 1) shapes.  Then, at the full width of smollm-360m (bf16,
 seeded random weights), it drives each serving path through the entry
@@ -377,6 +380,40 @@ def _cold_device_ms(fn, iters: int = 50) -> float:
     return both - alone / 2
 
 
+def _interleaved(kern, lib) -> tuple:
+    """Device ms of ``kern`` timed in turns with ``lib``: kernel, library,
+    kernel.  Returns (mean kernel ms, library ms, (first, second))."""
+    a = _device_ms(kern)
+    lib_ms = _device_ms(lib)
+    b = _device_ms(kern)
+    return (a + b) / 2, lib_ms, (a, b)
+
+
+def _host_us(fn, iters: int = 100) -> float:
+    """Host microseconds per call of ``fn`` (the wrapper's checks,
+    allocations and launch), enqueued behind a spin kernel so that the
+    device never holds the host back."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _cold_wide(hd: int, ms: float, kern) -> str:
+    """At head widths 128 and 256 (the wgmma and tensor-core bodies):
+    the kernel's cold time, with the L2 flushed before every launch."""
+    if hd < 128:
+        return ""
+    cold = _cold_device_ms(kern)
+    return f", cold {cold:.4f} (x{cold / ms:.2f} warm)"
+
+
 def _bound(n_bytes: float, flops: float, dtype) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
@@ -422,6 +459,8 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "Used" in line or "spill" in line or "warning" in line:
                 print(f"[build] {name}: {line.strip()}")
+        for kernel, lines in _wide_ptxas_lines(log):
+            print(f"[build] ptxas {kernel}: " + "; ".join(lines))
 
 
 def phase_decode_kernel(gen, heads=SMOLLM_HEADS, model=None) -> dict:
@@ -462,17 +501,18 @@ def phase_decode_kernel(gen, heads=SMOLLM_HEADS, model=None) -> dict:
         vx = cv[:, :n].transpose(1, 2).repeat_interleave(H // KV, dim=1)
         qx = q.transpose(1, 2).contiguous()
         kern = lambda: decode_attention_cuda(q, ck, cv, t)    # noqa: E731
-        ms = _device_ms(kern)
-        plain = _device_ms(lambda: decode_attention_plain(q, ck, cv, t))
-        lib = _device_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
+        ms, lib, turns = _interleaved(
+            kern, lambda: torch.nn.functional.scaled_dot_product_attention(
                 qx, kx, vx))
+        plain = _device_ms(lambda: decode_attention_plain(q, ck, cv, t))
         esz = 2
         bound, by = _bound(2 * n * KV * hd * esz + 2 * B * H * hd * esz + 4,
                            4 * B * H * n * hd, torch.bfloat16)
         rows[t_host] = (ms, plain, lib, bound, by)
         print(f"[K1 decode_attention{tag}] bf16 S={S} t={t_host} "
-              f"({split_plan(S)} splits): device ms kernel {ms:.4f}, plain "
+              f"({split_plan(S)} splits): device ms kernel {ms:.4f} "
+              f"({turns[0]:.4f} / {turns[1]:.4f} around sdpa)"
+              f"{_cold_wide(hd, ms, kern)}, plain "
               f"{plain:.4f}, sdpa {lib:.4f}; bound {bound * 1e3:.3f} us "
               f"({by}); {_ratio(ms, lib, bound)}; host-paced kernel "
               f"{_ms(kern):.4f} ms/call")
@@ -513,19 +553,21 @@ def phase_flash_kernel(gen, heads=SMOLLM_HEADS, model=None) -> dict:
             kx = kx.repeat_interleave(H // KV, dim=1)
             vx = vx.repeat_interleave(H // KV, dim=1)
             kern = lambda: flash_attention_cuda(q, k, v)    # noqa: E731
-            ms = _device_ms(kern)
-            plain = _device_ms(lambda: flash_attention_plain(q, k, v))
-            lib = _device_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
+            ms, lib, turns = _interleaved(
+                kern, lambda: torch.nn.functional.scaled_dot_product_attention(
                     qx, kx, vx, is_causal=True))
+            plain = _device_ms(lambda: flash_attention_plain(q, k, v))
             bound, by = _bound(
                 (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2,
                 4 * B * H * hd * S * (S + 1) / 2, torch.bfloat16)
             timed.append((S, ms, plain, lib, bound, by))
             print(f"[K3 flash_attention{tag}] bf16 S={S}: device ms kernel "
-                  f"{ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}; bound "
+                  f"{ms:.4f} ({turns[0]:.4f} / {turns[1]:.4f} around sdpa)"
+                  f"{_cold_wide(hd, ms, kern)}, plain {plain:.4f}, sdpa "
+                  f"{lib:.4f}; bound "
                   f"{bound * 1e3:.3f} us ({by}); {_ratio(ms, lib, bound)}; "
-                  f"host-paced kernel {_ms(kern):.4f} ms/call")
+                  f"host-paced kernel {_ms(kern):.4f} ms/call, wrapper "
+                  f"{_host_us(kern):.1f} host us/call")
     print(f"[K3 flash_attention{tag}] max|err| " + " ".join(
         f"{l}@S={s}:{e:.2e}" for (l, s), e in errs.items()))
     S, ms, plain, lib, bound, by = timed[1]          # the 32-token bucket
@@ -1387,7 +1429,7 @@ def phase_decode_lanes_kernel(gen, heads=SMOLLM_HEADS) -> float:
                                      f"launch (lane {b}, {label})")
         worst = max(worst, err)
         if label == "bf16":
-            ms = _device_ms(lambda: decode_attention_cuda(q, ck, cv, t))
+            kern = lambda: decode_attention_cuda(q, ck, cv, t)  # noqa: E731
             plain = _device_ms(lambda: decode_attention_plain(q, ck, cv, t))
             # SDPA over the whole ring with a boolean mask of each lane's
             # live slots (K/V expanded to the H query heads)
@@ -1396,15 +1438,17 @@ def phase_decode_lanes_kernel(gen, heads=SMOLLM_HEADS) -> float:
             qx = q.transpose(1, 2).contiguous()
             kx = ck.transpose(1, 2).repeat_interleave(H // KV, dim=1)
             vx = cv.transpose(1, 2).repeat_interleave(H // KV, dim=1)
-            lib = _device_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
+            ms, lib, turns = _interleaved(
+                kern, lambda: torch.nn.functional.scaled_dot_product_attention(
                     qx, kx, vx, attn_mask=mask))
             n = sum(min(S, x + 1) for x in t_host)
             bound, by = _bound(2 * n * KV * hd * 2 + 2 * B * H * hd * 2
                                + 4 * B, 4 * H * n * hd, torch.bfloat16)
             print(f"[K1 decode_attention{tag}] lanes bf16 B{B} S{S} "
                   f"t={t_host}: "
-                  f"device ms kernel {ms:.4f}, plain {plain:.4f}, sdpa "
+                  f"device ms kernel {ms:.4f} ({turns[0]:.4f} / "
+                  f"{turns[1]:.4f} around sdpa)"
+                  f"{_cold_wide(hd, ms, kern)}, plain {plain:.4f}, sdpa "
                   f"(boolean mask) {lib:.4f}; bound {bound * 1e3:.3f} us "
                   f"({by}); {_ratio(ms, lib, bound)}; max|err| {err:.2e}")
     print(f"[K1 decode_attention{tag}] (B,) t: each lane == its scalar-t "
@@ -1459,7 +1503,8 @@ def phase_paged_kernel(gen, heads=SMOLLM_HEADS) -> dict:
             if label == "bf16" and page == L_PAGE:
                 kern = lambda: paged_decode_attention_cuda(  # noqa: E731
                     q, pk, pv, bt, t)
-                ms = _device_ms(kern)
+                ms, k1_ms, turns = _interleaved(
+                    kern, lambda: decode_attention_cuda(q, ring_k, ring_v, t))
                 plain = _device_ms(lambda: paged_decode_attention_plain(
                     q, pk, pv, bt, t))
                 n = sum(min(window, x + 1) for x in t_host)
@@ -1470,7 +1515,9 @@ def phase_paged_kernel(gen, heads=SMOLLM_HEADS) -> dict:
                 print(f"[K2 paged_decode_attention{tag}] bf16 B{B} H{H} "
                       f"KV{KV} hd{hd} page {page} P{P} t={t_host}: device "
                       f"ms kernel "
-                      f"{ms:.4f}, plain {plain:.4f}; bound "
+                      f"{ms:.4f} ({turns[0]:.4f} / {turns[1]:.4f} around K1 "
+                      f"on the same window, {k1_ms:.4f})"
+                      f"{_cold_wide(hd, ms, kern)}, plain {plain:.4f}; bound "
                       f"{bound * 1e3:.3f} us ({by}); bound share "
                       f"{100 * bound / ms:.2f}%; host-paced kernel "
                       f"{_ms(kern):.4f} ms/call")
@@ -1522,7 +1569,6 @@ def phase_flash_extend(gen, heads=SMOLLM_HEADS) -> float:
             if label == "bf16" and (prefix, suffix) in ((48, 16), (64, 64)):
                 kern = lambda: flash_attention_cuda(  # noqa: E731
                     q, k, v, q_offset=prefix)
-                ms = _device_ms(kern)
                 plain = _device_ms(lambda: flash_attention_plain(
                     q, k, v, q_offset=prefix))
                 # SDPA with an explicit mask: key j <= prefix + row i
@@ -1532,9 +1578,10 @@ def phase_flash_extend(gen, heads=SMOLLM_HEADS) -> float:
                 qx = q.transpose(1, 2)
                 kx = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
                 vx = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
-                lib = _device_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qx, kx, vx, attn_mask=mask))
+                ms, lib, turns = _interleaved(
+                    kern, lambda: torch.nn.functional
+                    .scaled_dot_product_attention(qx, kx, vx,
+                                                  attn_mask=mask))
                 pairs = sum(prefix + i + 1 for i in range(suffix))
                 bound, by = _bound((2 * suffix * H * hd
                                     + 2 * extent * KV * hd) * 2,
@@ -1542,7 +1589,9 @@ def phase_flash_extend(gen, heads=SMOLLM_HEADS) -> float:
                 print(f"[K3 flash_attention{tag}] extend bf16 q_offset "
                       f"{prefix} "
                       f"Sq {suffix} Skv {extent}: device ms kernel "
-                      f"{ms:.4f}, plain {plain:.4f}, sdpa (mask) "
+                      f"{ms:.4f} ({turns[0]:.4f} / {turns[1]:.4f} around "
+                      f"sdpa){_cold_wide(hd, ms, kern)}, plain {plain:.4f}, "
+                      f"sdpa (mask) "
                       f"{lib:.4f}; bound {bound * 1e3:.3f} us ({by}); "
                       f"{_ratio(ms, lib, bound)}")
     print(f"[K3 flash_attention{tag}] extend max|err| " + " ".join(
@@ -2930,6 +2979,24 @@ def _k3b_ptxas_lines(log: str):
     return [(name, lines) for name, lines in out if name]
 
 
+def _wide_ptxas_lines(log: str):
+    """(kernel, its register and spill lines) for each instance of K3's
+    wgmma kernel and K1/K2's tensor-core body (head widths 128 and 256)
+    in an ``nvcc -Xptxas -v`` log, the lines as ptxas prints them."""
+    out = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"'\S*?(flash_wgmma_kernel|decode_tc_kernel)ILi"
+                          r"(\d+)E(?:Lb([01])E|Li([12])E)?", line)
+            out.append((m and f"{m[1]}<{m[2]}"
+                        + {None: "", "0": ", ring", "1": ", paged"}[m[3]]
+                        + (f", {m[4]} warpgroup{'s' * (m[4] == '2')}"
+                           if m[4] else "") + ">", []))
+        elif out and ("Used" in line or "spill" in line):
+            out[-1][1].append(line.split(" : ")[-1].strip())
+    return [(name, lines) for name, lines in out if name]
+
+
 def _k3b_errs(tag, got, want, tol=None) -> float:
     """Largest max|got - want| / max(max|want|, 1) over dq, dk, dv (the
     gradients are not O(1)); each is held to ``tol`` when one is given."""
@@ -3804,15 +3871,17 @@ def phase_cross_kernels(gen) -> list:
             qx = q.transpose(1, 2)
             kern = lambda: flash_attention_cuda(q, k, v,  # noqa: E731
                                                 causal=False)
-            ms = _device_ms(kern)
+            ms, lib, turns = _interleaved(kern, lambda: sdpa(qx, kx, vx))
             plain = _device_ms(lambda: flash_attention_plain(
                 q, k, v, causal=False))
-            lib = _device_ms(lambda: sdpa(qx, kx, vx))
             bound, by = _bound((2 * B * Sq * H * hd + 2 * B * T * KV * hd)
                                * 2, 4 * B * H * hd * Sq * T, torch.bfloat16)
             rows[("K3", Sq)] = (ms, plain, lib, bound, by)
             print(f"[K3 flash_attention vision cross] bf16 non-causal "
-                  f"Sq={Sq} Skv={T}: device ms kernel {ms:.4f}, plain "
+                  f"Sq={Sq} Skv={T}: device ms kernel {ms:.4f} "
+                  f"({turns[0]:.4f} / {turns[1]:.4f} around sdpa)"
+                  f"{_cold_wide(hd, ms, kern)}, wrapper {_host_us(kern):.1f} "
+                  f"host us/call, plain "
                   f"{plain:.4f}, sdpa {lib:.4f}; bound {bound * 1e3:.3f} us "
                   f"({by}); {_ratio(ms, lib, bound)}; host-paced kernel "
                   f"{_ms(kern):.4f} ms/call")
@@ -3828,15 +3897,16 @@ def phase_cross_kernels(gen) -> list:
         if label == "bf16":
             qx = q.transpose(1, 2)
             kern = lambda: decode_attention_cuda(q, k, v, t)  # noqa: E731
-            ms = _device_ms(kern)
+            ms, lib, turns = _interleaved(kern, lambda: sdpa(qx, kx, vx))
             plain = _device_ms(lambda: decode_attention_plain(q, k, v, t))
-            lib = _device_ms(lambda: sdpa(qx, kx, vx))
             bound, by = _bound(2 * T * KV * hd * 2 + 2 * B * H * hd * 2 + 4,
                                4 * B * H * T * hd, torch.bfloat16)
             rows["K1"] = (ms, plain, lib, bound, by)
             print(f"[K1 decode_attention vision cross] bf16 t={T - 1} over "
                   f"{T} image slots ({split_plan(T)} splits): device ms "
-                  f"kernel {ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}; "
+                  f"kernel {ms:.4f} ({turns[0]:.4f} / {turns[1]:.4f} around "
+                  f"sdpa){_cold_wide(hd, ms, kern)}, plain {plain:.4f}, sdpa "
+                  f"{lib:.4f}; "
                   f"bound {bound * 1e3:.3f} us ({by}); "
                   f"{_ratio(ms, lib, bound)}; host-paced kernel "
                   f"{_ms(kern):.4f} ms/call")

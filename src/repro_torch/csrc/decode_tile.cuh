@@ -45,6 +45,21 @@
 //  * Each row group of lanes keeps its own online softmax (m, l, acc) in
 //    registers, with one exponential per slot and head, and there is no
 //    barrier of any kind inside the slot loop.
+//  * bf16 at head widths 128 and 256 with up to 8 query heads a KV head
+//    (jamba, llama-3.2-vision, gemma3, and the hd-128 registry models)
+//    takes a second body, decode_tc_kernel below.  There a lane body's
+//    slot row took 16 or 32 lanes, so a warp held 2 or 1 slots a step and
+//    each score paid G x log2(lanes) shuffles in series: at 64 live slots
+//    a warp ran ~8 dependent steps.  The tensor-core body computes a
+//    16-slot tile's scores for all G heads with mma.sync (S^T = K Q^T,
+//    slots in M, heads in N = 8) and P V the same way (O^T = V^T P^T,
+//    head_dim in M), so a 64-slot block is one tile per warp pair and a
+//    handful of mma in series.  Fragments load straight from global
+//    memory, 16 bytes a lane (a fragment's K positions may take any
+//    order both operands share), with no shared-memory staging and no
+//    barrier in the slot loop.  Its split plan, merges and output are
+//    the lane body's (block_fold), so K2 == K1 and lane == scalar-t hold
+//    as before.
 //  * One merge at the end: row groups by shuffles, warps through shared
 //    memory, then the cluster through distributed shared memory: every
 //    block stores its partial into rank 0's shared memory at its rank,
@@ -73,6 +88,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -164,6 +181,71 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The block's end, shared by both bodies once each of its NW warp
+// partials (m, l and the accumulator of every head) is in shared memory:
+// the partials folded in warp order, then the output itself when the
+// block runs solo, else the block's partial stored straight into rank
+// 0's shared memory at this block's rank (every block has started once
+// the wait returns) and rank 0's fold of the blocks in rank order.
+template <typename T, int GM, int NW>
+__device__ __forceinline__ void block_fold(const DecodeArgs& a, Smem<GM>& sh,
+                                           const float* wacc, float* cacc,
+                                           cg::cluster_group& cluster,
+                                           int n_split, int rank, bool solo,
+                                           int kvh, int b, int tid) {
+  const int G = a.G, hd = a.hd;
+  if (!solo) cluster_wait();
+  float* pm = cluster.map_shared_rank(&sh.cm[0][0], 0) + rank * GM;
+  float* pl = cluster.map_shared_rank(&sh.cl[0][0], 0) + rank * GM;
+  float* pacc = cluster.map_shared_rank(cacc, 0) + rank * GM * hd;
+  T* o = static_cast<T*>(a.o) + b * a.o_sb;
+  for (int i = tid; i < G * hd; i += kThreads) {
+    const int g = i / hd, d = i % hd;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sh.wm[w][g]);
+    float lsum = 0.f, asum = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float e = __expf(sh.wm[w][g] - mx);
+      lsum = fmaf(sh.wl[w][g], e, lsum);
+      asum = fmaf(wacc[(w * GM + g) * hd + d], e, asum);
+    }
+    if (solo) {
+      o[(int64_t)(kvh * G + g) * a.o_sh + d] =
+          from_f32<T>(asum / fmaxf(lsum, 1e-30f));
+      continue;
+    }
+    pacc[g * hd + d] = asum;
+    if (d == 0) {
+      pm[g] = mx;
+      pl[g] = lsum;
+    }
+  }
+  if (solo) return;
+  cluster.sync();                    // every partial is in rank 0
+  if (rank != 0) return;             // nothing reads this block any more
+  // rank 0 folds the blocks' partials in rank order
+  for (int i = tid; i < G * hd; i += kThreads) {
+    const int g = i / hd, d = i % hd;
+    float mx = kNegInf;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < n_split) mx = fmaxf(mx, sh.cm[r][g]);
+    float lsum = 0.f, asum = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) {
+      if (r < n_split) {
+        const float e = __expf(sh.cm[r][g] - mx);
+        lsum = fmaf(sh.cl[r][g], e, lsum);
+        asum = fmaf(cacc[(r * GM + g) * hd + d], e, asum);
+      }
+    }
+    o[(int64_t)(kvh * G + g) * a.o_sh + d] =
+        from_f32<T>(asum / fmaxf(lsum, 1e-30f));
+  }
 }
 
 template <typename T, int GM, int NC, bool kPaged>
@@ -318,66 +400,16 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
     }
   }
   __syncthreads();
-  // the block's partial, warps folded in order: the output itself when
-  // the block runs solo, else stored straight into rank 0's shared memory
-  // at this block's rank (every block has started once the wait returns)
-  if (!solo) cluster_wait();
-  float* pm = cluster.map_shared_rank(&sh.cm[0][0], 0) + rank * GM;
-  float* pl = cluster.map_shared_rank(&sh.cl[0][0], 0) + rank * GM;
-  float* pacc = cluster.map_shared_rank(cacc, 0) + rank * GM * hd;
-  T* o = static_cast<T*>(a.o) + b * a.o_sb;
-  for (int i = tid; i < G * hd; i += kThreads) {
-    const int g = i / hd, d = i % hd;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sh.wm[w][g]);
-    float lsum = 0.f, asum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float e = __expf(sh.wm[w][g] - mx);
-      lsum = fmaf(sh.wl[w][g], e, lsum);
-      asum = fmaf(wacc[(w * GM + g) * hd + d], e, asum);
-    }
-    if (solo) {
-      o[(int64_t)(kvh * G + g) * a.o_sh + d] =
-          from_f32<T>(asum / fmaxf(lsum, 1e-30f));
-      continue;
-    }
-    pacc[g * hd + d] = asum;
-    if (d == 0) {
-      pm[g] = mx;
-      pl[g] = lsum;
-    }
-  }
-  if (solo) return;
-  cluster.sync();                    // every partial is in rank 0
-  if (rank != 0) return;             // nothing reads this block any more
-  // rank 0 folds the blocks' partials in rank order
-  for (int i = tid; i < G * hd; i += kThreads) {
-    const int g = i / hd, d = i % hd;
-    float mx = kNegInf;
-#pragma unroll
-    for (int r = 0; r < kMaxSplits; ++r)
-      if (r < n_split) mx = fmaxf(mx, sh.cm[r][g]);
-    float lsum = 0.f, asum = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxSplits; ++r) {
-      if (r < n_split) {
-        const float e = __expf(sh.cm[r][g] - mx);
-        lsum = fmaf(sh.cl[r][g], e, lsum);
-        asum = fmaf(cacc[(r * GM + g) * hd + d], e, asum);
-      }
-    }
-    o[(int64_t)(kvh * G + g) * a.o_sh + d] =
-        from_f32<T>(asum / fmaxf(lsum, 1e-30f));
-  }
+  block_fold<T, GM, kWarps>(a, sh, wacc, cacc, cluster, n_split, rank, solo,
+                            kvh, b, tid);
 }
 
-template <typename T, int GM, int NC, bool kPaged>
-int launch_decode(const DecodeArgs& a, int B, int KV, int n_split,
-                  cudaStream_t stream) {
-  auto kern = decode_kernel<T, GM, NC, kPaged>;
-  const size_t smem = smem_bytes(a, GM, n_split, kPaged);
+// One launch of `kern` (either body) over clusters of n_split blocks, one
+// cluster per (lane, KV head), with GM accumulator rows a block.
+template <class Kernel>
+int launch_clusters(Kernel kern, const DecodeArgs& a, int GM, bool paged,
+                    int B, int KV, int n_split, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a, GM, n_split, paged);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -399,6 +431,209 @@ int launch_decode(const DecodeArgs& a, int B, int KV, int n_split,
   cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename T, int GM, int NC, bool kPaged>
+int launch_decode(const DecodeArgs& a, int B, int KV, int n_split,
+                  cudaStream_t stream) {
+  return launch_clusters(decode_kernel<T, GM, NC, kPaged>, a, GM, kPaged, B,
+                         KV, n_split, stream);
+}
+
+// --------------------------------------------------------------------------
+// bf16 at head widths 128 and 256, G <= 8: scores and P V on the tensor
+// cores.  Warp pair p (warps 2p, 2p + 1) takes the 16-slot tiles that start
+// at lo + 16 (p + 4 i); both warps of a pair compute the tile's scores,
+// S^T = K Q^T with mma.sync.m16n8k16 (the 16 slots in M, the group's heads
+// in N = 8, head_dim in K), and warp half h of the pair takes columns
+// [h hd / 2, (h + 1) hd / 2) of O^T += V^T P^T (head_dim in M, the slots in
+// K).  K, V and q go from global memory straight into fragments, 16 bytes
+// a load: a fragment's K positions may hold any head_dim (or slot) order
+// as long as both operands agree, so lane (gid, tig) loads head_dim
+// 32 j + 8 tig .. + 7 of slot rows gid and gid + 8 (and of q row gid) for
+// K steps 2j and 2j + 1, and V columns 64 j + 8 gid .. + 7 of slots 2 tig,
+// 2 tig + 1, 2 tig + 8, 2 tig + 9, whose halves a byte permute pairs into
+// the A fragment of V^T (output rows d and d + 1 of m-tile 4 j + i sit at
+// head_dim 64 j + 8 gid + 2 i and + 1).  P leaves the score accumulator as
+// bf16 and movmatrix transposes it into P^T's B fragment.  The online
+// softmax keeps one (m, l) per head column in f32; the pair's partial is
+// one of NW = 4 in block_fold.
+template <bool kPaged>
+__device__ __forceinline__ int64_t slot_offset(const DecodeArgs& a,
+                                               const int32_t* row, int s) {
+  return kPaged ? (int64_t)row[s / a.page] * a.c_sp +
+                      (int64_t)(s % a.page) * a.c_ss
+                : (int64_t)s * a.c_ss;
+}
+
+__device__ __forceinline__ uint4 ldg16(const __nv_bfloat16* p, bool in) {
+  return in ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+constexpr int kTcPairs = kWarps / 2;     // warp pairs: the block's partials
+constexpr int kTcSlots = 16;             // slots of a tile (mma M)
+
+template <int HD, bool kPaged>
+__global__ void __launch_bounds__(kThreads) decode_tc_kernel(DecodeArgs a) {
+  constexpr int GM = 8;
+  constexpr int KJ = HD / 32;            // 16-byte loads of a K (q) row
+  constexpr int VJ = HD / 128;           // 16-byte loads of a V row's half
+  constexpr int MT = HD / 32;            // m-tiles of a half of O^T
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float smem[];
+  Smem<GM>& sh = *reinterpret_cast<Smem<GM>*>(smem);
+  float* wacc = smem + sizeof(Smem<GM>) / sizeof(float);   // [kWarps][GM][hd]
+  float* cacc = wacc + kWarps * GM * HD;                   // [n_split][GM][hd]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  int32_t* row = reinterpret_cast<int32_t*>(cacc + n_split * GM * HD);
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int pair = warp / 2, half = warp % 2;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int G = a.G;
+
+  // the split plan, as the lane body's
+  const int t = a.t[b * a.t_stride];
+  const int live = t + 1 < a.S ? t + 1 : a.S;
+  const bool solo = live <= kSplitSlots;
+  const int per = solo ? live : (live + n_split - 1) / n_split;
+  const int lo = min(live, rank * per);
+  const int hi = min(live, lo + per);
+  if (solo && rank != 0) return;
+  if (!solo) cluster_arrive_relaxed();
+  if (kPaged) {
+    for (int i = tid; i < a.P; i += kThreads) row[i] = a.bt[b * a.bt_sb + i];
+    __syncthreads();
+  }
+
+  const bf16* kb = static_cast<const bf16*>(a.k) + kvh * a.c_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + kvh * a.c_sh;
+  if (!kPaged) {
+    kb += b * a.c_sb;
+    vb += b * a.c_sb;
+  }
+  // q as the scores' B fragments: head gid (zeros past G)
+  uint4 qf[KJ];
+  {
+    const bf16* qr = static_cast<const bf16*>(a.q) + b * a.q_sb +
+                     (int64_t)(kvh * G + gid) * a.q_sh + 8 * tig;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) qf[j] = ldg16(qr + 32 * j, gid < G);
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // heads 2 tig + c
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int base = lo + pair * kTcSlots; base < hi;
+       base += kTcPairs * kTcSlots) {
+    // K rows gid, gid + 8 and V rows 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9
+    uint4 k0[KJ], k1[KJ], vr[4][VJ];
+    {
+      const int s0 = base + gid, s1 = s0 + 8;
+      const bool in0 = s0 < hi, in1 = s1 < hi;
+      const bf16* p0 = kb + (in0 ? slot_offset<kPaged>(a, row, s0) : 0) + 8 * tig;
+      const bf16* p1 = kb + (in1 ? slot_offset<kPaged>(a, row, s1) : 0) + 8 * tig;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        k0[j] = ldg16(p0 + 32 * j, in0);
+        k1[j] = ldg16(p1 + 32 * j, in1);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int s = base + 2 * tig + (r & 1) + 8 * (r >> 1);
+        const bool in = s < hi;
+        const bf16* pv = vb + (in ? slot_offset<kPaged>(a, row, s) : 0) +
+                         half * (HD / 2) + 8 * gid;
+#pragma unroll
+        for (int j = 0; j < VJ; ++j) vr[r][j] = ldg16(pv + 64 * j, in);
+      }
+    }
+    // S^T: rows = slots gid, gid + 8; columns = heads 2 tig, 2 tig + 1;
+    // even and odd K steps in two accumulators
+    float se[4] = {0.f, 0.f, 0.f, 0.f}, so[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const uint32_t ae[4] = {k0[j].x, k1[j].x, k0[j].y, k1[j].y};
+      const uint32_t ao[4] = {k0[j].z, k1[j].z, k0[j].w, k1[j].w};
+      mma16816(se, ae, qf[j].x, qf[j].y);
+      mma16816(so, ao, qf[j].z, qf[j].w);
+    }
+    float p[4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float x0 = (se[c] + so[c]) * a.scale;          // slot gid
+      float x1 = (se[2 + c] + so[2 + c]) * a.scale;  // slot gid + 8
+      if (base + gid >= hi) x0 = kNegInf;
+      if (base + gid + 8 >= hi) x1 = kNegInf;
+      float mx = fmaxf(x0, x1);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      mx = fmaxf(mx, m[c]);
+      const float alpha = __expf(m[c] - mx);
+      p[c] = x0 == kNegInf ? 0.f : __expf(x0 - mx);
+      p[2 + c] = x1 == kNegInf ? 0.f : __expf(x1 - mx);
+      l[c] = fmaf(l[c], alpha, p[c] + p[2 + c]);
+      m[c] = mx;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        acc[i][c] *= alpha;
+        acc[i][2 + c] *= alpha;
+      }
+    }
+    // P^T as B: (slots 2 tig, 2 tig + 1 | + 8; head gid)
+    const uint32_t b0 = movmatrix_t(pack_bf16(p[0], p[1]));
+    const uint32_t b1 = movmatrix_t(pack_bf16(p[2], p[3]));
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const uint32_t w0 = word(vr[0][i / 4], i % 4), w1 = word(vr[1][i / 4], i % 4);
+      const uint32_t w2 = word(vr[2][i / 4], i % 4), w3 = word(vr[3][i / 4], i % 4);
+      const uint32_t av[4] = {
+          __byte_perm(w0, w1, 0x5410), __byte_perm(w0, w1, 0x7632),
+          __byte_perm(w2, w3, 0x5410), __byte_perm(w2, w3, 0x7632)};
+      mma16816(acc[i], av, b0, b1);
+    }
+  }
+  // the pair's partial: l summed over the slot lanes; m is already theirs
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    l[c] += __shfl_xor_sync(0xffffffffu, l[c], 4);
+    l[c] += __shfl_xor_sync(0xffffffffu, l[c], 8);
+    l[c] += __shfl_xor_sync(0xffffffffu, l[c], 16);
+  }
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int g = 2 * tig + c;
+    if (g >= G) continue;
+    float* dst = wacc + (pair * GM + g) * HD + half * (HD / 2) + 8 * gid;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      dst[64 * (i / 4) + 2 * (i % 4)] = acc[i][c];
+      dst[64 * (i / 4) + 2 * (i % 4) + 1] = acc[i][2 + c];
+    }
+    if (half == 0 && gid == 0) {
+      sh.wm[pair][g] = m[c];
+      sh.wl[pair][g] = l[c];
+    }
+  }
+  __syncthreads();
+  block_fold<bf16, GM, kTcPairs>(a, sh, wacc, cacc, cluster, n_split, rank,
+                                 solo, kvh, b, tid);
 }
 
 // GM: the group width the kernel is compiled for (G <= GM; rows past G
@@ -441,9 +676,16 @@ int dispatch_dtype(int dtype, DecodeArgs a, int B, int KV, int n_split,
       return dispatch_group<float, 2, kPaged>(a, B, KV, n_split, stream);
     return dispatch_group<float, 1, kPaged>(a, B, KV, n_split, stream);
   }
-  if (dtype == 1)
+  if (dtype == 1) {
+    if (a.G <= 8 && a.hd == 128)
+      return launch_clusters(decode_tc_kernel<128, kPaged>, a, 8, kPaged, B,
+                             KV, n_split, stream);
+    if (a.G <= 8 && a.hd == 256)
+      return launch_clusters(decode_tc_kernel<256, kPaged>, a, 8, kPaged, B,
+                             KV, n_split, stream);
     return dispatch_group<__nv_bfloat16, 1, kPaged>(a, B, KV, n_split,
                                                     stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

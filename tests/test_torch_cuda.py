@@ -1288,3 +1288,164 @@ def test_real_engine_generate_batch_on_card_equals_generate(cuda):
         for out, ids, m in zip(outs, prompts, per):
             assert out["tokens"] == \
                 eng.generate(ids, max_new_tokens=m)["tokens"]
+
+
+# ------------------------------------------- K1/K3 at head widths 128, 256
+#: the wide heads: jamba-v0.1-52b's, llama-3.2-vision-90b's and
+#: gemma3-4b-edge's (H, KV, hd)
+WIDE_HEADS = [(32, 8, 128), (64, 8, 128), (8, 4, 256)]
+
+
+def _attn_inputs(cuda, seed, B, Sq, Skv, H, KV, hd, dtype=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, Skv, KV, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 32, 45, 300, 512])
+@pytest.mark.parametrize("H,KV,hd", WIDE_HEADS)
+def test_wgmma_flash_kernel_matches_plain_with_lse(cuda, S, H, KV, hd):
+    """K3's wgmma kernel (bf16, hd 128 / 256) at the serving buckets, an
+    exact length and a ragged multi-chunk length: output within 2e-2 of
+    the plain version, lse within 1e-3, the output bitwise unchanged by
+    asking for the lse and by a second launch."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    q, k, v = _attn_inputs(cuda, S + hd, 1, S, S, H, KV, hd)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    want, want_lse = flash_attention_plain(q, k, v, return_lse=True)
+    _close(o, want, torch.bfloat16)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=1e-3, rtol=1e-3)
+    assert torch.equal(o, flash_attention_cuda(q, k, v))
+    assert torch.equal(o, flash_attention_cuda(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(1, 1024), (45, 1024), (16, 1024),
+                                    (7, 300), (130, 64)])
+@pytest.mark.parametrize("H,KV,hd", [(64, 8, 128), (8, 4, 256)])
+def test_wgmma_flash_kernel_cross_lengths(cuda, Sq, Skv, H, KV, hd):
+    """K3's wgmma kernel non-causal at Sq != Skv (the vision
+    cross-attention's Sq 1 / 16 / 45 over 1024 image rows, split over a
+    cluster of 4 blocks), with its lse, against the plain version."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    q, k, v = _attn_inputs(cuda, Sq * 7 + Skv, 1, Sq, Skv, H, KV, hd)
+    o, lse = flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+    want, want_lse = flash_attention_plain(q, k, v, causal=False,
+                                           return_lse=True)
+    _close(o, want, torch.bfloat16)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix,suffix", [(48, 16), (64, 64), (200, 100),
+                                           (256, 48), (500, 24), (700, 330)])
+@pytest.mark.parametrize("H,KV,hd", WIDE_HEADS)
+def test_wgmma_flash_extend_equals_cold_bitwise(cuda, prefix, suffix, H, KV,
+                                                hd):
+    """Extend rows (q_offset over a longer, padded key buffer) equal the
+    cold prefill's rows bit for bit at hd 128 and 256, across chunk
+    boundaries (256 keys) and whether the call was split over a cluster
+    or not; and within 2e-2 of the plain version."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    n = prefix + suffix
+    qf, k, v = _attn_inputs(cuda, prefix + suffix, 1, n, n + 40, H, KV, hd)
+    q = qf[:, prefix:]
+    got = flash_attention_cuda(q, k, v, q_offset=prefix)
+    _close(got, flash_attention_plain(q, k, v, q_offset=prefix),
+           torch.bfloat16)
+    cold = flash_attention_cuda(qf, k[:, :n].contiguous(),
+                                v[:, :n].contiguous())
+    assert torch.equal(cold[:, prefix:], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,hd", WIDE_HEADS)
+def test_wgmma_split_and_whole_walk_give_the_same_bits(cuda, H, KV, hd):
+    """Rows 584..599 of a 2100-token causal prefill (9 chunks: one block
+    walks every chunk of its row tile and folds them in its shared
+    memory) equal the same rows as an extend over their 600 keys (3
+    chunks on a small grid: split over a cluster of 3 blocks, rank 0
+    folding the others' partials) bit for bit, output and lse; and a
+    1600-row extend over the whole buffer equals the cold rows."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_launch_plan)
+    q, k, v = _attn_inputs(cuda, H + hd, 1, 2100, 2100, H, KV, hd)
+    assert flash_launch_plan(1, 2100, 2100, H, KV, hd)[1] == 1
+    assert flash_launch_plan(1, 16, 600, H, KV, hd, q_offset=584)[1] == 3
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    part, part_lse = flash_attention_cuda(
+        q[:, 584:600], k[:, :600].contiguous(), v[:, :600].contiguous(),
+        q_offset=584, return_lse=True)
+    assert torch.equal(part, o[:, 584:600])
+    assert torch.equal(part_lse, lse[:, :, 584:600])
+    ext = flash_attention_cuda(q[:, 500:], k, v, q_offset=500)
+    assert torch.equal(ext, o[:, 500:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 128, 512])
+@pytest.mark.parametrize("H,KV,hd", [(64, 8, 128), (8, 4, 256)])
+def test_tensor_core_decode_lanes_equal_scalar_t_and_paged(cuda, S, H, KV,
+                                                           hd):
+    """K1's tensor-core body (bf16, G <= 8, hd 128 / 256) with (B,) fill
+    levels on both sides of every split boundary: each lane equals its
+    scalar-t launch bit for bit, two launches are bitwise equal, the
+    batch is within 2e-2 of plain, and K2 through a shuffled block table
+    equals K1 on the same logical window bit for bit."""
+    B, page = 4, 16
+    g = torch.Generator(device=cuda).manual_seed(S + H + hd)
+    edges = _split_edges(S)
+    levels = edges + edges[:(-len(edges)) % B]
+    q = torch.randn(B, 1, H, hd, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    P = -(-S // page)
+    for i in range(0, len(levels), B):
+        t = torch.tensor(levels[i:i + B], dtype=torch.int32, device=cuda)
+        got = ops.decode_attention(q, k, v, t)
+        assert torch.equal(got, ops.decode_attention(q, k, v, t))
+        _close(got, ops.decode_attention(q.cpu(), k.cpu(), v.cpu(),
+                                         t.cpu()), torch.bfloat16)
+        for b in range(B):
+            solo = ops.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                        t[b:b + 1])
+            assert torch.equal(solo[0], got[b]), (levels[i + b], b)
+        if S % page:
+            continue
+        perm = torch.randperm(B * P, generator=g, device=cuda) + 1
+        pk = torch.full((B * P + 1, page, KV, hd), 1e4, device=cuda).bfloat16()
+        pv = torch.full_like(pk, -1e4)
+        pk[perm] = k.reshape(B * P, page, KV, hd)
+        pv[perm] = v.reshape(B * P, page, KV, hd)
+        bt = perm.view(B, P).to(torch.int32)
+        paged = ops.paged_decode_attention(q, pk, pv, bt, t)
+        assert torch.equal(paged, got)
+
+
+@pytest.mark.cuda
+def test_wide_attention_kernels_do_not_spill(cuda, tmp_path, monkeypatch):
+    """The new bf16 instances at head widths 128 and 256 -- K3's wgmma
+    kernel (hd 128 with one and with two consumer warpgroups, hd 256) and
+    K1/K2's tensor-core body (hd 128 and 256) -- are built and compile
+    with no register spills, as ``_build.PTXAS_REPORT`` shows after a
+    fresh build."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    names = ("flash_attention", "decode_attention", "paged_decode_attention")
+    _build.build(names)
+    for name, kernel, count in zip(
+            names, ("flash_wgmma_kernel", "decode_tc_kernel",
+                    "decode_tc_kernel"), (3, 2, 2)):
+        entries = [e for e in _build.PTXAS_REPORT[name].split(
+            "Compiling entry function '")[1:] if kernel in e.split("'")[0]]
+        assert len(entries) == count, name
+        for e in entries:
+            assert "0 bytes spill stores, 0 bytes spill loads" in e, e
