@@ -405,10 +405,11 @@ def _host_us(fn, iters: int = 100) -> float:
     return us
 
 
-def _cold_wide(hd: int, ms: float, kern) -> str:
-    """At head widths 128 and 256 (the wgmma and tensor-core bodies):
-    the kernel's cold time, with the L2 flushed before every launch."""
-    if hd < 128:
+def _cold_wide(hd: int, ms: float, kern, G: int = 0) -> str:
+    """At head widths 128 and 256 and at 64 over ungrouped heads (``G``
+    1: the wgmma and tensor-core bodies): the kernel's cold time, with
+    the L2 flushed before every launch."""
+    if hd < 128 and not (hd == 64 and G == 1):
         return ""
     cold = _cold_device_ms(kern)
     return f", cold {cold:.4f} (x{cold / ms:.2f} warm)"
@@ -563,8 +564,8 @@ def phase_flash_kernel(gen, heads=SMOLLM_HEADS, model=None) -> dict:
             timed.append((S, ms, plain, lib, bound, by))
             print(f"[K3 flash_attention{tag}] bf16 S={S}: device ms kernel "
                   f"{ms:.4f} ({turns[0]:.4f} / {turns[1]:.4f} around sdpa)"
-                  f"{_cold_wide(hd, ms, kern)}, plain {plain:.4f}, sdpa "
-                  f"{lib:.4f}; bound "
+                  f"{_cold_wide(hd, ms, kern, H // KV)}, plain {plain:.4f}, "
+                  f"sdpa {lib:.4f}; bound "
                   f"{bound * 1e3:.3f} us ({by}); {_ratio(ms, lib, bound)}; "
                   f"host-paced kernel {_ms(kern):.4f} ms/call, wrapper "
                   f"{_host_us(kern):.1f} host us/call")
@@ -1532,7 +1533,7 @@ def phase_paged_kernel(gen, heads=SMOLLM_HEADS) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
-def phase_flash_extend(gen, heads=SMOLLM_HEADS) -> float:
+def phase_flash_extend(gen, heads=SMOLLM_HEADS, model=None) -> float:
     """K3 in extend mode: suffix buckets 16..64 over a 48..128-token prefix
     (q_offset) in a longer key buffer.  The suffix rows must equal those
     rows of the cold prefill bit for bit.  Returns the largest
@@ -1541,7 +1542,7 @@ def phase_flash_extend(gen, heads=SMOLLM_HEADS) -> float:
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     (H, KV, hd), B = heads, 1
-    tag = _kname("", heads)[1]
+    tag = _kname("", heads, model)[1]
     errs = {}
     for prefix, suffix in ((48, 16), (64, 16), (64, 32), (64, 64),
                            (128, 16), (128, 64)):
@@ -1590,8 +1591,8 @@ def phase_flash_extend(gen, heads=SMOLLM_HEADS) -> float:
                       f"{prefix} "
                       f"Sq {suffix} Skv {extent}: device ms kernel "
                       f"{ms:.4f} ({turns[0]:.4f} / {turns[1]:.4f} around "
-                      f"sdpa){_cold_wide(hd, ms, kern)}, plain {plain:.4f}, "
-                      f"sdpa (mask) "
+                      f"sdpa){_cold_wide(hd, ms, kern, H // KV)}, plain "
+                      f"{plain:.4f}, sdpa (mask) "
                       f"{lib:.4f}; bound {bound * 1e3:.3f} us ({by}); "
                       f"{_ratio(ms, lib, bound)}")
     print(f"[K3 flash_attention{tag}] extend max|err| " + " ".join(
@@ -2981,8 +2982,9 @@ def _k3b_ptxas_lines(log: str):
 
 def _wide_ptxas_lines(log: str):
     """(kernel, its register and spill lines) for each instance of K3's
-    wgmma kernel and K1/K2's tensor-core body (head widths 128 and 256)
-    in an ``nvcc -Xptxas -v`` log, the lines as ptxas prints them."""
+    wgmma kernel (head widths 64, 128 and 256) and K1/K2's tensor-core
+    body (128 and 256) in an ``nvcc -Xptxas -v`` log, the lines as ptxas
+    prints them."""
     out = []
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -3935,18 +3937,23 @@ def phase_cross_kernels(gen) -> list:
 
 def new_arch_kernels(gen) -> list:
     """K1 and K3 at musicgen-large's heads (32 over 32, hd 64: one query
-    head a KV head) and at llama-3.2-vision-90b's self-attention heads
-    (64 over 8, hd 128), then the vision stack's cross-attention
-    kernels: the kernels line's ``*_musicgen``, ``*_vision`` and
-    ``*_vision_cross`` entries."""
+    head a KV head, K3 on its wgmma body, also in extend mode, whose rows
+    must equal the cold prefill's bit for bit) and at
+    llama-3.2-vision-90b's self-attention heads (64 over 8, hd 128),
+    then the vision stack's cross-attention kernels: the kernels line's
+    ``*_musicgen``, ``*_vision`` and ``*_vision_cross`` entries."""
     out = []
     for heads, tag, model in ((MUSICGEN_HEADS, "musicgen", "musicgen-large"),
                               (VISION_HEADS, "vision",
                                "llama-3.2-vision-90b")):
+        k3 = phase_flash_kernel(gen, heads, tag)
+        if heads == MUSICGEN_HEADS:
+            # K3's wgmma body at G 1: extend rows == the cold rows
+            k3["max_abs_err"] = max(k3["max_abs_err"],
+                                    phase_flash_extend(gen, heads, tag))
         out += [_owned(phase_decode_kernel(gen, heads, tag), model,
                        "decode_attention"),
-                _owned(phase_flash_kernel(gen, heads, tag), model,
-                       "flash_attention")]
+                _owned(k3, model, "flash_attention")]
     return out + phase_cross_kernels(gen)
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where a bf16 K3 call at head widths 128 and 256 spends its time, phase
-by phase, block by block.
+"""Where a bf16 K3 call on the wgmma body (head widths 128 and 256, and
+64 over ungrouped heads) spends its time, phase by phase, block by
+block.
 
     python3 scripts/k3_phases.py
 
@@ -13,8 +14,9 @@ output store) and with ``globaltimer`` at its start and end, builds it
 with nvcc and runs it at the serving shapes (jamba-v0.1-52b's and
 llama-3.2-vision-90b's heads at hd 128, gemma3-4b-edge's at hd 256;
 causal S 32 and 512, the vision cross-attention's Sq 1 and 45 over 1024
-keys), each with the launcher's own split plan, then forced to split
-(whenever 2..8 chunks) and forced whole.  Prints, per case, the device
+keys; musicgen-large's ungrouped hd-64 heads at S 32 and 512), each
+with the launcher's own split plan, then forced to split (whenever 2..8
+chunks) and forced whole.  Prints, per case, the device
 time of a launch (``chip_smoke``'s clock), the blocks' spread in
 ``globaltimer`` microseconds and each phase's median in thousands of SM
 cycles.  The stamps cost a few stores a block; compare phases, not these
@@ -145,7 +147,9 @@ def main() -> int:
              ("jamba S=32", 32, 32, chip_smoke.JAMBA_HEADS, True),
              ("gemma3 S=32", 32, 32, chip_smoke.GEMMA_HEADS, True),
              ("cross Sq=1", 1, 1024, chip_smoke.VISION_HEADS, False),
-             ("cross Sq=45", 45, 1024, chip_smoke.VISION_HEADS, False)]
+             ("cross Sq=45", 45, 1024, chip_smoke.VISION_HEADS, False),
+             ("musicgen S=512", 512, 512, chip_smoke.MUSICGEN_HEADS, True),
+             ("musicgen S=32", 32, 32, chip_smoke.MUSICGEN_HEADS, True)]
     for force, plan in ((0, "plan"), (-1, "split"), (1, "whole")):
         lib.phases_force_split(force)
         for name, Sq, Skv, (H, KV, hd), causal in cases:

@@ -18,7 +18,8 @@
 // steps and how many SMs it reaches.
 //
 // bf16 (the serving dtype) runs on the tensor cores, by one of two
-// designs.  Both stack GQA rows into M: the G query heads of one KV head
+// designs, chosen by (hd, G) alone (wgmma_body: never by a length, the
+// batch or q_offset, so a model's extend rows keep its cold rows' bits).  Both stack GQA rows into M: the G query heads of one KV head
 // and the Sq query rows form G * Sq stacked rows (row r = query row r / G,
 // head r % G), cut into 64-row tiles, one block per (row tile, KV head,
 // batch row), so every K/V tile is read once per group instead of G times
@@ -33,7 +34,7 @@
 // and a row's arithmetic reads only its own q, the tile and its own
 // state (each product's output element is its own dot product).
 //
-// Up to head width 64 (smollm, musicgen): mma.sync.
+// Up to head width 64 over grouped heads (smollm-360m, G 3): mma.sync.
 //  * Two key groups of 4 warps (16 rows each): a ring stage holds 128
 //    keys, group k takes the stage's k-th 64 keys with its own online
 //    softmax, and group 1 hands its partial to group 0 through shared
@@ -48,11 +49,16 @@
 //    a two-stage ring in shared memory, rows padded by 16 bytes so that
 //    ldmatrix is free of bank conflicts; keys past Skv are zero-filled.
 //
-// Head widths 128 and 256 (jamba, llama-3.2-vision, gemma3): wgmma.  The
-// mma.sync shape, stretched there, lost 1.5-2.5x to SDPA: at hd 128 the
-// two key groups' q fragments, accumulators and scores filled the
-// registers of one block an SM, and at hd 256 one key group re-read q by
-// ldmatrix every k-step at 247 registers.  What bounds these calls is
+// Head widths 128 and 256 (jamba, llama-3.2-vision, gemma3), and 64 over
+// ungrouped heads (musicgen-large, G 1): wgmma.  The mma.sync shape,
+// stretched to 128 and 256, lost 1.5-2.5x to SDPA: at hd 128 the two key
+// groups' q fragments, accumulators and scores filled the registers of
+// one block an SM, and at hd 256 one key group re-read q by ldmatrix
+// every k-step at 247 registers.  At hd 64 and G 1 its stacked rows have
+// no group to share a K/V fetch, and a causal S 512 prefill gave 256
+// blocks of 256 threads, each with the same chain of key steps: 1.84x
+// SDPA.  The wgmma body runs 64-row blocks of 160 threads (125
+// registers), two an SM, one wave.  What bounds these calls is
 // latency, not the card's rates (at S 512 the 1.1-4.3 GFLOP take 1-4 us
 // at the bf16 peak): a tile step is a chain of dependent products and a
 // softmax, and a block pays a fixed start (barriers, q and the first K/V
@@ -70,11 +76,11 @@
 //    accumulator's layout is the A operand's) and V MN-major through the
 //    transpose bit.  An accumulator of 64 x 256 is 128 registers a
 //    thread: hd 256 takes 255, one block an SM (setmaxnreg has nothing to
-//    move there); hd 128 takes ~168.
+//    move there); hd 128 takes ~168, hd 64 ~125.
 //  * hd 128 takes two consumer warpgroups over one ring (128 rows a
 //    block: half the K/V loads and half the block starts) once 64-row
 //    blocks would outnumber the SMs, else one, two such blocks an SM
-//    (112 KB of shared memory each).  Both share every tile step of the
+//    (112 KB of shared memory each); hd 64 always one, two an SM.  Both share every tile step of the
 //    block; a tile past a warpgroup's rows' diagonal leaves them as they
 //    were.  Pipelining a warpgroup's walk by one tile (tile i's softmax
 //    beside tile i-1's P V, FA3's way) measured slower here and spilled.
@@ -463,7 +469,7 @@ struct WgCfg {
   static constexpr int kConsumers = C;
   static constexpr int kRows = 64 * C;       // stacked rows a block
   static constexpr int kThreads = 128 * C + 32;
-  static constexpr int kBlocksPerSM = HD == 128 && C == 1 ? 2 : 1;
+  static constexpr int kBlocksPerSM = HD <= 128 && C == 1 ? 2 : 1;
   static constexpr int kSlabs = HD / 64;
   static constexpr int kTile = kSlabs * kSlab;
   static constexpr int kStages = HD > 128 ? 2 : 3;
@@ -731,7 +737,9 @@ __global__ void __launch_bounds__(WgCfg<HD, C>::kThreads,
       for (int j = 0; j < kSteps; ++j) {
         const int kc = grp * kSteps + j;
         const uint64_t dv = sw128_desc(vb + kc * 2048, kSlab, 1024);
-        if constexpr (HD == 128) {
+        if constexpr (HD == 64) {
+          wgmma_rs_n64(acc, pa[j], dv);
+        } else if constexpr (HD == 128) {
           wgmma_rs_n128(acc, pa[j], dv);
         } else {
           wgmma_rs_n256(acc, pa[j], dv);
@@ -793,55 +801,12 @@ __global__ void __launch_bounds__(WgCfg<HD, C>::kThreads,
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime: the library is
-// linked without -lcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The (hd, KV, Skv, B) tensor of k or v in model layout, read in boxes of
 // 64 columns x 1 head x 64 keys x 1 batch row with the 128-byte swizzle;
-// keys past Skv come as zeros.  A dimension of extent 1 is never stepped,
-// so it takes the packed stride (its own may be any value).
+// keys past Skv come as zeros (rows_map, wgmma_bf16.cuh).
 bool kv_map(CUtensorMap* map, const void* base, int HD, int KV, int Skv,
             int B, Strides st) {
-  EncodeTiledFn enc = encode_tiled();
-  if (!enc) return false;
-  const int keys = Skv > 0 ? Skv : 1;
-  cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)KV, (cuuint64_t)keys,
-                        (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
-                           (cuuint64_t)st.b * 2};
-  if (KV == 1) strides[0] = (cuuint64_t)HD * 2;
-  if (keys == 1) strides[1] = strides[0] * KV;
-  if (B == 1) strides[2] = strides[1] * keys;
-  const cuuint32_t box[4] = {64, 1, kWgKeys, 1}, one[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(base), dims, strides, box, one,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return rows_map(map, base, HD, KV, Skv, B, st.b, st.s, st.h);
 }
 
 // Consumer warpgroups a block (wgmma_consumers) and blocks of the
@@ -849,12 +814,15 @@ bool kv_map(CUtensorMap* map, const void* base, int HD, int KV, int Skv,
 // flash_launch_plan in kernels/flash_attention.py states them.  At hd 128
 // a block takes two warpgroups (128 stacked rows over one K/V ring:
 // half the loads and the per-block start-up) once 64-row blocks would
-// outnumber the SMs, else one; hd 256 takes one.  A row tile's walk is
-// split, one chunk a block, when its keys take 2 .. kMaxSplits chunks and
-// the split grid still runs at once (two 64-row blocks an SM at hd 128);
-// else one block walks every chunk (on a full card the split's cluster
-// barrier and fold cost more than they save).  The result depends on
-// neither.
+// outnumber the SMs, else one; hd 64 and 256 take one.  A row tile's
+// walk is split, one chunk a block, when its keys take 2 .. kMaxSplits
+// chunks and the split grid still runs at once (two 64-row blocks an SM
+// at hd 64 and 128); else one block walks every chunk (on a full card the
+// split's cluster barrier and fold cost more than they save).  The result
+// depends on neither.  wgmma_body: which bf16 body a call runs, from (hd,
+// G) alone (wgmma_body in kernels/flash_attention.py).
+bool wgmma_body(int HD, int G) { return HD >= 128 || (HD == 64 && G == 1); }
+
 int wgmma_consumers(int HD, long long rows64, int sms) {
   return HD == 128 && rows64 > sms ? 2 : 1;
 }
@@ -1070,13 +1038,18 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
     return launch_f32<HD>(q, k, v, o, lse, B, Sq, Skv, q_offset, H, H / KV,
                           causal, qs, ks, vs, os, st);
   if (dtype == 1) {
-    if constexpr (HD >= 128) {
-      return launch_wgmma<HD>(q, k, v, o, lse, B, Sq, Skv, q_offset, KV,
-                              H / KV, causal, qs, ks, vs, os, st);
-    } else {
+    // the body is a function of (hd, G) alone (wgmma_body), so a model's
+    // extend rows keep the bits of its cold rows
+    if constexpr (HD >= 64) {
+      if (wgmma_body(HD, H / KV))
+        return launch_wgmma<HD>(q, k, v, o, lse, B, Sq, Skv, q_offset, KV,
+                                H / KV, causal, qs, ks, vs, os, st);
+    }
+    if constexpr (HD <= 64) {
       return launch_mma<HD>(q, k, v, o, lse, B, Sq, Skv, q_offset, KV,
                             H / KV, causal, qs, ks, vs, os, st);
     }
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,13 +1,18 @@
-// Hopper building blocks of K3's bf16 kernel at head widths 128 and 256
-// (flash_attention.cu): mbarriers, TMA tensor loads, cluster barriers and
+// Hopper building blocks of the bf16 attention kernels: K3's wgmma body
+// (flash_attention.cu, head widths 64 at G 1, 128 and 256) and K3b's
+// passes 2 and 3 at head widths 128 and 256 (flash_attention_bwd.cu):
+// mbarriers (also completed by cp.async), TMA tensor loads and the host
+// side's tensor maps over model-layout rows, cluster barriers and
 // distributed shared memory, wgmma shared-memory descriptors and the
-// warpgroup products K3 issues.  All inline PTX for sm_90a.  The wgmma
+// warpgroup products both issue.  All inline PTX for sm_90a.  The wgmma
 // wrappers spell every accumulator register out, as the instruction
 // takes them.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -28,6 +33,13 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
 }
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(bar))
+               : "memory");
+}
+// one arrival on the barrier once every cp.async this thread has issued
+// so far has landed (.noinc: the barrier's count includes it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    (uint32_t)__cvta_generic_to_shared(bar))
                : "memory");
 }
@@ -97,6 +109,10 @@ __device__ __forceinline__ uint32_t cluster_size() {
 // a barrier among the `count` threads that name barrier `id`
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// arrive at barrier `id` (of `count` threads) without waiting
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 // order this thread's generic-proxy shared-memory writes before the async
 // proxy (wgmma, TMA) reads them
@@ -177,6 +193,27 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d += A (64 x 16, registers) * B (16 x 64, shared memory, MN-major: the
+// transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "
+      "%36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d += A (64 x 16, registers) * B (16 x 128, shared memory, MN-major: the
 // transpose bit set)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
@@ -251,5 +288,58 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[32][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// ------------------------------------------------------ host: tensor maps
+// cuTensorMapEncodeTiled, reached through the runtime: the libraries are
+// linked without -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (HD, heads, rows, B) bf16 tensor of a model-layout (B, rows, heads,
+// HD) array with element strides sb, ss, sh, read in boxes of 64 columns x
+// 1 head x 64 rows x 1 batch row with the 128-byte swizzle; rows past
+// `rows` come as zeros.  A dimension of extent 1 is never stepped, so it
+// takes the packed stride (its own may be any value).
+inline bool rows_map(CUtensorMap* map, const void* base, int HD, int heads,
+                     int rows, int B, long long sb, long long ss,
+                     long long sh) {
+  EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const int n = rows > 0 ? rows : 1;
+  cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)n,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                           (cuuint64_t)sb * 2};
+  if (heads == 1) strides[0] = (cuuint64_t)HD * 2;
+  if (n == 1) strides[1] = strides[0] * heads;
+  if (B == 1) strides[2] = strides[1] * n;
+  const cuuint32_t box[4] = {64, 1, 64, 1}, one[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace

@@ -15,8 +15,11 @@ accepted (the ragged edge is masked).
 (B, H, Sq) float32, which the backward kernel K3b
 (``kernels.flash_attention_bwd``) recomputes the probabilities from.
 
-In bf16 at head widths 128 and 256 the kernel cuts each row's keys into
-partials of ``KEY_CHUNK`` keys by absolute key index (chunk c = keys
+In bf16 at head widths 128 and 256, and at head width 64 over ungrouped
+heads (G 1: musicgen-large), the kernel runs its wgmma body
+(:func:`wgmma_body`: a function of the head width and G alone, so a
+model's extend rows keep the bits of its cold rows).  That body cuts
+each row's keys into partials of ``KEY_CHUNK`` keys by absolute key index (chunk c = keys
 [c * KEY_CHUNK, (c + 1) * KEY_CHUNK)), walks each chunk from a fresh
 (max, sum, accumulator) and folds the partials in chunk order, whether
 one block walked them all or a thread-block cluster of
@@ -41,11 +44,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: keys of one partial of the bf16 wgmma kernel (kKeyChunk in
-#: csrc/flash_attention.cu), the head widths it serves and the portable
-#: cluster size
+#: csrc/flash_attention.cu), the head widths it serves at any G and the
+#: portable cluster size
 KEY_CHUNK = 256
 WGMMA_HEAD_DIMS = (128, 256)
 MAX_SPLITS = 8
+
+
+def wgmma_body(hd: int, G: int) -> bool:
+    """True when bf16 K3 runs the wgmma body (``wgmma_body`` in
+    csrc/flash_attention.cu): at head widths 128 and 256, and at 64 over
+    ungrouped heads (G 1), where the mma.sync body's stacked rows have
+    no group to share a K/V fetch.  A function of (hd, G) only: never of
+    the lengths, the batch or ``q_offset``."""
+    return hd in WGMMA_HEAD_DIMS or (hd == 64 and G == 1)
 
 
 def key_chunks(lo: int, hi: int) -> list:
@@ -64,15 +76,16 @@ def flash_launch_plan(B: int, Sq: int, Skv: int, H: int, KV: int, hd: int,
     tile's keys) of the bf16 wgmma kernel (``wgmma_consumers`` and
     ``wgmma_split``).  At hd 128 a block takes two consumer warpgroups
     (128 rows) once 64-row blocks would outnumber the ``sms``, else one
-    (64 rows; two such blocks fit an SM); hd 256 takes one.  A row
-    tile's walk is split, one chunk a block, when its keys (causal:
-    ``q_offset + Sq``, else Skv) take 2 .. ``MAX_SPLITS`` chunks and the
-    split grid still runs at once; else one block walks every chunk.
+    (64 rows; two such blocks fit an SM, as at hd 64); hd 256 takes
+    one.  A row tile's walk is split, one chunk a block, when its keys
+    (causal: ``q_offset + Sq``, else Skv) take 2 .. ``MAX_SPLITS``
+    chunks and the split grid still runs at once; else one block walks
+    every chunk.
     The output depends on neither."""
     G = H // KV
     rows64 = -(-G * Sq // 64) * KV * B
     consumers = 2 if hd == 128 and rows64 > sms else 1
-    per_sm = 2 if hd == 128 and consumers == 1 else 1
+    per_sm = 2 if hd <= 128 and consumers == 1 else 1
     rows = 64 * consumers
     blocks = -(-G * Sq // rows) * KV * B
     keys = q_offset + Sq if causal else Skv
@@ -106,9 +119,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          q_offset: int = 0, return_lse: bool = False):
     """Launch K3 on q's device and stream: bf16 on the tensor cores with
     the G query heads of a KV head stacked into one row tile (``wgmma``
-    with TMA-fed K/V at head widths 128 and 256, ``mma.sync`` below),
-    float32 on the CUDA cores in full f32.  With ``return_lse``, (o,
-    lse)."""
+    with TMA-fed K/V where :func:`wgmma_body` says so, ``mma.sync``
+    elsewhere), float32 on the CUDA cores in full f32.  With
+    ``return_lse``, (o, lse)."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     q_offset = int(q_offset)
@@ -125,7 +138,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          f"q_offset {q_offset}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("head_dim must be contiguous")
-    q_align = 16 if hd in WGMMA_HEAD_DIMS else 4
+    q_align = 16 if wgmma_body(hd, H // KV) else 4
     if q.dtype == torch.bfloat16 and not (
             _build.rows_aligned(q, q_align) and _build.rows_aligned(k)
             and _build.rows_aligned(v)):

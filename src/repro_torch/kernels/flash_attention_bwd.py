@@ -21,6 +21,20 @@ cross-attention layer: Sq text rows over Skv image rows).  They return
     dq = scale * dS k,  dk = scale * dS^T q,  dv = P^T do,
 
 with dk and dv summed over the G query heads of each KV head.
+
+In bf16 at head widths 64, 128 and 256 the kernel's pass 2 (dK, dV of
+one key tile: 128 keys at hd 64 and 128, 64 at hd 256) cuts the (head,
+query) rows
+that see the key tile into
+partials by absolute query index: chunk c is query rows [c * chunk, (c +
+1) * chunk) of every query head of the KV head, ``chunk =
+query_chunk(Sq, G, causal)``: a function of the model's shape, not of the
+batch.  Rank c of a thread-block cluster walks chunk c alone,
+head by head and 64 rows a step, and the partials are added in chunk
+order, so each key's dK/dV is the same sum in the same order whatever
+the grid or the batch.  :func:`flash_bwd_launch_plan` and
+:func:`flash_bwd_walk` state the plan on the host, in the kernel's
+integer arithmetic, for the tests.
 """
 
 from __future__ import annotations
@@ -36,6 +50,75 @@ from repro_torch.kernels.ref import NEG_INF
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head widths K3b is compiled for: K3's (the forward's)
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the bf16 head widths whose passes 2 and 3 run on wgmma (csrc
+#: flash_attention_bwd.cu; 16 and 32 keep mma.sync), a causal pass-2
+#: partial's 64-row steps
+#: (kChunkSteps), the most partials a key tile has (the portable cluster
+#: size) and the rows of a tile (keys of a pass-2 warpgroup, query rows
+#: of its step, stacked rows of a pass-3 block)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+CHUNK_STEPS = 32
+MAX_SPLITS = 8
+TILE = 64
+
+
+def query_chunk(Sq: int, G: int, causal: bool) -> int:
+    """Query rows of one pass-2 partial, from the model's shape alone:
+    about ``CHUNK_STEPS`` 64-row steps of its G query heads when causal
+    (the key tiles' walks differ, and splitting them evens the blocks
+    out), four times that at full attention (every key tile walks the
+    same rows, and a split mostly adds its fold); widened where Sq would
+    take more than ``MAX_SPLITS`` partials."""
+    steps = CHUNK_STEPS if causal else 4 * CHUNK_STEPS
+    chunk = TILE * -(-steps // G)
+    least = TILE * -(-(-(-Sq // TILE)) // MAX_SPLITS)
+    return max(chunk, least)
+
+
+def bwd_tile_keys(hd: int) -> int:
+    """Keys of one pass-2 block: two 64-key warpgroups at hd 64 and 128,
+    one 64-key group shared by the dV and dK roles at hd 256."""
+    return 2 * TILE if hd <= 128 else TILE
+
+
+def flash_bwd_launch_plan(B: int, Sq: int, Skv: int, H: int, KV: int,
+                          hd: int, causal: bool = True) -> dict:
+    """The bf16 wgmma passes' grids (head widths 64, 128 and 256), as the
+    launcher computes them: ``chunk`` query rows a partial, ``split``
+    blocks a cluster (one a chunk), pass 2's ``keys`` a block,
+    ``dkdv_grid`` (split x KV, B, key tiles) and ``dkdv_active`` (blocks
+    that walk a chunk: causal, a key tile's chunks start at that of its
+    first key), pass 3's ``dq_grid`` (KV x B, 64-row tiles of the G * Sq
+    stacked rows) and its blocks an SM."""
+    if hd not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"K3b's wgmma passes take head widths "
+                         f"{WGMMA_HEAD_DIMS}, not {hd}")
+    G = H // KV
+    chunk = query_chunk(Sq, G, causal)
+    split = -(-Sq // chunk)
+    keys = bwd_tile_keys(hd)
+    key_tiles = -(-Skv // keys)
+    active = sum(split - (kt * keys // chunk if causal else 0)
+                 for kt in range(key_tiles)) * KV * B
+    return {"chunk": chunk, "split": split, "keys": keys,
+            "dkdv_grid": (split * KV, B, key_tiles), "dkdv_active": active,
+            "dq_grid": (KV * B, -(-G * Sq // TILE)),
+            "dq_blocks_per_sm": 1 if hd > 128 else 2}
+
+
+def flash_bwd_walk(kt: int, rank: int, Sq: int, G: int,
+                   causal: bool = True, keys: int = TILE) -> list:
+    """Pass 2's steps for key tile ``kt`` (of ``keys`` keys) on cluster
+    rank ``rank``, in the kernel's order: (query head g of the KV head,
+    first query row of the 64-row step).  Rank r walks the query tiles
+    of chunk r that see the key tile (causal: from its first key on),
+    head by head; an empty list for a rank below the key tile's first
+    chunk."""
+    chunk = query_chunk(Sq, G, causal)
+    k0 = kt * keys
+    lo = max(rank * chunk, k0 if causal else 0) // TILE
+    hi = min((rank + 1) * chunk, Sq + TILE - 1) // TILE
+    return [(g, qt * TILE) for g in range(G) for qt in range(lo, hi)]
 
 
 def check_head_dim(hd: int) -> None:
@@ -99,7 +182,10 @@ def _fn():
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True):
     """Launch K3b's three passes (D, then dK/dV per key tile, then dQ per
     tile of stacked query rows) on q's device and stream; counts one
-    launch per call."""
+    launch per call.  bf16 runs on the tensor cores: ``wgmma`` with
+    TMA-fed tiles at head widths 64, 128 and 256 (pass 2 split over a
+    cluster by :func:`flash_bwd_launch_plan`), ``mma.sync`` at 16 and
+    32; float32 on the CUDA cores in full f32."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     tensors = (q, k, v, o, do, lse)
