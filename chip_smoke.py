@@ -61,6 +61,23 @@ path and read just after:
   burst's prompts through the serial engine with an agreeing and an
   independent draft, and the paging backlog through speculative ring and
   paged lanes;
+* ``[tp]`` tensor parallelism: gemma3-4b-edge's train step over a
+  ("data", "model") = (1, 2) mesh as two child processes on the one card
+  (``python3 chip_smoke.py --tp-rank R FILE``, a gloo group of their own:
+  NCCL refuses two ranks on one device), started after the kernel phases
+  and run beside the smollm phases from ``[reference]`` to
+  ``[lanes-faults]``: (c) a float32 copy at full width cut to 2 layers,
+  2 AdamW steps within 1e-4 relative (loss, gradient norm) and atol 5e-4,
+  rtol 5e-3 (each rank's parameter blocks) of the single-device step;
+  then all 34 layers in bf16, 3 AdamW steps at B 2 x 512 (ms a step, peak
+  memory a rank, the all-reduces over ``model`` a step and their bytes
+  equal to ``roofline.tensor_parallel_bytes``, K3 2 x 34 and K3b 34
+  launches a step at H 4 over KV 2, the loss falling); after the ranks
+  exit, in this process, (a) a 2-layer bf16 copy's step through a
+  one-rank (1, 1) mesh bitwise equal to the step with no mesh and (b) the
+  single-device loss of the same bf16 weights on the first batch within
+  2e-2 relative of the ranks' first loss (K3 and K3b at the ranks' shape
+  are held and timed among the kernel phases: (d));
 * ``[launch-sidecar]`` ``python -m repro_torch.launch.sidecar --port 0``
   as child processes, the full-width real backend beside the sim
   backend, under fcfs and then sjf, and the real backend with
@@ -167,7 +184,10 @@ B 8, S 128, 512 and 1000, pass by pass at the training shape; then
 ``[K3b flash_attention_bwd_*]`` does the same for the other trained
 stacks' instances at their train steps' shapes: head width 256
 (gemma3-4b-edge), full attention at Sq 512 over Skv 1024 and causal at
-H 64 over KV 8 (llama-3.2-vision-90b), and G 1 (musicgen-large).
+H 64 over KV 8 (llama-3.2-vision-90b), G 1 (musicgen-large) and H 4
+over KV 2 at head width 256 (a ``[tp]`` rank's share of gemma3's heads,
+B 2), beside ``[K3 flash_attention_hd256_tp]``, K3 with its log-sum-exp
+at that shape.
 
 It fails (nonzero exit, no result line) without a CUDA device, without
 the repository beside it, when a kernel does not build, launch or agree
@@ -195,6 +215,11 @@ the straight run's, when a trained stack's float32 gradients through
 K3/K3b differ from the plain attention's by more than 1e-4 of
 max|plain|, its bf16 losses are not finite (gemma3's: do not fall) or
 its K3/K3b launches differ from 2 x / 1 x its attention layers a step,
+when a ``[tp]`` rank fails, its float32 copy leaves the single-device
+step's tolerances, its all-reduces differ from the roofline's count, its
+K3/K3b launches from 2 x / 1 x 34 a step, its two ranks' losses differ
+or do not fall, the (1, 1) step is not bitwise the plain one or the
+first loss is not within 2e-2 of the single device's,
 when the gemma3 train CLI child fails, when the meshed train step, the card's int8
 exchange or the resharded checkpoint is not bitwise equal to its
 reference (the step with no mesh, the CPU's exchange,
@@ -218,7 +243,8 @@ entry per kernel, each with the launches of its own model's paths (K1,
 K2 and K3 at head width 64 and K3b, K4, K5: smollm-360m; ``*_hd256``:
 gemma3-4b-edge; ``*_hd128``: jamba-v0.1-52b; ``*_musicgen``:
 musicgen-large; ``*_vision``: llama-3.2-vision-90b's self-attention
-and ``*_vision_cross`` its cross-attention, K3b's among them); the
+and ``*_vision_cross`` its cross-attention, K3b's among them;
+``*_hd256_tp``: both ``[tp]`` ranks' bf16 steps); the
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -242,6 +268,7 @@ def print(*args, sep=" ", end="\n", file=None):  # noqa: A001
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.monotonic()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # the H100 SXM data sheet's HBM rate and dense bf16 / float32 peaks
@@ -275,6 +302,9 @@ EXACT_S = (1, 7, 23, 45, 129)
 # the jamba bursts' long budget: half the other models' (the whole run must
 # stay inside its time limit); widths, depth and the 8-token shorts as theirs
 JAMBA_LONG_NEW = 32
+# [tp]: gemma3-4b-edge's heads split over a ("data", "model") = (1, 2)
+# mesh, each rank's share (8 over 4 heads -> 4 over 2)
+TP_HEADS = (4, 2, 256)
 
 
 def _kname(base: str, heads, model=None) -> tuple:
@@ -3166,6 +3196,9 @@ K3B_INSTANCES = (
     ("flash_attention_bwd_musicgen", "musicgen-large", "flash_attention_bwd",
      ARCH_TRAIN_B["musicgen-large"], TRAIN_S, TRAIN_S, MUSICGEN_HEADS, True,
      ((TRAIN_S, TRAIN_S),)),
+    ("flash_attention_bwd_hd256_tp", "gemma3-4b-edge-tp",
+     "flash_attention_bwd", 2, TRAIN_S, TRAIN_S, TP_HEADS, True,
+     ((128, 128), (TRAIN_S, TRAIN_S))),
 )
 
 
@@ -3261,6 +3294,64 @@ def phase_flash_bwd_instances(gen) -> list:
             model, counter))
         del q, k, v, o, do, lse, lib_fn
     return entries
+
+
+def phase_tp_flash_kernel(gen) -> dict:
+    """K3 with its log-sum-exp, the train forward, at the shape each
+    ``[tp]`` rank gives it: gemma3-4b-edge's heads split over model 2
+    (causal B 2, S 512, H 4 over KV 2, hd 256).  f32 (TF32 off) and bf16
+    at S 128 and 512 against the plain version and the plain logsumexp;
+    the bf16 S 512 call timed in turns with SDPA (K/V expanded), its
+    plain version and its bound (q, k, v read, o and lse written once;
+    4 B H hd S(S+1)/2 operations).  Returns the kernels-line entry."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    (H, KV, hd), B, S = TP_HEADS, 2, TRAIN_S
+    tag = "[K3 flash_attention_hd256_tp]"
+    errs = {}
+
+    def inputs(n, dt):
+        q = torch.randn(B, n, H, hd, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(B, n, KV, hd, generator=gen, device="cuda")
+                .to(dt) for _ in range(2))
+        return q, k, v
+    for n in (128, S):
+        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = inputs(n, dt)
+            o, lse = flash_attention_cuda(q, k, v, causal=True,
+                                          return_lse=True)
+            want, want_lse = flash_attention_plain(q, k, v, causal=True,
+                                                   return_lse=True)
+            err, lse_err = _max_err(o, want), _max_err(lse, want_lse)
+            _check(f"{tag} {label} S={n}", err, TOL[label])
+            _check(f"{tag} lse {label} S={n}", lse_err,
+                   TOL[label] if label == "f32" else 1e-3)
+            errs[f"{label}@{n}"], errs[f"lse {label}@{n}"] = err, lse_err
+    q, k, v = inputs(S, torch.bfloat16)
+    qx, kx, vx = (x.transpose(1, 2) for x in (q, k, v))
+    kx, vx = (x.repeat_interleave(H // KV, dim=1) for x in (kx, vx))
+    kern = lambda: flash_attention_cuda(q, k, v, causal=True,   # noqa: E731
+                                        return_lse=True)
+    ms, lib, turns = _interleaved(
+        kern, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qx, kx, vx, is_causal=True))
+    plain = _device_ms(lambda: flash_attention_plain(q, k, v), iters=5)
+    n_bytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2 + B * H * S * 4
+    bound, by = _bound(n_bytes, 4 * B * H * hd * S * (S + 1) / 2,
+                       torch.bfloat16)
+    print(f"{tag} gemma3-4b-edge over model 2: max|err| " + " ".join(
+        f"{k_}:{e:.2e}" for k_, e in errs.items()) + f"; bf16 causal B{B} "
+          f"S{S} H{H} KV{KV} hd{hd} with lse: device ms kernel {ms:.4f} "
+          f"({turns[0]:.4f} / {turns[1]:.4f} around sdpa), sdpa {lib:.4f}, "
+          f"plain {plain:.4f}; bound {bound * 1e3:.3f} us ({by}, "
+          f"{n_bytes / 1e6:.2f} MB); {_ratio(ms, lib, bound)}")
+    return _owned({"name": "flash_attention_hd256_tp", "route": "cuda",
+                   "source": "src/repro_torch/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:89",
+                   "max_abs_err": max(errs.values()), "ms": ms,
+                   "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                   "library_ms": lib}, "gemma3-4b-edge-tp", "flash_attention")
 
 
 def _plain_attention(q, k, v, *, causal=True):
@@ -4382,12 +4473,13 @@ def side_paths() -> int:
 
 
 def _start_self(flag, marker=None) -> dict:
-    """Start ``python3 chip_smoke.py FLAG``; a thread keeps its output
-    lines and sets ``marked`` once a line starts with ``marker`` or the
-    child has ended."""
+    """Start ``python3 chip_smoke.py FLAG`` (``flag``: one argument or a
+    list of them); a thread keeps its output lines and sets ``marked``
+    once a line starts with ``marker`` or the child has ended."""
     import threading
+    args = [flag] if isinstance(flag, str) else list(flag)
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             flag], cwd=ROOT, stdout=subprocess.PIPE,
+                             *args], cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     run = {"proc": proc, "lines": [], "marked": threading.Event(),
            "t0": time.monotonic()}
@@ -4655,6 +4747,288 @@ def collect_examples(run, smi) -> None:
           f"stacks' phases (not taken alone)  [{smi}]")
 
 
+# ------------------------------------------------- the tensor-parallel ranks
+# gemma3-4b-edge's train step over a ("data", "model") = (1, 2) mesh: two
+# child processes on the one card joined in a gloo group of their own (CUDA
+# tensors; NCCL refuses two ranks on one device), started after the kernel
+# phases and run beside the smollm serving phases (about 27 GiB each)
+TP_FLAG = "--tp-rank"
+TP_B, TP_STEPS, TP_F32_STEPS, TP_SEED = 2, 3, 2, 11
+TP_KERNELS = ("flash_attention", "flash_attention_bwd")
+
+
+def _tp_state(cfg, opt, mesh):
+    """``LM(cfg)`` from ``TP_SEED`` on the card, each parameter cut at once
+    to this rank's block of its spec, and AdamW moments of the blocks
+    (the whole model's moments are never made).  Returns the state."""
+    import torch
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.partition import local_shard
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import TrainState, state_specs
+    lm = LM(cfg, device="cuda", seed=TP_SEED)
+    specs = state_specs(cfg, opt, mesh)
+    for n, p in lm.named_parameters():
+        if specs[f"model/{n}"]:
+            p.data = local_shard(p.data, specs[f"model/{n}"], mesh)
+    torch.cuda.empty_cache()
+    lm.requires_grad_(True)
+    return TrainState(lm, init_opt_state(dict(lm.named_parameters()), opt,
+                                         len(cfg.block_pattern)))
+
+
+def tp_rank(rank: int, init_file: str) -> int:
+    """One rank of ``[tp]`` (``python3 chip_smoke.py --tp-rank RANK
+    FILE``): a gloo group of two through ``file://FILE``, a (1, 2)
+    ("data", "model") ``DeviceMesh`` on ``cuda:0``, then (c) a float32
+    copy of gemma3-4b-edge at full width cut to 2 layers, ``TP_F32_STEPS``
+    AdamW steps through ``make_train_step(mesh=)`` held to the single-
+    device step from the same weights and batches (each rank runs it and
+    holds its own blocks); (b) all 34 layers in bf16, ``TP_STEPS`` AdamW
+    steps at B ``TP_B`` x 512: per step its wall ms, the all-reduces over
+    ``model`` and their bytes (against ``roofline.tensor_parallel_bytes``)
+    and the K3/K3b launches (2 x 34 and 34), the loss finite and falling;
+    peak memory.  The last line is one JSON object of this rank's
+    numbers."""
+    import dataclasses
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import tensor_parallel_bytes
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding.partition import local_shard
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step,
+                                                 state_specs)
+    sys.stdout.reconfigure(line_buffering=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=2)
+    mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+    cfg = get_config("gemma3-4b-edge")
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=1)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    tag = f"[tp] rank {rank}:"
+
+    # (c) float32, 2 layers at full width, against the single-device step
+    c32 = dataclasses.replace(cfg, dtype="float32", num_layers=2)
+    batch = _arch_batch(c32, TP_B, gen)
+    state = _tp_state(c32, opt, mesh)
+    step = make_train_step(c32, opt, mesh=mesh)
+    got = []
+    for i in range(TP_F32_STEPS):
+        state, m = step(state, batch(i))
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+    blocks = {n: p.detach() for n, p in state.model.named_parameters()}
+    del state, step
+    one = init_train_state(c32, opt, device="cuda", seed=TP_SEED)
+    step = make_train_step(c32, opt)
+    want = []
+    for i in range(TP_F32_STEPS):
+        one, m = step(one, batch(i))
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    rel = max(abs(a - b) / abs(b) for g, w in zip(got, want)
+              for a, b in zip(g, w))
+    if rel > 1e-4:
+        raise AssertionError(f"{tag} f32 (loss, grad norm) {got} against "
+                             f"the single-device step's {want}")
+    specs = state_specs(c32, opt, mesh)
+    worst = 0.0
+    for n, p in one.model.named_parameters():
+        ref = local_shard(p.detach(), specs[f"model/{n}"], mesh)
+        if not torch.allclose(blocks[n], ref, atol=5e-4, rtol=5e-3):
+            raise AssertionError(f"{tag} f32 parameter {n} differs from the "
+                                 "single-device step's")
+        worst = max(worst, _max_err(blocks[n], ref))
+    print(f"{tag} (c) f32 gemma3-4b-edge 2 layers at full width, "
+          f"{TP_F32_STEPS} AdamW steps at B{TP_B} x S{TRAIN_S} over model 2:"
+          f" (loss, grad norm) " + ", ".join(
+              f"({a:.6f}, {b:.6f})" for a, b in got) + " against the "
+          f"single-device step's " + ", ".join(
+              f"({a:.6f}, {b:.6f})" for a, b in want) + f": max rel "
+          f"{rel:.2e} (<= 1e-4); this rank's blocks max|diff| {worst:.2e} "
+          "(atol 5e-4, rtol 5e-3)")
+    del one, step, blocks
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (b) bf16, all 34 layers
+    batch = _arch_batch(cfg, TP_B, gen)
+    state = _tp_state(cfg, opt, mesh)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    pspecs = {k[len("model/"):]: v for k, v in
+              state_specs(cfg, opt, mesh).items() if k.startswith("model/")}
+    count = tensor_parallel_bytes(cfg, pspecs, TP_B, TRAIN_S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, colls, launched = [], [], [], {k: 0 for k in TP_KERNELS}
+    for i in range(TP_STEPS):
+        bt = batch(i)
+        tp.reset_collectives()
+        before = dict(ops.LAUNCHES)
+        t0 = time.monotonic()
+        state, m = step(state, bt)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        colls.append(dict(tp.COLLECTIVES))
+        now = {k: ops.LAUNCHES[k] - before[k] for k in TP_KERNELS}
+        L = cfg.num_layers
+        if now != {"flash_attention": 2 * L, "flash_attention_bwd": L}:
+            raise AssertionError(f"{tag} step {i} launched {now}; expected "
+                                 f"K3 2 x {L} and K3b {L}")
+        for k in TP_KERNELS:
+            launched[k] += now[k]
+    peak = torch.cuda.max_memory_allocated()
+    if any(c != count for c in colls):
+        raise AssertionError(f"{tag} all-reduces a step {colls}, the "
+                             f"roofline counts {count}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{tag} bf16 losses {losses}")
+    ms = [1e3 * x for x in secs]
+    n_params = sum(p.numel() for p in state.model.parameters())
+    # one activation's all-reduce alone (its buffers as a step's blocks
+    # hand them over), timed on the host around 20 calls
+    group = mesh.get_group("model")
+    act = torch.randn(TP_B, TRAIN_S, cfg.d_model, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    for _ in range(3):
+        dist.all_reduce(act.clone(), group=group)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(20):
+        dist.all_reduce(act.clone(), group=group)
+    torch.cuda.synchronize()
+    ar_ms = (time.monotonic() - t0) / 20 * 1e3
+    print(f"{tag} (b) bf16 gemma3-4b-edge, {cfg.num_layers} layers at full "
+          f"width over (1, 2) (gloo, both ranks on cuda:0; {n_params:,} "
+          f"parameters a rank), AdamW lr {opt.lr}, B{TP_B} x S{TRAIN_S}, "
+          f"{TP_STEPS} steps: losses " + " ".join(f"{x:.4f}" for x in losses)
+          + "; ms a step " + " ".join(f"{x:.1f}" for x in ms) + f" (median "
+          f"{statistics.median(ms):.1f}); peak {peak / 2 ** 30:.2f} GiB; "
+          f"all-reduces over model a step {count['calls']} "
+          f"({count['bytes'] / 1e6:.2f} MB handed over), as the roofline "
+          f"counts; launches a step K3 {2 * cfg.num_layers}, K3b "
+          f"{cfg.num_layers}; one {act.numel() * 2 / 1e6:.2f} MB bf16 "
+          f"all-reduce alone {ar_ms:.2f} ms (host clock): the step's "
+          f"{count['bytes'] / 1e6:.0f} MB at that rate ~"
+          f"{ar_ms * count['bytes'] / (act.numel() * 2):.0f} ms; this rank "
+          f"{time.monotonic() - T_START:.1f} s from its start")
+    print(json.dumps({"tp_rank": rank, "losses": losses,
+                      "peak_gib": peak / 2 ** 30, "launches": launched}))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_tp() -> dict:
+    """Start both ``[tp]`` ranks; ``run["ranks"]`` are their
+    :func:`_start_self` records."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="tp_")
+    store = os.path.join(tmp, "store")
+    return {"tmp": tmp, "t0": time.monotonic(),
+            "ranks": [_start_self([TP_FLAG, str(r), store])
+                      for r in range(2)]}
+
+
+def stop_tp(run) -> None:
+    for r in run["ranks"]:
+        if r["proc"].poll() is None:
+            r["proc"].kill()
+            r["proc"].wait()
+    shutil.rmtree(run["tmp"], ignore_errors=True)
+
+
+def collect_tp(run, smi, beside: str) -> dict:
+    """Wait for both ranks and print their lines; then in this process
+    (a) a 2-layer bf16 copy's step through ``make_train_step`` on a
+    one-rank (1, 1) mesh bitwise equal to the step with no mesh, and
+    (b) the single-device loss of the bf16 model from the same weights on
+    the first batch within 2e-2 relative of the ranks' first loss.
+    Returns the ranks' K3/K3b launches in the bf16 steps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.training.optimizer import OptConfig, OptState
+    from repro_torch.training.train_loop import (TrainState,
+                                                 init_train_state,
+                                                 make_train_step)
+    out = []
+    for r in run["ranks"]:
+        code = r["proc"].wait(timeout=900)
+        r["thread"].join(timeout=60)
+        for line in r["lines"]:
+            if not line.startswith('{"tp_rank"'):
+                print(line)
+        if code != 0:
+            raise AssertionError(f"[tp] a rank exited {code}:\n"
+                                 + "\n".join(r["lines"][-60:]))
+        out.append(next(json.loads(x) for x in r["lines"]
+                        if x.startswith('{"tp_rank"')))
+    stop_tp(run)
+    print(f"[tp] both ranks collected {time.monotonic() - run['t0']:.1f} s "
+          f"after their start (each rank's own time on its (b) line), run "
+          f"beside {beside} (neither side's times are taken alone)  [{smi}]")
+    if out[0]["losses"] != out[1]["losses"]:
+        raise AssertionError(f"[tp] the ranks' losses differ: {out}")
+    cfg = get_config("gemma3-4b-edge")
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=1)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    # (a) model 1: a one-rank mesh, bitwise the step with no mesh
+    c2 = dataclasses.replace(cfg, num_layers=2)
+    bt = _arch_batch(c2, TP_B, gen)(0)
+    state = init_train_state(c2, opt, device="cuda", seed=TP_SEED)
+    params = dict(state.model.named_parameters())
+    with torch.no_grad():
+        snap = {n: p.detach().clone() for n, p in params.items()}
+    opt0 = OptState(state.opt.step.clone(),
+                    {k: v.clone() for k, v in state.opt.m.items()},
+                    {k: v.clone() for k, v in state.opt.v.items()})
+    _, m_plain = make_train_step(c2, opt)(state, bt)
+    with torch.no_grad():
+        want = {n: p.detach().clone() for n, p in params.items()}
+        for n, p in params.items():
+            p.copy_(snap[n])
+    _, m_mesh = make_train_step(c2, opt, mesh=make_local_mesh("cuda"))(
+        TrainState(state.model, opt0), bt)
+    bad = [n for n, p in params.items() if not torch.equal(p, want[n])]
+    if bad or not torch.equal(m_plain["loss"], m_mesh["loss"]):
+        raise AssertionError(f"[tp] (a) the (1, 1) step differs: {bad[:5]}")
+    print(f"[tp] (a) bf16 gemma3-4b-edge, 2 layers at full width: one step "
+          f"through make_train_step(mesh=(1, 1) NCCL) bitwise equal to the "
+          f"step with no mesh (loss {float(m_mesh['loss']):.6f}, all "
+          f"{len(params)} parameters)")
+    del state, params, snap, want, opt0
+    torch.cuda.empty_cache()
+    # (b) the single-device loss from the same weights and batch
+    lm = LM(cfg, device="cuda", seed=TP_SEED)
+    with torch.no_grad():
+        one = float(lm.loss(_arch_batch(cfg, TP_B, gen)(0)))
+    del lm
+    torch.cuda.empty_cache()
+    first = out[0]["losses"][0]
+    rel = abs(first - one) / abs(one)
+    if rel > 2e-2:
+        raise AssertionError(f"[tp] (b) step-1 loss {first} against the "
+                             f"single device's {one}")
+    print(f"[tp] (b) bf16 34 layers: the ranks' step-1 loss {first:.6f} "
+          f"against the single-device loss {one:.6f} from the same weights "
+          f"and batch: rel {rel:.2e} (<= 2e-2); losses "
+          + " -> ".join(f"{x:.4f}" for x in out[0]["losses"]) + "; peak "
+          + " / ".join(f"{o['peak_gib']:.2f}" for o in out)
+          + f" GiB a rank  [{smi}]")
+    return {k: sum(o["launches"][k] for o in out) for k in TP_KERNELS}
+
+
 def gemma3_and_lm_api_paths(predictor, smi, child, g_totals) -> tuple:
     """The main process's part beside the side process: gemma3-4b-edge
     served and trained, then musicgen-large and the cut
@@ -4708,6 +5082,8 @@ def main() -> int:
         return side_paths()
     if sys.argv[1:] == [EXAMPLES_FLAG]:
         return examples_paths()
+    if sys.argv[1:2] == [TP_FLAG]:
+        return tp_rank(int(sys.argv[2]), sys.argv[3])
     sys.stdout.reconfigure(line_buffering=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4734,6 +5110,7 @@ def main() -> int:
         phase_packed_kernel(predictor.model, ds.prompts),
         phase_flash_bwd_kernel(gen))]
     kernels += phase_flash_bwd_instances(gen)
+    kernels.append(phase_tp_flash_kernel(gen))
     by_name = {k["name"]: k for k in kernels}
     e4, e5 = phase_cli_predictor_kernels()
     by_name["gbdt_margins"]["max_abs_err"] = max(
@@ -4741,22 +5118,32 @@ def main() -> int:
     by_name["gbdt_margins_packed"]["max_abs_err"] = max(
         by_name["gbdt_margins_packed"]["max_abs_err"], e5)
     print(f"[time] kernel phases: {time.monotonic() - t_start:.1f} s")
-    cfg = get_config("smollm-360m")
-    _timed(phase_full_width_reference, cfg)
-    # launches on the main paths: each path resets the counters just
-    # before it runs and adds what it launched just after
-    launches, eng, slice_tokens = _timed(phase_slice, cfg, predictor, smi)
-    totals = dict(launches)
-    _timed(phase_sweep, smi)
-    _timed(phase_ranking, predictor, smi, totals)
-    _timed(phase_sidecar, eng, predictor, smi, slice_tokens, totals)
-    del eng
-    torch.cuda.empty_cache()
-    _timed(phase_lanes, cfg, smi, totals)
-    _timed(phase_lanes_f32, cfg, smi, totals)
-    _timed(phase_paged_burst, cfg, predictor, smi, totals)
-    _timed(phase_preempt, cfg, predictor, smi, totals)
-    _timed(phase_lanes_faults, cfg, smi, totals)
+    # [tp]'s two ranks (gemma3-4b-edge over model 2, ~27 GiB each) beside
+    # the smollm serving phases, which hold little of the card
+    tp_run = start_tp()
+    try:
+        cfg = get_config("smollm-360m")
+        _timed(phase_full_width_reference, cfg)
+        # launches on the main paths: each path resets the counters just
+        # before it runs and adds what it launched just after
+        launches, eng, slice_tokens = _timed(phase_slice, cfg, predictor,
+                                             smi)
+        totals = dict(launches)
+        _timed(phase_sweep, smi)
+        _timed(phase_ranking, predictor, smi, totals)
+        _timed(phase_sidecar, eng, predictor, smi, slice_tokens, totals)
+        del eng
+        torch.cuda.empty_cache()
+        _timed(phase_lanes, cfg, smi, totals)
+        _timed(phase_lanes_f32, cfg, smi, totals)
+        _timed(phase_paged_burst, cfg, predictor, smi, totals)
+        _timed(phase_preempt, cfg, predictor, smi, totals)
+        _timed(phase_lanes_faults, cfg, smi, totals)
+        tp_totals = _timed(collect_tp, tp_run, smi,
+                           "the smollm phases from [reference] to "
+                           "[lanes-faults]")
+    finally:
+        stop_tp(tp_run)
     # [launch-train]'s and [launch-sidecar]'s host-bound children run
     # beside [speculative] (the sidecar's client on a thread; its launches
     # are the children's, added after)
@@ -4800,6 +5187,7 @@ def main() -> int:
 
     # each entry reports the launches of its own model's paths
     by_model = {"smollm-360m": totals, "gemma3-4b-edge": g_totals,
+                "gemma3-4b-edge-tp": tp_totals,
                 "jamba-v0.1-52b": j_totals, "xlstm-350m": x_totals,
                 "musicgen-large": m_totals, "llama-3.2-vision-90b": v_totals}
     names = [k["name"] for k in kernels]

@@ -18,7 +18,8 @@ card is needed: it is a shape computation.  Per cell it reports
   per-block remat (so one forward is recomputed) for a train cell, the
   prefill or the decode step otherwise; divided by the chips;
 * ``roofline.analytic_bytes``, ``roofline.model_flops`` and the port's
-  collective count (``roofline.collective_bytes``), and the three
+  collective count (``roofline.collective_bytes``, a train cell's
+  all-reduces over ``model`` among them), and the three
   roofline terms at the H100's rates.
 
 Nothing is compiled, so there is no temporary-buffer ("temp") term, nor
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import time
 import traceback
@@ -49,7 +51,8 @@ from repro_torch.models.model import LM
 from repro_torch.models.transformer import MOE_KINDS
 from repro_torch.sharding import use_mesh
 from repro_torch.sharding.partition import tree_specs
-from repro_torch.sharding.rules import is_axes_leaf, shard_factor
+from repro_torch.sharding.rules import (is_axes_leaf, mesh_axis_sizes,
+                                        shard_factor)
 from repro_torch.training.checkpoint import flatten
 from repro_torch.training.optimizer import OptConfig
 from repro_torch.training.train_loop import abstract_train_state
@@ -162,9 +165,16 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         if "state" in args else specs["params"]
     moe_layers = sum(k in MOE_KINDS for k in cfg.block_pattern) \
         * cfg.pattern_repeats
+    tp_bytes = 0.0
+    if shape.kind == "train":
+        sizes = mesh_axis_sizes(mesh)
+        rows = shape.global_batch // math.prod(
+            sizes.get(a, 1) for a in rl.BATCH_AXES)
+        tp_bytes = rl.tensor_parallel_bytes(
+            cfg, pspecs, rows, shape.seq_len, knobs["microbatches"])["bytes"]
     coll = rl.collective_bytes(params, pspecs, mesh, shape.kind,
                                _moe_buffer_bytes(cfg, shape, chips),
-                               moe_layers)
+                               moe_layers, tp_bytes)
     analytic = rl.analytic_bytes(cfg, shape, chips, knobs["microbatches"])
     report = rl.RooflineReport(
         arch=arch, shape=shape.name, mesh=mesh_name, chips=chips,

@@ -31,9 +31,12 @@ The port compiles nothing, so nothing here parses HLO:
   capacity factor x d_model) exchanged by all-to-all twice a pass
   (dispatch, combine), over forward, remat recompute and backward, when
   the ``experts`` axis shards over ``model``.  A leaf's buffer is its
-  bytes divided by its non-batch axes' shard factor.  Tensor-parallel
-  activation collectives are not counted: the port does not execute
-  over ``model``.  Inference cells all-gather the sharded weights once.
+  bytes divided by its non-batch axes' shard factor.  A train cell adds
+  the tensor-parallel all-reduces over ``model`` that the AdamW step
+  issues (:func:`tensor_parallel_bytes`: a split block's forward, its
+  recomputation and its backward, the vocab-parallel embedding and loss,
+  the gradient norm).  Inference cells all-gather the sharded weights
+  once; the port does not serve over ``model``.
 
 ``model_flops`` (6 N D train, 2 N D inference, N the active parameters)
 and ``analytic_bytes`` are copies of the JAX functions.
@@ -64,15 +67,66 @@ def _ring(n: int) -> float:
     return (n - 1) / n
 
 
+def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], batch: int,
+                          seq: int, microbatches: int = 1) -> Dict[str, int]:
+    """{"calls", "bytes"}: the all-reduces over ``model`` that one AdamW
+    train step hands to its collectives on one device (the buffers, before
+    any ring factor), ``batch`` x ``seq`` tokens on that device, with the
+    parameter ``specs`` ({name: PartitionSpec}).  Per microbatch:
+
+    * a block whose heads are split: its output's all-reduce forward and
+      again in its recomputation (remat), its input's gradient backward;
+      with QK-norm, the two norm weights' gradients;
+    * a block whose ``d_ff`` is split: its output's all-reduce forward
+      (not recomputed: it is the block's last op, and the recomputation
+      stops at the last activation the backward saved) and its input's
+      gradient backward;
+    * a split vocabulary: the embedding's sum forward, the head input's
+      gradient backward, and per ``LOSS_CHUNK`` slice of the sequence the
+      log-sum-exp's max (float32) and its sum of exponentials stacked with
+      the target logit (2 x float32), forward and again recomputed;
+
+    and once a step, one float32 scalar per group of gradients split over
+    ``model`` (the gradient norm)."""
+    from repro_torch.models.model import LOSS_CHUNK
+    from repro_torch.sharding.tensor_parallel import split_over_model
+
+    def split(name, dim):
+        return name in specs and split_over_model(specs[name], dim)
+    item = {"float32": 4, "bfloat16": 2, "float16": 2}[cfg.dtype]
+    tokens = batch // microbatches * seq
+    act = tokens * cfg.d_model * item
+    calls = nbytes = 0
+    for i in range(cfg.num_layers):
+        if split(f"blocks.{i}.attn.wq", 1):
+            calls, nbytes = calls + 3, nbytes + 3 * act
+            if cfg.qk_norm:
+                calls, nbytes = calls + 2, nbytes + 2 * cfg.head_dim * item
+        if split(f"blocks.{i}.mlp.w_gate", 1):
+            calls, nbytes = calls + 2, nbytes + 2 * act
+    if split("embed", 0) or split("head", 1):
+        chunks = -(-seq // min(LOSS_CHUNK, seq))
+        calls += 2 + 2 * 2 * chunks
+        nbytes += 2 * act + 2 * 3 * tokens * 4
+    calls, nbytes = calls * microbatches, nbytes * microbatches
+    groups = {tuple(sorted({a for e in s for a in spec_axes(e)}))
+              for s in specs.values()}
+    norms = sum("model" in g for g in groups)
+    return {"calls": calls + norms, "bytes": nbytes + 4 * norms}
+
+
 def collective_bytes(params: Dict[str, object],
                      specs: Dict[str, PartitionSpec], mesh, kind: str,
                      moe_buffer_bytes: float = 0.0,
-                     moe_layers: int = 0) -> Dict[str, float]:
+                     moe_layers: int = 0,
+                     tp_bytes: float = 0.0) -> Dict[str, float]:
     """Wire bytes per device and step, by collective, of the port's
-    data-parallel execution: ``params`` {name: tensor (meta)} with their
-    ``specs`` on ``mesh``; ``kind`` the cell's ("train", "prefill",
-    "decode"); ``moe_buffer_bytes`` one MoE layer's dispatch buffer on one
-    device, exchanged when the experts shard over ``model``."""
+    execution: ``params`` {name: tensor (meta)} with their ``specs`` on
+    ``mesh``; ``kind`` the cell's ("train", "prefill", "decode");
+    ``moe_buffer_bytes`` one MoE layer's dispatch buffer on one device,
+    exchanged when the experts shard over ``model``; ``tp_bytes`` the
+    buffers of a train step's all-reduces over ``model``
+    (:func:`tensor_parallel_bytes`)."""
     sizes = mesh_axis_sizes(mesh)
     batch = [a for a in BATCH_AXES if a in sizes]
     out = {k: 0.0 for k in COLLECTIVES}
@@ -93,6 +147,8 @@ def collective_bytes(params: Dict[str, object],
                 spec_axes(specs[name][0]):
             experts_split = math.prod(sizes[a]
                                       for a in spec_axes(specs[name][0]))
+    if kind == "train":
+        out["all-reduce"] += tp_bytes * 2 * _ring(sizes.get("model", 1))
     passes = 6 if kind == "train" else 2
     out["all-to-all"] = (moe_layers * passes * moe_buffer_bytes
                          * _ring(experts_split))

@@ -33,6 +33,8 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense, dtype_of, init_dense, ones,
                                        rmsnorm, rope)
+from repro_torch.sharding.tensor_parallel import (copy_to_model, group_for,
+                                                  reduce_from_model)
 
 
 class Attention(nn.Module):
@@ -58,30 +60,38 @@ class Attention(nn.Module):
             self.q_norm = ones(cfg.head_dim, dt, device)
             self.k_norm = ones(cfg.head_dim, dt, device)
 
-    def _project_qkv(self, h, rope_cs):
-        """q (B,S,H,hd), k/v (B,S,KV,hd); with ``qk_norm``, q and k are
-        RMS-normed over the head dimension before RoPE.  Every mode goes
+    def _project_qkv(self, h, rope_cs, group=None):
+        """q (B,S,H,hd), k/v (B,S,KV,hd), H and KV this module's heads (its
+        block of them when the train step splits the heads over ``model``:
+        read from the weights' widths); with ``qk_norm``, q and k are
+        RMS-normed over the head dimension before RoPE, the norm weights
+        read through ``copy_to_model`` over ``group``.  Every mode goes
         through here."""
         cfg = self.cfg
         B, S, _ = h.shape
-        q = dense(h, self.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
-        k = dense(h, self.wk).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = dense(h, self.wv).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        hd = cfg.head_dim
+        q = dense(h, self.wq).reshape(B, S, self.wq.shape[1] // hd, hd)
+        k = dense(h, self.wk).reshape(B, S, self.wk.shape[1] // hd, hd)
+        v = dense(h, self.wv).reshape(B, S, self.wv.shape[1] // hd, hd)
         if cfg.qk_norm:
-            q = rmsnorm(q, self.q_norm, cfg.norm_eps)
-            k = rmsnorm(k, self.k_norm, cfg.norm_eps)
+            q = rmsnorm(q, copy_to_model(self.q_norm, group), cfg.norm_eps)
+            k = rmsnorm(k, copy_to_model(self.k_norm, group), cfg.norm_eps)
         return rope(q, *rope_cs), rope(k, *rope_cs), v
 
     def forward(self, x, rope_cs):
         """Training (JAX ``attn_block`` mode ``"train"``): causal attention
         over x (B, S, D) at positions 0..S-1 (``rope_cs``: their RoPE
         tables) through ``ops.flash_attention_train``, differentiable; no
-        cache."""
+        cache.  With the heads split over ``model`` (``wq`` a block of
+        its columns) this rank attends its own heads and the row-split
+        ``wo`` products are summed (``sharding.tensor_parallel``)."""
         B, S, _ = x.shape
-        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
-        q, k, v = self._project_qkv(h, rope_cs)
+        group = group_for(self.wq.shape[1] != self.cfg.attn_dim)
+        h = copy_to_model(rmsnorm(x, self.norm, self.cfg.norm_eps), group)
+        q, k, v = self._project_qkv(h, rope_cs, group)
         out = ops.flash_attention_train(q, k, v, causal=True)
-        return x + dense(out.reshape(B, S, -1), self.wo)
+        return x + reduce_from_model(dense(out.reshape(B, S, -1), self.wo),
+                                     group)
 
     def prefill(self, x, rope_cs, cache_k, cache_v, start: int = 0):
         """Causal attention over the (padded) tokens x (B, S, D) at

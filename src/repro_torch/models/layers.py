@@ -6,10 +6,16 @@ activation recomputation of training."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 import torch.nn.functional as Fn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding import current_mesh, current_rules, use_mesh
+from repro_torch.sharding.tensor_parallel import (copy_to_model, group_for,
+                                                  reduce_from_model)
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -41,11 +47,18 @@ def init_expert_stack(gen, n: int, in_dim: int, out_dim: int, dtype,
 
 def remat(fn, *args):
     """``fn(*args)``, its activations recomputed in the backward pass
-    (``jax.checkpoint``) when a graph is being built."""
+    (``jax.checkpoint``) when a graph is being built.  The recomputation
+    runs under the mesh that is active now (``sharding.use_mesh``): on
+    the card the backward runs on autograd's device thread, which does
+    not see the caller's thread-local mesh."""
     if not torch.is_grad_enabled():
         return fn(*args)
+    mesh, rules = current_mesh(), current_rules()
+
+    def contexts():
+        return contextlib.nullcontext(), use_mesh(mesh, rules)
     return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False, context_fn=contexts)
 
 
 def ones(d: int, dtype, device) -> nn.Parameter:
@@ -154,8 +167,14 @@ class MLP(nn.Module):
         self.w_gate = init_dense(gen, d, ff, dt, device)
         self.w_up = init_dense(gen, d, ff, dt, device)
         self.w_down = init_dense(gen, ff, d, dt, device, scale=ff ** -0.5)
+        self.d_ff = ff
 
     def forward(self, x):
-        h = rmsnorm(x, self.norm, self.eps)
+        """With ``d_ff`` split over ``model`` (``w_gate`` a block of its
+        columns) this rank computes its block of the hidden units and the
+        row-split ``w_down`` products are summed
+        (``sharding.tensor_parallel``)."""
+        group = group_for(self.w_gate.shape[1] != self.d_ff)
+        h = copy_to_model(rmsnorm(x, self.norm, self.eps), group)
         hidden = self.act(dense(h, self.w_gate)) * dense(h, self.w_up)
-        return x + dense(hidden, self.w_down)
+        return x + reduce_from_model(dense(hidden, self.w_down), group)

@@ -47,6 +47,10 @@ from repro_torch.models.transformer import (attention_only, cache_group,
                                             make_block)
 from repro_torch.models.xlstm import NEG_INIT
 from repro_torch.sharding import data_parallel
+from repro_torch.sharding.tensor_parallel import (all_reduce, copy_to_model,
+                                                  group_for, model_parallel,
+                                                  reduce_from_model,
+                                                  vocab_parallel_embedding)
 
 LOSS_CHUNK = 512  # sequence-chunked cross entropy (never all f32 logits)
 AUX_LOSS_WEIGHT = 0.01
@@ -152,6 +156,26 @@ def _chunk_nll(h, w, labels):
     logits = matmul_f32(h, w)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    return torch.where(labels >= 0, lse - tgt, torch.zeros_like(lse)).sum()
+
+
+def _chunk_nll_vocab_parallel(h, w, labels, group, rank: int):
+    """:func:`_chunk_nll` with the head's columns split over ``group``:
+    ``w`` is this rank's block of vocabulary columns (from ``rank *
+    w.shape[1]``).  The log-sum-exp's max is all-reduced (a constant of
+    the gradient), then its sum of exponentials and the target logit,
+    which only the rank owning the label's column contributes."""
+    logits = matmul_f32(h, w)
+    n = logits.shape[-1]
+    with torch.no_grad():
+        m = all_reduce(logits.amax(dim=-1), group, dist.ReduceOp.MAX)
+    local = labels - rank * n
+    own = (local >= 0) & (local < n)
+    tgt = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    z = torch.exp(logits - m[..., None]).sum(dim=-1)
+    z, tgt = reduce_from_model(torch.stack(
+        [z, torch.where(own, tgt, torch.zeros_like(tgt))]), group).unbind(0)
+    lse = m + torch.log(z)
     return torch.where(labels >= 0, lse - tgt, torch.zeros_like(lse)).sum()
 
 
@@ -315,8 +339,13 @@ class LM(nn.Module):
         # F.embedding in training: its gradient is not among the ops
         # PyTorch documents as nondeterministic on the card, so a resumed
         # run repeats a straight one
-        return Fn.embedding(tokens, self.embed) if train \
-            else self.embed[tokens]
+        if not train:
+            return self.embed[tokens]
+        if self.embed.shape[0] != cfg.vocab_size:      # rows split: TP
+            return vocab_parallel_embedding(tokens, self.embed,
+                                            group_for(True),
+                                            model_parallel()[2])
+        return Fn.embedding(tokens, self.embed)
 
     def _image(self, image_embeds):
         """The image embeddings in the model's dtype; a stack with
@@ -374,7 +403,10 @@ class LM(nn.Module):
         with cross-attention.  The f32 logits of one ``LOSS_CHUNK`` slice
         of the sequence exist at a time, and each chunk's are recomputed
         in the backward pass.  ``AUX_LOSS_WEIGHT`` times the MoE blocks'
-        auxiliary loss is added (0 in a stack without MoE)."""
+        auxiliary loss is added (0 in a stack without MoE).  With the
+        vocabulary split over ``model`` (the train step's tensor
+        parallelism) the embedding and the cross entropy are the
+        vocab-parallel ones, and every rank computes the same loss."""
         labels = batch["labels"]
         x = self._embed_in(batch.get("tokens"), batch.get("frames"),
                            train=True)
@@ -383,9 +415,15 @@ class LM(nn.Module):
         S = labels.shape[1]
         chunk = min(LOSS_CHUNK, S)
         tot = torch.zeros((), dtype=torch.float32, device=self.device)
+        nll, extra = _chunk_nll, ()
+        if w.shape[1] != self.cfg.vocab_size:          # columns split: TP
+            group = group_for(True)
+            h = copy_to_model(h, group)
+            nll, extra = _chunk_nll_vocab_parallel, (group,
+                                                     model_parallel()[2])
         for c0 in range(0, S, chunk):
-            tot = tot + _remat(_chunk_nll, h[:, c0:c0 + chunk], w,
-                               labels[:, c0:c0 + chunk])
+            tot = tot + _remat(nll, h[:, c0:c0 + chunk], w,
+                               labels[:, c0:c0 + chunk], *extra)
         group, world = data_parallel()
         if world > 1:
             # this rank's share of the global batch's mean: the mean over

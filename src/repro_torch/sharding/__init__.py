@@ -4,17 +4,20 @@
 The launcher activates a mesh with :func:`use_mesh`.  ``constrain(x,
 *axes)`` lays a DTensor out by the logical axes under the active mesh;
 off a mesh, on a mesh of one device, and for a plain (non-DTensor)
-tensor it is the identity.  The port's model does not call it: the port
-executes data parallelism only (``training.train_loop.make_train_step(
-mesh=)``), where each rank runs the whole model on its own batch shard
-and no activation needs a layout hint.  Tensor-parallel hints over the
-``model`` axis are future work (ROADMAP).
+tensor it is the identity.  The port's model does not call it: the
+train step (``training.train_loop.make_train_step(mesh=)``) executes
+FSDP over ``data`` and, for the dense attention stacks, tensor
+parallelism over ``model`` with plain tensors, each rank holding its
+block of every weight, and the split blocks sum their partial results
+themselves (``sharding.tensor_parallel``, Megatron's column and row
+split in place of the JAX model's hints).
 
-Inside a ``use_mesh`` block the model reads two things from the active
-mesh: the MoE dispatch group count (``models.moe``) and, for a
+Inside a ``use_mesh`` block the model reads three things from the
+active mesh: the MoE dispatch group count (``models.moe``); for a
 ``DeviceMesh`` whose ``data`` axis spans several processes,
 :func:`data_parallel`'s group, over which the loss's token count and the
-MoE load statistics are summed.
+MoE load statistics are summed; and for one whose ``model`` axis does,
+``tensor_parallel.model_parallel``'s group and this rank's index on it.
 """
 
 from __future__ import annotations

@@ -64,13 +64,24 @@ def local_shard(t: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     return out.contiguous().clone() if out is not t else t
 
 
-def gather_shard(t: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+def gather_shard(t: torch.Tensor, spec: PartitionSpec, mesh,
+                 axes=None) -> torch.Tensor:
     """The full tensor from every rank's block ``t`` laid out by ``spec``
-    (collective: every rank of the mesh calls it with its own block)."""
+    (collective: every rank of the mesh calls it with its own block).
+    ``axes``: gather over these mesh axes only and keep the others'
+    blocks (the train step gathers over ``data`` and keeps ``model``'s);
+    in an entry of several axes those gathered must be its minor ones."""
     from repro_torch.sharding.compat import all_gather_single
     out = t
     for d, entry in enumerate(spec):
-        for a in reversed(spec_axes(entry)):   # minor axis first
+        names = spec_axes(entry)
+        if axes is not None:
+            kept = [a for a in names if a not in axes]
+            if names[:len(kept)] != tuple(kept):
+                raise ValueError(f"gather_shard: cannot gather {axes} out of "
+                                 f"{entry} and keep the rest")
+            names = names[len(kept):]
+        for a in reversed(names):              # minor axis first
             blocks = all_gather_single(out, group=mesh.get_group(a))
             out = torch.cat(blocks.unbind(0), dim=d)
     return out

@@ -28,12 +28,13 @@ Python numbers.  Restoring into a module loads the checkpoint into that
 module in place.
 
 On a mesh (``training.train_loop.make_train_step(mesh=)``) a leaf whose
-spec shards it over the ``data`` axis is held as this rank's shard.
-``save(mesh=, specs=)`` all-gathers those leaves (every rank calls it)
-and rank 0 alone writes, so the files are the full tensors in the
-single-device format.  ``restore(mesh=, axes=)`` reads the full leaves
-and lays each out by the spec its logical axes resolve to on the mesh
-(the reshard: any data-parallel width can resume any checkpoint).
+spec shards it over the ``data`` or the ``model`` axis is held as this
+rank's block.  ``save(mesh=, specs=)`` all-gathers those leaves (every
+rank calls it) and rank 0 alone writes, so the files are the full
+tensors in the single-device format.  ``restore(mesh=, axes=)`` reads
+the full leaves and lays each out by the spec its logical axes resolve
+to on the mesh (the reshard: any mesh can resume any checkpoint, a
+(2, 2) state at (1, 1), (4, 1) or (1, 2)).
 """
 
 from __future__ import annotations

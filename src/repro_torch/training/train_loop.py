@@ -9,9 +9,14 @@ gives the state's shapes and dtypes on the ``meta`` device (nothing is
 allocated) beside its logical axes, and ``state_specs`` the spec every
 leaf resolves to on a mesh.
 
-With ``mesh`` (a ("data", "model") ``DeviceMesh`` whose ``model`` axis
-has size 1, ``launch.mesh.make_local_mesh``) the step is data parallel
-with FSDP over ``data``:
+With ``mesh`` (a ("data", "model") ``DeviceMesh``: ``launch.mesh.
+make_local_mesh``'s (world, 1), or one from ``make_elastic_mesh`` /
+``training.elastic.plan_remesh`` or the caller) the step is data
+parallel with FSDP over ``data`` and, for the dense attention stacks,
+tensor parallel over ``model``.  Every leaf is laid out by the spec it
+resolves to on the mesh (``state_specs``); a dimension that does not
+divide stays whole (``sharding.rules``) and is computed whole on every
+rank.  Over ``data``:
 
 * every rank is given the global batch and takes its own rows;
 * a leaf whose spec shards a dimension over ``data`` (the ``embed_w``
@@ -31,9 +36,24 @@ with FSDP over ``data``:
   on one device, and saves only the parameter and statistic shards
   between steps.
 
-A ``model`` axis above 1 (tensor parallelism) is refused.  With
-``mesh=None``, or a mesh of one rank, the step is the single-device one
-bit for bit.
+Over ``model`` (``sharding.tensor_parallel``): the attention heads
+(``wq``/``wk``/``wv`` by columns, ``wo`` by rows), the MLP's ``d_ff``
+and the vocabulary (embedding rows, head columns, a tied head reading
+the embedding's block) are split; every rank of a ``model`` group takes
+its ``data`` rank's whole batch, the blocks' partial results are
+all-reduced forward and their inputs' gradients backward, and the loss
+is the vocab-parallel cross entropy.  The leaves' gathers are over
+``data`` only: a rank keeps its ``model`` block.  The global gradient
+norm sums each leaf's squares over the axes it is split over, each leaf
+once; a leaf split over neither is computed identically on every model
+rank and stays bit-identical there.  AdamW updates the blocks
+elementwise; Adafactor gathers the gradients and parameters over
+``model`` too and cuts the updated ones back.  MoE, Mamba, xLSTM,
+cross-attention and the audio frontend are refused at ``model`` > 1, as
+is a layout that cuts inside a head (``tensor_parallel.check_layout``).
+
+With ``mesh=None`` or a mesh of one rank the step is the single-device
+one bit for bit; at ``model`` 1 it is the data-parallel step above.
 """
 
 from __future__ import annotations
@@ -44,13 +64,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.model import LM
+from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.sharding import use_mesh
 from repro_torch.sharding.partition import (gather_shard, local_shard,
                                             tree_specs)
 from repro_torch.sharding.rules import (is_axes_leaf, mesh_axis_sizes,
                                         spec_axes)
 from repro_torch.training.checkpoint import flatten
-from repro_torch.training.optimizer import (OptConfig, OptState,
+from repro_torch.training.optimizer import (OptConfig, OptState, _batches,
                                             apply_updates, init_opt_state,
                                             opt_state_axes)
 
@@ -102,17 +123,20 @@ def _mean_over(group, world: int, t: torch.Tensor) -> torch.Tensor:
 
 
 def _sq_sum(tensors, like: torch.Tensor) -> torch.Tensor:
-    """The sum of squares of every element of ``tensors`` (float32)."""
+    """The sum of squares of every element of ``tensors``, in float32 (a
+    narrower gradient is widened a bounded run at a time)."""
     if not tensors:
         return torch.zeros((), dtype=torch.float32, device=like.device)
-    return torch.stack(torch._foreach_norm(tensors)).square().sum()
+    return torch.stack([x for run in _batches(tensors)
+                        for x in torch._foreach_norm(
+                            [t.float() for t in run])]).square().sum()
 
 
 def _reduce_scatter_mean(g: torch.Tensor, spec, group, world: int):
     """This rank's block (by ``spec``, sharded over ``data`` on one
     dimension) of the mean over ranks of the full gradient ``g``."""
     from repro_torch.sharding.compat import reduce_scatter_single
-    d = next(i for i, e in enumerate(spec) if spec_axes(e))
+    d = next(i for i, e in enumerate(spec) if "data" in spec_axes(e))
     front = g.float().movedim(d, 0).contiguous()
     out = torch.empty((front.shape[0] // world,) + front.shape[1:],
                       dtype=torch.float32, device=g.device)
@@ -169,26 +193,28 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
     if mesh is None:
         return train_step
     sizes = mesh_axis_sizes(mesh)
-    if sizes.get("model", 1) > 1:
-        raise ValueError(
-            f"make_train_step: mesh {sizes} has a model axis of "
-            f"{sizes['model']}; the port executes data parallelism only "
-            "(tensor-parallel execution over 'model' is not implemented)")
-    world = sizes.get("data", 1)
-    if world == 1:
+    world, n_model = sizes.get("data", 1), sizes.get("model", 1)
+    specs = state_specs(cfg, opt_cfg, mesh) if world * n_model > 1 else None
+    if n_model > 1:
+        tp.check_layout(cfg, specs, mesh)
+    if world * n_model == 1:
         def one_rank_step(state, batch):
             with use_mesh(mesh):
                 return train_step(state, batch)
         return one_rank_step
 
-    group = mesh.get_group("data")
-    rank = dist.get_rank(group)
-    specs = state_specs(cfg, opt_cfg, mesh)
+    group = mesh.get_group("data") if world > 1 else None
+    mgroup = mesh.get_group("model") if n_model > 1 else None
+    rank = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["data"]
     full_shape = {p: s.shape for p, s in flatten(
         abstract_train_state(cfg, opt_cfg)[0])}
 
     def pspec(name):
         return specs[f"model/{name}"]
+
+    def over(name) -> tuple:
+        """The mesh axes parameter ``name`` is split over, sorted."""
+        return tuple(sorted({a for e in pspec(name) for a in spec_axes(e)}))
 
     def to_shards(tree: dict, prefix: str) -> None:
         """Cut the full leaves of ``tree`` (in place) to their shards."""
@@ -196,6 +222,23 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
             path = f"{prefix}/{k}"
             if specs[path] and t.shape == full_shape[path]:
                 tree[k] = local_shard(t, specs[path], mesh)
+
+    def global_sq(g: dict, like) -> torch.Tensor:
+        """The squares of every gradient summed over the mesh: each
+        leaf's shard summed over the axes it is split over, each leaf
+        counted once."""
+        keys = {}
+        for k in g:
+            keys.setdefault(over(k), []).append(k)
+        sq = None
+        for axes in sorted(keys, key=lambda a: (-len(a), a)):
+            part = _sq_sum([g[k] for k in keys[axes]], like)
+            if "data" in axes:
+                _mean_over(group, 1, part)
+            if "model" in axes:
+                tp.all_reduce(part, mgroup)
+            sq = part if sq is None else sq + part
+        return sq
 
     def dp_step(state: TrainState, batch):
         lm, opt = state.model, state.opt
@@ -210,28 +253,34 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
         to_shards(shards, "model")
         for tree, name in ((opt.m, "m"), (opt.v, "v")):
             to_shards(tree, f"opt/{name}")
-        fsdp = [k for k in params if pspec(k)]
-        for k in fsdp:
-            params[k].data = gather_shard(shards[k], pspec(k), mesh)
+        split = [k for k in params if pspec(k)]
+        fsdp = [k for k in split if "data" in over(k)]
+        tp_split = [k for k in split if "model" in over(k)]
+        for k in split:
+            # gathered over data; a model block stays this rank's
+            params[k].data = gather_shard(shards[k], pspec(k), mesh,
+                                          axes=("data",))
         with use_mesh(mesh):
             loss, grads = loss_and_grads(lm, local)
-        loss = _mean_over(group, world, loss.float().clone())
+        if world > 1:
+            loss = _mean_over(group, world, loss.float().clone())
         if opt_cfg.kind == "adamw":
             g = {k: (_reduce_scatter_mean(x, pspec(k), group, world)
                      if k in fsdp else _mean_over(group, world,
                                                   x.float().clone()))
-                 for k, x in grads.items()}
+                 for k, x in grads.items()} if world > 1 else grads
             for k in fsdp:
                 params[k].data = shards[k]
-            # the global norm: the shards' squares summed over ranks
-            sq = _sq_sum([g[k] for k in fsdp], loss)
-            _mean_over(group, 1, sq)
-            sq = sq + _sq_sum([g[k] for k in params if k not in fsdp], loss)
-            _, new_opt, metrics = apply_updates(params, g, opt, opt_cfg,
-                                                period, gnorm=sq.sqrt())
+            _, new_opt, metrics = apply_updates(
+                params, g, opt, opt_cfg, period,
+                gnorm=global_sq(g, loss).sqrt())
         else:
             g = {k: _mean_over(group, world, x.float().clone())
-                 for k, x in grads.items()}
+                 if world > 1 else x.float() for k, x in grads.items()}
+            for k in tp_split:
+                g[k] = gather_shard(g[k], pspec(k), mesh, axes=("model",))
+                params[k].data = gather_shard(params[k].data, pspec(k),
+                                              mesh, axes=("model",))
             whole = OptState(opt.step, *(
                 {k: gather_shard(t, specs[f"opt/{name}/{k}"], mesh)
                  if t.shape != full_shape[f"opt/{name}/{k}"] else t
@@ -241,7 +290,7 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
                                                 period)
             to_shards(new_opt.m, "opt/m")
             to_shards(new_opt.v, "opt/v")
-            for k in fsdp:
+            for k in split:
                 params[k].data = local_shard(params[k].data, pspec(k), mesh)
         metrics["loss"] = loss
         return TrainState(lm, new_opt), metrics

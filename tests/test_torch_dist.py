@@ -279,8 +279,11 @@ def test_data_parallel_jamba_at_world_two_matches_jax(tmp_path):
 
 
 def test_model_axis_is_refused():
-    cfg = get_config("smollm-360m").reduced()
-    with pytest.raises(ValueError, match="tensor-parallel"):
+    """A model axis is executed for the dense attention stacks only
+    (``tests/test_torch_tensor_parallel.py``); a MoE stack is refused
+    before any process group is touched."""
+    cfg = get_config("dbrx-132b").reduced()
+    with pytest.raises(ValueError, match="tensor-parallel.*attention"):
         make_train_step(cfg, OptConfig(),
                         mesh=MeshShape(("data", "model"), (1, 2)))
 
