@@ -69,15 +69,28 @@ path and read just after:
   ``[lanes-faults]``: (c) a float32 copy at full width cut to 2 layers,
   2 AdamW steps within 1e-4 relative (loss, gradient norm) and atol 5e-4,
   rtol 5e-3 (each rank's parameter blocks) of the single-device step;
-  then all 34 layers in bf16, 3 AdamW steps at B 2 x 512 (ms a step, peak
-  memory a rank, the all-reduces over ``model`` a step and their bytes
-  equal to ``roofline.tensor_parallel_bytes``, K3 2 x 34 and K3b 34
-  launches a step at H 4 over KV 2, the loss falling); after the ranks
-  exit, in this process, (a) a 2-layer bf16 copy's step through a
-  one-rank (1, 1) mesh bitwise equal to the step with no mesh and (b) the
-  single-device loss of the same bf16 weights on the first batch within
-  2e-2 relative of the ranks' first loss (K3 and K3b at the ranks' shape
-  are held and timed among the kernel phases: (d));
+  (b) all 34 layers in bf16, 3 AdamW steps at B 2 x 512 (ms a step,
+  peak memory a rank, the all-reduces over ``model`` a step and their
+  bytes equal to ``roofline.tensor_parallel_bytes``, K3 2 x 34 and K3b
+  34 launches a step at H 4 over KV 2, the loss falling); (d)
+  smollm-360m in float32 at full width, all 32 layers, its 15 query
+  heads over 5 KV heads cut across the ranks (the projections gathered
+  whole, every rank attending every head), 2 AdamW steps within 1e-5
+  relative (loss, gradient norm) of the single-device step; (e)
+  dbrx-132b at full width cut to one ``attn_moe`` layer (48 over 8
+  heads at hd 128, 16 experts of d_ff 10752 top-4, vocabulary 100,352)
+  in bf16, 3 AdamW steps at B 2 x 512 over the MoE's all-to-all (ms a
+  step, peak memory a rank, the collectives over ``model`` by kind equal
+  to the roofline's count, K3 2 and K3b 1 launches a step, finite
+  losses); after the ranks exit, in this process, (a) a 2-layer bf16
+  copy's step through a one-rank (1, 1) mesh bitwise equal to the step
+  with no mesh, (b) the single-device loss of gemma3's bf16 weights on
+  the first batch within 2e-2 relative of the ranks' first loss and (e)
+  dbrx's one-device loss, routed in the ranks' two dispatch groups
+  under a shape-only (1, 2) mesh, within 1e-3 relative of theirs, with
+  the share of (token, choice) pairs routed to another expert (K3 and
+  K3b at the ranks' shapes are held and timed among the kernel phases:
+  ``*_hd256_tp``, ``*_hd128_g6_tp``);
 * ``[launch-sidecar]`` ``python -m repro_torch.launch.sidecar --port 0``
   as child processes, the full-width real backend beside the sim
   backend, under fcfs and then sjf, and the real backend with
@@ -184,10 +197,12 @@ B 8, S 128, 512 and 1000, pass by pass at the training shape; then
 ``[K3b flash_attention_bwd_*]`` does the same for the other trained
 stacks' instances at their train steps' shapes: head width 256
 (gemma3-4b-edge), full attention at Sq 512 over Skv 1024 and causal at
-H 64 over KV 8 (llama-3.2-vision-90b), G 1 (musicgen-large) and H 4
-over KV 2 at head width 256 (a ``[tp]`` rank's share of gemma3's heads,
-B 2), beside ``[K3 flash_attention_hd256_tp]``, K3 with its log-sum-exp
-at that shape.
+H 64 over KV 8 (llama-3.2-vision-90b), G 1 (musicgen-large), H 4 over
+KV 2 at head width 256 (a ``[tp]`` rank's share of gemma3's heads, B 2)
+and H 24 over KV 4 at head width 128 (dbrx-132b's share, G 6), beside
+``[K3 flash_attention_hd256_tp]`` and ``[K3
+flash_attention_hd128_g6_tp]``, K3 with its log-sum-exp at those
+shapes.
 
 It fails (nonzero exit, no result line) without a CUDA device, without
 the repository beside it, when a kernel does not build, launch or agree
@@ -215,11 +230,12 @@ the straight run's, when a trained stack's float32 gradients through
 K3/K3b differ from the plain attention's by more than 1e-4 of
 max|plain|, its bf16 losses are not finite (gemma3's: do not fall) or
 its K3/K3b launches differ from 2 x / 1 x its attention layers a step,
-when a ``[tp]`` rank fails, its float32 copy leaves the single-device
-step's tolerances, its all-reduces differ from the roofline's count, its
-K3/K3b launches from 2 x / 1 x 34 a step, its two ranks' losses differ
-or do not fall, the (1, 1) step is not bitwise the plain one or the
-first loss is not within 2e-2 of the single device's,
+when a ``[tp]`` rank fails, its float32 copies leave the single-device
+step's tolerances, its collectives differ from the roofline's count, its
+K3/K3b launches from 2 x / 1 x the layers a step, its two ranks' losses
+differ, gemma3's do not fall or dbrx's are not finite, the (1, 1) step
+is not bitwise the plain one, gemma3's first loss is not within 2e-2 of
+the single device's or dbrx's within 1e-3,
 when the gemma3 train CLI child fails, when the meshed train step, the card's int8
 exchange or the resharded checkpoint is not bitwise equal to its
 reference (the step with no mesh, the CPU's exchange,
@@ -244,7 +260,9 @@ K2 and K3 at head width 64 and K3b, K4, K5: smollm-360m; ``*_hd256``:
 gemma3-4b-edge; ``*_hd128``: jamba-v0.1-52b; ``*_musicgen``:
 musicgen-large; ``*_vision``: llama-3.2-vision-90b's self-attention
 and ``*_vision_cross`` its cross-attention, K3b's among them;
-``*_hd256_tp``: both ``[tp]`` ranks' bf16 steps); the
+``*_hd256_tp``: both ``[tp]`` ranks' gemma3 bf16 steps;
+``*_hd128_g6_tp``: their dbrx steps; the ranks' smollm float32 steps
+count among smollm-360m's); the
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -303,8 +321,10 @@ EXACT_S = (1, 7, 23, 45, 129)
 # stay inside its time limit); widths, depth and the 8-token shorts as theirs
 JAMBA_LONG_NEW = 32
 # [tp]: gemma3-4b-edge's heads split over a ("data", "model") = (1, 2)
-# mesh, each rank's share (8 over 4 heads -> 4 over 2)
+# mesh, each rank's share (8 over 4 heads -> 4 over 2); dbrx-132b's (48
+# over 8 heads at hd 128 -> 24 over 4: G 6)
 TP_HEADS = (4, 2, 256)
+DBRX_TP_HEADS = (24, 4, 128)
 
 
 def _kname(base: str, heads, model=None) -> tuple:
@@ -3199,18 +3219,23 @@ K3B_INSTANCES = (
     ("flash_attention_bwd_hd256_tp", "gemma3-4b-edge-tp",
      "flash_attention_bwd", 2, TRAIN_S, TRAIN_S, TP_HEADS, True,
      ((128, 128), (TRAIN_S, TRAIN_S))),
+    ("flash_attention_bwd_hd128_g6_tp", "dbrx-132b-tp",
+     "flash_attention_bwd", 2, TRAIN_S, TRAIN_S, DBRX_TP_HEADS, True,
+     ((128, 128), (TRAIN_S, TRAIN_S))),
 )
 
 
 def phase_flash_bwd_instances(gen) -> list:
     """K3b at the heads of gemma3-4b-edge (hd 256, causal), of
     llama-3.2-vision-90b's cross-attention (H 64 over KV 8, hd 128, full
-    attention, Sq 512 over Skv 1024 image rows) and self-attention, and of
-    musicgen-large (G 1, hd 64): at B 2, f32 (TF32 off) and bf16, each
-    against the plain version (and bf16 also against the one rounding P
-    and dS) within TOL x max|plain|, two calls bit-equal; then at each
-    path's bf16 train shape timed beside autograd's SDPA backward (K/V
-    expanded, masked alike), its plain version, its bound (bytes: q, k,
+    attention, Sq 512 over Skv 1024 image rows) and self-attention, of
+    musicgen-large (G 1, hd 64) and of the ``[tp]`` ranks (``*_tp``): at
+    B 2, f32 (TF32 off) and bf16, each against the plain version (and
+    bf16 also against the one rounding P and dS) within TOL x
+    max|plain|, two calls bit-equal; then at each path's bf16 train shape
+    timed beside autograd's SDPA backward (K/V expanded, masked alike),
+    cold (the L2 flushed before each call), its plain version, its bound
+    (bytes: q, k,
     v, o, dO, lse read and dq, dk, dv written once; operations: 5
     products over the causal half or the whole Sq x Skv plane) and each
     pass's device ms in one profiled call.  Returns the kernels-line
@@ -3265,6 +3290,7 @@ def phase_flash_bwd_instances(gen) -> list:
         ms = _device_ms(kernel)
         lib = _device_ms(lib_fn)
         ms = (ms + _device_ms(kernel)) / 2          # kernel, sdpa, kernel
+        cold = _cold_device_ms(kernel)
         plain = _device_ms(lambda: flash_attention_bwd_plain(
             q, k, v, o, do, lse, causal=causal), iters=5)
         passes, occupancy = _k3b_pass_ms(kernel)
@@ -3276,8 +3302,9 @@ def phase_flash_bwd_instances(gen) -> list:
             f"{k_}:{e:.2e}" for k_, e in errs.items()) + "; two calls "
             f"bitwise equal; bf16 {'causal' if causal else 'full'} B{B} "
             f"Sq{Sq} Skv{Skv} H{H} KV{KV} hd{hd}: device ms kernel "
-            f"{ms:.4f}, sdpa backward {lib:.4f}, kernel/sdpa-bwd "
-            f"{ms / lib:.2f}, plain {plain:.4f}; bound {bound * 1e3:.3f} us "
+            f"{ms:.4f} (cold {cold:.4f}), sdpa backward {lib:.4f}, "
+            f"kernel/sdpa-bwd {ms / lib:.2f}, plain {plain:.4f}; bound "
+            f"{bound * 1e3:.3f} us "
             f"({by}, {n_bytes / 1e6:.1f} MB), bound share "
             f"{100 * bound / ms:.2f}%; one profiled call: " + ", ".join(
                 f"{t} {x:.4f}" for t, x in passes.items()) + " ms; "
@@ -3296,19 +3323,23 @@ def phase_flash_bwd_instances(gen) -> list:
     return entries
 
 
-def phase_tp_flash_kernel(gen) -> dict:
-    """K3 with its log-sum-exp, the train forward, at the shape each
-    ``[tp]`` rank gives it: gemma3-4b-edge's heads split over model 2
-    (causal B 2, S 512, H 4 over KV 2, hd 256).  f32 (TF32 off) and bf16
-    at S 128 and 512 against the plain version and the plain logsumexp;
-    the bf16 S 512 call timed in turns with SDPA (K/V expanded), its
-    plain version and its bound (q, k, v read, o and lse written once;
-    4 B H hd S(S+1)/2 operations).  Returns the kernels-line entry."""
+def phase_tp_flash_kernel(gen, heads=TP_HEADS, name="flash_attention_hd256_tp",
+                          what="gemma3-4b-edge over model 2",
+                          model="gemma3-4b-edge-tp") -> dict:
+    """K3 with its log-sum-exp, the train forward, at the shape a ``[tp]``
+    rank gives it: gemma3-4b-edge's heads split over model 2 (causal B 2,
+    S 512, H 4 over KV 2, hd 256), or dbrx-132b's (H 24 over KV 4, hd 128:
+    G 6).  f32 (TF32 off) and bf16 at S 128 and 512 against the plain
+    version and the plain logsumexp; the bf16 S 512 call timed in turns
+    with SDPA (K/V expanded), cold, its plain version and its bound (q,
+    k, v read, o and lse written once; 4 B H hd S(S+1)/2 operations).
+    Returns the kernels-line entry (``name``, launches of ``model``'s
+    paths)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
-    (H, KV, hd), B, S = TP_HEADS, 2, TRAIN_S
-    tag = "[K3 flash_attention_hd256_tp]"
+    (H, KV, hd), B, S = heads, 2, TRAIN_S
+    tag = f"[K3 {name}]"
     errs = {}
 
     def inputs(n, dt):
@@ -3340,18 +3371,19 @@ def phase_tp_flash_kernel(gen) -> dict:
     n_bytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2 + B * H * S * 4
     bound, by = _bound(n_bytes, 4 * B * H * hd * S * (S + 1) / 2,
                        torch.bfloat16)
-    print(f"{tag} gemma3-4b-edge over model 2: max|err| " + " ".join(
+    print(f"{tag} {what}: max|err| " + " ".join(
         f"{k_}:{e:.2e}" for k_, e in errs.items()) + f"; bf16 causal B{B} "
           f"S{S} H{H} KV{KV} hd{hd} with lse: device ms kernel {ms:.4f} "
-          f"({turns[0]:.4f} / {turns[1]:.4f} around sdpa), sdpa {lib:.4f}, "
+          f"({turns[0]:.4f} / {turns[1]:.4f} around sdpa"
+          f"{_cold_wide(hd, ms, kern, H // KV)}), sdpa {lib:.4f}, "
           f"plain {plain:.4f}; bound {bound * 1e3:.3f} us ({by}, "
           f"{n_bytes / 1e6:.2f} MB); {_ratio(ms, lib, bound)}")
-    return _owned({"name": "flash_attention_hd256_tp", "route": "cuda",
+    return _owned({"name": name, "route": "cuda",
                    "source": "src/repro_torch/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:89",
                    "max_abs_err": max(errs.values()), "ms": ms,
                    "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                   "library_ms": lib}, "gemma3-4b-edge-tp", "flash_attention")
+                   "library_ms": lib}, model, "flash_attention")
 
 
 def _plain_attention(q, k, v, *, causal=True):
@@ -4748,10 +4780,11 @@ def collect_examples(run, smi) -> None:
 
 
 # ------------------------------------------------- the tensor-parallel ranks
-# gemma3-4b-edge's train step over a ("data", "model") = (1, 2) mesh: two
-# child processes on the one card joined in a gloo group of their own (CUDA
-# tensors; NCCL refuses two ranks on one device), started after the kernel
-# phases and run beside the smollm serving phases (about 27 GiB each)
+# gemma3-4b-edge's, smollm-360m's and dbrx-132b's train steps over a
+# ("data", "model") = (1, 2) mesh: two child processes on the one card
+# joined in a gloo group of their own (CUDA tensors; NCCL refuses two
+# ranks on one device), started after the kernel phases and run beside the
+# smollm serving phases (about 25-28 GiB each at most)
 TP_FLAG = "--tp-rank"
 TP_B, TP_STEPS, TP_F32_STEPS, TP_SEED = 2, 3, 2, 11
 TP_KERNELS = ("flash_attention", "flash_attention_bwd")
@@ -4777,6 +4810,170 @@ def _tp_state(cfg, opt, mesh):
                                          len(cfg.block_pattern)))
 
 
+def _tp_against_one(cfg, opt, mesh, tag, part, tol) -> dict:
+    """``TP_F32_STEPS`` float32 AdamW steps of ``cfg`` through
+    ``make_train_step(mesh=)`` held to the single-device step from the
+    same weights and batches: (loss, grad norm) within ``tol`` relative
+    at every step, this rank's parameter blocks within atol 5e-4, rtol
+    5e-3; each step's collectives over ``model`` equal to the roofline's
+    count and its K3/K3b launches 2 x / 1 x the layers.  Prints one line;
+    returns the launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import tensor_parallel_bytes
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding.partition import local_shard
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step,
+                                                 state_specs)
+    batch = _arch_batch(cfg, TP_B, None)
+    state = _tp_state(cfg, opt, mesh)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    specs = state_specs(cfg, opt, mesh)
+    pspecs = {k[len("model/"):]: v for k, v in specs.items()
+              if k.startswith("model/")}
+    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, TRAIN_S)
+    L = cfg.num_layers
+    got, launched = [], {k: 0 for k in TP_KERNELS}
+    for i in range(TP_F32_STEPS):
+        tp.reset_collectives()
+        before = dict(ops.LAUNCHES)
+        state, m = step(state, batch(i))
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+        now = {k: ops.LAUNCHES[k] - before[k] for k in TP_KERNELS}
+        if now != {"flash_attention": 2 * L, "flash_attention_bwd": L}:
+            raise AssertionError(f"{tag} ({part}) step {i} launched {now}; "
+                                 f"expected K3 2 x {L} and K3b {L}")
+        if tp.snapshot() != count:
+            raise AssertionError(f"{tag} ({part}) collectives "
+                                 f"{tp.snapshot()}, the roofline counts "
+                                 f"{count}")
+        for k in TP_KERNELS:
+            launched[k] += now[k]
+    blocks = {n: p.detach() for n, p in state.model.named_parameters()}
+    del state, step
+    one = init_train_state(cfg, opt, device="cuda", seed=TP_SEED)
+    step = make_train_step(cfg, opt)
+    want = []
+    for i in range(TP_F32_STEPS):
+        one, m = step(one, batch(i))
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    rel = max(abs(a - b) / abs(b) for g, w in zip(got, want)
+              for a, b in zip(g, w))
+    if rel > tol:
+        raise AssertionError(f"{tag} ({part}) f32 (loss, grad norm) {got} "
+                             f"against the single-device step's {want}")
+    worst = 0.0
+    for n, p in one.model.named_parameters():
+        ref = local_shard(p.detach(), specs[f"model/{n}"], mesh)
+        if not torch.allclose(blocks[n], ref, atol=5e-4, rtol=5e-3):
+            raise AssertionError(f"{tag} ({part}) f32 parameter {n} differs "
+                                 "from the single-device step's")
+        worst = max(worst, _max_err(blocks[n], ref))
+    print(f"{tag} ({part}) f32 {cfg.name} {L} layers at full width, "
+          f"{TP_F32_STEPS} AdamW steps at B{TP_B} x S{TRAIN_S} over model 2:"
+          f" (loss, grad norm) " + ", ".join(
+              f"({a:.6f}, {b:.6f})" for a, b in got) + " against the "
+          f"single-device step's " + ", ".join(
+              f"({a:.6f}, {b:.6f})" for a, b in want) + f": max rel "
+          f"{rel:.2e} (<= {tol:g}); this rank's blocks max|diff| "
+          f"{worst:.2e} (atol 5e-4, rtol 5e-3); collectives over model a "
+          f"step {_kinds(count)}, as the roofline counts; launches a step "
+          f"K3 {2 * L}, K3b {L}")
+    del one, step, blocks
+    torch.cuda.empty_cache()
+    return launched
+
+
+def _kinds(count: dict) -> str:
+    """A step's collectives by kind, calls and MB handed over."""
+    return ", ".join(f"{k} {v['calls']} ({v['bytes'] / 1e6:.2f} MB)"
+                     for k, v in count.items() if v["calls"])
+
+
+def _record_routes(moe) -> list:
+    """Record the experts (T, K) of ``moe``'s first routing from now on
+    (the step's forward; the recomputation's is not kept)."""
+    routes, route = [], moe._route
+
+    def recording(ht, router):
+        out = route(ht, router)
+        if not routes:
+            routes.append(out[2].cpu())
+        return out
+    moe._route = recording
+    return routes
+
+
+def _tp_dbrx(rank, mesh, opt, tag, out_dir) -> dict:
+    """(e): dbrx-132b at full width cut to one ``attn_moe`` layer, bf16,
+    ``TP_STEPS`` AdamW steps at B ``TP_B`` x 512 over model 2: per step
+    its wall ms, its collectives over ``model`` by kind (equal to the
+    roofline's count), K3 2 and K3b 1 launches, a finite loss; peak
+    memory.  The experts of this rank's group at step 1 go to
+    ``out_dir`` for the parent's one-device comparison."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import tensor_parallel_bytes
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.training.train_loop import make_train_step, state_specs
+    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=1)
+    batch = _arch_batch(cfg, TP_B, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = _tp_state(cfg, opt, mesh)
+    routes = _record_routes(state.model.blocks[0].moe)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    pspecs = {k[len("model/"):]: v for k, v in
+              state_specs(cfg, opt, mesh).items() if k.startswith("model/")}
+    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, TRAIN_S)
+    losses, secs, colls = [], [], []
+    launched = {k: 0 for k in TP_KERNELS}
+    for i in range(TP_STEPS):
+        bt = batch(i)
+        tp.reset_collectives()
+        before = dict(ops.LAUNCHES)
+        t0 = time.monotonic()
+        state, m = step(state, bt)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        colls.append(tp.snapshot())
+        now = {k: ops.LAUNCHES[k] - before[k] for k in TP_KERNELS}
+        if now != {"flash_attention": 2, "flash_attention_bwd": 1}:
+            raise AssertionError(f"{tag} (e) step {i} launched {now}; "
+                                 "expected K3 2 and K3b 1")
+        for k in TP_KERNELS:
+            launched[k] += now[k]
+    peak = torch.cuda.max_memory_allocated()
+    if any(c != count for c in colls):
+        raise AssertionError(f"{tag} (e) collectives a step {colls}, the "
+                             f"roofline counts {count}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} (e) bf16 losses {losses}")
+    torch.save(routes[0], os.path.join(out_dir, f"dbrx_route{rank}.pt"))
+    ms = [1e3 * x for x in secs]
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"{tag} (e) bf16 dbrx-132b at full width cut to 1 of 40 layers "
+          f"over (1, 2) (attention 48 over 8 heads at hd 128, 24 over 4 a "
+          f"rank; 16 experts of d_ff 10752 top-4, 8 a rank; "
+          f"{n_params:,} parameters a rank), AdamW lr {opt.lr}, B{TP_B} x "
+          f"S{TRAIN_S}, {TP_STEPS} steps: losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; ms a step "
+          + " ".join(f"{x:.1f}" for x in ms) + f" (median "
+          f"{statistics.median(ms):.1f}); peak {peak / 2 ** 30:.2f} GiB; "
+          f"collectives over model a step {_kinds(count)}, as the "
+          "roofline counts; launches a step K3 2, K3b 1; this rank "
+          f"{time.monotonic() - T_START:.1f} s from its start")
+    del state, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "peak_gib": peak / 2 ** 30,
+            "launches": launched, "ms": ms}
+
+
 def tp_rank(rank: int, init_file: str) -> int:
     """One rank of ``[tp]`` (``python3 chip_smoke.py --tp-rank RANK
     FILE``): a gloo group of two through ``file://FILE``, a (1, 2)
@@ -4788,7 +4985,11 @@ def tp_rank(rank: int, init_file: str) -> int:
     steps at B ``TP_B`` x 512: per step its wall ms, the all-reduces over
     ``model`` and their bytes (against ``roofline.tensor_parallel_bytes``)
     and the K3/K3b launches (2 x 34 and 34), the loss finite and falling;
-    peak memory.  The last line is one JSON object of this rank's
+    peak memory; (d) smollm-360m in float32 at full width, all 32 layers
+    (15 query heads over 5 KV heads: the heads cut across the ranks), held
+    to the single-device step as (c) within 1e-5 relative; (e) dbrx-132b
+    in bf16 at full width cut to one layer (:func:`_tp_dbrx`: the MoE's
+    all-to-all).  The last line is one JSON object of this rank's
     numbers."""
     import dataclasses
     import statistics
@@ -4799,11 +5000,8 @@ def tp_rank(rank: int, init_file: str) -> int:
     from repro_torch.kernels import ops
     from repro_torch.launch.roofline import tensor_parallel_bytes
     from repro_torch.sharding import tensor_parallel as tp
-    from repro_torch.sharding.partition import local_shard
     from repro_torch.training.optimizer import OptConfig
-    from repro_torch.training.train_loop import (init_train_state,
-                                                 make_train_step,
-                                                 state_specs)
+    from repro_torch.training.train_loop import make_train_step, state_specs
     sys.stdout.reconfigure(line_buffering=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4817,45 +5015,8 @@ def tp_rank(rank: int, init_file: str) -> int:
     tag = f"[tp] rank {rank}:"
 
     # (c) float32, 2 layers at full width, against the single-device step
-    c32 = dataclasses.replace(cfg, dtype="float32", num_layers=2)
-    batch = _arch_batch(c32, TP_B, gen)
-    state = _tp_state(c32, opt, mesh)
-    step = make_train_step(c32, opt, mesh=mesh)
-    got = []
-    for i in range(TP_F32_STEPS):
-        state, m = step(state, batch(i))
-        got.append((float(m["loss"]), float(m["grad_norm"])))
-    blocks = {n: p.detach() for n, p in state.model.named_parameters()}
-    del state, step
-    one = init_train_state(c32, opt, device="cuda", seed=TP_SEED)
-    step = make_train_step(c32, opt)
-    want = []
-    for i in range(TP_F32_STEPS):
-        one, m = step(one, batch(i))
-        want.append((float(m["loss"]), float(m["grad_norm"])))
-    rel = max(abs(a - b) / abs(b) for g, w in zip(got, want)
-              for a, b in zip(g, w))
-    if rel > 1e-4:
-        raise AssertionError(f"{tag} f32 (loss, grad norm) {got} against "
-                             f"the single-device step's {want}")
-    specs = state_specs(c32, opt, mesh)
-    worst = 0.0
-    for n, p in one.model.named_parameters():
-        ref = local_shard(p.detach(), specs[f"model/{n}"], mesh)
-        if not torch.allclose(blocks[n], ref, atol=5e-4, rtol=5e-3):
-            raise AssertionError(f"{tag} f32 parameter {n} differs from the "
-                                 "single-device step's")
-        worst = max(worst, _max_err(blocks[n], ref))
-    print(f"{tag} (c) f32 gemma3-4b-edge 2 layers at full width, "
-          f"{TP_F32_STEPS} AdamW steps at B{TP_B} x S{TRAIN_S} over model 2:"
-          f" (loss, grad norm) " + ", ".join(
-              f"({a:.6f}, {b:.6f})" for a, b in got) + " against the "
-          f"single-device step's " + ", ".join(
-              f"({a:.6f}, {b:.6f})" for a, b in want) + f": max rel "
-          f"{rel:.2e} (<= 1e-4); this rank's blocks max|diff| {worst:.2e} "
-          "(atol 5e-4, rtol 5e-3)")
-    del one, step, blocks
-    torch.cuda.empty_cache()
+    _tp_against_one(dataclasses.replace(cfg, dtype="float32", num_layers=2),
+                    opt, mesh, tag, "c", 1e-4)
     dist.barrier()
 
     # (b) bf16, all 34 layers
@@ -4864,7 +5025,7 @@ def tp_rank(rank: int, init_file: str) -> int:
     step = make_train_step(cfg, opt, mesh=mesh)
     pspecs = {k[len("model/"):]: v for k, v in
               state_specs(cfg, opt, mesh).items() if k.startswith("model/")}
-    count = tensor_parallel_bytes(cfg, pspecs, TP_B, TRAIN_S)
+    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, TRAIN_S)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, secs, colls, launched = [], [], [], {k: 0 for k in TP_KERNELS}
@@ -4877,7 +5038,7 @@ def tp_rank(rank: int, init_file: str) -> int:
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         secs.append(time.monotonic() - t0)
-        colls.append(dict(tp.COLLECTIVES))
+        colls.append(tp.snapshot())
         now = {k: ops.LAUNCHES[k] - before[k] for k in TP_KERNELS}
         L = cfg.num_layers
         if now != {"flash_attention": 2 * L, "flash_attention_bwd": L}:
@@ -4887,7 +5048,7 @@ def tp_rank(rank: int, init_file: str) -> int:
             launched[k] += now[k]
     peak = torch.cuda.max_memory_allocated()
     if any(c != count for c in colls):
-        raise AssertionError(f"{tag} all-reduces a step {colls}, the "
+        raise AssertionError(f"{tag} collectives a step {colls}, the "
                              f"roofline counts {count}")
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"{tag} bf16 losses {losses}")
@@ -4906,22 +5067,36 @@ def tp_rank(rank: int, init_file: str) -> int:
         dist.all_reduce(act.clone(), group=group)
     torch.cuda.synchronize()
     ar_ms = (time.monotonic() - t0) / 20 * 1e3
+    ar = count["all-reduce"]
     print(f"{tag} (b) bf16 gemma3-4b-edge, {cfg.num_layers} layers at full "
           f"width over (1, 2) (gloo, both ranks on cuda:0; {n_params:,} "
           f"parameters a rank), AdamW lr {opt.lr}, B{TP_B} x S{TRAIN_S}, "
           f"{TP_STEPS} steps: losses " + " ".join(f"{x:.4f}" for x in losses)
           + "; ms a step " + " ".join(f"{x:.1f}" for x in ms) + f" (median "
           f"{statistics.median(ms):.1f}); peak {peak / 2 ** 30:.2f} GiB; "
-          f"all-reduces over model a step {count['calls']} "
-          f"({count['bytes'] / 1e6:.2f} MB handed over), as the roofline "
+          f"all-reduces over model a step {ar['calls']} "
+          f"({ar['bytes'] / 1e6:.2f} MB handed over), as the roofline "
           f"counts; launches a step K3 {2 * cfg.num_layers}, K3b "
           f"{cfg.num_layers}; one {act.numel() * 2 / 1e6:.2f} MB bf16 "
           f"all-reduce alone {ar_ms:.2f} ms (host clock): the step's "
-          f"{count['bytes'] / 1e6:.0f} MB at that rate ~"
-          f"{ar_ms * count['bytes'] / (act.numel() * 2):.0f} ms; this rank "
+          f"{ar['bytes'] / 1e6:.0f} MB at that rate ~"
+          f"{ar_ms * ar['bytes'] / (act.numel() * 2):.0f} ms; this rank "
           f"{time.monotonic() - T_START:.1f} s from its start")
+    del state, step, act
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (d) smollm-360m, float32, all 32 layers: the heads cut across ranks
+    smollm = _tp_against_one(
+        dataclasses.replace(get_config("smollm-360m"), dtype="float32"),
+        opt, mesh, tag, "d", 1e-5)
+    dist.barrier()
+
+    # (e) dbrx-132b, bf16, one attn_moe layer: the experts' all-to-all
+    dbrx = _tp_dbrx(rank, mesh, opt, tag, os.path.dirname(init_file))
     print(json.dumps({"tp_rank": rank, "losses": losses,
-                      "peak_gib": peak / 2 ** 30, "launches": launched}))
+                      "peak_gib": peak / 2 ** 30, "launches": launched,
+                      "smollm": smollm, "dbrx": dbrx}))
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -4951,8 +5126,13 @@ def collect_tp(run, smi, beside: str) -> dict:
     (a) a 2-layer bf16 copy's step through ``make_train_step`` on a
     one-rank (1, 1) mesh bitwise equal to the step with no mesh, and
     (b) the single-device loss of the bf16 model from the same weights on
-    the first batch within 2e-2 relative of the ranks' first loss.
-    Returns the ranks' K3/K3b launches in the bf16 steps."""
+    the first batch within 2e-2 relative of the ranks' first loss, and
+    (e) dbrx-132b's: one device's loss of the same weights and batch,
+    routed in the ranks' two dispatch groups (a shape-only (1, 2) mesh),
+    within 1e-3 relative of the ranks' step-1 loss, and the share of
+    (token, choice) pairs whose expert differs between the two.  Returns
+    the ranks' K3/K3b launches in the gemma3 bf16 steps, in smollm's
+    float32 steps and in dbrx's steps, by model."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -4974,12 +5154,12 @@ def collect_tp(run, smi, beside: str) -> dict:
                                  + "\n".join(r["lines"][-60:]))
         out.append(next(json.loads(x) for x in r["lines"]
                         if x.startswith('{"tp_rank"')))
-    stop_tp(run)
     print(f"[tp] both ranks collected {time.monotonic() - run['t0']:.1f} s "
-          f"after their start (each rank's own time on its (b) line), run "
+          f"after their start (each rank's own time on its (e) line), run "
           f"beside {beside} (neither side's times are taken alone)  [{smi}]")
-    if out[0]["losses"] != out[1]["losses"]:
-        raise AssertionError(f"[tp] the ranks' losses differ: {out}")
+    for part in (out, [o["dbrx"] for o in out]):
+        if part[0]["losses"] != part[1]["losses"]:
+            raise AssertionError(f"[tp] the ranks' losses differ: {part}")
     cfg = get_config("gemma3-4b-edge")
     opt = OptConfig(lr=TRAIN_LR, warmup_steps=1)
     gen = torch.Generator(device="cuda").manual_seed(23)
@@ -5026,7 +5206,58 @@ def collect_tp(run, smi, beside: str) -> dict:
           + " -> ".join(f"{x:.4f}" for x in out[0]["losses"]) + "; peak "
           + " / ".join(f"{o['peak_gib']:.2f}" for o in out)
           + f" GiB a rank  [{smi}]")
-    return {k: sum(o["launches"][k] for o in out) for k in TP_KERNELS}
+    _dbrx_against_one([o["dbrx"] for o in out], run["tmp"], smi)
+    stop_tp(run)
+    return {model: {k: sum(o[part][k] if part else o["launches"][k]
+                           for o in out) for k in TP_KERNELS}
+            for model, part in (("gemma3-4b-edge-tp", None),
+                                ("smollm-360m", "smollm"))} | {
+        "dbrx-132b-tp": {k: sum(o["dbrx"]["launches"][k] for o in out)
+                         for k in TP_KERNELS}}
+
+
+def _dbrx_against_one(ranks, tmp, smi) -> None:
+    """(e) in this process: dbrx-132b (one layer, bf16) from the ranks'
+    weights, its loss on the first batch on one device under a shape-only
+    (1, 2) mesh (``_num_groups`` reads the mesh's size, so it routes the
+    ranks' two groups with their capacity), against the ranks' step-1
+    loss within 1e-3 relative; the share of (token, choice) pairs whose
+    expert differs (bf16 products at another M may flip near-ties)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.sharding import use_mesh
+    from repro_torch.sharding.rules import MeshShape
+    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=1)
+    lm = LM(cfg, device="cuda", seed=TP_SEED)
+    routes = _record_routes(lm.blocks[0].moe)
+    with torch.no_grad(), use_mesh(MeshShape(("data", "model"), (1, 2))):
+        one = float(lm.loss(_arch_batch(cfg, TP_B, None)(0)))
+    del lm
+    torch.cuda.empty_cache()
+    whole = routes[0]
+    got = torch.cat([torch.load(os.path.join(tmp, f"dbrx_route{r}.pt"))
+                     for r in range(2)])
+    if got.shape != whole.shape:
+        raise AssertionError(f"[tp] (e) routes {got.shape} against "
+                             f"{whole.shape}")
+    flipped = float((got != whole).float().mean())
+    first = ranks[0]["losses"][0]
+    rel = abs(first - one) / abs(one)
+    if rel > 1e-3:
+        raise AssertionError(f"[tp] (e) step-1 loss {first} against one "
+                             f"device's {one}")
+    print(f"[tp] (e) bf16 dbrx-132b, 1 layer: the ranks' step-1 loss "
+          f"{first:.6f} against one device's {one:.6f} from the same "
+          f"weights and batch in the same two dispatch groups: rel "
+          f"{rel:.2e} (<= 1e-3); (token, choice) pairs routed to another "
+          f"expert {100 * flipped:.3f}% of {whole.numel()}; losses "
+          + " -> ".join(f"{x:.4f}" for x in ranks[0]["losses"]) + "; peak "
+          + " / ".join(f"{o['peak_gib']:.2f}" for o in ranks)
+          + f" GiB a rank; ms a step " + " / ".join(
+              " ".join(f"{x:.1f}" for x in o["ms"]) for o in ranks)
+          + f"  [{smi}]")
 
 
 def gemma3_and_lm_api_paths(predictor, smi, child, g_totals) -> tuple:
@@ -5111,6 +5342,9 @@ def main() -> int:
         phase_flash_bwd_kernel(gen))]
     kernels += phase_flash_bwd_instances(gen)
     kernels.append(phase_tp_flash_kernel(gen))
+    kernels.append(phase_tp_flash_kernel(
+        gen, DBRX_TP_HEADS, "flash_attention_hd128_g6_tp",
+        "dbrx-132b over model 2", "dbrx-132b-tp"))
     by_name = {k["name"]: k for k in kernels}
     e4, e5 = phase_cli_predictor_kernels()
     by_name["gbdt_margins"]["max_abs_err"] = max(
@@ -5118,8 +5352,9 @@ def main() -> int:
     by_name["gbdt_margins_packed"]["max_abs_err"] = max(
         by_name["gbdt_margins_packed"]["max_abs_err"], e5)
     print(f"[time] kernel phases: {time.monotonic() - t_start:.1f} s")
-    # [tp]'s two ranks (gemma3-4b-edge over model 2, ~27 GiB each) beside
-    # the smollm serving phases, which hold little of the card
+    # [tp]'s two ranks (gemma3-4b-edge, smollm-360m and dbrx-132b over
+    # model 2, ~28 GiB each at most) beside the smollm serving phases,
+    # which hold little of the card
     tp_run = start_tp()
     try:
         cfg = get_config("smollm-360m")
@@ -5142,6 +5377,8 @@ def main() -> int:
         tp_totals = _timed(collect_tp, tp_run, smi,
                            "the smollm phases from [reference] to "
                            "[lanes-faults]")
+        for k, v in tp_totals.pop("smollm-360m").items():
+            totals[k] += v
     finally:
         stop_tp(tp_run)
     # [launch-train]'s and [launch-sidecar]'s host-bound children run
@@ -5187,7 +5424,7 @@ def main() -> int:
 
     # each entry reports the launches of its own model's paths
     by_model = {"smollm-360m": totals, "gemma3-4b-edge": g_totals,
-                "gemma3-4b-edge-tp": tp_totals,
+                **tp_totals,
                 "jamba-v0.1-52b": j_totals, "xlstm-350m": x_totals,
                 "musicgen-large": m_totals, "llama-3.2-vision-90b": v_totals}
     names = [k["name"] for k in kernels]

@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s ``[tp]`` phase alone on an otherwise idle card:
-the kernels built, K3 and K3b held and timed at a ``[tp]`` rank's shape
-(gemma3-4b-edge's heads over model 2: causal B 2, S 512, H 4 over KV 2,
-hd 256; ``[K3 flash_attention_hd256_tp]``,
-``[K3b flash_attention_bwd_hd256_tp]``), then the two ranks and the
+the kernels built, K3 and K3b held and timed at the ``[tp]`` ranks'
+shapes (gemma3-4b-edge's heads over model 2: causal B 2, S 512, H 4 over
+KV 2, hd 256, ``[K3 flash_attention_hd256_tp]``,
+``[K3b flash_attention_bwd_hd256_tp]``; dbrx-132b's: H 24 over KV 4, hd
+128, ``[K3 flash_attention_hd128_g6_tp]``,
+``[K3b flash_attention_bwd_hd128_g6_tp]``), then the two ranks and the
 checks that follow them (``chip_smoke.start_tp`` / ``collect_tp``), with
-nothing beside them.
+nothing beside them; last, ``[tp_alone] dbrx``: the ranks' dbrx-132b
+steps (one layer, bf16) taken on one device from the same weights and
+batches, routed in the same two dispatch groups (a shape-only (1, 2)
+mesh), their losses beside the ranks' (the one-device state, ~54 GB,
+fits only on an idle card).
 
     python3 scripts/tp_alone.py
 
@@ -16,6 +22,7 @@ where the ranks share the card and the host with the smollm phases.
 
 from __future__ import annotations
 
+import json
 import sys
 import time
 from pathlib import Path
@@ -41,16 +48,57 @@ def main() -> int:
         k for k in chip_smoke.K3B_INSTANCES if k[0].endswith("_tp"))
     chip_smoke.phase_flash_bwd_instances(gen)
     chip_smoke.phase_tp_flash_kernel(gen)
+    chip_smoke.phase_tp_flash_kernel(
+        gen, chip_smoke.DBRX_TP_HEADS, "flash_attention_hd128_g6_tp",
+        "dbrx-132b over model 2", "dbrx-132b-tp")
     run = chip_smoke.start_tp()
     try:
         launched = chip_smoke.collect_tp(run, smi, "nothing")
+        ranks = [json.loads(next(x for x in r["lines"]
+                                 if x.startswith('{"tp_rank"')))["dbrx"]
+                 for r in run["ranks"]]
     finally:
         chip_smoke.stop_tp(run)
         if torch.distributed.is_initialized():      # collect_tp's (1, 1)
             torch.distributed.destroy_process_group()
+    dbrx_one_device(ranks[0]["losses"], smi)
     print(f"[tp_alone] launches {launched}; {time.monotonic() - t0:.1f} s "
           f"[{smi}]")
     return 0
+
+
+def dbrx_one_device(rank_losses, smi) -> None:
+    """The ranks' dbrx steps on one device (see the module docstring)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import use_mesh
+    from repro_torch.sharding.rules import MeshShape
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=1)
+    opt = OptConfig(lr=chip_smoke.TRAIN_LR, warmup_steps=1)
+    batch = chip_smoke._arch_batch(cfg, chip_smoke.TP_B, None)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, opt, device="cuda",
+                             seed=chip_smoke.TP_SEED)
+    step = make_train_step(cfg, opt)
+    losses = []
+    with use_mesh(MeshShape(("data", "model"), (1, 2))):
+        for i in range(len(rank_losses)):
+            state, m = step(state, batch(i))
+            losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step
+    torch.cuda.empty_cache()
+    print("[tp_alone] dbrx-132b 1 layer bf16 on one device, the ranks' "
+          "two dispatch groups: losses " + " ".join(
+              f"{x:.4f}" for x in losses) + " against the ranks' "
+          + " ".join(f"{x:.4f}" for x in rank_losses) + "; rel " + " ".join(
+              f"{abs(a - b) / abs(b):.2e}" for a, b in zip(rank_losses,
+                                                            losses))
+          + f"; peak {peak:.2f} GiB  [{smi}]")
 
 
 if __name__ == "__main__":

@@ -48,7 +48,6 @@ from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.frontends import batch_axes, input_specs
 from repro_torch.models.model import LM
-from repro_torch.models.transformer import MOE_KINDS
 from repro_torch.sharding import use_mesh
 from repro_torch.sharding.partition import tree_specs
 from repro_torch.sharding.rules import (is_axes_leaf, mesh_axis_sizes,
@@ -130,16 +129,6 @@ def count_flops(run) -> float:
     return float(counter.get_total_flops())
 
 
-def _moe_buffer_bytes(cfg, shape, chips: int) -> float:
-    """One MoE layer's dispatch buffer on one device: its group's tokens
-    x top-k x capacity factor x d_model, in the model's dtype."""
-    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
-                                   else 1)
-    item = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
-    return (tokens / chips * cfg.experts_per_token
-            * cfg.moe_capacity_factor * cfg.d_model * item)
-
-
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              out_dir: pathlib.Path, cfg=None, shape=None) -> dict:
     """One cell's report, written to ``out_dir``.  ``cfg`` and ``shape``
@@ -163,18 +152,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "state", {}).items() if k.startswith("model/")} or args["params"]
     pspecs = {k: specs["state"][f"model/{k}"] for k in params} \
         if "state" in args else specs["params"]
-    moe_layers = sum(k in MOE_KINDS for k in cfg.block_pattern) \
-        * cfg.pattern_repeats
-    tp_bytes = 0.0
+    tp = None
     if shape.kind == "train":
         sizes = mesh_axis_sizes(mesh)
         rows = shape.global_batch // math.prod(
             sizes.get(a, 1) for a in rl.BATCH_AXES)
-        tp_bytes = rl.tensor_parallel_bytes(
-            cfg, pspecs, rows, shape.seq_len, knobs["microbatches"])["bytes"]
-    coll = rl.collective_bytes(params, pspecs, mesh, shape.kind,
-                               _moe_buffer_bytes(cfg, shape, chips),
-                               moe_layers, tp_bytes)
+        tp = rl.tensor_parallel_bytes(cfg, pspecs, mesh, rows,
+                                      shape.seq_len, knobs["microbatches"])
+    coll = rl.collective_bytes(params, pspecs, mesh, shape.kind, tp)
     analytic = rl.analytic_bytes(cfg, shape, chips, knobs["microbatches"])
     report = rl.RooflineReport(
         arch=arch, shape=shape.name, mesh=mesh_name, chips=chips,

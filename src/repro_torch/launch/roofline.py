@@ -19,24 +19,23 @@ The port compiles nothing, so nothing here parses HLO:
   (``mm``/``bmm``/attention); elementwise work (norms, the Mamba and
   xLSTM scans) is not counted.
 * HBM bytes are :func:`analytic_bytes`, the JAX package's analytic floor.
-* Collective bytes are the port's own count of what its data-parallel
-  step issues (:func:`collective_bytes`; the design is ``PERF.md`` §3):
-  per step and per device, in ring wire bytes ((n-1)/n of the buffer for
-  an all-gather or a reduce-scatter over n ranks, 2(n-1)/n for an
-  all-reduce), each leaf sharded over ``data`` all-gathered once (it is
-  kept whole for every microbatch and for the backward) and its float32
-  gradient reduce-scattered, then all-reduced over the other batch axes
-  (``pod``); each replicated leaf's float32 gradient all-reduced over
-  every batch axis; and a MoE layer's dispatch buffer (its tokens x K x
-  capacity factor x d_model) exchanged by all-to-all twice a pass
-  (dispatch, combine), over forward, remat recompute and backward, when
-  the ``experts`` axis shards over ``model``.  A leaf's buffer is its
-  bytes divided by its non-batch axes' shard factor.  A train cell adds
-  the tensor-parallel all-reduces over ``model`` that the AdamW step
-  issues (:func:`tensor_parallel_bytes`: a split block's forward, its
-  recomputation and its backward, the vocab-parallel embedding and loss,
-  the gradient norm).  Inference cells all-gather the sharded weights
-  once; the port does not serve over ``model``.
+* Collective bytes are the port's own count of what its step runs
+  (:func:`collective_bytes`; the design is ``PERF.md`` §3): per step and
+  per device, in ring wire bytes ((n-1)/n of the buffer for an
+  all-gather, a reduce-scatter or an all-to-all over n ranks, 2(n-1)/n
+  for an all-reduce), each leaf sharded over ``data`` all-gathered once
+  (it is kept whole for every microbatch and for the backward) and its
+  float32 gradient reduce-scattered, then all-reduced over the other
+  batch axes (``pod``); each replicated leaf's float32 gradient
+  all-reduced over every batch axis.  A leaf's buffer is its bytes
+  divided by its non-batch axes' shard factor.  A train cell adds the
+  collectives over ``model`` that the step runs, kind by kind
+  (:func:`tensor_parallel_bytes`: a split block's forward, its
+  recomputation and its backward, the cut heads' weight gathers, the
+  MoE's router gather, load statistics, all-to-alls and row gather, the
+  vocab-parallel embedding and loss, the gradient norm).  Inference
+  cells all-gather the sharded weights once; the port does not serve
+  over ``model``, so they run no all-to-all.
 
 ``model_flops`` (6 N D train, 2 N D inference, N the active parameters)
 and ``analytic_bytes`` are copies of the JAX functions.
@@ -67,70 +66,126 @@ def _ring(n: int) -> float:
     return (n - 1) / n
 
 
-def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], batch: int,
-                          seq: int, microbatches: int = 1) -> Dict[str, int]:
-    """{"calls", "bytes"}: the all-reduces over ``model`` that one AdamW
-    train step hands to its collectives on one device (the buffers, before
-    any ring factor), ``batch`` x ``seq`` tokens on that device, with the
-    parameter ``specs`` ({name: PartitionSpec}).  Per microbatch:
+def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
+                          batch: int, seq: int, microbatches: int = 1,
+                          optimizer: str = "adamw"
+                          ) -> Dict[str, Dict[str, int]]:
+    """{kind: {"calls", "bytes"}} for each collective kind over ``model``
+    (``tensor_parallel.KINDS``) that one train step hands over on
+    one device (the whole buffers, before any ring factor: an
+    all-gather's output, a reduce-scatter's input), ``batch`` x ``seq``
+    tokens on that device, with the parameter ``specs`` ({name:
+    PartitionSpec}) on ``mesh``.  Per microbatch of T tokens, each block
+    recomputed in the backward pass (remat) up to the last activation
+    the backward saved:
 
     * a block whose heads are split: its output's all-reduce forward and
-      again in its recomputation (remat), its input's gradient backward;
-      with QK-norm, the two norm weights' gradients;
+      recomputed, its input's gradient backward; with QK-norm, the two
+      norm weights' gradients;
+    * where heads are cut across ranks (a head or the query/KV pairing
+      does not fall whole on a rank), each split projection weight
+      (d_model x width) all-gathered forward and recomputed and its
+      gradient reduce-scattered; a whole one's gradient all-reduced;
     * a block whose ``d_ff`` is split: its output's all-reduce forward
-      (not recomputed: it is the block's last op, and the recomputation
-      stops at the last activation the backward saved) and its input's
+      (not recomputed: it is the block's last op) and its input's
       gradient backward;
+    * a MoE block: its input's gradient all-reduced; the router (float32)
+      all-gathered forward and recomputed and its gradient
+      reduce-scattered (all-reduced when whole); the load statistics
+      (2 x E float32) all-reduced forward and recomputed; with the
+      experts split, the (E, C, d_model) buffer exchanged by all-to-all
+      twice forward, twice recomputed and twice backward (C the capacity
+      of a group of T / model tokens), else the three expert weights'
+      gradients all-reduced; the combined rows all-gathered forward
+      (the block's last op: not recomputed);
     * a split vocabulary: the embedding's sum forward, the head input's
       gradient backward, and per ``LOSS_CHUNK`` slice of the sequence the
       log-sum-exp's max (float32) and its sum of exponentials stacked with
       the target logit (2 x float32), forward and again recomputed;
 
-    and once a step, one float32 scalar per group of gradients split over
-    ``model`` (the gradient norm)."""
+    and once an AdamW step (``optimizer``), one float32 scalar all-reduced per
+    group of gradients split over ``model`` (the gradient norm; Adafactor
+    gathers its split gradients whole for the update instead, through
+    ``partition.gather_shard``, which this count leaves out)."""
     from repro_torch.models.model import LOSS_CHUNK
-    from repro_torch.sharding.tensor_parallel import split_over_model
+    from repro_torch.models.transformer import MOE_KINDS
+    from repro_torch.sharding.tensor_parallel import KINDS, split_over_model
+
+    n = mesh_axis_sizes(mesh).get("model", 1)
+    out = {k: {"calls": 0, "bytes": 0} for k in KINDS}
+
+    def add(kind, calls, nbytes):
+        out[kind]["calls"] += calls * microbatches
+        out[kind]["bytes"] += calls * int(nbytes) * microbatches
 
     def split(name, dim):
         return name in specs and split_over_model(specs[name], dim)
     item = {"float32": 4, "bfloat16": 2, "float16": 2}[cfg.dtype]
+    d, hd = cfg.d_model, cfg.head_dim
     tokens = batch // microbatches * seq
-    act = tokens * cfg.d_model * item
-    calls = nbytes = 0
-    for i in range(cfg.num_layers):
-        if split(f"blocks.{i}.attn.wq", 1):
-            calls, nbytes = calls + 3, nbytes + 3 * act
+    act = tokens * d * item
+    pattern = cfg.block_pattern
+    for i in range(cfg.num_layers if n > 1 else 0):
+        pre = f"blocks.{i}."
+        if split(pre + "attn.wq", 1):
+            add("all-reduce", 3, act)
             if cfg.qk_norm:
-                calls, nbytes = calls + 2, nbytes + 2 * cfg.head_dim * item
-        if split(f"blocks.{i}.mlp.w_gate", 1):
-            calls, nbytes = calls + 2, nbytes + 2 * act
+                add("all-reduce", 2, hd * item)
+            wk_split = split(pre + "attn.wk", 1)
+            if cfg.num_heads % n or cfg.num_kv_heads % n or not wk_split:
+                for width, is_split in ((cfg.attn_dim, True),
+                                        (cfg.kv_dim, wk_split),
+                                        (cfg.kv_dim, wk_split)):
+                    w = d * width * item
+                    if is_split:
+                        add("all-gather", 2, w)
+                        add("reduce-scatter", 1, w)
+                    else:
+                        add("all-reduce", 1, w)
+        if split(pre + "mlp.w_gate", 1):
+            add("all-reduce", 2, act)
+        if pattern[i % len(pattern)] in MOE_KINDS:
+            E, K = cfg.num_experts, cfg.experts_per_token
+            router = d * E * 4
+            add("all-reduce", 1, act)
+            add("all-reduce", 2, 2 * E * 4)
+            add("all-gather", 1, act)
+            if split(pre + "moe.experts.w_gate", 0):
+                C = max(1, math.ceil(tokens // n * K / E
+                                     * cfg.moe_capacity_factor))
+                add("all-gather", 2, router)
+                add("reduce-scatter", 1, router)
+                add("all-to-all", 6, E * C * d * item)
+            else:
+                add("all-reduce", 1, router)
+                add("all-reduce", 3, E * d * cfg.d_ff * item)
     if split("embed", 0) or split("head", 1):
         chunks = -(-seq // min(LOSS_CHUNK, seq))
-        calls += 2 + 2 * 2 * chunks
-        nbytes += 2 * act + 2 * 3 * tokens * 4
-    calls, nbytes = calls * microbatches, nbytes * microbatches
+        add("all-reduce", 2, act)
+        add("all-reduce", 2 * chunks, tokens * 4)
+        add("all-reduce", 2 * chunks, 2 * tokens * 4)
     groups = {tuple(sorted({a for e in s for a in spec_axes(e)}))
               for s in specs.values()}
-    norms = sum("model" in g for g in groups)
-    return {"calls": calls + norms, "bytes": nbytes + 4 * norms}
+    norms = sum("model" in g for g in groups) if optimizer == "adamw" \
+        else 0
+    out["all-reduce"]["calls"] += norms
+    out["all-reduce"]["bytes"] += 4 * norms
+    return out
 
 
 def collective_bytes(params: Dict[str, object],
                      specs: Dict[str, PartitionSpec], mesh, kind: str,
-                     moe_buffer_bytes: float = 0.0,
-                     moe_layers: int = 0,
-                     tp_bytes: float = 0.0) -> Dict[str, float]:
+                     tp=None) -> Dict[str, float]:
     """Wire bytes per device and step, by collective, of the port's
     execution: ``params`` {name: tensor (meta)} with their ``specs`` on
-    ``mesh``; ``kind`` the cell's ("train", "prefill", "decode");
-    ``moe_buffer_bytes`` one MoE layer's dispatch buffer on one device,
-    exchanged when the experts shard over ``model``; ``tp_bytes`` the
-    buffers of a train step's all-reduces over ``model``
-    (:func:`tensor_parallel_bytes`)."""
+    ``mesh``; ``kind`` the cell's ("train", "prefill", "decode"); ``tp``
+    a train step's collectives over ``model``
+    (:func:`tensor_parallel_bytes`), each kind's buffers at its ring
+    factor.  The port does not serve over ``model``: an inference cell
+    runs no all-to-all."""
     sizes = mesh_axis_sizes(mesh)
     batch = [a for a in BATCH_AXES if a in sizes]
     out = {k: 0.0 for k in COLLECTIVES}
-    experts_split = 1
     for name, p in params.items():
         axes = [a for e in specs[name] for a in spec_axes(e)]
         other = math.prod(sizes[a] for a in axes if a not in batch)
@@ -143,15 +198,10 @@ def collective_bytes(params: Dict[str, object],
             g = numel * 4                                  # float32 grads
             out["reduce-scatter"] += g * _ring(n_gather)
             out["all-reduce"] += g / n_gather * 2 * _ring(n_reduce)
-        if name.endswith("experts.w_gate") and specs[name] and \
-                spec_axes(specs[name][0]):
-            experts_split = math.prod(sizes[a]
-                                      for a in spec_axes(specs[name][0]))
-    if kind == "train":
-        out["all-reduce"] += tp_bytes * 2 * _ring(sizes.get("model", 1))
-    passes = 6 if kind == "train" else 2
-    out["all-to-all"] = (moe_layers * passes * moe_buffer_bytes
-                         * _ring(experts_split))
+    if kind == "train" and tp:
+        ring = _ring(sizes.get("model", 1))
+        for k, v in tp.items():
+            out[k] += v["bytes"] * ring * (2 if k == "all-reduce" else 1)
     return out
 
 

@@ -33,7 +33,9 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense, dtype_of, init_dense, ones,
                                        rmsnorm, rope)
-from repro_torch.sharding.tensor_parallel import (copy_to_model, group_for,
+from repro_torch.sharding.tensor_parallel import (copy_to_model,
+                                                  gather_sum_grad, group_for,
+                                                  model_parallel,
                                                   reduce_from_model)
 
 
@@ -60,38 +62,70 @@ class Attention(nn.Module):
             self.q_norm = ones(cfg.head_dim, dt, device)
             self.k_norm = ones(cfg.head_dim, dt, device)
 
-    def _project_qkv(self, h, rope_cs, group=None):
+    def _project_qkv(self, h, rope_cs, group=None, weights=None):
         """q (B,S,H,hd), k/v (B,S,KV,hd), H and KV this module's heads (its
         block of them when the train step splits the heads over ``model``:
-        read from the weights' widths); with ``qk_norm``, q and k are
-        RMS-normed over the head dimension before RoPE, the norm weights
-        read through ``copy_to_model`` over ``group``.  Every mode goes
-        through here."""
+        read from the weights' widths) or those of ``weights`` (wq, wk,
+        wv) when given; with ``qk_norm``, q and k are RMS-normed over the
+        head dimension before RoPE, the norm weights read through
+        ``copy_to_model`` over ``group``.  Every mode goes through here."""
         cfg = self.cfg
         B, S, _ = h.shape
         hd = cfg.head_dim
-        q = dense(h, self.wq).reshape(B, S, self.wq.shape[1] // hd, hd)
-        k = dense(h, self.wk).reshape(B, S, self.wk.shape[1] // hd, hd)
-        v = dense(h, self.wv).reshape(B, S, self.wv.shape[1] // hd, hd)
+        wq, wk, wv = weights or (self.wq, self.wk, self.wv)
+        q = dense(h, wq).reshape(B, S, wq.shape[1] // hd, hd)
+        k = dense(h, wk).reshape(B, S, wk.shape[1] // hd, hd)
+        v = dense(h, wv).reshape(B, S, wv.shape[1] // hd, hd)
         if cfg.qk_norm:
             q = rmsnorm(q, copy_to_model(self.q_norm, group), cfg.norm_eps)
             k = rmsnorm(k, copy_to_model(self.k_norm, group), cfg.norm_eps)
         return rope(q, *rope_cs), rope(k, *rope_cs), v
 
+    def _whole_heads(self) -> bool:
+        """True when this rank's blocks of ``wq`` and ``wk`` hold whole
+        heads, its query heads beside their KV heads."""
+        hd, kv = self.cfg.head_dim, self.wk.shape[1]
+        return self.wq.shape[1] % hd == 0 and kv % hd == 0 \
+            and kv != self.cfg.kv_dim
+
     def forward(self, x, rope_cs):
         """Training (JAX ``attn_block`` mode ``"train"``): causal attention
         over x (B, S, D) at positions 0..S-1 (``rope_cs``: their RoPE
         tables) through ``ops.flash_attention_train``, differentiable; no
-        cache.  With the heads split over ``model`` (``wq`` a block of
-        its columns) this rank attends its own heads and the row-split
-        ``wo`` products are summed (``sharding.tensor_parallel``)."""
+        cache.
+
+        With the heads split over ``model`` (``wq`` a block of its
+        columns) the row-split ``wo`` products are summed
+        (``sharding.tensor_parallel``).  Where each rank holds whole heads
+        it attends its own.  Where a spec cuts inside a head, or ``wk``
+        stays whole while ``wq`` is split, the split projections are
+        gathered whole (their gradients reduce-scattered; a whole one is
+        read through ``copy_to_model``), every rank attends every head
+        (as GSPMD gathers q/k/v where ``heads`` does not divide), and
+        takes its own columns of the output into its ``wo`` rows.  The
+        weights are gathered rather than the activations: a projection
+        weight (d_model x width) is smaller than its output (B x S x
+        width) once B * S exceeds d_model, as in every train cell."""
         B, S, _ = x.shape
-        group = group_for(self.wq.shape[1] != self.cfg.attn_dim)
-        h = copy_to_model(rmsnorm(x, self.norm, self.cfg.norm_eps), group)
-        q, k, v = self._project_qkv(h, rope_cs, group)
-        out = ops.flash_attention_train(q, k, v, causal=True)
-        return x + reduce_from_model(dense(out.reshape(B, S, -1), self.wo),
-                                     group)
+        cfg = self.cfg
+        n_q = self.wq.shape[1]
+        group = group_for(n_q != cfg.attn_dim)
+        h = copy_to_model(rmsnorm(x, self.norm, cfg.norm_eps), group)
+        if group is None or self._whole_heads():
+            q, k, v = self._project_qkv(h, rope_cs, group)
+            out = ops.flash_attention_train(q, k, v, causal=True)
+            out = out.reshape(B, S, -1)
+        else:
+            weights = [gather_sum_grad(w, group, 1) if w.shape[1] != full
+                       else copy_to_model(w, group)
+                       for w, full in ((self.wq, cfg.attn_dim),
+                                       (self.wk, cfg.kv_dim),
+                                       (self.wv, cfg.kv_dim))]
+            q, k, v = self._project_qkv(h, rope_cs, group, weights)
+            out = ops.flash_attention_train(q, k, v, causal=True)
+            r = model_parallel()[2]
+            out = out.reshape(B, S, -1)[..., r * n_q:(r + 1) * n_q]
+        return x + reduce_from_model(dense(out, self.wo), group)
 
     def prefill(self, x, rope_cs, cache_k, cache_v, start: int = 0):
         """Causal attention over the (padded) tokens x (B, S, D) at

@@ -7,6 +7,17 @@ size, halved until it divides the global batch's token count, the groups
 holding consecutive batch rows.  Under data parallelism each rank holds
 its own batch shard and routes its G / world groups: on a (world, 1)
 mesh exactly one, its own rows, as each device of the JAX mesh does.
+Over a ``model`` axis (expert parallelism, JAX's ``shard_map`` groups
+and its ``constrain(xs, "batch", "experts", ...)``) rank (d, m) routes
+group d * model + m through the router gathered whole; the packed
+(E, C, D) buffer goes by one all-to-all over the model group to the
+ranks that hold its experts, each rank runs its E / model experts over
+every rank's slots, the outputs come back by the reverse all-to-all and
+are combined per group, and the combined rows are all-gathered into the
+replicated (T, D).  Where the experts do not divide ``model`` they stay
+whole: each rank runs them all on its own group, with no all-to-all.  A
+batch that routes in fewer groups than the mesh has ranks is refused
+(JAX then leaves ``shard_map``).
 
 Per forward: a float32 router, softmax, top-k and gate renormalisation;
 in each group the (token, choice) pairs stable-sorted by expert id and
@@ -15,7 +26,9 @@ E * cf))`` over the group's Tg tokens (overflow dropped); one batched
 product per expert weight; the gated outputs combined in float32; the
 Switch load-balance auxiliary loss over the whole batch (under data
 parallelism the top-1 counts are summed over ranks, so the mean of the
-ranks' losses is the global batch's).
+ranks' losses is the global batch's; over ``model`` the probabilities'
+sums and the counts are summed over the model group too, so every model
+rank has the same loss).
 
 Two consequences of the reference's design the port keeps: capacity is
 shared by every token of a group, so in a lane batch a lane's tokens
@@ -38,6 +51,12 @@ import torch.distributed as dist
 from repro_torch.models.layers import (ACTIVATIONS, dtype_of, init_dense,
                                        init_expert_stack, ones, rmsnorm)
 from repro_torch.sharding import current_mesh, data_parallel, mesh_size
+from repro_torch.sharding.tensor_parallel import (all_to_all_model,
+                                                  copy_to_model,
+                                                  gather_own_grad,
+                                                  gather_sum_grad,
+                                                  model_parallel,
+                                                  reduce_from_model)
 
 
 def _num_groups(batch: int, seq: int) -> int:
@@ -96,17 +115,25 @@ class MoE(nn.Module):
         T = B * S
         group, world = data_parallel()
         G = max(1, _num_groups(B * world, S) // world)
+        mgroup, n_model, m = model_parallel()
+        if n_model > 1 and G != n_model:
+            raise ValueError(
+                f"{cfg.name}: {B * world} x {S} tokens route in "
+                f"{_num_groups(B * world, S)} dispatch groups, fewer than "
+                f"the mesh's {world * n_model} ranks; expert parallelism "
+                "over 'model' needs one group a rank")
         Tg = T // G
         C = max(1, int(math.ceil(Tg * K / E * cfg.moe_capacity_factor)))
         h = rmsnorm(x, self.norm, cfg.norm_eps)
+        if n_model > 1:
+            combined, aux = self._expert_parallel(h, C, group, world,
+                                                  mgroup, n_model, m)
+            return x + combined.reshape(B, S, D), aux
         ht = h.reshape(T, D)
         dev = x.device
 
         # route: float32 router, softmax, top-k, renormalised gates
-        probs = torch.softmax(ht.float() @ self.router, dim=-1)    # (T, E)
-        gate_w, expert_idx = torch.topk(probs, K, dim=-1)           # (T, K)
-        gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
-                                      min=1e-9)
+        probs, gate_w, expert_idx = self._route(ht, self.router)
         if G == 1:
             combined = self._group(ht, gate_w, expert_idx, C)
         else:
@@ -126,15 +153,84 @@ class MoE(nn.Module):
         aux = E * torch.sum(me * ce)
         return x + combined.reshape(B, S, D).to(x.dtype), aux
 
+    def _expert_parallel(self, h, C, group, world, mgroup, n, m):
+        """The block over ``model`` (JAX's ``shard_map`` groups): this
+        rank routes its group ``m`` of its data rank's rows h (B, S, D)
+        through the router gathered whole, and the load statistics are
+        summed over ``mgroup`` (and the counts over ``group``, ``data``)
+        so that every model rank has the same auxiliary loss.  With the
+        experts split, the packed (E, C, D) buffer is exchanged with the
+        model group (block j to rank j, which holds experts j * E / n
+        on), each rank runs its own experts over every rank's slots, and
+        the outputs are exchanged back; with the experts whole, each rank
+        runs them all on its own slots.  The combined rows are gathered
+        over ``mgroup``.  Returns (combined (T, D) in h's dtype, aux)."""
+        cfg = self.cfg
+        B, S, D = h.shape
+        E = cfg.num_experts
+        T = B * S
+        Tg = T // n
+        dev = h.device
+        w = self.experts
+        split = w.w_gate.shape[0] != E
+        ht = copy_to_model(h, mgroup).reshape(T, D)[m * Tg:(m + 1) * Tg]
+        router = gather_sum_grad(self.router, mgroup, 1) if split \
+            else copy_to_model(self.router, mgroup)
+        probs, gate_w, expert_idx = self._route(ht, router)
+
+        # the load statistics of the whole data rank's rows on every rank
+        top1 = probs.argmax(dim=-1)
+        counts = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+            0, top1, torch.ones(Tg, dtype=torch.float32, device=dev))
+        stat = reduce_from_model(torch.stack([probs.sum(dim=0), counts]),
+                                 mgroup)
+        me, counts = stat[0] / T, stat[1].detach().clone()
+        if world > 1:
+            dist.all_reduce(counts, group=group)
+        aux = E * torch.sum(me * (counts / (T * world)))
+
+        xs, info = self._dispatch(ht, gate_w, expert_idx, C)
+        if split:
+            El = E // n
+            xs = all_to_all_model(xs, mgroup).view(n, El, C, D)
+            out = self._experts(xs.transpose(0, 1).reshape(El, n * C, D),
+                                (w.w_gate, w.w_up, w.w_down))
+            out = out.view(El, n, C, D).transpose(0, 1).reshape(E, C, D)
+            out_e = all_to_all_model(out, mgroup)
+        else:
+            out_e = self._experts(xs, [copy_to_model(t, mgroup) for t in
+                                       (w.w_gate, w.w_up, w.w_down)])
+        combined = self._combine(out_e.reshape(E * C, D), info, expert_idx)
+        return gather_own_grad(combined.to(h.dtype), mgroup, 0), aux
+
+    def _route(self, ht, router):
+        """probs (T, E) of the float32 router and softmax, the top-k
+        gates renormalised and their experts (T, K)."""
+        probs = torch.softmax(ht.float() @ router, dim=-1)          # (T, E)
+        gate_w, expert_idx = torch.topk(probs, self.cfg.experts_per_token,
+                                        dim=-1)                      # (T, K)
+        gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
+                                      min=1e-9)
+        return probs, gate_w, expert_idx
+
     def _group(self, ht, gate_w, expert_idx, C):
         """One dispatch group: its tokens ht (T, D) with their top-k gates
         and experts (T, K) -> the float32 combine of their experts'
         outputs (T, D)."""
+        w = self.experts
+        xs, info = self._dispatch(ht, gate_w, expert_idx, C)
+        out_e = self._experts(xs, (w.w_gate, w.w_up, w.w_down))
+        return self._combine(out_e.reshape(-1, ht.shape[1]), info,
+                             expert_idx)
+
+    def _dispatch(self, ht, gate_w, expert_idx, C):
+        """The group's (token, choice) pairs stable-sorted by expert id and
+        packed into xs (E, C, D), overflow dropped; and what the combine
+        needs (the sort order, the sorted gates, each pair's buffer row
+        and whether it was kept)."""
         T, D = ht.shape
         E, K = self.cfg.num_experts, self.cfg.experts_per_token
         dev = ht.device
-
-        # dispatch: stable sort of the (token, choice) pairs by expert id
         flat_e = expert_idx.reshape(-1)
         flat_tok = torch.arange(T, device=dev).repeat_interleave(K)
         order = torch.argsort(flat_e, stable=True)
@@ -148,17 +244,25 @@ class MoE(nn.Module):
         # the drop row E*C takes every overflow pair and is sliced off
         buf = torch.zeros(E * C + 1, D, dtype=ht.dtype, device=dev)
         xs = buf.index_put((dst,), ht[stok])[:E * C].view(E, C, D)
+        return xs, (order, sw, dst, keep)
 
-        # the experts' gated MLPs over their capacity slots
-        w = self.experts
-        hidden = (self.act(torch.bmm(xs, w.w_gate))
-                  * torch.bmm(xs, w.w_up))
-        out_e = torch.bmm(hidden, w.w_down).reshape(E * C, D)
+    def _experts(self, xs, weights):
+        """The experts' gated MLPs over their slots xs (e, rows, D), the
+        weights (w_gate, w_up, w_down) of those e experts."""
+        w_gate, w_up, w_down = weights
+        hidden = self.act(torch.bmm(xs, w_gate)) * torch.bmm(xs, w_up)
+        return torch.bmm(hidden, w_down)
 
-        # combine in float32; each token sums its K contributions in
-        # ascending expert order, the sorted order of the JAX scatter-add
+    def _combine(self, out_e, info, expert_idx):
+        """The float32 combine (T, D) of the experts' outputs out_e
+        (E * C, D); each token sums its K contributions in ascending
+        expert order, the sorted order of the JAX scatter-add."""
+        order, sw, dst, keep = info
+        T, K = expert_idx.shape
+        D = out_e.shape[1]
+        dev = out_e.device
         got = torch.where(keep[:, None],
-                          out_e[torch.clamp(dst, max=E * C - 1)],
+                          out_e[torch.clamp(dst, max=out_e.shape[0] - 1)],
                           torch.zeros((), dtype=out_e.dtype, device=dev))
         contrib = got.float() * sw[:, None]
         slot = torch.empty_like(order)

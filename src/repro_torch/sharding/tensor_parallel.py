@@ -1,33 +1,46 @@
 """Tensor parallelism over the mesh's ``model`` axis (Megatron's column
-and row split, the port's counterpart of the GSPMD split the JAX model's
-``constrain`` hints ask for).
+and row split, and the MoE expert split with its all-to-all: the port's
+counterpart of the GSPMD split the JAX model's ``constrain`` hints and
+its MoE ``shard_map`` ask for).
 
 The train step (``training.train_loop.make_train_step(mesh=)``) keeps
 each weight as the block its spec gives it (``state_specs``): a block's
 module reads whether it is split from its weight's width, and finds the
 axis's process group on the active mesh (:func:`group_for`).
 
-* Attention: ``wq``/``wk``/``wv`` column-split (this rank's heads),
-  ``wo`` row-split; MLP: ``w_gate``/``w_up`` column-split, ``w_down``
-  row-split.  The block's normed input enters through
-  :func:`copy_to_model` (identity forward, all-reduce backward) and the
-  row-split product leaves through :func:`reduce_from_model` (all-reduce
-  forward, identity backward); ``q_norm``/``k_norm`` are whole on every
-  rank and read through :func:`copy_to_model` too, so their gradients
-  are the sums over every rank's heads.
+* Attention, whole heads on each rank: ``wq``/``wk``/``wv``
+  column-split (this rank's heads), ``wo`` row-split; MLP:
+  ``w_gate``/``w_up`` column-split, ``w_down`` row-split.  The block's
+  normed input enters through :func:`copy_to_model` (identity forward,
+  all-reduce backward) and the row-split product leaves through
+  :func:`reduce_from_model` (all-reduce forward, identity backward);
+  ``q_norm``/``k_norm`` are whole on every rank and read through
+  :func:`copy_to_model` too, so their gradients are the sums over every
+  rank's heads.
+* Attention, heads cut across ranks (a spec that cuts inside a head, or
+  ``wq`` split while ``wk`` stays whole): the split projections are
+  gathered whole (:func:`gather_sum_grad`), every rank attends all the
+  heads, takes its own columns of the output into its ``wo`` rows and
+  the products are summed as above (``models.attention``).
+* MoE (``models.moe``): each rank routes its own dispatch group through
+  the router gathered whole and exchanges the packed buffer with its
+  ``model`` group (:func:`all_to_all_model`) so that it runs its own
+  experts; the combined rows are gathered back (:func:`gather_own_grad`).
 * Embedding and head: each rank holds a block of vocabulary rows; the
   lookup is masked to them and summed (:func:`vocab_parallel_embedding`),
   and the loss's log-sum-exp and target logit are all-reduced
   (``models.model``).
 
-Both Functions are the identity on a group of one (``group=None``).
-Every collective of this module goes through :func:`all_reduce`, which
-counts its calls and the bytes handed to it in ``COLLECTIVES``.
+Every Function is the identity on a group of one (``group=None``).  Every
+collective of this module goes through :func:`all_reduce`,
+:func:`all_gather`, :func:`reduce_scatter` or :func:`all_to_all`, which
+count their calls and the bytes handed to them in ``COLLECTIVES`` by
+kind (the whole buffer: an all-gather's output, a reduce-scatter's
+input).
 
 :func:`check_layout` refuses, before any process group is touched, the
-stacks and layouts the step does not execute over ``model``: MoE, Mamba,
-xLSTM, cross-attention and the audio frontend, and a spec that cuts
-inside a head or puts a rank's query heads and their KV heads apart.
+stacks the step does not execute over ``model``: Mamba, xLSTM,
+cross-attention and the audio frontend.
 """
 
 from __future__ import annotations
@@ -37,22 +50,68 @@ import torch.distributed as dist
 import torch.nn.functional as Fn
 
 from repro_torch.sharding import current_mesh
+from repro_torch.sharding.compat import (all_gather_single,
+                                         reduce_scatter_single)
 from repro_torch.sharding.rules import mesh_axis_sizes, spec_axes
 
-#: calls and bytes this rank has handed to all-reduces over ``model``
-COLLECTIVES = {"calls": 0, "bytes": 0}
+#: the collectives over ``model`` by kind
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
+#: calls and bytes this rank has handed to each kind of collective over
+#: ``model``
+COLLECTIVES = {k: {"calls": 0, "bytes": 0} for k in KINDS}
 
 
 def reset_collectives() -> None:
-    COLLECTIVES.update(calls=0, bytes=0)
+    for v in COLLECTIVES.values():
+        v.update(calls=0, bytes=0)
+
+
+def snapshot() -> dict:
+    """A copy of ``COLLECTIVES``."""
+    return {k: dict(v) for k, v in COLLECTIVES.items()}
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    COLLECTIVES[kind]["calls"] += 1
+    COLLECTIVES[kind]["bytes"] += t.numel() * t.element_size()
 
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM):
     """``t`` reduced over ``group`` in place (counted)."""
-    COLLECTIVES["calls"] += 1
-    COLLECTIVES["bytes"] += t.numel() * t.element_size()
+    _count("all-reduce", t)
     dist.all_reduce(t, op=op, group=group)
     return t
+
+
+def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order
+    (counted: the gathered buffer)."""
+    out = all_gather_single(t, group)
+    _count("all-gather", out)
+    return torch.cat(out.unbind(0), dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``group`` of ``t``
+    (counted: the whole input)."""
+    n = dist.get_world_size(group)
+    _count("reduce-scatter", t)
+    front = t.movedim(dim, 0).contiguous()
+    out = torch.empty((front.shape[0] // n,) + front.shape[1:],
+                      dtype=t.dtype, device=t.device)
+    reduce_scatter_single(out, front, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``'s leading dimension cut into one equal block per rank of
+    ``group``; block j goes to rank j, and block j of the result is
+    the one rank j sent here (counted)."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    _count("all-to-all", t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
 
 
 def model_parallel():
@@ -115,6 +174,63 @@ def reduce_from_model(x, group):
     return x if group is None else _ReduceFromModel.apply(x, group)
 
 
+class _GatherSumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherOwnGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the exchange is its own inverse: block j of g goes back to rank j
+        return all_to_all(g, ctx.group), None
+
+
+def gather_sum_grad(x, group, dim: int):
+    """Every rank's block ``x`` of a tensor split along ``dim`` over
+    ``group``, gathered whole; its gradient is reduce-scattered, because
+    the readers are split work whose gradients are partial on each rank
+    (a split weight read whole by every rank's share of a block)."""
+    return x if group is None else _GatherSumGrad.apply(x, group, dim)
+
+
+def gather_own_grad(x, group, dim: int):
+    """Every rank's block ``x`` gathered whole along ``dim``; its gradient
+    is this rank's block of the incoming one, because the readers are
+    replicated and each rank's gradient is already the whole (the MoE's
+    combined rows)."""
+    return x if group is None else _GatherOwnGrad.apply(x, group, dim)
+
+
+def all_to_all_model(x, group):
+    """:func:`all_to_all` over ``group`` of x's leading blocks, its
+    gradient the reverse exchange."""
+    return x if group is None else _AllToAll.apply(x, group)
+
+
 def vocab_parallel_embedding(tokens, shard, group, rank: int):
     """Token embeddings from this rank's block of vocabulary rows
     ``shard`` (rows ``rank * len(shard)`` on): the rows it owns looked
@@ -129,9 +245,7 @@ def vocab_parallel_embedding(tokens, shard, group, rank: int):
 
 # ------------------------------------------------------------ the layout
 #: why each block kind is not executed over ``model`` (the next slices)
-REFUSED = {"attn_moe": "MoE (the expert all-to-all)",
-           "mamba": "Mamba (ssm_inner)",
-           "mamba_moe": "Mamba (ssm_inner) and MoE (the expert all-to-all)",
+REFUSED = {"mamba": "Mamba (ssm_inner)", "mamba_moe": "Mamba (ssm_inner)",
            "mlstm": "xLSTM", "slstm": "xLSTM", "xattn": "cross-attention"}
 
 
@@ -139,14 +253,14 @@ def split_over_model(spec, dim: int) -> bool:
     return len(spec) > dim and "model" in spec_axes(spec[dim])
 
 
-def check_layout(cfg, specs: dict, mesh) -> None:
+def check_layout(cfg, mesh) -> None:
     """Raise ValueError unless the train step executes ``cfg`` over
-    ``mesh``'s ``model`` axis with the parameter ``specs`` ({"model/<name>":
-    PartitionSpec}, ``state_specs``)."""
-    sizes = mesh_axis_sizes(mesh)
-    n = sizes.get("model", 1)
+    ``mesh``'s ``model`` axis: every attention and MoE layout the rules
+    give is executed; Mamba, xLSTM, cross-attention and the audio
+    frontend are not."""
+    n = mesh_axis_sizes(mesh).get("model", 1)
     where = (f"tensor-parallel execution over 'model' ({n}) covers "
-             "attention + MLP stacks only")
+             "attention, MLP and MoE stacks only")
     if cfg.audio_frontend:
         raise ValueError(f"make_train_step: {cfg.name} reads frames through "
                          f"the audio frontend; {where}")
@@ -154,26 +268,3 @@ def check_layout(cfg, specs: dict, mesh) -> None:
         if kind in REFUSED:
             raise ValueError(f"make_train_step: {cfg.name} has {kind} "
                              f"blocks ({REFUSED[kind]}); {where}")
-    # in these stacks the rules split over 'model' only the heads' widths
-    # (qkv), d_ff (mlp) and the vocabulary; the MLP's and the vocabulary's
-    # leaves split alike (one dimension each), the query and KV widths
-    # need not
-    for i in range(cfg.num_layers):
-        pre = f"model/blocks.{i}.attn."
-        q = split_over_model(specs[pre + "wq"], 1)
-        for leaf, heads in (("wq", cfg.num_heads), ("wk", cfg.num_kv_heads)):
-            spec = specs[pre + leaf]
-            split = split_over_model(spec, 1)
-            if split and heads % n:
-                raise ValueError(
-                    f"make_train_step: {cfg.name} leaf {pre}{leaf} ({heads} "
-                    f"heads of width {cfg.head_dim}) laid out {spec} on mesh "
-                    f"{sizes} cuts inside a head; tensor-parallel execution "
-                    "over 'model' needs whole heads on each rank")
-            if split != q:
-                raise ValueError(
-                    f"make_train_step: {cfg.name} leaf {pre}{leaf} laid out "
-                    f"{spec} on mesh {sizes} splits the query heads and "
-                    "their KV heads apart (one over 'model', the other "
-                    "whole); tensor-parallel execution over 'model' needs "
-                    "each rank's query heads beside their KV heads")

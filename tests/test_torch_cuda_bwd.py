@@ -108,6 +108,45 @@ def test_wgmma_bwd_batch_row_equals_row_alone(cuda, B, Sq, Skv, heads,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(24, 4, 128), (48, 8, 128)])
+def test_k3_and_k3b_at_six_query_heads_a_group(cuda, heads, dtype):
+    """dbrx-132b's heads, G 6 at hd 128, whole (48 over 8) and a
+    tensor-parallel rank's share at model 2 (24 over 4), causal B 2 S 512:
+    K3 with its lse and K3b on those outputs against their plain
+    versions, 1e-4 (f32, TF32 off) / 2e-2 (bf16) (K3b of max|plain|, lse
+    1e-3 in bf16).  G 6's stacked rows (6 x 512 a KV head) fill 64-row
+    tiles that cut a position's six heads apart (64 is not a multiple of
+    6)."""
+    H, KV, hd = heads
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator(device=cuda).manual_seed(H)
+        q, do = (torch.randn(2, 512, H, hd, generator=g, device=cuda)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(2, 512, KV, hd, generator=g, device=cuda)
+                .to(dtype) for _ in range(2))
+        o, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        want, want_lse = flash_attention_plain(q, k, v, causal=True,
+                                               return_lse=True)
+        np.testing.assert_allclose(o.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=tol,
+                                   rtol=tol)
+        np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                                   atol=min(tol, 1e-3), rtol=0)
+        got = flash_attention_bwd_cuda(q, k, v, o, do, lse)
+        plain = flash_attention_bwd_plain(q, k, v, o, do, lse)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for name, a, b in zip(("dq", "dk", "dv"), got, plain):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * max(float(b.float().abs().max()), 1.0), name
+
+
+@pytest.mark.cuda
 def test_wgmma_bwd_kernels_do_not_spill(cuda, tmp_path, monkeypatch):
     """Pass 2 and pass 3's wgmma instances at hd 64, 128 and 256 compile
     with no register spills, as ``_build.PTXAS_REPORT`` shows after a

@@ -279,10 +279,10 @@ def test_data_parallel_jamba_at_world_two_matches_jax(tmp_path):
 
 
 def test_model_axis_is_refused():
-    """A model axis is executed for the dense attention stacks only
-    (``tests/test_torch_tensor_parallel.py``); a MoE stack is refused
-    before any process group is touched."""
-    cfg = get_config("dbrx-132b").reduced()
+    """A model axis is executed for the attention, MLP and MoE stacks
+    only (``tests/test_torch_tensor_parallel.py``); a Mamba stack is
+    refused before any process group is touched."""
+    cfg = get_config("jamba-v0.1-52b").reduced()
     with pytest.raises(ValueError, match="tensor-parallel.*attention"):
         make_train_step(cfg, OptConfig(),
                         mesh=MeshShape(("data", "model"), (1, 2)))

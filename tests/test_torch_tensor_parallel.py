@@ -53,7 +53,6 @@ ROOT = Path(__file__).resolve().parents[1]
 WORKER = str(Path(__file__).parent / "torch_tp_worker.py")
 LIMIT_S = 300              # the processes' common limit (~35 s alone)
 TOL = dict(atol=5e-4, rtol=5e-3)
-MESHES = ("1x2", "2x2")
 
 
 def _env(devices=None):
@@ -92,11 +91,10 @@ def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("tp")
     for case in W.CASES:
         _init(case, out / case)
-    procs = [_start(["port", r, 2, out / "store12", out, "1x2"])
-             for r in range(2)]
-    procs += [_start(["port", r, 4, out / "store22", out, "2x2"])
-              for r in range(4)]
-    procs += [_start(["jax", out, m], devices=4) for m in MESHES]
+    procs = [_start(["port", r, math.prod(W.mesh_shape(m)),
+                     out / f"store{m}", out, m])
+             for m in W.MESHES for r in range(math.prod(W.mesh_shape(m)))]
+    procs += [_start(["jax", out, m], devices=4) for m in W.MESHES]
     deadline = time.monotonic() + LIMIT_S
     try:
         for p in procs:
@@ -159,7 +157,7 @@ def _assembled(out, case, shape) -> dict:
     return whole
 
 
-CASE_MESH = [(c, m) for c in W.CASES for m in MESHES]
+CASE_MESH = [(c, m) for c in W.CASES for m in W.case_meshes(c)]
 
 
 @pytest.mark.parametrize("case,shape", CASE_MESH)
@@ -206,14 +204,13 @@ def test_whole_leaves_stay_equal_across_model_ranks(runs, case, shape):
                          for p in split)
 
 
-@pytest.mark.parametrize("case,shape", [(c, m) for c, m in CASE_MESH
-                                        if W.CASES[c][2] == "adamw"])
+@pytest.mark.parametrize("case,shape", CASE_MESH)
 def test_roofline_counts_the_collectives_the_step_issues(runs, case, shape):
-    """``roofline.tensor_parallel_bytes`` equals the all-reduces over
-    ``model`` that each AdamW step handed to its collectives (calls and
-    bytes, recorded by ``tensor_parallel.all_reduce``'s counter)."""
+    """``roofline.tensor_parallel_bytes`` equals, kind by kind, the
+    collectives over ``model`` that each step handed over (calls and
+    bytes, recorded by ``tensor_parallel``'s counter)."""
     port = json.loads((runs / case / f"port_{shape}.json").read_text())
-    assert port["roofline"]["calls"] > 0
+    assert port["roofline"]["all-reduce"]["calls"] > 0
     for counted in port["counted"]:
         assert counted == port["roofline"]
 
@@ -229,14 +226,45 @@ def test_collective_count_in_the_roofline_of_a_tp_mesh():
     for dims, want in (((1, 2), True), ((2, 1), False)):
         mesh = MeshShape(("data", "model"), dims)
         specs = tree_specs(params, lm.param_axes(), mesh)
-        tp = rl.tensor_parallel_bytes(cfg, specs, 8 // dims[0], 32)
-        assert (tp["bytes"] > 0) == want
+        tp = rl.tensor_parallel_bytes(cfg, specs, mesh, 8 // dims[0], 32)
+        assert (tp["all-reduce"]["bytes"] > 0) == want
         base = rl.collective_bytes(params, specs, mesh, "train")
-        got = rl.collective_bytes(params, specs, mesh, "train",
-                                  tp_bytes=tp["bytes"])
+        got = rl.collective_bytes(params, specs, mesh, "train", tp)
         n = dims[1]
         assert got["all-reduce"] == pytest.approx(
-            base["all-reduce"] + tp["bytes"] * 2 * (n - 1) / n)
+            base["all-reduce"] + tp["all-reduce"]["bytes"] * 2 * (n - 1) / n)
+
+
+def test_moe_collectives_in_the_roofline_of_a_tp_mesh():
+    """Reduced dbrx on a shape-only (1, 2) mesh: six all-to-alls of the
+    (E, C, d_model) buffer a MoE layer (dispatch and combine, forward,
+    recomputed and backward), the router gathered twice and its gradient
+    reduce-scattered once; each kind enters the train cell's term at its
+    ring factor (all-reduce 2(n-1)/n, the others (n-1)/n)."""
+    import math as m
+    from repro_torch.launch import roofline as rl
+    from repro_torch.sharding.partition import tree_specs
+    from repro_torch.sharding.tensor_parallel import KINDS
+    cfg = get_config("dbrx-132b").reduced()
+    lm = LM(cfg, device="meta")
+    params = dict(lm.named_parameters())
+    mesh = MeshShape(("data", "model"), (1, 2))
+    specs = tree_specs(params, lm.param_axes(), mesh)
+    tp = rl.tensor_parallel_bytes(cfg, specs, mesh, 8, 32)
+    E, K, L = cfg.num_experts, cfg.experts_per_token, cfg.num_layers
+    C = m.ceil(8 * 32 // 2 * K / E * cfg.moe_capacity_factor)
+    assert tp["all-to-all"] == {"calls": 6 * L,
+                                "bytes": 6 * L * E * C * cfg.d_model * 4}
+    router = cfg.d_model * E * 4
+    assert tp["reduce-scatter"]["calls"] == L
+    assert tp["reduce-scatter"]["bytes"] == L * router
+    base = rl.collective_bytes(params, specs, mesh, "train")
+    got = rl.collective_bytes(params, specs, mesh, "train", tp)
+    for k in KINDS:
+        ring = 2 * 0.5 if k == "all-reduce" else 0.5
+        assert got[k] == pytest.approx(base[k] + tp[k]["bytes"] * ring)
+    assert rl.collective_bytes(params, specs, mesh, "decode")[
+        "all-to-all"] == 0.0
 
 
 def test_checkpoint_at_2x2_restores_at_1x1_4x1_and_1x2(runs):
@@ -325,24 +353,19 @@ def test_one_rank_mesh_is_the_single_device_step_bit_for_bit(kind):
 
 
 REFUSALS = [
-    ("dbrx-132b", True, "attn_moe blocks .MoE"),
     ("jamba-v0.1-52b", True, "mamba blocks .Mamba"),
     ("xlstm-350m", True, "slstm blocks .xLSTM"),
     ("llama-3.2-vision-90b", True, "xattn blocks .cross-attention"),
     ("musicgen-large", True, "audio frontend"),
-    ("gemma-2b", True, "blocks.0.attn.wk .1 heads.*cuts inside a head"),
-    ("smollm-360m", False, "blocks.0.attn.wq .15 heads.*cuts inside a head"),
 ]
 
 
 @pytest.mark.parametrize("arch,reduced,match", REFUSALS,
                          ids=[r[0] for r in REFUSALS])
 def test_refused_at_model_two(arch, reduced, match):
-    """MoE, Mamba, xLSTM, cross-attention and the audio frontend are
-    refused over ``model`` with a ValueError naming the arch and what is
-    refused, before any process group is touched (a shape-only mesh), as
-    is a spec that cuts inside a head: gemma-2b's single KV head (reduced)
-    and full smollm-360m's 15 query over 5 KV heads at model 2."""
+    """Mamba, xLSTM, cross-attention and the audio frontend are refused
+    over ``model`` with a ValueError naming the arch and what is refused,
+    before any process group is touched (a shape-only mesh)."""
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduced else cfg
     with pytest.raises(ValueError, match=f"{cfg.name}.*{match}"):
@@ -350,14 +373,26 @@ def test_refused_at_model_two(arch, reduced, match):
                         mesh=MeshShape(("data", "model"), (1, 2)))
 
 
-def test_refused_when_query_and_kv_heads_split_apart():
-    """Query heads split over ``model`` while their KV heads' width does
-    not divide (head width 15, one KV head: wk stays whole) is refused."""
-    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
-                              num_kv_heads=1, head_dim=15)
-    with pytest.raises(ValueError, match="query heads.*KV heads"):
+def test_mamba_moe_blocks_refused_as_mamba():
+    """A stack whose first refused blocks are jamba's ``mamba_moe`` is
+    refused for its Mamba half (``ssm_inner``), its MoE half being
+    executed over ``model``."""
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
+                              block_pattern=("attn_moe", "mamba_moe"))
+    with pytest.raises(ValueError,
+                       match=f"{cfg.name}.*mamba_moe blocks .Mamba .ssm_inner"):
         make_train_step(cfg, OptConfig(),
                         mesh=MeshShape(("data", "model"), (1, 2)))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b",
+                                  "gemma-2b", "smollm-360m"])
+def test_moe_and_cut_heads_are_not_refused(arch):
+    """Full dbrx, llama4, gemma-2b (one KV head) and smollm-360m (15 query
+    over 5 KV heads) pass ``check_layout`` over (1, 2): the MoE and
+    cut-head layouts are executed."""
+    from repro_torch.sharding.tensor_parallel import check_layout
+    check_layout(get_config(arch), MeshShape(("data", "model"), (1, 2)))
 
 
 def test_remat_recomputes_under_the_callers_mesh():

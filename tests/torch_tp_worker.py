@@ -6,6 +6,9 @@ step on a mesh of the same shape.  Not a test module (pytest collects
 
     python tests/torch_tp_worker.py port RANK WORLD INIT_FILE OUT DxM
     python tests/torch_tp_worker.py jax OUT DxM
+    python tests/torch_tp_worker.py units RANK INIT_FILE OUT
+
+(``units``: one of two ranks of ``tests/test_torch_tp_collectives.py``.)
 
 Every case of ``CASES`` runs in turn, each from the weights under
 ``OUT/<case>/`` (``init.pkl`` for JAX, the step-0 checkpoint ``ckpt0``
@@ -30,13 +33,34 @@ sys.path.insert(0, str(ROOT / "src"))
 STEPS, SEQ, BATCH = 3, 32, 8
 #: AdamW at the card's rate (see ``tests/torch_dist_worker.py``)
 OPT = dict(lr=3e-4, warmup_steps=2)
-#: case -> (arch, num_kv_heads override or None, optimizer)
+#: case -> (arch, overrides of its reduced config, optimizer)
 CASES = {
-    "smollm": ("smollm-360m", None, "adamw"),
-    "gemma3": ("gemma3-4b-edge", None, "adamw"),
-    "gqa": ("qwen3-32b", 2, "adamw"),          # QK-norm, 4 heads over 2
-    "adafactor": ("smollm-360m", None, "adafactor"),
+    "smollm": ("smollm-360m", {}, "adamw"),
+    "gemma3": ("gemma3-4b-edge", {}, "adamw"),
+    "gqa": ("qwen3-32b", {"num_kv_heads": 2}, "adamw"),  # QK-norm, 4 over 2
+    "adafactor": ("smollm-360m", {}, "adafactor"),
+    # 3 query heads over 1 KV head: qkv 48 -> 24 a rank cuts head 1
+    "heads_cut": ("smollm-360m", {"num_heads": 3, "num_kv_heads": 1},
+                  "adamw"),
+    # 4 query heads over a single KV head: wk 16 -> 8 a rank
+    "mqa": ("gemma-2b", {}, "adamw"),
+    # 2 query heads over 1 KV head of width 6 at model 4: wq 12 -> 3 a
+    # rank, wk (6) stays whole.  RoPE's half split needs an even head
+    # width, and at model 2 an even width always splits wk too.
+    "split_apart": ("smollm-360m", {"num_heads": 2, "num_kv_heads": 1,
+                                    "head_dim": 6}, "adamw"),
+    "moe": ("dbrx-132b", {}, "adamw"),                   # 4 experts, top-2
+    "moe_mixed": ("llama4-maverick-400b-a17b", {},      # (attn, attn_moe),
+                  "adafactor"),                          # 4 experts, top-1
 }
+MESHES = ("1x2", "2x2", "1x4")
+
+
+def case_meshes(case):
+    """The mesh shapes ``case`` runs on."""
+    return ("1x4",) if case == "split_apart" else ("1x2", "2x2")
+
+
 #: the (2, 2) run checkpoints the smollm case after this many steps; the
 #: (1, 2) ranks resume it through ``plan_remesh`` for the last step
 RESUME_AT = 2
@@ -44,13 +68,12 @@ RESUME_WAIT_S = 150
 
 
 def config(case, jax_side=False):
-    arch, kv, _ = CASES[case]
+    arch, overrides, _ = CASES[case]
     if jax_side:
         from repro.configs import get_config
     else:
         from repro_torch.configs import get_config
-    cfg = get_config(arch).reduced()
-    return dataclasses.replace(cfg, num_kv_heads=kv) if kv else cfg
+    return dataclasses.replace(get_config(arch).reduced(), **overrides)
 
 
 def mesh_shape(text):
@@ -76,6 +99,8 @@ def port(rank, world, init_file, out, shape):
     dims = mesh_shape(shape)
     mesh = init_device_mesh("cpu", dims, mesh_dim_names=("data", "model"))
     for case, (_, _, kind) in CASES.items():
+        if shape not in case_meshes(case):
+            continue
         cfg, opt = config(case), OptConfig(**OPT, kind=kind)
         d = out / case
         _, axes = abstract_train_state(cfg, opt)
@@ -91,7 +116,7 @@ def port(rank, world, init_file, out, shape):
                      for k, v in data.batch(i).items()}
             tp.reset_collectives()
             state, m = step(state, batch)
-            counted.append(dict(tp.COLLECTIVES))
+            counted.append(tp.snapshot())
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             if case == "smollm" and dims == (2, 2) and i + 1 == RESUME_AT:
@@ -105,7 +130,8 @@ def port(rank, world, init_file, out, shape):
             (d / f"port_{shape}.json").write_text(json.dumps(
                 {"loss": losses, "grad_norm": norms, "counted": counted,
                  "roofline": tensor_parallel_bytes(
-                     cfg, pspecs, BATCH // dims[0], SEQ)}))
+                     cfg, pspecs, mesh, BATCH // dims[0], SEQ,
+                     optimizer=kind)}))
     if dims == (1, 2):
         resume(rank, out)
 
@@ -162,6 +188,8 @@ def jax_run(out, shape):
                          axis_types=(AxisType.Auto, AxisType.Auto),
                          devices=jax.devices()[:dims[0] * dims[1]])
     for case, (_, _, kind) in CASES.items():
+        if shape not in case_meshes(case):
+            continue
         cfg, opt = config(case, jax_side=True), OptConfig(**OPT, kind=kind)
         d = out / case
         params = jax.tree.map(jnp.asarray,
@@ -187,8 +215,81 @@ def jax_run(out, shape):
              "params": jax.tree.map(np.asarray, state.params)}))
 
 
+#: the MoE block of ``units``: reduced dbrx with 4 experts (split over
+#: model 2) and with 3 (whole), on a batch of MOE_B x MOE_S tokens
+MOE_EXPERTS, MOE_B, MOE_S = (4, 3), 2, 8
+
+
+def moe_block(experts):
+    """(reduced dbrx's MoE block with ``experts`` experts, float32, from a
+    fixed seed, and its input x (MOE_B, MOE_S, d_model), requiring
+    grad); the same in every process."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoE
+    cfg = dataclasses.replace(get_config("dbrx-132b").reduced(),
+                              num_experts=experts)
+    gen = torch.Generator().manual_seed(3)
+    moe = MoE(cfg, gen, "cpu")
+    moe.requires_grad_(True)
+    x = torch.randn(MOE_B, MOE_S, cfg.d_model, generator=gen)
+    return moe, x.requires_grad_(True)
+
+
+def units(rank, init_file, out):
+    """Each new Function of ``sharding.tensor_parallel`` forward and
+    backward on a two-rank gloo group, and the MoE block over a (1, 2)
+    mesh; every input and result saved to ``OUT/units_rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding import use_mesh
+    from repro_torch.sharding.partition import local_shard
+    from repro_torch.training.train_loop import state_specs
+    from repro_torch.training.optimizer import OptConfig
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=2)
+    mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+    group = mesh.get_group("model")
+    got = {}
+    gen = torch.Generator().manual_seed(rank)
+    for name, fn, shape in (
+            ("gather_sum_grad", lambda x: tp.gather_sum_grad(x, group, 1),
+             (3, 2)),
+            ("gather_own_grad", lambda x: tp.gather_own_grad(x, group, 0),
+             (3, 2)),
+            ("all_to_all_model", lambda x: tp.all_to_all_model(x, group),
+             (4, 3))):
+        x = torch.randn(shape, generator=gen).requires_grad_(True)
+        y = fn(x)
+        w = torch.randn(y.shape, generator=gen)
+        (y * w).sum().backward()
+        got[name] = {"x": x.detach(), "y": y.detach(), "w": w,
+                     "grad": x.grad}
+    for e in MOE_EXPERTS:
+        moe, x = moe_block(e)
+        specs = state_specs(moe.cfg, OptConfig(), mesh)
+        for n, p in moe.named_parameters():
+            spec = specs[f"model/blocks.0.moe.{n}"]
+            p.data = local_shard(p.data, spec, mesh)
+        tp.reset_collectives()
+        with use_mesh(mesh):
+            y, aux = moe(x)
+        (y.square().sum() + aux).backward()
+        got[f"moe{e}"] = {"y": y.detach(), "aux": aux.detach(),
+                          "x_grad": x.grad, "counted": tp.snapshot(),
+                          "grads": {n: p.grad for n, p in
+                                    moe.named_parameters()}}
+    torch.save(got, out / f"units_rank{rank}.pt")
+    dist.destroy_process_group()
+
+
 def main(argv):
-    if argv[0] == "port":
+    if argv[0] == "units":
+        units(int(argv[1]), argv[2], pathlib.Path(argv[3]))
+    elif argv[0] == "port":
         port(int(argv[1]), int(argv[2]), argv[3], pathlib.Path(argv[4]),
              argv[5])
     elif argv[0] == "jax":
