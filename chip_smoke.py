@@ -90,7 +90,18 @@ path and read just after:
   under a shape-only (1, 2) mesh, within 1e-3 relative of theirs, with
   the share of (token, choice) pairs routed to another expert (K3 and
   K3b at the ranks' shapes are held and timed among the kernel phases:
-  ``*_hd256_tp``, ``*_hd128_g6_tp``);
+  ``*_hd256_tp``, ``*_hd128_g6_tp``); then in the ranks the recurrent
+  stacks, none of which launches K3 or K3b: (f) jamba-v0.1-52b in
+  float32 at full width cut to its first layer (Mamba, d_inner 8192 a
+  rank's 4096 channels, its in_proj block all of x or all of z), 2 AdamW
+  steps held to the single-device step within 1e-5 relative; (g) its
+  first two layers (Mamba, Mamba + MoE of 16 experts, 8 a rank) in bf16,
+  3 AdamW steps at B 2 x 512 (ms a step, peak memory a rank, collectives
+  by kind equal to the roofline's count, finite losses; in this process
+  after the ranks exit, one device's loss in the same two dispatch
+  groups within 1e-3 relative); (h) xlstm-350m in float32 at full
+  width, all 24 layers (4 heads of 256, 2 a rank), 2 AdamW steps at B 2
+  x 128 held to the single-device step within 1e-5 relative;
 * ``[launch-sidecar]`` ``python -m repro_torch.launch.sidecar --port 0``
   as child processes, the full-width real backend beside the sim
   backend, under fcfs and then sjf, and the real backend with
@@ -232,10 +243,11 @@ max|plain|, its bf16 losses are not finite (gemma3's: do not fall) or
 its K3/K3b launches differ from 2 x / 1 x its attention layers a step,
 when a ``[tp]`` rank fails, its float32 copies leave the single-device
 step's tolerances, its collectives differ from the roofline's count, its
-K3/K3b launches from 2 x / 1 x the layers a step, its two ranks' losses
-differ, gemma3's do not fall or dbrx's are not finite, the (1, 1) step
-is not bitwise the plain one, gemma3's first loss is not within 2e-2 of
-the single device's or dbrx's within 1e-3,
+K3/K3b launches from 2 x / 1 x the attention layers a step, its two
+ranks' losses differ, gemma3's do not fall or dbrx's or jamba's are not
+finite, the (1, 1) step is not bitwise the plain one, gemma3's first
+loss is not within 2e-2 of the single device's or dbrx's or jamba's
+within 1e-3,
 when the gemma3 train CLI child fails, when the meshed train step, the card's int8
 exchange or the resharded checkpoint is not bitwise equal to its
 reference (the step with no mesh, the CPU's exchange,
@@ -269,6 +281,7 @@ last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1944,7 +1957,6 @@ def _plain_attention_ops():
     plain PyTorch versions on the card (``ops.flash_attention`` and
     ``ops.decode_attention`` patched): the oracle a path through the
     kernels is held to."""
-    import contextlib
     from unittest import mock
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
@@ -2213,7 +2225,6 @@ def phase_launch_serve(smi, totals) -> None:
     burst, and under sjf at rho 0.74.  The predictor scores each burst in
     one K5 launch on the card (the packed layout, as the JAX model
     scores); srpt must drain through the preemptive DES."""
-    import contextlib
     import io
     from repro_torch.core import _native
     from repro_torch.kernels import ops
@@ -3581,22 +3592,24 @@ def _train_bf16(state, opt, batch, steps, smi, totals, tag, falls=True,
     return state
 
 
-def _arch_batch(cfg, B, gen):
+def _arch_batch(cfg, B, gen, seq=None):
     """``batch(step)`` for a trained stack on the card: tokens and labels
-    from the Markov stream (seeded by the step), or for musicgen seeded
-    frame embeddings beside the stream's labels over its codebook, and
-    for a stack with cross-attention seeded image embeddings."""
+    (``seq`` positions, ``TRAIN_S`` when None) from the Markov stream
+    (seeded by the step), or for musicgen seeded frame embeddings beside
+    the stream's labels over its codebook, and for a stack with
+    cross-attention seeded image embeddings."""
     import torch
     from repro_torch.data.lm_data import LMDataConfig, SyntheticLMStream
     from repro_torch.models.layers import dtype_of
+    seq = seq or TRAIN_S
     data = SyntheticLMStream(LMDataConfig(vocab_size=cfg.vocab_size,
-                                          seq_len=TRAIN_S, global_batch=B))
+                                          seq_len=seq, global_batch=B))
 
     def batch(step):
         out = {k: torch.from_numpy(x).long().cuda()
                for k, x in data.batch(step).items()}
         if cfg.audio_frontend:
-            out["frames"] = torch.randn(B, TRAIN_S, cfg.d_model, generator=gen,
+            out["frames"] = torch.randn(B, seq, cfg.d_model, generator=gen,
                                         device="cuda").to(dtype_of(cfg))
             del out["tokens"]
         if cfg.num_image_tokens:
@@ -4088,7 +4101,6 @@ def _cross_launches():
     launches for full attention (in these stacks only the cross-attention
     layer's backward) to "flash_attention_bwd_cross", each read from the
     launch counters around the call."""
-    import contextlib
     from unittest import mock
     from repro_torch.kernels import ops
     from repro_torch.kernels._build import LAUNCHES
@@ -4698,7 +4710,6 @@ def examples_paths() -> int:
     claims and launches checked; then one JSON line of each script's wall
     seconds, launches and peak card memory.  The kernels are the
     parent's build."""
-    import contextlib
     import importlib.util
     import io
     import tempfile
@@ -4787,6 +4798,8 @@ def collect_examples(run, smi) -> None:
 # smollm serving phases (about 25-28 GiB each at most)
 TP_FLAG = "--tp-rank"
 TP_B, TP_STEPS, TP_F32_STEPS, TP_SEED = 2, 3, 2, 11
+#: (h)'s sequence: the sLSTM runs token by token
+TP_XLSTM_S = 128
 TP_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 
@@ -4810,40 +4823,105 @@ def _tp_state(cfg, opt, mesh):
                                          len(cfg.block_pattern)))
 
 
-def _tp_against_one(cfg, opt, mesh, tag, part, tol) -> dict:
-    """``TP_F32_STEPS`` float32 AdamW steps of ``cfg`` through
-    ``make_train_step(mesh=)`` held to the single-device step from the
-    same weights and batches: (loss, grad norm) within ``tol`` relative
-    at every step, this rank's parameter blocks within atol 5e-4, rtol
-    5e-3; each step's collectives over ``model`` equal to the roofline's
-    count and its K3/K3b launches 2 x / 1 x the layers.  Prints one line;
-    returns the launches."""
+#: (f)/(h): the plain single-device step's bound when the ranks are held
+#: to the one that sums in their order (``_rank_order``)
+TP_PLAIN_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def _rank_order(lm, specs, n):
+    """On one device, each product of a weight whose spec splits its rows
+    over ``model`` (``x_proj``, ``out_proj``, ``wo_out``, ``down``,
+    ``w_down``, ``wo``) summed over the ``n`` ranks' blocks of rows, as
+    the ranks' partial products are summed; every other product as is.
+    The same function in the ranks' order of summation: at full width
+    a Mamba's gradient moves by ~1e-5 relative with that order alone
+    (its ``exp(dt A)`` scales a last-bit change of dt)."""
+    from repro_torch.models import attention, layers, ssm, xlstm
+    from repro_torch.sharding.tensor_parallel import split_over_model
+    rows = {id(p) for name, p in lm.named_parameters()
+            if p.dim() == 2 and split_over_model(specs[f"model/{name}"], 0)}
+    plain = layers.dense
+
+    def dense(x, w):
+        if id(w) not in rows:
+            return plain(x, w)
+        c = w.shape[0] // n
+        out = plain(x[..., :c], w[:c])
+        for r in range(1, n):
+            out = out + plain(x[..., r * c:(r + 1) * c], w[r * c:(r + 1) * c])
+        return out
+    mods = (attention, layers, ssm, xlstm)
+    for m in mods:
+        m.dense = dense
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.dense = plain
+
+
+def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
+                    order=False) -> dict:
+    """``TP_F32_STEPS`` float32 AdamW steps of ``cfg`` at B ``TP_B`` x
+    ``seq`` (``TRAIN_S`` when None) through ``make_train_step(mesh=)``
+    held to the single-device step from the same weights and batches:
+    (loss, grad norm) within ``tol`` relative at every step, this rank's
+    parameter blocks within atol 5e-4, rtol 5e-3; each step's collectives
+    over ``model`` equal to the roofline's count and its K3/K3b launches
+    2 x / 1 x the attention layers.
+
+    With ``order`` (a Mamba stack, whose gradient at full width moves by
+    ~1e-5 relative with the order of a sum alone, and which AdamW's
+    first +-lr update then carries into the next step) each step is held
+    to one device's step from the ranks' whole state before it (gathered
+    over ``model``), summing its row-split products in the ranks' order
+    (:func:`_rank_order`); the plain single-device run of every step
+    from the initial weights is held within ``TP_PLAIN_TOL``.  Prints
+    one line; returns the launches."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.roofline import tensor_parallel_bytes
+    from repro_torch.models.transformer import attention_layers
     from repro_torch.sharding import tensor_parallel as tp
-    from repro_torch.sharding.partition import local_shard
+    from repro_torch.sharding.partition import gather_shard, local_shard
     from repro_torch.training.train_loop import (init_train_state,
                                                  make_train_step,
                                                  state_specs)
-    batch = _arch_batch(cfg, TP_B, None)
+    seq = seq or TRAIN_S
+    batch = _arch_batch(cfg, TP_B, None, seq)
     state = _tp_state(cfg, opt, mesh)
     step = make_train_step(cfg, opt, mesh=mesh)
     specs = state_specs(cfg, opt, mesh)
     pspecs = {k[len("model/"):]: v for k, v in specs.items()
               if k.startswith("model/")}
-    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, TRAIN_S)
-    L = cfg.num_layers
-    got, launched = [], {k: 0 for k in TP_KERNELS}
+    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, seq)
+    L, A = cfg.num_layers, attention_layers(cfg)
+    got, launched, starts = [], {k: 0 for k in TP_KERNELS}, [None]
+
+    def whole(st):
+        """The ranks' whole state on the host: parameters, moments."""
+        out = {f"model/{n}": p.detach()
+               for n, p in st.model.named_parameters()}
+        out.update({f"opt/{k}/{n}": t for k, tree in
+                    (("m", st.opt.m), ("v", st.opt.v))
+                    for n, t in tree.items()})
+        return {k: gather_shard(t, specs[k], mesh).to("cpu", copy=True)
+                for k, t in out.items()}
+    secs = 0.0
     for i in range(TP_F32_STEPS):
+        if order and i:
+            starts.append(whole(state))
         tp.reset_collectives()
         before = dict(ops.LAUNCHES)
+        t0 = time.monotonic()
         state, m = step(state, batch(i))
         got.append((float(m["loss"]), float(m["grad_norm"])))
+        secs += time.monotonic() - t0
         now = {k: ops.LAUNCHES[k] - before[k] for k in TP_KERNELS}
-        if now != {"flash_attention": 2 * L, "flash_attention_bwd": L}:
+        if now != {"flash_attention": 2 * A, "flash_attention_bwd": A}:
             raise AssertionError(f"{tag} ({part}) step {i} launched {now}; "
-                                 f"expected K3 2 x {L} and K3b {L}")
+                                 f"expected K3 2 x {A} and K3b {A}")
         if tp.snapshot() != count:
             raise AssertionError(f"{tag} ({part}) collectives "
                                  f"{tp.snapshot()}, the roofline counts "
@@ -4852,17 +4930,53 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol) -> dict:
             launched[k] += now[k]
     blocks = {n: p.detach() for n, p in state.model.named_parameters()}
     del state, step
-    one = init_train_state(cfg, opt, device="cuda", seed=TP_SEED)
-    step = make_train_step(cfg, opt)
-    want = []
-    for i in range(TP_F32_STEPS):
-        one, m = step(one, batch(i))
-        want.append((float(m["loss"]), float(m["grad_norm"])))
-    rel = max(abs(a - b) / abs(b) for g, w in zip(got, want)
-              for a, b in zip(g, w))
+
+    def single(ordered, restart):
+        """One device's steps from the initial weights, or with
+        ``restart`` each from the ranks' state before it."""
+        one = init_train_state(cfg, opt, device="cuda", seed=TP_SEED)
+        step = make_train_step(cfg, opt)
+        out = []
+        with (_rank_order(one.model, specs, 2) if ordered
+              else contextlib.nullcontext()), torch.no_grad():
+            for i in range(TP_F32_STEPS):
+                if restart and starts[i] is not None:
+                    params = dict(one.model.named_parameters())
+                    for k, t in starts[i].items():
+                        kind, name = k.split("/", 1)
+                        dst = params[name] if kind == "model" else \
+                            getattr(one.opt, name[0])[name[2:]]
+                        dst.copy_(t)
+                with torch.enable_grad():
+                    one, m = step(one, batch(i))
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+        return one, out
+
+    def max_rel(got, want):
+        return max(abs(a - b) / abs(b) for g, w in zip(got, want)
+                   for a, b in zip(g, w))
+    plain_note = ""
+    if order:
+        one, plain = single(False, False)
+        del one
+        plain_rel = max_rel(got, plain)
+        if plain_rel > TP_PLAIN_TOL:
+            raise AssertionError(f"{tag} ({part}) f32 (loss, grad norm) "
+                                 f"{got} against the plain single-device "
+                                 f"step's {plain}")
+        plain_note = (
+            " (each from the ranks' state before it, summing its row-split "
+            "products in the ranks' order; the plain single-device steps "
+            "from the initial weights " + ", ".join(
+                f"({a:.6f}, {b:.6f})" for a, b in plain) + f" at max rel "
+            f"{plain_rel:.2e}, <= {TP_PLAIN_TOL:g})")
+    one, want = single(order, order)
+    del starts
+    rel = max_rel(got, want)
     if rel > tol:
         raise AssertionError(f"{tag} ({part}) f32 (loss, grad norm) {got} "
-                             f"against the single-device step's {want}")
+                             f"against the single-device step's {want}"
+                             f"{plain_note}")
     worst = 0.0
     for n, p in one.model.named_parameters():
         ref = local_shard(p.detach(), specs[f"model/{n}"], mesh)
@@ -4870,17 +4984,18 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol) -> dict:
             raise AssertionError(f"{tag} ({part}) f32 parameter {n} differs "
                                  "from the single-device step's")
         worst = max(worst, _max_err(blocks[n], ref))
-    print(f"{tag} ({part}) f32 {cfg.name} {L} layers at full width, "
-          f"{TP_F32_STEPS} AdamW steps at B{TP_B} x S{TRAIN_S} over model 2:"
+    print(f"{tag} ({part}) f32 {cfg.name} {L} layers ({A} attention) at "
+          f"full width, {TP_F32_STEPS} AdamW steps at B{TP_B} x S{seq} over "
+          f"model 2 ({secs:.1f} s of steps):"
           f" (loss, grad norm) " + ", ".join(
               f"({a:.6f}, {b:.6f})" for a, b in got) + " against the "
           f"single-device step's " + ", ".join(
-              f"({a:.6f}, {b:.6f})" for a, b in want) + f": max rel "
-          f"{rel:.2e} (<= {tol:g}); this rank's blocks max|diff| "
+              f"({a:.6f}, {b:.6f})" for a, b in want) + plain_note
+          + f": max rel {rel:.2e} (<= {tol:g}); this rank's blocks max|diff| "
           f"{worst:.2e} (atol 5e-4, rtol 5e-3); collectives over model a "
           f"step {_kinds(count)}, as the roofline counts; launches a step "
-          f"K3 {2 * L}, K3b {L}")
-    del one, step, blocks
+          f"K3 {2 * A}, K3b {A}")
+    del one, blocks
     torch.cuda.empty_cache()
     return launched
 
@@ -4905,27 +5020,49 @@ def _record_routes(moe) -> list:
     return routes
 
 
-def _tp_dbrx(rank, mesh, opt, tag, out_dir) -> dict:
-    """(e): dbrx-132b at full width cut to one ``attn_moe`` layer, bf16,
+#: the bf16 MoE stacks of ``[tp]`` by part: (arch, layers kept, the MoE
+#: layer whose routes are compared, what the line says of the stack)
+TP_MOE = {
+    "e": ("dbrx-132b", 1, 0,
+          "cut to 1 of 40 layers over (1, 2) (attention 48 over 8 heads at "
+          "hd 128, 24 over 4 a rank; 16 experts of d_ff 10752 top-4, 8 a "
+          "rank"),
+    "g": ("jamba-v0.1-52b", 2, 1,
+          "cut to 2 of 32 layers over (1, 2) (Mamba, Mamba + MoE: d_inner "
+          "8192, 4096 channels a rank; 16 experts of d_ff 14336 top-2, 8 a "
+          "rank"),
+}
+
+
+def _tp_moe_cfg(part):
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, layers, _, _ = TP_MOE[part]
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def _tp_moe(part, rank, mesh, opt, tag, out_dir) -> dict:
+    """(e) and (g): a MoE stack of ``TP_MOE`` at full width, bf16,
     ``TP_STEPS`` AdamW steps at B ``TP_B`` x 512 over model 2: per step
     its wall ms, its collectives over ``model`` by kind (equal to the
-    roofline's count), K3 2 and K3b 1 launches, a finite loss; peak
-    memory.  The experts of this rank's group at step 1 go to
-    ``out_dir`` for the parent's one-device comparison."""
-    import dataclasses
+    roofline's count), K3 2 and K3b 1 launches an attention layer, a
+    finite loss; peak memory.  The experts of this rank's group at step
+    1 go to ``out_dir`` for the parent's one-device comparison."""
     import statistics
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.roofline import tensor_parallel_bytes
+    from repro_torch.models.transformer import attention_layers
     from repro_torch.sharding import tensor_parallel as tp
     from repro_torch.training.train_loop import make_train_step, state_specs
-    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=1)
+    cfg = _tp_moe_cfg(part)
+    arch, _, layer, desc = TP_MOE[part]
+    A = attention_layers(cfg)
     batch = _arch_batch(cfg, TP_B, None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state = _tp_state(cfg, opt, mesh)
-    routes = _record_routes(state.model.blocks[0].moe)
+    routes = _record_routes(state.model.blocks[layer].moe)
     step = make_train_step(cfg, opt, mesh=mesh)
     pspecs = {k[len("model/"):]: v for k, v in
               state_specs(cfg, opt, mesh).items() if k.startswith("model/")}
@@ -4943,31 +5080,29 @@ def _tp_dbrx(rank, mesh, opt, tag, out_dir) -> dict:
         secs.append(time.monotonic() - t0)
         colls.append(tp.snapshot())
         now = {k: ops.LAUNCHES[k] - before[k] for k in TP_KERNELS}
-        if now != {"flash_attention": 2, "flash_attention_bwd": 1}:
-            raise AssertionError(f"{tag} (e) step {i} launched {now}; "
-                                 "expected K3 2 and K3b 1")
+        if now != {"flash_attention": 2 * A, "flash_attention_bwd": A}:
+            raise AssertionError(f"{tag} ({part}) step {i} launched {now}; "
+                                 f"expected K3 {2 * A} and K3b {A}")
         for k in TP_KERNELS:
             launched[k] += now[k]
     peak = torch.cuda.max_memory_allocated()
     if any(c != count for c in colls):
-        raise AssertionError(f"{tag} (e) collectives a step {colls}, the "
-                             f"roofline counts {count}")
+        raise AssertionError(f"{tag} ({part}) collectives a step {colls}, "
+                             f"the roofline counts {count}")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{tag} (e) bf16 losses {losses}")
-    torch.save(routes[0], os.path.join(out_dir, f"dbrx_route{rank}.pt"))
+        raise AssertionError(f"{tag} ({part}) bf16 losses {losses}")
+    torch.save(routes[0], os.path.join(out_dir, f"{part}_route{rank}.pt"))
     ms = [1e3 * x for x in secs]
     n_params = sum(p.numel() for p in state.model.parameters())
-    print(f"{tag} (e) bf16 dbrx-132b at full width cut to 1 of 40 layers "
-          f"over (1, 2) (attention 48 over 8 heads at hd 128, 24 over 4 a "
-          f"rank; 16 experts of d_ff 10752 top-4, 8 a rank; "
+    print(f"{tag} ({part}) bf16 {arch} at full width {desc}; "
           f"{n_params:,} parameters a rank), AdamW lr {opt.lr}, B{TP_B} x "
           f"S{TRAIN_S}, {TP_STEPS} steps: losses "
           + " ".join(f"{x:.4f}" for x in losses) + "; ms a step "
           + " ".join(f"{x:.1f}" for x in ms) + f" (median "
           f"{statistics.median(ms):.1f}); peak {peak / 2 ** 30:.2f} GiB; "
           f"collectives over model a step {_kinds(count)}, as the "
-          "roofline counts; launches a step K3 2, K3b 1; this rank "
-          f"{time.monotonic() - T_START:.1f} s from its start")
+          f"roofline counts; launches a step K3 {2 * A}, K3b {A}; this "
+          f"rank {time.monotonic() - T_START:.1f} s from its start")
     del state, step
     torch.cuda.empty_cache()
     return {"losses": losses, "peak_gib": peak / 2 ** 30,
@@ -4988,9 +5123,13 @@ def tp_rank(rank: int, init_file: str) -> int:
     peak memory; (d) smollm-360m in float32 at full width, all 32 layers
     (15 query heads over 5 KV heads: the heads cut across the ranks), held
     to the single-device step as (c) within 1e-5 relative; (e) dbrx-132b
-    in bf16 at full width cut to one layer (:func:`_tp_dbrx`: the MoE's
-    all-to-all).  The last line is one JSON object of this rank's
-    numbers."""
+    in bf16 at full width cut to one layer (:func:`_tp_moe`: the MoE's
+    all-to-all); (f) jamba-v0.1-52b in float32 at full width cut to its
+    first (Mamba) layer, held to the single-device step as (d); (g)
+    jamba's first two layers (Mamba, Mamba + MoE) in bf16 as (e); (h)
+    xlstm-350m in float32 at full width, all 24 layers, at B ``TP_B`` x
+    ``TP_XLSTM_S``, held as (d).  The last line is one JSON object of
+    this rank's numbers."""
     import dataclasses
     import statistics
     import torch
@@ -5093,10 +5232,29 @@ def tp_rank(rank: int, init_file: str) -> int:
     dist.barrier()
 
     # (e) dbrx-132b, bf16, one attn_moe layer: the experts' all-to-all
-    dbrx = _tp_dbrx(rank, mesh, opt, tag, os.path.dirname(init_file))
+    out_dir = os.path.dirname(init_file)
+    dbrx = _tp_moe("e", rank, mesh, opt, tag, out_dir)
+    dist.barrier()
+
+    # (f) jamba-v0.1-52b, float32, its first layer (Mamba): the channel
+    # exchange and the both-ways sum
+    jamba = get_config("jamba-v0.1-52b")
+    _tp_against_one(dataclasses.replace(jamba, dtype="float32",
+                                        num_layers=1),
+                    opt, mesh, tag, "f", 1e-5, order=True)
+    dist.barrier()
+
+    # (g) jamba, bf16, its first two layers: Mamba, then Mamba + MoE
+    jamba_moe = _tp_moe("g", rank, mesh, opt, tag, out_dir)
+    dist.barrier()
+
+    # (h) xlstm-350m, float32, all 24 layers: sLSTM and mLSTM heads
+    _tp_against_one(dataclasses.replace(get_config("xlstm-350m"),
+                                        dtype="float32"),
+                    opt, mesh, tag, "h", 1e-5, seq=TP_XLSTM_S)
     print(json.dumps({"tp_rank": rank, "losses": losses,
                       "peak_gib": peak / 2 ** 30, "launches": launched,
-                      "smollm": smollm, "dbrx": dbrx}))
+                      "smollm": smollm, "dbrx": dbrx, "jamba": jamba_moe}))
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -5127,10 +5285,11 @@ def collect_tp(run, smi, beside: str) -> dict:
     one-rank (1, 1) mesh bitwise equal to the step with no mesh, and
     (b) the single-device loss of the bf16 model from the same weights on
     the first batch within 2e-2 relative of the ranks' first loss, and
-    (e) dbrx-132b's: one device's loss of the same weights and batch,
-    routed in the ranks' two dispatch groups (a shape-only (1, 2) mesh),
-    within 1e-3 relative of the ranks' step-1 loss, and the share of
-    (token, choice) pairs whose expert differs between the two.  Returns
+    (e) dbrx-132b's and (g) jamba's: one device's loss of the same
+    weights and batch, routed in the ranks' two dispatch groups (a
+    shape-only (1, 2) mesh), within 1e-3 relative of the ranks' step-1
+    loss, and the share of (token, choice) pairs whose expert differs
+    between the two.  Returns
     the ranks' K3/K3b launches in the gemma3 bf16 steps, in smollm's
     float32 steps and in dbrx's steps, by model."""
     import dataclasses
@@ -5155,9 +5314,10 @@ def collect_tp(run, smi, beside: str) -> dict:
         out.append(next(json.loads(x) for x in r["lines"]
                         if x.startswith('{"tp_rank"')))
     print(f"[tp] both ranks collected {time.monotonic() - run['t0']:.1f} s "
-          f"after their start (each rank's own time on its (e) line), run "
-          f"beside {beside} (neither side's times are taken alone)  [{smi}]")
-    for part in (out, [o["dbrx"] for o in out]):
+          f"after their start (each rank's own time on its (e) and (g) "
+          f"lines), run beside {beside} (neither side's times are taken "
+          f"alone)  [{smi}]")
+    for part in (out, [o["dbrx"] for o in out], [o["jamba"] for o in out]):
         if part[0]["losses"] != part[1]["losses"]:
             raise AssertionError(f"[tp] the ranks' losses differ: {part}")
     cfg = get_config("gemma3-4b-edge")
@@ -5206,7 +5366,8 @@ def collect_tp(run, smi, beside: str) -> dict:
           + " -> ".join(f"{x:.4f}" for x in out[0]["losses"]) + "; peak "
           + " / ".join(f"{o['peak_gib']:.2f}" for o in out)
           + f" GiB a rank  [{smi}]")
-    _dbrx_against_one([o["dbrx"] for o in out], run["tmp"], smi)
+    for part, key in (("e", "dbrx"), ("g", "jamba")):
+        _moe_against_one(part, [o[key] for o in out], run["tmp"], smi)
     stop_tp(run)
     return {model: {k: sum(o[part][k] if part else o["launches"][k]
                            for o in out) for k in TP_KERNELS}
@@ -5216,39 +5377,40 @@ def collect_tp(run, smi, beside: str) -> dict:
                          for k in TP_KERNELS}}
 
 
-def _dbrx_against_one(ranks, tmp, smi) -> None:
-    """(e) in this process: dbrx-132b (one layer, bf16) from the ranks'
-    weights, its loss on the first batch on one device under a shape-only
-    (1, 2) mesh (``_num_groups`` reads the mesh's size, so it routes the
-    ranks' two groups with their capacity), against the ranks' step-1
-    loss within 1e-3 relative; the share of (token, choice) pairs whose
-    expert differs (bf16 products at another M may flip near-ties)."""
-    import dataclasses
+def _moe_against_one(part, ranks, tmp, smi) -> None:
+    """(e) and (g) in this process: the ``TP_MOE`` stack (bf16) from the
+    ranks' weights, its loss on the first batch on one device under a
+    shape-only (1, 2) mesh (``_num_groups`` reads the mesh's size, so it
+    routes the ranks' two groups with their capacity), against the
+    ranks' step-1 loss within 1e-3 relative; the share of (token,
+    choice) pairs whose expert differs (bf16 products at another M may
+    flip near-ties)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models.model import LM
     from repro_torch.sharding import use_mesh
     from repro_torch.sharding.rules import MeshShape
-    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=1)
+    cfg = _tp_moe_cfg(part)
+    arch, layers, layer, _ = TP_MOE[part]
     lm = LM(cfg, device="cuda", seed=TP_SEED)
-    routes = _record_routes(lm.blocks[0].moe)
+    routes = _record_routes(lm.blocks[layer].moe)
     with torch.no_grad(), use_mesh(MeshShape(("data", "model"), (1, 2))):
         one = float(lm.loss(_arch_batch(cfg, TP_B, None)(0)))
     del lm
     torch.cuda.empty_cache()
     whole = routes[0]
-    got = torch.cat([torch.load(os.path.join(tmp, f"dbrx_route{r}.pt"))
+    got = torch.cat([torch.load(os.path.join(tmp, f"{part}_route{r}.pt"))
                      for r in range(2)])
     if got.shape != whole.shape:
-        raise AssertionError(f"[tp] (e) routes {got.shape} against "
+        raise AssertionError(f"[tp] ({part}) routes {got.shape} against "
                              f"{whole.shape}")
     flipped = float((got != whole).float().mean())
     first = ranks[0]["losses"][0]
     rel = abs(first - one) / abs(one)
     if rel > 1e-3:
-        raise AssertionError(f"[tp] (e) step-1 loss {first} against one "
-                             f"device's {one}")
-    print(f"[tp] (e) bf16 dbrx-132b, 1 layer: the ranks' step-1 loss "
+        raise AssertionError(f"[tp] ({part}) step-1 loss {first} against "
+                             f"one device's {one}")
+    print(f"[tp] ({part}) bf16 {arch}, {layers} layer"
+          f"{'s' if layers > 1 else ''}: the ranks' step-1 loss "
           f"{first:.6f} against one device's {one:.6f} from the same "
           f"weights and batch in the same two dispatch groups: rel "
           f"{rel:.2e} (<= 1e-3); (token, choice) pairs routed to another "
@@ -5352,9 +5514,9 @@ def main() -> int:
     by_name["gbdt_margins_packed"]["max_abs_err"] = max(
         by_name["gbdt_margins_packed"]["max_abs_err"], e5)
     print(f"[time] kernel phases: {time.monotonic() - t_start:.1f} s")
-    # [tp]'s two ranks (gemma3-4b-edge, smollm-360m and dbrx-132b over
-    # model 2, ~28 GiB each at most) beside the smollm serving phases,
-    # which hold little of the card
+    # [tp]'s two ranks (gemma3-4b-edge, smollm-360m, dbrx-132b,
+    # jamba-v0.1-52b and xlstm-350m over model 2, ~28 GiB each at most)
+    # beside the smollm serving phases, which hold little of the card
     tp_run = start_tp()
     try:
         cfg = get_config("smollm-360m")

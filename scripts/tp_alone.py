@@ -6,8 +6,11 @@ KV 2, hd 256, ``[K3 flash_attention_hd256_tp]``,
 ``[K3b flash_attention_bwd_hd256_tp]``; dbrx-132b's: H 24 over KV 4, hd
 128, ``[K3 flash_attention_hd128_g6_tp]``,
 ``[K3b flash_attention_bwd_hd128_g6_tp]``), then the two ranks and the
-checks that follow them (``chip_smoke.start_tp`` / ``collect_tp``), with
-nothing beside them; last, ``[tp_alone] dbrx``: the ranks' dbrx-132b
+checks that follow them (``chip_smoke.start_tp`` / ``collect_tp``: the
+gemma3, smollm and dbrx parts and the recurrent stacks, (f) jamba's Mamba
+layer in float32, (g) its Mamba + MoE layers in bf16, (h) xlstm-350m in
+float32), with nothing beside them, so that each part's ms a step and
+collectives are read alone; last, ``[tp_alone] dbrx``: the ranks' dbrx-132b
 steps (one layer, bf16) taken on one device from the same weights and
 batches, routed in the same two dispatch groups (a shape-only (1, 2)
 mesh), their losses beside the ranks' (the one-device state, ~54 GB,

@@ -89,6 +89,17 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
     * a block whose ``d_ff`` is split: its output's all-reduce forward
       (not recomputed: it is the block's last op) and its input's
       gradient backward;
+    * a Mamba block whose ``d_inner`` is split: as a split attention
+      block, its output's all-reduce forward and recomputed and its
+      input's gradient backward; the ``in_proj`` product (T x 2 d_inner
+      / model) exchanged into this rank's channels by all-to-all forward,
+      recomputed and backward; the ``x_proj`` product (T x (2 N + 1))
+      all-reduced forward, recomputed and backward;
+    * an xLSTM block whose heads are split: the mixer's output all-reduced
+      forward and recomputed, its input's gradient backward; for the
+      sLSTM the float32 gate product (T x 4 attn_dim / model) exchanged
+      by all-to-all forward, recomputed and backward; its up/down as a
+      split ``d_ff`` (``up``'s columns split);
     * a MoE block: its input's gradient all-reduced; the router (float32)
       all-gathered forward and recomputed and its gradient
       reduce-scattered (all-reduced when whole); the load statistics
@@ -107,6 +118,7 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
     group of gradients split over ``model`` (the gradient norm; Adafactor
     gathers its split gradients whole for the update instead, through
     ``partition.gather_shard``, which this count leaves out)."""
+    from repro_torch.configs.base import SLSTM
     from repro_torch.models.model import LOSS_CHUNK
     from repro_torch.models.transformer import MOE_KINDS
     from repro_torch.sharding.tensor_parallel import KINDS, split_over_model
@@ -142,9 +154,18 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
                         add("reduce-scatter", 1, w)
                     else:
                         add("all-reduce", 1, w)
-        if split(pre + "mlp.w_gate", 1):
+        kind = pattern[i % len(pattern)]
+        if split(pre + "mamba.conv_w", 1):
+            add("all-reduce", 3, act)
+            add("all-to-all", 3, tokens * 2 * cfg.d_inner // n * item)
+            add("all-reduce", 3, tokens * (2 * cfg.ssm_state_dim + 1) * item)
+        if split(pre + "wo_out", 0):
+            add("all-reduce", 3, act)
+            if kind == SLSTM:
+                add("all-to-all", 3, tokens * 4 * cfg.attn_dim // n * 4)
+        if split(pre + "mlp.w_gate", 1) or split(pre + "up", 1):
             add("all-reduce", 2, act)
-        if pattern[i % len(pattern)] in MOE_KINDS:
+        if kind in MOE_KINDS:
             E, K = cfg.num_experts, cfg.experts_per_token
             router = d * E * 4
             add("all-reduce", 1, act)

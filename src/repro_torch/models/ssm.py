@@ -19,6 +19,13 @@ the one *after* the pad steps: each pad step still decays the state by
 prefill longer than one chunk that is not a multiple of it the state is
 (numerically) zero.  The port reproduces that; it does not repair it.
 
+In the train step over ``model`` (``sharding.tensor_parallel``) each
+rank runs its block of ``d_inner``'s channels: its block of ``in_proj``'s
+columns is a block of ``[x | z]``, and the product is exchanged into this
+rank's channels of both; the conv, the scan and the states are per
+channel; the row-split ``x_proj`` product is summed forward and backward
+and ``out_proj``'s row-split product is summed.
+
 There is no Pallas kernel here in the reference, and the port has none:
 plain PyTorch, no host read.
 """
@@ -33,6 +40,10 @@ from torch import nn
 
 from repro_torch.models.layers import (dense, dtype_of, init_dense, ones,
                                        remat, rmsnorm)
+from repro_torch.sharding.tensor_parallel import (copy_to_model, group_for,
+                                                  own_channels,
+                                                  reduce_from_model,
+                                                  reduce_sum_grad)
 
 CHUNK = 128
 
@@ -97,7 +108,7 @@ class Mamba(nn.Module):
         d, di, n, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state_dim,
                        cfg.ssm_conv_width)
         f32 = dict(dtype=torch.float32, device=device)
-        self.eps = cfg.norm_eps
+        self.eps, self.d_inner = cfg.norm_eps, di
         self.norm = ones(d, dt, device)
         self.in_proj = init_dense(gen, d, 2 * di, dt, device)
         self.conv_w = nn.Parameter(
@@ -112,14 +123,19 @@ class Mamba(nn.Module):
                                     requires_grad=False)
         self.out_proj = init_dense(gen, di, d, dt, device, scale=di ** -0.5)
 
-    def mix(self, x_in, conv_state=None, ssm_state=None):
+    def mix(self, x_in, conv_state=None, ssm_state=None, group=None):
         """The mixer (``repro.models.ssm.mamba_mix``) on normed x_in
         (B, S, D): returns (y (B, S, di) before ``out_proj``, (conv state
         (B, w-1, di), ssm state (B, di, N) f32)).  Without states it
         starts from zeros (a prefill); with them it continues (a decode
-        step, S = 1)."""
+        step, S = 1).  With ``group`` (the train step over ``model``) di
+        is this rank's block of the channels."""
         B, S, _ = x_in.shape
-        xr, z = dense(x_in, self.in_proj).chunk(2, dim=-1)      # (B,S,di)
+        xz = dense(x_in, self.in_proj)
+        if group is None:
+            xr, z = xz.chunk(2, dim=-1)                         # (B,S,di)
+        else:
+            xr, z = own_channels(xz, 2, group).unbind(-2)
         di, w = xr.shape[-1], self.conv_w.shape[0]
 
         # causal depthwise conv, width w
@@ -131,7 +147,8 @@ class Mamba(nn.Module):
         xc = Fn.silu(xc)
         new_conv = xp[:, S:, :]                                 # last w-1 rows
 
-        bcd = dense(xc, self.x_proj).float()                   # (B,S,2N+1)
+        bcd = reduce_sum_grad(dense(xc, self.x_proj),
+                              group).float()                   # (B,S,2N+1)
         n = (bcd.shape[-1] - 1) // 2
         h = (torch.zeros(B, di, n, dtype=torch.float32, device=xr.device)
              if ssm_state is None else ssm_state)
@@ -153,7 +170,11 @@ class Mamba(nn.Module):
         return y * Fn.silu(z), (new_conv, h)
 
     def forward(self, x, conv_state=None, ssm_state=None):
-        """x (B, S, D) -> (x + out_proj(mix(norm(x))), (conv, ssm))."""
-        y, states = self.mix(rmsnorm(x, self.norm, self.eps), conv_state,
-                             ssm_state)
-        return x + dense(y, self.out_proj), states
+        """x (B, S, D) -> (x + out_proj(mix(norm(x))), (conv, ssm)).  With
+        ``d_inner`` split over ``model`` (``conv_w`` a block of its
+        columns) the normed input's gradient and the row-split
+        ``out_proj`` products are summed (``sharding.tensor_parallel``)."""
+        group = group_for(self.conv_w.shape[1] != self.d_inner)
+        h = copy_to_model(rmsnorm(x, self.norm, self.eps), group)
+        y, states = self.mix(h, conv_state, ssm_state, group)
+        return x + reduce_from_model(dense(y, self.out_proj), group), states

@@ -54,9 +54,12 @@ def attention_only(cfg) -> bool:
 
 def attention_layers(cfg) -> int:
     """The stack's self-attention layers: those holding ring K/V, each
-    launching the attention kernels once a prefill or a decode step."""
-    return sum(k in ATTN_KINDS for k in cfg.block_pattern) \
-        * cfg.pattern_repeats
+    launching the attention kernels once a prefill or a decode step
+    (layer i of kind ``block_pattern[i % len]``, as ``LM`` builds them:
+    a stack cut short of a whole pattern counts its own layers)."""
+    pattern = cfg.block_pattern
+    return sum(pattern[i % len(pattern)] in ATTN_KINDS
+               for i in range(cfg.num_layers))
 
 
 class Block(nn.Module):

@@ -19,6 +19,13 @@ any model dtype, q/k/v and every state are float32, and each block
 carries its own up/down projection with the tanh GELU between them (not
 gated).
 
+In the train step over ``model`` (``sharding.tensor_parallel``) each
+rank runs whole heads: the mLSTM's projections are cut by heads, and the
+sLSTM's input-side gate product, whose block of columns holds some of
+the four gates of every head, is exchanged into all four gates of this
+rank's heads before the token loop; ``wo_out`` and ``down`` are
+row-split and summed, ``up`` column-split.
+
 The reference has no Pallas kernel here, only jnp, and the port has no
 hand-written kernel either: a fused xLSTM scan would be a later
 optimisation.  States are written into the caller's cache in place.
@@ -32,6 +39,9 @@ from torch import nn
 
 from repro_torch.models.layers import (dense, dtype_of, init_dense, ones,
                                        remat, rmsnorm)
+from repro_torch.sharding.tensor_parallel import (copy_to_model, group_for,
+                                                  own_channels,
+                                                  reduce_from_model)
 
 MLSTM_CHUNK = 256
 NEG_INIT = -1e30        # the stabiliser's initial value
@@ -67,15 +77,29 @@ class _XLSTMBase(nn.Module):
         self.up = init_dense(gen, d, d, dt, device)
         self.down = init_dense(gen, d, d, dt, device)
 
-    def _out(self, x, out):
-        """The residual of the mixer's float32 output (B, S, H, hd)."""
-        out = out.reshape(x.shape[0], -1, self.cfg.attn_dim).to(x.dtype)
-        return x + dense(out, self.wo_out)
+    def _normed(self, x):
+        """(norm(x), the ``model`` group when the mixer's heads are split
+        over it: ``wo_out`` a block of its rows), the normed input's
+        gradient summed over the group."""
+        group = group_for(self.wo_out.shape[0] != self.cfg.attn_dim)
+        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
+        return copy_to_model(h, group), group
+
+    def _out(self, x, out, group):
+        """The residual of the mixer's float32 output (B, S, H, hd), H
+        this rank's heads: the row-split products summed over
+        ``group``."""
+        out = out.reshape(*out.shape[:2], -1).to(x.dtype)
+        return x + reduce_from_model(dense(out, self.wo_out), group)
 
     def channel_mix(self, x):
-        """(x + down(gelu(up(norm2(x)))), no auxiliary loss)."""
-        h2 = rmsnorm(x, self.norm2, self.cfg.norm_eps)
-        return x + dense(_gelu(dense(h2, self.up)), self.down), None
+        """(x + down(gelu(up(norm2(x)))), no auxiliary loss); with ``up``
+        column-split over ``model``, ``down``'s row-split products
+        summed."""
+        group = group_for(self.up.shape[1] != self.cfg.d_model)
+        h2 = copy_to_model(rmsnorm(x, self.norm2, self.cfg.norm_eps), group)
+        y = dense(_gelu(dense(h2, self.up)), self.down)
+        return x + reduce_from_model(y, group), None
 
     def forward(self, x, rope_cs=None, image_embeds=None):
         """Training (mode ``"train"``): x (B, S, D) -> (x, None)."""
@@ -193,9 +217,11 @@ class MLSTMBlock(_XLSTMBase):
         self._init_out(cfg, gen, device)
 
     def _qkvif(self, h):
-        cfg = self.cfg
+        """q, k, v (B, S, H, hd) and the gates' pre-activations (B, S, H),
+        H this module's heads (read from ``wq``'s width)."""
         B, S, _ = h.shape
-        H, hd = cfg.num_heads, cfg.head_dim
+        hd = self.cfg.head_dim
+        H = self.wq.shape[1] // hd
         scale = hd ** -0.5
         q = dense(h, self.wq).reshape(B, S, H, hd).float() * scale
         k = dense(h, self.wk).reshape(B, S, H, hd).float() * scale
@@ -206,14 +232,15 @@ class MLSTMBlock(_XLSTMBase):
     def mix(self, x, state=None):
         """x (B, S, D) -> (x + the mixer's output, (C, n, m)).  Without
         ``state`` the chunkwise form from zero states (train, prefill);
-        with it one exact step (decode, S = 1)."""
-        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
+        with it one exact step (decode, S = 1).  Over ``model`` each rank
+        runs its own heads."""
+        h, group = self._normed(x)
         q, k, v, i_pre, f_pre = self._qkvif(h)
         if state is None:
             out, state = mlstm_chunked(q, k, v, i_pre, f_pre)
         else:
             out, state = mlstm_step(q, k, v, i_pre, f_pre, state)
-        return self._out(x, out), state
+        return self._out(x, out, group), state
 
 
 # ===========================================================================
@@ -262,12 +289,17 @@ class SLSTMBlock(_XLSTMBase):
     def mix(self, x, state=None):
         """x (B, S, D) -> (x + the mixer's output, (c, n, h, m)), the
         recurrence run token by token from ``state`` (zeros and m = -1e30
-        when None: train, prefill)."""
-        cfg = self.cfg
+        when None: train, prefill).  Over ``model`` this rank's block of
+        the gate product (4/n of the gates of every head, gate-major) is
+        exchanged into all four gates of its own heads, whose recurrence
+        then runs with no collective inside the loop."""
         B, S, _ = x.shape
-        H, hd = cfg.num_heads, cfg.head_dim
-        hin = rmsnorm(x, self.norm, cfg.norm_eps)
-        wx = (hin.float() @ self.w_gates).reshape(B, S, 4, H, hd)
+        H, hd = self.r_gates.shape[1], self.cfg.head_dim
+        hin, group = self._normed(x)
+        wx = hin.float() @ self.w_gates
+        if group is not None:
+            wx = own_channels(wx, 4, group)
+        wx = wx.reshape(B, S, 4, H, hd)
         if state is None:
             z = torch.zeros(B, H, hd, dtype=torch.float32, device=x.device)
             state = (z, z, z, torch.full_like(z, NEG_INIT))
@@ -276,4 +308,4 @@ class SLSTMBlock(_XLSTMBase):
             state = remat(_slstm_cell, self.r_gates, self.b_gates,
                           wx[:, s], *state)
             hs.append(state[2])
-        return self._out(x, torch.stack(hs, dim=1)), state
+        return self._out(x, torch.stack(hs, dim=1), group), state

@@ -26,6 +26,21 @@ axis's process group on the active mesh (:func:`group_for`).
   the router gathered whole and exchanges the packed buffer with its
   ``model`` group (:func:`all_to_all_model`) so that it runs its own
   experts; the combined rows are gathered back (:func:`gather_own_grad`).
+* Mamba (``models.ssm``), this rank's block of ``d_inner``'s channels:
+  ``in_proj``'s block of columns is a block of ``[x | z]`` (at model 2
+  one rank holds all of x, the other all of z), so its product is
+  exchanged by all-to-all (:func:`own_channels`) into this rank's
+  channels of both; the depthwise conv, the scan and the states are per
+  channel; the row-split ``x_proj`` product (B, C, dt), read whole by
+  every channel, is summed forward and backward
+  (:func:`reduce_sum_grad`); ``out_proj`` is row-split.
+* xLSTM (``models.xlstm``), whole heads on each rank: the mLSTM as
+  attention (``wq``/``wk``/``wv``/``wi``/``wf`` column-split, ``wo_out``
+  row-split); the sLSTM's ``w_gates`` block holds some of the four gates
+  of every head, and its product is exchanged into all four gates of
+  this rank's heads (:func:`own_channels`), whose recurrence then runs
+  with no collective inside the token loop; each block's up/down as the
+  MLP.
 * Embedding and head: each rank holds a block of vocabulary rows; the
   lookup is masked to them and summed (:func:`vocab_parallel_embedding`),
   and the loss's log-sum-exp and target logit are all-reduced
@@ -39,8 +54,9 @@ kind (the whole buffer: an all-gather's output, a reduce-scatter's
 input).
 
 :func:`check_layout` refuses, before any process group is touched, the
-stacks the step does not execute over ``model``: Mamba, xLSTM,
-cross-attention and the audio frontend.
+stacks the step does not execute over ``model``: cross-attention, the
+audio frontend, and Mamba or xLSTM blocks whose channels or heads do not
+fall whole on the ranks while their projections split.
 """
 
 from __future__ import annotations
@@ -103,14 +119,21 @@ def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
-    """``t``'s leading dimension cut into one equal block per rank of
+def all_to_all(t: torch.Tensor, group, send=None,
+               recv=None) -> torch.Tensor:
+    """``t``'s leading dimension cut into one block per rank of
     ``group``; block j goes to rank j, and block j of the result is
-    the one rank j sent here (counted)."""
+    the one rank j sent here (counted: the input).  The blocks are equal
+    unless ``send`` gives each one's rows, and then ``recv`` gives the
+    rows each rank sends here."""
     t = t.contiguous()
-    out = torch.empty_like(t)
+    if send is None:
+        out = torch.empty_like(t)
+    else:
+        out = t.new_empty((sum(recv),) + t.shape[1:])
     _count("all-to-all", t)
-    dist.all_to_all_single(out, t, group=group)
+    dist.all_to_all_single(out, t, output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
     return out
 
 
@@ -197,16 +220,27 @@ class _GatherOwnGrad(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
 
 
-class _AllToAll(torch.autograd.Function):
+class _ReduceSumGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return all_to_all(x, group)
+        return all_reduce(x.contiguous().clone(), group)
 
     @staticmethod
     def backward(ctx, g):
-        # the exchange is its own inverse: block j of g goes back to rank j
-        return all_to_all(g, ctx.group), None
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.group, ctx.send, ctx.recv = group, send, recv
+        return all_to_all(x, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reverse exchange: block j of g goes back to rank j
+        return all_to_all(g, ctx.group, ctx.recv, ctx.send), None, None, None
 
 
 def gather_sum_grad(x, group, dim: int):
@@ -225,10 +259,47 @@ def gather_own_grad(x, group, dim: int):
     return x if group is None else _GatherOwnGrad.apply(x, group, dim)
 
 
-def all_to_all_model(x, group):
-    """:func:`all_to_all` over ``group`` of x's leading blocks, its
-    gradient the reverse exchange."""
-    return x if group is None else _AllToAll.apply(x, group)
+def reduce_sum_grad(x, group):
+    """x summed over ``group``, and its gradient summed too: the partial
+    output of a row-split product that split work reads whole (each
+    rank's gradient of it is its own readers' share; Mamba's ``x_proj``
+    product)."""
+    return x if group is None else _ReduceSumGrad.apply(x, group)
+
+
+def all_to_all_model(x, group, send=None, recv=None):
+    """:func:`all_to_all` over ``group`` of x's leading blocks (equal, or
+    ``send`` rows to each rank and ``recv`` from each), its gradient the
+    reverse exchange."""
+    return x if group is None else _AllToAll.apply(x, group, send, recv)
+
+
+def own_channels(x, groups: int, group):
+    """This rank's channels of every group, from its block of columns.
+
+    ``x`` (..., W) is this rank's block of the columns of a product whose
+    full width is ``groups`` equal groups of channels side by side (Mamba's
+    ``[x | z]``, the sLSTM's four gates), the block rank r of ``group``
+    holds being columns [r W, (r + 1) W).  Each group's channels are cut
+    into one equal piece per rank; the pieces are exchanged by one
+    all-to-all (per-rank sizes where a block covers some ranks' pieces
+    only) so that rank r gets piece r of every group.  Returns
+    (..., groups, W / groups).  Its gradient is the reverse exchange."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    piece = x.shape[-1] // groups
+    # the full width as groups x n pieces, group-major: this rank holds
+    # pieces r * groups .. r * groups + groups - 1, piece p goes to rank
+    # p % n, and rank r is sent piece g * n + r of every group g
+    dest = [(r * groups + k) % n for k in range(groups)]
+    order = sorted(range(groups), key=dest.__getitem__)
+    send = [dest.count(j) for j in range(n)]
+    src = [(g * n + r) // groups for g in range(groups)]
+    recv = [src.count(j) for j in range(n)]
+    pieces = x.reshape(-1, groups, piece).transpose(0, 1)[order]
+    if send == recv == [groups // n] * n:
+        send = recv = None
+    got = all_to_all_model(pieces, group, send, recv)
+    return got.transpose(0, 1).reshape(*x.shape[:-1], groups, piece)
 
 
 def vocab_parallel_embedding(tokens, shard, group, rank: int):
@@ -245,8 +316,7 @@ def vocab_parallel_embedding(tokens, shard, group, rank: int):
 
 # ------------------------------------------------------------ the layout
 #: why each block kind is not executed over ``model`` (the next slices)
-REFUSED = {"mamba": "Mamba (ssm_inner)", "mamba_moe": "Mamba (ssm_inner)",
-           "mlstm": "xLSTM", "slstm": "xLSTM", "xattn": "cross-attention"}
+REFUSED = {"xattn": "cross-attention"}
 
 
 def split_over_model(spec, dim: int) -> bool:
@@ -255,12 +325,14 @@ def split_over_model(spec, dim: int) -> bool:
 
 def check_layout(cfg, mesh) -> None:
     """Raise ValueError unless the train step executes ``cfg`` over
-    ``mesh``'s ``model`` axis: every attention and MoE layout the rules
-    give is executed; Mamba, xLSTM, cross-attention and the audio
-    frontend are not."""
+    ``mesh``'s ``model`` axis: every attention, MoE, Mamba and xLSTM
+    layout the rules give is executed, except a Mamba ``d_inner`` or an
+    xLSTM head count that does not divide over ``model`` while the
+    block's projections split (their channels or heads would fall across
+    ranks); cross-attention and the audio frontend are not."""
     n = mesh_axis_sizes(mesh).get("model", 1)
     where = (f"tensor-parallel execution over 'model' ({n}) covers "
-             "attention, MLP and MoE stacks only")
+             "attention, MLP, MoE, Mamba and xLSTM stacks only")
     if cfg.audio_frontend:
         raise ValueError(f"make_train_step: {cfg.name} reads frames through "
                          f"the audio frontend; {where}")
@@ -268,3 +340,14 @@ def check_layout(cfg, mesh) -> None:
         if kind in REFUSED:
             raise ValueError(f"make_train_step: {cfg.name} has {kind} "
                              f"blocks ({REFUSED[kind]}); {where}")
+    kinds = set(cfg.block_pattern)
+    di = cfg.d_inner
+    if kinds & {"mamba", "mamba_moe"} and di % n and 2 * di % n == 0:
+        raise ValueError(f"make_train_step: {cfg.name}'s Mamba d_inner "
+                         f"{di} does not divide over 'model' ({n}) while "
+                         "in_proj's 2 x d_inner does")
+    if kinds & {"mlstm", "slstm"} and cfg.num_heads % n \
+            and 4 * cfg.attn_dim % n == 0:
+        raise ValueError(f"make_train_step: {cfg.name}'s {cfg.num_heads} "
+                         f"xLSTM heads do not divide over 'model' ({n}) "
+                         "while their projections do")

@@ -12,11 +12,11 @@ leaf resolves to on a mesh.
 With ``mesh`` (a ("data", "model") ``DeviceMesh``: ``launch.mesh.
 make_local_mesh``'s (world, 1), or one from ``make_elastic_mesh`` /
 ``training.elastic.plan_remesh`` or the caller) the step is data
-parallel with FSDP over ``data`` and, for the attention, MLP and MoE
-stacks, tensor parallel over ``model``.  Every leaf is laid out by the
-spec it resolves to on the mesh (``state_specs``); a dimension that does
-not divide stays whole (``sharding.rules``) and is computed whole on
-every rank.  Over ``data``:
+parallel with FSDP over ``data`` and, for the attention, MLP, MoE,
+Mamba and xLSTM stacks, tensor parallel over ``model``.  Every leaf is
+laid out by the spec it resolves to on the mesh (``state_specs``); a
+dimension that does not divide stays whole (``sharding.rules``) and is
+computed whole on every rank.  Over ``data``:
 
 * every rank is given the global batch and takes its own rows;
 * a leaf whose spec shards a dimension over ``data`` (the ``embed_w``
@@ -41,7 +41,10 @@ Over ``model`` (``sharding.tensor_parallel``): the attention heads
 inside a head the split projections are gathered whole and every rank
 attends every head, ``models.attention``), the MLP's ``d_ff``, the MoE's
 experts (each model rank routes its own dispatch group and exchanges the
-packed buffer by all-to-all, ``models.moe``) and the vocabulary
+packed buffer by all-to-all, ``models.moe``), Mamba's ``d_inner``
+channels (``in_proj``'s product exchanged into each rank's channels of
+x and z, ``models.ssm``), the xLSTM heads (the sLSTM's gate product
+exchanged into each rank's heads, ``models.xlstm``) and the vocabulary
 (embedding rows, head columns, a tied head reading the embedding's
 block) are split; every rank of a ``model`` group takes its ``data``
 rank's whole batch, the blocks' partial results are all-reduced forward
@@ -52,10 +55,11 @@ over the axes it is split over, each leaf once; a leaf split over
 neither is computed identically on every model rank and stays
 bit-identical there.  AdamW updates the blocks elementwise; Adafactor
 gathers the gradients and parameters over ``model`` too and cuts the
-updated ones back.  Mamba, xLSTM, cross-attention and the audio frontend
-are refused at ``model`` > 1 (``tensor_parallel.check_layout``), and a
-MoE step whose batch routes in fewer dispatch groups than the mesh has
-ranks raises in the forward.
+updated ones back.  Cross-attention and the audio frontend are refused
+at ``model`` > 1 (``tensor_parallel.check_layout``), as are Mamba or
+xLSTM blocks whose channels or heads do not divide over ``model`` while
+their projections do, and a MoE step whose batch routes in fewer
+dispatch groups than the mesh has ranks raises in the forward.
 
 With ``mesh=None`` or a mesh of one rank the step is the single-device
 one bit for bit; at ``model`` 1 it is the data-parallel step above.

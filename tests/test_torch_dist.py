@@ -279,10 +279,11 @@ def test_data_parallel_jamba_at_world_two_matches_jax(tmp_path):
 
 
 def test_model_axis_is_refused():
-    """A model axis is executed for the attention, MLP and MoE stacks
-    only (``tests/test_torch_tensor_parallel.py``); a Mamba stack is
+    """A model axis is executed for the attention, MLP, MoE, Mamba and
+    xLSTM stacks only (``tests/test_torch_tensor_parallel.py``,
+    ``tests/test_torch_tp_recurrent.py``); a cross-attention stack is
     refused before any process group is touched."""
-    cfg = get_config("jamba-v0.1-52b").reduced()
+    cfg = get_config("llama-3.2-vision-90b").reduced()
     with pytest.raises(ValueError, match="tensor-parallel.*attention"):
         make_train_step(cfg, OptConfig(),
                         mesh=MeshShape(("data", "model"), (1, 2)))

@@ -80,7 +80,7 @@ def _init(case, d: Path):
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(params_from_jax(params, cfg))
     lm.requires_grad_(True)
-    opt = OptConfig(**W.OPT, kind=W.CASES[case][2])
+    opt = OptConfig(**W.OPT, kind=W.ALL_CASES[case][2])
     ckpt.save(TrainState(lm, init_opt_state(dict(lm.named_parameters()), opt,
                                             len(cfg.block_pattern))),
               d / "ckpt0", 0)
@@ -110,7 +110,7 @@ def runs(tmp_path_factory):
 
 def _specs(case, shape):
     cfg = W.config(case)
-    opt = OptConfig(**W.OPT, kind=W.CASES[case][2])
+    opt = OptConfig(**W.OPT, kind=W.ALL_CASES[case][2])
     return state_specs(cfg, opt, MeshShape(("data", "model"),
                                            W.mesh_shape(shape)))
 
@@ -141,7 +141,7 @@ def _assembled(out, case, shape) -> dict:
     sizes = dict(zip(("data", "model"), W.mesh_shape(shape)))
     full0 = dict(ckpt.flatten(ckpt.restore(
         init_train_state(W.config(case), OptConfig(
-            **W.OPT, kind=W.CASES[case][2]), device="cpu"),
+            **W.OPT, kind=W.ALL_CASES[case][2]), device="cpu"),
         out / case / "ckpt0")))
     ranks = [torch.load(out / case / f"port_{shape}_rank{r}.pt")
              for r in range(len(_coords(shape)))]
@@ -353,8 +353,6 @@ def test_one_rank_mesh_is_the_single_device_step_bit_for_bit(kind):
 
 
 REFUSALS = [
-    ("jamba-v0.1-52b", True, "mamba blocks .Mamba"),
-    ("xlstm-350m", True, "slstm blocks .xLSTM"),
     ("llama-3.2-vision-90b", True, "xattn blocks .cross-attention"),
     ("musicgen-large", True, "audio frontend"),
 ]
@@ -363,9 +361,9 @@ REFUSALS = [
 @pytest.mark.parametrize("arch,reduced,match", REFUSALS,
                          ids=[r[0] for r in REFUSALS])
 def test_refused_at_model_two(arch, reduced, match):
-    """Mamba, xLSTM, cross-attention and the audio frontend are refused
-    over ``model`` with a ValueError naming the arch and what is refused,
-    before any process group is touched (a shape-only mesh)."""
+    """Cross-attention and the audio frontend are refused over ``model``
+    with a ValueError naming the arch and what is refused, before any
+    process group is touched (a shape-only mesh)."""
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduced else cfg
     with pytest.raises(ValueError, match=f"{cfg.name}.*{match}"):
@@ -373,26 +371,26 @@ def test_refused_at_model_two(arch, reduced, match):
                         mesh=MeshShape(("data", "model"), (1, 2)))
 
 
-def test_mamba_moe_blocks_refused_as_mamba():
-    """A stack whose first refused blocks are jamba's ``mamba_moe`` is
-    refused for its Mamba half (``ssm_inner``), its MoE half being
-    executed over ``model``."""
-    cfg = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
-                              block_pattern=("attn_moe", "mamba_moe"))
-    with pytest.raises(ValueError,
-                       match=f"{cfg.name}.*mamba_moe blocks .Mamba .ssm_inner"):
-        make_train_step(cfg, OptConfig(),
-                        mesh=MeshShape(("data", "model"), (1, 2)))
-
-
 @pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b",
-                                  "gemma-2b", "smollm-360m"])
+                                  "gemma-2b", "smollm-360m",
+                                  "jamba-v0.1-52b", "xlstm-350m"])
 def test_moe_and_cut_heads_are_not_refused(arch):
-    """Full dbrx, llama4, gemma-2b (one KV head) and smollm-360m (15 query
-    over 5 KV heads) pass ``check_layout`` over (1, 2): the MoE and
-    cut-head layouts are executed."""
+    """Full dbrx, llama4, gemma-2b (one KV head), smollm-360m (15 query
+    over 5 KV heads), jamba-v0.1-52b (Mamba, Mamba + MoE) and xlstm-350m
+    (sLSTM, mLSTM) pass ``check_layout`` over (1, 2): the MoE, cut-head,
+    Mamba and xLSTM layouts are executed."""
     from repro_torch.sharding.tensor_parallel import check_layout
     check_layout(get_config(arch), MeshShape(("data", "model"), (1, 2)))
+
+
+def test_mamba_moe_blocks_are_not_refused():
+    """A stack of ``attn_moe`` and ``mamba_moe`` blocks passes
+    ``check_layout`` over (1, 2): the Mamba half runs its channels, the
+    MoE half its experts."""
+    from repro_torch.sharding.tensor_parallel import check_layout
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
+                              block_pattern=("attn_moe", "mamba_moe"))
+    check_layout(cfg, MeshShape(("data", "model"), (1, 2)))
 
 
 def test_remat_recomputes_under_the_callers_mesh():

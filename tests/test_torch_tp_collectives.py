@@ -1,5 +1,7 @@
-"""The collectives of ``sharding.tensor_parallel`` added for the cut heads
-and the MoE's expert parallelism, on a two-rank gloo group over the CPU
+"""The collectives of ``sharding.tensor_parallel`` added for the cut heads,
+the MoE's expert parallelism and the Mamba and xLSTM blocks (the
+all-to-all at per-rank sizes, the exchange into a rank's channels, the
+sum whose gradient is summed too), on a two-rank gloo group over the CPU
 (``tests/torch_tp_worker.py units``), each held to what it must compute
 forward and backward; and the MoE block over a (1, 2) ("data", "model")
 mesh held to the same block under a shape-only (1, 2) mesh in one
@@ -89,6 +91,63 @@ def test_all_to_all_backward_is_the_reverse_exchange(ranks):
             own = slice(2 * r, 2 * r + 2)
             assert torch.equal(xs[r]["y"][rows], xs[j]["x"][own])
             assert torch.equal(xs[r]["grad"][rows], xs[j]["w"][own])
+
+
+def test_all_to_all_at_per_rank_sizes(ranks):
+    """Rank 0 sends 1 row to itself and 3 to rank 1, rank 1 sends 2 to
+    rank 0 and 1 to itself: each result is what the ranks sent it, in
+    rank order, and each input's gradient is the reverse exchange."""
+    xs = [r["all_to_all_uneven"] for r in ranks]
+    for r in range(2):
+        y, grad, at = xs[r]["y"], xs[r]["grad"], 0
+        for j in range(2):
+            n = W.A2A_SPLITS[j][r]
+            lo = sum(W.A2A_SPLITS[j][:r])
+            assert torch.equal(y[at:at + n], xs[j]["x"][lo:lo + n])
+            assert torch.equal(xs[j]["grad"][lo:lo + n],
+                               xs[r]["w"][at:at + n])
+            at += n
+        assert at == y.shape[0] and grad.shape == xs[r]["x"].shape
+
+
+@pytest.mark.parametrize("groups", W.OWN_GROUPS)
+def test_own_channels_gives_each_rank_its_channels(ranks, groups):
+    """From each rank's block of the columns of ``groups`` groups of 4
+    channels (at 2 groups a block is one whole group, at 4 two whole
+    groups), each rank gets its 2 channels of every group; its block's
+    gradient is the incoming gradients put back where they came from."""
+    full = W.own_channels_input(groups).view(5, groups, 4)
+    grad = torch.zeros_like(full)
+    for r, got in enumerate(ranks):
+        g = got[f"own_channels{groups}"]
+        assert torch.equal(g["y"], full[..., 2 * r:2 * r + 2])
+        grad[..., 2 * r:2 * r + 2] = g["w"]
+    grad = grad.reshape(5, -1)
+    width = grad.shape[1] // 2
+    for r, got in enumerate(ranks):
+        assert torch.equal(got[f"own_channels{groups}"]["grad"],
+                           grad[:, r * width:(r + 1) * width])
+
+
+def test_reduce_sum_grad_is_the_one_process_gradient(ranks):
+    """out = tanh((a @ w) @ c) @ d with a row-split first product (a's
+    columns, w's rows) summed by ``reduce_sum_grad`` and read whole by
+    split work (c's columns, d's rows) summed by ``reduce_from_model``:
+    each rank's output and the gradients of its blocks equal one
+    process's autograd within 1e-6 of the largest magnitude; the backward
+    sums the product's gradient (one all-reduce) as the forward summed
+    the product."""
+    ops = [m.requires_grad_(True) for m in W.row_split_operands()]
+    a, w, c, d = ops
+    out = torch.tanh((a @ w) @ c) @ d
+    out.square().sum().backward()
+    cuts = ((1, 3), (0, 3), (1, 2), (0, 2))
+    for r, got in enumerate(ranks):
+        g = got["reduce_sum_grad"]
+        assert _close(g["out"], out.detach())
+        for m, mine, (dim, n) in zip(ops, g["grads"], cuts):
+            assert _close(mine, m.grad.narrow(dim, r * n, n))
+        assert g["backward"]["all-reduce"]["calls"] == 1
 
 
 @pytest.mark.parametrize("experts", W.MOE_EXPERTS)

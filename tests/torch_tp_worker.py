@@ -4,13 +4,17 @@ a JAX process over forced host devices running the reference's jitted
 step on a mesh of the same shape.  Not a test module (pytest collects
 ``test_*.py`` only).
 
-    python tests/torch_tp_worker.py port RANK WORLD INIT_FILE OUT DxM
-    python tests/torch_tp_worker.py jax OUT DxM
+    python tests/torch_tp_worker.py port RANK WORLD INIT_FILE OUT DxM [SUITE]
+    python tests/torch_tp_worker.py jax OUT DxM [SUITE]
     python tests/torch_tp_worker.py units RANK INIT_FILE OUT
 
 (``units``: one of two ranks of ``tests/test_torch_tp_collectives.py``.)
 
-Every case of ``CASES`` runs in turn, each from the weights under
+``SUITE`` is ``attn`` (the default: ``CASES``, for
+``tests/test_torch_tensor_parallel.py``) or ``recurrent``
+(``RECURRENT_CASES``, for ``tests/test_torch_tp_recurrent.py``).  Every
+case of the suite runs in turn on the meshes it names, each from the
+weights under
 ``OUT/<case>/`` (``init.pkl`` for JAX, the step-0 checkpoint ``ckpt0``
 for the port, both written by the test).  A port rank joins its group
 through ``file://INIT_FILE``; the JAX process needs
@@ -53,12 +57,27 @@ CASES = {
     "moe_mixed": ("llama4-maverick-400b-a17b", {},      # (attn, attn_moe),
                   "adafactor"),                          # 4 experts, top-1
 }
+#: the Mamba and xLSTM cases: reduced jamba (all 8 block kinds of its
+#: pattern, 4 experts), a Mamba-only stack at model 4 (a rank's in_proj
+#: block is half of x or half of z), reduced xlstm (sLSTM and mLSTM, 4
+#: heads; at model 4 a rank's w_gates block is one gate)
+RECURRENT_CASES = {
+    "jamba": ("jamba-v0.1-52b", {}, "adamw"),
+    "mamba_only": ("jamba-v0.1-52b", {"block_pattern": ("mamba", "attn"),
+                                      "num_layers": 2}, "adamw"),
+    "xlstm": ("xlstm-350m", {}, "adamw"),
+}
+ALL_CASES = {**CASES, **RECURRENT_CASES}
+SUITES = {"attn": CASES, "recurrent": RECURRENT_CASES}
 MESHES = ("1x2", "2x2", "1x4")
+#: the cases that run on other meshes than (1, 2) and (2, 2)
+CASE_MESHES = {"split_apart": ("1x4",), "mamba_only": ("1x4",),
+               "xlstm": MESHES}
 
 
 def case_meshes(case):
     """The mesh shapes ``case`` runs on."""
-    return ("1x4",) if case == "split_apart" else ("1x2", "2x2")
+    return CASE_MESHES.get(case, ("1x2", "2x2"))
 
 
 #: the (2, 2) run checkpoints the smollm case after this many steps; the
@@ -68,7 +87,7 @@ RESUME_WAIT_S = 150
 
 
 def config(case, jax_side=False):
-    arch, overrides, _ = CASES[case]
+    arch, overrides, _ = ALL_CASES[case]
     if jax_side:
         from repro.configs import get_config
     else:
@@ -80,7 +99,7 @@ def mesh_shape(text):
     return tuple(int(x) for x in text.split("x"))
 
 
-def port(rank, world, init_file, out, shape):
+def port(rank, world, init_file, out, shape, suite="attn"):
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -98,7 +117,7 @@ def port(rank, world, init_file, out, shape):
                             rank=rank, world_size=world)
     dims = mesh_shape(shape)
     mesh = init_device_mesh("cpu", dims, mesh_dim_names=("data", "model"))
-    for case, (_, _, kind) in CASES.items():
+    for case, (_, _, kind) in SUITES[suite].items():
         if shape not in case_meshes(case):
             continue
         cfg, opt = config(case), OptConfig(**OPT, kind=kind)
@@ -132,7 +151,7 @@ def port(rank, world, init_file, out, shape):
                  "roofline": tensor_parallel_bytes(
                      cfg, pspecs, mesh, BATCH // dims[0], SEQ,
                      optimizer=kind)}))
-    if dims == (1, 2):
+    if dims == (1, 2) and suite == "attn":
         resume(rank, out)
 
 
@@ -173,7 +192,7 @@ def resume(rank, out):
              "microbatches": plan.microbatch_scale}))
 
 
-def jax_run(out, shape):
+def jax_run(out, shape, suite="attn"):
     import jax
     import jax.numpy as jnp
     from jax.sharding import AxisType
@@ -187,7 +206,7 @@ def jax_run(out, shape):
     mesh = jax.make_mesh(dims, ("data", "model"),
                          axis_types=(AxisType.Auto, AxisType.Auto),
                          devices=jax.devices()[:dims[0] * dims[1]])
-    for case, (_, _, kind) in CASES.items():
+    for case, (_, _, kind) in SUITES[suite].items():
         if shape not in case_meshes(case):
             continue
         cfg, opt = config(case, jax_side=True), OptConfig(**OPT, kind=kind)
@@ -236,6 +255,32 @@ def moe_block(experts):
     return moe, x.requires_grad_(True)
 
 
+#: rows each rank sends to rank 0 and rank 1 in ``units``' uneven
+#: all-to-all
+A2A_SPLITS = ((1, 3), (2, 1))
+#: the groups of ``units``' channel exchange (Mamba's 2, the sLSTM's 4)
+OWN_GROUPS = (2, 4)
+
+
+def own_channels_input(groups):
+    """A (5, groups x 4) tensor, the same in every process: ``groups``
+    groups of 4 channels side by side."""
+    import torch
+    return torch.randn(5, groups * 4,
+                       generator=torch.Generator().manual_seed(groups))
+
+
+def row_split_operands():
+    """(a (4, 6), w (6, 5), c (5, 4), d (4, 3)), the same in every
+    process: out = tanh((a @ w) @ c) @ d, with a's columns and w's rows
+    split (a row-split product), c's columns and d's rows split (the
+    split work that reads the product whole)."""
+    import torch
+    gen = torch.Generator().manual_seed(7)
+    return tuple(torch.randn(*s, generator=gen)
+                 for s in ((4, 6), (6, 5), (5, 4), (4, 3)))
+
+
 def units(rank, init_file, out):
     """Each new Function of ``sharding.tensor_parallel`` forward and
     backward on a two-rank gloo group, and the MoE block over a (1, 2)
@@ -268,6 +313,41 @@ def units(rank, init_file, out):
         (y * w).sum().backward()
         got[name] = {"x": x.detach(), "y": y.detach(), "w": w,
                      "grad": x.grad}
+    # an all-to-all of per-rank sizes: rank 0 sends 1 row to itself and
+    # 3 to rank 1, rank 1 sends 2 to rank 0 and 1 to itself
+    send = A2A_SPLITS[rank]
+    recv = [A2A_SPLITS[j][rank] for j in range(2)]
+    x = torch.randn(sum(send), 3, generator=gen).requires_grad_(True)
+    y = tp.all_to_all_model(x, group, send, recv)
+    w = torch.randn(y.shape, generator=gen)
+    (y * w).sum().backward()
+    got["all_to_all_uneven"] = {"x": x.detach(), "y": y.detach(), "w": w,
+                                "grad": x.grad}
+    # this rank's channels of 2 and 4 groups from its block of columns
+    for groups in OWN_GROUPS:
+        full = own_channels_input(groups)
+        width = full.shape[1] // 2
+        x = full[:, rank * width:(rank + 1) * width].clone()
+        x.requires_grad_(True)
+        y = tp.own_channels(x, groups, group)
+        w = torch.randn(y.shape, generator=gen)
+        (y * w).sum().backward()
+        got[f"own_channels{groups}"] = {"y": y.detach(), "w": w,
+                                        "grad": x.grad}
+    # a row-split product read whole by split work (Mamba's x_proj)
+    a, wt, c, d = row_split_operands()
+    blk = [m.clone() for m in (a[:, rank * 3:(rank + 1) * 3],
+                               wt[rank * 3:(rank + 1) * 3],
+                               c[:, rank * 2:(rank + 1) * 2],
+                               d[rank * 2:(rank + 1) * 2])]
+    for m in blk:
+        m.requires_grad_(True)
+    pr = tp.reduce_sum_grad(blk[0] @ blk[1], group)
+    res = tp.reduce_from_model(torch.tanh(pr @ blk[2]) @ blk[3], group)
+    tp.reset_collectives()
+    res.square().sum().backward()
+    got["reduce_sum_grad"] = {"out": res.detach(), "backward": tp.snapshot(),
+                              "grads": [m.grad for m in blk]}
     for e in MOE_EXPERTS:
         moe, x = moe_block(e)
         specs = state_specs(moe.cfg, OptConfig(), mesh)
@@ -291,9 +371,9 @@ def main(argv):
         units(int(argv[1]), argv[2], pathlib.Path(argv[3]))
     elif argv[0] == "port":
         port(int(argv[1]), int(argv[2]), argv[3], pathlib.Path(argv[4]),
-             argv[5])
+             *argv[5:7])
     elif argv[0] == "jax":
-        jax_run(pathlib.Path(argv[1]), argv[2])
+        jax_run(pathlib.Path(argv[1]), *argv[2:4])
     else:
         raise SystemExit(f"unknown case {argv[0]!r}")
 
