@@ -90,7 +90,9 @@ path and read just after:
   under a shape-only (1, 2) mesh, within 1e-3 relative of theirs, with
   the share of (token, choice) pairs routed to another expert (K3 and
   K3b at the ranks' shapes are held and timed among the kernel phases:
-  ``*_hd256_tp``, ``*_hd128_g6_tp``); then in the ranks the recurrent
+  ``*_hd256_tp``, ``*_hd128_g6_tp``, ``*_hd128_g8_tp``,
+  ``*_vision_cross_tp``, ``*_musicgen_tp``); then in the ranks the
+  recurrent
   stacks, none of which launches K3 or K3b: (f) jamba-v0.1-52b in
   float32 at full width cut to its first layer (Mamba, d_inner 8192 a
   rank's 4096 channels, its in_proj block all of x or all of z), 2 AdamW
@@ -101,7 +103,27 @@ path and read just after:
   after the ranks exit, one device's loss in the same two dispatch
   groups within 1e-3 relative); (h) xlstm-350m in float32 at full
   width, all 24 layers (4 heads of 256, 2 a rank), 2 AdamW steps at B 2
-  x 128 held to the single-device step within 1e-5 relative;
+  x 128 held to the single-device step within 1e-5 relative.  (e′)
+  dbrx's layer, from the same initial weights, one step at B 1 x 511:
+  its tokens route in one dispatch group, fewer than the ranks, so
+  every rank routes it and runs its own 8 experts over its slots (the
+  experts' outputs all-gathered, no all-to-all), held in this process to
+  one device routing the same group within 1e-3 relative, the ranks'
+  routes equal.  A late pair of ranks (``--tp-rank R FILE late``),
+  started once ``[launch-train]``'s gemma3 child has ended and run
+  beside the rest of ``[speculative]``: (j) musicgen-large (frames in,
+  the 2048-way head split) in float32 cut to 2 layers and (i) a stack of
+  llama-3.2-vision-90b's cross-attention layer alone in float32
+  (Adafactor; the ranks' single-device steps one after the other), each
+  within 1e-5 relative of the single-device step; then (i)
+  llama-3.2-vision-90b cut to one pattern repeat (4 attention layers of
+  64 over 8 heads at hd 128 and the cross-attention layer over 1024
+  image rows, vocabulary 128,256; Adafactor) and (j) all 48 layers of
+  musicgen-large (AdamW) in bf16, 3 steps each at B 2 x 512 (ms a step,
+  peak memory a rank, collectives equal to the roofline's count, K3 2 x
+  and K3b 1 x the self- and cross-attention layers, the cross-attention
+  ones counted apart), each held in this process to the single-device
+  loss within 2e-2 relative;
 * ``[launch-sidecar]`` ``python -m repro_torch.launch.sidecar --port 0``
   as child processes, the full-width real backend beside the sim
   backend, under fcfs and then sjf, and the real backend with
@@ -209,10 +231,12 @@ B 8, S 128, 512 and 1000, pass by pass at the training shape; then
 stacks' instances at their train steps' shapes: head width 256
 (gemma3-4b-edge), full attention at Sq 512 over Skv 1024 and causal at
 H 64 over KV 8 (llama-3.2-vision-90b), G 1 (musicgen-large), H 4 over
-KV 2 at head width 256 (a ``[tp]`` rank's share of gemma3's heads, B 2)
-and H 24 over KV 4 at head width 128 (dbrx-132b's share, G 6), beside
-``[K3 flash_attention_hd256_tp]`` and ``[K3
-flash_attention_hd128_g6_tp]``, K3 with its log-sum-exp at those
+KV 2 at head width 256 (a ``[tp]`` rank's share of gemma3's heads, B 2),
+H 24 over KV 4 at head width 128 (dbrx-132b's share, G 6), H 32 over KV
+4 at head width 128 causal and full over 1024 image rows
+(llama-3.2-vision-90b's shares) and H 16 over KV 16 at head width 64
+(musicgen-large's), beside ``[K3 flash_attention_*_tp]``, K3 with its
+log-sum-exp at those
 shapes.
 
 It fails (nonzero exit, no result line) without a CUDA device, without
@@ -245,9 +269,9 @@ when a ``[tp]`` rank fails, its float32 copies leave the single-device
 step's tolerances, its collectives differ from the roofline's count, its
 K3/K3b launches from 2 x / 1 x the attention layers a step, its two
 ranks' losses differ, gemma3's do not fall or dbrx's or jamba's are not
-finite, the (1, 1) step is not bitwise the plain one, gemma3's first
-loss is not within 2e-2 of the single device's or dbrx's or jamba's
-within 1e-3,
+finite, the (1, 1) step is not bitwise the plain one, gemma3's, vision's
+or musicgen's first loss is not within 2e-2 of the single device's or
+dbrx's (both batches) or jamba's within 1e-3,
 when the gemma3 train CLI child fails, when the meshed train step, the card's int8
 exchange or the resharded checkpoint is not bitwise equal to its
 reference (the step with no mesh, the CPU's exchange,
@@ -273,8 +297,10 @@ gemma3-4b-edge; ``*_hd128``: jamba-v0.1-52b; ``*_musicgen``:
 musicgen-large; ``*_vision``: llama-3.2-vision-90b's self-attention
 and ``*_vision_cross`` its cross-attention, K3b's among them;
 ``*_hd256_tp``: both ``[tp]`` ranks' gemma3 bf16 steps;
-``*_hd128_g6_tp``: their dbrx steps; the ranks' smollm float32 steps
-count among smollm-360m's); the
+``*_hd128_g6_tp``: their dbrx steps; ``*_hd128_g8_tp`` and
+``*_vision_cross_tp``: the late pair's vision bf16 steps (self- and
+cross-attention apart); ``*_musicgen_tp``: its musicgen bf16 steps; the
+ranks' smollm float32 steps count among smollm-360m's); the
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -335,9 +361,11 @@ EXACT_S = (1, 7, 23, 45, 129)
 JAMBA_LONG_NEW = 32
 # [tp]: gemma3-4b-edge's heads split over a ("data", "model") = (1, 2)
 # mesh, each rank's share (8 over 4 heads -> 4 over 2); dbrx-132b's (48
-# over 8 heads at hd 128 -> 24 over 4: G 6)
+# over 8 heads at hd 128 -> 24 over 4: G 6); llama-3.2-vision-90b's (64
+# over 8 -> 32 over 4: G 8) and musicgen-large's (32 over 32 at hd 64)
 TP_HEADS = (4, 2, 256)
 DBRX_TP_HEADS = (24, 4, 128)
+VISION_TP_HEADS, MUSICGEN_TP_HEADS = (32, 4, 128), (16, 16, 64)
 
 
 def _kname(base: str, heads, model=None) -> tuple:
@@ -3233,6 +3261,15 @@ K3B_INSTANCES = (
     ("flash_attention_bwd_hd128_g6_tp", "dbrx-132b-tp",
      "flash_attention_bwd", 2, TRAIN_S, TRAIN_S, DBRX_TP_HEADS, True,
      ((128, 128), (TRAIN_S, TRAIN_S))),
+    ("flash_attention_bwd_hd128_g8_tp", "llama-3.2-vision-90b-tp",
+     "flash_attention_bwd", 2, TRAIN_S, TRAIN_S, VISION_TP_HEADS, True,
+     ((128, 128), (TRAIN_S, TRAIN_S))),
+    ("flash_attention_bwd_vision_cross_tp", "llama-3.2-vision-90b-tp",
+     "flash_attention_bwd_cross", 2, TRAIN_S, IMAGE_ROWS, VISION_TP_HEADS,
+     False, ((TRAIN_S, IMAGE_ROWS),)),
+    ("flash_attention_bwd_musicgen_tp", "musicgen-large-tp",
+     "flash_attention_bwd", 2, TRAIN_S, TRAIN_S, MUSICGEN_TP_HEADS, True,
+     ((TRAIN_S, TRAIN_S),)),
 )
 
 
@@ -3336,34 +3373,39 @@ def phase_flash_bwd_instances(gen) -> list:
 
 def phase_tp_flash_kernel(gen, heads=TP_HEADS, name="flash_attention_hd256_tp",
                           what="gemma3-4b-edge over model 2",
-                          model="gemma3-4b-edge-tp") -> dict:
+                          model="gemma3-4b-edge-tp", skv=None,
+                          counter="flash_attention") -> dict:
     """K3 with its log-sum-exp, the train forward, at the shape a ``[tp]``
     rank gives it: gemma3-4b-edge's heads split over model 2 (causal B 2,
-    S 512, H 4 over KV 2, hd 256), or dbrx-132b's (H 24 over KV 4, hd 128:
-    G 6).  f32 (TF32 off) and bf16 at S 128 and 512 against the plain
-    version and the plain logsumexp; the bf16 S 512 call timed in turns
-    with SDPA (K/V expanded), cold, its plain version and its bound (q,
-    k, v read, o and lse written once; 4 B H hd S(S+1)/2 operations).
-    Returns the kernels-line entry (``name``, launches of ``model``'s
-    paths)."""
+    S 512, H 4 over KV 2, hd 256), dbrx-132b's (H 24 over KV 4, hd 128:
+    G 6), llama-3.2-vision-90b's (H 32 over KV 4, hd 128; with ``skv``
+    its cross-attention, non-causal over ``skv`` image rows) or
+    musicgen-large's (H 16 over KV 16, hd 64).  f32 (TF32 off) and bf16
+    at Sq 128 and 512 against the plain version and the plain
+    logsumexp; the bf16 Sq 512 call timed in turns with SDPA (K/V
+    expanded), cold, its plain version and its bound (q, k, v read, o
+    and lse written once; 4 B H hd S(S+1)/2 operations causal, 4 B H hd
+    Sq Skv full).  Returns the kernels-line entry (``name``, launches of
+    ``model``'s paths under ``counter``)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     (H, KV, hd), B, S = heads, 2, TRAIN_S
+    causal = skv is None
     tag = f"[K3 {name}]"
     errs = {}
 
     def inputs(n, dt):
         q = torch.randn(B, n, H, hd, generator=gen, device="cuda").to(dt)
-        k, v = (torch.randn(B, n, KV, hd, generator=gen, device="cuda")
-                .to(dt) for _ in range(2))
+        k, v = (torch.randn(B, skv or n, KV, hd, generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
         return q, k, v
     for n in (128, S):
         for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             q, k, v = inputs(n, dt)
-            o, lse = flash_attention_cuda(q, k, v, causal=True,
+            o, lse = flash_attention_cuda(q, k, v, causal=causal,
                                           return_lse=True)
-            want, want_lse = flash_attention_plain(q, k, v, causal=True,
+            want, want_lse = flash_attention_plain(q, k, v, causal=causal,
                                                    return_lse=True)
             err, lse_err = _max_err(o, want), _max_err(lse, want_lse)
             _check(f"{tag} {label} S={n}", err, TOL[label])
@@ -3373,18 +3415,21 @@ def phase_tp_flash_kernel(gen, heads=TP_HEADS, name="flash_attention_hd256_tp",
     q, k, v = inputs(S, torch.bfloat16)
     qx, kx, vx = (x.transpose(1, 2) for x in (q, k, v))
     kx, vx = (x.repeat_interleave(H // KV, dim=1) for x in (kx, vx))
-    kern = lambda: flash_attention_cuda(q, k, v, causal=True,   # noqa: E731
+    kern = lambda: flash_attention_cuda(q, k, v, causal=causal,  # noqa: E731
                                         return_lse=True)
     ms, lib, turns = _interleaved(
         kern, lambda: torch.nn.functional.scaled_dot_product_attention(
-            qx, kx, vx, is_causal=True))
-    plain = _device_ms(lambda: flash_attention_plain(q, k, v), iters=5)
-    n_bytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2 + B * H * S * 4
-    bound, by = _bound(n_bytes, 4 * B * H * hd * S * (S + 1) / 2,
-                       torch.bfloat16)
+            qx, kx, vx, is_causal=causal))
+    plain = _device_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
+                       iters=5)
+    Skv = skv or S
+    n_bytes = (2 * B * S * H * hd + 2 * B * Skv * KV * hd) * 2 + B * H * S * 4
+    plane = S * (S + 1) / 2 if causal else S * Skv
+    bound, by = _bound(n_bytes, 4 * B * H * hd * plane, torch.bfloat16)
     print(f"{tag} {what}: max|err| " + " ".join(
-        f"{k_}:{e:.2e}" for k_, e in errs.items()) + f"; bf16 causal B{B} "
-          f"S{S} H{H} KV{KV} hd{hd} with lse: device ms kernel {ms:.4f} "
+        f"{k_}:{e:.2e}" for k_, e in errs.items()) + f"; bf16 "
+          f"{'causal' if causal else 'full'} B{B} Sq{S} Skv{Skv} H{H} KV{KV} "
+          f"hd{hd} with lse: device ms kernel {ms:.4f} "
           f"({turns[0]:.4f} / {turns[1]:.4f} around sdpa"
           f"{_cold_wide(hd, ms, kern, H // KV)}), sdpa {lib:.4f}, "
           f"plain {plain:.4f}; bound {bound * 1e3:.3f} us ({by}, "
@@ -3394,7 +3439,32 @@ def phase_tp_flash_kernel(gen, heads=TP_HEADS, name="flash_attention_hd256_tp",
                    "replaces": "src/repro/kernels/flash_attention.py:89",
                    "max_abs_err": max(errs.values()), "ms": ms,
                    "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                   "library_ms": lib}, model, "flash_attention")
+                   "library_ms": lib}, model, counter)
+
+
+#: the ``[tp]`` ranks' other K3 shares: (heads, entry name, what, model,
+#: image rows for the non-causal cross-attention or None, counter)
+TP_K3_SHARES = (
+    (DBRX_TP_HEADS, "flash_attention_hd128_g6_tp", "dbrx-132b over model 2",
+     "dbrx-132b-tp", None, "flash_attention"),
+    (VISION_TP_HEADS, "flash_attention_hd128_g8_tp",
+     "llama-3.2-vision-90b's self-attention over model 2",
+     "llama-3.2-vision-90b-tp", None, "flash_attention"),
+    (VISION_TP_HEADS, "flash_attention_vision_cross_tp",
+     "llama-3.2-vision-90b's cross-attention over model 2",
+     "llama-3.2-vision-90b-tp", IMAGE_ROWS, "flash_attention_cross"),
+    (MUSICGEN_TP_HEADS, "flash_attention_musicgen_tp",
+     "musicgen-large over model 2", "musicgen-large-tp", None,
+     "flash_attention"),
+)
+
+
+def phase_tp_flash_shares(gen) -> list:
+    """:func:`phase_tp_flash_kernel` at gemma3-4b-edge's share and at each
+    of ``TP_K3_SHARES``.  Returns the kernels-line entries."""
+    return [phase_tp_flash_kernel(gen)] + [
+        phase_tp_flash_kernel(gen, heads, name, what, model, skv, counter)
+        for heads, name, what, model, skv, counter in TP_K3_SHARES]
 
 
 def _plain_attention(q, k, v, *, causal=True):
@@ -3597,7 +3667,9 @@ def _arch_batch(cfg, B, gen, seq=None):
     (``seq`` positions, ``TRAIN_S`` when None) from the Markov stream
     (seeded by the step), or for musicgen seeded frame embeddings beside
     the stream's labels over its codebook, and for a stack with
-    cross-attention seeded image embeddings."""
+    cross-attention seeded image embeddings, drawn from ``gen`` or, when
+    it is None, from a generator seeded by the step (the same in every
+    process: the ``[tp]`` ranks' replicated inputs)."""
     import torch
     from repro_torch.data.lm_data import LMDataConfig, SyntheticLMStream
     from repro_torch.models.layers import dtype_of
@@ -3608,13 +3680,15 @@ def _arch_batch(cfg, B, gen, seq=None):
     def batch(step):
         out = {k: torch.from_numpy(x).long().cuda()
                for k, x in data.batch(step).items()}
+        g = gen if gen is not None else torch.Generator(
+            device="cuda").manual_seed(1000 + step)
         if cfg.audio_frontend:
-            out["frames"] = torch.randn(B, seq, cfg.d_model, generator=gen,
+            out["frames"] = torch.randn(B, seq, cfg.d_model, generator=g,
                                         device="cuda").to(dtype_of(cfg))
             del out["tokens"]
         if cfg.num_image_tokens:
             out["image_embeds"] = torch.randn(
-                B, cfg.num_image_tokens, cfg.d_model, generator=gen,
+                B, cfg.num_image_tokens, cfg.d_model, generator=g,
                 device="cuda").to(dtype_of(cfg))
         return out
     return batch
@@ -4862,14 +4936,14 @@ def _rank_order(lm, specs, n):
 
 
 def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
-                    order=False) -> dict:
-    """``TP_F32_STEPS`` float32 AdamW steps of ``cfg`` at B ``TP_B`` x
+                    order=False, alone=False) -> dict:
+    """``TP_F32_STEPS`` float32 steps of ``cfg`` (``opt``) at B ``TP_B`` x
     ``seq`` (``TRAIN_S`` when None) through ``make_train_step(mesh=)``
     held to the single-device step from the same weights and batches:
     (loss, grad norm) within ``tol`` relative at every step, this rank's
     parameter blocks within atol 5e-4, rtol 5e-3; each step's collectives
     over ``model`` equal to the roofline's count and its K3/K3b launches
-    2 x / 1 x the attention layers.
+    2 x / 1 x the self- and cross-attention layers.
 
     With ``order`` (a Mamba stack, whose gradient at full width moves by
     ~1e-5 relative with the order of a sum alone, and which AdamW's
@@ -4877,12 +4951,16 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
     to one device's step from the ranks' whole state before it (gathered
     over ``model``), summing its row-split products in the ranks' order
     (:func:`_rank_order`); the plain single-device run of every step
-    from the initial weights is held within ``TP_PLAIN_TOL``.  Prints
+    from the initial weights is held within ``TP_PLAIN_TOL``.  With
+    ``alone`` (a model whose single-device step does not fit the card
+    twice beside the ranks) the ranks run the single-device steps one
+    after the other, each rank's blocks on the host meanwhile.  Prints
     one line; returns the launches."""
     import torch
+    import torch.distributed as dist
     from repro_torch.kernels import ops
     from repro_torch.launch.roofline import tensor_parallel_bytes
-    from repro_torch.models.transformer import attention_layers
+    from repro_torch.models.transformer import flash_layers
     from repro_torch.sharding import tensor_parallel as tp
     from repro_torch.sharding.partition import gather_shard, local_shard
     from repro_torch.training.train_loop import (init_train_state,
@@ -4895,8 +4973,9 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
     specs = state_specs(cfg, opt, mesh)
     pspecs = {k[len("model/"):]: v for k, v in specs.items()
               if k.startswith("model/")}
-    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, seq)
-    L, A = cfg.num_layers, attention_layers(cfg)
+    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, seq,
+                                  optimizer=opt.kind)
+    L, A = cfg.num_layers, flash_layers(cfg)
     got, launched, starts = [], {k: 0 for k in TP_KERNELS}, [None]
 
     def whole(st):
@@ -4928,8 +5007,10 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
                                  f"{count}")
         for k in TP_KERNELS:
             launched[k] += now[k]
-    blocks = {n: p.detach() for n, p in state.model.named_parameters()}
+    blocks = {n: p.detach().cpu() if alone else p.detach()
+              for n, p in state.model.named_parameters()}
     del state, step
+    torch.cuda.empty_cache()
 
     def single(ordered, restart):
         """One device's steps from the initial weights, or with
@@ -4970,23 +5051,37 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
             "from the initial weights " + ", ".join(
                 f"({a:.6f}, {b:.6f})" for a, b in plain) + f" at max rel "
             f"{plain_rel:.2e}, <= {TP_PLAIN_TOL:g})")
-    one, want = single(order, order)
+
+    def hold():
+        """This rank's run against the single-device one."""
+        one, want = single(order, order)
+        rel = max_rel(got, want)
+        if rel > tol:
+            raise AssertionError(f"{tag} ({part}) f32 (loss, grad norm) "
+                                 f"{got} against the single-device step's "
+                                 f"{want}{plain_note}")
+        worst = 0.0
+        for n, p in one.model.named_parameters():
+            ref = local_shard(p.detach(), specs[f"model/{n}"], mesh)
+            mine = blocks[n].to(ref.device)
+            if not torch.allclose(mine, ref, atol=5e-4, rtol=5e-3):
+                raise AssertionError(f"{tag} ({part}) f32 parameter {n} "
+                                     "differs from the single-device step's")
+            worst = max(worst, _max_err(mine, ref))
+        del one
+        torch.cuda.empty_cache()
+        return want, rel, worst
+    if alone:
+        for r in range(dist.get_world_size()):
+            if r == dist.get_rank():
+                want, rel, worst = hold()
+            dist.barrier()
+    else:
+        want, rel, worst = hold()
     del starts
-    rel = max_rel(got, want)
-    if rel > tol:
-        raise AssertionError(f"{tag} ({part}) f32 (loss, grad norm) {got} "
-                             f"against the single-device step's {want}"
-                             f"{plain_note}")
-    worst = 0.0
-    for n, p in one.model.named_parameters():
-        ref = local_shard(p.detach(), specs[f"model/{n}"], mesh)
-        if not torch.allclose(blocks[n], ref, atol=5e-4, rtol=5e-3):
-            raise AssertionError(f"{tag} ({part}) f32 parameter {n} differs "
-                                 "from the single-device step's")
-        worst = max(worst, _max_err(blocks[n], ref))
     print(f"{tag} ({part}) f32 {cfg.name} {L} layers ({A} attention) at "
-          f"full width, {TP_F32_STEPS} AdamW steps at B{TP_B} x S{seq} over "
-          f"model 2 ({secs:.1f} s of steps):"
+          f"full width, {TP_F32_STEPS} {opt.kind} steps at B{TP_B} x S{seq} "
+          f"over model 2 ({secs:.1f} s of steps):"
           f" (loss, grad norm) " + ", ".join(
               f"({a:.6f}, {b:.6f})" for a, b in got) + " against the "
           f"single-device step's " + ", ".join(
@@ -4994,8 +5089,10 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
           + f": max rel {rel:.2e} (<= {tol:g}); this rank's blocks max|diff| "
           f"{worst:.2e} (atol 5e-4, rtol 5e-3); collectives over model a "
           f"step {_kinds(count)}, as the roofline counts; launches a step "
-          f"K3 {2 * A}, K3b {A}")
-    del one, blocks
+          f"K3 {2 * A}, K3b {A}"
+          + (" (the ranks' single-device steps one after the other)"
+             if alone else ""))
+    del blocks
     torch.cuda.empty_cache()
     return launched
 
@@ -5008,11 +5105,14 @@ def _kinds(count: dict) -> str:
 
 def _record_routes(moe) -> list:
     """Record the experts (T, K) of ``moe``'s first routing from now on
-    (the step's forward; the recomputation's is not kept)."""
-    routes, route = [], moe._route
+    (the step's forward; the recomputation's is not kept).  The wrapper
+    holds the module weakly: no cycle keeps it on the card once its
+    model is dropped."""
+    import weakref
+    routes, route, ref = [], type(moe)._route, weakref.ref(moe)
 
     def recording(ht, router):
-        out = route(ht, router)
+        out = route(ref(), ht, router)
         if not routes:
             routes.append(out[2].cpu())
         return out
@@ -5041,13 +5141,22 @@ def _tp_moe_cfg(part):
     return dataclasses.replace(get_config(arch), num_layers=layers)
 
 
+#: (B, S) of the MoE parts' one step routed in fewer dispatch groups than
+#: ranks: dbrx-132b's B 1 x 511 tokens are one group over model 2
+TP_FEW = {"e": (1, 511)}
+
+
 def _tp_moe(part, rank, mesh, opt, tag, out_dir) -> dict:
     """(e) and (g): a MoE stack of ``TP_MOE`` at full width, bf16,
     ``TP_STEPS`` AdamW steps at B ``TP_B`` x 512 over model 2: per step
     its wall ms, its collectives over ``model`` by kind (equal to the
     roofline's count), K3 2 and K3b 1 launches an attention layer, a
     finite loss; peak memory.  The experts of this rank's group at step
-    1 go to ``out_dir`` for the parent's one-device comparison."""
+    1 go to ``out_dir`` for the parent's one-device comparison.  With a
+    ``TP_FEW`` shape (e′), first one step from the same initial weights
+    at that shape, whose tokens route in one group, fewer than the ranks:
+    its collectives (no all-to-all) equal to the roofline's, its routes
+    to ``out_dir`` too."""
     import statistics
     import torch
     from repro_torch.kernels import ops
@@ -5061,36 +5170,62 @@ def _tp_moe(part, rank, mesh, opt, tag, out_dir) -> dict:
     batch = _arch_batch(cfg, TP_B, None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state = _tp_state(cfg, opt, mesh)
-    routes = _record_routes(state.model.blocks[layer].moe)
     step = make_train_step(cfg, opt, mesh=mesh)
     pspecs = {k[len("model/"):]: v for k, v in
               state_specs(cfg, opt, mesh).items() if k.startswith("model/")}
-    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, TRAIN_S)
-    losses, secs, colls = [], [], []
     launched = {k: 0 for k in TP_KERNELS}
-    for i in range(TP_STEPS):
-        bt = batch(i)
+
+    def one_step(state, bt, count, label):
         tp.reset_collectives()
         before = dict(ops.LAUNCHES)
         t0 = time.monotonic()
         state, m = step(state, bt)
-        losses.append(float(m["loss"]))
+        loss = float(m["loss"])
         torch.cuda.synchronize()
-        secs.append(time.monotonic() - t0)
-        colls.append(tp.snapshot())
+        secs = time.monotonic() - t0
         now = {k: ops.LAUNCHES[k] - before[k] for k in TP_KERNELS}
         if now != {"flash_attention": 2 * A, "flash_attention_bwd": A}:
-            raise AssertionError(f"{tag} ({part}) step {i} launched {now}; "
+            raise AssertionError(f"{tag} ({label}) launched {now}; "
                                  f"expected K3 {2 * A} and K3b {A}")
+        if tp.snapshot() != count:
+            raise AssertionError(f"{tag} ({label}) collectives "
+                                 f"{tp.snapshot()}, the roofline counts "
+                                 f"{count}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{tag} ({label}) bf16 loss {loss}")
         for k in TP_KERNELS:
             launched[k] += now[k]
+        return state, loss, secs
+    few = None
+    if part in TP_FEW:
+        B1, S1 = TP_FEW[part]
+        state = _tp_state(cfg, opt, mesh)
+        routes = _record_routes(state.model.blocks[layer].moe)
+        count1 = tensor_parallel_bytes(cfg, pspecs, mesh, B1, S1)
+        if count1["all-to-all"]["calls"]:
+            raise AssertionError(f"{tag} ({part}′) counts all-to-alls")
+        state, loss1, secs1 = one_step(state, _arch_batch(cfg, B1, None, S1)(0),
+                                       count1, part + "′")
+        torch.save(routes[0], os.path.join(out_dir, f"{part}1_route{rank}.pt"))
+        few = {"loss": loss1, "ms": 1e3 * secs1, "shape": [B1, S1]}
+        print(f"{tag} ({part}′) bf16 {arch} at full width {desc}), one "
+              f"AdamW step at B{B1} x S{S1} from the initial weights: its "
+              f"{B1 * S1} tokens route in one dispatch group over model 2, "
+              f"every rank routing it and running its own experts over the "
+              f"group's slots: loss {loss1:.4f}; {1e3 * secs1:.1f} ms; "
+              f"collectives over model {_kinds(count1)}, as the roofline "
+              f"counts (no all-to-all); launches K3 {2 * A}, K3b {A}")
+        del state, routes
+        torch.cuda.empty_cache()
+    state = _tp_state(cfg, opt, mesh)
+    routes = _record_routes(state.model.blocks[layer].moe)
+    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, TRAIN_S)
+    losses, secs = [], []
+    for i in range(TP_STEPS):
+        state, loss, sec = one_step(state, batch(i), count, part)
+        losses.append(loss)
+        secs.append(sec)
     peak = torch.cuda.max_memory_allocated()
-    if any(c != count for c in colls):
-        raise AssertionError(f"{tag} ({part}) collectives a step {colls}, "
-                             f"the roofline counts {count}")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{tag} ({part}) bf16 losses {losses}")
     torch.save(routes[0], os.path.join(out_dir, f"{part}_route{rank}.pt"))
     ms = [1e3 * x for x in secs]
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -5106,7 +5241,103 @@ def _tp_moe(part, rank, mesh, opt, tag, out_dir) -> dict:
     del state, step
     torch.cuda.empty_cache()
     return {"losses": losses, "peak_gib": peak / 2 ** 30,
-            "launches": launched, "ms": ms}
+            "launches": launched, "ms": ms, "few": few}
+
+
+def _tp_bf16(cfg, opt, mesh, tag, part, desc, falls=False) -> dict:
+    """``TP_STEPS`` bf16 steps of ``cfg`` (``opt``) at full width at B
+    ``TP_B`` x ``TRAIN_S`` through ``make_train_step(mesh=)``: per step
+    its wall ms, its collectives over ``model`` by kind (equal to the
+    roofline's count) and the K3/K3b launches (2 x and 1 x the self- and
+    cross-attention layers, the cross-attention ones counted apart); the
+    loss finite (and with ``falls`` lower at the end); peak memory.
+    Prints one line; returns the losses, peak GiB, ms and launches (the
+    self-attention ones apart from the cross-attention ones)."""
+    import statistics
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import tensor_parallel_bytes
+    from repro_torch.models.transformer import flash_layers
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.training.train_loop import make_train_step, state_specs
+    batch = _arch_batch(cfg, TP_B, None)
+    state = _tp_state(cfg, opt, mesh)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pspecs = {k[len("model/"):]: v for k, v in
+              state_specs(cfg, opt, mesh).items() if k.startswith("model/")}
+    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, TRAIN_S,
+                                  optimizer=opt.kind)
+    A, n_cross = flash_layers(cfg), state.model.n_layers["xattn"]
+    losses, secs, colls = [], [], []
+    cross_ctx, cross = _cross_launches()
+    ops.reset_launches()
+    with cross_ctx:
+        for i in range(TP_STEPS):
+            bt = batch(i)
+            tp.reset_collectives()
+            before = {k: ops.LAUNCHES[k] for k in TP_KERNELS}
+            t0 = time.monotonic()
+            state, m = step(state, bt)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.monotonic() - t0)
+            colls.append(tp.snapshot())
+            now = {k: ops.LAUNCHES[k] - before[k] for k in TP_KERNELS}
+            if now != {"flash_attention": 2 * A, "flash_attention_bwd": A}:
+                raise AssertionError(f"{tag} ({part}) step {i} launched "
+                                     f"{now}; expected K3 2 x {A} and K3b "
+                                     f"{A}")
+    launched = {k: ops.LAUNCHES[k] for k in TP_KERNELS}
+    if cross != {"flash_attention_cross": 2 * n_cross * TP_STEPS,
+                 "decode_attention_cross": 0,
+                 "flash_attention_bwd_cross": n_cross * TP_STEPS}:
+        raise AssertionError(f"{tag} ({part}) cross-attention launches "
+                             f"{cross}; expected K3 2 x {n_cross} and K3b "
+                             f"{n_cross} a step")
+    peak = torch.cuda.max_memory_allocated()
+    if any(c != count for c in colls):
+        raise AssertionError(f"{tag} ({part}) collectives a step {colls}, "
+                             f"the roofline counts {count}")
+    if not all(math.isfinite(x) for x in losses) or (
+            falls and losses[-1] >= losses[0]):
+        raise AssertionError(f"{tag} ({part}) bf16 losses {losses}")
+    ms = [1e3 * x for x in secs]
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"{tag} ({part}) bf16 {cfg.name}, {cfg.num_layers} layers at full "
+          f"width over (1, 2) ({desc}; gloo, both ranks on cuda:0; "
+          f"{n_params:,} parameters a rank), {opt.kind} lr {opt.lr}, B{TP_B} "
+          f"x S{TRAIN_S}, {TP_STEPS} steps: losses " + " ".join(
+              f"{x:.4f}" for x in losses) + "; ms a step " + " ".join(
+              f"{x:.1f}" for x in ms) + f" (median "
+          f"{statistics.median(ms):.1f}); peak {peak / 2 ** 30:.2f} GiB; "
+          f"collectives over model a step {_kinds(count)}, as the roofline "
+          f"counts; launches a step K3 {2 * A}, K3b {A} ({2 * n_cross} and "
+          f"{n_cross} of them cross-attention); this rank "
+          f"{time.monotonic() - T_START:.1f} s from its start")
+    del state, step
+    torch.cuda.empty_cache()
+    totals = {}
+    _add_launches(totals, launched, {k: v for k, v in cross.items()
+                                     if k != "decode_attention_cross"})
+    return {"losses": losses, "peak_gib": peak / 2 ** 30, "ms": ms,
+            "launches": totals, "count": count}
+
+
+def _tp_setup(rank: int, init_file: str):
+    """A ``[tp]`` rank's gloo group of two through ``file://init_file``
+    and its (1, 2) ("data", "model") ``DeviceMesh`` on ``cuda:0``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.stdout.reconfigure(line_buffering=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=2)
+    return init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
 
 
 def tp_rank(rank: int, init_file: str) -> int:
@@ -5117,37 +5348,24 @@ def tp_rank(rank: int, init_file: str) -> int:
     AdamW steps through ``make_train_step(mesh=)`` held to the single-
     device step from the same weights and batches (each rank runs it and
     holds its own blocks); (b) all 34 layers in bf16, ``TP_STEPS`` AdamW
-    steps at B ``TP_B`` x 512: per step its wall ms, the all-reduces over
-    ``model`` and their bytes (against ``roofline.tensor_parallel_bytes``)
-    and the K3/K3b launches (2 x 34 and 34), the loss finite and falling;
-    peak memory; (d) smollm-360m in float32 at full width, all 32 layers
-    (15 query heads over 5 KV heads: the heads cut across the ranks), held
-    to the single-device step as (c) within 1e-5 relative; (e) dbrx-132b
-    in bf16 at full width cut to one layer (:func:`_tp_moe`: the MoE's
-    all-to-all); (f) jamba-v0.1-52b in float32 at full width cut to its
-    first (Mamba) layer, held to the single-device step as (d); (g)
-    jamba's first two layers (Mamba, Mamba + MoE) in bf16 as (e); (h)
-    xlstm-350m in float32 at full width, all 24 layers, at B ``TP_B`` x
-    ``TP_XLSTM_S``, held as (d).  The last line is one JSON object of
-    this rank's numbers."""
+    steps at B ``TP_B`` x 512 (:func:`_tp_bf16`), the loss falling, and
+    one activation's all-reduce timed alone; (d) smollm-360m in float32
+    at full width, all 32 layers (15 query heads over 5 KV heads: the
+    heads cut across the ranks), held to the single-device step as (c)
+    within 1e-5 relative; (e) dbrx-132b in bf16 at full width cut to one
+    layer (:func:`_tp_moe`: the MoE's all-to-all), and (e′) one step of
+    it at B 1 x 511, one dispatch group; (f) jamba-v0.1-52b in float32 at
+    full width cut to its first (Mamba) layer, held to the single-device
+    step as (d); (g) jamba's first two layers (Mamba, Mamba + MoE) in
+    bf16 as (e); (h) xlstm-350m in float32 at full width, all 24 layers,
+    at B ``TP_B`` x ``TP_XLSTM_S``, held as (d).  The last line is one
+    JSON object of this rank's numbers."""
     import dataclasses
-    import statistics
     import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch.roofline import tensor_parallel_bytes
-    from repro_torch.sharding import tensor_parallel as tp
     from repro_torch.training.optimizer import OptConfig
-    from repro_torch.training.train_loop import make_train_step, state_specs
-    sys.stdout.reconfigure(line_buffering=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=2)
-    mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+    mesh = _tp_setup(rank, init_file)
     cfg = get_config("gemma3-4b-edge")
     opt = OptConfig(lr=TRAIN_LR, warmup_steps=1)
     gen = torch.Generator(device="cuda").manual_seed(23)
@@ -5159,40 +5377,8 @@ def tp_rank(rank: int, init_file: str) -> int:
     dist.barrier()
 
     # (b) bf16, all 34 layers
-    batch = _arch_batch(cfg, TP_B, gen)
-    state = _tp_state(cfg, opt, mesh)
-    step = make_train_step(cfg, opt, mesh=mesh)
-    pspecs = {k[len("model/"):]: v for k, v in
-              state_specs(cfg, opt, mesh).items() if k.startswith("model/")}
-    count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, TRAIN_S)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, secs, colls, launched = [], [], [], {k: 0 for k in TP_KERNELS}
-    for i in range(TP_STEPS):
-        bt = batch(i)
-        tp.reset_collectives()
-        before = dict(ops.LAUNCHES)
-        t0 = time.monotonic()
-        state, m = step(state, bt)
-        losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        secs.append(time.monotonic() - t0)
-        colls.append(tp.snapshot())
-        now = {k: ops.LAUNCHES[k] - before[k] for k in TP_KERNELS}
-        L = cfg.num_layers
-        if now != {"flash_attention": 2 * L, "flash_attention_bwd": L}:
-            raise AssertionError(f"{tag} step {i} launched {now}; expected "
-                                 f"K3 2 x {L} and K3b {L}")
-        for k in TP_KERNELS:
-            launched[k] += now[k]
-    peak = torch.cuda.max_memory_allocated()
-    if any(c != count for c in colls):
-        raise AssertionError(f"{tag} collectives a step {colls}, the "
-                             f"roofline counts {count}")
-    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        raise AssertionError(f"{tag} bf16 losses {losses}")
-    ms = [1e3 * x for x in secs]
-    n_params = sum(p.numel() for p in state.model.parameters())
+    gemma = _tp_bf16(cfg, opt, mesh, tag, "b", "4 over 2 heads of 256 a "
+                     "rank", falls=True)
     # one activation's all-reduce alone (its buffers as a step's blocks
     # hand them over), timed on the host around 20 calls
     group = mesh.get_group("model")
@@ -5206,23 +5392,12 @@ def tp_rank(rank: int, init_file: str) -> int:
         dist.all_reduce(act.clone(), group=group)
     torch.cuda.synchronize()
     ar_ms = (time.monotonic() - t0) / 20 * 1e3
-    ar = count["all-reduce"]
-    print(f"{tag} (b) bf16 gemma3-4b-edge, {cfg.num_layers} layers at full "
-          f"width over (1, 2) (gloo, both ranks on cuda:0; {n_params:,} "
-          f"parameters a rank), AdamW lr {opt.lr}, B{TP_B} x S{TRAIN_S}, "
-          f"{TP_STEPS} steps: losses " + " ".join(f"{x:.4f}" for x in losses)
-          + "; ms a step " + " ".join(f"{x:.1f}" for x in ms) + f" (median "
-          f"{statistics.median(ms):.1f}); peak {peak / 2 ** 30:.2f} GiB; "
-          f"all-reduces over model a step {ar['calls']} "
-          f"({ar['bytes'] / 1e6:.2f} MB handed over), as the roofline "
-          f"counts; launches a step K3 {2 * cfg.num_layers}, K3b "
-          f"{cfg.num_layers}; one {act.numel() * 2 / 1e6:.2f} MB bf16 "
-          f"all-reduce alone {ar_ms:.2f} ms (host clock): the step's "
+    ar = gemma["count"]["all-reduce"]
+    print(f"{tag} (b) one {act.numel() * 2 / 1e6:.2f} MB bf16 all-reduce "
+          f"alone {ar_ms:.2f} ms (host clock): the step's "
           f"{ar['bytes'] / 1e6:.0f} MB at that rate ~"
-          f"{ar_ms * ar['bytes'] / (act.numel() * 2):.0f} ms; this rank "
-          f"{time.monotonic() - T_START:.1f} s from its start")
-    del state, step, act
-    torch.cuda.empty_cache()
+          f"{ar_ms * ar['bytes'] / (act.numel() * 2):.0f} ms")
+    del act
     dist.barrier()
 
     # (d) smollm-360m, float32, all 32 layers: the heads cut across ranks
@@ -5252,22 +5427,87 @@ def tp_rank(rank: int, init_file: str) -> int:
     _tp_against_one(dataclasses.replace(get_config("xlstm-350m"),
                                         dtype="float32"),
                     opt, mesh, tag, "h", 1e-5, seq=TP_XLSTM_S)
-    print(json.dumps({"tp_rank": rank, "losses": losses,
-                      "peak_gib": peak / 2 ** 30, "launches": launched,
-                      "smollm": smollm, "dbrx": dbrx, "jamba": jamba_moe}))
+    gemma.pop("count")
+    print(json.dumps({"tp_rank": rank, **gemma, "smollm": smollm,
+                      "dbrx": dbrx, "jamba": jamba_moe}))
     dist.barrier()
     dist.destroy_process_group()
     return 0
 
 
-def start_tp() -> dict:
-    """Start both ``[tp]`` ranks; ``run["ranks"]`` are their
-    :func:`_start_self` records."""
+#: the late ``[tp]`` pair's models: (i) llama-3.2-vision-90b cut to one
+#: pattern repeat (4 attention layers and the cross-attention layer),
+#: trained with Adafactor as ``[vision-train]`` is; (j) musicgen-large,
+#: all 48 layers, AdamW
+TP_LATE = {"i": ("llama-3.2-vision-90b", 5, "adafactor",
+                 "32 over 4 heads of 128 a rank, the cross-attention's over "
+                 "1024 image rows"),
+           "j": ("musicgen-large", 48, "adamw",
+                 "16 over 16 heads of 64 a rank, frames in, the 2048-way "
+                 "head split")}
+
+
+def _tp_late_cfg(part):
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, layers, kind, _ = TP_LATE[part]
+    return dataclasses.replace(get_config(arch), num_layers=layers), kind
+
+
+def tp_late_rank(rank: int, init_file: str) -> int:
+    """One rank of ``[tp]``'s late pair (``python3 chip_smoke.py --tp-rank
+    RANK FILE late``), started once ``[launch-train]``'s gemma3 child has
+    freed its memory: (j) a float32 copy of musicgen-large cut to 2
+    layers held to the single-device step as (c) within 1e-5 relative;
+    (i) a float32 stack of llama-3.2-vision-90b's cross-attention block
+    alone at full width (its 5-layer float32 state does not fit the card
+    beside the ranks: ``PERF.md``), Adafactor, held within 1e-5 relative,
+    the ranks' single-device steps one after the other; then (i) and (j)
+    of ``TP_LATE`` in bf16 (:func:`_tp_bf16`).  The last line is one JSON
+    object of this rank's numbers."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs.base import XATTN
+    from repro_torch.training.optimizer import OptConfig
+    mesh = _tp_setup(rank, init_file)
+    tag = f"[tp] rank {rank}:"
+    out = {"tp_rank": rank}
+    music, _ = _tp_late_cfg("j")
+    vision, _ = _tp_late_cfg("i")
+    _tp_against_one(dataclasses.replace(music, dtype="float32",
+                                        num_layers=2),
+                    OptConfig(lr=TRAIN_LR, warmup_steps=1), mesh, tag, "j",
+                    1e-5)
+    dist.barrier()
+    _tp_against_one(dataclasses.replace(vision, dtype="float32",
+                                        block_pattern=(XATTN,),
+                                        num_layers=1),
+                    OptConfig(lr=TRAIN_LR, warmup_steps=1, kind="adafactor"),
+                    mesh, tag, "i", 1e-5, alone=True)
+    dist.barrier()
+    for part in ("i", "j"):
+        cfg, kind = _tp_late_cfg(part)
+        res = _tp_bf16(cfg, OptConfig(lr=TRAIN_LR, warmup_steps=1,
+                                      kind=kind),
+                       mesh, tag, part, TP_LATE[part][3])
+        res.pop("count")
+        out[part] = res
+        dist.barrier()
+    print(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_tp(late=False) -> dict:
+    """Start both ``[tp]`` ranks (with ``late``, the late pair's);
+    ``run["ranks"]`` are their :func:`_start_self` records."""
     import tempfile
     tmp = tempfile.mkdtemp(prefix="tp_")
     store = os.path.join(tmp, "store")
     return {"tmp": tmp, "t0": time.monotonic(),
-            "ranks": [_start_self([TP_FLAG, str(r), store])
+            "ranks": [_start_self([TP_FLAG, str(r), store]
+                                  + (["late"] if late else []))
                       for r in range(2)]}
 
 
@@ -5279,28 +5519,9 @@ def stop_tp(run) -> None:
     shutil.rmtree(run["tmp"], ignore_errors=True)
 
 
-def collect_tp(run, smi, beside: str) -> dict:
-    """Wait for both ranks and print their lines; then in this process
-    (a) a 2-layer bf16 copy's step through ``make_train_step`` on a
-    one-rank (1, 1) mesh bitwise equal to the step with no mesh, and
-    (b) the single-device loss of the bf16 model from the same weights on
-    the first batch within 2e-2 relative of the ranks' first loss, and
-    (e) dbrx-132b's and (g) jamba's: one device's loss of the same
-    weights and batch, routed in the ranks' two dispatch groups (a
-    shape-only (1, 2) mesh), within 1e-3 relative of the ranks' step-1
-    loss, and the share of (token, choice) pairs whose expert differs
-    between the two.  Returns
-    the ranks' K3/K3b launches in the gemma3 bf16 steps, in smollm's
-    float32 steps and in dbrx's steps, by model."""
-    import dataclasses
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models.model import LM
-    from repro_torch.training.optimizer import OptConfig, OptState
-    from repro_torch.training.train_loop import (TrainState,
-                                                 init_train_state,
-                                                 make_train_step)
+def _wait_tp(run, smi, beside: str, which: str) -> list:
+    """Wait for a ``[tp]`` pair, print its lines and return each rank's
+    JSON object."""
     out = []
     for r in run["ranks"]:
         code = r["proc"].wait(timeout=900)
@@ -5313,10 +5534,37 @@ def collect_tp(run, smi, beside: str) -> dict:
                                  + "\n".join(r["lines"][-60:]))
         out.append(next(json.loads(x) for x in r["lines"]
                         if x.startswith('{"tp_rank"')))
-    print(f"[tp] both ranks collected {time.monotonic() - run['t0']:.1f} s "
-          f"after their start (each rank's own time on its (e) and (g) "
-          f"lines), run beside {beside} (neither side's times are taken "
-          f"alone)  [{smi}]")
+    print(f"[tp] {which} both ranks collected "
+          f"{time.monotonic() - run['t0']:.1f} s after their start "
+          f"({run['t0'] - T_START:.1f} s into the run; each "
+          f"rank's own time on its bf16 lines), run beside {beside} "
+          f"(neither side's times are taken alone)  [{smi}]")
+    return out
+
+
+def collect_tp(run, smi, beside: str) -> dict:
+    """Wait for both ranks and print their lines; then in this process
+    (a) a 2-layer bf16 copy's step through ``make_train_step`` on a
+    one-rank (1, 1) mesh bitwise equal to the step with no mesh, and
+    (b) the single-device loss of the bf16 model from the same weights on
+    the first batch within 2e-2 relative of the ranks' first loss, and
+    (e) dbrx-132b's and (g) jamba's: one device's loss of the same
+    weights and batch, routed in the ranks' two dispatch groups (a
+    shape-only (1, 2) mesh), within 1e-3 relative of the ranks' step-1
+    loss, and the share of (token, choice) pairs whose expert differs
+    between the two; (e′) the same for dbrx's one step in one dispatch
+    group.  Returns the ranks' K3/K3b launches in the gemma3 bf16 steps,
+    in smollm's float32 steps and in dbrx's steps, by model."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.training.optimizer import OptConfig, OptState
+    from repro_torch.training.train_loop import (TrainState,
+                                                 init_train_state,
+                                                 make_train_step)
+    out = _wait_tp(run, smi, beside, "(b)-(h):")
     for part in (out, [o["dbrx"] for o in out], [o["jamba"] for o in out]):
         if part[0]["losses"] != part[1]["losses"]:
             raise AssertionError(f"[tp] the ranks' losses differ: {part}")
@@ -5368,6 +5616,8 @@ def collect_tp(run, smi, beside: str) -> dict:
           + f" GiB a rank  [{smi}]")
     for part, key in (("e", "dbrx"), ("g", "jamba")):
         _moe_against_one(part, [o[key] for o in out], run["tmp"], smi)
+    _moe_against_one("e", [o["dbrx"] for o in out], run["tmp"], smi,
+                     few=True)
     stop_tp(run)
     return {model: {k: sum(o[part][k] if part else o["launches"][k]
                            for o in out) for k in TP_KERNELS}
@@ -5377,49 +5627,108 @@ def collect_tp(run, smi, beside: str) -> dict:
                          for k in TP_KERNELS}}
 
 
-def _moe_against_one(part, ranks, tmp, smi) -> None:
+def _moe_against_one(part, ranks, tmp, smi, few=False) -> None:
     """(e) and (g) in this process: the ``TP_MOE`` stack (bf16) from the
     ranks' weights, its loss on the first batch on one device under a
     shape-only (1, 2) mesh (``_num_groups`` reads the mesh's size, so it
     routes the ranks' two groups with their capacity), against the
     ranks' step-1 loss within 1e-3 relative; the share of (token,
     choice) pairs whose expert differs (bf16 products at another M may
-    flip near-ties)."""
+    flip near-ties).  With ``few`` (e′), the ``TP_FEW`` step's batch,
+    which routes in one group there too, against the ranks' loss of that
+    step; the ranks, each routing the whole group, must route it
+    alike."""
     import torch
     from repro_torch.models.model import LM
     from repro_torch.sharding import use_mesh
     from repro_torch.sharding.rules import MeshShape
     cfg = _tp_moe_cfg(part)
     arch, layers, layer, _ = TP_MOE[part]
+    B, S = TP_FEW[part] if few else (TP_B, TRAIN_S)
     lm = LM(cfg, device="cuda", seed=TP_SEED)
     routes = _record_routes(lm.blocks[layer].moe)
     with torch.no_grad(), use_mesh(MeshShape(("data", "model"), (1, 2))):
-        one = float(lm.loss(_arch_batch(cfg, TP_B, None)(0)))
+        one = float(lm.loss(_arch_batch(cfg, B, None, S)(0)))
     del lm
     torch.cuda.empty_cache()
     whole = routes[0]
-    got = torch.cat([torch.load(os.path.join(tmp, f"{part}_route{r}.pt"))
-                     for r in range(2)])
+    name = f"{part}1" if few else part
+    per_rank = [torch.load(os.path.join(tmp, f"{name}_route{r}.pt"))
+                for r in range(2)]
+    if few:
+        if not torch.equal(per_rank[0], per_rank[1]):
+            raise AssertionError(f"[tp] ({part}′) the ranks route the one "
+                                 "group differently")
+        got, first, label = per_rank[0], ranks[0]["few"]["loss"], part + "′"
+        groups, ms = "one dispatch group", " / ".join(
+            f"{o['few']['ms']:.1f}" for o in ranks)
+    else:
+        got, first, label = torch.cat(per_rank), ranks[0]["losses"][0], part
+        groups, ms = "two dispatch groups", " / ".join(
+            " ".join(f"{x:.1f}" for x in o["ms"]) for o in ranks)
     if got.shape != whole.shape:
-        raise AssertionError(f"[tp] ({part}) routes {got.shape} against "
+        raise AssertionError(f"[tp] ({label}) routes {got.shape} against "
                              f"{whole.shape}")
     flipped = float((got != whole).float().mean())
-    first = ranks[0]["losses"][0]
     rel = abs(first - one) / abs(one)
     if rel > 1e-3:
-        raise AssertionError(f"[tp] ({part}) step-1 loss {first} against "
+        raise AssertionError(f"[tp] ({label}) step-1 loss {first} against "
                              f"one device's {one}")
-    print(f"[tp] ({part}) bf16 {arch}, {layers} layer"
-          f"{'s' if layers > 1 else ''}: the ranks' step-1 loss "
+    print(f"[tp] ({label}) bf16 {arch}, {layers} layer"
+          f"{'s' if layers > 1 else ''}, B{B} x S{S}: the ranks' step-1 loss "
           f"{first:.6f} against one device's {one:.6f} from the same "
-          f"weights and batch in the same two dispatch groups: rel "
+          f"weights and batch in the same {groups}: rel "
           f"{rel:.2e} (<= 1e-3); (token, choice) pairs routed to another "
-          f"expert {100 * flipped:.3f}% of {whole.numel()}; losses "
-          + " -> ".join(f"{x:.4f}" for x in ranks[0]["losses"]) + "; peak "
-          + " / ".join(f"{o['peak_gib']:.2f}" for o in ranks)
-          + f" GiB a rank; ms a step " + " / ".join(
-              " ".join(f"{x:.1f}" for x in o["ms"]) for o in ranks)
-          + f"  [{smi}]")
+          f"expert {100 * flipped:.3f}% of {whole.numel()}; "
+          + ("" if few else "losses " + " -> ".join(
+              f"{x:.4f}" for x in ranks[0]["losses"]) + "; peak "
+             + " / ".join(f"{o['peak_gib']:.2f}" for o in ranks)
+             + " GiB a rank; ") + f"ms a step {ms}  [{smi}]")
+
+
+def collect_tp_late(run, smi, beside: str) -> dict:
+    """Wait for the late pair and print its lines; then in this process,
+    for (i) and (j), the single-device loss of the bf16 model from the
+    same weights on the first batch within 2e-2 relative of the ranks'
+    first loss, as (b).  Returns the ranks' launches by model
+    (``llama-3.2-vision-90b-tp``, ``musicgen-large-tp``: the
+    self-attention and the cross-attention ones apart)."""
+    import torch
+    from repro_torch.models.model import LM
+    try:
+        out = _wait_tp(run, smi, beside, "(i), (j):")
+    finally:
+        stop_tp(run)
+    launches = {}
+    for part in ("i", "j"):
+        ranks = [o[part] for o in out]
+        if ranks[0]["losses"] != ranks[1]["losses"]:
+            raise AssertionError(f"[tp] ({part}) the ranks' losses differ: "
+                                 f"{ranks}")
+        cfg, _ = _tp_late_cfg(part)
+        lm = LM(cfg, device="cuda", seed=TP_SEED)
+        with torch.no_grad():
+            one = float(lm.loss(_arch_batch(cfg, TP_B, None)(0)))
+        del lm
+        torch.cuda.empty_cache()
+        first = ranks[0]["losses"][0]
+        rel = abs(first - one) / abs(one)
+        if rel > 2e-2:
+            raise AssertionError(f"[tp] ({part}) step-1 loss {first} "
+                                 f"against the single device's {one}")
+        print(f"[tp] ({part}) bf16 {cfg.name}, {cfg.num_layers} layers: the "
+              f"ranks' step-1 loss {first:.6f} against the single-device "
+              f"loss {one:.6f} from the same weights and batch: rel "
+              f"{rel:.2e} (<= 2e-2); losses " + " -> ".join(
+                  f"{x:.4f}" for x in ranks[0]["losses"]) + "; peak "
+              + " / ".join(f"{o['peak_gib']:.2f}" for o in ranks)
+              + " GiB a rank; ms a step " + " / ".join(
+                  " ".join(f"{x:.1f}" for x in o["ms"]) for o in ranks)
+              + f"  [{smi}]")
+        launches[f"{cfg.name}-tp"] = {
+            k: sum(o["launches"][k] for o in ranks) for k in ranks[0][
+                "launches"]}
+    return launches
 
 
 def gemma3_and_lm_api_paths(predictor, smi, child, g_totals) -> tuple:
@@ -5465,6 +5774,7 @@ def gemma3_and_lm_api_paths(predictor, smi, child, g_totals) -> tuple:
 
 def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
+    from concurrent.futures import wait as futures_wait
     import torch
     from repro_torch.configs import get_config
 
@@ -5476,7 +5786,8 @@ def main() -> int:
     if sys.argv[1:] == [EXAMPLES_FLAG]:
         return examples_paths()
     if sys.argv[1:2] == [TP_FLAG]:
-        return tp_rank(int(sys.argv[2]), sys.argv[3])
+        rank_fn = tp_late_rank if sys.argv[4:] == ["late"] else tp_rank
+        return rank_fn(int(sys.argv[2]), sys.argv[3])
     sys.stdout.reconfigure(line_buffering=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5503,10 +5814,7 @@ def main() -> int:
         phase_packed_kernel(predictor.model, ds.prompts),
         phase_flash_bwd_kernel(gen))]
     kernels += phase_flash_bwd_instances(gen)
-    kernels.append(phase_tp_flash_kernel(gen))
-    kernels.append(phase_tp_flash_kernel(
-        gen, DBRX_TP_HEADS, "flash_attention_hd128_g6_tp",
-        "dbrx-132b over model 2", "dbrx-132b-tp"))
+    kernels += phase_tp_flash_shares(gen)
     by_name = {k["name"]: k for k in kernels}
     e4, e5 = phase_cli_predictor_kernels()
     by_name["gbdt_margins"]["max_abs_err"] = max(
@@ -5549,15 +5857,31 @@ def main() -> int:
     _free_card("launch-train")
     launch_train = start_launch_train()
     side_totals = {k: 0 for k in totals}
-    with ThreadPoolExecutor(1) as ex:
-        side = ex.submit(_timed, phase_launch_sidecar, smi, side_totals,
-                         beside="[speculative]")
-        _timed(phase_speculative, cfg, smi, totals,
-               beside="[launch-train]'s children and [launch-sidecar]")
-        side.result()
-    for k, v in side_totals.items():
-        totals[k] += v
-    ckpt_dir = _timed(phase_launch_train, launch_train, smi, "[speculative]")
+    # [tp]'s late pair (llama-3.2-vision-90b and musicgen-large over model
+    # 2, ~25 GiB a rank at most) once the gemma3 child (~47 GiB) is done,
+    # beside the rest of [speculative]
+    late_ex = ThreadPoolExecutor(1)
+    late = late_ex.submit(lambda: (futures_wait([launch_train["gemma3"]]),
+                                   start_tp(late=True))[1])
+    try:
+        with ThreadPoolExecutor(1) as ex:
+            side = ex.submit(_timed, phase_launch_sidecar, smi, side_totals,
+                             beside="[speculative]")
+            _timed(phase_speculative, cfg, smi, totals,
+                   beside="[launch-train]'s children and [launch-sidecar]")
+            side.result()
+        for k, v in side_totals.items():
+            totals[k] += v
+        ckpt_dir = _timed(phase_launch_train, launch_train, smi,
+                          "[speculative]")
+        tp_totals.update(_timed(
+            collect_tp_late, late.result(), smi,
+            "[speculative], [launch-sidecar] and [launch-train]'s smollm "
+            "children, started when its gemma3 child ended"))
+    finally:
+        late_ex.shutdown()
+        if late.done() and late.exception() is None:
+            stop_tp(late.result())
     _timed(phase_launch_serve, smi, totals)
     state = _timed(phase_train, cfg, smi, totals)
     _timed(phase_mesh, cfg, state, ckpt_dir, smi, totals)

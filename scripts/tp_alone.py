@@ -1,26 +1,30 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s ``[tp]`` phase alone on an otherwise idle card:
 the kernels built, K3 and K3b held and timed at the ``[tp]`` ranks'
-shapes (gemma3-4b-edge's heads over model 2: causal B 2, S 512, H 4 over
-KV 2, hd 256, ``[K3 flash_attention_hd256_tp]``,
-``[K3b flash_attention_bwd_hd256_tp]``; dbrx-132b's: H 24 over KV 4, hd
-128, ``[K3 flash_attention_hd128_g6_tp]``,
-``[K3b flash_attention_bwd_hd128_g6_tp]``), then the two ranks and the
-checks that follow them (``chip_smoke.start_tp`` / ``collect_tp``: the
-gemma3, smollm and dbrx parts and the recurrent stacks, (f) jamba's Mamba
-layer in float32, (g) its Mamba + MoE layers in bf16, (h) xlstm-350m in
-float32), with nothing beside them, so that each part's ms a step and
-collectives are read alone; last, ``[tp_alone] dbrx``: the ranks' dbrx-132b
-steps (one layer, bf16) taken on one device from the same weights and
-batches, routed in the same two dispatch groups (a shape-only (1, 2)
-mesh), their losses beside the ranks' (the one-device state, ~54 GB,
-fits only on an idle card).
+shapes (``chip_smoke.TP_K3_SHARES`` and the ``*_tp`` rows of
+``K3B_INSTANCES``: gemma3-4b-edge's heads over model 2, causal B 2, S
+512, H 4 over KV 2, hd 256; dbrx-132b's H 24 over KV 4, hd 128;
+llama-3.2-vision-90b's H 32 over KV 4, hd 128, causal and, for its
+cross-attention, full over 1024 image rows; musicgen-large's H 16 over
+KV 16, hd 64), then the first pair of ranks and the checks that follow
+it (``chip_smoke.start_tp`` / ``collect_tp``: the gemma3, smollm and
+dbrx parts with dbrx's one-group step (e′), and the recurrent stacks,
+(f) jamba's Mamba layer in float32, (g) its Mamba + MoE layers in bf16,
+(h) xlstm-350m in float32), then the late pair (``start_tp(late=True)``
+/ ``collect_tp_late``: (i) llama-3.2-vision-90b, (j) musicgen-large),
+each with nothing beside it, so that each part's ms a step and
+collectives are read alone; last, ``[tp_alone] dbrx``: the ranks'
+dbrx-132b steps (one layer, bf16) taken on one device from the same
+weights and batches, routed in the same two dispatch groups (a
+shape-only (1, 2) mesh), their losses beside the ranks' (the one-device
+state, ~54 GB, fits only on an idle card).
 
     python3 scripts/tp_alone.py
 
 Needs a CUDA card and nvcc.  Its ``[tp]`` lines are the smoke run's;
 their ms a step are the ranks' alone, to set beside the smoke run's,
-where the ranks share the card and the host with the smollm phases.
+where the ranks share the card and the host with the smollm phases (the
+first pair) or with ``[speculative]`` (the late pair).
 """
 
 from __future__ import annotations
@@ -50,10 +54,7 @@ def main() -> int:
     chip_smoke.K3B_INSTANCES = tuple(
         k for k in chip_smoke.K3B_INSTANCES if k[0].endswith("_tp"))
     chip_smoke.phase_flash_bwd_instances(gen)
-    chip_smoke.phase_tp_flash_kernel(gen)
-    chip_smoke.phase_tp_flash_kernel(
-        gen, chip_smoke.DBRX_TP_HEADS, "flash_attention_hd128_g6_tp",
-        "dbrx-132b over model 2", "dbrx-132b-tp")
+    chip_smoke.phase_tp_flash_shares(gen)
     run = chip_smoke.start_tp()
     try:
         launched = chip_smoke.collect_tp(run, smi, "nothing")
@@ -64,6 +65,9 @@ def main() -> int:
         chip_smoke.stop_tp(run)
         if torch.distributed.is_initialized():      # collect_tp's (1, 1)
             torch.distributed.destroy_process_group()
+    chip_smoke._free_card("tp late")
+    launched.update(chip_smoke.collect_tp_late(
+        chip_smoke.start_tp(late=True), smi, "nothing"))
     dbrx_one_device(ranks[0]["losses"], smi)
     print(f"[tp_alone] launches {launched}; {time.monotonic() - t0:.1f} s "
           f"[{smi}]")

@@ -79,9 +79,11 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
     recomputed in the backward pass (remat) up to the last activation
     the backward saved:
 
-    * a block whose heads are split: its output's all-reduce forward and
-      recomputed, its input's gradient backward; with QK-norm, the two
-      norm weights' gradients;
+    * a block whose heads are split (self- or cross-attention: the image
+      K/V are projected from the replicated embeddings, with no
+      collective): its output's all-reduce forward and recomputed, its
+      input's gradient backward; with QK-norm, the two norm weights'
+      gradients;
     * where heads are cut across ranks (a head or the query/KV pairing
       does not fall whole on a rank), each split projection weight
       (d_model x width) all-gathered forward and recomputed and its
@@ -100,7 +102,9 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
       sLSTM the float32 gate product (T x 4 attn_dim / model) exchanged
       by all-to-all forward, recomputed and backward; its up/down as a
       split ``d_ff`` (``up``'s columns split);
-    * a MoE block: its input's gradient all-reduced; the router (float32)
+    * a MoE block routing one dispatch group a model rank (G of the
+      data rank's T tokens, as ``models.moe._num_groups`` over the whole
+      mesh): its input's gradient all-reduced; the router (float32)
       all-gathered forward and recomputed and its gradient
       reduce-scattered (all-reduced when whole); the load statistics
       (2 x E float32) all-reduced forward and recomputed; with the
@@ -109,22 +113,41 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
       of a group of T / model tokens), else the three expert weights'
       gradients all-reduced; the combined rows all-gathered forward
       (the block's last op: not recomputed);
-    * a split vocabulary: the embedding's sum forward, the head input's
-      gradient backward, and per ``LOSS_CHUNK`` slice of the sequence the
-      log-sum-exp's max (float32) and its sum of exponentials stacked with
-      the target logit (2 x float32), forward and again recomputed;
+    * a MoE block routing fewer groups than model ranks with its experts
+      split: its input's gradient all-reduced, the router all-gathered
+      forward and recomputed, the experts' outputs (E, G x C, d_model)
+      all-gathered forward and recomputed; with the experts whole, none;
+    * a split vocabulary: the embedding's sum forward (none with the
+      audio frontend, whose frames enter whole), the head input's
+      gradient backward, and per ``LOSS_CHUNK`` slice of the sequence
+      the log-sum-exp's max (float32) and its sum of exponentials
+      stacked with the target logit (2 x float32), forward and again
+      recomputed;
 
-    and once an AdamW step (``optimizer``), one float32 scalar all-reduced per
-    group of gradients split over ``model`` (the gradient norm; Adafactor
-    gathers its split gradients whole for the update instead, through
-    ``partition.gather_shard``, which this count leaves out)."""
-    from repro_torch.configs.base import SLSTM
+    and once a step (``optimizer``), one float32 scalar all-reduced per
+    set of the mesh axes that gradients split over ``model`` are split
+    over (the gradient norm; Adafactor's gradients are whole over
+    ``data``, so one), and for Adafactor each statistic group split over
+    ``model`` on one of its last two dimensions: split on the last, its
+    row statistic's partial sums (float32, the stack without its last
+    dimension) all-reduced; split on the second to last, its column
+    statistic's (the stack without that dimension) and the row
+    statistic's mean (the stack without its last two dimensions)."""
+    from repro_torch.configs.base import SLSTM, XATTN
     from repro_torch.models.model import LOSS_CHUNK
     from repro_torch.models.transformer import MOE_KINDS
     from repro_torch.sharding.tensor_parallel import KINDS, split_over_model
 
-    n = mesh_axis_sizes(mesh).get("model", 1)
+    sizes = mesh_axis_sizes(mesh)
+    n, data = sizes.get("model", 1), sizes.get("data", 1)
     out = {k: {"calls": 0, "bytes": 0} for k in KINDS}
+
+    def moe_groups(total: int) -> int:
+        """``models.moe._num_groups`` of ``total`` tokens on ``mesh``."""
+        g = math.prod(sizes.values())
+        while g > 1 and total % g:
+            g //= 2
+        return max(g, 1)
 
     def add(kind, calls, nbytes):
         out[kind]["calls"] += calls * microbatches
@@ -139,11 +162,13 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
     pattern = cfg.block_pattern
     for i in range(cfg.num_layers if n > 1 else 0):
         pre = f"blocks.{i}."
-        if split(pre + "attn.wq", 1):
+        kind = pattern[i % len(pattern)]
+        mixer = pre + ("xattn." if kind == XATTN else "attn.")
+        if split(mixer + "wq", 1):
             add("all-reduce", 3, act)
             if cfg.qk_norm:
                 add("all-reduce", 2, hd * item)
-            wk_split = split(pre + "attn.wk", 1)
+            wk_split = split(mixer + "wk", 1)
             if cfg.num_heads % n or cfg.num_kv_heads % n or not wk_split:
                 for width, is_split in ((cfg.attn_dim, True),
                                         (cfg.kv_dim, wk_split),
@@ -154,7 +179,6 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
                         add("reduce-scatter", 1, w)
                     else:
                         add("all-reduce", 1, w)
-        kind = pattern[i % len(pattern)]
         if split(pre + "mamba.conv_w", 1):
             add("all-reduce", 3, act)
             add("all-to-all", 3, tokens * 2 * cfg.d_inner // n * item)
@@ -168,10 +192,20 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
         if kind in MOE_KINDS:
             E, K = cfg.num_experts, cfg.experts_per_token
             router = d * E * 4
+            experts_split = split(pre + "moe.experts.w_gate", 0)
+            G = max(1, moe_groups(tokens * data) // data)
+            if G < n:
+                if experts_split:
+                    C = max(1, math.ceil(tokens // G * K / E
+                                         * cfg.moe_capacity_factor))
+                    add("all-reduce", 1, act)
+                    add("all-gather", 2, router)
+                    add("all-gather", 2, E * G * C * d * item)
+                continue
             add("all-reduce", 1, act)
             add("all-reduce", 2, 2 * E * 4)
             add("all-gather", 1, act)
-            if split(pre + "moe.experts.w_gate", 0):
+            if experts_split:
                 C = max(1, math.ceil(tokens // n * K / E
                                      * cfg.moe_capacity_factor))
                 add("all-gather", 2, router)
@@ -182,16 +216,46 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
                 add("all-reduce", 3, E * d * cfg.d_ff * item)
     if split("embed", 0) or split("head", 1):
         chunks = -(-seq // min(LOSS_CHUNK, seq))
-        add("all-reduce", 2, act)
+        add("all-reduce", 1 if cfg.audio_frontend else 2, act)
         add("all-reduce", 2 * chunks, tokens * 4)
         add("all-reduce", 2 * chunks, 2 * tokens * 4)
-    groups = {tuple(sorted({a for e in s for a in spec_axes(e)}))
+    adafactor = optimizer == "adafactor"
+    groups = {tuple(sorted({a for e in s for a in spec_axes(e)
+                            if a == "model" or not adafactor}))
               for s in specs.values()}
-    norms = sum("model" in g for g in groups) if optimizer == "adamw" \
-        else 0
+    norms = sum("model" in g for g in groups)
     out["all-reduce"]["calls"] += norms
     out["all-reduce"]["bytes"] += 4 * norms
+    if adafactor and n > 1:
+        for calls, nbytes in _adafactor_stats(cfg, specs):
+            out["all-reduce"]["calls"] += calls
+            out["all-reduce"]["bytes"] += nbytes
     return out
+
+
+def _adafactor_stats(cfg, specs):
+    """(calls, bytes) of the all-reduces over ``model`` of each Adafactor
+    statistic group whose parameters are split over ``model`` on one of
+    their last two dimensions (``optimizer.apply_updates``'s ``split``):
+    the row statistic's partial sums for the last, the column
+    statistic's and the row statistic's mean for the second to last."""
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.tensor_parallel import split_over_model
+    from repro_torch.training.optimizer import _groups
+    shapes = {k: tuple(p.shape) for k, p in
+              LM(cfg, device="meta").named_parameters()}
+    for group, names in _groups(shapes, len(cfg.block_pattern)).items():
+        full = shapes[names[0]]
+        if group.startswith("blocks."):
+            full = (len(names), *full)
+        if len(full) < 2:
+            continue
+        spec, nd = specs.get(names[0], ()), len(shapes[names[0]])
+        if nd and split_over_model(spec, nd - 1):
+            yield 1, math.prod(full[:-1]) * 4
+        elif nd > 1 and split_over_model(spec, nd - 2):
+            yield 2, (math.prod(full[:-2] + full[-1:])
+                      + math.prod(full[:-2])) * 4
 
 
 def collective_bytes(params: Dict[str, object],

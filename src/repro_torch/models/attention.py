@@ -92,7 +92,15 @@ class Attention(nn.Module):
         """Training (JAX ``attn_block`` mode ``"train"``): causal attention
         over x (B, S, D) at positions 0..S-1 (``rope_cs``: their RoPE
         tables) through ``ops.flash_attention_train``, differentiable; no
-        cache.
+        cache.  Over ``model``: :meth:`_train`."""
+        return self._train(x, lambda h, group, weights: self._project_qkv(
+            h, rope_cs, group, weights), causal=True)
+
+    def _train(self, x, project, causal: bool):
+        """x plus the block's training attention (K3 forward, K3b
+        backward) of the q, k, v that ``project(h, group, weights)``
+        gives from the normed x ``h``: ``weights`` (wq, wk, wv) whole when
+        given, else this module's own.
 
         With the heads split over ``model`` (``wq`` a block of its
         columns) the row-split ``wo`` products are summed
@@ -111,20 +119,19 @@ class Attention(nn.Module):
         n_q = self.wq.shape[1]
         group = group_for(n_q != cfg.attn_dim)
         h = copy_to_model(rmsnorm(x, self.norm, cfg.norm_eps), group)
-        if group is None or self._whole_heads():
-            q, k, v = self._project_qkv(h, rope_cs, group)
-            out = ops.flash_attention_train(q, k, v, causal=True)
-            out = out.reshape(B, S, -1)
-        else:
+        weights = None
+        if group is not None and not self._whole_heads():
             weights = [gather_sum_grad(w, group, 1) if w.shape[1] != full
                        else copy_to_model(w, group)
                        for w, full in ((self.wq, cfg.attn_dim),
                                        (self.wk, cfg.kv_dim),
                                        (self.wv, cfg.kv_dim))]
-            q, k, v = self._project_qkv(h, rope_cs, group, weights)
-            out = ops.flash_attention_train(q, k, v, causal=True)
+        q, k, v = project(h, group, weights)
+        out = ops.flash_attention_train(q, k, v, causal=causal)
+        out = out.reshape(B, S, -1)
+        if weights is not None:
             r = model_parallel()[2]
-            out = out.reshape(B, S, -1)[..., r * n_q:(r + 1) * n_q]
+            out = out[..., r * n_q:(r + 1) * n_q]
         return x + reduce_from_model(dense(out, self.wo), group)
 
     def prefill(self, x, rope_cs, cache_k, cache_v, start: int = 0):
@@ -246,42 +253,50 @@ class Attention(nn.Module):
 class CrossAttention(Attention):
     """Pre-norm cross-attention over image tokens with its residual
     (``init_attention(cross=True)`` / ``xattn_block``): the same leaves
-    as :class:`Attention`; Q/K norm only with ``cfg.qk_norm``."""
+    as :class:`Attention`; Q/K norm only with ``cfg.qk_norm``.  Its
+    heads split over ``model`` as :class:`Attention`'s do; the image K/V
+    of this rank's heads are projected from the replicated embeddings."""
 
-    def _q(self, h):
+    def _q(self, h, group=None, weights=None):
+        """q (B, S, H, hd) of this module's ``wq`` (or that of ``weights``,
+        (wq, wk, wv), when given), H read from the weight's width; with
+        ``qk_norm`` normed over the head dimension, the norm weight read
+        through ``copy_to_model`` over ``group``."""
         cfg = self.cfg
         B, S, _ = h.shape
-        q = dense(h, self.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
+        wq = weights[0] if weights else self.wq
+        q = dense(h, wq).reshape(B, S, wq.shape[1] // cfg.head_dim,
+                                 cfg.head_dim)
         if cfg.qk_norm:
-            q = rmsnorm(q, self.q_norm, cfg.norm_eps)
+            q = rmsnorm(q, copy_to_model(self.q_norm, group), cfg.norm_eps)
         return q
 
-    def _kv(self, image_embeds):
-        """k, v (B, T_img, KV, hd) projected from the embeddings."""
+    def _kv(self, image_embeds, group=None, weights=None):
+        """k, v (B, T_img, KV, hd) projected from the embeddings by this
+        module's ``wk``/``wv`` (or those of ``weights``), KV read from
+        their widths; k normed as q is with ``qk_norm``."""
         cfg = self.cfg
         B, T, _ = image_embeds.shape
-        k = dense(image_embeds, self.wk).reshape(B, T, cfg.num_kv_heads,
-                                                 cfg.head_dim)
-        v = dense(image_embeds, self.wv).reshape(B, T, cfg.num_kv_heads,
-                                                 cfg.head_dim)
+        _, wk, wv = weights or (None, self.wk, self.wv)
+        hd = cfg.head_dim
+        k = dense(image_embeds, wk).reshape(B, T, wk.shape[1] // hd, hd)
+        v = dense(image_embeds, wv).reshape(B, T, wv.shape[1] // hd, hd)
         if cfg.qk_norm:
-            k = rmsnorm(k, self.k_norm, cfg.norm_eps)
+            k = rmsnorm(k, copy_to_model(self.k_norm, group), cfg.norm_eps)
         return k, v
 
-    def _attend(self, x, q, k, v, train: bool = False):
+    def _attend(self, x, q, k, v):
         B, S, _ = x.shape
-        if train:
-            out = ops.flash_attention_train(q, k, v, causal=False)
-        else:
-            out = ops.flash_attention(q, k, v, causal=False)
+        out = ops.flash_attention(q, k, v, causal=False)
         return x + dense(out.reshape(B, S, -1), self.wo)
 
     def forward(self, x, image_embeds):
         """Training (mode ``"train"``): x (B, S, D) attends every image
-        row, through ``ops.flash_attention_train``; no cache."""
-        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
-        return self._attend(x, self._q(h), *self._kv(image_embeds),
-                            train=True)
+        row, through ``ops.flash_attention_train`` (non-causal); no
+        cache.  Over ``model`` as :meth:`Attention._train`."""
+        return self._train(x, lambda h, group, weights: (
+            self._q(h, group, weights),
+            *self._kv(image_embeds, group, weights)), causal=False)
 
     def prefill(self, x, image_embeds, cache_k, cache_v):
         """x (B, S, D) attends every image row through K3 (non-causal,

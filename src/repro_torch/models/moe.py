@@ -16,8 +16,12 @@ every rank's slots, the outputs come back by the reverse all-to-all and
 are combined per group, and the combined rows are all-gathered into the
 replicated (T, D).  Where the experts do not divide ``model`` they stay
 whole: each rank runs them all on its own group, with no all-to-all.  A
-batch that routes in fewer groups than the mesh has ranks is refused
-(JAX then leaves ``shard_map``).
+batch that routes in fewer groups than the model group has ranks (JAX
+then leaves ``shard_map`` and routes every group, its expert products
+still split over ``model``) is routed whole on every model rank: each
+runs its own E / model experts over every group's slots and their
+outputs are all-gathered along the experts, with no all-to-all; with the
+experts whole every rank runs the block as one device does.
 
 Per forward: a float32 router, softmax, top-k and gate renormalisation;
 in each group the (token, choice) pairs stable-sorted by expert id and
@@ -116,25 +120,28 @@ class MoE(nn.Module):
         group, world = data_parallel()
         G = max(1, _num_groups(B * world, S) // world)
         mgroup, n_model, m = model_parallel()
-        if n_model > 1 and G != n_model:
-            raise ValueError(
-                f"{cfg.name}: {B * world} x {S} tokens route in "
-                f"{_num_groups(B * world, S)} dispatch groups, fewer than "
-                f"the mesh's {world * n_model} ranks; expert parallelism "
-                "over 'model' needs one group a rank")
         Tg = T // G
         C = max(1, int(math.ceil(Tg * K / E * cfg.moe_capacity_factor)))
         h = rmsnorm(x, self.norm, cfg.norm_eps)
-        if n_model > 1:
+        if n_model > 1 and G == n_model:
             combined, aux = self._expert_parallel(h, C, group, world,
                                                   mgroup, n_model, m)
             return x + combined.reshape(B, S, D), aux
         ht = h.reshape(T, D)
         dev = x.device
+        # fewer groups than model ranks with the experts split: every
+        # rank routes every group, so the router's gradient is whole on
+        # each (gather_own_grad)
+        split = n_model > 1 and self.experts.w_gate.shape[0] != E
+        router = gather_own_grad(self.router, mgroup, 1) if split \
+            else self.router
 
         # route: float32 router, softmax, top-k, renormalised gates
-        probs, gate_w, expert_idx = self._route(ht, self.router)
-        if G == 1:
+        probs, gate_w, expert_idx = self._route(ht, router)
+        if split:
+            combined = self._few_groups(ht, gate_w, expert_idx, G, C,
+                                        mgroup, n_model, m)
+        elif G == 1:
             combined = self._group(ht, gate_w, expert_idx, C)
         else:
             combined = torch.cat([
@@ -202,6 +209,34 @@ class MoE(nn.Module):
                                        (w.w_gate, w.w_up, w.w_down)])
         combined = self._combine(out_e.reshape(E * C, D), info, expert_idx)
         return gather_own_grad(combined.to(h.dtype), mgroup, 0), aux
+
+    def _few_groups(self, ht, gate_w, expert_idx, G, C, mgroup, n, m):
+        """The block over ``model`` when this data rank's rows route in
+        ``G`` groups, fewer than the ``n`` model ranks (JAX leaves
+        ``shard_map`` and its ``constrain`` still splits the expert
+        products): every rank has routed every group of ``ht`` (T, D);
+        it packs each group's (E, C, D) buffer from ``ht`` read through
+        ``copy_to_model`` (its gradient is this rank's experts' share),
+        runs its own E / n experts over every group's slots, gathers the
+        outputs over ``mgroup`` along the experts (the combine is
+        replicated, so each rank's gradient of them is whole) and
+        combines per group.  No all-to-all.  Returns the float32 (T, D)."""
+        T, D = ht.shape
+        E = self.cfg.num_experts
+        El, Tg = E // n, T // G
+        w = self.experts
+        hc = copy_to_model(ht, mgroup)
+        packed = [self._dispatch(hc[i:i + Tg], gate_w[i:i + Tg],
+                                 expert_idx[i:i + Tg], C)
+                  for i in range(0, T, Tg)]
+        xs = torch.stack([xs for xs, _ in packed])[:, m * El:(m + 1) * El]
+        out = self._experts(xs.transpose(0, 1).reshape(El, G * C, D),
+                            (w.w_gate, w.w_up, w.w_down))
+        out_e = gather_own_grad(out.view(El, G, C, D), mgroup, 0)
+        return torch.cat([
+            self._combine(out_e[:, g].reshape(E * C, D), info,
+                          expert_idx[g * Tg:(g + 1) * Tg])
+            for g, (_, info) in enumerate(packed)])
 
     def _route(self, ht, router):
         """probs (T, E) of the float32 router and softmax, the top-k

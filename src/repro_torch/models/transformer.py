@@ -62,6 +62,16 @@ def attention_layers(cfg) -> int:
                for i in range(cfg.num_layers))
 
 
+def flash_layers(cfg) -> int:
+    """The stack's layers that attend in training: the self-attention
+    layers (causal) and the cross-attention layers (non-causal over the
+    image rows), each launching K3 twice a train step (its forward and
+    remat's recomputation) and K3b once."""
+    pattern = cfg.block_pattern
+    return attention_layers(cfg) + sum(
+        pattern[i % len(pattern)] == XATTN for i in range(cfg.num_layers))
+
+
 class Block(nn.Module):
     """One block of an attention, Mamba or cross-attention kind.
     Parameters sit under ``attn``, ``mamba`` or ``xattn`` and under

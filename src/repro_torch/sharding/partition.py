@@ -46,13 +46,16 @@ def _coordinate(mesh) -> dict:
     return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
 
 
-def local_shard(t: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+def local_shard(t: torch.Tensor, spec: PartitionSpec, mesh,
+                axes=None) -> torch.Tensor:
     """This rank's block of the full tensor ``t`` laid out by ``spec``
-    (a contiguous copy when anything is cut, else ``t`` itself)."""
+    (a contiguous copy when anything is cut, else ``t`` itself).
+    ``axes``: cut over these mesh axes only, ``t`` being the block of the
+    others (the reverse of :func:`gather_shard` with ``axes``)."""
     sizes, coord = mesh_axis_sizes(mesh), None
     out = t
     for d, entry in enumerate(spec):
-        names = spec_axes(entry)
+        names = _cut_axes(entry, axes, "local_shard")
         if not names:
             continue
         coord = coord or _coordinate(mesh)
@@ -62,6 +65,20 @@ def local_shard(t: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
         step = t.shape[d] // n
         out = out.narrow(d, idx * step, step)
     return out.contiguous().clone() if out is not t else t
+
+
+def _cut_axes(entry, axes, who: str) -> tuple:
+    """The mesh axes of a spec entry to cut or gather over: all of them,
+    or with ``axes`` those of them in ``axes``, which must be the
+    entry's minor ones."""
+    names = spec_axes(entry)
+    if axes is None:
+        return names
+    kept = [a for a in names if a not in axes]
+    if names[:len(kept)] != tuple(kept):
+        raise ValueError(f"{who}: cannot take {axes} out of {entry} and "
+                         "keep the rest")
+    return names[len(kept):]
 
 
 def gather_shard(t: torch.Tensor, spec: PartitionSpec, mesh,
@@ -74,13 +91,7 @@ def gather_shard(t: torch.Tensor, spec: PartitionSpec, mesh,
     from repro_torch.sharding.compat import all_gather_single
     out = t
     for d, entry in enumerate(spec):
-        names = spec_axes(entry)
-        if axes is not None:
-            kept = [a for a in names if a not in axes]
-            if names[:len(kept)] != tuple(kept):
-                raise ValueError(f"gather_shard: cannot gather {axes} out of "
-                                 f"{entry} and keep the rest")
-            names = names[len(kept):]
+        names = _cut_axes(entry, axes, "gather_shard")
         for a in reversed(names):              # minor axis first
             blocks = all_gather_single(out, group=mesh.get_group(a))
             out = torch.cat(blocks.unbind(0), dim=d)

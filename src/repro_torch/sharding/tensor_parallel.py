@@ -16,7 +16,9 @@ axis's process group on the active mesh (:func:`group_for`).
   :func:`reduce_from_model` (all-reduce forward, identity backward);
   ``q_norm``/``k_norm`` are whole on every rank and read through
   :func:`copy_to_model` too, so their gradients are the sums over every
-  rank's heads.
+  rank's heads.  Cross-attention splits the same way, its K/V projected
+  from the image embeddings (replicated inputs: no collective) by this
+  rank's ``wk``/``wv`` columns.
 * Attention, heads cut across ranks (a spec that cuts inside a head, or
   ``wq`` split while ``wk`` stays whole): the split projections are
   gathered whole (:func:`gather_sum_grad`), every rank attends all the
@@ -26,6 +28,9 @@ axis's process group on the active mesh (:func:`group_for`).
   the router gathered whole and exchanges the packed buffer with its
   ``model`` group (:func:`all_to_all_model`) so that it runs its own
   experts; the combined rows are gathered back (:func:`gather_own_grad`).
+  A batch that routes in fewer groups than ranks is routed whole on
+  every rank, each running its own experts over every group's slots,
+  and the experts' outputs are gathered (:func:`gather_own_grad`).
 * Mamba (``models.ssm``), this rank's block of ``d_inner``'s channels:
   ``in_proj``'s block of columns is a block of ``[x | z]`` (at model 2
   one rank holds all of x, the other all of z), so its product is
@@ -44,7 +49,8 @@ axis's process group on the active mesh (:func:`group_for`).
 * Embedding and head: each rank holds a block of vocabulary rows; the
   lookup is masked to them and summed (:func:`vocab_parallel_embedding`),
   and the loss's log-sum-exp and target logit are all-reduced
-  (``models.model``).
+  (``models.model``).  With the audio frontend the frames enter whole on
+  every rank and only the head is split.
 
 Every Function is the identity on a group of one (``group=None``).  Every
 collective of this module goes through :func:`all_reduce`,
@@ -54,9 +60,9 @@ kind (the whole buffer: an all-gather's output, a reduce-scatter's
 input).
 
 :func:`check_layout` refuses, before any process group is touched, the
-stacks the step does not execute over ``model``: cross-attention, the
-audio frontend, and Mamba or xLSTM blocks whose channels or heads do not
-fall whole on the ranks while their projections split.
+stacks the step does not execute over ``model``: Mamba or xLSTM blocks
+whose channels or heads do not fall whole on the ranks while their
+projections split.
 """
 
 from __future__ import annotations
@@ -315,31 +321,17 @@ def vocab_parallel_embedding(tokens, shard, group, rank: int):
 
 
 # ------------------------------------------------------------ the layout
-#: why each block kind is not executed over ``model`` (the next slices)
-REFUSED = {"xattn": "cross-attention"}
-
-
 def split_over_model(spec, dim: int) -> bool:
     return len(spec) > dim and "model" in spec_axes(spec[dim])
 
 
 def check_layout(cfg, mesh) -> None:
     """Raise ValueError unless the train step executes ``cfg`` over
-    ``mesh``'s ``model`` axis: every attention, MoE, Mamba and xLSTM
-    layout the rules give is executed, except a Mamba ``d_inner`` or an
-    xLSTM head count that does not divide over ``model`` while the
-    block's projections split (their channels or heads would fall across
-    ranks); cross-attention and the audio frontend are not."""
+    ``mesh``'s ``model`` axis: every layout the rules give is executed,
+    except a Mamba ``d_inner`` or an xLSTM head count that does not divide
+    over ``model`` while the block's projections split (their channels or
+    heads would fall across ranks)."""
     n = mesh_axis_sizes(mesh).get("model", 1)
-    where = (f"tensor-parallel execution over 'model' ({n}) covers "
-             "attention, MLP, MoE, Mamba and xLSTM stacks only")
-    if cfg.audio_frontend:
-        raise ValueError(f"make_train_step: {cfg.name} reads frames through "
-                         f"the audio frontend; {where}")
-    for kind in cfg.block_pattern:
-        if kind in REFUSED:
-            raise ValueError(f"make_train_step: {cfg.name} has {kind} "
-                             f"blocks ({REFUSED[kind]}); {where}")
     kinds = set(cfg.block_pattern)
     di = cfg.d_inner
     if kinds & {"mamba", "mamba_moe"} and di % n and 2 * di % n == 0:

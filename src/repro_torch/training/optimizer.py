@@ -27,7 +27,9 @@ repeats.  The port keeps that: block parameters are grouped by pattern
 position and name (``blocks.<part>.<name>`` for a one-block pattern,
 ``blocks.pos<p>.<part>.<name>`` otherwise; ``period`` is the pattern's
 length), stacked over repeats for the update, and their statistics are
-held per group.
+held per group.  Its statistics are reduced over each group's whole
+gradient; its elementwise update then runs a run of rows at a time, as
+AdamW's does (the same bits, ``CHUNK``-sized temporaries).
 
 All of it is plain PyTorch under ``no_grad`` (``torch._foreach_*`` for
 AdamW), as the JAX package leaves it to XLA outside any kernel.
@@ -187,16 +189,34 @@ def _slices(groups, size: int = CHUNK):
         yield run
 
 
+def _mean(x, dim: int, split=None, keepdim: bool = False):
+    """``torch.mean`` of x over ``dim``; with ``split`` = (process group,
+    full length), x holds this rank's block of that dimension and the
+    mean is the sum over every rank's block (all-reduced) over the full
+    length."""
+    if split is None:
+        return torch.mean(x, dim=dim, keepdim=keepdim)
+    from repro_torch.sharding.tensor_parallel import all_reduce
+    group, full = split
+    return all_reduce(x.sum(dim=dim, keepdim=keepdim), group).div_(full)
+
+
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state: OptState,
-                  cfg: OptConfig, period: int = 1, gnorm=None):
+                  cfg: OptConfig, period: int = 1, gnorm=None, split=None):
     """One optimizer step.  Returns (params, new_state, metrics) with
     ``params`` updated in place and metrics {"grad_norm", "lr"} as 0-d
     tensors on the parameters' device (no host synchronisation).
     ``period``: the block pattern's length, as in :func:`init_opt_state`.
     ``gnorm``: the global gradient norm when ``grads`` are shards of it
-    (the data-parallel step), else computed here."""
+    (the data-parallel step), else computed here.  ``split`` (Adafactor):
+    {parameter name: (dim, process group, full length)} for parameters
+    (and gradients) that are this rank's block of dimension ``dim`` (-1 or
+    -2) of the whole, split over the ranks of the group (tensor
+    parallelism): the factored statistics' means over that dimension sum
+    every rank's block, so each rank updates its own block as the whole
+    would be."""
     names = list(params)
     if gnorm is None:
         gnorm = global_norm([grads[n] for n in names])
@@ -239,25 +259,37 @@ def apply_updates(params: Dict[str, torch.Tensor],
             g32 = dict(zip(gnames, torch._foreach_mul(
                 [grads[n].float() for n in gnames], scale)))
             g = _stacked(g32, gnames, group)
-            p32 = _stacked(params, gnames, group).float()
+            p = _stacked(params, gnames, group)
+            stacked = group.startswith("blocks.")
             r, c = state.m[group], state.v[group]
+            dim, *cut = (split or {}).get(gnames[0], (0,))
+            cols = cut if dim == -1 else None
+            rows = cut if dim == -2 else None
             if g.dim() < 2:
                 v_new = decay * r + (1 - decay) * (g * g)
-                delta = g / torch.sqrt(v_new + eps)
-                r_new, c_new = v_new, c
-            else:
-                r_new = decay * r + (1 - decay) * torch.mean(g * g, dim=-1)
-                c_new = decay * c + (1 - decay) * torch.mean(g * g, dim=-2)
-                rc = r_new / torch.clamp(
-                    torch.mean(r_new, dim=-1, keepdim=True), min=eps)
-                vhat = rc[..., None] * c_new[..., None, :]
-                delta = g / torch.sqrt(vhat + eps)
-            new = p32 - lr * delta
-            if group.startswith("blocks."):
-                for i, n in enumerate(gnames):
-                    params[n].copy_(new[i])
-            else:
+                new = p.float() - lr * (g / torch.sqrt(v_new + eps))
                 params[gnames[0]].copy_(new)
+                new_m[group], new_v[group] = v_new, c
+                continue
+            r_new = decay * r + (1 - decay) * _mean(g * g, -1, cols)
+            c_new = decay * c + (1 - decay) * _mean(g * g, -2, rows)
+            rc = r_new / torch.clamp(
+                _mean(r_new, -1, rows, keepdim=True), min=eps)
+            # the elementwise update a run of rows at a time: the bits of
+            # one pass, the float32 temporaries CHUNK elements each (a
+            # stack of vectors in one pass)
+            n = g.shape[-2]
+            run = max(1, CHUNK // g[..., :1, :].numel()) \
+                if params[gnames[0]].dim() >= 2 else n
+            for a in range(0, n, run):
+                at = (..., slice(a, a + run), slice(None))
+                vhat = rc[..., a:a + run, None] * c_new[..., None, :]
+                new = p[at].float() - lr * (g[at] / torch.sqrt(vhat + eps))
+                if not stacked:
+                    params[gnames[0]][at].copy_(new)
+                for i, name in enumerate(gnames if stacked else ()):
+                    leaf = params[name]
+                    (leaf[at] if leaf.dim() >= 2 else leaf).copy_(new[i])
             new_m[group], new_v[group] = r_new, c_new
         return params, OptState(step, new_m, new_v), {"grad_norm": gnorm,
                                                       "lr": lr}

@@ -30,23 +30,26 @@ computed whole on every rank.  Over ``data``:
   the ranks' losses and gradients is the global batch's, and the MoE
   routes each rank's rows as its own dispatch group (``models.moe``);
 * AdamW updates each shard with the global gradient norm; Adafactor's
-  factored statistics are taken on the gathered gradient (every gradient
-  is all-reduced whole, and the statistics gathered for the update):
-  it holds a full float32 gradient per parameter during the update, as
-  on one device, and saves only the parameter and statistic shards
-  between steps.
+  factored statistics are taken on the gradient gathered over ``data``
+  (every gradient is all-reduced whole over ``data``, and the statistics
+  gathered for the update): it holds a float32 gradient of each
+  parameter's ``model`` block during the update, and saves only the
+  parameter and statistic shards between steps.
 
-Over ``model`` (``sharding.tensor_parallel``): the attention heads
-(``wq``/``wk``/``wv`` by columns, ``wo`` by rows; where a spec cuts
-inside a head the split projections are gathered whole and every rank
-attends every head, ``models.attention``), the MLP's ``d_ff``, the MoE's
-experts (each model rank routes its own dispatch group and exchanges the
-packed buffer by all-to-all, ``models.moe``), Mamba's ``d_inner``
+Over ``model`` (``sharding.tensor_parallel``): the attention and
+cross-attention heads (``wq``/``wk``/``wv`` by columns, ``wo`` by rows;
+where a spec cuts inside a head the split projections are gathered whole
+and every rank attends every head, ``models.attention``), the MLP's
+``d_ff``, the MoE's experts (each model rank routes its own dispatch
+group and exchanges the packed buffer by all-to-all; a batch that routes
+in fewer groups than ranks is routed whole on every rank, each running
+its own experts over every group, ``models.moe``), Mamba's ``d_inner``
 channels (``in_proj``'s product exchanged into each rank's channels of
 x and z, ``models.ssm``), the xLSTM heads (the sLSTM's gate product
 exchanged into each rank's heads, ``models.xlstm``) and the vocabulary
 (embedding rows, head columns, a tied head reading the embedding's
-block) are split; every rank of a ``model`` group takes its ``data``
+block; with the audio frontend the frames enter whole and only the head
+is split) are split; every rank of a ``model`` group takes its ``data``
 rank's whole batch, the blocks' partial results are all-reduced forward
 and their inputs' gradients backward, and the loss is the vocab-parallel
 cross entropy.  The leaves' gathers are over ``data`` only: a rank keeps
@@ -54,12 +57,11 @@ its ``model`` block.  The global gradient norm sums each leaf's squares
 over the axes it is split over, each leaf once; a leaf split over
 neither is computed identically on every model rank and stays
 bit-identical there.  AdamW updates the blocks elementwise; Adafactor
-gathers the gradients and parameters over ``model`` too and cuts the
-updated ones back.  Cross-attention and the audio frontend are refused
-at ``model`` > 1 (``tensor_parallel.check_layout``), as are Mamba or
-xLSTM blocks whose channels or heads do not divide over ``model`` while
-their projections do, and a MoE step whose batch routes in fewer
-dispatch groups than the mesh has ranks raises in the forward.
+updates each rank's blocks too, its factored statistics' means over a
+split dimension summed over ``model`` (``optimizer.apply_updates``'s
+``split``), so no rank holds a whole split gradient.  Mamba or xLSTM
+blocks whose channels or heads do not divide over ``model`` while their
+projections do are refused (``tensor_parallel.check_layout``).
 
 With ``mesh=None`` or a mesh of one rank the step is the single-device
 one bit for bit; at ``model`` 1 it is the data-parallel step above.
@@ -79,6 +81,7 @@ from repro_torch.sharding.partition import (gather_shard, local_shard,
                                             tree_specs)
 from repro_torch.sharding.rules import (is_axes_leaf, mesh_axis_sizes,
                                         spec_axes)
+from repro_torch.sharding.tensor_parallel import split_over_model
 from repro_torch.training.checkpoint import flatten
 from repro_torch.training.optimizer import (OptConfig, OptState, _batches,
                                             apply_updates, init_opt_state,
@@ -232,22 +235,32 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
             if specs[path] and t.shape == full_shape[path]:
                 tree[k] = local_shard(t, specs[path], mesh)
 
-    def global_sq(g: dict, like) -> torch.Tensor:
+    def global_sq(g: dict, like, axes=("data", "model")) -> torch.Tensor:
         """The squares of every gradient summed over the mesh: each
-        leaf's shard summed over the axes it is split over, each leaf
+        leaf's block summed over the ``axes`` it is split over, each leaf
         counted once."""
         keys = {}
         for k in g:
-            keys.setdefault(over(k), []).append(k)
+            keys.setdefault(tuple(a for a in over(k) if a in axes),
+                            []).append(k)
         sq = None
-        for axes in sorted(keys, key=lambda a: (-len(a), a)):
-            part = _sq_sum([g[k] for k in keys[axes]], like)
-            if "data" in axes:
+        for ax in sorted(keys, key=lambda a: (-len(a), a)):
+            part = _sq_sum([g[k] for k in keys[ax]], like)
+            if "data" in ax:
                 _mean_over(group, 1, part)
-            if "model" in axes:
+            if "model" in ax:
                 tp.all_reduce(part, mgroup)
             sq = part if sq is None else sq + part
         return sq
+
+    def model_split(k):
+        """(dim, group, full length) of the dimension of parameter ``k``
+        split over ``model``, counted from the end, or None."""
+        full = full_shape[f"model/{k}"]
+        for d in range(len(full)):
+            if split_over_model(pspec(k), d):
+                return d - len(full), mgroup, full[d]
+        return None
 
     def dp_step(state: TrainState, batch):
         lm, opt = state.model, state.opt
@@ -285,22 +298,27 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
                 gnorm=global_sq(g, loss).sqrt())
         else:
             g = {k: _mean_over(group, world, x.float().clone())
-                 if world > 1 else x.float() for k, x in grads.items()}
-            for k in tp_split:
-                g[k] = gather_shard(g[k], pspec(k), mesh, axes=("model",))
-                params[k].data = gather_shard(params[k].data, pspec(k),
-                                              mesh, axes=("model",))
-            whole = OptState(opt.step, *(
-                {k: gather_shard(t, specs[f"opt/{name}/{k}"], mesh)
-                 if t.shape != full_shape[f"opt/{name}/{k}"] else t
+                 if world > 1 else x for k, x in grads.items()}
+            # each rank updates its model blocks: the factored statistics'
+            # means over a split dimension are summed over model
+            cut = {k: model_split(k) for k in tp_split}
+            cut = {k: c for k, c in cut.items() if c is not None}
+            state_over_data = OptState(opt.step, *(
+                {k: gather_shard(t, specs[f"opt/{name}/{k}"], mesh,
+                                 axes=("data",))
                  for k, t in tree.items()}
                 for tree, name in ((opt.m, "m"), (opt.v, "v"))))
-            _, new_opt, metrics = apply_updates(params, g, whole, opt_cfg,
-                                                period)
-            to_shards(new_opt.m, "opt/m")
-            to_shards(new_opt.v, "opt/v")
+            _, new_opt, metrics = apply_updates(
+                params, g, state_over_data, opt_cfg, period,
+                gnorm=global_sq(g, loss, axes=("model",)).sqrt()
+                if n_model > 1 else None, split=cut)
+            for tree, name in ((new_opt.m, "m"), (new_opt.v, "v")):
+                for k, t in tree.items():
+                    tree[k] = local_shard(t, specs[f"opt/{name}/{k}"], mesh,
+                                          axes=("data",))
             for k in split:
-                params[k].data = local_shard(params[k].data, pspec(k), mesh)
+                params[k].data = local_shard(params[k].data, pspec(k), mesh,
+                                             axes=("data",))
         metrics["loss"] = loss
         return TrainState(lm, new_opt), metrics
 

@@ -352,25 +352,6 @@ def test_one_rank_mesh_is_the_single_device_step_bit_for_bit(kind):
         assert torch.equal(torch.as_tensor(t), torch.as_tensor(s1[p])), p
 
 
-REFUSALS = [
-    ("llama-3.2-vision-90b", True, "xattn blocks .cross-attention"),
-    ("musicgen-large", True, "audio frontend"),
-]
-
-
-@pytest.mark.parametrize("arch,reduced,match", REFUSALS,
-                         ids=[r[0] for r in REFUSALS])
-def test_refused_at_model_two(arch, reduced, match):
-    """Cross-attention and the audio frontend are refused over ``model``
-    with a ValueError naming the arch and what is refused, before any
-    process group is touched (a shape-only mesh)."""
-    cfg = get_config(arch)
-    cfg = cfg.reduced() if reduced else cfg
-    with pytest.raises(ValueError, match=f"{cfg.name}.*{match}"):
-        make_train_step(cfg, OptConfig(),
-                        mesh=MeshShape(("data", "model"), (1, 2)))
-
-
 @pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b",
                                   "gemma-2b", "smollm-360m",
                                   "jamba-v0.1-52b", "xlstm-350m"])

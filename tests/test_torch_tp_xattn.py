@@ -1,0 +1,146 @@
+"""The port's tensor parallelism over ``model`` for cross-attention, the
+audio frontend and a MoE batch routed in fewer dispatch groups than
+ranks, on the CPU over gloo, against the JAX package's jitted step on
+meshes of the same shape over forced host devices (Auto axes: GSPMD
+splits the query and image K/V heads, the head's vocabulary and the
+expert products over ``model``).
+
+Every process runs at once, under one time limit: two port ranks on a
+(1, 2) ("data", "model") mesh, four on (2, 2), four on (1, 4)
+(``tests/torch_tp_worker.py``'s ``xattn`` suite) and one JAX process per
+mesh shape.  Each runs the cases of ``XATTN_CASES`` that name its mesh,
+three steps each, from the same JAX-initialised weights and the same
+seeded image or frame embeddings: reduced llama-3.2-vision-90b (4
+attention and 1 cross-attention layer; Adafactor) at (1, 2) and (2, 2);
+the same with 2 KV heads at (1, 4), where the cross-attention's ``wk``
+block cuts a head; reduced musicgen-large (frames in, the head split by
+vocabulary) at (1, 2) and (2, 2); reduced dbrx-132b at B 1 x S 31 on
+(1, 2) and B 2 x S 31 on (2, 2), one dispatch group a data rank, fewer
+than the model ranks.
+
+Tolerances are ``tests/test_torch_tensor_parallel.py``'s: losses and
+gradient norms rtol 1e-4, parameters atol 5e-4, rtol 5e-3.
+"""
+
+import torch_threads  # noqa: F401  (first: caps torch threads)
+
+import json
+import math
+import pickle
+import sys
+import time
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models.bridge import params_to_jax
+from repro_torch.sharding.rules import MeshShape, spec_axes
+from repro_torch.sharding.tensor_parallel import check_layout
+
+sys.path.insert(0, str(Path(__file__).parent))
+import torch_tp_worker as W  # noqa: E402
+from test_torch_tensor_parallel import (LIMIT_S, TOL, _assembled,  # noqa: E402
+                                        _coords, _init, _specs, _start)
+
+SUITE = "xattn"
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("tp_xattn")
+    for case in W.XATTN_CASES:
+        _init(case, out / case)
+    procs = [_start(["port", r, math.prod(W.mesh_shape(m)),
+                     out / f"store{m}", out, m, SUITE])
+             for m in W.MESHES for r in range(math.prod(W.mesh_shape(m)))]
+    procs += [_start(["jax", out, m, SUITE], devices=4) for m in W.MESHES]
+    deadline = time.monotonic() + LIMIT_S
+    try:
+        for p in procs:
+            log, _ = p.communicate(timeout=max(1, deadline - time.monotonic()))
+            assert p.returncode == 0, log[-4000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+CASE_MESH = [(c, m) for c in W.XATTN_CASES for m in W.case_meshes(c)]
+#: the weights each case splits over ``model``
+SPLIT = {"vision": "xattn.wq", "vision_cut": "xattn.wk",
+         "musicgen": "head", "moe_few": "moe.experts.w_gate"}
+
+
+@pytest.mark.parametrize("case,shape", CASE_MESH)
+def test_step_matches_jax_at_the_same_mesh(runs, case, shape):
+    """Three steps: losses and gradient norms within rtol 1e-4 of JAX's
+    jitted step on a mesh of the same shape, every parameter (put
+    together from the ranks' blocks) within atol 5e-4, rtol 5e-3; the
+    case's cross-attention, head or expert weights are split over
+    model."""
+    port = json.loads((runs / case / f"port_{shape}.json").read_text())
+    jres = pickle.loads((runs / case / f"jax_{shape}.pkl").read_bytes())
+    np.testing.assert_allclose(port["loss"], jres["loss"], rtol=1e-4)
+    np.testing.assert_allclose(port["grad_norm"], jres["grad_norm"],
+                               rtol=1e-4)
+    specs = _specs(case, shape)
+    assert any("model" in spec_axes(e) for p, s in specs.items()
+               if p.endswith(SPLIT[case]) for e in s)
+    whole = _assembled(runs, case, shape)
+    got = params_to_jax({p[len("model/"):]: t for p, t in whole.items()
+                         if p.startswith("model/")}, W.config(case))
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(jres["params"])):
+        np.testing.assert_allclose(a, b, **TOL)
+
+
+@pytest.mark.parametrize("case,shape", CASE_MESH)
+def test_whole_leaves_stay_equal_across_model_ranks(runs, case, shape):
+    """After three steps every leaf not split over ``model`` (the norms,
+    the optimizer step, a whole leaf's statistics or moments) is
+    bit-identical on the ranks that differ only in their model
+    coordinate; the split leaves differ."""
+    specs = _specs(case, shape)
+    coords = _coords(shape)
+    ranks = [torch.load(runs / case / f"port_{shape}_rank{r}.pt")
+             for r in range(len(coords))]
+    whole = [p for p, s in specs.items()
+             if not any("model" in spec_axes(e) for e in s)]
+    assert any(p.endswith("norm") for p in whole)
+    for p in whole:
+        for r, (dc, mc) in enumerate(coords):
+            peer = coords.index((dc, 0))
+            assert torch.equal(torch.as_tensor(ranks[r][p]),
+                               torch.as_tensor(ranks[peer][p])), (p, r)
+    split = [p for p in specs if p not in whole]
+    assert split and all(not torch.equal(ranks[0][p], ranks[1][p])
+                         for p in split)
+
+
+@pytest.mark.parametrize("case,shape", CASE_MESH)
+def test_roofline_counts_the_collectives_the_step_issues(runs, case, shape):
+    """``roofline.tensor_parallel_bytes`` equals, kind by kind, the
+    collectives over ``model`` that each step handed over (calls and
+    bytes); the few-groups MoE gathers its experts' outputs and runs no
+    all-to-all."""
+    port = json.loads((runs / case / f"port_{shape}.json").read_text())
+    assert port["roofline"]["all-reduce"]["calls"] > 0
+    assert port["roofline"]["all-to-all"]["calls"] == 0
+    for counted in port["counted"]:
+        assert counted == port["roofline"]
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "musicgen-large"])
+@pytest.mark.parametrize("model", [2, 4])
+def test_full_vision_and_musicgen_pass_check_layout(arch, model):
+    """Full llama-3.2-vision-90b (cross-attention) and musicgen-large (the
+    audio frontend) pass ``check_layout`` at model 2 and 4, as do their
+    reduced configs."""
+    mesh = MeshShape(("data", "model"), (1, model))
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        check_layout(cfg, mesh)

@@ -11,8 +11,9 @@ step on a mesh of the same shape.  Not a test module (pytest collects
 (``units``: one of two ranks of ``tests/test_torch_tp_collectives.py``.)
 
 ``SUITE`` is ``attn`` (the default: ``CASES``, for
-``tests/test_torch_tensor_parallel.py``) or ``recurrent``
-(``RECURRENT_CASES``, for ``tests/test_torch_tp_recurrent.py``).  Every
+``tests/test_torch_tensor_parallel.py``), ``recurrent``
+(``RECURRENT_CASES``, for ``tests/test_torch_tp_recurrent.py``) or
+``xattn`` (``XATTN_CASES``, for ``tests/test_torch_tp_xattn.py``).  Every
 case of the suite runs in turn on the meshes it names, each from the
 weights under
 ``OUT/<case>/`` (``init.pkl`` for JAX, the step-0 checkpoint ``ckpt0``
@@ -67,12 +68,28 @@ RECURRENT_CASES = {
                                       "num_layers": 2}, "adamw"),
     "xlstm": ("xlstm-350m", {}, "adamw"),
 }
-ALL_CASES = {**CASES, **RECURRENT_CASES}
-SUITES = {"attn": CASES, "recurrent": RECURRENT_CASES}
+#: cross-attention, the audio frontend and a MoE batch routed in fewer
+#: dispatch groups than ranks: reduced llama-3.2-vision-90b (4 attention
+#: and 1 cross-attention layer, 16 image rows; Adafactor, as the card
+#: trains it), the same with 2 KV heads at model 4 (wk 32 -> 8 a rank
+#: cuts a head of 16), reduced musicgen-large (frames in, the 512-way
+#: head split) and reduced dbrx-132b at B 1 x S 31 over (1, 2) and B 2
+#: x S 31 over (2, 2): 31 and 62 tokens route in 1 and 2 groups
+XATTN_CASES = {
+    "vision": ("llama-3.2-vision-90b", {}, "adafactor"),
+    "vision_cut": ("llama-3.2-vision-90b", {"num_kv_heads": 2},
+                   "adafactor"),
+    "musicgen": ("musicgen-large", {}, "adamw"),
+    "moe_few": ("dbrx-132b", {}, "adamw"),
+}
+ALL_CASES = {**CASES, **RECURRENT_CASES, **XATTN_CASES}
+SUITES = {"attn": CASES, "recurrent": RECURRENT_CASES, "xattn": XATTN_CASES}
 MESHES = ("1x2", "2x2", "1x4")
 #: the cases that run on other meshes than (1, 2) and (2, 2)
 CASE_MESHES = {"split_apart": ("1x4",), "mamba_only": ("1x4",),
-               "xlstm": MESHES}
+               "xlstm": MESHES, "vision_cut": ("1x4",)}
+#: (global batch, sequence) of a case on a mesh, where not (BATCH, SEQ)
+CASE_SHAPES = {("moe_few", "1x2"): (1, 31), ("moe_few", "2x2"): (2, 31)}
 
 
 def case_meshes(case):
@@ -84,6 +101,39 @@ def case_meshes(case):
 #: (1, 2) ranks resume it through ``plan_remesh`` for the last step
 RESUME_AT = 2
 RESUME_WAIT_S = 150
+
+
+def case_shape(case, shape):
+    """(global batch, sequence) of ``case`` on the mesh ``shape``."""
+    return CASE_SHAPES.get((case, shape), (BATCH, SEQ))
+
+
+def batches(case, shape, cfg, jax_side=False):
+    """``batch(step)``: the numpy inputs of ``case`` on ``shape`` at a
+    step, the same in JAX's process and the port's: the Markov stream's
+    tokens and labels (each package's own stream), and for a stack with
+    the audio frontend seeded frame embeddings in place of the tokens,
+    for one with cross-attention seeded image embeddings (float32)."""
+    if jax_side:
+        from repro.data.lm_data import LMDataConfig, SyntheticLMStream
+    else:
+        from repro_torch.data.lm_data import LMDataConfig, SyntheticLMStream
+    B, S = case_shape(case, shape)
+    data = SyntheticLMStream(LMDataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=S, global_batch=B))
+
+    def batch(step):
+        out = dict(data.batch(step))
+        rng = np.random.default_rng(1000 + step)
+        if cfg.audio_frontend:
+            out["frames"] = rng.standard_normal(
+                (B, S, cfg.d_model)).astype(np.float32)
+            del out["tokens"]
+        if cfg.num_image_tokens:
+            out["image_embeds"] = rng.standard_normal(
+                (B, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+        return out
+    return batch
 
 
 def config(case, jax_side=False):
@@ -103,7 +153,6 @@ def port(rank, world, init_file, out, shape, suite="attn"):
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch.data.lm_data import LMDataConfig, SyntheticLMStream
     from repro_torch.launch.roofline import tensor_parallel_bytes
     from repro_torch.sharding import tensor_parallel as tp
     from repro_torch.training import checkpoint as ckpt
@@ -127,12 +176,12 @@ def port(rank, world, init_file, out, shape, suite="attn"):
                              d / "ckpt0", mesh=mesh, axes=axes)
         specs = state_specs(cfg, opt, mesh)
         step = make_train_step(cfg, opt, mesh=mesh)
-        data = SyntheticLMStream(LMDataConfig(
-            vocab_size=cfg.vocab_size, seq_len=SEQ, global_batch=BATCH))
+        data = batches(case, shape, cfg)
         losses, norms, counted = [], [], []
         for i in range(STEPS):
-            batch = {k: torch.from_numpy(v).long()
-                     for k, v in data.batch(i).items()}
+            batch = {k: torch.from_numpy(v) if v.dtype == np.float32
+                     else torch.from_numpy(v).long()
+                     for k, v in data(i).items()}
             tp.reset_collectives()
             state, m = step(state, batch)
             counted.append(tp.snapshot())
@@ -149,8 +198,8 @@ def port(rank, world, init_file, out, shape, suite="attn"):
             (d / f"port_{shape}.json").write_text(json.dumps(
                 {"loss": losses, "grad_norm": norms, "counted": counted,
                  "roofline": tensor_parallel_bytes(
-                     cfg, pspecs, mesh, BATCH // dims[0], SEQ,
-                     optimizer=kind)}))
+                     cfg, pspecs, mesh, case_shape(case, shape)[0] // dims[0],
+                     case_shape(case, shape)[1], optimizer=kind)}))
     if dims == (1, 2) and suite == "attn":
         resume(rank, out)
 
@@ -196,7 +245,6 @@ def jax_run(out, shape, suite="attn"):
     import jax
     import jax.numpy as jnp
     from jax.sharding import AxisType
-    from repro.data.lm_data import LMDataConfig, SyntheticLMStream
     from repro.sharding import use_mesh
     from repro.sharding.partition import tree_shardings
     from repro.training.optimizer import OptConfig, init_opt_state
@@ -215,8 +263,7 @@ def jax_run(out, shape, suite="attn"):
                               pickle.loads((d / "init.pkl").read_bytes()))
         s_shapes, s_axes = abstract_train_state(cfg, opt)
         s_sh = tree_shardings(s_shapes, s_axes, mesh)
-        data = SyntheticLMStream(LMDataConfig(
-            vocab_size=cfg.vocab_size, seq_len=SEQ, global_batch=BATCH))
+        data = batches(case, shape, cfg, jax_side=True)
         losses, norms = [], []
         with use_mesh(mesh):
             state = jax.device_put(
@@ -225,7 +272,7 @@ def jax_run(out, shape, suite="attn"):
                            in_shardings=(s_sh, None),
                            out_shardings=(s_sh, None))
             for i in range(STEPS):
-                batch = {k: jnp.asarray(v) for k, v in data.batch(i).items()}
+                batch = {k: jnp.asarray(v) for k, v in data(i).items()}
                 state, m = step(state, batch)
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
