@@ -102,8 +102,13 @@ path and read just after:
   by kind equal to the roofline's count, finite losses; in this process
   after the ranks exit, one device's loss in the same two dispatch
   groups within 1e-3 relative); (h) xlstm-350m in float32 at full
-  width, all 24 layers (4 heads of 256, 2 a rank), 2 AdamW steps at B 2
-  x 128 held to the single-device step within 1e-5 relative.  (e′)
+  width cut to 4 of its 24 layers (two sLSTM, two mLSTM; 4 heads of 256,
+  2 a rank), 2 AdamW steps at B 2 x 128 held to the single-device step
+  within 1e-5 relative.  Every part at S 512 (and (h) at S 128) runs
+  with the residual stream split by positions over model 2 (``seq_sp``);
+  (e′)'s S 511 keeps it whole.  After (b), one forward of its loss under
+  the default rules and under ``seq_sp: ()`` counts the activations
+  saved for the backward: the blocks' inputs halve.  (e′)
   dbrx's layer, from the same initial weights, one step at B 1 x 511:
   its tokens route in one dispatch group, fewer than the ranks, so
   every rank routes it and runs its own 8 experts over its slots (the
@@ -123,7 +128,15 @@ path and read just after:
   peak memory a rank, collectives equal to the roofline's count, K3 2 x
   and K3b 1 x the self- and cross-attention layers, the cross-attention
   ones counted apart), each held in this process to the single-device
-  loss within 2e-2 relative;
+  loss within 2e-2 relative.  Once the late pair has exited, (k) on
+  eight ranks (``--tp-rank R FILE apart``) beside the rest of
+  ``[speculative]`` and the phases up to ``[mesh]``: xlstm-350m at full
+  width cut to its first two layers (sLSTM, mLSTM) in float32 over
+  (1, 8), its 4 heads of 256 across the ranks (128 ``qkv`` columns a
+  rank: the split projections gathered whole), 2 AdamW steps at B 2 x
+  128 held by rank 0 to the single-device step within 1e-5 relative on
+  the ranks' whole parameters, each step's collectives equal to the
+  roofline's count on every rank;
 * ``[launch-sidecar]`` ``python -m repro_torch.launch.sidecar --port 0``
   as child processes, the full-width real backend beside the sim
   backend, under fcfs and then sjf, and the real backend with
@@ -4872,8 +4885,8 @@ def collect_examples(run, smi) -> None:
 # smollm serving phases (about 25-28 GiB each at most)
 TP_FLAG = "--tp-rank"
 TP_B, TP_STEPS, TP_F32_STEPS, TP_SEED = 2, 3, 2, 11
-#: (h)'s sequence: the sLSTM runs token by token
-TP_XLSTM_S = 128
+#: (h)'s sequence and layers: the sLSTM runs token by token
+TP_XLSTM_S, TP_XLSTM_LAYERS = 128, 4
 TP_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 
@@ -4936,7 +4949,7 @@ def _rank_order(lm, specs, n):
 
 
 def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
-                    order=False, alone=False) -> dict:
+                    order=False, alone=False, on_rank0=False) -> dict:
     """``TP_F32_STEPS`` float32 steps of ``cfg`` (``opt``) at B ``TP_B`` x
     ``seq`` (``TRAIN_S`` when None) through ``make_train_step(mesh=)``
     held to the single-device step from the same weights and batches:
@@ -4954,8 +4967,12 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
     from the initial weights is held within ``TP_PLAIN_TOL``.  With
     ``alone`` (a model whose single-device step does not fit the card
     twice beside the ranks) the ranks run the single-device steps one
-    after the other, each rank's blocks on the host meanwhile.  Prints
-    one line; returns the launches."""
+    after the other, each rank's blocks on the host meanwhile.  With
+    ``on_rank0`` (many ranks on the card) the ranks' blocks are gathered
+    whole and rank 0 alone runs the single-device steps and holds the
+    whole parameters to them.  Prints one line; returns the launches,
+    the ms of each step, this rank's peak GiB, the collectives a step and
+    each step's (loss, grad norm)."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import ops
@@ -4976,7 +4993,8 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
     count = tensor_parallel_bytes(cfg, pspecs, mesh, TP_B, seq,
                                   optimizer=opt.kind)
     L, A = cfg.num_layers, flash_layers(cfg)
-    got, launched, starts = [], {k: 0 for k in TP_KERNELS}, [None]
+    n_model = mesh.mesh.shape[1]
+    got, launched, starts, ms = [], {k: 0 for k in TP_KERNELS}, [None], []
 
     def whole(st):
         """The ranks' whole state on the host: parameters, moments."""
@@ -4987,7 +5005,8 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
                     for n, t in tree.items()})
         return {k: gather_shard(t, specs[k], mesh).to("cpu", copy=True)
                 for k, t in out.items()}
-    secs = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for i in range(TP_F32_STEPS):
         if order and i:
             starts.append(whole(state))
@@ -4996,7 +5015,7 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
         t0 = time.monotonic()
         state, m = step(state, batch(i))
         got.append((float(m["loss"]), float(m["grad_norm"])))
-        secs += time.monotonic() - t0
+        ms.append(1e3 * (time.monotonic() - t0))
         now = {k: ops.LAUNCHES[k] - before[k] for k in TP_KERNELS}
         if now != {"flash_attention": 2 * A, "flash_attention_bwd": A}:
             raise AssertionError(f"{tag} ({part}) step {i} launched {now}; "
@@ -5007,8 +5026,14 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
                                  f"{count}")
         for k in TP_KERNELS:
             launched[k] += now[k]
-    blocks = {n: p.detach().cpu() if alone else p.detach()
-              for n, p in state.model.named_parameters()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if on_rank0:
+        blocks = {n: gather_shard(p.detach(), specs[f"model/{n}"],
+                                  mesh).cpu()
+                  for n, p in state.model.named_parameters()}
+    else:
+        blocks = {n: p.detach().cpu() if alone else p.detach()
+                  for n, p in state.model.named_parameters()}
     del state, step
     torch.cuda.empty_cache()
 
@@ -5062,7 +5087,8 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
                                  f"{want}{plain_note}")
         worst = 0.0
         for n, p in one.model.named_parameters():
-            ref = local_shard(p.detach(), specs[f"model/{n}"], mesh)
+            ref = p.detach() if on_rank0 else local_shard(
+                p.detach(), specs[f"model/{n}"], mesh)
             mine = blocks[n].to(ref.device)
             if not torch.allclose(mine, ref, atol=5e-4, rtol=5e-3):
                 raise AssertionError(f"{tag} ({part}) f32 parameter {n} "
@@ -5071,36 +5097,57 @@ def _tp_against_one(cfg, opt, mesh, tag, part, tol, seq=None,
         del one
         torch.cuda.empty_cache()
         return want, rel, worst
-    if alone:
-        for r in range(dist.get_world_size()):
-            if r == dist.get_rank():
-                want, rel, worst = hold()
-            dist.barrier()
+    head = (f"{tag} ({part}) f32 {cfg.name} {L} layers ({A} attention) at "
+            f"full width, {TP_F32_STEPS} {opt.kind} steps at B{TP_B} x "
+            f"S{seq} over model {n_model}, {_stream(mesh, TP_B, seq)} (ms a "
+            f"step " + " ".join(f"{x:.1f}" for x in ms)
+            + f"; peak {peak:.2f} GiB):")
+    tail = (f"collectives over model a step {_kinds(count)}, as the roofline "
+            f"counts; launches a step K3 {2 * A}, K3b {A}")
+    if on_rank0 and dist.get_rank():
+        print(f"{head} {tail}; held on rank 0")
     else:
-        want, rel, worst = hold()
-    del starts
-    print(f"{tag} ({part}) f32 {cfg.name} {L} layers ({A} attention) at "
-          f"full width, {TP_F32_STEPS} {opt.kind} steps at B{TP_B} x S{seq} "
-          f"over model 2 ({secs:.1f} s of steps):"
-          f" (loss, grad norm) " + ", ".join(
-              f"({a:.6f}, {b:.6f})" for a, b in got) + " against the "
-          f"single-device step's " + ", ".join(
-              f"({a:.6f}, {b:.6f})" for a, b in want) + plain_note
-          + f": max rel {rel:.2e} (<= {tol:g}); this rank's blocks max|diff| "
-          f"{worst:.2e} (atol 5e-4, rtol 5e-3); collectives over model a "
-          f"step {_kinds(count)}, as the roofline counts; launches a step "
-          f"K3 {2 * A}, K3b {A}"
-          + (" (the ranks' single-device steps one after the other)"
-             if alone else ""))
-    del blocks
+        if alone:
+            for r in range(dist.get_world_size()):
+                if r == dist.get_rank():
+                    want, rel, worst = hold()
+                dist.barrier()
+        else:
+            want, rel, worst = hold()
+        whose = "the whole parameters" if on_rank0 else "this rank's blocks"
+        print(f"{head} (loss, grad norm) " + ", ".join(
+                  f"({a:.6f}, {b:.6f})" for a, b in got) + " against the "
+              f"single-device step's " + ", ".join(
+                  f"({a:.6f}, {b:.6f})" for a, b in want) + plain_note
+              + f": max rel {rel:.2e} (<= {tol:g}); {whose} max|diff| "
+              f"{worst:.2e} (atol 5e-4, rtol 5e-3); {tail}"
+              + (" (the ranks' single-device steps one after the other)"
+                 if alone else ""))
+    if on_rank0:
+        dist.barrier()
+    del starts, blocks
     torch.cuda.empty_cache()
-    return launched
+    return {"launches": launched, "ms": ms, "peak_gib": peak, "count": count,
+            "steps": got}
 
 
 def _kinds(count: dict) -> str:
     """A step's collectives by kind, calls and MB handed over."""
     return ", ".join(f"{k} {v['calls']} ({v['bytes'] / 1e6:.2f} MB)"
                      for k, v in count.items() if v["calls"])
+
+
+def _stream(mesh, B, S) -> str:
+    """How the residual stream between blocks lies over ``model`` at B x
+    S under the default rules (``seq_sp``)."""
+    from repro_torch.sharding.rules import spec_for
+    from repro_torch.sharding.tensor_parallel import split_over_model
+    n = mesh.mesh.shape[1]
+    spec = spec_for((B, S, 1), ("batch", "seq_sp", "embed"), mesh)
+    if split_over_model(spec, 1):
+        return f"the stream split by positions, {S // n} a rank"
+    return (f"the stream whole on every rank (S {S} does not divide over "
+            f"model {n})")
 
 
 def _record_routes(moe) -> list:
@@ -5209,7 +5256,8 @@ def _tp_moe(part, rank, mesh, opt, tag, out_dir) -> dict:
         torch.save(routes[0], os.path.join(out_dir, f"{part}1_route{rank}.pt"))
         few = {"loss": loss1, "ms": 1e3 * secs1, "shape": [B1, S1]}
         print(f"{tag} ({part}′) bf16 {arch} at full width {desc}), one "
-              f"AdamW step at B{B1} x S{S1} from the initial weights: its "
+              f"AdamW step at B{B1} x S{S1} from the initial weights, "
+              f"{_stream(mesh, B1, S1)}: its "
               f"{B1 * S1} tokens route in one dispatch group over model 2, "
               f"every rank routing it and running its own experts over the "
               f"group's slots: loss {loss1:.4f}; {1e3 * secs1:.1f} ms; "
@@ -5231,7 +5279,8 @@ def _tp_moe(part, rank, mesh, opt, tag, out_dir) -> dict:
     n_params = sum(p.numel() for p in state.model.parameters())
     print(f"{tag} ({part}) bf16 {arch} at full width {desc}; "
           f"{n_params:,} parameters a rank), AdamW lr {opt.lr}, B{TP_B} x "
-          f"S{TRAIN_S}, {TP_STEPS} steps: losses "
+          f"S{TRAIN_S}, {_stream(mesh, TP_B, TRAIN_S)}, {TP_STEPS} steps: "
+          f"losses "
           + " ".join(f"{x:.4f}" for x in losses) + "; ms a step "
           + " ".join(f"{x:.1f}" for x in ms) + f" (median "
           f"{statistics.median(ms):.1f}); peak {peak / 2 ** 30:.2f} GiB; "
@@ -5308,7 +5357,8 @@ def _tp_bf16(cfg, opt, mesh, tag, part, desc, falls=False) -> dict:
     print(f"{tag} ({part}) bf16 {cfg.name}, {cfg.num_layers} layers at full "
           f"width over (1, 2) ({desc}; gloo, both ranks on cuda:0; "
           f"{n_params:,} parameters a rank), {opt.kind} lr {opt.lr}, B{TP_B} "
-          f"x S{TRAIN_S}, {TP_STEPS} steps: losses " + " ".join(
+          f"x S{TRAIN_S}, {_stream(mesh, TP_B, TRAIN_S)}, {TP_STEPS} steps: "
+          f"losses " + " ".join(
               f"{x:.4f}" for x in losses) + "; ms a step " + " ".join(
               f"{x:.1f}" for x in ms) + f" (median "
           f"{statistics.median(ms):.1f}); peak {peak / 2 ** 30:.2f} GiB; "
@@ -5325,9 +5375,75 @@ def _tp_bf16(cfg, opt, mesh, tag, part, desc, falls=False) -> dict:
             "launches": totals, "count": count}
 
 
-def _tp_setup(rank: int, init_file: str):
-    """A ``[tp]`` rank's gloo group of two through ``file://init_file``
-    and its (1, 2) ("data", "model") ``DeviceMesh`` on ``cuda:0``."""
+def _tp_saved(cfg, mesh, tag) -> None:
+    """(b)'s saved bytes: one forward of ``cfg``'s loss (this rank's
+    blocks of the weights from ``TP_SEED``, the first batch at B ``TP_B``
+    x ``TRAIN_S``) under the default rules (the stream split by
+    positions) and under ``seq_sp: ()`` (whole), counting what autograd
+    saves for the backward (``saved_tensors_hooks``): every activation
+    (the parameters it references aside), and the blocks' inputs (remat
+    saves each block's input).  The blocks' inputs must halve over model
+    2.  Prints one line."""
+    import torch
+    from repro_torch.models.model import LM
+    from repro_torch.sharding import use_mesh
+    from repro_torch.sharding.partition import local_shard
+    from repro_torch.sharding.rules import DEFAULT_RULES
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import state_specs
+    lm = LM(cfg, device="cuda", seed=TP_SEED)
+    specs = state_specs(cfg, OptConfig(), mesh)
+    for n, p in lm.named_parameters():
+        p.data = local_shard(p.data, specs[f"model/{n}"], mesh)
+    torch.cuda.empty_cache()
+    lm.requires_grad_(True)
+    weights = {p.data_ptr() for p in lm.parameters()}
+    batch = _arch_batch(cfg, TP_B, None)(0)
+    got = {}
+    for name, rules in (("split", DEFAULT_RULES),
+                        ("whole", {**DEFAULT_RULES, "seq_sp": ()})):
+        inputs, saved = [], []
+        hooks = [b.register_forward_pre_hook(
+            lambda mod, args: inputs.append(args[0])) for b in lm.blocks]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with use_mesh(mesh, rules), torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t) or t, lambda t: t):
+            loss = lm.loss(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for h in hooks:
+            h.remove()
+        kept = {(t.data_ptr(), tuple(t.shape)) for t in saved}
+        if not all((x.data_ptr(), tuple(x.shape)) in kept for x in inputs):
+            raise AssertionError(f"{tag} (b) a block's input was not saved "
+                                 f"({name} stream)")
+        got[name] = (sum(x.numel() * x.element_size() for x in inputs),
+                     sum(t.numel() * t.element_size() for t in saved
+                         if t.data_ptr() not in weights),
+                     {x.shape[1] for x in inputs}, peak)
+        del loss, saved, inputs, kept
+    del lm
+    torch.cuda.empty_cache()
+    (blk_s, all_s, rows_s, peak_s), (blk_w, all_w, rows_w, peak_w) = (
+        got["split"], got["whole"])
+    n = mesh.mesh.shape[1]
+    if rows_s != {TRAIN_S // n} or rows_w != {TRAIN_S} or blk_w != n * blk_s:
+        raise AssertionError(f"{tag} (b) saved block inputs {got}")
+    print(f"{tag} (b) activations saved for the backward by one forward of "
+          f"the loss (bf16 {cfg.name}, {cfg.num_layers} layers, B{TP_B} x "
+          f"S{TRAIN_S}): the stream split by positions {all_s / 1e6:.1f} MB, "
+          f"of it the {cfg.num_layers} blocks' inputs {blk_s / 1e6:.1f} MB "
+          f"({TRAIN_S // n} positions each); whole (seq_sp: ()) "
+          f"{all_w / 1e6:.1f} MB, the blocks' inputs {blk_w / 1e6:.1f} MB "
+          f"({TRAIN_S}): {blk_w / blk_s:.2f}x; peak {peak_s:.2f} GiB a rank "
+          f"split, {peak_w:.2f} whole")
+
+
+def _tp_setup(rank: int, init_file: str, world: int = 2):
+    """A ``[tp]`` rank's gloo group of ``world`` through
+    ``file://init_file`` and its (1, ``world``) ("data", "model")
+    ``DeviceMesh`` on ``cuda:0``."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -5336,8 +5452,9 @@ def _tp_setup(rank: int, init_file: str):
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=2)
-    return init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+                            rank=rank, world_size=world)
+    return init_device_mesh("cuda", (1, world),
+                            mesh_dim_names=("data", "model"))
 
 
 def tp_rank(rank: int, init_file: str) -> int:
@@ -5357,9 +5474,14 @@ def tp_rank(rank: int, init_file: str) -> int:
     it at B 1 x 511, one dispatch group; (f) jamba-v0.1-52b in float32 at
     full width cut to its first (Mamba) layer, held to the single-device
     step as (d); (g) jamba's first two layers (Mamba, Mamba + MoE) in
-    bf16 as (e); (h) xlstm-350m in float32 at full width, all 24 layers,
-    at B ``TP_B`` x ``TP_XLSTM_S``, held as (d).  The last line is one
-    JSON object of this rank's numbers."""
+    bf16 as (e); (h) xlstm-350m in float32 at full width, cut to
+    ``TP_XLSTM_LAYERS`` layers, at B ``TP_B`` x ``TP_XLSTM_S``, held as
+    (d).  The last line is one
+    JSON object of this rank's numbers.  Every part at S 512 (or
+    ``TP_XLSTM_S``) runs with the residual stream split by positions over
+    model 2 (``seq_sp``, the default rules); (e′)'s S 511 keeps it whole.
+    After (b), :func:`_tp_saved` counts what one forward of (b)'s loss
+    saves for the backward with the stream split and whole."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -5395,9 +5517,11 @@ def tp_rank(rank: int, init_file: str) -> int:
     ar = gemma["count"]["all-reduce"]
     print(f"{tag} (b) one {act.numel() * 2 / 1e6:.2f} MB bf16 all-reduce "
           f"alone {ar_ms:.2f} ms (host clock): the step's "
-          f"{ar['bytes'] / 1e6:.0f} MB at that rate ~"
+          f"{ar['bytes'] / 1e6:.0f} MB of all-reduces at that rate ~"
           f"{ar_ms * ar['bytes'] / (act.numel() * 2):.0f} ms")
     del act
+    dist.barrier()
+    _tp_saved(cfg, mesh, tag)
     dist.barrier()
 
     # (d) smollm-360m, float32, all 32 layers: the heads cut across ranks
@@ -5423,12 +5547,17 @@ def tp_rank(rank: int, init_file: str) -> int:
     jamba_moe = _tp_moe("g", rank, mesh, opt, tag, out_dir)
     dist.barrier()
 
-    # (h) xlstm-350m, float32, all 24 layers: sLSTM and mLSTM heads
+    # (h) xlstm-350m, float32, 4 of its 24 layers: sLSTM and mLSTM heads
+    # (the split stream's gloo collectives lengthen the pair; the
+    # sLSTM's host-paced token loop over the other 20 layers is what is
+    # cut to keep the run inside its limit)
     _tp_against_one(dataclasses.replace(get_config("xlstm-350m"),
-                                        dtype="float32"),
+                                        dtype="float32",
+                                        num_layers=TP_XLSTM_LAYERS),
                     opt, mesh, tag, "h", 1e-5, seq=TP_XLSTM_S)
     gemma.pop("count")
-    print(json.dumps({"tp_rank": rank, **gemma, "smollm": smollm,
+    print(json.dumps({"tp_rank": rank, **gemma,
+                      "smollm": smollm["launches"],
                       "dbrx": dbrx, "jamba": jamba_moe}))
     dist.barrier()
     dist.destroy_process_group()
@@ -5499,16 +5628,61 @@ def tp_late_rank(rank: int, init_file: str) -> int:
     return 0
 
 
-def start_tp(late=False) -> dict:
-    """Start both ``[tp]`` ranks (with ``late``, the late pair's);
-    ``run["ranks"]`` are their :func:`_start_self` records."""
+#: (k): xlstm-350m at full width cut to its first two layers (sLSTM,
+#: mLSTM), float32, over (1, 8): its 4 heads of 256 fall across the
+#: ranks (1024 qkv columns, 128 a rank)
+TP_APART = ("xlstm-350m", 2, 8)
+
+
+def tp_apart_rank(rank: int, init_file: str) -> int:
+    """One of (k)'s ranks (``python3 chip_smoke.py --tp-rank RANK FILE
+    apart``): a gloo group of ``TP_APART``'s 8 through ``file://FILE`` on
+    ``cuda:0``, its (1, 8) mesh, then ``TP_F32_STEPS`` AdamW steps of
+    ``TP_APART``'s stack at B ``TP_B`` x ``TP_XLSTM_S`` through
+    ``make_train_step(mesh=)`` (the split projections gathered whole, the
+    stream split by positions), held to the single-device step within
+    1e-5 relative by rank 0 alone, on the ranks' whole parameters.  The
+    last line is one JSON object of this rank's numbers."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.training.optimizer import OptConfig
+    arch, layers, world = TP_APART
+    mesh = _tp_setup(rank, init_file, world)
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              num_layers=layers)
+    res = _tp_against_one(cfg, OptConfig(lr=TRAIN_LR, warmup_steps=1), mesh,
+                          f"[tp] rank {rank}:", "k", 1e-5, seq=TP_XLSTM_S,
+                          on_rank0=True)
+    print(json.dumps({"tp_rank": rank, **res}))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+#: the ``[tp]`` groups by name: their ranks' extra argument and size
+TP_GROUPS = {"first": ([], 2), "late": (["late"], 2),
+             "apart": (["apart"], TP_APART[2])}
+
+
+def start_tp(which="first") -> dict:
+    """Start a ``[tp]`` group's ranks (``TP_GROUPS``: the first pair, the
+    late pair or (k)'s eight); ``run["ranks"]`` are their
+    :func:`_start_self` records."""
     import tempfile
+    extra, n = TP_GROUPS[which]
     tmp = tempfile.mkdtemp(prefix="tp_")
     store = os.path.join(tmp, "store")
     return {"tmp": tmp, "t0": time.monotonic(),
-            "ranks": [_start_self([TP_FLAG, str(r), store]
-                                  + (["late"] if late else []))
-                      for r in range(2)]}
+            "ranks": [_start_self([TP_FLAG, str(r), store] + extra)
+                      for r in range(n)]}
+
+
+def wait_tp_exit(run) -> dict:
+    """``run`` once every one of its ranks has exited."""
+    for r in run["ranks"]:
+        r["proc"].wait()
+    return run
 
 
 def stop_tp(run) -> None:
@@ -5534,7 +5708,7 @@ def _wait_tp(run, smi, beside: str, which: str) -> list:
                                  + "\n".join(r["lines"][-60:]))
         out.append(next(json.loads(x) for x in r["lines"]
                         if x.startswith('{"tp_rank"')))
-    print(f"[tp] {which} both ranks collected "
+    print(f"[tp] {which} its {len(run['ranks'])} ranks collected "
           f"{time.monotonic() - run['t0']:.1f} s after their start "
           f"({run['t0'] - T_START:.1f} s into the run; each "
           f"rank's own time on its bf16 lines), run beside {beside} "
@@ -5731,6 +5905,27 @@ def collect_tp_late(run, smi, beside: str) -> dict:
     return launches
 
 
+def collect_tp_apart(run, smi, beside: str) -> None:
+    """Wait for (k)'s ranks and print their lines (rank 0's holds the
+    ranks' whole parameters to the single-device step); every rank's
+    losses equal, each step's collectives the roofline's count (checked
+    by each rank); a line of the ranks' step ms and peak GiB."""
+    try:
+        out = _wait_tp(run, smi, beside, "(k):")
+    finally:
+        stop_tp(run)
+    if any(o["steps"] != out[0]["steps"] for o in out):
+        raise AssertionError(f"[tp] (k) the ranks' (loss, grad norm) "
+                             f"differ: {[o['steps'] for o in out]}")
+    arch, layers, world = TP_APART
+    print(f"[tp] (k) f32 {arch}, {layers} layers over (1, {world}), "
+          f"B{TP_B} x S{TP_XLSTM_S}: ms a step by rank " + " / ".join(
+              " ".join(f"{x:.1f}" for x in o["ms"]) for o in out)
+          + "; peak " + " / ".join(f"{o['peak_gib']:.2f}" for o in out)
+          + f" GiB a rank; collectives over model a step "
+          f"{_kinds(out[0]['count'])}, as the roofline counts  [{smi}]")
+
+
 def gemma3_and_lm_api_paths(predictor, smi, child, g_totals) -> tuple:
     """The main process's part beside the side process: gemma3-4b-edge
     served and trained, then musicgen-large and the cut
@@ -5786,7 +5981,8 @@ def main() -> int:
     if sys.argv[1:] == [EXAMPLES_FLAG]:
         return examples_paths()
     if sys.argv[1:2] == [TP_FLAG]:
-        rank_fn = tp_late_rank if sys.argv[4:] == ["late"] else tp_rank
+        rank_fn = {("late",): tp_late_rank, ("apart",): tp_apart_rank}.get(
+            tuple(sys.argv[4:]), tp_rank)
         return rank_fn(int(sys.argv[2]), sys.argv[3])
     sys.stdout.reconfigure(line_buffering=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5862,31 +6058,47 @@ def main() -> int:
     # beside the rest of [speculative]
     late_ex = ThreadPoolExecutor(1)
     late = late_ex.submit(lambda: (futures_wait([launch_train["gemma3"]]),
-                                   start_tp(late=True))[1])
+                                   start_tp("late"))[1])
+
+    def start_apart():
+        """[tp]'s (k), xlstm-350m over eight ranks, once the late pair has
+        exited: beside the rest of [speculative] and the phases up to
+        [mesh]."""
+        wait_tp_exit(late.result())
+        return start_tp("apart")
+    apart = late_ex.submit(start_apart)
     try:
-        with ThreadPoolExecutor(1) as ex:
-            side = ex.submit(_timed, phase_launch_sidecar, smi, side_totals,
-                             beside="[speculative]")
-            _timed(phase_speculative, cfg, smi, totals,
-                   beside="[launch-train]'s children and [launch-sidecar]")
-            side.result()
-        for k, v in side_totals.items():
-            totals[k] += v
-        ckpt_dir = _timed(phase_launch_train, launch_train, smi,
-                          "[speculative]")
-        tp_totals.update(_timed(
-            collect_tp_late, late.result(), smi,
-            "[speculative], [launch-sidecar] and [launch-train]'s smollm "
-            "children, started when its gemma3 child ended"))
+        try:
+            with ThreadPoolExecutor(1) as ex:
+                side = ex.submit(_timed, phase_launch_sidecar, smi,
+                                 side_totals, beside="[speculative]")
+                _timed(phase_speculative, cfg, smi, totals,
+                       beside="[launch-train]'s children and "
+                       "[launch-sidecar]")
+                side.result()
+            for k, v in side_totals.items():
+                totals[k] += v
+            ckpt_dir = _timed(phase_launch_train, launch_train, smi,
+                              "[speculative]")
+            tp_totals.update(_timed(
+                collect_tp_late, late.result(), smi,
+                "[speculative], [launch-sidecar] and [launch-train]'s "
+                "smollm children, started when its gemma3 child ended"))
+        finally:
+            if late.done() and late.exception() is None:
+                stop_tp(late.result())
+            late_ex.shutdown()
+        _timed(phase_launch_serve, smi, totals)
+        state = _timed(phase_train, cfg, smi, totals)
+        _timed(phase_mesh, cfg, state, ckpt_dir, smi, totals)
+        del state
+        shutil.rmtree(launch_train["tmp"])
+        _timed(collect_tp_apart, apart.result(), smi,
+               "the end of [speculative], [launch-serve], [train] and "
+               "[mesh], started when the late pair ended")
     finally:
-        late_ex.shutdown()
-        if late.done() and late.exception() is None:
-            stop_tp(late.result())
-    _timed(phase_launch_serve, smi, totals)
-    state = _timed(phase_train, cfg, smi, totals)
-    _timed(phase_mesh, cfg, state, ckpt_dir, smi, totals)
-    del state
-    shutil.rmtree(launch_train["tmp"])
+        if apart.done() and apart.exception() is None:
+            stop_tp(apart.result())
     # the last three archs' kernels: K1/K3 at musicgen's and vision's
     # heads and the cross-attention kernels, timed before the side
     # process starts

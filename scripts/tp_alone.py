@@ -10,8 +10,10 @@ KV 16, hd 64), then the first pair of ranks and the checks that follow
 it (``chip_smoke.start_tp`` / ``collect_tp``: the gemma3, smollm and
 dbrx parts with dbrx's one-group step (e′), and the recurrent stacks,
 (f) jamba's Mamba layer in float32, (g) its Mamba + MoE layers in bf16,
-(h) xlstm-350m in float32), then the late pair (``start_tp(late=True)``
+(h) xlstm-350m in float32), then the late pair (``start_tp("late")``
 / ``collect_tp_late``: (i) llama-3.2-vision-90b, (j) musicgen-large),
+then (k)'s eight ranks (``start_tp("apart")`` / ``collect_tp_apart``:
+xlstm-350m's first two layers over (1, 8), its heads across the ranks),
 each with nothing beside it, so that each part's ms a step and
 collectives are read alone; last, ``[tp_alone] dbrx``: the ranks'
 dbrx-132b steps (one layer, bf16) taken on one device from the same
@@ -24,7 +26,8 @@ state, ~54 GB, fits only on an idle card).
 Needs a CUDA card and nvcc.  Its ``[tp]`` lines are the smoke run's;
 their ms a step are the ranks' alone, to set beside the smoke run's,
 where the ranks share the card and the host with the smollm phases (the
-first pair) or with ``[speculative]`` (the late pair).
+first pair), with ``[speculative]`` (the late pair) or with the phases
+from ``[speculative]``'s end to ``[mesh]`` ((k)).
 """
 
 from __future__ import annotations
@@ -67,7 +70,8 @@ def main() -> int:
             torch.distributed.destroy_process_group()
     chip_smoke._free_card("tp late")
     launched.update(chip_smoke.collect_tp_late(
-        chip_smoke.start_tp(late=True), smi, "nothing"))
+        chip_smoke.start_tp("late"), smi, "nothing"))
+    chip_smoke.collect_tp_apart(chip_smoke.start_tp("apart"), smi, "nothing")
     dbrx_one_device(ranks[0]["losses"], smi)
     print(f"[tp_alone] launches {launched}; {time.monotonic() - t0:.1f} s "
           f"[{smi}]")

@@ -31,8 +31,10 @@ The port compiles nothing, so nothing here parses HLO:
   divided by its non-batch axes' shard factor.  A train cell adds the
   collectives over ``model`` that the step runs, kind by kind
   (:func:`tensor_parallel_bytes`: a split block's forward, its
-  recomputation and its backward, the cut heads' weight gathers, the
-  MoE's router gather, load statistics, all-to-alls and row gather, the
+  recomputation and its backward, the residual stream's gathers and
+  reduce-scatters where it is split by positions (``seq_sp``), the cut
+  heads' and uneven Mamba/xLSTM layouts' gathers, the MoE's router
+  gather, load statistics, all-to-alls and row gather, the
   vocab-parallel embedding and loss, the gradient norm).  Inference
   cells all-gather the sharded weights once; the port does not serve
   over ``model``, so they run no all-to-all.
@@ -68,61 +70,80 @@ def _ring(n: int) -> float:
 
 def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
                           batch: int, seq: int, microbatches: int = 1,
-                          optimizer: str = "adamw"
+                          optimizer: str = "adamw", rules=None
                           ) -> Dict[str, Dict[str, int]]:
     """{kind: {"calls", "bytes"}} for each collective kind over ``model``
     (``tensor_parallel.KINDS``) that one train step hands over on
     one device (the whole buffers, before any ring factor: an
     all-gather's output, a reduce-scatter's input), ``batch`` x ``seq``
     tokens on that device, with the parameter ``specs`` ({name:
-    PartitionSpec}) on ``mesh``.  Per microbatch of T tokens, each block
-    recomputed in the backward pass (remat) up to the last activation
-    the backward saved:
+    PartitionSpec}) on ``mesh`` under ``rules`` (``DEFAULT_RULES`` when
+    None).  Per microbatch of T tokens, each block recomputed in the
+    backward pass (remat) up to the last activation the backward saved.
 
-    * a block whose heads are split (self- or cross-attention: the image
-      K/V are projected from the replicated embeddings, with no
-      collective): its output's all-reduce forward and recomputed, its
-      input's gradient backward; with QK-norm, the two norm weights'
-      gradients;
-    * where heads are cut across ranks (a head or the query/KV pairing
-      does not fall whole on a rank), each split projection weight
-      (d_model x width) all-gathered forward and recomputed and its
-      gradient reduce-scattered; a whole one's gradient all-reduced;
-    * a block whose ``d_ff`` is split: its output's all-reduce forward
-      (not recomputed: it is the block's last op) and its input's
-      gradient backward;
-    * a Mamba block whose ``d_inner`` is split: as a split attention
-      block, its output's all-reduce forward and recomputed and its
-      input's gradient backward; the ``in_proj`` product (T x 2 d_inner
-      / model) exchanged into this rank's channels by all-to-all forward,
-      recomputed and backward; the ``x_proj`` product (T x (2 N + 1))
-      all-reduced forward, recomputed and backward;
-    * an xLSTM block whose heads are split: the mixer's output all-reduced
-      forward and recomputed, its input's gradient backward; for the
-      sLSTM the float32 gate product (T x 4 attn_dim / model) exchanged
-      by all-to-all forward, recomputed and backward; its up/down as a
-      split ``d_ff`` (``up``'s columns split);
+    The residual stream, each of a layer's two blocks (its sequence
+    mixer, whose output the recomputation needs for the channel mixer
+    that follows it, and its MLP, MoE or up/down, whose output it does
+    not): where the rules split the stream by positions over ``model``
+    (``tensor_parallel.seq_parallel``), its norm weight's gradient
+    all-reduced, its normed input (T x d_model) all-gathered forward and
+    recomputed and its output's gradient all-gathered backward; where
+    its work is split, its input's gradient reduce-scattered and its
+    output reduce-scattered forward (and recomputed: the mixer); on a
+    whole stream, where the work is split, all-reduces in place of those
+    reduce-scatters.  Beyond the stream:
+
+    * heads split (self- or cross-attention: the image K/V are projected
+      from the replicated embeddings, with no collective): with QK-norm,
+      the two norm weights' gradients; where heads are cut across ranks
+      (a head or the query/KV pairing does not fall whole on a rank),
+      each split projection weight (d_model x width) all-gathered
+      forward and recomputed and its gradient reduce-scattered; a whole
+      one's gradient all-reduced;
+    * a Mamba block whose ``d_inner`` is split: the ``in_proj`` product
+      (T x 2 d_inner / model) exchanged into this rank's channels by
+      all-to-all forward, recomputed and backward; the ``x_proj``
+      product (T x (2 N + 1)) all-reduced forward, recomputed and
+      backward.  Where only ``in_proj``'s columns split (its input is
+      split work, its output whole), the product all-gathered forward
+      and recomputed (T x 2 d_inner);
+    * an xLSTM block whose heads are split: for the sLSTM the float32
+      gate product (T x 4 attn_dim / model) exchanged by all-to-all
+      forward, recomputed and backward.  Where the heads fall across
+      ranks, the split projections all-gathered forward and recomputed
+      and their gradients reduce-scattered (the mLSTM's ``wq``/``wk``/
+      ``wv``, d_model x attn_dim; the sLSTM's float32 ``w_gates``,
+      d_model x 4 attn_dim, and ``b_gates``, 4 x attn_dim) and the whole
+      ones' gradients all-reduced (``wi``/``wf``, float32 d_model x
+      heads; ``r_gates``, float32 4 x heads x head_dim^2);
     * a MoE block routing one dispatch group a model rank (G of the
       data rank's T tokens, as ``models.moe._num_groups`` over the whole
-      mesh): its input's gradient all-reduced; the router (float32)
-      all-gathered forward and recomputed and its gradient
-      reduce-scattered (all-reduced when whole); the load statistics
-      (2 x E float32) all-reduced forward and recomputed; with the
-      experts split, the (E, C, d_model) buffer exchanged by all-to-all
-      twice forward, twice recomputed and twice backward (C the capacity
-      of a group of T / model tokens), else the three expert weights'
-      gradients all-reduced; the combined rows all-gathered forward
-      (the block's last op: not recomputed);
-    * a MoE block routing fewer groups than model ranks with its experts
-      split: its input's gradient all-reduced, the router all-gathered
-      forward and recomputed, the experts' outputs (E, G x C, d_model)
-      all-gathered forward and recomputed; with the experts whole, none;
-    * a split vocabulary: the embedding's sum forward (none with the
-      audio frontend, whose frames enter whole), the head input's
-      gradient backward, and per ``LOSS_CHUNK`` slice of the sequence
-      the log-sum-exp's max (float32) and its sum of exponentials
-      stacked with the target logit (2 x float32), forward and again
-      recomputed;
+      mesh): on a whole stream its input's gradient all-reduced and the
+      combined rows all-gathered forward (the block's last op: not
+      recomputed), on a split one its stream as a split block's; the
+      router (float32) all-gathered forward and recomputed and its
+      gradient reduce-scattered (all-reduced when whole); the load
+      statistics (2 x E float32) all-reduced forward and recomputed;
+      with the experts split, the (E, C, d_model) buffer exchanged by
+      all-to-all twice forward, twice recomputed and twice backward (C
+      the capacity of a group of T / model tokens), else the three
+      expert weights' gradients all-reduced;
+    * a MoE block routing fewer groups than model ranks (a whole
+      stream) with its experts split: its input's gradient all-reduced,
+      the router all-gathered forward and recomputed, the experts'
+      outputs (E, G x C, d_model) all-gathered forward and recomputed;
+      with the experts whole, none;
+    * the embedding and head: on a split stream, the final norm weight's
+      gradient all-reduced, the embedding's sum reduce-scattered forward
+      and its gradient all-gathered (a whole table: the gradient only;
+      the audio frontend's frames are cut, no collective), the head's
+      input all-gathered forward and, with the vocabulary split, its
+      gradient reduce-scattered; on a whole stream with the vocabulary
+      split, the embedding's sum forward (none with the audio frontend)
+      and the head input's gradient all-reduced.  With the vocabulary
+      split, per ``LOSS_CHUNK`` slice of the sequence the log-sum-exp's
+      max (float32) and its sum of exponentials stacked with the target
+      logit (2 x float32), forward and again recomputed;
 
     and once a step (``optimizer``), one float32 scalar all-reduced per
     set of the mesh axes that gradients split over ``model`` are split
@@ -133,9 +154,11 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
     dimension) all-reduced; split on the second to last, its column
     statistic's (the stack without that dimension) and the row
     statistic's mean (the stack without its last two dimensions)."""
-    from repro_torch.configs.base import SLSTM, XATTN
+    from repro_torch.configs.base import MLSTM, SLSTM, XATTN
     from repro_torch.models.model import LOSS_CHUNK
-    from repro_torch.models.transformer import MOE_KINDS
+    from repro_torch.models.transformer import (ATTN_KINDS, MAMBA_KINDS,
+                                                MOE_KINDS)
+    from repro_torch.sharding.rules import DEFAULT_RULES, spec_for
     from repro_torch.sharding.tensor_parallel import KINDS, split_over_model
 
     sizes = mesh_axis_sizes(mesh)
@@ -157,39 +180,79 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
         return name in specs and split_over_model(specs[name], dim)
     item = {"float32": 4, "bfloat16": 2, "float16": 2}[cfg.dtype]
     d, hd = cfg.d_model, cfg.head_dim
-    tokens = batch // microbatches * seq
+    rows = batch // microbatches
+    tokens = rows * seq
     act = tokens * d * item
+    sp = n > 1 and split_over_model(spec_for(
+        (rows, seq, d), ("batch", "seq_sp", "embed"), mesh,
+        DEFAULT_RULES if rules is None else rules), 1)
+
+    def stream(into: bool, back: bool, outs: int):
+        """A block's residual stream: ``into`` its input read by split
+        work, ``back`` its output summed from split work, ``outs`` its
+        output's forward calls (2 where recomputed)."""
+        if sp:
+            add("all-reduce", 1, d * item)
+            add("all-gather", 3, act)
+            add("reduce-scatter", into + back * outs, act)
+        else:
+            add("all-reduce", into + back * outs, act)
+
+    def gathered(nbytes, calls=1):
+        """``calls`` weights of ``nbytes`` gathered whole: all-gathered
+        forward and recomputed, their gradients reduce-scattered."""
+        add("all-gather", 2 * calls, nbytes)
+        add("reduce-scatter", calls, nbytes)
     pattern = cfg.block_pattern
     for i in range(cfg.num_layers if n > 1 else 0):
         pre = f"blocks.{i}."
         kind = pattern[i % len(pattern)]
-        mixer = pre + ("xattn." if kind == XATTN else "attn.")
-        if split(mixer + "wq", 1):
-            add("all-reduce", 3, act)
-            if cfg.qk_norm:
+        if kind in ATTN_KINDS or kind == XATTN:
+            mixer = pre + ("xattn." if kind == XATTN else "attn.")
+            heads = split(mixer + "wq", 1)
+            stream(heads, heads, 2)
+            if heads and cfg.qk_norm:
                 add("all-reduce", 2, hd * item)
             wk_split = split(mixer + "wk", 1)
-            if cfg.num_heads % n or cfg.num_kv_heads % n or not wk_split:
+            if heads and (cfg.num_heads % n or cfg.num_kv_heads % n
+                          or not wk_split):
                 for width, is_split in ((cfg.attn_dim, True),
                                         (cfg.kv_dim, wk_split),
                                         (cfg.kv_dim, wk_split)):
-                    w = d * width * item
                     if is_split:
-                        add("all-gather", 2, w)
-                        add("reduce-scatter", 1, w)
+                        gathered(d * width * item)
                     else:
-                        add("all-reduce", 1, w)
-        if split(pre + "mamba.conv_w", 1):
-            add("all-reduce", 3, act)
-            add("all-to-all", 3, tokens * 2 * cfg.d_inner // n * item)
-            add("all-reduce", 3, tokens * (2 * cfg.ssm_state_dim + 1) * item)
-        if split(pre + "wo_out", 0):
-            add("all-reduce", 3, act)
-            if kind == SLSTM:
-                add("all-to-all", 3, tokens * 4 * cfg.attn_dim // n * 4)
-        if split(pre + "mlp.w_gate", 1) or split(pre + "up", 1):
-            add("all-reduce", 2, act)
-        if kind in MOE_KINDS:
+                        add("all-reduce", 1, d * width * item)
+        elif kind in MAMBA_KINDS:
+            channels = split(pre + "mamba.conv_w", 1)
+            cols = split(pre + "mamba.in_proj", 1)
+            stream(cols, channels, 2)
+            if channels:
+                add("all-to-all", 3, tokens * 2 * cfg.d_inner // n * item)
+                add("all-reduce", 3,
+                    tokens * (2 * cfg.ssm_state_dim + 1) * item)
+            elif cols:
+                add("all-gather", 2, tokens * 2 * cfg.d_inner * item)
+        else:
+            heads = split(pre + "wo_out", 0)
+            stream(heads, heads, 2)
+            ad = cfg.attn_dim
+            if kind == SLSTM and heads and split(pre + "r_gates", 1):
+                add("all-to-all", 3, tokens * 4 * ad // n * 4)
+            elif kind == SLSTM and heads:
+                gathered(d * 4 * ad * 4)
+                gathered(4 * ad * 4)
+                add("all-reduce", 1, 4 * cfg.num_heads * hd * hd * 4)
+            elif kind == MLSTM and heads and not split(pre + "wi", 1):
+                gathered(d * ad * item, 3)
+                add("all-reduce", 2, d * cfg.num_heads * 4)
+        if kind in (SLSTM, MLSTM):
+            up = split(pre + "up", 1)
+            stream(up, up, 1)
+        elif kind not in MOE_KINDS:
+            ff = split(pre + "mlp.w_gate", 1)
+            stream(ff, ff, 1)
+        else:
             E, K = cfg.num_experts, cfg.experts_per_token
             router = d * E * 4
             experts_split = split(pre + "moe.experts.w_gate", 0)
@@ -202,21 +265,32 @@ def tensor_parallel_bytes(cfg, specs: Dict[str, PartitionSpec], mesh,
                     add("all-gather", 2, router)
                     add("all-gather", 2, E * G * C * d * item)
                 continue
-            add("all-reduce", 1, act)
+            if sp:
+                stream(True, True, 1)
+            else:
+                add("all-reduce", 1, act)
+                add("all-gather", 1, act)
             add("all-reduce", 2, 2 * E * 4)
-            add("all-gather", 1, act)
             if experts_split:
                 C = max(1, math.ceil(tokens // n * K / E
                                      * cfg.moe_capacity_factor))
-                add("all-gather", 2, router)
-                add("reduce-scatter", 1, router)
+                gathered(router)
                 add("all-to-all", 6, E * C * d * item)
             else:
                 add("all-reduce", 1, router)
                 add("all-reduce", 3, E * d * cfg.d_ff * item)
-    if split("embed", 0) or split("head", 1):
-        chunks = -(-seq // min(LOSS_CHUNK, seq))
+    vocab = split("embed", 0) or split("head", 1)
+    if sp:
+        add("all-reduce", 1, d * item)
+        if not cfg.audio_frontend:
+            add("reduce-scatter", split("embed", 0), act)
+            add("all-gather", 1, act)
+        add("all-gather", 1, act)
+        add("reduce-scatter", vocab, act)
+    elif vocab:
         add("all-reduce", 1 if cfg.audio_frontend else 2, act)
+    if vocab:
+        chunks = -(-seq // min(LOSS_CHUNK, seq))
         add("all-reduce", 2 * chunks, tokens * 4)
         add("all-reduce", 2 * chunks, 2 * tokens * 4)
     adafactor = optimizer == "adafactor"

@@ -33,10 +33,9 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense, dtype_of, init_dense, ones,
                                        rmsnorm, rope)
-from repro_torch.sharding.tensor_parallel import (copy_to_model,
+from repro_torch.sharding.tensor_parallel import (copy_to_model, from_stream,
                                                   gather_sum_grad, group_for,
-                                                  model_parallel,
-                                                  reduce_from_model)
+                                                  model_parallel, to_stream)
 
 
 class Attention(nn.Module):
@@ -88,15 +87,15 @@ class Attention(nn.Module):
         return self.wq.shape[1] % hd == 0 and kv % hd == 0 \
             and kv != self.cfg.kv_dim
 
-    def forward(self, x, rope_cs):
+    def forward(self, x, rope_cs, sp=None):
         """Training (JAX ``attn_block`` mode ``"train"``): causal attention
         over x (B, S, D) at positions 0..S-1 (``rope_cs``: their RoPE
         tables) through ``ops.flash_attention_train``, differentiable; no
         cache.  Over ``model``: :meth:`_train`."""
         return self._train(x, lambda h, group, weights: self._project_qkv(
-            h, rope_cs, group, weights), causal=True)
+            h, rope_cs, group, weights), causal=True, sp=sp)
 
-    def _train(self, x, project, causal: bool):
+    def _train(self, x, project, causal: bool, sp=None):
         """x plus the block's training attention (K3 forward, K3b
         backward) of the q, k, v that ``project(h, group, weights)``
         gives from the normed x ``h``: ``weights`` (wq, wk, wv) whole when
@@ -113,12 +112,18 @@ class Attention(nn.Module):
         takes its own columns of the output into its ``wo`` rows.  The
         weights are gathered rather than the activations: a projection
         weight (d_model x width) is smaller than its output (B x S x
-        width) once B * S exceeds d_model, as in every train cell."""
-        B, S, _ = x.shape
+        width) once B * S exceeds d_model, as in every train cell.
+
+        With ``sp`` x is this rank's block of the positions: it is normed
+        there, the normed input gathered along the sequence and the
+        output reduce-scattered back to the block
+        (``tensor_parallel.from_stream``, ``to_stream``)."""
         cfg = self.cfg
         n_q = self.wq.shape[1]
         group = group_for(n_q != cfg.attn_dim)
-        h = copy_to_model(rmsnorm(x, self.norm, cfg.norm_eps), group)
+        h = from_stream(rmsnorm(x, copy_to_model(self.norm, sp),
+                                cfg.norm_eps), group, sp)
+        B, S, _ = h.shape
         weights = None
         if group is not None and not self._whole_heads():
             weights = [gather_sum_grad(w, group, 1) if w.shape[1] != full
@@ -132,7 +137,7 @@ class Attention(nn.Module):
         if weights is not None:
             r = model_parallel()[2]
             out = out[..., r * n_q:(r + 1) * n_q]
-        return x + reduce_from_model(dense(out, self.wo), group)
+        return x + to_stream(dense(out, self.wo), group, sp)
 
     def prefill(self, x, rope_cs, cache_k, cache_v, start: int = 0):
         """Causal attention over the (padded) tokens x (B, S, D) at
@@ -290,13 +295,14 @@ class CrossAttention(Attention):
         out = ops.flash_attention(q, k, v, causal=False)
         return x + dense(out.reshape(B, S, -1), self.wo)
 
-    def forward(self, x, image_embeds):
+    def forward(self, x, image_embeds, sp=None):
         """Training (mode ``"train"``): x (B, S, D) attends every image
         row, through ``ops.flash_attention_train`` (non-causal); no
-        cache.  Over ``model`` as :meth:`Attention._train`."""
+        cache.  Over ``model`` as :meth:`Attention._train`: the queries
+        from the gathered input, the K/V from the whole embeddings."""
         return self._train(x, lambda h, group, weights: (
             self._q(h, group, weights),
-            *self._kv(image_embeds, group, weights)), causal=False)
+            *self._kv(image_embeds, group, weights)), causal=False, sp=sp)
 
     def prefill(self, x, image_embeds, cache_k, cache_v):
         """x (B, S, D) attends every image row through K3 (non-causal,

@@ -14,8 +14,9 @@ import torch.nn.functional as Fn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding import current_mesh, current_rules, use_mesh
-from repro_torch.sharding.tensor_parallel import (copy_to_model, group_for,
-                                                  reduce_from_model)
+from repro_torch.sharding.tensor_parallel import (copy_to_model,
+                                                  from_stream, group_for,
+                                                  to_stream)
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -169,12 +170,14 @@ class MLP(nn.Module):
         self.w_down = init_dense(gen, ff, d, dt, device, scale=ff ** -0.5)
         self.d_ff = ff
 
-    def forward(self, x):
+    def forward(self, x, sp=None):
         """With ``d_ff`` split over ``model`` (``w_gate`` a block of its
         columns) this rank computes its block of the hidden units and the
-        row-split ``w_down`` products are summed
-        (``sharding.tensor_parallel``)."""
+        row-split ``w_down`` products are summed; with ``sp`` x is this
+        rank's block of the positions, the normed input gathered and the
+        products reduce-scattered (``sharding.tensor_parallel``)."""
         group = group_for(self.w_gate.shape[1] != self.d_ff)
-        h = copy_to_model(rmsnorm(x, self.norm, self.eps), group)
+        h = from_stream(rmsnorm(x, copy_to_model(self.norm, sp), self.eps),
+                        group, sp)
         hidden = self.act(dense(h, self.w_gate)) * dense(h, self.w_up)
-        return x + reduce_from_model(dense(hidden, self.w_down), group)
+        return x + to_stream(dense(hidden, self.w_down), group, sp)

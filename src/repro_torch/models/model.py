@@ -48,8 +48,10 @@ from repro_torch.models.transformer import (attention_only, cache_group,
 from repro_torch.models.xlstm import NEG_INIT
 from repro_torch.sharding import data_parallel
 from repro_torch.sharding.tensor_parallel import (all_reduce, copy_to_model,
-                                                  group_for, model_parallel,
+                                                  from_stream, group_for,
+                                                  model_parallel, own_block,
                                                   reduce_from_model,
+                                                  seq_parallel,
                                                   vocab_parallel_embedding)
 
 LOSS_CHUNK = 512  # sequence-chunked cross entropy (never all f32 logits)
@@ -324,16 +326,18 @@ class LM(nn.Module):
             t=torch.zeros((batch_size,), **i32))
 
     # ---------------------------------------------------------------- inputs
-    def _embed_in(self, tokens, frames, train: bool = False):
+    def _embed_in(self, tokens, frames, train: bool = False, sp=None):
         """(B, S, D) inputs of the stack (JAX ``_embed_in``): the token
         embeddings, or with the audio frontend the frame embeddings cast
-        to the model's dtype."""
+        to the model's dtype.  With ``sp`` (training over ``model`` with
+        the stream split by positions) this rank's block of the S
+        positions."""
         cfg = self.cfg
         if cfg.audio_frontend:
             if frames is None:
                 raise ValueError(f"{cfg.name} reads frame embeddings "
                                  "(frames=), not tokens")
-            return frames.to(dtype_of(cfg))
+            return own_block(frames.to(dtype_of(cfg)), sp, 1)
         if tokens is None:
             raise ValueError(f"{cfg.name} reads tokens")
         # F.embedding in training: its gradient is not among the ops
@@ -344,8 +348,8 @@ class LM(nn.Module):
         if self.embed.shape[0] != cfg.vocab_size:      # rows split: TP
             return vocab_parallel_embedding(tokens, self.embed,
                                             group_for(True),
-                                            model_parallel()[2])
-        return Fn.embedding(tokens, self.embed)
+                                            model_parallel()[2], sp)
+        return own_block(Fn.embedding(tokens, self.embed), sp, 1)
 
     def _image(self, image_embeds):
         """The image embeddings in the model's dtype; a stack with
@@ -366,21 +370,26 @@ class LM(nn.Module):
         return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     # ------------------------------------------------------------- training
-    def _hidden(self, x, remat: bool, image_embeds=None):
+    def _hidden(self, x, remat: bool, image_embeds=None, sp=None):
         """Final-normed hidden states (B, S, D) of the training forward
         from the inputs x (B, S, D), and the summed MoE auxiliary loss:
         every block in train mode at positions 0..S-1, each recomputed in
         the backward pass when ``remat`` (JAX ``run_stack``'s per-block
-        checkpoint)."""
-        rope_cs = self._rope(torch.arange(x.shape[1], device=self.device))
+        checkpoint, which saves each block's input).  With ``sp`` x and
+        the result are this rank's block of the positions, and so is
+        every block's input and output (``tensor_parallel.seq_parallel``);
+        the final norm's weight is read through ``copy_to_model``."""
+        S = x.shape[1] * (1 if sp is None else dist.get_world_size(sp))
+        rope_cs = self._rope(torch.arange(S, device=self.device))
         img = self._image(image_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.blocks:
-            x, a = _remat(blk, x, rope_cs, img) if remat \
-                else blk(x, rope_cs, img)
+            x, a = _remat(blk, x, rope_cs, img, sp) if remat \
+                else blk(x, rope_cs, img, sp)
             if a is not None:
                 aux = aux + a
-        return rmsnorm(x, self.final_norm, self.cfg.norm_eps), aux
+        return rmsnorm(x, copy_to_model(self.final_norm, sp),
+                       self.cfg.norm_eps), aux
 
     def _head_weight(self):
         return self.embed.T if self.cfg.tie_embeddings else self.head
@@ -392,9 +401,10 @@ class LM(nn.Module):
         (B, T_img, D) for a stack with cross-attention -> float32 logits
         (B, S, V), the head's product taken to float32 without rounding to
         the model's dtype."""
-        x = self._embed_in(tokens, frames, train=True)
-        return matmul_f32(self._hidden(x, remat, image_embeds)[0],
-                          self._head_weight())
+        sp = seq_parallel(*(tokens if frames is None else frames).shape[:2])
+        x = self._embed_in(tokens, frames, train=True, sp=sp)
+        h, _ = self._hidden(x, remat, image_embeds, sp)
+        return matmul_f32(from_stream(h, None, sp), self._head_weight())
 
     def loss(self, batch, remat: bool = True):
         """Sequence-chunked next-token cross entropy (JAX ``LM.loss``):
@@ -406,21 +416,26 @@ class LM(nn.Module):
         auxiliary loss is added (0 in a stack without MoE).  With the
         vocabulary split over ``model`` (the train step's tensor
         parallelism) the embedding and the cross entropy are the
-        vocab-parallel ones, and every rank computes the same loss."""
+        vocab-parallel ones, and every rank computes the same loss.  Where
+        the active rules split the stream between blocks by positions
+        (``tensor_parallel.seq_parallel``), the stack runs on this rank's
+        block of them and the head's input is gathered along the
+        sequence."""
         labels = batch["labels"]
+        B, S = labels.shape
+        sp = seq_parallel(B, S)
         x = self._embed_in(batch.get("tokens"), batch.get("frames"),
-                           train=True)
-        h, aux = self._hidden(x, remat, batch.get("image_embeds"))
+                           train=True, sp=sp)
+        h, aux = self._hidden(x, remat, batch.get("image_embeds"), sp)
         w = self._head_weight()
-        S = labels.shape[1]
         chunk = min(LOSS_CHUNK, S)
         tot = torch.zeros((), dtype=torch.float32, device=self.device)
-        nll, extra = _chunk_nll, ()
+        nll, extra, group = _chunk_nll, (), None
         if w.shape[1] != self.cfg.vocab_size:          # columns split: TP
             group = group_for(True)
-            h = copy_to_model(h, group)
             nll, extra = _chunk_nll_vocab_parallel, (group,
                                                      model_parallel()[2])
+        h = from_stream(h, group, sp)
         for c0 in range(0, S, chunk):
             tot = tot + _remat(nll, h[:, c0:c0 + chunk], w,
                                labels[:, c0:c0 + chunk], *extra)

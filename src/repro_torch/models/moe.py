@@ -14,7 +14,12 @@ group d * model + m through the router gathered whole; the packed
 ranks that hold its experts, each rank runs its E / model experts over
 every rank's slots, the outputs come back by the reverse all-to-all and
 are combined per group, and the combined rows are all-gathered into the
-replicated (T, D).  Where the experts do not divide ``model`` they stay
+replicated (T, D) (with the residual stream split by positions,
+``sharding.tensor_parallel.seq_parallel``, the block's normed input is
+gathered along the sequence first and the combined rows, zero elsewhere,
+are reduce-scattered back to the rank's positions: the dispatch groups,
+their capacity and their drops are JAX's whatever positions a rank
+holds).  Where the experts do not divide ``model`` they stay
 whole: each rank runs them all on its own group, with no all-to-all.  A
 batch that routes in fewer groups than the model group has ranks (JAX
 then leaves ``shard_map`` and routes every group, its expert products
@@ -51,6 +56,7 @@ import torch
 from torch import nn
 
 import torch.distributed as dist
+import torch.nn.functional as Fn
 
 from repro_torch.models.layers import (ACTIVATIONS, dtype_of, init_dense,
                                        init_expert_stack, ones, rmsnorm)
@@ -60,7 +66,8 @@ from repro_torch.sharding.tensor_parallel import (all_to_all_model,
                                                   gather_own_grad,
                                                   gather_sum_grad,
                                                   model_parallel,
-                                                  reduce_from_model)
+                                                  reduce_from_model,
+                                                  scatter_sum)
 
 
 def _num_groups(batch: int, seq: int) -> int:
@@ -112,21 +119,28 @@ class MoE(nn.Module):
                                  torch.float32, device)
         self.experts = Experts(cfg, gen, device)
 
-    def forward(self, x):
+    def forward(self, x, sp=None):
+        """x (B, S, D) -> (x + moe(x), aux).  With ``sp`` (the train
+        step's stream split by positions over ``model``) x is this rank's
+        block of the S positions and so is the result; the stream then
+        routes in one group a model rank (``_num_groups``: S divides over
+        ``model``, so the data rank's tokens do)."""
         cfg = self.cfg
         B, S, D = x.shape
         E, K = cfg.num_experts, cfg.experts_per_token
-        T = B * S
         group, world = data_parallel()
-        G = max(1, _num_groups(B * world, S) // world)
         mgroup, n_model, m = model_parallel()
+        if sp is not None:
+            S *= n_model
+        T = B * S
+        G = max(1, _num_groups(B * world, S) // world)
         Tg = T // G
         C = max(1, int(math.ceil(Tg * K / E * cfg.moe_capacity_factor)))
-        h = rmsnorm(x, self.norm, cfg.norm_eps)
+        h = rmsnorm(x, copy_to_model(self.norm, sp), cfg.norm_eps)
         if n_model > 1 and G == n_model:
             combined, aux = self._expert_parallel(h, C, group, world,
-                                                  mgroup, n_model, m)
-            return x + combined.reshape(B, S, D), aux
+                                                  mgroup, n_model, m, sp)
+            return x + combined, aux
         ht = h.reshape(T, D)
         dev = x.device
         # fewer groups than model ranks with the experts split: every
@@ -160,10 +174,12 @@ class MoE(nn.Module):
         aux = E * torch.sum(me * ce)
         return x + combined.reshape(B, S, D).to(x.dtype), aux
 
-    def _expert_parallel(self, h, C, group, world, mgroup, n, m):
+    def _expert_parallel(self, h, C, group, world, mgroup, n, m, sp=None):
         """The block over ``model`` (JAX's ``shard_map`` groups): this
-        rank routes its group ``m`` of its data rank's rows h (B, S, D)
-        through the router gathered whole, and the load statistics are
+        rank routes its group ``m`` of its data rank's rows h (B, S, D;
+        with ``sp`` this rank's block of the positions, gathered along the
+        sequence) through the router gathered whole, and the load
+        statistics are
         summed over ``mgroup`` (and the counts over ``group``, ``data``)
         so that every model rank has the same auxiliary loss.  With the
         experts split, the packed (E, C, D) buffer is exchanged with the
@@ -171,16 +187,20 @@ class MoE(nn.Module):
         on), each rank runs its own experts over every rank's slots, and
         the outputs are exchanged back; with the experts whole, each rank
         runs them all on its own slots.  The combined rows are gathered
-        over ``mgroup``.  Returns (combined (T, D) in h's dtype, aux)."""
+        over ``mgroup`` (with ``sp``, placed in zeros and reduce-scattered
+        along the sequence to this rank's positions).  Returns (combined
+        (B, S, D), S this rank's positions, in h's dtype; aux)."""
         cfg = self.cfg
-        B, S, D = h.shape
+        hw = copy_to_model(h, mgroup) if sp is None \
+            else gather_sum_grad(h, sp, 1)
+        B, S, D = hw.shape
         E = cfg.num_experts
         T = B * S
         Tg = T // n
         dev = h.device
         w = self.experts
         split = w.w_gate.shape[0] != E
-        ht = copy_to_model(h, mgroup).reshape(T, D)[m * Tg:(m + 1) * Tg]
+        ht = hw.reshape(T, D)[m * Tg:(m + 1) * Tg]
         router = gather_sum_grad(self.router, mgroup, 1) if split \
             else copy_to_model(self.router, mgroup)
         probs, gate_w, expert_idx = self._route(ht, router)
@@ -207,8 +227,12 @@ class MoE(nn.Module):
         else:
             out_e = self._experts(xs, [copy_to_model(t, mgroup) for t in
                                        (w.w_gate, w.w_up, w.w_down)])
-        combined = self._combine(out_e.reshape(E * C, D), info, expert_idx)
-        return gather_own_grad(combined.to(h.dtype), mgroup, 0), aux
+        combined = self._combine(out_e.reshape(E * C, D), info,
+                                 expert_idx).to(h.dtype)
+        if sp is None:
+            return gather_own_grad(combined, mgroup, 0).reshape(B, S, D), aux
+        rows = Fn.pad(combined, (0, 0, m * Tg, T - (m + 1) * Tg))
+        return scatter_sum(rows.reshape(B, S, D), sp, 1), aux
 
     def _few_groups(self, ht, gate_w, expert_idx, G, C, mgroup, n, m):
         """The block over ``model`` when this data rank's rows route in

@@ -24,7 +24,10 @@ rank runs its block of ``d_inner``'s channels: its block of ``in_proj``'s
 columns is a block of ``[x | z]``, and the product is exchanged into this
 rank's channels of both; the conv, the scan and the states are per
 channel; the row-split ``x_proj`` product is summed forward and backward
-and ``out_proj``'s row-split product is summed.
+and ``out_proj``'s row-split product is summed.  Where ``d_inner`` does
+not divide over ``model`` while ``in_proj``'s 2 x ``d_inner`` does, the
+rank's columns of ``in_proj``'s product are gathered whole and every rank
+runs every channel through the whole ``out_proj``.
 
 There is no Pallas kernel here in the reference, and the port has none:
 plain PyTorch, no host read.
@@ -40,10 +43,10 @@ from torch import nn
 
 from repro_torch.models.layers import (dense, dtype_of, init_dense, ones,
                                        remat, rmsnorm)
-from repro_torch.sharding.tensor_parallel import (copy_to_model, group_for,
+from repro_torch.sharding.tensor_parallel import (copy_to_model, from_stream,
+                                                  gather_own_grad, group_for,
                                                   own_channels,
-                                                  reduce_from_model,
-                                                  reduce_sum_grad)
+                                                  reduce_sum_grad, to_stream)
 
 CHUNK = 128
 
@@ -129,9 +132,15 @@ class Mamba(nn.Module):
         (B, w-1, di), ssm state (B, di, N) f32)).  Without states it
         starts from zeros (a prefill); with them it continues (a decode
         step, S = 1).  With ``group`` (the train step over ``model``) di
-        is this rank's block of the channels."""
+        is this rank's block of the channels; without it, a block of
+        ``in_proj``'s columns (the channels whole, ``d_inner`` not dividing
+        over ``model``) has its product gathered whole, every rank running
+        every channel (its gradient this rank's columns: the downstream is
+        the same on every rank)."""
         B, S, _ = x_in.shape
         xz = dense(x_in, self.in_proj)
+        if group is None and xz.shape[-1] != 2 * self.d_inner:
+            xz = gather_own_grad(xz, group_for(True), xz.dim() - 1)
         if group is None:
             xr, z = xz.chunk(2, dim=-1)                         # (B,S,di)
         else:
@@ -169,12 +178,18 @@ class Mamba(nn.Module):
         y = torch.cat(ys, dim=1)[:, :S]
         return y * Fn.silu(z), (new_conv, h)
 
-    def forward(self, x, conv_state=None, ssm_state=None):
+    def forward(self, x, conv_state=None, ssm_state=None, sp=None):
         """x (B, S, D) -> (x + out_proj(mix(norm(x))), (conv, ssm)).  With
         ``d_inner`` split over ``model`` (``conv_w`` a block of its
         columns) the normed input's gradient and the row-split
-        ``out_proj`` products are summed (``sharding.tensor_parallel``)."""
+        ``out_proj`` products are summed; with only ``in_proj``'s columns
+        split, the normed input's gradient is summed and ``out_proj`` is
+        whole.  With ``sp`` x is this rank's block of the positions, the
+        normed input gathered along the sequence and the output returned
+        to the block (``sharding.tensor_parallel``)."""
         group = group_for(self.conv_w.shape[1] != self.d_inner)
-        h = copy_to_model(rmsnorm(x, self.norm, self.eps), group)
+        cols = group_for(self.in_proj.shape[1] != 2 * self.d_inner)
+        h = from_stream(rmsnorm(x, copy_to_model(self.norm, sp), self.eps),
+                        cols, sp)
         y, states = self.mix(h, conv_state, ssm_state, group)
-        return x + reduce_from_model(dense(y, self.out_proj), group), states
+        return x + to_stream(dense(y, self.out_proj), group, sp), states

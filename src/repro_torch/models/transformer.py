@@ -95,22 +95,24 @@ class Block(nn.Module):
     def is_attn(self) -> bool:
         return self.kind in ATTN_KINDS
 
-    def channel_mix(self, x):
+    def channel_mix(self, x, sp=None):
         """(x after the MLP or MoE, the MoE's auxiliary loss or None)."""
         if self.kind in MOE_KINDS:
-            return self.moe(x)
-        return self.mlp(x), None
+            return self.moe(x, sp)
+        return self.mlp(x, sp), None
 
-    def forward(self, x, rope_cs, image_embeds=None):
+    def forward(self, x, rope_cs, image_embeds=None, sp=None):
         """Training (mode ``"train"``): x (B, S, D) at positions 0..S-1
-        -> (x, aux or None)."""
+        -> (x, aux or None); with ``sp`` (the stream split by positions
+        over ``model``, ``tensor_parallel.seq_parallel``) x is this rank's
+        block of them and so is the result."""
         if self.is_attn:
-            x = self.attn(x, rope_cs)
+            x = self.attn(x, rope_cs, sp)
         elif self.kind == XATTN:
-            x = self.xattn(x, image_embeds)
+            x = self.xattn(x, image_embeds, sp)
         else:
-            x, _ = self.mamba(x)
-        return self.channel_mix(x)
+            x, _ = self.mamba(x, sp=sp)
+        return self.channel_mix(x, sp)
 
 
 def make_block(cfg, kind: str, gen, device) -> nn.Module:

@@ -24,7 +24,10 @@ rank runs whole heads: the mLSTM's projections are cut by heads, and the
 sLSTM's input-side gate product, whose block of columns holds some of
 the four gates of every head, is exchanged into all four gates of this
 rank's heads before the token loop; ``wo_out`` and ``down`` are
-row-split and summed, ``up`` column-split.
+row-split and summed, ``up`` column-split.  Where the heads do not divide
+over ``model`` while the projections do, the split projections are
+gathered whole, every rank runs every head and takes its own columns of
+the output into its ``wo_out`` rows.
 
 The reference has no Pallas kernel here, only jnp, and the port has no
 hand-written kernel either: a fused xLSTM scan would be a later
@@ -39,9 +42,10 @@ from torch import nn
 
 from repro_torch.models.layers import (dense, dtype_of, init_dense, ones,
                                        remat, rmsnorm)
-from repro_torch.sharding.tensor_parallel import (copy_to_model, group_for,
-                                                  own_channels,
-                                                  reduce_from_model)
+from repro_torch.sharding.tensor_parallel import (copy_to_model, from_stream,
+                                                  gather_sum_grad, group_for,
+                                                  model_parallel,
+                                                  own_channels, to_stream)
 
 MLSTM_CHUNK = 256
 NEG_INIT = -1e30        # the stabiliser's initial value
@@ -77,34 +81,47 @@ class _XLSTMBase(nn.Module):
         self.up = init_dense(gen, d, d, dt, device)
         self.down = init_dense(gen, d, d, dt, device)
 
-    def _normed(self, x):
+    def _normed(self, x, sp=None):
         """(norm(x), the ``model`` group when the mixer's heads are split
         over it: ``wo_out`` a block of its rows), the normed input's
-        gradient summed over the group."""
+        gradient summed over the group; with ``sp`` (x this rank's block
+        of the positions) gathered along the sequence
+        (``tensor_parallel.from_stream``)."""
         group = group_for(self.wo_out.shape[0] != self.cfg.attn_dim)
-        h = rmsnorm(x, self.norm, self.cfg.norm_eps)
-        return copy_to_model(h, group), group
+        h = rmsnorm(x, copy_to_model(self.norm, sp), self.cfg.norm_eps)
+        return from_stream(h, group, sp), group
 
-    def _out(self, x, out, group):
+    def _out(self, x, out, group, sp=None):
         """The residual of the mixer's float32 output (B, S, H, hd), H
-        this rank's heads: the row-split products summed over
-        ``group``."""
+        this rank's heads (or (B, S, c), this rank's c columns of every
+        head's): the row-split products summed over ``group``, with
+        ``sp`` reduce-scattered to this rank's positions."""
         out = out.reshape(*out.shape[:2], -1).to(x.dtype)
-        return x + reduce_from_model(dense(out, self.wo_out), group)
+        return x + to_stream(dense(out, self.wo_out), group, sp)
 
-    def channel_mix(self, x):
+    def _own_columns(self, out):
+        """This rank's ``wo_out`` rows' columns of the output of every
+        head (B, S, H, hd), where the heads fall across ranks."""
+        c = self.wo_out.shape[0]
+        r = model_parallel()[2]
+        return out.reshape(*out.shape[:2], -1)[..., r * c:(r + 1) * c]
+
+    def channel_mix(self, x, sp=None):
         """(x + down(gelu(up(norm2(x)))), no auxiliary loss); with ``up``
         column-split over ``model``, ``down``'s row-split products
-        summed."""
+        summed (with ``sp`` as :meth:`_normed` and :meth:`_out`)."""
         group = group_for(self.up.shape[1] != self.cfg.d_model)
-        h2 = copy_to_model(rmsnorm(x, self.norm2, self.cfg.norm_eps), group)
+        h2 = from_stream(rmsnorm(x, copy_to_model(self.norm2, sp),
+                                 self.cfg.norm_eps), group, sp)
         y = dense(_gelu(dense(h2, self.up)), self.down)
-        return x + reduce_from_model(y, group), None
+        return x + to_stream(y, group, sp), None
 
-    def forward(self, x, rope_cs=None, image_embeds=None):
-        """Training (mode ``"train"``): x (B, S, D) -> (x, None)."""
-        x, _ = self.mix(x)
-        return self.channel_mix(x)
+    def forward(self, x, rope_cs=None, image_embeds=None, sp=None):
+        """Training (mode ``"train"``): x (B, S, D) -> (x, None); with
+        ``sp`` x is this rank's block of the positions, and so is the
+        result."""
+        x, _ = self.mix(x, sp=sp)
+        return self.channel_mix(x, sp)
 
 
 # ===========================================================================
@@ -216,31 +233,45 @@ class MLSTMBlock(_XLSTMBase):
         self.wf = init_dense(gen, d, H, torch.float32, device)
         self._init_out(cfg, gen, device)
 
-    def _qkvif(self, h):
+    def _qkvif(self, h, weights=None):
         """q, k, v (B, S, H, hd) and the gates' pre-activations (B, S, H),
-        H this module's heads (read from ``wq``'s width)."""
+        H this module's heads (read from ``wq``'s width), or those of
+        ``weights`` (wq, wk, wv, wi, wf) when given."""
         B, S, _ = h.shape
         hd = self.cfg.head_dim
-        H = self.wq.shape[1] // hd
+        wq, wk, wv, wi, wf = weights or (self.wq, self.wk, self.wv,
+                                         self.wi, self.wf)
+        H = wq.shape[1] // hd
         scale = hd ** -0.5
-        q = dense(h, self.wq).reshape(B, S, H, hd).float() * scale
-        k = dense(h, self.wk).reshape(B, S, H, hd).float() * scale
-        v = dense(h, self.wv).reshape(B, S, H, hd).float()
+        q = dense(h, wq).reshape(B, S, H, hd).float() * scale
+        k = dense(h, wk).reshape(B, S, H, hd).float() * scale
+        v = dense(h, wv).reshape(B, S, H, hd).float()
         h32 = h.float()
-        return q, k, v, h32 @ self.wi, h32 @ self.wf
+        return q, k, v, h32 @ wi, h32 @ wf
 
-    def mix(self, x, state=None):
+    def mix(self, x, state=None, sp=None):
         """x (B, S, D) -> (x + the mixer's output, (C, n, m)).  Without
         ``state`` the chunkwise form from zero states (train, prefill);
         with it one exact step (decode, S = 1).  Over ``model`` each rank
-        runs its own heads."""
-        h, group = self._normed(x)
-        q, k, v, i_pre, f_pre = self._qkvif(h)
+        runs its own heads; where they fall across ranks (``wi`` whole
+        while ``wq`` is split) ``wq``/``wk``/``wv`` are gathered whole,
+        ``wi``/``wf`` read through ``copy_to_model``, every rank runs
+        every head and keeps its own columns."""
+        h, group = self._normed(x, sp)
+        apart = group is not None and self.wi.shape[1] == self.cfg.num_heads
+        weights = None
+        if apart:
+            weights = [gather_sum_grad(w, group, 1)
+                       for w in (self.wq, self.wk, self.wv)] + [
+                copy_to_model(w, group) for w in (self.wi, self.wf)]
+        q, k, v, i_pre, f_pre = self._qkvif(h, weights)
         if state is None:
             out, state = mlstm_chunked(q, k, v, i_pre, f_pre)
         else:
             out, state = mlstm_step(q, k, v, i_pre, f_pre, state)
-        return self._out(x, out, group), state
+        if apart:
+            out = self._own_columns(out)
+        return self._out(x, out, group, sp), state
 
 
 # ===========================================================================
@@ -286,18 +317,29 @@ class SLSTMBlock(_XLSTMBase):
                                     requires_grad=False)
         self._init_out(cfg, gen, device)
 
-    def mix(self, x, state=None):
+    def mix(self, x, state=None, sp=None):
         """x (B, S, D) -> (x + the mixer's output, (c, n, h, m)), the
         recurrence run token by token from ``state`` (zeros and m = -1e30
         when None: train, prefill).  Over ``model`` this rank's block of
         the gate product (4/n of the gates of every head, gate-major) is
         exchanged into all four gates of its own heads, whose recurrence
-        then runs with no collective inside the loop."""
-        B, S, _ = x.shape
-        H, hd = self.r_gates.shape[1], self.cfg.head_dim
-        hin, group = self._normed(x)
-        wx = hin.float() @ self.w_gates
-        if group is not None:
+        then runs with no collective inside the loop.  Where the heads
+        fall across ranks (``r_gates`` whole while ``w_gates`` is split)
+        ``w_gates`` and ``b_gates`` are gathered whole, ``r_gates`` read
+        through ``copy_to_model``, every rank runs every head and keeps
+        its own columns."""
+        hin, group = self._normed(x, sp)
+        B, S, _ = hin.shape
+        apart = group is not None \
+            and self.r_gates.shape[1] == self.cfg.num_heads
+        w_gates, r_gates, b_gates = self.w_gates, self.r_gates, self.b_gates
+        if apart:
+            w_gates = gather_sum_grad(w_gates, group, 1)
+            b_gates = gather_sum_grad(b_gates, group, 1)
+            r_gates = copy_to_model(r_gates, group)
+        H, hd = r_gates.shape[1], self.cfg.head_dim
+        wx = hin.float() @ w_gates
+        if group is not None and not apart:
             wx = own_channels(wx, 4, group)
         wx = wx.reshape(B, S, 4, H, hd)
         if state is None:
@@ -305,7 +347,9 @@ class SLSTMBlock(_XLSTMBase):
             state = (z, z, z, torch.full_like(z, NEG_INIT))
         hs = []
         for s in range(S):
-            state = remat(_slstm_cell, self.r_gates, self.b_gates,
-                          wx[:, s], *state)
+            state = remat(_slstm_cell, r_gates, b_gates, wx[:, s], *state)
             hs.append(state[2])
-        return self._out(x, torch.stack(hs, dim=1), group), state
+        out = torch.stack(hs, dim=1)
+        if apart:
+            out = self._own_columns(out)
+        return self._out(x, out, group, sp), state

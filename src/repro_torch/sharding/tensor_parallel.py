@@ -38,19 +38,45 @@ axis's process group on the active mesh (:func:`group_for`).
   channels of both; the depthwise conv, the scan and the states are per
   channel; the row-split ``x_proj`` product (B, C, dt), read whole by
   every channel, is summed forward and backward
-  (:func:`reduce_sum_grad`); ``out_proj`` is row-split.
+  (:func:`reduce_sum_grad`); ``out_proj`` is row-split.  Where
+  ``d_inner`` does not divide while ``in_proj``'s 2 x ``d_inner`` does,
+  ``in_proj``'s product is gathered whole (:func:`gather_own_grad`) and
+  every rank runs every channel through the whole ``out_proj``.
 * xLSTM (``models.xlstm``), whole heads on each rank: the mLSTM as
   attention (``wq``/``wk``/``wv``/``wi``/``wf`` column-split, ``wo_out``
   row-split); the sLSTM's ``w_gates`` block holds some of the four gates
   of every head, and its product is exchanged into all four gates of
   this rank's heads (:func:`own_channels`), whose recurrence then runs
   with no collective inside the token loop; each block's up/down as the
-  MLP.
+  MLP.  Where the heads do not divide while the projections do, the
+  split projections (``wq``/``wk``/``wv``, ``w_gates``, ``b_gates``) are
+  gathered whole (:func:`gather_sum_grad`), the whole ones (``wi``,
+  ``wf``, ``r_gates``) read through :func:`copy_to_model`, and every
+  rank runs every head and takes its own columns into its ``wo_out``
+  rows, as cut attention heads do.
 * Embedding and head: each rank holds a block of vocabulary rows; the
   lookup is masked to them and summed (:func:`vocab_parallel_embedding`),
   and the loss's log-sum-exp and target logit are all-reduced
   (``models.model``).  With the audio frontend the frames enter whole on
   every rank and only the head is split.
+
+The residual stream between blocks (Megatron's sequence parallelism, the
+JAX stack's ``constrain(x, "batch", "seq_sp", "embed")``): where the
+active rules resolve ``seq_sp`` to ``model`` for the stream's length
+(:func:`seq_parallel`), each rank holds its contiguous block of the
+positions, in rank order.  The embedding's sum is reduce-scattered along
+the sequence (the audio frontend's frames are cut to the rank's block);
+every block norms its own positions (the norm weight read through
+:func:`copy_to_model`, its gradient summed), gathers the normed input
+along the sequence where :func:`copy_to_model` stood
+(:func:`from_stream`), runs its work on every position, reduce-scatters
+its row-split output where :func:`reduce_from_model` stood
+(:func:`to_stream`, :func:`scatter_sum`) and adds the residual on its
+block; a block whose work is whole gathers its input with
+:func:`gather_own_grad` and keeps its own positions of its output
+(:func:`own_block`).  The final norm runs on the block and the head's
+input is gathered.  Otherwise (the rules map ``seq_sp`` to nothing, or
+the length does not divide) the stream is whole on every rank.
 
 Every Function is the identity on a group of one (``group=None``).  Every
 collective of this module goes through :func:`all_reduce`,
@@ -58,11 +84,6 @@ collective of this module goes through :func:`all_reduce`,
 count their calls and the bytes handed to them in ``COLLECTIVES`` by
 kind (the whole buffer: an all-gather's output, a reduce-scatter's
 input).
-
-:func:`check_layout` refuses, before any process group is touched, the
-stacks the step does not execute over ``model``: Mamba or xLSTM blocks
-whose channels or heads do not fall whole on the ranks while their
-projections split.
 """
 
 from __future__ import annotations
@@ -71,10 +92,10 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as Fn
 
-from repro_torch.sharding import current_mesh
+from repro_torch.sharding import current_mesh, current_rules
 from repro_torch.sharding.compat import (all_gather_single,
                                          reduce_scatter_single)
-from repro_torch.sharding.rules import mesh_axis_sizes, spec_axes
+from repro_torch.sharding.rules import mesh_axis_sizes, spec_axes, spec_for
 
 #: the collectives over ``model`` by kind
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
@@ -169,6 +190,48 @@ def group_for(split: bool):
     return group
 
 
+def seq_parallel(batch: int, seq: int):
+    """The ``model`` group when the residual stream (batch, seq, d_model)
+    between blocks is this rank's block of positions: the active rules
+    resolve ``("batch", "seq_sp", "embed")``'s sequence dimension to
+    ``model`` on the active mesh, over more than one rank; else None (the
+    stream whole on every rank)."""
+    group, _, _ = model_parallel()
+    if group is None:
+        return None
+    spec = spec_for((batch, seq, 1), ("batch", "seq_sp", "embed"),
+                    current_mesh(), current_rules())
+    return group if split_over_model(spec, 1) else None
+
+
+def from_stream(h, group, sp):
+    """The normed stream ``h`` as a block's work reads it.  On a whole
+    stream (``sp`` None), :func:`copy_to_model` over ``group``, the
+    ``model`` group when the work is split over it (each rank's gradient
+    is its share).  On a stream split by positions, every rank's block
+    gathered along the sequence: its gradient reduce-scattered where the
+    work is split, this rank's block of it where the work is whole
+    (every rank's gradient is then the same)."""
+    if sp is None:
+        return copy_to_model(h, group)
+    if group is None:
+        return gather_own_grad(h, sp, 1)
+    return gather_sum_grad(h, sp, 1)
+
+
+def to_stream(y, group, sp):
+    """A block's output ``y`` (B, S, D) as the residual adds it: summed
+    over ``group`` where the work is split (:func:`reduce_from_model`),
+    and on a stream split by positions (``sp``) this rank's block of the
+    sum (:func:`scatter_sum`) or, from whole work, of y
+    (:func:`own_block`)."""
+    if sp is None:
+        return reduce_from_model(y, group)
+    if group is None:
+        return own_block(y, sp, 1)
+    return scatter_sum(y, sp, 1)
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -249,6 +312,29 @@ class _AllToAll(torch.autograd.Function):
         return all_to_all(g, ctx.group, ctx.recv, ctx.send), None, None, None
 
 
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _OwnBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
 def gather_sum_grad(x, group, dim: int):
     """Every rank's block ``x`` of a tensor split along ``dim`` over
     ``group``, gathered whole; its gradient is reduce-scattered, because
@@ -263,6 +349,22 @@ def gather_own_grad(x, group, dim: int):
     replicated and each rank's gradient is already the whole (the MoE's
     combined rows)."""
     return x if group is None else _GatherOwnGrad.apply(x, group, dim)
+
+
+def scatter_sum(x, group, dim: int):
+    """This rank's block along ``dim`` of x summed over ``group``
+    (reduce-scatter); its gradient all-gathered, because every rank's
+    block is read by its own positions alone (a row-split product's
+    partial output entering a residual stream split by positions)."""
+    return x if group is None else _ScatterSum.apply(x, group, dim)
+
+
+def own_block(x, group, dim: int):
+    """This rank's block along ``dim`` of x, which is whole and the same
+    on every rank of ``group``; its gradient all-gathered, so that the
+    replicated work that made x gets the whole gradient on every rank
+    (a whole block's output entering a stream split by positions)."""
+    return x if group is None else _OwnBlock.apply(x, group, dim)
 
 
 def reduce_sum_grad(x, group):
@@ -308,38 +410,19 @@ def own_channels(x, groups: int, group):
     return got.transpose(0, 1).reshape(*x.shape[:-1], groups, piece)
 
 
-def vocab_parallel_embedding(tokens, shard, group, rank: int):
+def vocab_parallel_embedding(tokens, shard, group, rank: int, sp=None):
     """Token embeddings from this rank's block of vocabulary rows
     ``shard`` (rows ``rank * len(shard)`` on): the rows it owns looked
-    up, the others zero, summed over ``group``.  Exact: each position
-    sums one row with zeros."""
+    up, the others zero, summed over ``group`` (with ``sp``, the stream
+    split by positions, this rank's block of the sum along the sequence).
+    Exact: each position sums one row with zeros."""
     n = shard.shape[0]
     local = tokens - rank * n
     own = (local >= 0) & (local < n)
     emb = Fn.embedding(local.clamp(0, n - 1), shard)
-    return reduce_from_model(emb.masked_fill(~own[..., None], 0), group)
+    return to_stream(emb.masked_fill(~own[..., None], 0), group, sp)
 
 
 # ------------------------------------------------------------ the layout
 def split_over_model(spec, dim: int) -> bool:
     return len(spec) > dim and "model" in spec_axes(spec[dim])
-
-
-def check_layout(cfg, mesh) -> None:
-    """Raise ValueError unless the train step executes ``cfg`` over
-    ``mesh``'s ``model`` axis: every layout the rules give is executed,
-    except a Mamba ``d_inner`` or an xLSTM head count that does not divide
-    over ``model`` while the block's projections split (their channels or
-    heads would fall across ranks)."""
-    n = mesh_axis_sizes(mesh).get("model", 1)
-    kinds = set(cfg.block_pattern)
-    di = cfg.d_inner
-    if kinds & {"mamba", "mamba_moe"} and di % n and 2 * di % n == 0:
-        raise ValueError(f"make_train_step: {cfg.name}'s Mamba d_inner "
-                         f"{di} does not divide over 'model' ({n}) while "
-                         "in_proj's 2 x d_inner does")
-    if kinds & {"mlstm", "slstm"} and cfg.num_heads % n \
-            and 4 * cfg.attn_dim % n == 0:
-        raise ValueError(f"make_train_step: {cfg.name}'s {cfg.num_heads} "
-                         f"xLSTM heads do not divide over 'model' ({n}) "
-                         "while their projections do")

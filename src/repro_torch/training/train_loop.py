@@ -59,9 +59,21 @@ neither is computed identically on every model rank and stays
 bit-identical there.  AdamW updates the blocks elementwise; Adafactor
 updates each rank's blocks too, its factored statistics' means over a
 split dimension summed over ``model`` (``optimizer.apply_updates``'s
-``split``), so no rank holds a whole split gradient.  Mamba or xLSTM
-blocks whose channels or heads do not divide over ``model`` while their
-projections do are refused (``tensor_parallel.check_layout``).
+``split``), so no rank holds a whole split gradient.  A Mamba
+``d_inner`` or an xLSTM head count that does not divide over ``model``
+while the block's projections do has the split projections (or
+``in_proj``'s product) gathered whole, every rank running every channel
+or head.
+
+The residual stream between blocks follows the rules active where the
+step is called (``sharding.use_mesh(mesh, rules)``; ``DEFAULT_RULES``
+otherwise): where ``seq_sp`` resolves to ``model`` for the sequence
+length, each rank of a ``model`` group holds its block of the positions
+between blocks (Megatron's sequence parallelism: the embedding's sum and
+every block's row-split output reduce-scattered along the sequence, each
+block's normed input all-gathered, the norms' weights' gradients summed),
+so remat saves a ``(B, S / model, D)`` input a block; else the stream is
+whole on every rank (``sharding.tensor_parallel``).
 
 With ``mesh=None`` or a mesh of one rank the step is the single-device
 one bit for bit; at ``model`` 1 it is the data-parallel step above.
@@ -76,7 +88,7 @@ import torch.distributed as dist
 
 from repro_torch.models.model import LM
 from repro_torch.sharding import tensor_parallel as tp
-from repro_torch.sharding import use_mesh
+from repro_torch.sharding import current_rules, use_mesh
 from repro_torch.sharding.partition import (gather_shard, local_shard,
                                             tree_specs)
 from repro_torch.sharding.rules import (is_axes_leaf, mesh_axis_sizes,
@@ -207,11 +219,9 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
     sizes = mesh_axis_sizes(mesh)
     world, n_model = sizes.get("data", 1), sizes.get("model", 1)
     specs = state_specs(cfg, opt_cfg, mesh) if world * n_model > 1 else None
-    if n_model > 1:
-        tp.check_layout(cfg, mesh)
     if world * n_model == 1:
         def one_rank_step(state, batch):
-            with use_mesh(mesh):
+            with use_mesh(mesh, current_rules()):
                 return train_step(state, batch)
         return one_rank_step
 
@@ -282,7 +292,7 @@ def make_train_step(cfg, opt_cfg: OptConfig, microbatches: int = 1,
             # gathered over data; a model block stays this rank's
             params[k].data = gather_shard(shards[k], pspec(k), mesh,
                                           axes=("data",))
-        with use_mesh(mesh):
+        with use_mesh(mesh, current_rules()):
             loss, grads = loss_and_grads(lm, local)
         if world > 1:
             loss = _mean_over(group, world, loss.float().clone())

@@ -20,7 +20,6 @@ rtol 1e-4, parameters atol 5e-4, rtol 5e-3); elastic restores are exact.
 
 import torch_threads  # noqa: F401  (first: caps torch threads)
 
-import dataclasses
 import json
 import os
 import pickle
@@ -277,20 +276,6 @@ def test_data_parallel_jamba_at_world_two_matches_jax(tmp_path):
         loss = float(state.model.loss(batch))
     np.testing.assert_allclose(loss, jres["loss"][0], rtol=1e-5)
     np.testing.assert_allclose(loss, port["loss"][0], rtol=1e-5)
-
-
-def test_model_axis_is_refused():
-    """A model axis is executed for every registered arch
-    (``tests/test_torch_tensor_parallel.py``,
-    ``tests/test_torch_tp_recurrent.py``, ``tests/test_torch_tp_xattn.py``);
-    a Mamba ``d_inner`` that does not divide over it while ``in_proj``'s
-    2 x ``d_inner`` does is refused before any process group is
-    touched."""
-    cfg = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
-                              d_model=3)
-    with pytest.raises(ValueError, match="d_inner 6 does not divide"):
-        make_train_step(cfg, OptConfig(),
-                        mesh=MeshShape(("data", "model"), (1, 4)))
 
 
 # ---------------------------------------------------------------- elastic

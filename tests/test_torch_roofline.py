@@ -109,12 +109,17 @@ def test_full_smollm_train_cell_bytes_and_flops(tmp_path):
     # one pod: FSDP over data (16) and the matrices' other axis over model
     assert d["coll_bytes"]["all-to-all"] == 0.0
     assert d["coll_bytes"]["all-gather"] > 0
-    # the activations' all-reduces over model (16 ranks), 5 a layer of
-    # 16 x 4096 tokens x 960 in bf16 and the vocab-parallel embedding and
-    # loss, outweigh the FLOPs at 450 GB/s: the cell is collective-bound
+    # the activations over model (16 ranks), the stream between blocks
+    # split by positions (seq_sp): 6 all-gathers and 5 reduce-scatters a
+    # layer of 16 x 4096 tokens x 960 in bf16 and one of each for the
+    # vocab-parallel embedding and for the head, beside the loss's
+    # all-reduces, outweigh the FLOPs at 450 GB/s: collective-bound
     act = 16 * 4096 * cfg.d_model * 2
-    tp = (5 * cfg.num_layers + 2) * act + 2 * 3 * 16 * 4096 * 4 + 4
-    assert d["coll_bytes"]["all-reduce"] >= tp * 2 * 15 / 16
+    L = cfg.num_layers
+    assert d["coll_bytes"]["all-gather"] >= (6 * L + 2) * act * 15 / 16
+    assert d["coll_bytes"]["reduce-scatter"] >= (5 * L + 2) * act * 15 / 16
+    assert d["coll_bytes"]["all-reduce"] >= \
+        (2 * 3 * 16 * 4096 * 4 + 4) * 2 * 15 / 16
     assert d["bottleneck"] == "collective"
 
 

@@ -12,7 +12,9 @@ axes, on which GSPMD splits heads, MLP columns and the vocabulary over
 of ``torch_tp_worker.CASES`` from the same JAX-initialised weights:
 reduced smollm-360m, gemma3-4b-edge and qwen3-32b cut to 2 KV heads
 (QK-norm, grouped queries) with AdamW, and smollm with Adafactor, three
-steps each.
+steps each.  At S 32 the default rules split the residual stream
+between blocks by positions over ``model`` (``seq_sp``), in both
+packages.
 
 Tolerances are ``tests/test_torch_dist.py``'s: losses and gradient norms
 rtol 1e-4, parameters atol 5e-4, rtol 5e-3.  A mesh of one rank is the
@@ -40,7 +42,8 @@ from repro.models.model import LM as JLM
 from repro_torch.configs import get_config
 from repro_torch.models.bridge import params_from_jax, params_to_jax
 from repro_torch.models.model import LM
-from repro_torch.sharding.rules import MeshShape, mesh_axis_sizes, spec_axes
+from repro_torch.sharding.rules import (DEFAULT_RULES, MeshShape,
+                                        mesh_axis_sizes, spec_axes)
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.optimizer import OptConfig, init_opt_state
 from repro_torch.training.train_loop import (TrainState, init_train_state,
@@ -239,7 +242,8 @@ def test_moe_collectives_in_the_roofline_of_a_tp_mesh():
     """Reduced dbrx on a shape-only (1, 2) mesh: six all-to-alls of the
     (E, C, d_model) buffer a MoE layer (dispatch and combine, forward,
     recomputed and backward), the router gathered twice and its gradient
-    reduce-scattered once; each kind enters the train cell's term at its
+    reduce-scattered once beside the split stream's reduce-scatters; each
+    kind enters the train cell's term at its
     ring factor (all-reduce 2(n-1)/n, the others (n-1)/n)."""
     import math as m
     from repro_torch.launch import roofline as rl
@@ -256,8 +260,13 @@ def test_moe_collectives_in_the_roofline_of_a_tp_mesh():
     assert tp["all-to-all"] == {"calls": 6 * L,
                                 "bytes": 6 * L * E * C * cfg.d_model * 4}
     router = cfg.d_model * E * 4
-    assert tp["reduce-scatter"]["calls"] == L
-    assert tp["reduce-scatter"]["bytes"] == L * router
+    # beside the router's gradient, the stream split by positions: each
+    # layer's attention input gradient and output (forward, recomputed)
+    # and the MoE's input gradient and output, then the embedding's sum
+    # and the head input's gradient
+    act = 8 * 32 * cfg.d_model * 4
+    assert tp["reduce-scatter"]["calls"] == L + 5 * L + 2
+    assert tp["reduce-scatter"]["bytes"] == L * router + (5 * L + 2) * act
     base = rl.collective_bytes(params, specs, mesh, "train")
     got = rl.collective_bytes(params, specs, mesh, "train", tp)
     for k in KINDS:
@@ -352,26 +361,73 @@ def test_one_rank_mesh_is_the_single_device_step_bit_for_bit(kind):
         assert torch.equal(torch.as_tensor(t), torch.as_tensor(s1[p])), p
 
 
+#: rules under which the residual stream stays whole on every rank
+WHOLE_STREAM = {**DEFAULT_RULES, "seq_sp": ()}
+
+
+class RankView:
+    """Rank 0's view of a ("data", "model") mesh of ``dims``: what
+    ``make_train_step`` reads of a ``DeviceMesh`` before its first step
+    (no process group exists)."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, dims):
+        self.mesh = torch.empty(*dims)
+
+    def get_coordinate(self):
+        return [0, 0]
+
+    def get_group(self, axis):
+        return None
+
+
+def layout_runs(cfg, dims):
+    """``make_train_step`` builds ``cfg``'s step over the (data, model)
+    mesh ``dims``, and the roofline of a B 1 x S 4096 step there splits
+    the stream between blocks by positions (``seq_sp``): against the
+    whole stream's count (``seq_sp: ()``) at least 5 more all-gathers and
+    5 more reduce-scatters of the stream (S x d_model) a layer, as every
+    block gathers its normed input (forward, recomputed) and its output's
+    gradient and reduce-scatters its input's gradient and its output
+    (the mixer's recomputed); at S 4095, which does not divide, the
+    whole stream's count.  Returns the whole stream's count at S 4096."""
+    from repro_torch.launch.roofline import tensor_parallel_bytes
+    from repro_torch.sharding.partition import tree_specs
+    assert callable(make_train_step(cfg, OptConfig(), mesh=RankView(dims)))
+    mesh = MeshShape(("data", "model"), dims)
+    lm = LM(cfg, device="meta")
+    specs = tree_specs(dict(lm.named_parameters()), lm.param_axes(), mesh)
+    split = tensor_parallel_bytes(cfg, specs, mesh, 1, 4096)
+    whole = tensor_parallel_bytes(cfg, specs, mesh, 1, 4096,
+                                  rules=WHOLE_STREAM)
+    act = 4096 * cfg.d_model * {"float32": 4, "bfloat16": 2}[cfg.dtype]
+    for kind in ("all-gather", "reduce-scatter"):
+        assert split[kind]["bytes"] - whole[kind]["bytes"] >= \
+            5 * cfg.num_layers * act, kind
+    assert tensor_parallel_bytes(cfg, specs, mesh, 1, 4095) == \
+        tensor_parallel_bytes(cfg, specs, mesh, 1, 4095, rules=WHOLE_STREAM)
+    return whole
+
+
 @pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b",
                                   "gemma-2b", "smollm-360m",
                                   "jamba-v0.1-52b", "xlstm-350m"])
 def test_moe_and_cut_heads_are_not_refused(arch):
     """Full dbrx, llama4, gemma-2b (one KV head), smollm-360m (15 query
     over 5 KV heads), jamba-v0.1-52b (Mamba, Mamba + MoE) and xlstm-350m
-    (sLSTM, mLSTM) pass ``check_layout`` over (1, 2): the MoE, cut-head,
-    Mamba and xLSTM layouts are executed."""
-    from repro_torch.sharding.tensor_parallel import check_layout
-    check_layout(get_config(arch), MeshShape(("data", "model"), (1, 2)))
+    (sLSTM, mLSTM) over (1, 2): ``make_train_step`` builds the step and
+    the roofline counts the stream split by positions
+    (:func:`layout_runs`)."""
+    layout_runs(get_config(arch), (1, 2))
 
 
 def test_mamba_moe_blocks_are_not_refused():
-    """A stack of ``attn_moe`` and ``mamba_moe`` blocks passes
-    ``check_layout`` over (1, 2): the Mamba half runs its channels, the
-    MoE half its experts."""
-    from repro_torch.sharding.tensor_parallel import check_layout
+    """A stack of ``attn_moe`` and ``mamba_moe`` blocks over (1, 2): the
+    step builds and the roofline counts the split stream
+    (:func:`layout_runs`)."""
     cfg = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
                               block_pattern=("attn_moe", "mamba_moe"))
-    check_layout(cfg, MeshShape(("data", "model"), (1, 2)))
+    layout_runs(cfg, (1, 2))
 
 
 def test_remat_recomputes_under_the_callers_mesh():

@@ -14,6 +14,8 @@ attention stack at (1, 4), where a rank's ``in_proj`` block is half of
 x or half of z and the exchange into its channels takes per-rank sizes;
 reduced xlstm-350m (sLSTM and mLSTM, 4 heads) at (1, 2), (2, 2) and
 (1, 4), where a rank's ``w_gates`` block is one gate of every head.
+Where the sequence divides over ``model`` the default rules split the
+residual stream between blocks by positions (``seq_sp``).
 
 Tolerances are ``tests/test_torch_tensor_parallel.py``'s: losses and
 gradient norms rtol 1e-4, parameters atol 5e-4, rtol 5e-3.
@@ -35,13 +37,13 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models.bridge import params_to_jax
-from repro_torch.sharding.rules import MeshShape, spec_axes
-from repro_torch.sharding.tensor_parallel import check_layout
+from repro_torch.sharding.rules import spec_axes
 
 sys.path.insert(0, str(Path(__file__).parent))
 import torch_tp_worker as W  # noqa: E402
 from test_torch_tensor_parallel import (LIMIT_S, TOL, _assembled,  # noqa: E402
-                                        _coords, _init, _specs, _start)
+                                        _coords, _init, _specs, _start,
+                                        layout_runs)
 
 SUITE = "recurrent"
 
@@ -131,22 +133,8 @@ def test_roofline_counts_the_collectives_the_step_issues(runs, case, shape):
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
 @pytest.mark.parametrize("model", [2, 4])
 def test_full_and_reduced_recurrent_stacks_pass_check_layout(arch, model):
-    """Full and reduced jamba-v0.1-52b and xlstm-350m pass ``check_layout``
-    at model 2 and 4: their ``d_inner`` and heads divide."""
-    mesh = MeshShape(("data", "model"), (1, model))
+    """Full and reduced jamba-v0.1-52b and xlstm-350m at model 2 and 4:
+    ``make_train_step`` builds the step and the roofline counts the
+    stream split by positions (``layout_runs``)."""
     for cfg in (get_config(arch), get_config(arch).reduced()):
-        check_layout(cfg, mesh)
-
-
-@pytest.mark.parametrize("arch,overrides,match", [
-    ("jamba-v0.1-52b", {"d_model": 3}, "d_inner 6 does not divide"),
-    ("xlstm-350m", {"num_heads": 2, "num_kv_heads": 2},
-     "2 xLSTM heads do not divide")])
-def test_channels_or_heads_across_ranks_are_refused(arch, overrides, match):
-    """At model 4, a Mamba ``d_inner`` of 6 (``in_proj``'s 12 columns
-    split, the channels not) and an xLSTM of 2 heads (its projections
-    split, the heads not) are refused, naming the arch."""
-    import dataclasses
-    cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
-    with pytest.raises(ValueError, match=f"{cfg.name}.*{match}"):
-        check_layout(cfg, MeshShape(("data", "model"), (1, 4)))
+        layout_runs(cfg, (1, model))

@@ -16,7 +16,9 @@ the same with 2 KV heads at (1, 4), where the cross-attention's ``wk``
 block cuts a head; reduced musicgen-large (frames in, the head split by
 vocabulary) at (1, 2) and (2, 2); reduced dbrx-132b at B 1 x S 31 on
 (1, 2) and B 2 x S 31 on (2, 2), one dispatch group a data rank, fewer
-than the model ranks.
+than the model ranks.  Where the sequence divides over ``model`` the default
+rules split the residual stream between blocks by positions
+(``seq_sp``).
 
 Tolerances are ``tests/test_torch_tensor_parallel.py``'s: losses and
 gradient norms rtol 1e-4, parameters atol 5e-4, rtol 5e-3.
@@ -38,13 +40,13 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models.bridge import params_to_jax
-from repro_torch.sharding.rules import MeshShape, spec_axes
-from repro_torch.sharding.tensor_parallel import check_layout
+from repro_torch.sharding.rules import spec_axes
 
 sys.path.insert(0, str(Path(__file__).parent))
 import torch_tp_worker as W  # noqa: E402
 from test_torch_tensor_parallel import (LIMIT_S, TOL, _assembled,  # noqa: E402
-                                        _coords, _init, _specs, _start)
+                                        _coords, _init, _specs, _start,
+                                        layout_runs)
 
 SUITE = "xattn"
 
@@ -138,9 +140,10 @@ def test_roofline_counts_the_collectives_the_step_issues(runs, case, shape):
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "musicgen-large"])
 @pytest.mark.parametrize("model", [2, 4])
 def test_full_vision_and_musicgen_pass_check_layout(arch, model):
-    """Full llama-3.2-vision-90b (cross-attention) and musicgen-large (the
-    audio frontend) pass ``check_layout`` at model 2 and 4, as do their
-    reduced configs."""
-    mesh = MeshShape(("data", "model"), (1, model))
+    """Full and reduced llama-3.2-vision-90b (cross-attention) and
+    musicgen-large (the audio frontend: the frames cut to a rank's
+    positions) at model 2 and 4: ``make_train_step`` builds the step and
+    the roofline counts the stream split by positions
+    (``layout_runs``)."""
     for cfg in (get_config(arch), get_config(arch).reduced()):
-        check_layout(cfg, mesh)
+        layout_runs(cfg, (1, model))

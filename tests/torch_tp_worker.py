@@ -12,9 +12,13 @@ step on a mesh of the same shape.  Not a test module (pytest collects
 
 ``SUITE`` is ``attn`` (the default: ``CASES``, for
 ``tests/test_torch_tensor_parallel.py``), ``recurrent``
-(``RECURRENT_CASES``, for ``tests/test_torch_tp_recurrent.py``) or
-``xattn`` (``XATTN_CASES``, for ``tests/test_torch_tp_xattn.py``).  Every
-case of the suite runs in turn on the meshes it names, each from the
+(``RECURRENT_CASES``, for ``tests/test_torch_tp_recurrent.py``),
+``xattn`` (``XATTN_CASES``, for ``tests/test_torch_tp_xattn.py``) or
+``seq`` (``SEQ_CASES``, for ``tests/test_torch_tp_seq.py``).  Under the
+default rules every case whose sequence divides over ``model`` runs with
+the residual stream split by positions (``seq_sp``); ``CASE_RULES``
+names the cases run under other rules, in both packages.  Every case of
+the suite runs in turn on the meshes it names, each from the
 weights under
 ``OUT/<case>/`` (``init.pkl`` for JAX, the step-0 checkpoint ``ckpt0``
 for the port, both written by the test).  A port rank joins its group
@@ -82,14 +86,45 @@ XATTN_CASES = {
     "musicgen": ("musicgen-large", {}, "adamw"),
     "moe_few": ("dbrx-132b", {}, "adamw"),
 }
-ALL_CASES = {**CASES, **RECURRENT_CASES, **XATTN_CASES}
-SUITES = {"attn": CASES, "recurrent": RECURRENT_CASES, "xattn": XATTN_CASES}
+#: the residual stream whole on every rank, and the layouts that fall
+#: across ranks: reduced smollm-360m under rules with ``seq_sp: ()`` and
+#: at S 31 (not dividing over model 2); reduced jamba-v0.1-52b with
+#: d_model 3 (d_inner 6 over model 4 while in_proj's 12 columns split;
+#: Mamba and attention) and reduced xlstm-350m with 2 heads (qkv 32 -> 8
+#: columns a rank at model 4, half a head)
+SEQ_CASES = {
+    "smollm_whole": ("smollm-360m", {}, "adamw"),
+    "smollm_odd": ("smollm-360m", {}, "adamw"),
+    "mamba_apart": ("jamba-v0.1-52b", {"d_model": 3,
+                                       "block_pattern": ("mamba", "attn"),
+                                       "num_layers": 2}, "adamw"),
+    "xlstm_apart": ("xlstm-350m", {"num_heads": 2, "num_kv_heads": 2},
+                    "adamw"),
+}
+ALL_CASES = {**CASES, **RECURRENT_CASES, **XATTN_CASES, **SEQ_CASES}
+SUITES = {"attn": CASES, "recurrent": RECURRENT_CASES, "xattn": XATTN_CASES,
+          "seq": SEQ_CASES}
 MESHES = ("1x2", "2x2", "1x4")
 #: the cases that run on other meshes than (1, 2) and (2, 2)
 CASE_MESHES = {"split_apart": ("1x4",), "mamba_only": ("1x4",),
-               "xlstm": MESHES, "vision_cut": ("1x4",)}
+               "xlstm": MESHES, "vision_cut": ("1x4",),
+               "smollm_whole": ("1x2",), "smollm_odd": ("1x2",),
+               "mamba_apart": ("1x4",), "xlstm_apart": ("1x4",)}
 #: (global batch, sequence) of a case on a mesh, where not (BATCH, SEQ)
-CASE_SHAPES = {("moe_few", "1x2"): (1, 31), ("moe_few", "2x2"): (2, 31)}
+CASE_SHAPES = {("moe_few", "1x2"): (1, 31), ("moe_few", "2x2"): (2, 31),
+               ("smollm_odd", "1x2"): (BATCH, 31)}
+#: the cases run under rules of their own: the default ones with these
+#: logical axes' mappings replaced
+CASE_RULES = {"smollm_whole": {"seq_sp": ()}}
+
+
+def case_rules(case, jax_side=False):
+    """The rules ``case`` runs under, in JAX's package or the port's."""
+    if jax_side:
+        from repro.sharding.rules import DEFAULT_RULES
+    else:
+        from repro_torch.sharding.rules import DEFAULT_RULES
+    return {**DEFAULT_RULES, **CASE_RULES.get(case, {})}
 
 
 def case_meshes(case):
@@ -155,6 +190,7 @@ def port(rank, world, init_file, out, shape, suite="attn"):
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.launch.roofline import tensor_parallel_bytes
     from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding import use_mesh
     from repro_torch.training import checkpoint as ckpt
     from repro_torch.training.optimizer import OptConfig
     from repro_torch.training.train_loop import (abstract_train_state,
@@ -170,6 +206,7 @@ def port(rank, world, init_file, out, shape, suite="attn"):
         if shape not in case_meshes(case):
             continue
         cfg, opt = config(case), OptConfig(**OPT, kind=kind)
+        rules = case_rules(case)
         d = out / case
         _, axes = abstract_train_state(cfg, opt)
         state = ckpt.restore(init_train_state(cfg, opt, device="cpu", seed=9),
@@ -183,7 +220,8 @@ def port(rank, world, init_file, out, shape, suite="attn"):
                      else torch.from_numpy(v).long()
                      for k, v in data(i).items()}
             tp.reset_collectives()
-            state, m = step(state, batch)
+            with use_mesh(mesh, rules):
+                state, m = step(state, batch)
             counted.append(tp.snapshot())
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
@@ -199,9 +237,60 @@ def port(rank, world, init_file, out, shape, suite="attn"):
                 {"loss": losses, "grad_norm": norms, "counted": counted,
                  "roofline": tensor_parallel_bytes(
                      cfg, pspecs, mesh, case_shape(case, shape)[0] // dims[0],
-                     case_shape(case, shape)[1], optimizer=kind)}))
+                     case_shape(case, shape)[1], optimizer=kind,
+                     rules=rules)}))
     if dims == (1, 2) and suite == "attn":
         resume(rank, out)
+    if dims == (1, 2) and suite == "seq":
+        saved_inputs(rank, out, mesh)
+
+
+#: layers of ``saved_inputs``' reduced smollm-360m
+SAVED_LAYERS = 3
+
+
+def saved_inputs(rank, out, mesh):
+    """One forward of reduced smollm-360m's loss (``SAVED_LAYERS`` layers,
+    each rank's blocks of the weights) at B ``BATCH`` x S ``SEQ`` over
+    (1, 2), under the default rules and under ``seq_sp: ()``: the
+    sequence length of each block's input, whether autograd saved it for
+    the backward (``saved_tensors_hooks``; remat saves a block's inputs)
+    and the bytes of every activation saved (the parameters aside).  Rank
+    0 writes them to ``OUT/saved.json``."""
+    import torch
+    from repro_torch.models.model import LM
+    from repro_torch.sharding import use_mesh
+    from repro_torch.sharding.partition import local_shard
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import state_specs
+    cfg = dataclasses.replace(config("smollm_whole"), num_layers=SAVED_LAYERS)
+    lm = LM(cfg, device="cpu", seed=9)
+    specs = state_specs(cfg, OptConfig(), mesh)
+    for n, p in lm.named_parameters():
+        p.data = local_shard(p.data, specs[f"model/{n}"], mesh)
+    lm.requires_grad_(True)
+    weights = {p.data_ptr() for p in lm.parameters()}
+    batch = {k: torch.from_numpy(v).long()
+             for k, v in batches("smollm_whole", "1x2", cfg)(0).items()}
+    got = {}
+    for name, case in (("split", "smollm"), ("whole", "smollm_whole")):
+        rules = case_rules(case)
+        inputs, saved = [], []
+        hooks = [b.register_forward_pre_hook(
+            lambda mod, args: inputs.append(args[0])) for b in lm.blocks]
+        with use_mesh(mesh, rules), torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t) or t, lambda t: t):
+            lm.loss(batch)
+        for h in hooks:
+            h.remove()
+        kept = {(t.data_ptr(), tuple(t.shape)) for t in saved}
+        got[name] = {
+            "rows": [x.shape[1] for x in inputs],
+            "saved": [(x.data_ptr(), tuple(x.shape)) in kept for x in inputs],
+            "bytes": sum(t.numel() * t.element_size() for t in saved
+                         if t.data_ptr() not in weights)}
+    if rank == 0:
+        (out / "saved.json").write_text(json.dumps(got))
 
 
 def resume(rank, out):
@@ -258,6 +347,7 @@ def jax_run(out, shape, suite="attn"):
         if shape not in case_meshes(case):
             continue
         cfg, opt = config(case, jax_side=True), OptConfig(**OPT, kind=kind)
+        rules = case_rules(case, jax_side=True)
         d = out / case
         params = jax.tree.map(jnp.asarray,
                               pickle.loads((d / "init.pkl").read_bytes()))
@@ -265,7 +355,7 @@ def jax_run(out, shape, suite="attn"):
         s_sh = tree_shardings(s_shapes, s_axes, mesh)
         data = batches(case, shape, cfg, jax_side=True)
         losses, norms = [], []
-        with use_mesh(mesh):
+        with use_mesh(mesh, rules):
             state = jax.device_put(
                 TrainState(params, init_opt_state(params, opt)), s_sh)
             step = jax.jit(make_train_step(cfg, opt),
