@@ -11,7 +11,10 @@ heads of width 128, K3 also at exact prompt lengths 1..129 with NaN
 rows past the keys' end; K1 and K3 at musicgen-large's, 32 over 32 of
 width 64, and llama-3.2-vision-90b's, 64 over 8 of width 128; K3
 non-causal at Sq 1, 16 and 45 over the vision stack's 1024 image rows
-and K1 at t = 1023 over its image cache) and times both, each kernel in
+and K1 at t = 1023 over its image cache; K1, K2 and K3 at gemma-2b's
+8 over 1 KV head of width 256, K2 at qwen3-32b's 64 over 8 of width
+128, K1 and K3 at llama4-maverick's 40 over 8 of width 128, K3 also at
+exact lengths) and times both, each kernel in
 turns with SDPA (kernel, SDPA, kernel) and, at head widths 128 and 256,
 once more with the L2 flushed (``[build] ptxas`` lines give those
 instances' registers and spills); K4 and K5 also on the 120-round
@@ -49,7 +52,8 @@ path and read just after:
   sojourn deadline: one terminal status per request, none lost;
 * ``[launch-serve]`` ``repro_torch.launch.serve`` (virtual-time replicas
   on the gemma3-4b-edge service model; the burst scored by K5) under
-  fcfs, sjf and srpt, and sjf at rho 0.74;
+  fcfs, sjf and srpt, and sjf at rho 0.74 (in the second side process,
+  after gemma-2b's paths; its launches count among smollm-360m's);
 * ``[sweep]`` the paper's grids through ``core.sweep``: Fig. 3's
   (fcfs / sjf x 5 rhos x 5 seeds, n 2,000) and Table 8's burst with the
   grid DES on the card (``backend="torch"``) and on the host, and a grid
@@ -225,6 +229,31 @@ path and read just after:
   (``[musicgen-train]`` AdamW on seeded frames, ``[vision-train]``
   Adafactor on seeded image embeddings), K3 twice and K3b once an
   attention layer a step, the cross-attention ones counted apart;
+* gemma-2b whole (18 layers of 8 query heads over 1 KV head of width
+  256, GeGLU, the tied 256,000-row head), in a second side process
+  (``python3 chip_smoke.py --second-side-paths``, then ``[launch-serve]``)
+  beside the first:
+  ``[gemma2b-f32]`` a float32 copy cut to 2 layers against the CPU's
+  plain path and its ring lanes == paged lanes == serial engine, then in
+  bf16 ``[gemma2b-slice]`` (the burst, FCFS and SJF, with the profile),
+  ``[gemma2b-sidecar]`` and ``[gemma2b-lanes]`` (the paging backlog
+  through ring and paged lanes, the shared prefix cold then warm);
+* once every child has ended, qwen3-32b whole (64 layers, 64 query heads
+  over 8 KV heads of width 128 with QK-norm, 61.02 GiB of bf16 weights)
+  with the card to itself, one engine at a time: ``[qwen3-f32]`` 2
+  layers in float32 against the CPU and through ring lanes == paged
+  lanes == serial, ``[qwen3-slice]`` the 64 layers on a smaller burst (2
+  longs of 24 new tokens, 4 shorts of 4) under FCFS and SJF with fused
+  decode == the per-token oracle over 16 tokens, ``[qwen3-profile]``,
+  ``[qwen3-sidecar]`` the burst over HTTP under SJF, ``[qwen3-paged]``
+  the block-paged pool with a shared prefix, drained clean; then
+  llama4-maverick-400b-a17b cut to one of its 24 pattern repeats
+  (attention + dense FFN, attention + 128 experts top-1; the whole
+  model, 735 GiB in bf16, does not fit the card): ``[llama4-f32]`` the
+  repeat in float32 (68.6 GiB) through K1/K3 against the plain attention
+  on the card, serial and ring lanes, then in bf16 ``[llama4-slice]``,
+  ``[llama4-sidecar]`` (SJF) and ``[llama4-lanes]`` after the paged and
+  speculative engines refuse the stack;
 * ``[examples]`` beside those trained stacks, in a child process of its
   own (``python3 chip_smoke.py --examples``): the six ``examples_torch/``
   scripts through their ``main(["--device", "cuda"])`` as a user runs
@@ -291,7 +320,10 @@ reference (the step with no mesh, the CPU's exchange,
 ``checkpoint.restore``) or the meshed step's K3/K3b launches differ, when an xlstm path launches an attention kernel or
 its card and CPU logits, tokens or lane tokens differ, when the
 musicgen or vision kernels-vs-plain logits or tokens differ or their
-launches are not exactly a layer's, when two kernels-line entries
+launches are not exactly a layer's, when gemma-2b's, qwen3-32b's or
+llama4's float32 holds, bitwise contracts or exact launches fail, the
+paged pool does not drain clean or its warm pass hits no prefix page,
+when two kernels-line entries
 share a name, or when an example script raises, its printed claim does
 not hold (ranking accuracy inside 62–96%, SJF's short P50 below FCFS's,
 both drafts bitwise equal, token counts equal across budgets, 100 of
@@ -308,7 +340,9 @@ entry per kernel, each with the launches of its own model's paths (K1,
 K2 and K3 at head width 64 and K3b, K4, K5: smollm-360m; ``*_hd256``:
 gemma3-4b-edge; ``*_hd128``: jamba-v0.1-52b; ``*_musicgen``:
 musicgen-large; ``*_vision``: llama-3.2-vision-90b's self-attention
-and ``*_vision_cross`` its cross-attention, K3b's among them;
+and qwen3-32b's (the same heads) and ``*_vision_cross`` its
+cross-attention, K3b's among them; ``*_gemma2b``: gemma-2b;
+``*_qwen3``: qwen3-32b's K2; ``*_llama4``: llama4-maverick-400b-a17b;
 ``*_hd256_tp``: both ``[tp]`` ranks' gemma3 bf16 steps;
 ``*_hd128_g6_tp``: their dbrx steps; ``*_hd128_g8_tp`` and
 ``*_vision_cross_tp``: the late pair's vision bf16 steps (self- and
@@ -379,6 +413,15 @@ JAMBA_LONG_NEW = 32
 TP_HEADS = (4, 2, 256)
 DBRX_TP_HEADS = (24, 4, 128)
 VISION_TP_HEADS, MUSICGEN_TP_HEADS = (32, 4, 128), (16, 16, 64)
+# gemma-2b (multi-query: 8 over 1 KV head of width 256), qwen3-32b (64
+# over 8 at hd 128: vision's heads, with QK-norm) and
+# llama4-maverick-400b-a17b (40 over 8 at hd 128: G 5)
+GEMMA2B_HEADS, QWEN3_HEADS, LLAMA4_HEADS = (8, 1, 256), (64, 8, 128), \
+    (40, 8, 128)
+# the burst of the models that one card holds only just (qwen3-32b whole,
+# llama4's repeat): 2 longs of 24 new tokens, then 4 shorts of 4, and the
+# fused-vs-oracle check over 16 tokens
+BIG_LONG, BIG_SHORT, BIG_LONG_NEW, BIG_SHORT_NEW, BIG_ORACLE = 2, 4, 24, 4, 16
 
 
 def _kname(base: str, heads, model=None) -> tuple:
@@ -952,6 +995,19 @@ def phase_cli_predictor_kernels() -> tuple:
     return e4, e5
 
 
+def _cpu_twin(lm):
+    """``lm``'s weights in an LM on the CPU: built on the meta device (no
+    draw) and handed a host copy of each tensor, so that a 10 GB float32
+    copy costs its transfer, not a second seeded draw on the host."""
+    import torch
+    from repro_torch.models.model import LM
+    cpu = LM(lm.cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in lm.state_dict().items()},
+                        assign=True)
+    cpu.device = torch.device("cpu")
+    return cpu
+
+
 def phase_full_width_reference(cfg, tag="reference") -> float:
     """The card's path (K1, K3, cuBLAS) against the CPU's plain path on
     the same full-width float32 weights: prefill logits and 8 greedy
@@ -961,8 +1017,7 @@ def phase_full_width_reference(cfg, tag="reference") -> float:
     from repro_torch.models.model import LM
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     gpu = LM(cfg32, device="cuda", seed=1)
-    cpu = LM(cfg32, device="cpu", seed=1)
-    cpu.load_state_dict(gpu.state_dict())
+    cpu = _cpu_twin(gpu)
     ids = torch.arange(3, 3 + 40) * 97 % cfg.vocab_size
     toks = torch.zeros(1, 64, dtype=torch.long)
     toks[0, :40] = ids
@@ -986,10 +1041,13 @@ def phase_full_width_reference(cfg, tag="reference") -> float:
     return worst
 
 
-def phase_slice(cfg, predictor, smi, tag="slice",
-                long_new=MAX_NEW) -> tuple:
+def phase_slice(cfg, predictor, smi, tag="slice", long_new=MAX_NEW,
+                n_long=N_LONG, n_short=N_SHORT, short_new=8,
+                oracle_new=MAX_NEW) -> tuple:
     """The main path at full width: burst -> predictor -> SJF -> engine
-    (``long_new`` tokens a long request, 8 a short).
+    (``n_long`` long requests of ``long_new`` tokens, then ``n_short``
+    short ones of ``short_new``; fused decode held to the per-token
+    oracle over ``oracle_new`` tokens; one request profiled).
     Each request launches K3 once a layer for its prefill and K1 once a
     layer for each of its decode steps, exactly.  Prints TTFT and decode
     ms/token beside the price the launch CLIs' service-time model sets for
@@ -1003,7 +1061,7 @@ def phase_slice(cfg, predictor, smi, tag="slice",
     from repro_torch.serving.server import ClairvoyantServer
     from repro_torch.serving.service_time import ServiceTimeModel
 
-    pool, longs, shorts = _burst_pool()
+    pool, longs, shorts = _burst_pool(n_long, n_short)
     order = longs + shorts
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -1026,7 +1084,7 @@ def phase_slice(cfg, predictor, smi, tag="slice",
         server.submit_many(
             [CompletionRequest(prompt=pool.prompts[i]) for i in order],
             arrivals=[j * 1e-4 for j in range(len(order))],
-            true_output_tokens=[long_new if i in longs else 8
+            true_output_tokens=[long_new if i in longs else short_new
                                 for i in order],
             klasses=["long" if i in longs else "short" for i in order])
         w0 = time.monotonic()
@@ -1090,8 +1148,8 @@ def phase_slice(cfg, predictor, smi, tag="slice",
 
     # fused decode == per-token oracle, and the engine's own timings
     ids = list(range(5, 5 + 24))
-    fused = eng.generate(ids, max_new_tokens=MAX_NEW)
-    ref = eng.generate_reference(ids, max_new_tokens=MAX_NEW)
+    fused = eng.generate(ids, max_new_tokens=oracle_new)
+    ref = eng.generate_reference(ids, max_new_tokens=oracle_new)
     if fused["tokens"] != ref["tokens"]:
         raise AssertionError("fused decode differs from generate_reference")
     n = len(fused["tokens"])
@@ -1245,14 +1303,20 @@ def _decode_ms_by_thread(eng) -> dict:
 
 
 def phase_sidecar(eng, predictor, smi, slice_tokens, totals,
-                  tag="sidecar", extras=True, long_new=MAX_NEW) -> None:
+                  tag="sidecar", extras=True, long_new=MAX_NEW,
+                  n_long=N_LONG, n_short=N_SHORT, short_new=8,
+                  sjf_only=False) -> None:
     """The serve-bench burst over HTTP through the port's Sidecar, with
     the in-process run's engine behind an InProcessBackend (the engine
-    decodes in a worker thread; ``long_new`` tokens a long request).
-    FCFS, then SJF: every response ok with the in-process run's tokens;
-    under SJF one K5 launch per admission and no K4.  With ``extras``,
-    then a disconnect, a deadline shed, ``/metrics`` and a graceful
-    shutdown under load."""
+    decodes in a worker thread; ``n_long`` requests of ``long_new``
+    tokens, then ``n_short`` of ``short_new``).  FCFS, then SJF: every
+    response ok with the in-process run's tokens; under SJF one K5
+    launch per admission and no K4; SJF's short P50 below FCFS's; then
+    decode ms/token by thread and the admission latency.  With
+    ``sjf_only`` (a model the time limit serves only once over the
+    wire), SJF alone and none of what compares or times it.  With
+    ``extras``, then a disconnect, a deadline shed, ``/metrics`` and a
+    graceful shutdown under load."""
     import asyncio
     import numpy as np
     import torch
@@ -1263,7 +1327,7 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals,
     from repro_torch.serving.observability import parse_prometheus
     from repro_torch.serving.server import ClairvoyantServer
 
-    pool, longs, shorts = _burst_pool()
+    pool, longs, shorts = _burst_pool(n_long, n_short)
     order = longs + shorts
 
     def make(policy, **kw):
@@ -1276,7 +1340,7 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals,
     async def burst(sc):
         async def client(j, i):
             await asyncio.sleep(j * 0.002)         # arrive in burst order
-            n = long_new if i in longs else 8
+            n = long_new if i in longs else short_new
             t0 = time.monotonic()
             out = await _http(sc.port, {
                 "messages": [{"role": "user", "content": pool.prompts[i]}],
@@ -1288,7 +1352,7 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals,
             *[client(j, i) for j, i in enumerate(order)]), 600.0)
 
     per = {}
-    for policy in ("fcfs", "sjf"):
+    for policy in ("sjf",) if sjf_only else ("fcfs", "sjf"):
         sc = make(policy)
         admit_ms = []
         submit = sc.server.submit
@@ -1368,24 +1432,26 @@ def phase_sidecar(eng, predictor, smi, slice_tokens, totals,
               f"{np.median(admit_ms):.3f} ms max {max(admit_ms):.3f} ms, "
               f"launches {launches}, finish order (one serial replica: "
               f"the dispatch order) {finish}  [{smi}]")
-    print(f"[{tag}] SJF short P50 vs FCFS over the wire: "
-          f"{100 * (1 - per['sjf']['short'] / per['fcfs']['short']):.1f}% "
-          f"lower; K5 launches == SJF admissions ({len(order)}), no K4 "
-          f"launch; K3 and K1 once a layer a prefill and a decode step "
-          f"(exact)  [{smi}]")
-    if not per["sjf"]["short"] < per["fcfs"]["short"]:
-        raise AssertionError(f"[{tag}] SJF short P50 over the wire "
-                             f"{per['sjf']['short']} ms not below FCFS's "
-                             f"{per['fcfs']['short']}")
-
-    by_thread = _decode_ms_by_thread(eng)
-    print(f"[{tag}] decode ms/token of one request (median of 2, in "
-          "turns): " + ", ".join(f"{k} {v:.3f}" for k, v in by_thread.items())
-          + f"  [{smi}]")
-    lat = _admission_ms(predictor, eng, [pool.prompts[i] for i in shorts])
-    for k, (p50, p99, n) in lat.items():
-        print(f"[{tag}] admission (features + K5 + read-back) {k}: P50 "
-              f"{p50:.3f} ms, P99 {p99:.3f} ms over {n} calls  [{smi}]")
+    if not sjf_only:
+        print(f"[{tag}] SJF short P50 vs FCFS over the wire: "
+              f"{100 * (1 - per['sjf']['short'] / per['fcfs']['short']):.1f}"
+              f"% lower; K5 launches == SJF admissions ({len(order)}), no "
+              f"K4 launch; K3 and K1 once a layer a prefill and a decode "
+              f"step (exact)  [{smi}]")
+        if not per["sjf"]["short"] < per["fcfs"]["short"]:
+            raise AssertionError(f"[{tag}] SJF short P50 over the wire "
+                                 f"{per['sjf']['short']} ms not below "
+                                 f"FCFS's {per['fcfs']['short']}")
+        by_thread = _decode_ms_by_thread(eng)
+        print(f"[{tag}] decode ms/token of one request (median of 2, in "
+              "turns): " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in by_thread.items())
+              + f"  [{smi}]")
+        lat = _admission_ms(predictor, eng,
+                            [pool.prompts[i] for i in shorts])
+        for k, (p50, p99, n) in lat.items():
+            print(f"[{tag}] admission (features + K5 + read-back) {k}: P50 "
+                  f"{p50:.3f} ms, P99 {p99:.3f} ms over {n} calls  [{smi}]")
 
     async def wire_extras():
         sc = make("sjf")
@@ -1506,7 +1572,7 @@ def _trace_report(events, n, what, smi, tag) -> None:
         print(f"[{tag}]   {us / 1e3:8.3f} ms  {name[:90]}")
 
 
-def phase_decode_lanes_kernel(gen, heads=SMOLLM_HEADS) -> float:
+def phase_decode_lanes_kernel(gen, heads=SMOLLM_HEADS, model=None) -> float:
     """K1 with per-lane fill levels, as the ring lanes launch it: B 4 over
     a 128-slot ring, two lanes wrapped.  Each lane must equal the
     scalar-t launch for that lane bit for bit.  Returns the largest
@@ -1515,7 +1581,7 @@ def phase_decode_lanes_kernel(gen, heads=SMOLLM_HEADS) -> float:
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_plain)
     (H, KV, hd), (B, S) = heads, (L_LANES, L_MAX_LEN)
-    tag = _kname("", heads)[1]
+    tag = _kname("", heads, model)[1]
     t_host = [5, 60, S + 3, 3 * S + 100]
     worst = 0.0
     for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
@@ -1562,7 +1628,7 @@ def phase_decode_lanes_kernel(gen, heads=SMOLLM_HEADS) -> float:
     return worst
 
 
-def phase_paged_kernel(gen, heads=SMOLLM_HEADS) -> dict:
+def phase_paged_kernel(gen, heads=SMOLLM_HEADS, model=None) -> dict:
     """K2 at the serving shapes: B 4, ``heads``, page 16, 32 pages a lane
     (max_len 512), mixed fill levels including one past the window; page
     sizes 8 / 16 / 32; bf16 and f32.  On the same logical contents K2
@@ -1572,7 +1638,7 @@ def phase_paged_kernel(gen, heads=SMOLLM_HEADS) -> dict:
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention_cuda, paged_decode_attention_plain)
     (H, KV, hd), (B, window) = heads, (4, MAX_LEN)
-    name, tag = _kname("paged_decode_attention", heads)
+    name, tag = _kname("paged_decode_attention", heads, model)
     t_host = [3, 130, 400, window + 70]            # last: past the window
     errs = {}
     timed = None
@@ -1705,7 +1771,7 @@ def phase_flash_extend(gen, heads=SMOLLM_HEADS, model=None) -> float:
     return max(errs.values())
 
 
-def phase_flash_exact(gen, heads=JAMBA_HEADS) -> float:
+def phase_flash_exact(gen, heads=JAMBA_HEADS, model=None) -> float:
     """K3 at exact prompt lengths (``EXACT_S``, not power-of-two buckets),
     as a stack with Mamba or MoE blocks prefills: B 1, ``heads``, bf16
     and f32, causal, against the plain version.  The keys and values are
@@ -1717,7 +1783,7 @@ def phase_flash_exact(gen, heads=JAMBA_HEADS) -> float:
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     (H, KV, hd), B = heads, 1
-    tag = _kname("", heads)[1]
+    tag = _kname("", heads, model)[1]
     errs = {}
     for S in EXACT_S:
         for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
@@ -1916,6 +1982,21 @@ def phase_lanes(cfg, smi, totals, tag="lanes") -> None:
         1, cfg.vocab_size, size=L_PREFIX).astype(np.int64)
     pp, pm = _pattern(cfg.vocab_size, np.random.default_rng(101), prefix)
     paged.generate_batch(pp[:L_LANES], 4)           # first-call set-up
+    _prefix_passes(paged, pp, pm, totals, smi, tag)
+    del ring, paged
+    torch.cuda.empty_cache()
+
+
+def _prefix_passes(paged, pp, pm, totals, smi, tag) -> None:
+    """The backlog ``pp`` (after a shared prefix; budgets ``pm``) through
+    a paged lane engine, cold (its prefix cache dropped first) and then
+    warm.  Every prefill (cold or extend) launches K3 once a layer and
+    every lane step K2 once a layer, K1 never; every request gets its
+    budget of tokens (at most what its window leaves after the prompt),
+    each in the vocabulary; after each pass the pool
+    has drained clean (no page held, the allocator's invariants intact);
+    the warm pass hits the prefix."""
+    vocab = paged.cfg.vocab_size
     paged.allocator.reset_transient()
     paged.allocator.drop_cache()                    # the next pass is cold
     passes = {}
@@ -1925,23 +2006,33 @@ def phase_lanes(cfg, smi, totals, tag="lanes") -> None:
         for k, v in r["launches"].items():
             totals[k] += v
         r["hit_pages"] = paged.allocator.stats["prefix_hit_pages"] - h0
-        print(f"[{tag}] prefix {L_PREFIX} {name}: {r['n_tok']} tokens in "
-              f"{r['wall']:.2f} s = {r['tok_s']:.1f} tok/s, short P50 "
-              f"{r['short_p50_ms']:.1f} ms, prefix-hit pages "
-              f"{r['hit_pages']}, preemptions "
-              f"{paged.lane_manager.stats['preemptions']}, launches "
-              f"{r['launches']}  [{smi}]")
         _check_path(f"[{tag}] prefix {name}", r["launches"],
                     ("paged_decode_attention", "flash_attention"),
                     ("decode_attention",))
+        for p, toks, m in zip(pp, r["tokens"], pm):
+            m = min(m, paged.max_len - len(p))
+            if len(toks) != m or not all(0 <= t < vocab for t in toks):
+                raise AssertionError(f"[{tag}] prefix {name}: tokens "
+                                     f"{toks[:8]} for a budget of {m}")
+        states = paged.allocator.page_states()
+        paged.allocator.check()
+        if states["held"]:
+            raise AssertionError(f"[{tag}] prefix {name}: the pool did not "
+                                 f"drain clean: {states}")
+        steps = max(1, r["steps"])
+        print(f"[{tag}] prefix {L_PREFIX} {name}: {r['n_tok']} tokens in "
+              f"{r['wall']:.2f} s = {r['tok_s']:.1f} tok/s, {steps} lane "
+              f"steps ({r['wall'] / steps * 1e3:.1f} ms per step incl. "
+              f"prefills), short P50 {r['short_p50_ms']:.1f} ms, prefix-hit "
+              f"pages {r['hit_pages']}, preemptions "
+              f"{paged.lane_manager.stats['preemptions']}, pool after the "
+              f"drain {states}, launches {r['launches']}  [{smi}]")
     if passes["warm"]["hit_pages"] <= 0:
         raise AssertionError(f"[{tag}] the warm pass had no prefix hit")
     agree = sum(a == b for a, b in zip(passes["cold"]["tokens"],
                                        passes["warm"]["tokens"]))
-    print(f"[{tag}] prefix warm == cold tokens ({cfg.dtype}): "
+    print(f"[{tag}] prefix warm == cold tokens ({paged.cfg.dtype}): "
           f"{agree}/{len(pp)}")
-    del ring, paged
-    torch.cuda.empty_cache()
 
 
 def phase_lanes_f32(cfg, smi, totals, tag="lanes-f32") -> None:
@@ -2012,7 +2103,8 @@ def _plain_attention_ops():
 
 def phase_jamba_f32(cfg, smi, totals, tag="jamba-f32") -> None:
     """A float32 copy of jamba at full width, one pattern repeat (8
-    layers: 7 Mamba, 4 of them MoE, and 1 attention), TF32 off: prefill
+    layers: 7 Mamba, 4 of them MoE, and 1 attention; llama4's: 2 attention
+    layers, the second with 128 experts top-1), TF32 off: prefill
     logits and 8 greedy steps through K1/K3 against the same weights
     through the plain attention on the card, within ``TOL["f32"]`` of
     the logit scale, tokens equal; then the paging backlog (budgets
@@ -2023,6 +2115,7 @@ def phase_jamba_f32(cfg, smi, totals, tag="jamba-f32") -> None:
     import dataclasses
     import numpy as np
     import torch
+    from repro_torch.models.transformer import attention_layers
     from repro_torch.serving.batching import kv_bytes_per_token
     from repro_torch.serving.engine import BatchedRealEngine
     cfg32 = dataclasses.replace(cfg, dtype="float32",
@@ -2056,9 +2149,12 @@ def phase_jamba_f32(cfg, smi, totals, tag="jamba-f32") -> None:
     launches = dict(ops.LAUNCHES)
     with _plain_attention_ops():
         p_logits, p_toks = greedy()
-    if launches["flash_attention"] != 1 or launches["decode_attention"] != 8:
-        raise AssertionError(f"[{tag}] launches {launches}, expected K3 1 "
-                             "and K1 8 (one attention layer)")
+    n_attn = attention_layers(cfg32)
+    if launches["flash_attention"] != n_attn \
+            or launches["decode_attention"] != 8 * n_attn:
+        raise AssertionError(f"[{tag}] launches {launches}, expected K3 "
+                             f"{n_attn} and K1 8 x {n_attn} (the attention "
+                             "layers)")
     worst = _max_err(k_logits, p_logits)
     scale = float(p_logits.abs().max())
     if k_toks != p_toks:
@@ -4162,13 +4258,14 @@ def new_arch_kernels(gen) -> list:
     """K1 and K3 at musicgen-large's heads (32 over 32, hd 64: one query
     head a KV head, K3 on its wgmma body, also in extend mode, whose rows
     must equal the cold prefill's bit for bit) and at
-    llama-3.2-vision-90b's self-attention heads (64 over 8, hd 128),
-    then the vision stack's cross-attention kernels: the kernels line's
+    llama-3.2-vision-90b's self-attention heads (64 over 8, hd 128: also
+    qwen3-32b's, whose launches these entries add to vision's), then the
+    vision stack's cross-attention kernels: the kernels line's
     ``*_musicgen``, ``*_vision`` and ``*_vision_cross`` entries."""
     out = []
     for heads, tag, model in ((MUSICGEN_HEADS, "musicgen", "musicgen-large"),
                               (VISION_HEADS, "vision",
-                               "llama-3.2-vision-90b")):
+                               ("llama-3.2-vision-90b", "qwen3-32b"))):
         k3 = phase_flash_kernel(gen, heads, tag)
         if heads == MUSICGEN_HEADS:
             # K3's wgmma body at G 1: extend rows == the cold rows
@@ -4178,6 +4275,40 @@ def new_arch_kernels(gen) -> list:
                        "decode_attention"),
                 _owned(k3, model, "flash_attention")]
     return out + phase_cross_kernels(gen)
+
+
+def serve_arch_kernels(gen) -> list:
+    """The kernel instances of the three models served whole or by one
+    repeat at the end of the run: K1, K2 and K3 at gemma-2b's heads (8
+    over 1 KV head of width 256: K1's tensor-core body with all eight
+    columns live, K3's wgmma body at G 8; K1 also with (B,) fill levels,
+    K2 also == K1, K3 also in extend mode), K2 at qwen3-32b's (64 over 8
+    at hd 128; its K1 and K3 are vision's instances) and K1 and K3 at
+    llama4-maverick's (40 over 8 at hd 128: G 5 cuts a position's heads
+    across K3's 64-row tiles; K3 also at the exact prompt lengths its MoE
+    stack prefills at).  The kernels line's ``*_gemma2b``, ``*_qwen3``
+    and ``*_llama4`` entries."""
+    k1 = phase_decode_kernel(gen, GEMMA2B_HEADS, "gemma2b")
+    k1["max_abs_err"] = max(k1["max_abs_err"], phase_decode_lanes_kernel(
+        gen, GEMMA2B_HEADS, "gemma2b"))
+    k3 = phase_flash_kernel(gen, GEMMA2B_HEADS, "gemma2b")
+    k3["max_abs_err"] = max(k3["max_abs_err"], phase_flash_extend(
+        gen, GEMMA2B_HEADS, "gemma2b"))
+    out = [_owned(k1, "gemma-2b", "decode_attention"),
+           _owned(phase_paged_kernel(gen, GEMMA2B_HEADS, "gemma2b"),
+                  "gemma-2b", "paged_decode_attention"),
+           _owned(k3, "gemma-2b", "flash_attention"),
+           _owned(phase_paged_kernel(gen, QWEN3_HEADS, "qwen3"),
+                  "qwen3-32b", "paged_decode_attention")]
+    k1 = phase_decode_kernel(gen, LLAMA4_HEADS, "llama4")
+    k1["max_abs_err"] = max(k1["max_abs_err"], phase_decode_lanes_kernel(
+        gen, LLAMA4_HEADS, "llama4"))
+    k3 = phase_flash_kernel(gen, LLAMA4_HEADS, "llama4")
+    k3["max_abs_err"] = max(k3["max_abs_err"], phase_flash_exact(
+        gen, LLAMA4_HEADS, "llama4"))
+    model = "llama4-maverick-400b-a17b"
+    return out + [_owned(k1, model, "decode_attention"),
+                  _owned(k3, model, "flash_attention")]
 
 
 def _cross_launches():
@@ -4620,10 +4751,16 @@ def _start_self(flag, marker=None) -> dict:
             run["lines"].append(line.rstrip("\n"))
             if marker and line.startswith(marker):
                 run["marked"].set()
+        run["t_end"] = time.monotonic()      # its output closed: it ended
         run["marked"].set()
     run["thread"] = threading.Thread(target=pump, daemon=True)
     run["thread"].start()
     return run
+
+
+def _child_secs(run) -> float:
+    """Seconds from a :func:`_start_self` child's start to its end."""
+    return run.get("t_end", time.monotonic()) - run["t0"]
 
 
 def start_side_paths() -> dict:
@@ -4666,11 +4803,209 @@ def collect_side_paths(run, smi) -> tuple:
     if not got:
         raise AssertionError("[side] the child printed no launch counts")
     print(f"[side] jamba-v0.1-52b and xlstm-350m paths in a child process: "
-          f"{time.monotonic() - run['t0']:.1f} s, beside the gemma3-4b-edge, "
-          f"musicgen and vision phases (neither side's times are taken "
-          f"alone)  [{smi}]")
+          f"{_child_secs(run):.1f} s, beside the gemma3-4b-edge, musicgen "
+          f"and vision phases (neither side's times are taken alone)  "
+          f"[{smi}]")
     totals = got[0]["side_totals"]
     return totals["jamba-v0.1-52b"], totals["xlstm-350m"]
+
+
+# ------------------------------------------ gemma-2b, qwen3-32b, llama4
+# gemma-2b's paths and then [launch-serve] (host-bound, its own launch
+# counters) run in a second side process beside the first; qwen3-32b
+# (61.02 GiB of bf16 weights) and llama4-maverick's repeat (68.6 GiB in
+# float32) each need the card to themselves and run last, once every
+# child has ended
+SECOND_FLAG = "--second-side-paths"
+BIG_BURST = dict(n_long=BIG_LONG, n_short=BIG_SHORT, long_new=BIG_LONG_NEW,
+                 short_new=BIG_SHORT_NEW)
+
+
+def phase_paged_pool(cfg, smi, totals, tag) -> None:
+    """The block-paged pool alone, for a model the card holds only once
+    (no ring engine beside it): ``PagedBatchedEngine`` with 4 lanes, page
+    16, max_len 128 and its default budget (a full window a lane), the
+    paging backlog after a shared 48-token prefix with budgets capped at
+    16 (long) and 8 (short), cold and then warm (``_prefix_passes``)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import PagedBatchedEngine
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = PagedBatchedEngine(cfg, max_len=L_MAX_LEN, segment_len=L_SEGMENT,
+                             n_lanes=L_LANES, page_size=L_PAGE, seed=0)
+    torch.cuda.synchronize()
+    print(f"[{tag}] {cfg.name} {cfg.dtype} {cfg.num_layers}L, {L_LANES} "
+          f"lanes, page {L_PAGE}, max_len {L_MAX_LEN}, {eng.n_pages} pages "
+          f"({eng.budget_bytes} B), engine {time.monotonic() - t0:.1f} s")
+    prefix = np.random.default_rng(9).integers(
+        1, cfg.vocab_size, size=L_PREFIX).astype(np.int64)
+    pp, pm = _pattern(cfg.vocab_size, np.random.default_rng(102), prefix,
+                      long_new=16, short_new=8)
+    eng.generate_batch(pp[:L_LANES], 2)             # first-call set-up
+    _prefix_passes(eng, pp, pm, totals, smi, tag)
+    print(f"[{tag}] peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB  [{smi}]")
+    del eng
+    _free_card(tag)
+
+
+def _card_empty(before: str) -> None:
+    """Raise unless the card holds (almost) nothing, whichever process
+    holds it (this one's CUDA context and allocator cache count too):
+    ``before`` builds a model that the card holds only alone."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    held = (total - free) / 2 ** 30
+    print(f"{before} the card in use before it, by every process: "
+          f"{held:.2f} of {total / 2 ** 30:.2f} GiB")
+    if held > 2.0:
+        raise AssertionError(f"{held:.2f} GiB of the card in use before "
+                             f"{before}")
+
+
+def gemma2b_paths(predictor, smi) -> dict:
+    """gemma-2b whole (18 layers of 8 query heads over 1 KV head of width
+    256, GeGLU, the tied 256,000-row head; 2,506,172,416 parameters): a
+    float32 copy cut to 2 layers at full width against the CPU's plain
+    path and through ring lanes, paged lanes and the serial engine (the
+    same tokens, bit for bit), then all 18 layers in bf16 through the
+    serial engine (the burst at smollm-360m's sizes), the sidecar, and
+    ring lanes, paged lanes and the shared prefix.  Returns the paths'
+    launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    cfg = get_config("gemma-2b")
+    two = dataclasses.replace(cfg, num_layers=2)
+    totals = {k: 0 for k in LAUNCHES}
+    _timed(phase_full_width_reference, two, tag="gemma2b-f32")
+    _timed(phase_lanes_f32, two, smi, totals, tag="gemma2b-f32")
+    launches, eng, tokens = _timed(phase_slice, cfg, predictor, smi,
+                                   tag="gemma2b-slice")
+    for k, v in launches.items():
+        totals[k] += v
+    _timed(phase_sidecar, eng, predictor, smi, tokens, totals,
+           tag="gemma2b-sidecar", extras=False)
+    del eng
+    _free_card("gemma2b-lanes")
+    _timed(phase_lanes, cfg, smi, totals, tag="gemma2b-lanes")
+    return totals
+
+
+def second_side_paths() -> int:
+    """``python3 chip_smoke.py --second-side-paths``: :func:`gemma2b_paths`,
+    then ``[launch-serve]``, then one JSON line of each one's launches.
+    The kernels are the parent's build."""
+    import torch
+    from repro_torch.kernels._build import LAUNCHES
+    sys.stdout.reconfigure(line_buffering=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = phase_device()
+    _, predictor = _train_predictor()
+    totals = {"gemma-2b": gemma2b_paths(predictor, smi)}
+    _free_card("launch-serve")
+    totals["launch-serve"] = {k: 0 for k in LAUNCHES}
+    _timed(phase_launch_serve, smi, totals["launch-serve"])
+    print(json.dumps({"second_totals": totals}))
+    return 0
+
+
+def collect_second_side(run, smi) -> tuple:
+    """Wait for the second side process, print its lines and return the
+    launches of gemma-2b's paths and of ``[launch-serve]``."""
+    run["proc"].wait(timeout=900)
+    run["thread"].join(timeout=60)
+    code = run["proc"].returncode
+    if code != 0:
+        raise AssertionError(f"[second side] the child exited {code}:\n"
+                             + "\n".join(run["lines"][-60:]))
+    for line in run["lines"]:
+        print(line)
+    got = [json.loads(line) for line in run["lines"]
+           if line.startswith('{"second_totals"')]
+    if not got:
+        raise AssertionError("[second side] the child printed no launch "
+                             "counts")
+    print(f"[second side] gemma-2b paths and [launch-serve] in a child "
+          f"process: {_child_secs(run):.1f} s, beside the side process and "
+          f"the gemma3-4b-edge, musicgen and vision phases (neither side's "
+          f"times are taken alone)  [{smi}]")
+    totals = got[0]["second_totals"]
+    return totals["gemma-2b"], totals["launch-serve"]
+
+
+def qwen3_paths(predictor, smi) -> dict:
+    """qwen3-32b whole: all 64 layers (64 query heads over 8 KV heads of
+    width 128 with QK-norm, SwiGLU of width 25,600, vocabulary 151,936,
+    an untied head; 32,762,123,264 parameters, 61.02 GiB in bf16) on the
+    card alone, one engine at a time.  A float32 copy cut to 2 layers at
+    full width against the CPU's plain path (prefill + 8 greedy steps)
+    and through ring lanes, paged lanes and the serial engine (the same
+    tokens, bit for bit); then the 64 layers in bf16: the serial engine
+    under FCFS and SJF on a burst of 2 longs of 24 new tokens and 4
+    shorts of 4 (fused decode == the per-token oracle over 16 tokens,
+    the profile, TTFT, ms/token beside the 65.5 GB weight stream, the
+    peak memory), the same burst over HTTP under SJF, and the block-paged
+    pool with a shared prefix.  Returns the paths' launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    cfg = get_config("qwen3-32b")
+    two = dataclasses.replace(cfg, num_layers=2)
+    totals = {k: 0 for k in LAUNCHES}
+    _card_empty("[qwen3-f32]")
+    _timed(phase_full_width_reference, two, tag="qwen3-f32")
+    _timed(phase_lanes_f32, two, smi, totals, tag="qwen3-f32")
+    _free_card("qwen3-slice")
+    _card_empty("[qwen3-slice]")
+    launches, eng, tokens = _timed(phase_slice, cfg, predictor, smi,
+                                   tag="qwen3-slice", oracle_new=BIG_ORACLE,
+                                   **BIG_BURST)
+    for k, v in launches.items():
+        totals[k] += v
+    _timed(phase_sidecar, eng, predictor, smi, tokens, totals,
+           tag="qwen3-sidecar", extras=False, sjf_only=True, **BIG_BURST)
+    del eng
+    _free_card("qwen3-paged")
+    _card_empty("[qwen3-paged]")
+    _timed(phase_paged_pool, cfg, smi, totals, tag="qwen3-paged")
+    return totals
+
+
+def llama4_paths(predictor, smi) -> dict:
+    """llama4-maverick-400b-a17b at full width cut to one of its 24
+    pattern repeats (attention + a dense SwiGLU of width 8,192, then
+    attention + a MoE of 128 experts top-1; 40 query heads over 8 KV
+    heads of width 128, vocabulary 202,048; 18,427,438,080 parameters:
+    the whole model, 735 GiB in bf16, does not fit one card), on the card
+    alone: a float32 copy (68.6 GiB) through K1/K3 against the plain
+    attention on the same weights (prefill + 8 greedy steps, then ring
+    lanes against ring lanes: MoE capacity spans a step's tokens), then
+    bf16 through the serial engine (the burst of :func:`qwen3_paths`,
+    exact-length prefill), the sidecar under SJF, and ring lanes after
+    the block-paged and speculative engines refuse the stack.  Returns
+    the paths' launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import LAUNCHES
+    full = get_config("llama4-maverick-400b-a17b")
+    cfg = dataclasses.replace(full, num_layers=len(full.block_pattern))
+    totals = {k: 0 for k in LAUNCHES}
+    _card_empty("[llama4-f32]")
+    _timed(phase_jamba_f32, cfg, smi, totals, tag="llama4-f32")
+    launches, eng, tokens = _timed(phase_slice, cfg, predictor, smi,
+                                   tag="llama4-slice", oracle_new=BIG_ORACLE,
+                                   **BIG_BURST)
+    for k, v in launches.items():
+        totals[k] += v
+    _timed(phase_sidecar, eng, predictor, smi, tokens, totals,
+           tag="llama4-sidecar", extras=False, sjf_only=True, **BIG_BURST)
+    del eng
+    _free_card("llama4-lanes")
+    _timed(phase_hybrid_lanes, cfg, smi, totals, tag="llama4-lanes")
+    return totals
 
 
 # ------------------------------------------------- the examples process
@@ -5980,6 +6315,8 @@ def main() -> int:
         return side_paths()
     if sys.argv[1:] == [EXAMPLES_FLAG]:
         return examples_paths()
+    if sys.argv[1:] == [SECOND_FLAG]:
+        return second_side_paths()
     if sys.argv[1:2] == [TP_FLAG]:
         rank_fn = {("late",): tp_late_rank, ("apart",): tp_apart_rank}.get(
             tuple(sys.argv[4:]), tp_rank)
@@ -6088,7 +6425,6 @@ def main() -> int:
             if late.done() and late.exception() is None:
                 stop_tp(late.result())
             late_ex.shutdown()
-        _timed(phase_launch_serve, smi, totals)
         state = _timed(phase_train, cfg, smi, totals)
         _timed(phase_mesh, cfg, state, ckpt_dir, smi, totals)
         del state
@@ -6104,37 +6440,55 @@ def main() -> int:
     # process starts
     _free_card("new-arch kernels")
     kernels += _timed(new_arch_kernels, gen)
+    kernels += _timed(serve_arch_kernels, gen)
 
     # the paper's own backend, gemma3-4b-edge (head width 256, GeGLU):
     # a float32 2-layer copy against the CPU's plain path, then all 34
     # layers in bf16 through the serial engine, the sidecar and the lanes,
-    # then trained; beside them jamba-v0.1-52b and xlstm-350m in a child
+    # then trained; beside them jamba-v0.1-52b and xlstm-350m in a child,
+    # and gemma-2b and [launch-serve] in a second
     _free_card("gemma3")
     child = start_side_paths()
+    second = _start_self(SECOND_FLAG)
     try:
         g_totals, m_totals, v_totals = gemma3_and_lm_api_paths(
             predictor, smi, child, {k: 0 for k in totals})
         j_totals, x_totals = collect_side_paths(child, smi)
+        b_totals, ls_totals = collect_second_side(second, smi)
+        for k, v in ls_totals.items():
+            totals[k] += v
     finally:
-        if child["proc"].poll() is None:
-            child["proc"].kill()
-            child["proc"].wait()
+        for run in (child, second):
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+    # qwen3-32b whole, then llama4-maverick's repeat, each with the card
+    # to itself
+    _free_card("qwen3")
+    q_totals = _timed(qwen3_paths, predictor, smi)
+    _free_card("llama4")
+    l_totals = _timed(llama4_paths, predictor, smi)
 
     # each entry reports the launches of its own model's paths
     by_model = {"smollm-360m": totals, "gemma3-4b-edge": g_totals,
                 **tp_totals,
                 "jamba-v0.1-52b": j_totals, "xlstm-350m": x_totals,
-                "musicgen-large": m_totals, "llama-3.2-vision-90b": v_totals}
+                "musicgen-large": m_totals, "llama-3.2-vision-90b": v_totals,
+                "gemma-2b": b_totals, "qwen3-32b": q_totals,
+                "llama4-maverick-400b-a17b": l_totals}
     names = [k["name"] for k in kernels]
     shared = sorted({n for n in names if names.count(n) > 1})
     if shared:
         raise AssertionError(f"kernels line: entries share a name: {shared}")
     for k in kernels:
         model, counter = k.pop("model"), k.pop("counter")
-        k["launches"] = by_model[model][counter]
-        if k["launches"] <= 0:
-            raise AssertionError(f"kernel {k['name']} never launched on "
-                                 f"{model}'s paths")
+        # an instance two models launch (vision's hd 128 G 8: qwen3-32b's
+        # too) counts both models' paths, and each must launch it
+        for m in (model if isinstance(model, tuple) else (model,)):
+            if by_model[m][counter] <= 0:
+                raise AssertionError(f"kernel {k['name']} never launched on "
+                                     f"{m}'s paths")
+            k["launches"] = k.get("launches", 0) + by_model[m][counter]
     print("[kernels] launches on the main paths: " + "; ".join(
         f"{m} {t}" for m, t in by_model.items()))
     print(f"[done] {time.monotonic() - t_start:.1f} s  [{smi}]")

@@ -44,6 +44,14 @@ TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
 #: the serving paths' heads: (H, KV, hd) of smollm-360m, gemma3-4b-edge
 #: and jamba-v0.1-52b
 HEADS = [(15, 5, 64), (8, 4, 256), (32, 8, 128)]
+#: the heads of the models served on the card whole or by one repeat:
+#: gemma-2b's 8 over 1 KV head of width 256 (G 8; K1 in bf16 the
+#: tensor-core body with all eight columns live, in float32 the widest
+#: group the block's shared memory holds at that width) and
+#: llama4-maverick's 40 over 8 at hd 128 (G 5); K2 also at qwen3-32b's 64
+#: over 8 at hd 128 (its K1 and K3 are llama-3.2-vision-90b's instances)
+SERVED_HEADS = [(8, 1, 256), (40, 8, 128)]
+PAGED_HEADS = [(8, 1, 256), (64, 8, 128)]
 
 
 @pytest.fixture
@@ -62,7 +70,7 @@ def _close(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,t", [(64, 0), (64, 40), (64, 100), (512, 300)])
-@pytest.mark.parametrize("H,KV,hd", HEADS)
+@pytest.mark.parametrize("H,KV,hd", HEADS + SERVED_HEADS)
 def test_decode_kernel_matches_plain(cuda, dtype, S, t, H, KV, hd):
     g = torch.Generator(device=cuda).manual_seed(S + t)
     q = torch.randn(1, 1, H, hd, generator=g, device=cuda).to(dtype)
@@ -123,11 +131,12 @@ def test_flash_kernel_noncausal_cross_lengths(cuda, dtype, Sq, Skv, H, KV,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [40, 1024])
-@pytest.mark.parametrize("H,KV,hd", [(32, 32, 64), (64, 8, 128)])
+@pytest.mark.parametrize("H,KV,hd",
+                         [(32, 32, 64), (64, 8, 128)] + SERVED_HEADS)
 def test_decode_kernel_over_a_full_window(cuda, dtype, S, H, KV, hd):
     """K1 at t = S - 1 (every slot live), the cross-attention decode over
-    the image cache, at G 1 and G 8: equal to the non-causal attention of
-    one query row."""
+    the image cache, at G 1 and G 8, and at the served heads: equal to the
+    non-causal attention of one query row."""
     g = torch.Generator(device=cuda).manual_seed(S + H)
     q = torch.randn(2, 1, H, hd, generator=g, device=cuda).to(dtype)
     k, v = (torch.randn(2, S, KV, hd, generator=g, device=cuda).to(dtype)
@@ -190,7 +199,7 @@ def _split_edges(S):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [16, 128, 512])
 @pytest.mark.parametrize("B", [1, 3, 4])
-@pytest.mark.parametrize("H,KV,hd", HEADS)
+@pytest.mark.parametrize("H,KV,hd", HEADS + SERVED_HEADS)
 def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype, S, B, H, KV,
                                                 hd):
     """K1 with (B,) fill levels on both sides of every split boundary,
@@ -221,7 +230,7 @@ def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype, S, B, H, KV,
 @pytest.mark.parametrize("page", [8, 16, 32])
 @pytest.mark.parametrize("levels", [(200, 511, 600), (1, 63, 64),
                                     (65, 127, 128), (255, 256, 449)])
-@pytest.mark.parametrize("H,KV,hd", HEADS)
+@pytest.mark.parametrize("H,KV,hd", HEADS + PAGED_HEADS)
 def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page,
                                                     levels, H, KV, hd):
     """K2 through a shuffled block table (trash page poisoned, lane 0 on
@@ -253,7 +262,7 @@ def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("prefix,suffix", [(64, 16), (48, 64), (128, 64),
                                            (48, 16), (64, 32), (256, 48)])
-@pytest.mark.parametrize("H,KV,hd", HEADS)
+@pytest.mark.parametrize("H,KV,hd", HEADS + SERVED_HEADS)
 def test_flash_kernel_extend_matches_plain(cuda, dtype, prefix, suffix, H,
                                            KV, hd):
     """K3 with q_offset over a longer key buffer == its plain version, and
@@ -1450,3 +1459,25 @@ def test_wide_attention_kernels_do_not_spill(cuda, tmp_path, monkeypatch):
         assert len(entries) == count, name
         for e in entries:
             assert "0 bytes spill stores, 0 bytes spill loads" in e, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 7, 16, 32, 45, 96, 512])
+@pytest.mark.parametrize("H,KV,hd", SERVED_HEADS)
+def test_flash_kernel_at_served_heads(cuda, dtype, S, H, KV, hd):
+    """K3 causal at the serving buckets and at exact prompt lengths (a
+    MoE stack prefills unbucketed): at G 8 over one KV head of width 256
+    (the wgmma body in bf16) and at G 5, whose 64-row tiles cut a
+    position's heads apart."""
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q = torch.randn(1, S, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(1, S, KV, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True)
+    _close(got, want.transpose(1, 2), dtype)
+
