@@ -21,8 +21,9 @@
 //  * one launch per call over a grid of (n_split, KV, B) blocks, launched
 //    with cudaLaunchKernelEx as clusters of n_split = split_plan(S) <= 8
 //    blocks, one cluster per (lane, KV head); each block attends a
-//    contiguous range of the lane's live slots, and rank 0 merges the
-//    blocks' partials through distributed shared memory;
+//    contiguous range of the lane's live slots, and the ranks merge the
+//    blocks' partials through distributed shared memory, each rank its
+//    share of the head_dim columns;
 //  * warps own slots, 16-byte loads, scores by warp shuffles, an online
 //    softmax per row group in registers: no barrier inside the slot loop;
 //  * the cache is read in place in the engine's layout (B, S, KV, hd)

@@ -27,11 +27,12 @@
 //    lanes, which keeps each lane equal bit for bit to its scalar-t
 //    launch and K2 equal to K1.  B = 1, S = 512 is 40 blocks, not 5.
 //  * Solo: up to 64 live slots (the serial path's first tokens, a lane's
-//    early steps) rank 0 takes them all, folds its warps and stores the
-//    output; the other ranks return at once and no block touches the
-//    cluster barrier, which with the merge costs more than 64 slots do
-//    on one block.  Folding that single partial in rank 0 would give the
-//    same bits (the empty partials weigh 0 and the full one exactly 1).
+//    early steps), and always in a cluster of one, rank 0 takes them all,
+//    folds its warps and stores the output; the other ranks return at
+//    once and no block touches the cluster barrier, which with the merge
+//    costs more than 64 slots do on one block.  Folding that single
+//    partial in rank 0 would give the same bits (the empty partials weigh
+//    0 and the full one exactly 1).
 //  * Warps own slots.  A warp holds R = 32 / lpr slot rows at a time,
 //    lpr lanes to a row, each lane loading NC chunks of 16 bytes (8 bf16
 //    or 4 f32 of the row) of K and of V, chunk j of lane c at column
@@ -61,21 +62,49 @@
 //    the lane body's (block_fold), so K2 == K1 and lane == scalar-t hold
 //    as before.
 //  * One merge at the end: row groups by shuffles, warps through shared
-//    memory, then the cluster through distributed shared memory: every
-//    block stores its partial into rank 0's shared memory at its rank,
-//    one cluster barrier, and rank 0 folds the partials in rank order and
-//    writes the output.  One launch per call: no second combine kernel,
-//    no global scratch and no atomics.  An empty split's partial is
-//    (kNegInf, 0, 0) and folding it in leaves the other partial bitwise
-//    unchanged.  Outside solo (which every block of a cluster decides
-//    alike, from (t, S)) every block reaches both cluster barriers: a
-//    relaxed arrive once t is read, waited on just before its remote
-//    stores, proves that rank 0 has started, and rank 0 reads only its
-//    own shared memory after the second barrier, so a block may exit
-//    right after it.  Pulling the partials from rank 0 instead would
-//    cost a second full barrier, to keep every block alive until rank 0
-//    has read it, and remote loads in series.
-//
+//    memory, then the cluster through distributed shared memory, with no
+//    second combine kernel, no global scratch and no atomics (block_fold).
+//    An empty split's partial is (kNegInf, 0, 0) and folding it in leaves
+//    the other partial bitwise unchanged.  Outside solo (which every block
+//    of a cluster decides alike, from (t, S)) every block reaches both
+//    cluster barriers: a relaxed arrive once t is read, waited on just
+//    before its first remote store, proves that every rank has started,
+//    and after the second barrier a rank reads only its own shared
+//    memory, so a block may exit right after it.  Pulling the partials
+//    instead would cost a second full barrier, to keep every block alive
+//    until the others have read it, and remote loads in series.
+//  * Wide query groups.  The tensor-core body is compiled at GM = 8 for
+//    any G, so its loads and mma are those of G 2, but the merge's work is
+//    G x hd a block: at gemma-2b's 8 heads over one KV head of width 256
+//    that merge was 8.5 of a 12.4 us call at t = 127 (scripts/
+//    k1_stages.py): rank 0 folding eight blocks' 2,048-column partials
+//    alone (5.4 us), every element recomputing its fold weights (__expf
+//    of each partial) and a runtime division, and the pairs' partial
+//    stores 8-way bank-conflicted (the four tig of a store on one bank).
+//    So (a) a pair stores columns d, d + 1 as one 8-byte store into a row
+//    swizzled by the head (swz: column d at d ^ (g & 6)), which a
+//    half-warp's stores spread over 16 bank pairs; (b) each step of a
+//    fold, 4 columns of one head at the body's compile-time hd, takes its
+//    head's weights once, in registers, and then runs FMAs only, its
+//    loads unguarded (weights shared through shared memory behind a
+//    barrier measured slower even where a thread folds two steps, and a
+//    runtime guard around each partial's loads made them run one after
+//    another); the tensor-core body skips the warp pairs that held
+//    no slot (at t = 127 a rank's 16 slots fill one of its four pairs),
+//    the lane body, one element a thread, folds all eight warps, which
+//    measured faster; (c) the cluster's fold is spread over the ranks by
+//    column: every block pushes its (m, l) of each head to every rank and
+//    columns [j hd / n, (j + 1) hd / n) of its partial to rank j, and
+//    after the one barrier each rank folds and stores its columns, so no
+//    rank receives or folds more than G x hd / n columns of each block
+//    and the cluster part of a block's shared memory is GM x hd floats,
+//    not n x GM x hd.  Every element is folded with the
+//    operations, in the order, of one block folding whole rows and rank
+//    0 folding every block, so the output is that fold's bit for bit.
+//    At gemma-2b's heads a call at t = 127 then takes 5.9 us against
+//    SDPA's 7.6 on the same work (scripts/attention_timing.py on an
+//    H100), and its merge 2.6 of the 6.2 us that k1_stages times.
+
 // The fill level is read on the device, one shared value (t_stride 0) or
 // one per lane (t_stride 1): a ring that has wrapped attends every slot,
 // and a lane whose t has run past its window (a stopped lane still
@@ -158,11 +187,12 @@ from_f32<__nv_bfloat16>(float x) {
 }
 
 // Shared memory: per-warp partials (m, l: G each; acc: G * hd), the
-// cluster's block partials (written into rank 0's copy by every block)
+// cluster's block partials (m, l of every rank, pushed by every rank),
+// the columns of the blocks' accumulators that this rank folds (hd /
+// n_split of each head from each rank: GM * hd floats, only in a cluster)
 // and, paged, the block-table row.  kernels/decode_attention.py's
 // decode_smem_bytes states the same sum, so the wrapper refuses a shape
-// whose block would not fit (hd 256 with more than 8 query heads a KV
-// head at a split of 8).
+// whose block would not fit.
 template <int GM>
 struct Smem {
   float wm[kWarps][GM], wl[kWarps][GM];
@@ -172,7 +202,7 @@ struct Smem {
 inline size_t smem_bytes(const DecodeArgs& a, int gm, int n_split,
                          bool paged) {
   return sizeof(float) * (2 * (kWarps + kMaxSplits) * gm +
-                          (size_t)(kWarps + n_split) * gm * a.hd) +
+                          (size_t)(kWarps + (n_split > 1)) * gm * a.hd) +
          (paged ? sizeof(int32_t) * a.P : 0);
 }
 
@@ -183,68 +213,201 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// The tensor-core body's warp pairs keep column d of head g's accumulator
+// row at d ^ (g & 6): its lanes (gid, tig) store heads 2 tig, 2 tig + 1 at
+// columns 8 gid + 2 i, so without the swizzle a store's four tig land on
+// one bank; with it each half-warp's 8-byte stores take 16 distinct bank
+// pairs.  It permutes within 8 columns (hd is a multiple of 8).  The lane
+// body's rows are plain.
+__device__ __forceinline__ int swz(int g, int d) { return d ^ (g & 6); }
+
+// Columns d .. d + U - 1 of head g's warp row: U = 1, a plain row (the
+// lane body); U = 4, a swizzled one, a 16-byte load at 4-aligned d with
+// its halves swapped back when g & 2.
+template <int U>
+__device__ __forceinline__ void load_row(const float* row, int g, int d,
+                                         float* x) {
+  if constexpr (U == 1) {
+    x[0] = row[d];
+  } else {
+    const float4 f = *reinterpret_cast<const float4*>(row + (d ^ (g & 4)));
+    const bool sw = g & 2;
+    x[0] = sw ? f.z : f.x;
+    x[1] = sw ? f.w : f.y;
+    x[2] = sw ? f.x : f.z;
+    x[3] = sw ? f.y : f.w;
+  }
+}
+
+template <int U>
+__device__ __forceinline__ void load_f32(const float* p, float* x) {
+  if constexpr (U == 1) {
+    x[0] = p[0];
+  } else {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+    x[2] = f.z;
+    x[3] = f.w;
+  }
+}
+
+template <int U>
+__device__ __forceinline__ void store_f32(float* p, const float* x) {
+  if constexpr (U == 1)
+    p[0] = x[0];
+  else
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// (q, r) = (x / y, x % y): by shifts when y = 2^lg (pow2), else by
+// division
+__device__ __forceinline__ void divmod(int x, int y, int lg, bool pow2,
+                                       int& q, int& r) {
+  if (pow2) {
+    q = x >> lg;
+    r = x & (y - 1);
+  } else {
+    q = x / y;
+    r = x - q * y;
+  }
+}
+
+// The fold weights exp(m_k - max m) of the first n (>= 1) of K partials
+// m[k * stride], and their max.  Branch-free: partial k >= n reads
+// partial n - 1 (a duplicate changes no max, and no fold uses a weight
+// past n), so the unrolled loads go out together.
+template <int K>
+__device__ __forceinline__ float fold_weights(const float* m, int stride,
+                                              int n, float* e) {
+  float v[K], mx = kNegInf;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = m[min(k, n - 1) * stride];
+    mx = fmaxf(mx, v[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) e[k] = __expf(v[k] - mx);
+  return mx;
+}
+
+// s[u] (and lsum) += the first n of K partials' columns times their
+// weights, in partial order: x(k, xk) loads partial k's U columns, l[k]
+// is its l.  The loads (of partial min(k, n - 1)) go out together; only
+// the FMAs of partials past n are skipped.
+template <int K, int U, class Load>
+__device__ __forceinline__ void fold_cols(Load x, const float* l, int stride,
+                                          int n, const float* e, float& lsum,
+                                          float* s) {
+  float xs[K][U], ls[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    x(min(k, n - 1), xs[k]);
+    ls[k] = l[min(k, n - 1) * stride];
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < n) {
+      lsum = fmaf(ls[k], e[k], lsum);
+#pragma unroll
+      for (int u = 0; u < U; ++u) s[u] = fmaf(xs[k][u], e[k], s[u]);
+    }
+  }
+}
+
+// out[u] = s[u] / max(lsum, 1e-30) in T, U columns at once.
+template <typename T, int U>
+__device__ __forceinline__ void store_out(T* p, const float* s, float lsum) {
+  const float den = fmaxf(lsum, 1e-30f);
+  if constexpr (U == 4 && sizeof(T) == 2) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(s[0] / den, s[1] / den);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2] / den, s[3] / den);
+    uint2 w;
+    w.x = *reinterpret_cast<const uint32_t*>(&lo);
+    w.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < U; ++u) p[u] = from_f32<T>(s[u] / den);
+  }
+}
+
 // The block's end, shared by both bodies once each of its NW warp
-// partials (m, l and the accumulator of every head) is in shared memory:
-// the partials folded in warp order, then the output itself when the
-// block runs solo, else the block's partial stored straight into rank
-// 0's shared memory at this block's rank (every block has started once
-// the wait returns) and rank 0's fold of the blocks in rank order.
-template <typename T, int GM, int NW>
+// partials (m, l and the accumulator of every head) is in shared memory;
+// only the first nw (>= 1) of them held slots or were stored (the others
+// are the identity, (kNegInf, 0, 0), and folding them in would leave
+// every bit as it is).
+//  1. Warp fold: each step of U columns of one head takes the weights
+//     exp(m_w - max_w m_w) of its head once, in registers, and folds the
+//     warps in order with FMAs.  Solo: that is the output.
+//  2. Else each block pushes its (m, l) of every head into every rank
+//     and columns [j hd / n, (j + 1) hd / n) of its accumulator into rank
+//     j (every block has started once the wait returns); one cluster
+//     barrier; each rank takes the weights of the n partials as in 1,
+//     folds its columns in rank order and stores them.
+// Every element is folded with the operations, in the order, of one
+// block folding whole rows and rank 0 folding every block, so the output
+// is that fold's bit for bit.  HD is the head width when the body fixes
+// it at compile time (the steps then take U = 4 columns), else 0.
+template <typename T, int GM, int NW, int HD>
 __device__ __forceinline__ void block_fold(const DecodeArgs& a, Smem<GM>& sh,
                                            const float* wacc, float* cacc,
                                            cg::cluster_group& cluster,
                                            int n_split, int rank, bool solo,
-                                           int kvh, int b, int tid) {
-  const int G = a.G, hd = a.hd;
+                                           int nw, int kvh, int b, int tid) {
+  constexpr int U = HD ? 4 : 1;
+  const int G = a.G, hd = HD ? HD : a.hd;
+  const int lg_n = 31 - __clz(n_split);     // n_split is a power of two
+  const int cols = hd >> lg_n;               // columns a rank folds
+  // hd and cols by shifts where hd is a power of two (always at HD)
+  const bool pow2 = HD || !(hd & (hd - 1));
+  const int lg_hd = 31 - __clz(hd), lg_c = lg_hd - lg_n;
+  T* o = static_cast<T*>(a.o) + b * a.o_sb + (int64_t)kvh * G * a.o_sh;
   if (!solo) cluster_wait();
-  float* pm = cluster.map_shared_rank(&sh.cm[0][0], 0) + rank * GM;
-  float* pl = cluster.map_shared_rank(&sh.cl[0][0], 0) + rank * GM;
-  float* pacc = cluster.map_shared_rank(cacc, 0) + rank * GM * hd;
-  T* o = static_cast<T*>(a.o) + b * a.o_sb;
-  for (int i = tid; i < G * hd; i += kThreads) {
-    const int g = i / hd, d = i % hd;
-    float mx = kNegInf;
+#pragma unroll 2
+  for (int i = tid * U; i < G * hd; i += kThreads * U) {
+    int g, d;
+    divmod(i, hd, lg_hd, pow2, g, d);
+    float e[NW];
+    const float mx = fold_weights<NW>(&sh.wm[0][g], GM, nw, e);
+    float lsum = 0.f, s[U];
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sh.wm[w][g]);
-    float lsum = 0.f, asum = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float e = __expf(sh.wm[w][g] - mx);
-      lsum = fmaf(sh.wl[w][g], e, lsum);
-      asum = fmaf(wacc[(w * GM + g) * hd + d], e, asum);
-    }
+    for (int u = 0; u < U; ++u) s[u] = 0.f;
+    fold_cols<NW, U>(
+        [&](int w, float* x) {
+          load_row<U>(wacc + (w * GM + g) * hd, g, d, x);
+        },
+        &sh.wl[0][g], GM, nw, e, lsum, s);
     if (solo) {
-      o[(int64_t)(kvh * G + g) * a.o_sh + d] =
-          from_f32<T>(asum / fmaxf(lsum, 1e-30f));
+      store_out<T, U>(o + (int64_t)g * a.o_sh + d, s, lsum);
       continue;
     }
-    pacc[g * hd + d] = asum;
-    if (d == 0) {
-      pm[g] = mx;
-      pl[g] = lsum;
+    // push: columns to their rank
+    int j, c;
+    divmod(d, cols, lg_c, pow2, j, c);
+    store_f32<U>(cluster.map_shared_rank(cacc, j) + (rank * GM + g) * cols + c,
+                 s);
+    if (c == 0) {
+      *cluster.map_shared_rank(&sh.cm[rank][g], j) = mx;
+      *cluster.map_shared_rank(&sh.cl[rank][g], j) = lsum;
     }
   }
   if (solo) return;
-  cluster.sync();                    // every partial is in rank 0
-  if (rank != 0) return;             // nothing reads this block any more
-  // rank 0 folds the blocks' partials in rank order
-  for (int i = tid; i < G * hd; i += kThreads) {
-    const int g = i / hd, d = i % hd;
-    float mx = kNegInf;
+  cluster.sync();                    // every rank holds its columns
+  for (int i = tid * U; i < G * cols; i += kThreads * U) {
+    int g, c;
+    divmod(i, cols, lg_c, pow2, g, c);
+    float e[kMaxSplits];
+    fold_weights<kMaxSplits>(&sh.cm[0][g], GM, n_split, e);
+    float lsum = 0.f, s[U];
 #pragma unroll
-    for (int r = 0; r < kMaxSplits; ++r)
-      if (r < n_split) mx = fmaxf(mx, sh.cm[r][g]);
-    float lsum = 0.f, asum = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxSplits; ++r) {
-      if (r < n_split) {
-        const float e = __expf(sh.cm[r][g] - mx);
-        lsum = fmaf(sh.cl[r][g], e, lsum);
-        asum = fmaf(cacc[(r * GM + g) * hd + d], e, asum);
-      }
-    }
-    o[(int64_t)(kvh * G + g) * a.o_sh + d] =
-        from_f32<T>(asum / fmaxf(lsum, 1e-30f));
+    for (int u = 0; u < U; ++u) s[u] = 0.f;
+    fold_cols<kMaxSplits, U>(
+        [&](int r, float* x) {
+          load_f32<U>(cacc + (r * GM + g) * cols + c, x);
+        },
+        &sh.cl[0][g], GM, n_split, e, lsum, s);
+    store_out<T, U>(o + (int64_t)g * a.o_sh + rank * cols + c, s, lsum);
   }
 }
 
@@ -255,11 +418,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
   extern __shared__ float smem[];
   Smem<GM>& sh = *reinterpret_cast<Smem<GM>*>(smem);
   float* wacc = smem + sizeof(Smem<GM>) / sizeof(float);   // [kWarps][GM][hd]
-  float* cacc = wacc + kWarps * GM * a.hd;            // [n_split][GM][hd]
+  float* cacc = wacc + kWarps * GM * a.hd;        // [n_split][GM][hd / n]
   cg::cluster_group cluster = cg::this_cluster();
   const int n_split = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  int32_t* row = reinterpret_cast<int32_t*>(cacc + n_split * GM * a.hd);
+  int32_t* row =
+      reinterpret_cast<int32_t*>(cacc + (n_split > 1) * GM * a.hd);
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = a.G, hd = a.hd, lpr = a.lpr;
@@ -281,7 +445,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
   // contiguous ranges of ceil(live / n) slots by rank
   const int t = a.t[b * a.t_stride];
   const int live = t + 1 < a.S ? t + 1 : a.S;
-  const bool solo = live <= kSplitSlots;
+  const bool solo = live <= kSplitSlots || n_split == 1;
   const int per = solo ? live : (live + n_split - 1) / n_split;
   const int lo = min(live, rank * per);
   const int hi = min(live, lo + per);
@@ -381,6 +545,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
       m[g] = fmaxf(m[g], mo);
     }
   }
+  // every warp stores its partial and the fold takes all eight: one
+  // element a thread, skipping the empty ones cost more than it saved
   if (rg == 0) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
@@ -400,8 +566,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
     }
   }
   __syncthreads();
-  block_fold<T, GM, kWarps>(a, sh, wacc, cacc, cluster, n_split, rank, solo,
-                            kvh, b, tid);
+  block_fold<T, GM, kWarps, 0>(a, sh, wacc, cacc, cluster, n_split, rank,
+                               solo, kWarps, kvh, b, tid);
 }
 
 // One launch of `kern` (either body) over clusters of n_split blocks, one
@@ -495,11 +661,11 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(DecodeArgs a) {
   extern __shared__ float smem[];
   Smem<GM>& sh = *reinterpret_cast<Smem<GM>*>(smem);
   float* wacc = smem + sizeof(Smem<GM>) / sizeof(float);   // [kWarps][GM][hd]
-  float* cacc = wacc + kWarps * GM * HD;                   // [n_split][GM][hd]
+  float* cacc = wacc + kWarps * GM * HD;              // [n_split][GM][hd / n]
   cg::cluster_group cluster = cg::this_cluster();
   const int n_split = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  int32_t* row = reinterpret_cast<int32_t*>(cacc + n_split * GM * HD);
+  int32_t* row = reinterpret_cast<int32_t*>(cacc + (n_split > 1) * GM * HD);
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int pair = warp / 2, half = warp % 2;
@@ -509,7 +675,7 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(DecodeArgs a) {
   // the split plan, as the lane body's
   const int t = a.t[b * a.t_stride];
   const int live = t + 1 < a.S ? t + 1 : a.S;
-  const bool solo = live <= kSplitSlots;
+  const bool solo = live <= kSplitSlots || n_split == 1;
   const int per = solo ? live : (live + n_split - 1) / n_split;
   const int lo = min(live, rank * per);
   const int hi = min(live, lo + per);
@@ -616,15 +782,20 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(DecodeArgs a) {
     l[c] += __shfl_xor_sync(0xffffffffu, l[c], 8);
     l[c] += __shfl_xor_sync(0xffffffffu, l[c], 16);
   }
+  // head_dim d and d + 1 (rows gid, gid + 8 of m-tile i) as one 8-byte
+  // store into the swizzled row; pairs past the range hold no slot (pair
+  // 0 stores the identity of an empty block)
+  const int nw = max(1, min(kTcPairs, (hi - lo + kTcSlots - 1) / kTcSlots));
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int g = 2 * tig + c;
-    if (g >= G) continue;
-    float* dst = wacc + (pair * GM + g) * HD + half * (HD / 2) + 8 * gid;
+    if (g >= G || pair >= nw) continue;
+    float* dst = wacc + (pair * GM + g) * HD;
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      dst[64 * (i / 4) + 2 * (i % 4)] = acc[i][c];
-      dst[64 * (i / 4) + 2 * (i % 4) + 1] = acc[i][2 + c];
+      const int d = half * (HD / 2) + 64 * (i / 4) + 8 * gid + 2 * (i % 4);
+      *reinterpret_cast<float2*>(dst + swz(g, d)) =
+          make_float2(acc[i][c], acc[i][2 + c]);
     }
     if (half == 0 && gid == 0) {
       sh.wm[pair][g] = m[c];
@@ -632,8 +803,8 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(DecodeArgs a) {
     }
   }
   __syncthreads();
-  block_fold<bf16, GM, kTcPairs>(a, sh, wacc, cacc, cluster, n_split, rank,
-                                 solo, kvh, b, tid);
+  block_fold<bf16, GM, kTcPairs, HD>(a, sh, wacc, cacc, cluster, n_split,
+                                     rank, solo, nw, kvh, b, tid);
 }
 
 // GM: the group width the kernel is compiled for (G <= GM; rows past G
@@ -656,14 +827,15 @@ int dispatch_group(const DecodeArgs& a, int B, int KV, int n_split,
 }
 
 // Validates what the kernel assumes and launches: dtype 0 = float32,
-// 1 = bfloat16; hd a multiple of 8, at most 256; 1 <= n_split <= 8.
+// 1 = bfloat16; hd a multiple of 8, at most 256; n_split a power of two
+// up to 8 (a rank folds hd / n_split columns).
 // lpr lanes take a row, a power of two up to a warp; a float32 row of
 // more than 32 chunks (hd > 128) takes two chunks a lane.
 template <bool kPaged>
 int dispatch_dtype(int dtype, DecodeArgs a, int B, int KV, int n_split,
                    cudaStream_t stream) {
   if (a.hd < 8 || a.hd > 256 || a.hd % 8 || n_split < 1 ||
-      n_split > kMaxSplits || a.G < 1)
+      n_split > kMaxSplits || (n_split & (n_split - 1)) || a.G < 1)
     return (int)cudaErrorInvalidValue;
   const int vec = dtype == 0 ? 4 : 8;
   const int chunks = a.hd / vec;

@@ -18,7 +18,8 @@
 // Design (the body is decode_tile.cuh, shared with K1):
 //  * the same cluster split as K1: split_plan(P * page) blocks per (lane,
 //    KV head), contiguous slot ranges of the lane's logical window, one
-//    launch, rank 0 merging through distributed shared memory.  On the
+//    launch, the ranks merging by column through distributed shared
+//    memory.  On the
 //    same logical window K2 runs K1's plan, slot order and arithmetic, so
 //    its output is bitwise equal to K1's;
 //  * the pool is read in place in the engine's layout

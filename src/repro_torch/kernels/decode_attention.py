@@ -40,12 +40,15 @@ _WARPS = 8                      # kWarps in csrc/decode_tile.cuh
 
 def decode_smem_bytes(G: int, hd: int, n_split: int, P: int = 0) -> int:
     """Shared memory of one K1/K2 block (``smem_bytes`` in
-    csrc/decode_tile.cuh): the warps' and the cluster's (m, l) pairs and
-    accumulators at the group width the kernel is compiled for (G up to
-    4, then 8, then 16), and K2's table row of P entries."""
+    csrc/decode_tile.cuh) at the group width the kernel is compiled for
+    (G up to 4, then 8, then 16): the warps' and the cluster's (m, l)
+    pairs, the warps' accumulators, in a cluster
+    (``n_split`` > 1) the columns of every rank's accumulator that this
+    rank folds (``hd / n_split`` of each head from each of the
+    ``n_split`` ranks), and K2's table row of P entries."""
     gm = G if G <= 4 else 8 if G <= 8 else 16
     return 4 * (2 * (_WARPS + MAX_SPLITS) * gm
-                + (_WARPS + n_split) * gm * hd) + 4 * P
+                + (_WARPS + (n_split > 1)) * gm * hd) + 4 * P
 
 
 def check_fits(G: int, hd: int, n_split: int, P: int = 0) -> None:

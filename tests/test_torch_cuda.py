@@ -52,6 +52,12 @@ HEADS = [(15, 5, 64), (8, 4, 256), (32, 8, 128)]
 #: over 8 at hd 128 (its K1 and K3 are llama-3.2-vision-90b's instances)
 SERVED_HEADS = [(8, 1, 256), (40, 8, 128)]
 PAGED_HEADS = [(8, 1, 256), (64, 8, 128)]
+QWEN3_HEADS = (64, 8, 128)
+#: every group width 1-8 at the tensor-core body's head widths (2 KV
+#: heads): the fold's swizzled partial rows and column split hold at each
+#: partial set of live head columns, G 5-7 included, which no served
+#: model but llama4-maverick (G 5) and dbrx-132b (G 6) reaches
+GROUP_HEADS = [(2 * G, 2, hd) for hd in (128, 256) for G in range(1, 9)]
 
 
 @pytest.fixture
@@ -199,7 +205,8 @@ def _split_edges(S):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [16, 128, 512])
 @pytest.mark.parametrize("B", [1, 3, 4])
-@pytest.mark.parametrize("H,KV,hd", HEADS + SERVED_HEADS)
+@pytest.mark.parametrize("H,KV,hd",
+                         HEADS + SERVED_HEADS + [QWEN3_HEADS] + GROUP_HEADS)
 def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype, S, B, H, KV,
                                                 hd):
     """K1 with (B,) fill levels on both sides of every split boundary,
@@ -230,7 +237,7 @@ def test_decode_kernel_per_lane_t_matches_plain(cuda, dtype, S, B, H, KV,
 @pytest.mark.parametrize("page", [8, 16, 32])
 @pytest.mark.parametrize("levels", [(200, 511, 600), (1, 63, 64),
                                     (65, 127, 128), (255, 256, 449)])
-@pytest.mark.parametrize("H,KV,hd", HEADS + PAGED_HEADS)
+@pytest.mark.parametrize("H,KV,hd", HEADS + PAGED_HEADS + GROUP_HEADS)
 def test_paged_kernel_matches_plain_and_ring_kernel(cuda, dtype, page,
                                                     levels, H, KV, hd):
     """K2 through a shuffled block table (trash page poisoned, lane 0 on
@@ -1402,7 +1409,8 @@ def test_wgmma_split_and_whole_walk_give_the_same_bits(cuda, H, KV, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [16, 128, 512])
-@pytest.mark.parametrize("H,KV,hd", [(64, 8, 128), (8, 4, 256)])
+@pytest.mark.parametrize("H,KV,hd",
+                         [(64, 8, 128), (8, 4, 256)] + GROUP_HEADS)
 def test_tensor_core_decode_lanes_equal_scalar_t_and_paged(cuda, S, H, KV,
                                                            hd):
     """K1's tensor-core body (bf16, G <= 8, hd 128 / 256) with (B,) fill
