@@ -14,7 +14,10 @@ non-causal at Sq 1, 16 and 45 over the vision stack's 1024 image rows
 and K1 at t = 1023 over its image cache; K1, K2 and K3 at gemma-2b's
 8 over 1 KV head of width 256, K2 at qwen3-32b's 64 over 8 of width
 128, K1 and K3 at llama4-maverick's 40 over 8 of width 128, K3 also at
-exact lengths) and times both, each kernel in
+exact lengths, K2 at granite-8b's 32 over 8 of width 128 (its K1 and K3
+are jamba's), K1 and K3 at dbrx-132b's 48 over 8 of width 128, K1 also
+with (B,) fill levels and K3 also at exact lengths) and times both, each
+kernel in
 turns with SDPA (kernel, SDPA, kernel) and, at head widths 128 and 256,
 once more with the L2 flushed (``[build] ptxas`` lines give those
 instances' registers and spills); K4 and K5 also on the 120-round
@@ -238,6 +241,23 @@ path and read just after:
   bf16 ``[gemma2b-slice]`` (the burst, FCFS and SJF, with the profile),
   ``[gemma2b-sidecar]`` and ``[gemma2b-lanes]`` (the paging backlog
   through ring and paged lanes, the shared prefix cold then warm);
+* granite-8b whole (36 layers of 32 query heads over 8 KV heads of width
+  128, SwiGLU, an untied 49,152-row head; 15.38 GiB in bf16), in a
+  child process of its own (``python3 chip_smoke.py --granite-paths``)
+  started when ``[tp]``'s late pair exits, beside (k), the end of
+  ``[speculative]``, ``[train]`` and ``[mesh]``, and waited for before
+  the last archs' kernel phases: ``[granite-f32]`` a float32 copy cut
+  to 2 layers against the CPU's plain path and its ring lanes == paged
+  lanes == serial engine, then in bf16 ``[granite-slice]`` (the
+  burst, FCFS and SJF, with the profile),
+  ``[granite-sidecar]`` and ``[granite-lanes]`` (ring and paged lanes,
+  K2 at hd 128 G 4, the shared prefix cold then warm);
+* gemma-2b trained, after ``[gemma3-train]``: ``[gemma2b-train-f32]``
+  a float32 2-layer copy's gradients through K3 (with its log-sum-exp)
+  and K3b at 8 over 1 KV head of width 256 against the plain
+  attention's, and ``[gemma2b-train]`` all 18 layers in bf16, 10 AdamW
+  steps at B 4 x 512 through ``make_train_step`` (K3 2 x 18 and K3b 18
+  launches a step, the loss falling, one step profiled);
 * once every child has ended, qwen3-32b whole (64 layers, 64 query heads
   over 8 KV heads of width 128 with QK-norm, 61.02 GiB of bf16 weights)
   with the card to itself, one engine at a time: ``[qwen3-f32]`` 2
@@ -253,6 +273,15 @@ path and read just after:
   repeat in float32 (68.6 GiB) through K1/K3 against the plain attention
   on the card, serial and ring lanes, then in bf16 ``[llama4-slice]``,
   ``[llama4-sidecar]`` (SJF) and ``[llama4-lanes]`` after the paged and
+  speculative engines refuse the stack; then dbrx-132b cut to 8 of its
+  40 layers (48 query heads over 8 KV heads of width 128, 16 experts
+  top-4 on every layer; 50.86 GiB in bf16: the whole model, 245 GiB,
+  does not fit the card): ``[dbrx-f32]`` one layer in float32 (16.7
+  GiB) through K1/K3 against the plain attention on the card, serial
+  and ring lanes, then the 8 layers in bf16: ``[dbrx-slice]`` (the
+  burst of qwen3's paths, exact-length prefill; ms/token beside the
+  54.6 GB stream of every expert's weights, the peak memory),
+  ``[dbrx-sidecar]`` (SJF) and ``[dbrx-lanes]`` after the paged and
   speculative engines refuse the stack;
 * ``[examples]`` beside those trained stacks, in a child process of its
   own (``python3 chip_smoke.py --examples``): the six ``examples_torch/``
@@ -272,7 +301,8 @@ B 8, S 128, 512 and 1000, pass by pass at the training shape; then
 ``[K3b flash_attention_bwd_*]`` does the same for the other trained
 stacks' instances at their train steps' shapes: head width 256
 (gemma3-4b-edge), full attention at Sq 512 over Skv 1024 and causal at
-H 64 over KV 8 (llama-3.2-vision-90b), G 1 (musicgen-large), H 4 over
+H 64 over KV 8 (llama-3.2-vision-90b), G 1 (musicgen-large), H 8 over KV
+1 at head width 256 (gemma-2b, with K3's log-sum-exp there), H 4 over
 KV 2 at head width 256 (a ``[tp]`` rank's share of gemma3's heads, B 2),
 H 24 over KV 4 at head width 128 (dbrx-132b's share, G 6), H 32 over KV
 4 at head width 128 causal and full over 1024 image rows
@@ -320,8 +350,9 @@ reference (the step with no mesh, the CPU's exchange,
 ``checkpoint.restore``) or the meshed step's K3/K3b launches differ, when an xlstm path launches an attention kernel or
 its card and CPU logits, tokens or lane tokens differ, when the
 musicgen or vision kernels-vs-plain logits or tokens differ or their
-launches are not exactly a layer's, when gemma-2b's, qwen3-32b's or
-llama4's float32 holds, bitwise contracts or exact launches fail, the
+launches are not exactly a layer's, when gemma-2b's, granite-8b's,
+qwen3-32b's, llama4's or dbrx-132b's float32 holds, bitwise contracts
+or exact launches fail, the
 paged pool does not drain clean or its warm pass hits no prefix page,
 when two kernels-line entries
 share a name, or when an example script raises, its printed claim does
@@ -343,6 +374,9 @@ musicgen-large; ``*_vision``: llama-3.2-vision-90b's self-attention
 and qwen3-32b's (the same heads) and ``*_vision_cross`` its
 cross-attention, K3b's among them; ``*_gemma2b``: gemma-2b;
 ``*_qwen3``: qwen3-32b's K2; ``*_llama4``: llama4-maverick-400b-a17b;
+``*_hd128`` K1/K3 also granite-8b's and ``*_granite`` its K2;
+``*_dbrx``: dbrx-132b; ``flash_attention_bwd_gemma2b``: gemma-2b's
+training;
 ``*_hd256_tp``: both ``[tp]`` ranks' gemma3 bf16 steps;
 ``*_hd128_g6_tp``: their dbrx steps; ``*_hd128_g8_tp`` and
 ``*_vision_cross_tp``: the late pair's vision bf16 steps (self- and
@@ -418,6 +452,10 @@ VISION_TP_HEADS, MUSICGEN_TP_HEADS = (32, 4, 128), (16, 16, 64)
 # llama4-maverick-400b-a17b (40 over 8 at hd 128: G 5)
 GEMMA2B_HEADS, QWEN3_HEADS, LLAMA4_HEADS = (8, 1, 256), (64, 8, 128), \
     (40, 8, 128)
+# dbrx-132b (48 over 8 at hd 128: G 6), served at 8 of its 40 layers (the
+# whole model, 245 GiB in bf16, does not fit one card); granite-8b's heads
+# are jamba's (32 over 8 at hd 128: G 4)
+DBRX_HEADS, DBRX_LAYERS = (48, 8, 128), 8
 # the burst of the models that one card holds only just (qwen3-32b whole,
 # llama4's repeat): 2 longs of 24 new tokens, then 4 shorts of 4, and the
 # fused-vs-oracle check over 16 tokens
@@ -3119,9 +3157,9 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 512, 20, 3e-4
 # at B 2 over its 1024 image rows (Adafactor: bf16 weights and gradients
 # are 23.8 GiB), musicgen at B 4
 ARCH_TRAIN_B = {"gemma3-4b-edge": 4, "llama-3.2-vision-90b": 2,
-                "musicgen-large": 4}
+                "musicgen-large": 4, "gemma-2b": 4}
 ARCH_TRAIN_STEPS = {"gemma3-4b-edge": 10, "llama-3.2-vision-90b": 6,
-                    "musicgen-large": 6}
+                    "musicgen-large": 6, "gemma-2b": 10}
 
 
 K3B_PASSES = (("bwd_dot", "D"), ("bwd_dkdv", "dK/dV"), ("bwd_dq", "dQ"))
@@ -3379,6 +3417,9 @@ K3B_INSTANCES = (
     ("flash_attention_bwd_musicgen_tp", "musicgen-large-tp",
      "flash_attention_bwd", 2, TRAIN_S, TRAIN_S, MUSICGEN_TP_HEADS, True,
      ((TRAIN_S, TRAIN_S),)),
+    ("flash_attention_bwd_gemma2b", "gemma-2b", "flash_attention_bwd",
+     ARCH_TRAIN_B["gemma-2b"], TRAIN_S, TRAIN_S, GEMMA2B_HEADS, True,
+     ((128, 128), (TRAIN_S, TRAIN_S))),
 )
 
 
@@ -3416,6 +3457,13 @@ def phase_flash_bwd_instances(gen) -> list:
             K3B_INSTANCES:
         H, KV, hd = heads
         tag = f"[K3b {name}]"
+        if heads == GEMMA2B_HEADS:
+            # no other phase holds gemma-2b's train forward, K3 with its
+            # log-sum-exp, at these heads
+            lse_tag = "[K3 flash_attention_gemma2b with lse]"
+            lse_errs = _k3_lse_errs(gen, heads, lse_tag)
+            print(f"{lse_tag} {model}, the train forward: max|err| "
+                  + " ".join(f"{k_}:{e:.2e}" for k_, e in lse_errs.items()))
         errs = {}
         for cq, ckv in checks:
             for label, dt in (("f32", torch.float32),
@@ -3502,26 +3550,11 @@ def phase_tp_flash_kernel(gen, heads=TP_HEADS, name="flash_attention_hd256_tp",
     (H, KV, hd), B, S = heads, 2, TRAIN_S
     causal = skv is None
     tag = f"[K3 {name}]"
-    errs = {}
-
-    def inputs(n, dt):
-        q = torch.randn(B, n, H, hd, generator=gen, device="cuda").to(dt)
-        k, v = (torch.randn(B, skv or n, KV, hd, generator=gen,
-                            device="cuda").to(dt) for _ in range(2))
-        return q, k, v
-    for n in (128, S):
-        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            q, k, v = inputs(n, dt)
-            o, lse = flash_attention_cuda(q, k, v, causal=causal,
-                                          return_lse=True)
-            want, want_lse = flash_attention_plain(q, k, v, causal=causal,
-                                                   return_lse=True)
-            err, lse_err = _max_err(o, want), _max_err(lse, want_lse)
-            _check(f"{tag} {label} S={n}", err, TOL[label])
-            _check(f"{tag} lse {label} S={n}", lse_err,
-                   TOL[label] if label == "f32" else 1e-3)
-            errs[f"{label}@{n}"], errs[f"lse {label}@{n}"] = err, lse_err
-    q, k, v = inputs(S, torch.bfloat16)
+    errs = _k3_lse_errs(gen, heads, tag, skv)
+    q = torch.randn(B, S, H, hd, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(B, skv or S, KV, hd, generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
     qx, kx, vx = (x.transpose(1, 2) for x in (q, k, v))
     kx, vx = (x.repeat_interleave(H // KV, dim=1) for x in (kx, vx))
     kern = lambda: flash_attention_cuda(q, k, v, causal=causal,  # noqa: E731
@@ -3549,6 +3582,35 @@ def phase_tp_flash_kernel(gen, heads=TP_HEADS, name="flash_attention_hd256_tp",
                    "max_abs_err": max(errs.values()), "ms": ms,
                    "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                    "library_ms": lib}, model, counter)
+
+
+def _k3_lse_errs(gen, heads, tag, skv=None) -> dict:
+    """K3 with its log-sum-exp (the train forward) at ``heads``, causal
+    (or, with ``skv``, non-causal over ``skv`` keys), f32 (TF32 off) and
+    bf16 at Sq 128 and ``TRAIN_S`` against the plain version and the
+    plain logsumexp: the output within ``TOL``, the lse within 1e-4 (f32)
+    / 1e-3 (bf16).  Returns each case's max|err|."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    (H, KV, hd), B = heads, 2
+    causal = skv is None
+    errs = {}
+    for n in (128, TRAIN_S):
+        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q = torch.randn(B, n, H, hd, generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn(B, skv or n, KV, hd, generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                          return_lse=True)
+            want, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                                   return_lse=True)
+            err, lse_err = _max_err(o, want), _max_err(lse, want_lse)
+            _check(f"{tag} {label} S={n}", err, TOL[label])
+            _check(f"{tag} lse {label} S={n}", lse_err,
+                   TOL[label] if label == "f32" else 1e-3)
+            errs[f"{label}@{n}"], errs[f"lse {label}@{n}"] = err, lse_err
+    return errs
 
 
 #: the ``[tp]`` ranks' other K3 shares: (heads, entry name, what, model,
@@ -3803,32 +3865,42 @@ def _arch_batch(cfg, B, gen, seq=None):
     return batch
 
 
-def gemma3_train(smi, totals) -> None:
-    """Training gemma3-4b-edge, the paper's own backend, at full width
-    (d_model 2560, 8 heads over 4 KV heads of width 256, vocab 262,144):
-    (a) a float32 2-layer copy's gradients through K3/K3b (hd 256)
-    against the plain attention's; (b) all 34 layers in bf16, 10 AdamW
-    steps (lr 3e-4) through ``make_train_step``, the loss falling."""
+#: the stacks trained whole from a fresh state after the paths that serve
+#: them, by print tag: (arch id, the batches' generator seed).
+#: gemma3-4b-edge, the paper's own backend (d_model 2560, 8 heads over 4
+#: KV heads of width 256, vocab 262,144); gemma-2b (d_model 2048, 8 query
+#: heads over 1 KV head of width 256, GeGLU, the tied 256,000-row head;
+#: its train state 28.01 GiB before activations)
+TRAIN_WHOLE = {"gemma3": ("gemma3-4b-edge", 21), "gemma2b": ("gemma-2b", 24)}
+
+
+def train_whole(smi, totals, tag) -> None:
+    """Training ``TRAIN_WHOLE[tag]`` at full width: (a) a float32 2-layer
+    copy's gradients through K3/K3b against the plain attention's; (b)
+    all its layers in bf16, ``ARCH_TRAIN_STEPS`` AdamW steps (lr 3e-4) at
+    ``ARCH_TRAIN_B`` x 512 through ``make_train_step``, the loss
+    falling."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
     from repro_torch.training.optimizer import OptConfig
     from repro_torch.training.train_loop import init_train_state
-    cfg = get_config("gemma3-4b-edge")
-    gen = torch.Generator(device="cuda").manual_seed(21)
+    arch, seed = TRAIN_WHOLE[tag]
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=2)
     lm = LM(cfg32, device="cuda", seed=2)
     _timed(_grads_vs_plain, lm, _arch_batch(cfg32, 2, gen)(0), smi,
-           tag="gemma3-train-f32")
+           tag=f"{tag}-train-f32")
     del lm
-    _free_card("gemma3-train")
+    _free_card(f"{tag}-train")
     steps = ARCH_TRAIN_STEPS[cfg.name]
     opt = OptConfig(lr=TRAIN_LR, warmup_steps=max(steps // 10, 1))
     state = init_train_state(cfg, opt, device="cuda", seed=0)
     _timed(_train_bf16, state, opt, _arch_batch(
         cfg, ARCH_TRAIN_B[cfg.name], gen), steps, smi, totals,
-           tag="gemma3-train")
+           tag=f"{tag}-train")
 
 
 def phase_lm_train(lm, smi, totals, tag) -> None:
@@ -4286,8 +4358,12 @@ def serve_arch_kernels(gen) -> list:
     at hd 128; its K1 and K3 are vision's instances) and K1 and K3 at
     llama4-maverick's (40 over 8 at hd 128: G 5 cuts a position's heads
     across K3's 64-row tiles; K3 also at the exact prompt lengths its MoE
-    stack prefills at).  The kernels line's ``*_gemma2b``, ``*_qwen3``
-    and ``*_llama4`` entries."""
+    stack prefills at), K2 at granite-8b's (32 over 8 at hd 128: its K1
+    and K3 are jamba's ``*_hd128`` instances, which no paged pool reaches)
+    and K1 and K3 at dbrx-132b's (48 over 8 at hd 128: G 6; K1 also with
+    (B,) fill levels, K3 also at exact prompt lengths).  The kernels
+    line's ``*_gemma2b``, ``*_qwen3``, ``*_llama4``,
+    ``paged_decode_attention_granite`` and ``*_dbrx`` entries."""
     k1 = phase_decode_kernel(gen, GEMMA2B_HEADS, "gemma2b")
     k1["max_abs_err"] = max(k1["max_abs_err"], phase_decode_lanes_kernel(
         gen, GEMMA2B_HEADS, "gemma2b"))
@@ -4307,8 +4383,18 @@ def serve_arch_kernels(gen) -> list:
     k3["max_abs_err"] = max(k3["max_abs_err"], phase_flash_exact(
         gen, LLAMA4_HEADS, "llama4"))
     model = "llama4-maverick-400b-a17b"
-    return out + [_owned(k1, model, "decode_attention"),
-                  _owned(k3, model, "flash_attention")]
+    out += [_owned(k1, model, "decode_attention"),
+            _owned(k3, model, "flash_attention"),
+            _owned(phase_paged_kernel(gen, JAMBA_HEADS, "granite"),
+                   "granite-8b", "paged_decode_attention")]
+    k1 = phase_decode_kernel(gen, DBRX_HEADS, "dbrx")
+    k1["max_abs_err"] = max(k1["max_abs_err"], phase_decode_lanes_kernel(
+        gen, DBRX_HEADS, "dbrx"))
+    k3 = phase_flash_kernel(gen, DBRX_HEADS, "dbrx")
+    k3["max_abs_err"] = max(k3["max_abs_err"], phase_flash_exact(
+        gen, DBRX_HEADS, "dbrx"))
+    return out + [_owned(k1, "dbrx-132b", "decode_attention"),
+                  _owned(k3, "dbrx-132b", "flash_attention")]
 
 
 def _cross_launches():
@@ -4715,17 +4801,25 @@ def _train_predictor():
 SIDE_FLAG, SIDE_JAMBA_DONE = "--side-paths", "[side] jamba paths done"
 
 
-def side_paths() -> int:
-    """The child of :func:`start_side_paths`: jamba-v0.1-52b's paths,
-    then a line saying so (their card memory, up to 50.5 GiB, is free
-    from there), then xlstm-350m's, then one JSON line of both models'
-    launches.  The kernels are the parent's build."""
+def _child_setup() -> tuple:
+    """A side process's start: line-buffered output, TF32 off, the card's
+    name and limit, the serving paths' predictor.  Returns (smi,
+    predictor).  The kernels are the parent's build."""
     import torch
     sys.stdout.reconfigure(line_buffering=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     _, predictor = _train_predictor()
+    return smi, predictor
+
+
+def side_paths() -> int:
+    """The child of :func:`start_side_paths`: jamba-v0.1-52b's paths,
+    then a line saying so (their card memory, up to 50.5 GiB, is free
+    from there), then xlstm-350m's, then one JSON line of both models'
+    launches."""
+    smi, predictor = _child_setup()
     totals = {"jamba-v0.1-52b": jamba_paths(predictor, smi)}
     _free_card("xlstm")
     print(SIDE_JAMBA_DONE)
@@ -4810,12 +4904,12 @@ def collect_side_paths(run, smi) -> tuple:
     return totals["jamba-v0.1-52b"], totals["xlstm-350m"]
 
 
-# ------------------------------------------ gemma-2b, qwen3-32b, llama4
+# ---------------------- gemma-2b, granite-8b, qwen3-32b, llama4, dbrx
 # gemma-2b's paths and then [launch-serve] (host-bound, its own launch
 # counters) run in a second side process beside the first; qwen3-32b
-# (61.02 GiB of bf16 weights) and llama4-maverick's repeat (68.6 GiB in
-# float32) each need the card to themselves and run last, once every
-# child has ended
+# (61.02 GiB of bf16 weights), llama4-maverick's repeat (68.6 GiB in
+# float32) and dbrx-132b's 8 layers (50.86 GiB in bf16) each need the
+# card to themselves and run last, once every child has ended
 SECOND_FLAG = "--second-side-paths"
 BIG_BURST = dict(n_long=BIG_LONG, n_short=BIG_SHORT, long_new=BIG_LONG_NEW,
                  short_new=BIG_SHORT_NEW)
@@ -4850,90 +4944,116 @@ def phase_paged_pool(cfg, smi, totals, tag) -> None:
     _free_card(tag)
 
 
+def _card_use(where: str) -> float:
+    """Print the card's GiB in use by every process beside what this
+    process's allocator holds (allocated, and reserved: its cache too)
+    ``where``.  Returns the GiB in use by every process."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    held = (total - free) / 2 ** 30
+    print(f"{where} the card in use by every process: {held:.2f} of "
+          f"{total / 2 ** 30:.2f} GiB; this process's allocator "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+    return held
+
+
 def _card_empty(before: str) -> None:
     """Raise unless the card holds (almost) nothing, whichever process
     holds it (this one's CUDA context and allocator cache count too):
     ``before`` builds a model that the card holds only alone."""
-    import torch
-    free, total = torch.cuda.mem_get_info()
-    held = (total - free) / 2 ** 30
-    print(f"{before} the card in use before it, by every process: "
-          f"{held:.2f} of {total / 2 ** 30:.2f} GiB")
+    held = _card_use(f"{before} before it:")
     if held > 2.0:
         raise AssertionError(f"{held:.2f} GiB of the card in use before "
                              f"{before}")
 
 
-def gemma2b_paths(predictor, smi) -> dict:
-    """gemma-2b whole (18 layers of 8 query heads over 1 KV head of width
-    256, GeGLU, the tied 256,000-row head; 2,506,172,416 parameters): a
-    float32 copy cut to 2 layers at full width against the CPU's plain
-    path and through ring lanes, paged lanes and the serial engine (the
-    same tokens, bit for bit), then all 18 layers in bf16 through the
-    serial engine (the burst at smollm-360m's sizes), the sidecar, and
-    ring lanes, paged lanes and the shared prefix.  Returns the paths'
-    launch counts."""
+#: the models served whole in a side process, by print tag: gemma-2b (18
+#: layers of 8 query heads over 1 KV head of width 256, GeGLU, the tied
+#: 256,000-row head; 2,506,172,416 parameters) and granite-8b (36 layers of
+#: 32 query heads over 8 KV heads of width 128, SwiGLU of width 14,336, an
+#: untied 49,152-row head; 8,254,689,280 parameters, 15.38 GiB in bf16)
+WHOLE = {"gemma2b": "gemma-2b", "granite": "granite-8b"}
+
+
+def whole_model_paths(predictor, smi, tag) -> dict:
+    """``WHOLE[tag]`` at full width and depth: a float32 copy cut to 2
+    layers against the CPU's plain path and through ring lanes, paged
+    lanes and the serial engine (the same tokens, bit for bit), then the
+    whole stack in bf16 through the serial engine (the burst at
+    smollm-360m's sizes), the sidecar, and ring lanes, paged lanes and
+    the shared prefix.  Returns the paths' launch counts."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels._build import LAUNCHES
-    cfg = get_config("gemma-2b")
+    cfg = get_config(WHOLE[tag])
     two = dataclasses.replace(cfg, num_layers=2)
     totals = {k: 0 for k in LAUNCHES}
-    _timed(phase_full_width_reference, two, tag="gemma2b-f32")
-    _timed(phase_lanes_f32, two, smi, totals, tag="gemma2b-f32")
+    _timed(phase_full_width_reference, two, tag=f"{tag}-f32")
+    _timed(phase_lanes_f32, two, smi, totals, tag=f"{tag}-f32")
     launches, eng, tokens = _timed(phase_slice, cfg, predictor, smi,
-                                   tag="gemma2b-slice")
+                                   tag=f"{tag}-slice")
     for k, v in launches.items():
         totals[k] += v
     _timed(phase_sidecar, eng, predictor, smi, tokens, totals,
-           tag="gemma2b-sidecar", extras=False)
+           tag=f"{tag}-sidecar", extras=False)
     del eng
-    _free_card("gemma2b-lanes")
-    _timed(phase_lanes, cfg, smi, totals, tag="gemma2b-lanes")
+    _free_card(f"{tag}-lanes")
+    _timed(phase_lanes, cfg, smi, totals, tag=f"{tag}-lanes")
     return totals
 
 
 def second_side_paths() -> int:
-    """``python3 chip_smoke.py --second-side-paths``: :func:`gemma2b_paths`,
-    then ``[launch-serve]``, then one JSON line of each one's launches.
-    The kernels are the parent's build."""
-    import torch
+    """``python3 chip_smoke.py --second-side-paths``: gemma-2b's
+    :func:`whole_model_paths`, then ``[launch-serve]``, then one JSON line
+    of each one's launches."""
     from repro_torch.kernels._build import LAUNCHES
-    sys.stdout.reconfigure(line_buffering=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device()
-    _, predictor = _train_predictor()
-    totals = {"gemma-2b": gemma2b_paths(predictor, smi)}
+    smi, predictor = _child_setup()
+    totals = {"gemma-2b": _timed(whole_model_paths, predictor, smi,
+                                 tag="gemma2b")}
     _free_card("launch-serve")
     totals["launch-serve"] = {k: 0 for k in LAUNCHES}
     _timed(phase_launch_serve, smi, totals["launch-serve"])
-    print(json.dumps({"second_totals": totals}))
+    print(json.dumps({"child_totals": totals}))
     return 0
 
 
-def collect_second_side(run, smi) -> tuple:
-    """Wait for the second side process, print its lines and return the
-    launches of gemma-2b's paths and of ``[launch-serve]``."""
+# granite-8b's paths (15.38 GiB of bf16 weights, 32 GiB with the lanes'
+# two engines) run in a child of their own once [tp]'s late pair has
+# exited, beside (k), the end of [speculative], [train] and [mesh], which
+# hold little of the card; the kernel phases after them wait for it
+GRANITE_FLAG = "--granite-paths"
+
+
+def granite_side_paths() -> int:
+    """``python3 chip_smoke.py --granite-paths``: granite-8b's
+    :func:`whole_model_paths`, then one JSON line of its launches."""
+    smi, predictor = _child_setup()
+    print(json.dumps({"child_totals": {"granite-8b": _timed(
+        whole_model_paths, predictor, smi, tag="granite")}}))
+    return 0
+
+
+def collect_child(run, smi, tag, what, beside) -> dict:
+    """Wait for a side process that ends in a ``child_totals`` JSON line
+    (:func:`second_side_paths`, :func:`granite_side_paths`), print its
+    lines and return that line's launch counts, by model."""
     run["proc"].wait(timeout=900)
     run["thread"].join(timeout=60)
     code = run["proc"].returncode
     if code != 0:
-        raise AssertionError(f"[second side] the child exited {code}:\n"
+        raise AssertionError(f"[{tag}] the child exited {code}:\n"
                              + "\n".join(run["lines"][-60:]))
     for line in run["lines"]:
         print(line)
     got = [json.loads(line) for line in run["lines"]
-           if line.startswith('{"second_totals"')]
+           if line.startswith('{"child_totals"')]
     if not got:
-        raise AssertionError("[second side] the child printed no launch "
-                             "counts")
-    print(f"[second side] gemma-2b paths and [launch-serve] in a child "
-          f"process: {_child_secs(run):.1f} s, beside the side process and "
-          f"the gemma3-4b-edge, musicgen and vision phases (neither side's "
-          f"times are taken alone)  [{smi}]")
-    totals = got[0]["second_totals"]
-    return totals["gemma-2b"], totals["launch-serve"]
+        raise AssertionError(f"[{tag}] the child printed no launch counts")
+    print(f"[{tag}] {what} in a child process: {_child_secs(run):.1f} s, "
+          f"beside {beside} (neither side's times are taken alone)  "
+          f"[{smi}]")
+    return got[0]["child_totals"]
 
 
 def qwen3_paths(predictor, smi) -> dict:
@@ -4974,37 +5094,49 @@ def qwen3_paths(predictor, smi) -> dict:
     return totals
 
 
-def llama4_paths(predictor, smi) -> dict:
-    """llama4-maverick-400b-a17b at full width cut to one of its 24
-    pattern repeats (attention + a dense SwiGLU of width 8,192, then
-    attention + a MoE of 128 experts top-1; 40 query heads over 8 KV
-    heads of width 128, vocabulary 202,048; 18,427,438,080 parameters:
-    the whole model, 735 GiB in bf16, does not fit one card), on the card
-    alone: a float32 copy (68.6 GiB) through K1/K3 against the plain
-    attention on the same weights (prefill + 8 greedy steps, then ring
-    lanes against ring lanes: MoE capacity spans a step's tokens), then
-    bf16 through the serial engine (the burst of :func:`qwen3_paths`,
-    exact-length prefill), the sidecar under SJF, and ring lanes after
-    the block-paged and speculative engines refuse the stack.  Returns
-    the paths' launch counts."""
+#: the MoE stacks cut by depth and served with the card to themselves, by
+#: print tag: (arch id, layers).  llama4-maverick by one of its 24 pattern
+#: repeats (attention + a dense SwiGLU of width 8,192, then attention + a
+#: MoE of 128 experts top-1; 40 query heads over 8 KV heads of width 128,
+#: vocabulary 202,048; 18,427,438,080 parameters: the whole model, 735 GiB
+#: in bf16, does not fit one card; its float32 copy 68.6 GiB); dbrx-132b by
+#: 8 of its 40 layers (each attention of 48 query heads over 8 KV heads of
+#: width 128, then a MoE of 16 experts of width 10,752, top-4; vocabulary
+#: 100,352; 27,305,809,920 parameters, 50.86 GiB in bf16: the whole model,
+#: 245 GiB, does not fit; its float32 copy one layer, 16.7 GiB; at B 1 each
+#: expert takes one slot, so a token streams every expert's weights)
+CUT_MOE = {"llama4": ("llama4-maverick-400b-a17b", 2),
+           "dbrx": ("dbrx-132b", DBRX_LAYERS)}
+
+
+def cut_moe_paths(predictor, smi, tag) -> dict:
+    """``CUT_MOE[tag]`` at full width and its cut depth, on the card
+    alone: a float32 copy of one pattern repeat through K1/K3 against the
+    plain attention on the same weights (prefill + 8 greedy steps, then
+    ring lanes against ring lanes: MoE capacity spans a step's tokens),
+    then bf16 through the serial engine (the burst of
+    :func:`qwen3_paths`, exact-length prefill), the sidecar under SJF, and
+    ring lanes after the block-paged and speculative engines refuse the
+    stack.  Returns the paths' launch counts."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels._build import LAUNCHES
-    full = get_config("llama4-maverick-400b-a17b")
-    cfg = dataclasses.replace(full, num_layers=len(full.block_pattern))
+    arch, layers = CUT_MOE[tag]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     totals = {k: 0 for k in LAUNCHES}
-    _card_empty("[llama4-f32]")
-    _timed(phase_jamba_f32, cfg, smi, totals, tag="llama4-f32")
+    _card_empty(f"[{tag}-f32]")
+    _timed(phase_jamba_f32, cfg, smi, totals, tag=f"{tag}-f32")
+    _card_use(f"[{tag}-f32] after it:")
     launches, eng, tokens = _timed(phase_slice, cfg, predictor, smi,
-                                   tag="llama4-slice", oracle_new=BIG_ORACLE,
+                                   tag=f"{tag}-slice", oracle_new=BIG_ORACLE,
                                    **BIG_BURST)
     for k, v in launches.items():
         totals[k] += v
     _timed(phase_sidecar, eng, predictor, smi, tokens, totals,
-           tag="llama4-sidecar", extras=False, sjf_only=True, **BIG_BURST)
+           tag=f"{tag}-sidecar", extras=False, sjf_only=True, **BIG_BURST)
     del eng
-    _free_card("llama4-lanes")
-    _timed(phase_hybrid_lanes, cfg, smi, totals, tag="llama4-lanes")
+    _free_card(f"{tag}-lanes")
+    _timed(phase_hybrid_lanes, cfg, smi, totals, tag=f"{tag}-lanes")
     return totals
 
 
@@ -6263,10 +6395,11 @@ def collect_tp_apart(run, smi, beside: str) -> None:
 
 def gemma3_and_lm_api_paths(predictor, smi, child, g_totals) -> tuple:
     """The main process's part beside the side process: gemma3-4b-edge
-    served and trained, then musicgen-large and the cut
+    served and trained, gemma-2b trained, then musicgen-large and the cut
     llama-3.2-vision-90b through the LM API and trained.  The phases
     whose card memory would not fit beside the child's jamba paths wait
-    for them.  Returns the three models' launches."""
+    for them.  Returns gemma3's, gemma-2b training's, musicgen's and
+    vision's launches."""
     import dataclasses
     from repro_torch.configs import get_config
     gcfg = get_config("gemma3-4b-edge")
@@ -6287,7 +6420,10 @@ def gemma3_and_lm_api_paths(predictor, smi, child, g_totals) -> tuple:
     examples = _start_self(EXAMPLES_FLAG)
     try:
         _free_card("gemma3-train-f32")
-        gemma3_train(smi, g_totals)
+        train_whole(smi, g_totals, tag="gemma3")
+        _free_card("gemma2b-train-f32")
+        t_totals = {k: 0 for k in g_totals}
+        train_whole(smi, t_totals, tag="gemma2b")
         _free_card("musicgen")
         m_totals = lm_api_paths("musicgen-large", "musicgen", smi)
         _free_card("vision")
@@ -6299,7 +6435,7 @@ def gemma3_and_lm_api_paths(predictor, smi, child, g_totals) -> tuple:
         if examples["proc"].poll() is None:
             examples["proc"].kill()
             examples["proc"].wait()
-    return g_totals, m_totals, v_totals
+    return g_totals, t_totals, m_totals, v_totals
 
 
 def main() -> int:
@@ -6317,6 +6453,8 @@ def main() -> int:
         return examples_paths()
     if sys.argv[1:] == [SECOND_FLAG]:
         return second_side_paths()
+    if sys.argv[1:] == [GRANITE_FLAG]:
+        return granite_side_paths()
     if sys.argv[1:2] == [TP_FLAG]:
         rank_fn = {("late",): tp_late_rank, ("apart",): tp_apart_rank}.get(
             tuple(sys.argv[4:]), tp_rank)
@@ -6341,7 +6479,9 @@ def main() -> int:
                                 phase_flash_extend(gen, heads))
         kernels += [_owned(k, model)
                     for k in (k1, phase_paged_kernel(gen, heads), k3)]
-    kernels += [_owned(k, "jamba-v0.1-52b") for k in jamba_kernels(gen)]
+    # granite-8b's K1/K3 are jamba's instances (32 over 8 at hd 128)
+    kernels += [_owned(k, ("jamba-v0.1-52b", "granite-8b"))
+                for k in jamba_kernels(gen)]
     kernels += [_owned(k, "smollm-360m") for k in (
         phase_gbdt_kernel(predictor.model, ds.prompts),
         phase_packed_kernel(predictor.model, ds.prompts),
@@ -6398,11 +6538,11 @@ def main() -> int:
                                    start_tp("late"))[1])
 
     def start_apart():
-        """[tp]'s (k), xlstm-350m over eight ranks, once the late pair has
-        exited: beside the rest of [speculative] and the phases up to
-        [mesh]."""
+        """[tp]'s (k), xlstm-350m over eight ranks, and granite-8b's paths
+        in a child, once the late pair has exited: beside the rest of
+        [speculative] and the phases up to [mesh]."""
         wait_tp_exit(late.result())
-        return start_tp("apart")
+        return start_tp("apart"), _start_self(GRANITE_FLAG)
     apart = late_ex.submit(start_apart)
     try:
         try:
@@ -6429,15 +6569,24 @@ def main() -> int:
         _timed(phase_mesh, cfg, state, ckpt_dir, smi, totals)
         del state
         shutil.rmtree(launch_train["tmp"])
-        _timed(collect_tp_apart, apart.result(), smi,
-               "the end of [speculative], [launch-serve], [train] and "
-               "[mesh], started when the late pair ended")
+        _timed(collect_tp_apart, apart.result()[0], smi,
+               "the end of [speculative], [train], [mesh] and granite-8b's "
+               "paths, started when the late pair ended")
+        # before the kernel phases time anything on the card
+        r_totals = _timed(collect_child, apart.result()[1], smi, "granite",
+                          "granite-8b paths", "(k), the end of "
+                          "[speculative], [train] and [mesh], started when "
+                          "the late pair ended")["granite-8b"]
     finally:
         if apart.done() and apart.exception() is None:
-            stop_tp(apart.result())
-    # the last three archs' kernels: K1/K3 at musicgen's and vision's
-    # heads and the cross-attention kernels, timed before the side
-    # process starts
+            tp_apart, granite = apart.result()
+            stop_tp(tp_apart)
+            if granite["proc"].poll() is None:
+                granite["proc"].kill()
+                granite["proc"].wait()
+    # the later archs' kernels: K1/K3 at musicgen's and vision's heads,
+    # the cross-attention kernels and the instances of the models served
+    # whole or cut by depth, timed before the side processes start
     _free_card("new-arch kernels")
     kernels += _timed(new_arch_kernels, gen)
     kernels += _timed(serve_arch_kernels, gen)
@@ -6451,10 +6600,16 @@ def main() -> int:
     child = start_side_paths()
     second = _start_self(SECOND_FLAG)
     try:
-        g_totals, m_totals, v_totals = gemma3_and_lm_api_paths(
+        g_totals, t_totals, m_totals, v_totals = gemma3_and_lm_api_paths(
             predictor, smi, child, {k: 0 for k in totals})
         j_totals, x_totals = collect_side_paths(child, smi)
-        b_totals, ls_totals = collect_second_side(second, smi)
+        second_totals = collect_child(
+            second, smi, "second side", "gemma-2b paths and [launch-serve]",
+            "the side process and the gemma3-4b-edge, gemma-2b training, "
+            "musicgen and vision phases")
+        b_totals, ls_totals = (second_totals["gemma-2b"],
+                               second_totals["launch-serve"])
+        _add_launches(b_totals, t_totals)           # gemma-2b trained
         for k, v in ls_totals.items():
             totals[k] += v
     finally:
@@ -6467,7 +6622,9 @@ def main() -> int:
     _free_card("qwen3")
     q_totals = _timed(qwen3_paths, predictor, smi)
     _free_card("llama4")
-    l_totals = _timed(llama4_paths, predictor, smi)
+    l_totals = _timed(cut_moe_paths, predictor, smi, tag="llama4")
+    _free_card("dbrx")
+    d_totals = _timed(cut_moe_paths, predictor, smi, tag="dbrx")
 
     # each entry reports the launches of its own model's paths
     by_model = {"smollm-360m": totals, "gemma3-4b-edge": g_totals,
@@ -6475,7 +6632,8 @@ def main() -> int:
                 "jamba-v0.1-52b": j_totals, "xlstm-350m": x_totals,
                 "musicgen-large": m_totals, "llama-3.2-vision-90b": v_totals,
                 "gemma-2b": b_totals, "qwen3-32b": q_totals,
-                "llama4-maverick-400b-a17b": l_totals}
+                "llama4-maverick-400b-a17b": l_totals,
+                "granite-8b": r_totals, "dbrx-132b": d_totals}
     names = [k["name"] for k in kernels]
     shared = sorted({n for n in names if names.count(n) > 1})
     if shared:

@@ -49,8 +49,9 @@ HEADS = [(15, 5, 64), (8, 4, 256), (32, 8, 128)]
 #: tensor-core body with all eight columns live, in float32 the widest
 #: group the block's shared memory holds at that width) and
 #: llama4-maverick's 40 over 8 at hd 128 (G 5); K2 also at qwen3-32b's 64
-#: over 8 at hd 128 (its K1 and K3 are llama-3.2-vision-90b's instances)
-SERVED_HEADS = [(8, 1, 256), (40, 8, 128)]
+#: over 8 at hd 128 (its K1 and K3 are llama-3.2-vision-90b's instances);
+#: dbrx-132b's 48 over 8 at hd 128 (G 6) for K1 and K3
+SERVED_HEADS = [(8, 1, 256), (40, 8, 128), (48, 8, 128)]
 PAGED_HEADS = [(8, 1, 256), (64, 8, 128)]
 QWEN3_HEADS = (64, 8, 128)
 #: every group width 1-8 at the tensor-core body's head widths (2 KV

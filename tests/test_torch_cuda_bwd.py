@@ -33,13 +33,15 @@ from repro_torch.kernels.flash_attention_bwd import (
 
 #: (B, Sq, Skv, (H, KV, hd), causal): llama-3.2-vision-90b's self- and
 #: cross-attention, gemma3-4b-edge's heads, a ragged cross length,
-#: musicgen-large's and smollm-360m's hd-64 heads
+#: musicgen-large's and smollm-360m's hd-64 heads, gemma-2b's multi-query
+#: heads at its train shape
 SHAPES = [(2, 512, 512, (64, 8, 128), True), (2, 512, 512, (8, 4, 256), True),
           (2, 512, 1024, (64, 8, 128), False),
           (2, 45, 1000, (64, 8, 128), False),
           (2, 45, 1000, (8, 4, 256), False), (1, 200, 200, (6, 2, 256), True),
           (2, 512, 512, (32, 32, 64), True), (2, 1000, 1000, (15, 5, 64), True),
-          (2, 37, 130, (15, 5, 64), False)]
+          (2, 37, 130, (15, 5, 64), False),
+          (4, 512, 512, (8, 1, 256), True)]
 
 
 @pytest.fixture
@@ -118,15 +120,21 @@ def test_k3_and_k3b_at_six_query_heads_a_group(cuda, heads, dtype):
     1e-3 in bf16).  G 6's stacked rows (6 x 512 a KV head) fill 64-row
     tiles that cut a position's six heads apart (64 is not a multiple of
     6)."""
+    _k3_lse_then_k3b(cuda, 2, heads, dtype)
+
+
+def _k3_lse_then_k3b(cuda, B, heads, dtype):
+    """K3 with its lse, causal at S 512, then K3b on those outputs, each
+    against its plain version (tolerances as the callers state)."""
     H, KV, hd = heads
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         g = torch.Generator(device=cuda).manual_seed(H)
-        q, do = (torch.randn(2, 512, H, hd, generator=g, device=cuda)
+        q, do = (torch.randn(B, 512, H, hd, generator=g, device=cuda)
                  .to(dtype) for _ in range(2))
-        k, v = (torch.randn(2, 512, KV, hd, generator=g, device=cuda)
+        k, v = (torch.randn(B, 512, KV, hd, generator=g, device=cuda)
                 .to(dtype) for _ in range(2))
         o, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
         want, want_lse = flash_attention_plain(q, k, v, causal=True,
@@ -144,6 +152,18 @@ def test_k3_and_k3b_at_six_query_heads_a_group(cuda, heads, dtype):
         assert a.dtype == dtype and a.shape == b.shape
         err = float((a.float() - b.float()).abs().max())
         assert err <= tol * max(float(b.float().abs().max()), 1.0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_lse_and_k3b_at_gemma2b_train_shape(cuda, dtype):
+    """gemma-2b's multi-query heads (8 over 1 KV head of width 256, G 8)
+    at its train step's shape, causal B 4 S 512: K3 with its lse and K3b
+    on those outputs against their plain versions, 1e-4 (f32, TF32 off)
+    / 2e-2 (bf16) (K3b of max|plain|, lse 1e-3 in bf16).  Pass 2 splits
+    the 8 x 512 stacked rows in two 256-row chunks over a cluster."""
+    assert flash_bwd_launch_plan(4, 512, 512, 8, 1, 256)["split"] == 2
+    _k3_lse_then_k3b(cuda, 4, (8, 1, 256), dtype)
 
 
 @pytest.mark.cuda

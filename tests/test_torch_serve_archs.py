@@ -1,29 +1,33 @@
-"""The three models the card serves whole or by one pattern repeat since
-gemma-2b, qwen3-32b and llama4-maverick joined the smoke run, held to the
-JAX package's engines on the CPU.
+"""The models the card serves whole, by one pattern repeat or cut by
+depth (gemma-2b, qwen3-32b, llama4-maverick, granite-8b, dbrx-132b),
+held to the JAX package's engines on the CPU.
 
 Each config is the registry's ``reduced()`` one with the heads widened
 back to its own group width: qwen3-32b 8 query heads over 1 KV head with
 its QK-norm (G 8, as its 64 over 8), gemma-2b 8 over 1 (multi-query, its
 own heads), llama4-maverick 10 over 2 (G 5, as its 40 over 8; the
-pattern keeps a dense layer and a MoE layer of 4 experts, top-1).  The
-JAX engines' weights come across through ``bridge.params_from_jax``,
+pattern keeps a dense layer and a MoE layer of 4 experts, top-1),
+granite-8b 8 over 2 (G 4, as its 32 over 8) and dbrx-132b 12 over 2
+(G 6, as its 48 over 8; two MoE layers of 8 experts, top-4 as its own).
+The JAX engines' weights come across through ``bridge.params_from_jax``,
 float32 on both sides:
 
 * ``RealEngine`` greedy tokens (and the per-token oracle) equal the JAX
   ``RealEngine``'s;
 * ``BatchedRealEngine`` with back-fill equals the JAX lane engine (for
-  llama4 the bar is the JAX lanes, not the serial engine: MoE capacity
-  is shared by a step's tokens);
-* ``PagedBatchedEngine`` equals the JAX paged engine for qwen3 and
-  gemma-2b, with a shared prefix cold then warm (the same prefix-hit
-  pages) and the pool drained clean; llama4's stack is refused by the
-  paged and the speculative engines with the JAX messages;
+  the MoE stacks the bar is the JAX lanes, not the serial engine: MoE
+  capacity is shared by a step's tokens);
+* ``PagedBatchedEngine`` equals the JAX paged engine for qwen3, gemma-2b
+  and granite, with a shared prefix cold then warm (the same prefix-hit
+  pages) and the pool drained clean; llama4's and dbrx's stacks are
+  refused by the paged and the speculative engines with the JAX
+  messages;
 * ``ClairvoyantServer`` under SJF dispatches qwen3's burst (2 longs of 24
   new tokens, then 4 shorts of 4: the card's) in the JAX server's order
   with its tokens;
-* the sizes the card is given: qwen3 whole, gemma-2b whole and one
-  llama4 repeat, their parameters, bf16 bytes and KV bytes a token.
+* the sizes the card is given: qwen3, gemma-2b and granite whole, one
+  llama4 repeat and dbrx at 8 of its 40 layers, their parameters, bf16
+  bytes and KV bytes a token.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch threads)
@@ -57,10 +61,17 @@ from repro_torch.serving.server import ClairvoyantServer
 
 QWEN3, GEMMA2B, LLAMA4 = ("qwen3-32b", "gemma-2b",
                           "llama4-maverick-400b-a17b")
-#: each reduced config's heads at its own group width
+GRANITE, DBRX = "granite-8b", "dbrx-132b"
+#: the MoE stacks: capacity is shared by a step's tokens
+MOE = (LLAMA4, DBRX)
+#: each reduced config's heads at its own group width (dbrx: two MoE
+#: layers of 8 experts, top-4 as its own)
 HEADS = {QWEN3: dict(num_heads=8, num_kv_heads=1),
          GEMMA2B: dict(num_heads=8, num_kv_heads=1),
-         LLAMA4: dict(num_heads=10, num_kv_heads=2)}
+         LLAMA4: dict(num_heads=10, num_kv_heads=2),
+         GRANITE: dict(num_heads=8, num_kv_heads=2),
+         DBRX: dict(num_heads=12, num_kv_heads=2, num_layers=2,
+                    num_experts=8, experts_per_token=4)}
 MAX_LEN, SEGMENT, LANES, PAGE = 64, 4, 3, 8
 
 
@@ -93,7 +104,9 @@ def _prompts(sizes, seed, vocab=512):
 
 @pytest.mark.parametrize("name,group,qk_norm", [(QWEN3, 8, True),
                                                 (GEMMA2B, 8, False),
-                                                (LLAMA4, 5, False)])
+                                                (LLAMA4, 5, False),
+                                                (GRANITE, 4, False),
+                                                (DBRX, 6, False)])
 def test_reduced_configs_keep_the_group_width(name, group, qk_norm):
     full = get_config(name)
     _, cfg = _configs(name)
@@ -101,10 +114,11 @@ def test_reduced_configs_keep_the_group_width(name, group, qk_norm):
     assert cfg.num_heads // cfg.num_kv_heads == group
     assert cfg.qk_norm == full.qk_norm == qk_norm
     assert cfg.block_pattern == full.block_pattern
+    assert cfg.experts_per_token == full.experts_per_token
     assert dataclasses.asdict(cfg) == dataclasses.asdict(_configs(name)[0])
 
 
-@pytest.mark.parametrize("name", [QWEN3, GEMMA2B, LLAMA4])
+@pytest.mark.parametrize("name", [QWEN3, GEMMA2B, LLAMA4, GRANITE, DBRX])
 def test_serial_tokens_match_jax_engine(name):
     jser, _, ser, _, _ = _engines(name)
     for ids, m in zip(_prompts((7, 13, 3, 20), 5), (9, 12, 5, 16)):
@@ -113,7 +127,7 @@ def test_serial_tokens_match_jax_engine(name):
         assert ser.generate_reference(ids, m)["tokens"] == want
 
 
-@pytest.mark.parametrize("name", [QWEN3, GEMMA2B, LLAMA4])
+@pytest.mark.parametrize("name", [QWEN3, GEMMA2B, LLAMA4, GRANITE, DBRX])
 def test_lane_tokens_with_backfill_match_jax_engine(name):
     """Five requests through three lanes, two back-filled."""
     _, jlanes, ser, lanes, _ = _engines(name)
@@ -124,12 +138,12 @@ def test_lane_tokens_with_backfill_match_jax_engine(name):
         == want
     assert lanes.lane_manager.stats["backfills"] == \
         jlanes.lane_manager.stats["backfills"] > 0
-    if name != LLAMA4:          # without MoE a lane is the serial engine
+    if name not in MOE:         # without MoE a lane is the serial engine
         assert want == [ser.generate(p, max_new_tokens=m)["tokens"]
                         for p, m in zip(prompts, maxes)]
 
 
-@pytest.mark.parametrize("name", [QWEN3, GEMMA2B])
+@pytest.mark.parametrize("name", [QWEN3, GEMMA2B, GRANITE])
 def test_paged_tokens_and_prefix_hits_match_jax_engine(name):
     """Six requests through three paged lanes (page 8), then eight after a
     shared 24-token prefix, cold and warm: tokens equal the JAX paged
@@ -158,8 +172,8 @@ def test_paged_tokens_and_prefix_hits_match_jax_engine(name):
     assert paged.allocator.stats["prefix_hit_pages"] > 0
 
 
-def test_llama4_refuses_paged_and_speculative_with_jax_messages():
-    jser, _, ser, _, _ = _engines(LLAMA4)
+def _refuses_paged_and_speculative_with_jax_messages(name):
+    jser, _, ser, _, _ = _engines(name)
     cfg, jcfg = ser.cfg, jser.cfg
     draft, jdraft = (get_config("smollm-360m").reduced(),
                      jax_config("smollm-360m").reduced())
@@ -179,6 +193,14 @@ def test_llama4_refuses_paged_and_speculative_with_jax_messages():
         with pytest.raises(ValueError) as theirs:
             jax_build()
         assert str(mine.value) == str(theirs.value)
+
+
+def test_llama4_refuses_paged_and_speculative_with_jax_messages():
+    _refuses_paged_and_speculative_with_jax_messages(LLAMA4)
+
+
+def test_dbrx_refuses_paged_and_speculative_with_jax_messages():
+    _refuses_paged_and_speculative_with_jax_messages(DBRX)
 
 
 @pytest.mark.parametrize("policy", ["fcfs", "sjf"])
@@ -246,12 +268,15 @@ CARD_BYTES = 80e9               # the H100's 80 GB of HBM3
 @pytest.mark.parametrize("name,layers,params,kv_bytes,stream_gb", [
     (QWEN3, 64, 32_762_123_264, 262_144, 65.52),
     (GEMMA2B, 18, 2_506_172_416, 18_432, 5.01),
-    (LLAMA4, 2, 18_427_438_080, 8_192, 36.85)])
+    (LLAMA4, 2, 18_427_438_080, 8_192, 36.85),
+    (GRANITE, 36, 8_254_689_280, 147_456, 16.51),
+    (DBRX, 8, 27_305_809_920, 32_768, 54.61)])
 def test_sizes_of_what_the_card_serves(name, layers, params, kv_bytes,
                                        stream_gb):
-    """qwen3-32b and gemma-2b whole, llama4-maverick by one pattern repeat
-    (the whole model does not fit one card): parameters, the bf16 weight
-    stream a decode step reads, KV bytes a token, as JAX counts them."""
+    """qwen3-32b, gemma-2b and granite-8b whole, llama4-maverick by one
+    pattern repeat and dbrx-132b at 8 of its 40 layers (neither whole
+    model fits one card): parameters, the bf16 weight stream a decode
+    step reads, KV bytes a token, as JAX counts them."""
     full, jfull = get_config(name), jax_config(name)
     cfg = dataclasses.replace(full, num_layers=layers)
     jcfg = dataclasses.replace(jfull, num_layers=layers)
